@@ -20,17 +20,19 @@
 // input window of the tile (tile + m - 1 samples) and all nk kernels sit in
 // shared memory, and each thread accumulates R outputs (strided by the block
 // width, so neighbouring threads read neighbouring window samples) for every
-// kernel with f32 FMAs, summed in chunks of BC_CHUNK taps. Each window load
-// feeds nk FMAs and each kernel tap R.
+// kernel with f32 FMAs, summed in chunks of 32 taps (conv_row.cuh, shared
+// with the t0 front, fused_t0.cu). Each window load feeds nk FMAs and each
+// kernel tap R.
 // No band matrix is built: that layout exists to feed the TPU's matrix unit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "conv_row.cuh"
+
 #define BC_R 4
 #define BC_MAX_THREADS 256
 #define BC_MAX_NK 4
-#define BC_CHUNK 32
 
 template <int NK>
 __global__ void __launch_bounds__(BC_MAX_THREADS)
@@ -61,39 +63,8 @@ banded_conv_kernel(const float* __restrict__ w, const float* __restrict__ taps,
     }
     __syncthreads();
 
-    // two-level f32 sum: BC_CHUNK taps into a partial, partials into acc,
-    // so rounding grows with m / BC_CHUNK + BC_CHUNK terms instead of m
     float acc[BC_R][NK];
-#pragma unroll
-    for (int r = 0; r < BC_R; ++r)
-#pragma unroll
-        for (int j = 0; j < NK; ++j) acc[r][j] = 0.f;
-
-    const float* wb = win + tid + (m - 1);
-    for (int c0 = 0; c0 < m; c0 += BC_CHUNK) {
-        const int c1 = min(m, c0 + BC_CHUNK);
-        float part[BC_R][NK];
-#pragma unroll
-        for (int r = 0; r < BC_R; ++r)
-#pragma unroll
-            for (int j = 0; j < NK; ++j) part[r][j] = 0.f;
-        for (int t = c0; t < c1; ++t) {
-            float kv[NK];
-#pragma unroll
-            for (int j = 0; j < NK; ++j) kv[j] = ks[j * m + t];
-#pragma unroll
-            for (int r = 0; r < BC_R; ++r) {
-                const float x = wb[r * bd - t];
-#pragma unroll
-                for (int j = 0; j < NK; ++j)
-                    part[r][j] = fmaf(x, kv[j], part[r][j]);
-            }
-        }
-#pragma unroll
-        for (int r = 0; r < BC_R; ++r)
-#pragma unroll
-            for (int j = 0; j < NK; ++j) acc[r][j] += part[r][j];
-    }
+    conv_row_accumulate<BC_R, NK>(win + tid + (m - 1), ks, m, bd, acc);
 
     const float qnan = __int_as_float(0x7fc00000);
 #pragma unroll

@@ -20,28 +20,22 @@
 // How the design meets it: one thread block per row keeps the row resident in
 // shared memory (f32 values, then f32 pz in place) beside one f64 prefix
 // array, so the waveform is read from device memory once and every output is
-// written once. The prefix sums are f64 block scans (each thread sums a
-// contiguous run serially, warps scan the run totals with shuffles), which
-// removes the cancellation the TPU kernel fights with split-bf16 matmul
-// prefixes. Trap windows of <= 32 samples are summed directly, as on the TPU.
+// written once. The prefix sums and the trapezoid windows are the f64 block
+// scans of row_prefix.cuh (shared with the t0 front, fused_t0.cu); the
+// block reductions are those of block_reduce.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "block_reduce.cuh"
+#include "row_prefix.cuh"
 
 #define EN_THREADS 256
 #define EN_MAX_TRAPS 8
 #define EN_MAX_EMAX 8
 #define EN_MAX_SLOPES 4
 #define EN_MAX_MASKS 4
-#define FULL_MASK 0xffffffffu
-
-struct TrapSpec {
-    int kind;  // 0 = norm (rise, flat), 1 = asym (rise, flat, fall)
-    int rise;
-    int flat;
-    int fall;
-};
 
 // Mirrored field for field by ctypes in processors/_cuda.py.
 struct EnergyParams {
@@ -72,137 +66,6 @@ struct EnergyParams {
     int mask_bwd[EN_MAX_MASKS];
     uint8_t* mask_out[EN_MAX_MASKS];
 };
-
-__device__ __forceinline__ double warp_sum(double v) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL_MASK, v, o);
-    return v;
-}
-
-// Sum over the block; every thread gets the result.
-__device__ double block_sum(double v, double* red) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    v = warp_sum(v);
-    __syncthreads();
-    if (lane == 0) red[wid] = v;
-    __syncthreads();
-    if (wid == 0) {
-        double t = lane < nw ? red[lane] : 0.0;
-        t = warp_sum(t);
-        if (lane == 0) red[0] = t;
-    }
-    __syncthreads();
-    return red[0];
-}
-
-__device__ float block_max(float v, float* red) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_down_sync(FULL_MASK, v, o));
-    __syncthreads();
-    if (lane == 0) red[wid] = v;
-    __syncthreads();
-    if (wid == 0) {
-        float t = lane < nw ? red[lane] : -INFINITY;
-        for (int o = 16; o > 0; o >>= 1)
-            t = fmaxf(t, __shfl_down_sync(FULL_MASK, t, o));
-        if (lane == 0) red[0] = t;
-    }
-    __syncthreads();
-    return red[0];
-}
-
-// First-occurrence extremum: (v, i) beats (v2, i2) when v is strictly more
-// extreme, or equal with a smaller index. i == n marks "no candidate".
-__device__ __forceinline__ bool ext_better(float v, int i, float v2, int i2,
-                                           bool is_max, int n) {
-    if (i2 == n) return i != n;
-    if (i == n) return false;
-    if (is_max ? (v > v2) : (v < v2)) return true;
-    return v == v2 && i < i2;
-}
-
-__device__ void block_argext(float& v, int& i, bool is_max, int n, float* redf,
-                             int* redi) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    for (int o = 16; o > 0; o >>= 1) {
-        float v2 = __shfl_down_sync(FULL_MASK, v, o);
-        int i2 = __shfl_down_sync(FULL_MASK, i, o);
-        if (ext_better(v2, i2, v, i, is_max, n)) { v = v2; i = i2; }
-    }
-    __syncthreads();
-    if (lane == 0) { redf[wid] = v; redi[wid] = i; }
-    __syncthreads();
-    if (wid == 0) {
-        float t = lane < nw ? redf[lane] : 0.f;
-        int ti = lane < nw ? redi[lane] : n;
-        for (int o = 16; o > 0; o >>= 1) {
-            float v2 = __shfl_down_sync(FULL_MASK, t, o);
-            int i2 = __shfl_down_sync(FULL_MASK, ti, o);
-            if (ext_better(v2, i2, t, ti, is_max, n)) { t = v2; ti = i2; }
-        }
-        if (lane == 0) { redf[0] = t; redi[0] = ti; }
-    }
-    __syncthreads();
-    v = redf[0];
-    i = redi[0];
-}
-
-// Exclusive scan of one double per thread, in thread order.
-__device__ double block_excl_scan(double v, double* red) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    double x = v;
-    for (int o = 1; o < 32; o <<= 1) {
-        double y = __shfl_up_sync(FULL_MASK, x, o);
-        if (lane >= o) x += y;
-    }
-    double excl = __shfl_up_sync(FULL_MASK, x, 1);
-    if (lane == 0) excl = 0.0;
-    __syncthreads();
-    if (lane == 31) red[wid] = x;
-    __syncthreads();
-    if (wid == 0) {
-        double t = lane < nw ? red[lane] : 0.0;
-        for (int o = 1; o < 32; o <<= 1) {
-            double y = __shfl_up_sync(FULL_MASK, t, o);
-            if (lane >= o) t += y;
-        }
-        if (lane < nw) red[lane] = t;
-    }
-    __syncthreads();
-    return (wid > 0 ? red[wid - 1] : 0.0) + excl;
-}
-
-// Sum of x over [i - off - len + 1, i - off], zero outside the row. Windows
-// of <= 32 samples add the samples directly; longer ones difference the
-// inclusive prefix ps.
-__device__ __forceinline__ double win_sum(const float* xs, const double* ps,
-                                          int i, int len, int off) {
-    const int hi = i - off;
-    const int lo = hi - len + 1;
-    if (hi < 0) return 0.0;
-    if (len <= 32) {
-        double acc = 0.0;
-        for (int k = lo < 0 ? 0 : lo; k <= hi; ++k) acc += (double)xs[k];
-        return acc;
-    }
-    return ps[hi] - (lo >= 1 ? ps[lo - 1] : 0.0);
-}
-
-__device__ __forceinline__ float trap_at(const TrapSpec& t, const float* xs,
-                                         const double* ps, int i) {
-    if (t.kind == 0) {
-        const double d1 = win_sum(xs, ps, i, t.rise, 0);
-        const double d2 = win_sum(xs, ps, i, t.rise, t.rise + t.flat);
-        return (float)((d1 - d2) / (double)t.rise);
-    }
-    const double d1 = win_sum(xs, ps, i, t.rise, 0);
-    const double d2 = win_sum(xs, ps, i, t.fall, t.rise + t.flat);
-    return (float)(d1 / (double)t.rise - d2 / (double)t.fall);
-}
 
 // linear_slope_fit over x[a0:b0]: (mean, sample stdev, slope, intercept).
 __device__ void slope_fit(const float* x, int a0, int b0, double* red,
@@ -292,9 +155,8 @@ fused_energy_kernel(const EnergyParams P) {
     }
 
     // pass 2: pole-zero in place, pz = w + omc * (exclusive prefix of w)
-    const int per = (n + blockDim.x - 1) / blockDim.x;
-    const int j0 = min(n, (int)threadIdx.x * per);
-    const int j1 = min(n, j0 + per);
+    int j0, j1;
+    scan_run(n, j0, j1);
     double run = 0.0;
     for (int j = j0; j < j1; ++j) run += (double)xs[j];
     double s = block_excl_scan(run, red);
@@ -321,14 +183,7 @@ fused_energy_kernel(const EnergyParams P) {
     }
 
     // pass 3: inclusive f64 prefix of pz
-    run = 0.0;
-    for (int j = j0; j < j1; ++j) run += (double)xs[j];
-    s = block_excl_scan(run, red);
-    for (int j = j0; j < j1; ++j) {
-        s += (double)xs[j];
-        ps[j] = s;
-    }
-    __syncthreads();
+    block_inclusive_prefix(xs, ps, n, red);
 
     // pass 4: trapezoids and their maxima
     for (int t = 0; t < P.ntrap; ++t) {

@@ -1112,8 +1112,9 @@ class ProcessingChain:
         that produces them fuses — including the reference's unmodified icpc
         JSON. The passes run in the JAX package's order
         (``dspeed_tpu/processing_chain.py:1258``); those not ported yet
-        (``_fuse_tp_cascade``, ``_fuse_current_front``, ``_fuse_t0_front``,
-        ``_fuse_generic``) are queued in ROADMAP.
+        (``_fuse_current_front``, ``_fuse_generic``) are queued in ROADMAP.
+        A matcher's exception propagates: a dead matcher must not pass for
+        an unfusable chain.
 
         - step-level CSE first, so duplicated computations (the reference's
           own icpc config runs the 10us/3.008us trapezoid twice) collapse
@@ -1124,6 +1125,14 @@ class ProcessingChain:
           :func:`~dspeed_tpu_torch.processors.fused_energy_front` step
           (kernel K1 on the card; the plain version composes the original
           kernel bodies, so CPU results match the unfused chain);
+        - threshold cascade: >=3 chained ``time_point_thresh`` steps sharing
+          a waveform and a scaled threshold base become one
+          :func:`~dspeed_tpu_torch.processors.chained_time_point_thresh`
+          step (kernel K2; bit-identical links);
+        - t0 front: ``convolve_wf('same') -> min_max ->
+          time_point_thresh(..., 0)`` becomes one
+          :func:`~dspeed_tpu_torch.processors.fused_t0_front` step (kernel
+          K3; the filtered waveform is never written out);
         - conv bank: parallel constant-kernel convolutions of one array (the
           CUSP + ZAC pair) share one window read
           (:func:`~dspeed_tpu_torch.processors.fused_conv_bank`, kernel K4).
@@ -1137,6 +1146,10 @@ class ProcessingChain:
         fuses = (
             self._cse_steps,
             self._fuse_energy_front,
+            self._fuse_tp_cascade,
+            # (the A/E current front, _fuse_current_front, goes here with
+            # ROADMAP slice 3)
+            self._fuse_t0_front,
             self._fuse_conv_bank,
         )
         for fuse in fuses:
@@ -1329,10 +1342,69 @@ class ProcessingChain:
                         slope_recs.append(
                             (sst, fit, (src_of[sst.src_key], a0, b0))
                         )
-                # (the JAX package also turns a trapezoid whose only reader
-                # is a time_point_thresh against a slope output into a
-                # crossing-bitmask output here; that matcher arrives with the
-                # timing slice, ROADMAP queue 1)
+                # a trapezoid with NO amax whose ONLY reader is a
+                # time_point_thresh against one of the absorbed slope
+                # outputs (the flagship's tp_0_atrap vs bl_std) emits a
+                # uint8 crossing BITMASK instead of its full f32 plane;
+                # the search finishes on the bitmask (tp_from_cross_mask,
+                # bit-identical) — a 4x smaller write and no full-array
+                # search downstream
+                slope_out_pos = {}
+                for si2, (_, fit2, _) in enumerate(slope_recs):
+                    for oi2, sp2 in enumerate(fit2.out_specs):
+                        slope_out_pos[sp2.key] = (si2, oi2)
+                alias_n: dict = {}
+                for rec in traps:
+                    alias_n[rec[2]] = alias_n.get(rec[2], 0) + 1
+                mask_recs = []  # (uniq pos, tpt step, walk, (si, oi))
+                emax_pos = {rec[2] for rec in am_steps}
+                for ui, (t_idx, t_step, t_spec) in enumerate(uniq):
+                    if (
+                        not slope_out_pos
+                        or ui in emax_pos
+                        or alias_n.get(t_spec, 0) != 1
+                    ):
+                        continue
+                    t_key = t_step.out_specs[0].key
+                    if reads.get(t_key, 0) != 1:
+                        continue
+                    tpt = next(
+                        (
+                            s2
+                            for s2 in steps
+                            if self._kname(s2) == "time_point_thresh"
+                            and len(s2.arg_specs) == 4
+                            and len(s2.out_specs) == 1
+                            and self._env_key(s2.arg_specs[0]) == t_key
+                            and self._env_key(s2.arg_specs[1])
+                            in slope_out_pos
+                        ),
+                        None,
+                    )
+                    if tpt is None:
+                        continue
+                    walk = self._const_scalar(tpt.arg_specs[3])
+                    if walk is None or int(walk) not in (0, 1):
+                        continue
+                    mask_recs.append(
+                        (
+                            ui, tpt, int(walk),
+                            slope_out_pos[self._env_key(tpt.arg_specs[1])],
+                        )
+                    )
+                mask_claimed = {rec[0] for rec in mask_recs}
+                remap = {}
+                for ui in range(len(uniq)):
+                    if ui not in mask_claimed:
+                        remap[ui] = len(remap)
+                plane_uniq = [
+                    u for ui, u in enumerate(uniq) if ui not in mask_claimed
+                ]
+                mask_specs = [
+                    (uniq[ui][2], si2, oi2, walk == 1, walk == 0)
+                    for ui, _tpt, walk, (si2, oi2) in mask_recs
+                ]
+
                 # wf_blsub read by anything besides this pole_zero and the
                 # absorbed slope-fit slices (CUSP/ZAC slices, output
                 # managers): emit it from the fused kernel — the row is
@@ -1348,14 +1420,25 @@ class ProcessingChain:
                     and reads.get(x_key, 0) - 1 - absorbed_x > 0
                 )
                 kern = fused_energy_front(
-                    float(tau), [u[2] for u in uniq],
-                    [rec[2] for rec in am_steps], emit_blsub=emit,
+                    float(tau), [u[2] for u in plane_uniq],
+                    [remap[rec[2]] for rec in am_steps], emit_blsub=emit,
                     emit_minmax=mm_step is not None,
                     slope_specs=[r[2] for r in slope_recs],
+                    mask_specs=mask_specs,
                 )
+                mask_vars = []
+                for ui, _tpt, _walk, _so in mask_recs:
+                    base = uniq[ui][1].out_specs[0].var
+                    mask_vars.append(
+                        self.add_variable(
+                            f"__crossmask_{len(self._vars_dict)}",
+                            dtype=np.dtype("uint8"),
+                            shape=tuple(base.shape),
+                        )
+                    )
                 params = (
                     [bls.params[0], bls.params[1], pz.out_specs[0].var]
-                    + [u[1].out_specs[0].var for u in uniq]
+                    + [u[1].out_specs[0].var for u in plane_uniq]
                     + [rec[1].out_specs[0].var for rec in am_steps]
                 )
                 for _, fit, _spec in slope_recs:
@@ -1364,6 +1447,7 @@ class ProcessingChain:
                     params += [s.var for s in mm_step.out_specs]
                 if emit:
                     params.append(bls.out_specs[0].var)
+                params += mask_vars
                 fused = KernelStep(self, kern, params, {})
                 dead = sorted(
                     {
@@ -1395,7 +1479,25 @@ class ProcessingChain:
                 for sst, fit, _spec in slope_recs:
                     steps.remove(sst)
                     steps.remove(fit)
-                return [f"fused_energy_front[{len(uniq)}]"]
+                if mask_recs:
+                    from .processors.time_point_thresh import (
+                        tp_from_cross_mask,
+                    )
+
+                    for (ui, tpt, walk, _so), mv in zip(
+                        mask_recs, mask_vars
+                    ):
+                        pos_t = steps.index(tpt)
+                        steps[pos_t] = KernelStep(
+                            self,
+                            tp_from_cross_mask(walk),
+                            [mv, tpt.params[2], tpt.out_specs[0].var],
+                            {},
+                        )
+                return [
+                    f"fused_energy_front[{len(plane_uniq)}"
+                    + (f"+{len(mask_recs)}m]" if mask_recs else "]")
+                ]
         return []
 
     def _env_read_counts(self):
@@ -1490,6 +1592,282 @@ class ProcessingChain:
                 del steps[idx]
             steps[i0] = fused
             return [f"fused_conv_bank[{len(recs)}]"]
+        return []
+
+    def _producer_index(self, key):
+        """Index of the step writing ``key`` (None for chain inputs)."""
+        for i, st in enumerate(self._steps):
+            for spec in getattr(st, "out_specs", ()):
+                if spec.key == key:
+                    return i
+            if getattr(st, "out_key", None) == key:
+                return i
+            if getattr(st, "dst_key", None) == key:
+                return i
+        return None
+
+    def _fuse_t0_front(self) -> list[str]:
+        """``convolve_wf(w, const_kern, 's')`` -> ``min_max`` ->
+        ``time_point_thresh(conv, thr, tp_start, 0)`` with the filtered
+        waveform unread elsewhere becomes one
+        :func:`~dspeed_tpu_torch.processors.fused_t0_front` step (kernel K3
+        on the card): three full-array passes producing five scalars
+        collapse into one read of ``w``."""
+        from .processors import fused_t0_front
+
+        steps = self._steps
+        reads = None
+        for i, cv in enumerate(steps):
+            if self._kname(cv) not in ("convolve_wf", "fft_convolve_wf"):
+                continue
+            if len(cv.arg_specs) != 3 or len(cv.out_specs) != 1:
+                continue
+            k_spec = cv.arg_specs[1]
+            if (
+                k_spec.kind != "const"
+                or not isinstance(k_spec.value, np.ndarray)
+                or k_spec.value.ndim != 1
+                or np.isnan(k_spec.value).any()
+            ):
+                continue
+            mode = self._const_scalar(cv.arg_specs[2])
+            if mode is None or chr(int(mode)) != "s":
+                continue
+            d = cv.dims
+            if d["p"] != d["n"] or d["m"] > d["n"]:
+                continue
+            c_key = cv.out_specs[0].key
+            for j in range(i + 1, len(steps)):
+                mm = steps[j]
+                if (
+                    self._kname(mm) != "min_max"
+                    or self._env_key(mm.arg_specs[0]) != c_key
+                    or len(mm.out_specs) != 4
+                ):
+                    continue
+                tpstart_key = mm.out_specs[1].key
+                for k in range(j + 1, len(steps)):
+                    tp = steps[k]
+                    if (
+                        self._kname(tp) != "time_point_thresh"
+                        or len(tp.arg_specs) != 4
+                        or len(tp.out_specs) != 1
+                        or self._env_key(tp.arg_specs[0]) != c_key
+                        or self._env_key(tp.arg_specs[2]) != tpstart_key
+                    ):
+                        continue
+                    walk = self._const_scalar(tp.arg_specs[3])
+                    if walk is None or int(walk) != 0:
+                        continue
+                    thr_key = self._env_key(tp.arg_specs[1])
+                    if thr_key is None:
+                        continue
+                    # the threshold must already be computed when the fused
+                    # step takes the conv's slot
+                    thr_pos = self._producer_index(thr_key)
+                    if thr_pos is not None and thr_pos >= i:
+                        continue
+                    if reads is None:
+                        reads = self._env_read_counts()
+                    # the filtered waveform must feed only this pipeline
+                    if reads.get(c_key, 0) != 2:
+                        continue
+                    thr_var = next(
+                        (
+                            p
+                            for p in tp.params
+                            if isinstance(p, ProcChainVar)
+                            and p.key == thr_key
+                        ),
+                        None,
+                    )
+                    if thr_var is None:
+                        continue
+                    # (the JAX package also absorbs the A/E current,
+                    # windower(w, tp_0) -> avg_current, here
+                    # (dspeed_tpu/processing_chain.py:1860-1898); that
+                    # absorption arrives with the A/E slice, ROADMAP slice 3)
+                    in_key = self._env_key(cv.arg_specs[0])
+                    # optional pileup-trap absorption: a const-parameter
+                    # trapezoid of the SAME waveform whose only reader is a
+                    # backward time_point_thresh against the SAME threshold
+                    # and start — both the trap plane and the search's full
+                    # re-read disappear (on the flagship the energy front
+                    # claims this trap first, as a crossing mask)
+                    atrap_spec = at_step = at_tp = None
+                    for st2 in steps:
+                        spec2 = self._trap_spec_of(st2, in_key)
+                        if spec2 is None or len(st2.out_specs) != 1:
+                            continue
+                        t_key = st2.out_specs[0].key
+                        if reads.get(t_key, 0) != 1:
+                            continue
+                        tp2 = next(
+                            (
+                                s2
+                                for s2 in steps
+                                if self._kname(s2) == "time_point_thresh"
+                                and len(s2.arg_specs) == 4
+                                and len(s2.out_specs) == 1
+                                and self._env_key(s2.arg_specs[0]) == t_key
+                                and self._env_key(s2.arg_specs[1]) == thr_key
+                                and self._env_key(s2.arg_specs[2])
+                                == tpstart_key
+                            ),
+                            None,
+                        )
+                        if tp2 is None:
+                            continue
+                        walk2 = self._const_scalar(tp2.arg_specs[3])
+                        if walk2 is None or int(walk2) != 0:
+                            continue
+                        atrap_spec, at_step, at_tp = spec2, st2, tp2
+                        break
+                    # dead-output elision: min_max outputs with no other
+                    # readers skip their reductions in the kernel (t_max
+                    # and a_max are computed regardless — the absorbed
+                    # search needs them; read counts still include the
+                    # absorbed steps, which only makes `need` conservative)
+                    need = tuple(
+                        reads.get(s.key, 0) > 0 for s in mm.out_specs
+                    )
+                    kern = fused_t0_front(
+                        k_spec.value, atrap_spec=atrap_spec, need=need
+                    )
+                    fused = KernelStep(
+                        self,
+                        kern,
+                        [cv.params[0], thr_var]
+                        + [s.var for s in mm.out_specs]
+                        + [tp.out_specs[0].var]
+                        + ([at_tp.out_specs[0].var] if atrap_spec else []),
+                        {},
+                    )
+                    for idx in sorted((i, j, k), reverse=True):
+                        del steps[idx]
+                    steps.insert(i, fused)
+                    if atrap_spec is not None:
+                        steps.remove(at_step)
+                        steps.remove(at_tp)
+                    return ["fused_t0_front"]
+        return []
+
+    def _threshold_of(self, a_key):
+        """Resolve a threshold env key to ``(factor, base_key, base_var,
+        step)``: unwraps one ``const * base`` multiply expression."""
+        for step in self._steps:
+            if (
+                self._kname(step) == "multiply"
+                and len(step.out_specs) == 1
+                and step.out_specs[0].key == a_key
+                and len(step.arg_specs) == 2
+            ):
+                specs = step.arg_specs
+                for c_spec, e_spec in ((specs[0], specs[1]), (specs[1], specs[0])):
+                    f = self._const_scalar(c_spec)
+                    b = self._env_key(e_spec)
+                    if f is not None and b is not None:
+                        base_var = next(
+                            (
+                                p
+                                for p in step.params
+                                if isinstance(p, ProcChainVar)
+                                and p.key == b
+                            ),
+                            None,
+                        )
+                        return float(f), b, base_var, step
+        return 1.0, a_key, None, None
+
+    def _fuse_tp_cascade(self) -> list[str]:
+        """Three or more ``time_point_thresh`` steps over one waveform whose
+        thresholds scale one base (``0.99*trapTmax``, ``trapTmax*0.5``,
+        ...) and whose starts chain from one ``t_start`` through earlier
+        links become one
+        :func:`~dspeed_tpu_torch.processors.chained_time_point_thresh`
+        step (kernel K2 on the card; bit-identical links)."""
+        from .processors import chained_time_point_thresh
+
+        steps = self._steps
+        links = []  # (idx, step, w_key, factor, base_key, base_var, dir, s_key)
+        for idx, s in enumerate(steps):
+            if self._kname(s) != "time_point_thresh" or len(s.arg_specs) != 4:
+                continue
+            w_key = self._env_key(s.arg_specs[0])
+            a_key = self._env_key(s.arg_specs[1])
+            s_key = self._env_key(s.arg_specs[2])
+            d = self._const_scalar(s.arg_specs[3])
+            if None in (w_key, a_key, s_key) or d is None:
+                continue
+            factor, base_key, base_var, _mul = self._threshold_of(a_key)
+            links.append(
+                (idx, s, w_key, factor, base_key, base_var, int(d), s_key)
+            )
+
+        # group by (waveform, threshold base)
+        groups: dict = {}
+        for rec in links:
+            groups.setdefault((rec[2], rec[4]), []).append(rec)
+
+        for (w_key, base_key), grp in groups.items():
+            if len(grp) < 3:
+                continue
+            grp.sort(key=lambda r: r[0])
+            t_start_key = grp[0][7]
+            out_keys = [r[1].out_specs[0].key for r in grp]
+            starts = []
+            ok = True
+            for r in grp:
+                if r[7] == t_start_key:
+                    starts.append(-1)
+                elif r[7] in out_keys and out_keys.index(r[7]) < len(starts):
+                    starts.append(out_keys.index(r[7]))
+                else:
+                    ok = False
+                    break
+            if not ok:
+                continue
+            factors = [r[3] for r in grp]
+            dirs = [r[6] for r in grp]
+            first = grp[0][1]
+            w_var = first.params[0]
+            base_var = next((r[5] for r in grp if r[5] is not None), None)
+            if base_var is None:
+                # thresholds reference the base directly (factor 1 links)
+                base_var = next(
+                    (
+                        p
+                        for r in grp
+                        for p in r[1].params
+                        if isinstance(p, ProcChainVar) and p.key == base_key
+                    ),
+                    None,
+                )
+            start_var = next(
+                (
+                    p
+                    for p in first.params
+                    if isinstance(p, ProcChainVar) and p.key == t_start_key
+                ),
+                None,
+            )
+            if base_var is None or start_var is None or not isinstance(
+                w_var, ProcChainVar
+            ):
+                continue
+            kern = chained_time_point_thresh(factors, dirs, starts)
+            fused = KernelStep(
+                self,
+                kern,
+                [w_var, base_var, start_var]
+                + [r[1].out_specs[0].var for r in grp],
+                {},
+            )
+            pos = grp[0][0]
+            for idx in sorted((r[0] for r in grp), reverse=True):
+                del steps[idx]
+            steps.insert(pos, fused)
+            return [f"chained_time_point_thresh[{len(grp)}]"]
         return []
 
     def _cse_steps(self) -> list[str]:

@@ -25,6 +25,13 @@ _modules = {
     "fused_energy_filter": "fused",
     "fused_energy_front": "fused",
     "fused_conv_bank": "fused",
+    "fused_t0_front": "fused",
+    "t0_filter": "kernels",
+    "moving_slope": "kernels",
+    "step": "kernels",
+    "time_point_thresh": "time_point_thresh",
+    "tp_from_cross_mask": "time_point_thresh",
+    "chained_time_point_thresh": "tp_chain",
     "trap_filter": "trap_filters",
     "trap_norm": "trap_filters",
     "asym_trap_filter": "trap_filters",

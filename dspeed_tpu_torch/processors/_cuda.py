@@ -7,10 +7,15 @@ Each kernel replaces one Pallas TPU kernel of the JAX package
 - :func:`fused_energy` (``csrc/fused_energy.cu``) — K1, the fused energy
   front (``_fused_energy_kernel`` :287, entry ``fused_energy`` :1451);
 - :func:`banded_conv_multi` (``csrc/banded_conv.cu``) — K4, the banded
-  convolution bank (``_banded_conv_kernel`` :999, entry :1063).
+  convolution bank (``_banded_conv_kernel`` :999, entry :1063);
+- :func:`fused_t0` (``csrc/fused_t0.cu``) — K3, the t0 front
+  (``_fused_t0_kernel`` :1140, entry ``fused_t0`` :1315);
+- :func:`cascade_tp` (``csrc/cascade_tp.cu``) — K2, the rise-time cascade
+  (``_cascade_kernel`` :1528, entry ``cascade_tp`` :1650).
 
 A wrapper given a CPU tensor computes the kernel's plain version
-(:func:`fused_energy_plain`, :func:`banded_conv_plain`); given a CUDA tensor
+(:func:`fused_energy_plain`, :func:`banded_conv_plain`,
+:func:`fused_t0_plain`, :func:`cascade_tp_plain`); given a CUDA tensor
 it launches the kernel or raises — it never falls back. Every launch adds one
 to ``LAUNCHES[<kernel>]``.
 
@@ -22,6 +27,7 @@ all at once by :func:`build_all`), and bound with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -40,14 +46,25 @@ __all__ = [
     "fused_energy_plain",
     "banded_conv_multi",
     "banded_conv_plain",
+    "fused_t0",
+    "fused_t0_plain",
+    "cascade_tp",
+    "cascade_tp_plain",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-SOURCES = {"fused_energy": "fused_energy.cu", "banded_conv": "banded_conv.cu"}
+SOURCES = {
+    "fused_energy": "fused_energy.cu",
+    "banded_conv": "banded_conv.cu",
+    "fused_t0": "fused_t0.cu",
+    "cascade_tp": "cascade_tp.cu",
+}
 
-LAUNCHES = {"fused_energy": 0, "banded_conv_multi": 0}
+LAUNCHES = {
+    "fused_energy": 0, "banded_conv_multi": 0, "fused_t0": 0, "cascade_tp": 0,
+}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -73,7 +90,12 @@ def _compile(name: str, verbose: bool = False) -> tuple[str, str]:
     up-to-date library is there; returns ``(path, compiler output)``."""
     src = os.path.join(_CSRC, SOURCES[name])
     so = os.path.join(_BUILD, f"libdspeed_{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    # a source is as new as the newest of itself and the shared headers
+    newest = max(
+        os.path.getmtime(p)
+        for p in [src, *glob.glob(os.path.join(_CSRC, "*.cuh"))]
+    )
+    if os.path.exists(so) and os.path.getmtime(so) >= newest:
         return so, ""
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -103,13 +125,25 @@ def _bind(name: str, so: str):
         ]
         lib.dspeed_fused_energy_smem_bytes.restype = ctypes.c_int
         lib.dspeed_fused_energy_smem_bytes.argtypes = [ctypes.c_int]
-    else:
+    elif name == "banded_conv":
         lib.dspeed_banded_conv.restype = ctypes.c_int
         lib.dspeed_banded_conv.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
         lib.dspeed_banded_conv_smem_bytes.restype = ctypes.c_int
         lib.dspeed_banded_conv_smem_bytes.argtypes = [ctypes.c_int] * 3
+    elif name == "fused_t0":
+        lib.dspeed_fused_t0.restype = ctypes.c_int
+        lib.dspeed_fused_t0.argtypes = [
+            ctypes.POINTER(_T0Params), ctypes.c_void_p,
+        ]
+        lib.dspeed_fused_t0_smem_bytes.restype = ctypes.c_int
+        lib.dspeed_fused_t0_smem_bytes.argtypes = [ctypes.c_int] * 3
+    else:
+        lib.dspeed_cascade_tp.restype = ctypes.c_int
+        lib.dspeed_cascade_tp.argtypes = [
+            ctypes.POINTER(_CascadeParams), ctypes.c_void_p,
+        ]
     return lib
 
 
@@ -495,3 +529,234 @@ def banded_conv_multi(w, kerns, lo, p, n_in=None):
     _check_rc(lib, rc, "banded_conv_multi")
     LAUNCHES["banded_conv_multi"] += 1
     return [out[:, j, :].reshape(*lead, p) for j in range(nk)]
+
+
+# ---------------------------------------------------------------------------
+# K3: t0 front
+# ---------------------------------------------------------------------------
+
+
+class _T0Params(ctypes.Structure):
+    """Field for field the ``T0Params`` struct of ``fused_t0.cu``."""
+
+    _fields_ = [
+        ("w", ctypes.c_void_p),
+        ("taps", ctypes.c_void_p),
+        ("a", ctypes.c_void_p),
+        ("out", ctypes.c_void_p * 6),
+        ("B", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("m", ctypes.c_int),
+        ("lo", ctypes.c_int),
+        ("need_min", ctypes.c_int),
+        ("has_atrap", ctypes.c_int),
+        ("atrap", _TrapSpec),
+    ]
+
+
+def fused_t0_plain(w, kern, a_std, atrap_spec=None, need=(True,) * 4):
+    """Plain version of K3: ``convolve_wf(w, kern, 's')`` -> ``min_max`` ->
+    ``time_point_thresh(conv, a_std, t_max, 0)``, plus ``trap(w)`` ->
+    ``time_point_thresh(trap, a_std, t_max, 0)`` for ``atrap_spec`` — the
+    JAX package's fallback composition (``fused.py:236-262``). Returns
+    ``(t_min, t_max, a_min, a_max, tp_0[, tp_atrap])``; ``need`` is
+    accepted for the kernel's signature and every output is computed."""
+    from .convolutions import convolve_wf
+    from .min_max import min_max
+    from .time_point_thresh import time_point_thresh
+    from .trap_filters import asym_trap_filter, trap_norm
+
+    n = w.shape[-1]
+    (c,) = convolve_wf(w, np.asarray(kern), ord("s"), dims={"p": n})
+    t_min, t_max, a_min, a_max = min_max(c)
+    (tp0,) = time_point_thresh(c, a_std, t_max, 0)
+    res = [t_min, t_max, a_min, a_max, tp0]
+    if atrap_spec is not None:
+        sp = _trap_tuple(atrap_spec)
+        if sp[0] == "norm":
+            (atr,) = trap_norm(w, sp[1], sp[2])
+        else:
+            (atr,) = asym_trap_filter(w, sp[1], sp[2], sp[3])
+        res += time_point_thresh(atr, a_std, t_max, 0)
+    return tuple(res)
+
+
+def fused_t0(w, kern, a_std, atrap_spec=None, need=(True,) * 4):
+    """K3: the t0 front of the HPGe chain in one pass per row — the
+    ``'same'`` convolution of ``w`` with the constant 1-D ``kern`` (numpy),
+    its first-occurrence ``min_max``, and the backward threshold search
+    from ``t_max`` against ``a_std``; with ``atrap_spec`` (a ``("norm",
+    rise, flat)`` / ``("asym", rise, flat, fall)`` trapezoid of ``w``) the
+    trap's own backward search from the same ``t_max`` too. The filtered
+    row never leaves the card's shared memory. ``need`` flags which of
+    ``(t_min, t_max, a_min, a_max)`` anything reads; the kernel skips the
+    minimum where neither ``t_min`` nor ``a_min`` is needed, and an elided
+    output holds 0. Same outputs as :func:`fused_t0_plain`."""
+    kern = np.asarray(kern)
+    if kern.ndim != 1:
+        raise DSPFatal("fused_t0 needs a 1-D kernel")
+    need = tuple(bool(x) for x in need)
+    if len(need) != 4:
+        raise DSPFatal("need must have four entries")
+    if atrap_spec is not None:
+        atrap_spec = _trap_tuple(atrap_spec)
+    if w.device.type == "cpu":
+        return fused_t0_plain(w, kern, a_std, atrap_spec, need)
+    _require_cuda_f32(w, "fused_t0")
+    *lead, n = w.shape
+    m = int(kern.shape[-1])
+    if not 1 <= m <= n:
+        raise ValueError(f"fused_t0: {m} taps for a row of {n} samples")
+    lib = _lib("fused_t0")
+    smem = lib.dspeed_fused_t0_smem_bytes(n, m, int(atrap_spec is not None))
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"fused_t0: a row of {n} samples with {m} taps"
+            f"{' and a trapezoid' if atrap_spec else ''} needs {smem} bytes "
+            f"of shared memory; one block holds at most {_MAX_SMEM}"
+        )
+    B = int(np.prod(lead, dtype=np.int64))
+    dev = w.device
+    # the threshold in the row's type, as time_point_thresh casts it
+    a = torch.as_tensor(a_std, device=dev).to(torch.float32)
+    a = a.expand(lead).contiguous()
+    taps = _taps_on([kern], dev)
+    nout = 5 + (atrap_spec is not None)
+    out = torch.empty((nout, B), dtype=torch.float32, device=dev)
+    P = _T0Params()
+    P.w, P.taps, P.a = w.data_ptr(), taps.data_ptr(), a.data_ptr()
+    for q in range(nout):
+        P.out[q] = out[q].data_ptr()
+    P.B, P.n, P.m, P.lo = B, n, m, (m - 1) // 2  # numpy 'same' window
+    P.need_min = int(need[0] or need[2])
+    P.has_atrap = int(atrap_spec is not None)
+    if atrap_spec is not None:
+        _set_trap(P.atrap, atrap_spec)
+    rc = lib.dspeed_fused_t0(ctypes.byref(P), _stream())
+    _check_rc(lib, rc, "fused_t0")
+    LAUNCHES["fused_t0"] += 1
+    return tuple(out[q].reshape(lead) for q in range(nout))
+
+
+# ---------------------------------------------------------------------------
+# K2: rise-time cascade
+# ---------------------------------------------------------------------------
+
+_CT_MAX_LINKS = 16
+
+
+class _CascadeParams(ctypes.Structure):
+    """Field for field the ``CascadeParams`` struct of ``cascade_tp.cu``."""
+
+    _fields_ = [
+        ("w", ctypes.c_void_p),
+        ("thr", ctypes.c_void_p),
+        ("t", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("B", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("m", ctypes.c_int),
+        ("dirs", ctypes.c_int * _CT_MAX_LINKS),
+        ("starts", ctypes.c_int * _CT_MAX_LINKS),
+    ]
+
+
+def _cascade_links(factors, dirs, starts):
+    factors = tuple(float(f) for f in factors)
+    dirs = tuple(int(d) for d in dirs)
+    starts = tuple(int(s) for s in starts)
+    if not len(factors) == len(dirs) == len(starts):
+        raise DSPFatal("factors/walk_forward/start_from must have equal length")
+    if any(s >= k for k, s in enumerate(starts)):
+        raise DSPFatal("start_from must reference an earlier time point")
+    return factors, dirs, starts
+
+
+def _cascade_thresholds(w, a_base, factors):
+    """The links' thresholds ``factor_k * base`` in ``w``'s type, with
+    the engine's arithmetic for a ``0.99*trapTmax`` expression (a python
+    float times the tensor), so that the fused and the unfused chains see
+    the same bits; factor 1 is the base itself."""
+    from ._helpers import as_tensor
+
+    base = as_tensor(a_base, w, w.dtype).expand(w.shape[:-1])
+    return [f * base if f != 1.0 else base for f in factors]
+
+
+def cascade_tp_plain(w, a_base, t_start, factors, dirs, starts, badrow=None):
+    """Plain version of K2: the links one by one, each a
+    ``time_point_thresh`` search (``_crossing_masks`` + ``_first_true_from``)
+    from ``t_start`` or from an earlier link's result. Returns the ``m``
+    time points; a link is NaN where its start is bad (NaN row, NaN,
+    non-integral or out-of-range start, or a bad earlier link), its
+    threshold is NaN, or no crossing is found."""
+    from ._helpers import isnan_any, nanmask
+    from .time_point_thresh import _crossing_masks, _first_true_from, _start_index
+
+    factors, dirs, starts = _cascade_links(factors, dirs, starts)
+    *lead, n = w.shape
+    thr = _cascade_thresholds(w, a_base, factors)
+    t, ti0, ok0 = _start_index(t_start, tuple(lead), n, w.device)
+    row = isnan_any(w, 1) if badrow is None else badrow
+    root_bad = row | isnan_any(t) | ~ok0
+    results, bads = [], []
+    for k in range(len(factors)):
+        if starts[k] < 0:
+            s, sbad = ti0, root_bad
+        else:
+            sbad = bads[starts[k]]
+            prev = torch.where(sbad, 0.0, results[starts[k]])
+            s = prev.to(torch.int64)
+        fwd, bwd = _crossing_masks(w, thr[k])
+        mask, sgn = (fwd, +1) if dirs[k] == 1 else (bwd, -1)
+        idx, found = _first_true_from(mask, s, sgn)
+        bad = sbad | torch.isnan(thr[k]) | ~found
+        results.append(nanmask(bad, idx.to(w.dtype)))
+        bads.append(bad)
+    return tuple(results)
+
+
+def cascade_tp(w, a_base, t_start, factors, dirs, starts, badrow=None):
+    """K2: a cascade of ``m`` threshold searches over each row of ``w``.
+    Link ``k`` has the threshold ``factors[k] * a_base``, walks forward
+    (``dirs[k] == 1``: first crossing at or after its start) or backward
+    (last crossing at or before it), and starts from ``t_start``
+    (``starts[k] == -1``) or from link ``starts[k]``'s result. Computes
+    the thresholds once here, in PyTorch, and hands them to the kernel.
+    Bit-identical to :func:`cascade_tp_plain`; ``badrow`` is used on the
+    CPU only (the kernel scans its resident row)."""
+    factors, dirs, starts = _cascade_links(factors, dirs, starts)
+    if w.device.type == "cpu":
+        return cascade_tp_plain(w, a_base, t_start, factors, dirs, starts, badrow)
+    _require_cuda_f32(w, "cascade_tp")
+    m = len(factors)
+    if not 1 <= m <= _CT_MAX_LINKS:
+        raise ValueError(
+            f"cascade_tp: the CUDA kernel takes 1 to {_CT_MAX_LINKS} links, "
+            f"got {m}"
+        )
+    *lead, n = w.shape
+    B = int(np.prod(lead, dtype=np.int64))
+    if 4 * n > _MAX_SMEM:
+        raise ValueError(
+            f"cascade_tp: a row of {n} samples needs {4 * n} bytes of shared "
+            f"memory; one block holds at most {_MAX_SMEM}"
+        )
+    lib = _lib("cascade_tp")
+    dev = w.device
+    thr = torch.stack(_cascade_thresholds(w, a_base, factors), dim=-1)
+    thr = thr.reshape(B, m).contiguous()
+    t = torch.as_tensor(t_start, device=dev)
+    if t.dtype == torch.float64:
+        raise TypeError("cascade_tp: the CUDA kernel takes a float32 start")
+    t = t.to(torch.float32).expand(lead).contiguous()
+    out = torch.empty((m, B), dtype=torch.float32, device=dev)
+    P = _CascadeParams()
+    P.w, P.thr, P.t, P.out = w.data_ptr(), thr.data_ptr(), t.data_ptr(), out.data_ptr()
+    P.B, P.n, P.m = B, n, m
+    for k in range(m):
+        P.dirs[k], P.starts[k] = dirs[k], starts[k]
+    rc = lib.dspeed_cascade_tp(ctypes.byref(P), _stream())
+    _check_rc(lib, rc, "cascade_tp")
+    LAUNCHES["cascade_tp"] += 1
+    return tuple(out[k].reshape(lead) for k in range(m))

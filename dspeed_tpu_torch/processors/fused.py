@@ -12,11 +12,16 @@ from __future__ import annotations
 import numpy as np
 
 from ..errors import DSPFatal
-from ._cuda import _trap_tuple, banded_conv_multi, fused_energy
+from ._cuda import _trap_tuple, banded_conv_multi, fused_energy, fused_t0
 from ._helpers import nanmask, static_float, static_int
 from ._kernel import Kernel, kernel
 
-__all__ = ["fused_energy_filter", "fused_energy_front", "fused_conv_bank"]
+__all__ = [
+    "fused_energy_filter",
+    "fused_energy_front",
+    "fused_conv_bank",
+    "fused_t0_front",
+]
 
 
 def fused_conv_bank(kernels, lo: int, p: int, n_in: int | None = None) -> Kernel:
@@ -164,3 +169,49 @@ def fused_energy_filter(w_in, a_baseline, t_tau, rise, flat):
         w_in, a_baseline, tau, trap_specs=(("norm", r, f),), emax_for=(0,)
     )
     return pz, traps[0], emaxes[0]
+
+
+def fused_t0_front(
+    kernel_arr, atrap_spec=None, need: tuple = (True,) * 4
+) -> Kernel:
+    """Factory: the t0/pileup branch — ``convolve_wf(w, kern, 's')`` ->
+    ``min_max`` -> ``time_point_thresh(conv, a_std, tp_start, 0)`` — as one
+    pass (JAX package ``fused.py:178``). Returns a kernel ``(w, a_std) ->
+    (t_min, t_max, a_min, a_max, tp_0)``; the filtered waveform is never
+    written out. With ``atrap_spec`` (a ``("norm", rise, flat)`` /
+    ``("asym", rise, flat, fall)`` trap tuple) the trapezoid of ``w`` and its
+    backward search ``time_point_thresh(trap(w), a_std, tp_start, 0)`` are
+    absorbed as a final scalar output. ``need`` flags the min_max outputs
+    anything reads (the kernel skips the minimum when neither ``t_min`` nor
+    ``a_min`` is).
+
+    CUDA: kernel K3 (``fused_t0``); CPU: its plain version, which composes
+    the unfused kernel bodies. The JAX package's A/E current absorption
+    (``curr_spec``) arrives with the A/E slice (ROADMAP slice 3).
+    """
+    kern_arr = np.asarray(kernel_arr)
+    if kern_arr.ndim != 1 or np.isnan(kern_arr).any():
+        raise DSPFatal("fused_t0_front needs a 1-D NaN-free kernel")
+    if atrap_spec is not None:
+        atrap_spec = _trap_tuple(atrap_spec)
+    need = tuple(bool(x) for x in need)
+    if len(need) != 4:
+        raise DSPFatal("need must have four entries")
+
+    def fn(w_in, a_std, badrow=None):
+        # the kernel and its plain version poison rows from the waveform
+        # itself, which is exactly the threaded bad-row mask
+        if kern_arr.shape[-1] > w_in.shape[-1]:
+            raise DSPFatal("The filter is longer than the input waveform")
+        outs = fused_t0(w_in, kern_arr, a_std, atrap_spec=atrap_spec, need=need)
+        return tuple(o.to(w_in.dtype) for o in outs)
+
+    nout = 5 + (atrap_spec is not None)
+    sig = "(n),()->(),(),(),(),()" + (",()" if atrap_spec else "")
+    return Kernel(
+        fn,
+        sig,
+        ["ff->" + "f" * nout, "dd->" + "d" * nout],
+        name="fused_t0_front",
+        badrow_arg=0,
+    )

@@ -45,7 +45,7 @@ tb = lh5.Table({{
 }})
 with open({config!r}) as f:
     cfg = yaml.safe_load(f)
-cfg["outputs"] = ["trapEmax", "cuspEmax", "zacEftp", "bl_std", "tp_max"]
+cfg["outputs"] = {outputs!r}
 out = build_dsp(tb, dsp_config=cfg, database={{"pz": {{"tau": 27460.5}}}},
                 device="cpu")
 assert np.isfinite(out["trapEmax"].nda).all()
@@ -56,10 +56,11 @@ print("dspeed_tpu_torch" in sys.modules)
 """
 
 
-def test_energy_chain_runs_without_jax_or_the_jax_package():
+def _run_without_jax(outputs):
     code = _RUN_ENERGY_CHAIN.format(
         repo=REPO,
         config=os.path.join(REPO, "configs", "hpge-energy-timing.yaml"),
+        outputs=outputs,
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run(
@@ -70,6 +71,14 @@ def test_energy_chain_runs_without_jax_or_the_jax_package():
     *_, modules, imported = res.stdout.strip().splitlines()
     assert json.loads(modules) == []
     assert imported == "True"
+
+
+def test_energy_chain_runs_without_jax_or_the_jax_package():
+    _run_without_jax(["trapEmax", "cuspEmax", "zacEftp", "bl_std", "tp_max"])
+
+
+def test_timing_chain_runs_without_jax_or_the_jax_package():
+    _run_without_jax(["trapEmax", "tp_0_est", "tp_0_atrap", "tp_50", "dt_eff"])
 
 
 @pytest.mark.parametrize("path", SOURCES)

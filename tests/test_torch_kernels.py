@@ -1,13 +1,19 @@
-"""The port's two CUDA kernels, through their plain PyTorch versions on the
-CPU, against the JAX package's Pallas kernels run in interpret mode (as
+"""The port's CUDA kernels, through their plain PyTorch versions on the CPU,
+against the JAX package's Pallas kernels run in interpret mode (as
 ``tests/processors/test_pallas.py`` runs them).
 
 - K1 ``fused_energy`` (``dspeed_tpu_torch/csrc/fused_energy.cu``);
+- K2 ``cascade_tp`` (``dspeed_tpu_torch/csrc/cascade_tp.cu``);
+- K3 ``fused_t0`` (``dspeed_tpu_torch/csrc/fused_t0.cu``);
 - K4 ``banded_conv_multi`` (``dspeed_tpu_torch/csrc/banded_conv.cu``).
 
 Float outputs agree within 1e-5 of their column's scale (max |jax|), index
 outputs exactly, NaN positions identically. Crossing-mask bits agree exactly
 wherever the trapezoid sits more than 1e-5 of its scale from the threshold.
+The cascade (K2) is bit-identical. K3's index outputs may differ on at most
+one near-tie per column, where the two float32 convolutions (or trapezoids)
+round differently, as the JAX package's own K3 test allows
+(``test_pallas.py:735``).
 
 The tests marked ``gpu`` hold each CUDA kernel against its plain version on
 the card; without one they skip. The JAX package is imported inside the CPU
@@ -216,6 +222,151 @@ def test_banded_conv_plain_matches_pallas_interpret(case):
         assert rows.tolist() == [i in (2, 4) for i in range(12)]
 
 
+CASCADE_CASES = {
+    # the JAX package's own cascade contract (test_pallas.py:666-668)
+    "ten_links": (
+        [1.0, 0.99, 0.95, 0.90, 0.80, 0.50, 0.20, 0.10, 0.01, 0.005],
+        [1, 1, -1, -1, -1, -1, -1, -1, -1, -1],
+        [-1, -1, 1, 2, 3, 4, 5, 6, 7, 8],
+    ),
+    # the flagship's tp_100 ... tp_01
+    "flagship": (
+        [1, 0.99, 0.95, 0.9, 0.8, 0.5, 0.2, 0.1, 0.01],
+        [1, 1, 0, 0, 0, 0, 0, 0, 0],
+        [-1, -1, 1, 2, 3, 4, 5, 6, 7],
+    ),
+}
+
+
+def _cascade_inputs(case, n_ev=48, seed=4):
+    """Rows and bases for a cascade, with the edge rows of the JAX
+    package's test: exact ties at the extremum, a NaN sample, a NaN base,
+    and NaN, non-integral, negative and out-of-range starts."""
+    rng = np.random.default_rng(seed)
+    if case == "ten_links":
+        n = 512
+        w = np.abs(np.cumsum(rng.normal(0.05, 1.0, (n_ev, n)), axis=1)).astype(
+            "float32"
+        ) + 1.0
+        t0 = np.full(n_ev, 40.0, "float32")
+        base = (np.nanmax(w, axis=1) * 0.97).astype("float32")
+    else:
+        wf, bl = _hpge(n_ev=n_ev, n=1024, seed=seed)
+        w = (wf - bl[:, None]).astype("float32")
+        w[5] = wf[5] - 15000.0  # the NaN-baseline row keeps a waveform
+        # tp_0_est sits on the baseline, just before the rise
+        t0 = (np.argmax(w > 0.05 * np.nanmax(w, 1)[:, None], 1) - 3).astype(
+            "float32"
+        )
+        base = np.nanmax(w, axis=1).astype("float32")
+        n = w.shape[1]
+    w[2, 300:310] = w[2, 299]  # exact ties
+    w[3, 100] = np.nan
+    base[5] = np.nan
+    t0[7], t0[9], t0[11], t0[13] = t0[7] + 0.5, -3.0, np.nan, n
+    return w, base, t0
+
+
+@pytest.mark.parametrize("case", sorted(CASCADE_CASES))
+def test_cascade_plain_bit_identical_to_pallas_and_xla(case):
+    import jax.numpy as jnp
+
+    from dspeed_tpu.processors import _pallas
+    from dspeed_tpu.processors.tp_chain import chained_time_point_thresh
+
+    factors, dirs, starts = CASCADE_CASES[case]
+    w, base, t0 = _cascade_inputs(case)
+    pallas = _pallas.cascade_tp(w, base, t0, factors, dirs, starts, interpret=True)
+    xla = chained_time_point_thresh(factors, dirs, starts).fn(
+        jnp.asarray(w), jnp.asarray(base), jnp.asarray(t0)
+    )
+    got = _cuda.cascade_tp(
+        torch.from_numpy(w), torch.from_numpy(base), torch.from_numpy(t0),
+        factors, dirs, starts,
+    )
+    assert len(got) == len(pallas) == len(xla) == len(factors)
+    for k, (g, p, x) in enumerate(zip(got, pallas, xla)):
+        g, p, x = g.numpy(), np.asarray(p), np.asarray(x)
+        for ref, what in ((p, "pallas"), (x, "xla")):
+            same = (g == ref) | (np.isnan(g) & np.isnan(ref))
+            assert same.all(), (case, what, k, np.where(~same)[0][:5])
+    # every edge row is NaN on every link; the links find crossings elsewhere
+    for g in got:
+        assert np.isnan(g.numpy()[[3, 5, 7, 9, 11, 13]]).all()
+    assert np.isfinite(got[5].numpy()).sum() >= 20
+
+
+T0_CASES = {
+    # test_pallas.py:704-735: a 33-tap kernel on random walks
+    "walk": dict(atrap_spec=None, need=(True,) * 4),
+    "walk_atrap": dict(atrap_spec=("asym", 8, 4, 32), need=(True,) * 4),
+    "walk_need_max": dict(atrap_spec=None, need=(False, True, False, True)),
+    # a row that is no whole number of the CUDA kernel's output tiles
+    "walk_odd_length": dict(atrap_spec=None, need=(True,) * 4),
+    # the flagship's 133-tap t0 kernel (rise 8, fall 125) on HPGe pulses
+    "flagship": dict(atrap_spec=("asym", 8, 4, 125), need=(True,) * 4),
+}
+
+
+def _t0_inputs(case, n_ev=12, seed=3):
+    rng = np.random.default_rng(seed)
+    if case == "flagship":
+        import dspeed_tpu_torch.processors as tp
+
+        wf, bl = _hpge(n_ev=n_ev, n=1024, seed=seed)
+        bl[5] = 15000.0
+        (pz,) = tp.pole_zero(torch.from_numpy(wf - bl[:, None]), TAU)
+        w = pz.numpy().astype(np.float32)
+        kern = np.asarray(tp.t0_filter(8.0, 125.0, dims={"n": 133})[0])
+        std = rng.uniform(2.0, 4.0, n_ev).astype("float32")
+    else:
+        n = 777 if case == "walk_odd_length" else 512
+        w = np.cumsum(rng.normal(0.2, 1.0, (n_ev, n)), axis=1).astype("float32")
+        w[9, :] = np.nan
+        kern = rng.normal(0, 1, 33)
+        kern /= np.abs(kern).sum()
+        std = rng.uniform(0.5, 2.0, n_ev).astype("float32")
+    std[6] = np.nan  # a NaN threshold: the searches find nothing
+    return w, kern, std
+
+
+def _check_t0(got, want, need, what):
+    """K3's rule: floats within REL of scale, indices exact except at most
+    one near-tie per column, NaN positions equal off such near-ties."""
+    names = ["t_min", "t_max", "a_min", "a_max", "tp_0", "tp_atrap"]
+    assert len(got) == len(want)
+    for q, (g, w) in enumerate(zip(got, want)):
+        if q < 4 and not need[q]:
+            continue
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        if q in (2, 3):
+            _compare(g, w, what=f"{what} {names[q]}")
+            continue
+        neq = np.nan_to_num(g, nan=-1) != np.nan_to_num(w, nan=-1)
+        assert neq.sum() <= 1, (what, names[q], g[neq], w[neq])
+
+
+@pytest.mark.parametrize("case", sorted(T0_CASES))
+def test_fused_t0_plain_matches_pallas_interpret(case):
+    from dspeed_tpu.processors import _pallas
+
+    kw = T0_CASES[case]
+    w, kern, std = _t0_inputs(case)
+    want = _pallas.fused_t0(w, kern, std, interpret=True, **kw)
+    got = _cuda.fused_t0(torch.from_numpy(w), kern, torch.from_numpy(std), **kw)
+    assert len(got) == 5 + (kw["atrap_spec"] is not None)
+    _check_t0([o.numpy() for o in got], [np.asarray(o) for o in want],
+              kw["need"], case)
+    tp0 = got[4].numpy()
+    assert np.isnan(tp0[6]) and np.isfinite(np.delete(tp0, [6, 9])).sum() >= 6
+
+
+def test_cascade_links_are_checked():
+    w = torch.zeros(2, 64)
+    with pytest.raises(Exception, match="earlier time point"):
+        _cuda.cascade_tp(w, torch.ones(2), torch.zeros(2), [1, 1], [1, 0], [-1, 1])
+
+
 # ---------------------------------------------------------------------------
 # on the card
 
@@ -261,6 +412,46 @@ def test_banded_conv_kernel_matches_plain_on_the_card(case, cuda_device):
         _compare(g.cpu().numpy(), wv.cpu().numpy(), what=f"{case} kernel {j}")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CASCADE_CASES))
+def test_cascade_kernel_bit_identical_to_plain_on_the_card(case, cuda_device):
+    factors, dirs, starts = CASCADE_CASES[case]
+    w, base, t0 = _cascade_inputs(case, n_ev=256)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (w, base, t0)]
+    before = _cuda.LAUNCHES["cascade_tp"]
+    got = _cuda.cascade_tp(*args, factors, dirs, starts)
+    assert _cuda.LAUNCHES["cascade_tp"] == before + 1
+    want = _cuda.cascade_tp_plain(*args, factors, dirs, starts)
+    torch.cuda.synchronize()
+    for k, (g, wv) in enumerate(zip(got, want)):
+        g, wv = g.cpu().numpy(), wv.cpu().numpy()
+        same = (g == wv) | (np.isnan(g) & np.isnan(wv))
+        assert same.all(), (case, k, np.where(~same)[0][:5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(T0_CASES))
+def test_fused_t0_kernel_matches_plain_on_the_card(case, cuda_device):
+    kw = T0_CASES[case]
+    w, kern, std = _t0_inputs(case, n_ev=256)
+    wt, st = (torch.from_numpy(x).to(cuda_device) for x in (w, std))
+    before = _cuda.LAUNCHES["fused_t0"]
+    got = _cuda.fused_t0(wt, kern, st, **kw)
+    assert _cuda.LAUNCHES["fused_t0"] == before + 1
+    want = _cuda.fused_t0_plain(wt, kern, st, **kw)
+    torch.cuda.synchronize()
+    got = [o.cpu().numpy() for o in got]
+    want = [o.cpu().numpy() for o in want]
+    # on the card the plain version's convolution is K4's 's' window, whose
+    # summation order K3 shares: the filtered rows, hence t_min, t_max and
+    # tp_0, agree bit for bit
+    for q in (0, 1, 4):
+        if q == 4 or kw["need"][q]:
+            same = (got[q] == want[q]) | (np.isnan(got[q]) & np.isnan(want[q]))
+            assert same.all(), (case, q, np.where(~same)[0][:5])
+    _check_t0(got, want, kw["need"], case)
+
+
 def test_cuda_wrappers_never_fall_back_on_a_cuda_tensor(monkeypatch):
     """A CUDA tensor reaches the kernel's build, never the plain version:
     where the library cannot be built the wrapper raises."""
@@ -279,9 +470,17 @@ def test_cuda_wrappers_never_fall_back_on_a_cuda_tensor(monkeypatch):
     monkeypatch.setattr(_cuda, "_lib", no_lib)
     monkeypatch.setattr(_cuda, "fused_energy_plain", None)
     monkeypatch.setattr(_cuda, "banded_conv_plain", None)
+    monkeypatch.setattr(_cuda, "fused_t0_plain", None)
+    monkeypatch.setattr(_cuda, "cascade_tp_plain", None)
     with pytest.raises(RuntimeError, match="no fused_energy library"):
         _cuda.fused_energy(FakeCuda(), np.zeros(4, "float32"), TAU, (("norm", 8, 2),))
     before = dict(_cuda.LAUNCHES)
     with pytest.raises(RuntimeError, match="no banded_conv library"):
         _cuda.banded_conv_multi(FakeCuda(), [np.ones(5)], 4, 256)
+    with pytest.raises(RuntimeError, match="no fused_t0 library"):
+        _cuda.fused_t0(FakeCuda(), np.ones(33), np.ones(4, "float32"))
+    with pytest.raises(RuntimeError, match="no cascade_tp library"):
+        _cuda.cascade_tp(FakeCuda(), np.ones(4, "float32"), np.zeros(4, "float32"),
+                         [1, 0.5, 0.2], [1, 0, 0], [-1, 0, 1])
     assert _cuda.LAUNCHES == before
+

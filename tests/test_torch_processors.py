@@ -184,3 +184,82 @@ def test_pickoff_spline_mode_is_not_ported_yet():
     wf, _ = _batch()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tp.fixed_time_pickoff(_t(wf), 10.5, ord("s"))
+
+
+# ---------------------------------------------------------------------------
+# the timing slice: FIR generators and threshold searches
+
+
+@pytest.mark.parametrize(
+    "name, args, n",
+    [
+        ("t0_filter", (8.0, 125.0), 133),  # the flagship's t0 kernel
+        ("t0_filter", (3.0, 29.0), 32),
+        ("moving_slope", (), 25),
+        ("step", (1.0,), 40),
+    ],
+)
+def test_fir_generators_match_jax(name, args, n):
+    want = np.asarray(getattr(jp, name)(*args, dims={"n": n})[0], np.float64)
+    got = np.asarray(getattr(tp, name)(*args, dims={"n": n})[0], np.float64)
+    assert got.shape == want.shape == (n,)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+
+
+def _tpt_inputs(n_ev=16, n=256, seed=5):
+    """Random walks with the edge rows of the JAX package's cascade test
+    (``tests/processors/test_pallas.py:671-682``): exact ties, a NaN sample,
+    a NaN threshold, and NaN, non-integral and negative starts."""
+    rng = np.random.default_rng(seed)
+    w = np.abs(np.cumsum(rng.normal(0.05, 1.0, (n_ev, n)), axis=1)).astype(
+        "float32"
+    ) + 1.0
+    w[2, 50:60] = w[2, 49]
+    w[3, 100] = np.nan
+    a = (np.nanmax(w, axis=1) * rng.uniform(0.2, 0.9, n_ev)).astype("float32")
+    a[2] = w[2, 49]  # the threshold sits on the tied samples
+    a[5] = np.nan
+    t = np.full(n_ev, 40.0, "float32")
+    t[7], t[9], t[11], t[13] = 39.5, -3.0, np.nan, n
+    t[1] = n - 1
+    t[4] = 0.0
+    return w, a, t
+
+
+@pytest.mark.parametrize("walk", [0, 1])
+@pytest.mark.parametrize("start", ["per_event", "scalar"])
+def test_time_point_thresh_bit_identical(walk, start):
+    w, a, t = _tpt_inputs()
+    t_in = t if start == "per_event" else 120.0
+    want = np.asarray(jp.time_point_thresh(w, a, t_in, walk)[0])
+    t_t = _t(t) if start == "per_event" else 120.0
+    (got,) = tp.time_point_thresh(_t(w), _t(a), t_t, walk)
+    got = got.numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), np.where(~same)[0]
+    assert np.isfinite(want).sum() >= 4  # the case finds crossings
+
+
+@pytest.mark.parametrize("walk", [0, 1])
+def test_tp_from_cross_mask_bit_identical(walk):
+    from dspeed_tpu.processors.time_point_thresh import (
+        _crossing_masks as j_masks,
+        tp_from_cross_mask as j_tp,
+    )
+
+    w, a, t = _tpt_inputs()
+    fwd, bwd = (np.asarray(x) for x in j_masks(w, a))
+    bits = (fwd.astype(np.uint8) | (bwd.astype(np.uint8) << 1)).astype(np.uint8)
+    bits[3] = 0  # a poisoned row arrives as an all-zero plane
+    want = np.asarray(j_tp(walk)(bits, t)[0])
+    (got,) = tp.tp_from_cross_mask(walk)(_t(bits), _t(t))
+    got = got.numpy()
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), np.where(~same)[0]
+    # and the port's own predicates give the same bit plane
+    from dspeed_tpu_torch.processors.time_point_thresh import _crossing_masks
+
+    tf, tb = (x.numpy() for x in _crossing_masks(_t(w), _t(a)))
+    np.testing.assert_array_equal(tf, fwd)
+    np.testing.assert_array_equal(tb, bwd)

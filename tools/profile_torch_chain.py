@@ -2,12 +2,14 @@
 """Where one ``build_dsp`` chunk of the PyTorch port spends its time on the
 card.
 
-    python3 tools/profile_torch_chain.py [--events 16384] [--repeats 3]
+    python3 tools/profile_torch_chain.py [--config timing|energy]
+                                         [--events 16384] [--repeats 3]
 
-Runs the energy configuration (``configs/hpge-energy-timing.yaml`` with the
-17 energy and baseline outputs, the set ``chip_smoke.py`` drives) through
-``dspeed_tpu_torch.build_dsp`` Table -> Table on 16384 synthetic 4096-sample
-events, and prints:
+Runs one of the configurations ``chip_smoke.py`` drives — the timing
+configuration (``configs/hpge-energy-timing.yaml`` without its three A/E
+columns, 31 outputs; the default) or the energy configuration (its 17
+energy and baseline outputs) — through ``dspeed_tpu_torch.build_dsp`` Table
+-> Table on 16384 synthetic 4096-sample events, and prints:
 
 1. the host-clock split of one warm chunk: chain build, input gather, the
    host -> device copy, the step loop (and each step), the device -> host
@@ -15,7 +17,9 @@ events, and prints:
    ``torch.cuda.synchronize()``;
 2. a ``torch.profiler`` table of device time by kernel over one more warm
    chunk, and the device's busy share of that chunk's wall time (busy =
-   the union of the device's kernel and copy intervals).
+   the union of the device's kernel and copy intervals);
+3. the host operations that take the most time in the process's first
+   ``build_dsp`` call (profiled, so slower than unprofiled).
 
 With ``--trace PATH`` the profiler's Chrome trace is written there. Needs
 CUDA; imports nothing of the JAX package.
@@ -74,6 +78,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("timing", "energy"), default="timing")
     ap.add_argument("--events", type=int, default=16384)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", help="write the Chrome trace to this path")
@@ -82,7 +87,7 @@ def main() -> int:
         print("profile_torch_chain: no CUDA device", file=sys.stderr)
         return 2
 
-    from chip_smoke import TAU, card_line, energy_config, make_hpge_waveforms
+    from chip_smoke import TAU, card_line, config, energy_config, make_hpge_waveforms
     from dspeed_tpu_torch import build_dsp, lh5
     from dspeed_tpu_torch import processing_chain as pc
     from dspeed_tpu_torch.processors import _cuda
@@ -101,7 +106,7 @@ def main() -> int:
         ),
         "baseline": lh5.Array(bl.astype(np.float32)),
     })
-    cfg = energy_config()
+    cfg = config() if args.config == "timing" else energy_config()
     kw = dict(dsp_config=cfg, database={"pz": {"tau": TAU}},
               buffer_len=args.events, device="cuda")
 
@@ -112,9 +117,13 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    cold = run()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as first:
+        cold = run()
     walls = [run() for _ in range(args.repeats)]
-    print(f"build_dsp Table -> Table, {args.events} events: cold {cold * 1e3:.3f} ms, "
+    print(f"build_dsp Table -> Table, {args.config} configuration "
+          f"({len(cfg['outputs'])} columns), {args.events} events: cold {cold * 1e3:.3f} ms, "
           f"warm {[round(w * 1e3, 3) for w in walls]} ms on {card}", flush=True)
 
     # 1. host-clock split of one warm chunk
@@ -158,8 +167,6 @@ def main() -> int:
           + json.dumps({k: round(v * 1e3, 3) for k, v in steps.items()}), flush=True)
 
     # 2. device time by kernel over one more warm chunk
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run()
     busy = _busy_ms(prof.events())
@@ -169,6 +176,10 @@ def main() -> int:
           f"({100 * busy / (wall * 1e3):.1f}% busy, "
           f"{100 - 100 * busy / (wall * 1e3):.1f}% idle)", flush=True)
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    # 3. where the first call's host time goes
+    print(f"first call in the process (profiled): {cold * 1e3:.3f} ms; host "
+          "operations by self CPU time:")
+    print(first.key_averages().table(sort_by="self_cpu_time_total", row_limit=12))
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
