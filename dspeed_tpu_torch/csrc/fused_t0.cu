@@ -8,10 +8,17 @@
 //   tp_0  = last i <= t_max with a crossing of a = a_std[row] between
 //           c[i-1] and c[i]                    (time_point_thresh, walk 0)
 // and, with an absorbed trapezoid (atrap), the same backward search from the
-// same t_max over trap(w). The filtered row c never leaves shared memory.
-// A row with a NaN poisons every output; a NaN threshold or a search that
-// finds nothing gives NaN. With need_min == 0 the minimum is not computed
-// and t_min, a_min hold 0 (nothing reads them).
+// same t_max over trap(w). With an absorbed A/E current (curr_spec: n_curr
+// > 0) it also writes the row
+//   curr[i] = (wle[i + avg_len] - wle[i]) / avg_len,  i < n_curr,
+// of the window wle[k] = w[tp_0 + k], k < win_m: windower(w, tp_0, win_m)
+// -> avg_current(., avg_len), NaN past win_m - avg_len, and all NaN where
+// tp_0 is NaN or the window runs past the row (a window slot outside the row
+// is NaN, and one NaN poisons the current's row).
+// The filtered row c never leaves shared memory. A row with a NaN poisons
+// every output; a NaN threshold or a search that finds nothing gives NaN.
+// With need_min == 0 the minimum is not computed and t_min, a_min hold 0
+// (nothing reads them).
 //
 // What bounds it on this card: operations. The flagship's t0 kernel has 133
 // taps, so the convolution is 2 * 133 * 4096 flops per row: 17.9 GFLOP per
@@ -31,7 +38,12 @@
 // the row (row_prefix.cuh, K1's rule: windows of <= 32 samples are summed
 // directly). No band matrix is built and no n % 128 gate applies: those
 // belong to the TPU's matrix unit. Any geometry that fits one block's shared
-// memory is taken.
+// memory is taken. The current reads the row already staged for the
+// convolution once tp_0 is settled: a gather and one float32 subtraction and
+// division per sample, so it equals the plain version bit for bit wherever
+// tp_0 does. The TPU kernel's log-shift window (`_window_rows`) is a
+// workaround for its row-serial gathers and is not carried over; the window
+// needs no shared memory of its own.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,6 +61,7 @@ struct T0Params {
     const float* taps;
     const float* a;   // threshold per row
     float* out[6];    // t_min, t_max, a_min, a_max, tp_0, tp_atrap
+    float* curr;      // (B, n_curr) with curr_spec
     int B;
     int n;
     int m;
@@ -56,6 +69,9 @@ struct T0Params {
     int need_min;
     int has_atrap;
     TrapSpec atrap;
+    int win_m;        // curr_spec = (win_m, avg_len, n_curr); n_curr 0: none
+    int avg_len;
+    int n_curr;
 };
 
 // Padded row length: whole tiles of T0_THREADS * T0_R outputs plus the halo.
@@ -134,10 +150,22 @@ fused_t0_kernel(const T0Params P) {
         P.out[3][row] = bad ? qnan : vmax;
         P.out[4][row] = i0 < 0 ? qnan : (float)i0;
     }
+    const float* x = xs + pad_l;
+
+    // absorbed A/E current: the window of win_m samples from tp_0 = i0
+    // (1 <= i0 < n when found), differenced at avg_len
+    if (P.n_curr > 0) {
+        float* cr = P.curr + row * (long long)P.n_curr;
+        const int L = P.avg_len;
+        const bool dead = i0 < 0 || i0 + P.win_m > n;
+        const float lf = (float)L;
+        for (int i = tid; i < P.n_curr; i += bd)
+            cr[i] = dead || i >= P.win_m - L
+                ? qnan : __fdiv_rn(x[i0 + i + L] - x[i0 + i], lf);
+    }
     if (!P.has_atrap) return;
 
     // absorbed trapezoid of the row and its own search from the same t_max
-    const float* x = xs + pad_l;
     block_inclusive_prefix(x, ps, n, red);
     for (int i = tid; i < n; i += bd) at[i] = trap_at(P.atrap, x, ps, i);
     __syncthreads();

@@ -1111,8 +1111,8 @@ class ProcessingChain:
         Patterns are matched on the *built* step list so any config spelling
         that produces them fuses — including the reference's unmodified icpc
         JSON. The passes run in the JAX package's order
-        (``dspeed_tpu/processing_chain.py:1258``); those not ported yet
-        (``_fuse_current_front``, ``_fuse_generic``) are queued in ROADMAP.
+        (``dspeed_tpu/processing_chain.py:1258``); generic fusion
+        (``_fuse_generic``) is not ported yet and is queued in ROADMAP.
         A matcher's exception propagates: a dead matcher must not pass for
         an unfusable chain.
 
@@ -1129,10 +1129,15 @@ class ProcessingChain:
           a waveform and a scaled threshold base become one
           :func:`~dspeed_tpu_torch.processors.chained_time_point_thresh`
           step (kernel K2; bit-identical links);
+        - current front: ``upsampler -> moving_window_multi -> min_max``
+          becomes one :func:`~dspeed_tpu_torch.processors.fused_current_front`
+          step (kernel K5, or K6 where the polyphase plan does not hold; the
+          upsampled current is never written out);
         - t0 front: ``convolve_wf('same') -> min_max ->
           time_point_thresh(..., 0)`` becomes one
           :func:`~dspeed_tpu_torch.processors.fused_t0_front` step (kernel
-          K3; the filtered waveform is never written out);
+          K3; the filtered waveform is never written out), absorbing the A/E
+          current ``windower(w, tp_0) -> avg_current`` where it can;
         - conv bank: parallel constant-kernel convolutions of one array (the
           CUSP + ZAC pair) share one window read
           (:func:`~dspeed_tpu_torch.processors.fused_conv_bank`, kernel K4).
@@ -1147,8 +1152,9 @@ class ProcessingChain:
             self._cse_steps,
             self._fuse_energy_front,
             self._fuse_tp_cascade,
-            # (the A/E current front, _fuse_current_front, goes here with
-            # ROADMAP slice 3)
+            # before the t0 front: its absorption of the current counts
+            # the current's readers, which this pass reduces to one
+            self._fuse_current_front,
             self._fuse_t0_front,
             self._fuse_conv_bank,
         )
@@ -1594,6 +1600,93 @@ class ProcessingChain:
             return [f"fused_conv_bank[{len(recs)}]"]
         return []
 
+    def _fuse_current_front(self) -> list[str]:
+        """``upsampler(int ratio) -> moving_window_multi(const) -> min_max``,
+        with the intermediates unread elsewhere, becomes one
+        :func:`~dspeed_tpu_torch.processors.fused_current_front` step (kernel
+        K5 or K6 on the card; the upsampled current is never written out)."""
+        from .processors import fused_current_front
+
+        steps = self._steps
+        reads = None
+        for i, ups in enumerate(steps):
+            if (
+                self._kname(ups) != "upsampler"
+                or len(ups.out_specs) != 1
+                or len(ups.arg_specs) != 2
+            ):
+                continue
+            ratio = self._const_scalar(ups.arg_specs[1])
+            if ratio is None or float(ratio) != int(ratio) or int(ratio) <= 0:
+                continue
+            ratio = int(ratio)
+            up_key = ups.out_specs[0].key
+            c_var = ups.params[0]
+            if not isinstance(c_var, ProcChainVar) or not c_var.shape:
+                continue
+            n_curr = int(c_var.shape[-1])
+            n_up = int(ups.out_specs[0].shape[-1])
+            # the fused kernels require every output slot written (no NaN
+            # padding from the replication map)
+            if ratio // 2 + n_up > n_curr * ratio:
+                continue
+            for j in range(i + 1, len(steps)):
+                mwm = steps[j]
+                if (
+                    self._kname(mwm) != "moving_window_multi"
+                    or len(mwm.arg_specs) != 4
+                    or self._env_key(mwm.arg_specs[0]) != up_key
+                ):
+                    continue
+                length = self._const_scalar(mwm.arg_specs[1])
+                num = self._const_scalar(mwm.arg_specs[2])
+                mtype = self._const_scalar(mwm.arg_specs[3])
+                if None in (length, num, mtype):
+                    continue
+                if (
+                    float(length) != int(length)
+                    or not (0 <= int(length) <= min(128, n_up - 1))
+                    or float(num) != int(num)
+                    or int(num) < 0
+                    or int(mtype) not in (0, 1, 2)
+                ):
+                    continue
+                av_key = mwm.out_specs[0].key
+                for k in range(j + 1, len(steps)):
+                    mm = steps[k]
+                    if (
+                        self._kname(mm) != "min_max"
+                        or self._env_key(mm.arg_specs[0]) != av_key
+                        or len(mm.out_specs) != 4
+                    ):
+                        continue
+                    if reads is None:
+                        reads = self._env_read_counts()
+                    # intermediates must feed only this pipeline
+                    if reads.get(up_key, 0) != 1 or reads.get(av_key, 0) != 1:
+                        continue
+                    # dead-output elision: min_max outputs with no readers
+                    # (not chain outputs, read by no step) skip their
+                    # reductions in the kernels
+                    need = tuple(
+                        reads.get(s.key, 0) > 0 for s in mm.out_specs
+                    )
+                    kern = fused_current_front(
+                        n_up, ratio, int(length), int(num), int(mtype),
+                        need=need,
+                    )
+                    fused = KernelStep(
+                        self,
+                        kern,
+                        [c_var] + [s.var for s in mm.out_specs],
+                        {},
+                    )
+                    for idx in sorted((i, j, k), reverse=True):
+                        del steps[idx]
+                    steps.insert(i, fused)
+                    return ["fused_current_front"]
+        return []
+
     def _producer_index(self, key):
         """Index of the step writing ``key`` (None for chain inputs)."""
         for i, st in enumerate(self._steps):
@@ -1683,11 +1776,45 @@ class ProcessingChain:
                     )
                     if thr_var is None:
                         continue
-                    # (the JAX package also absorbs the A/E current,
-                    # windower(w, tp_0) -> avg_current, here
-                    # (dspeed_tpu/processing_chain.py:1860-1898); that
-                    # absorption arrives with the A/E slice, ROADMAP slice 3)
+                    # optional A/E current absorption: windower(w, tp_0) ->
+                    # avg_current, with the window unread elsewhere — the
+                    # fused kernel already holds w and tp_0
+                    curr_spec = w_step = a_step = None
+                    tp_key = tp.out_specs[0].key
                     in_key = self._env_key(cv.arg_specs[0])
+                    for ws in steps:
+                        if (
+                            self._kname(ws) != "windower"
+                            or len(ws.arg_specs) != 2
+                            or len(ws.out_specs) != 1
+                            or self._env_key(ws.arg_specs[0]) != in_key
+                            or self._env_key(ws.arg_specs[1]) != tp_key
+                        ):
+                            continue
+                        wle_key = ws.out_specs[0].key
+                        for asx in steps:
+                            if (
+                                self._kname(asx) != "avg_current"
+                                or len(asx.out_specs) != 1
+                                or self._env_key(asx.arg_specs[0]) != wle_key
+                            ):
+                                continue
+                            ln = self._const_scalar(asx.arg_specs[1])
+                            if (
+                                ln is None
+                                or float(ln) != int(ln)
+                                or int(ln) <= 0
+                                or reads.get(wle_key, 0) != 1
+                            ):
+                                continue
+                            curr_spec = (
+                                int(ws.out_specs[0].shape[-1]),
+                                int(ln),
+                                int(asx.out_specs[0].shape[-1]),
+                            )
+                            w_step, a_step = ws, asx
+                            break
+                        break
                     # optional pileup-trap absorption: a const-parameter
                     # trapezoid of the SAME waveform whose only reader is a
                     # backward time_point_thresh against the SAME threshold
@@ -1732,7 +1859,8 @@ class ProcessingChain:
                         reads.get(s.key, 0) > 0 for s in mm.out_specs
                     )
                     kern = fused_t0_front(
-                        k_spec.value, atrap_spec=atrap_spec, need=need
+                        k_spec.value, curr_spec=curr_spec,
+                        atrap_spec=atrap_spec, need=need,
                     )
                     fused = KernelStep(
                         self,
@@ -1740,12 +1868,16 @@ class ProcessingChain:
                         [cv.params[0], thr_var]
                         + [s.var for s in mm.out_specs]
                         + [tp.out_specs[0].var]
+                        + ([a_step.out_specs[0].var] if curr_spec else [])
                         + ([at_tp.out_specs[0].var] if atrap_spec else []),
                         {},
                     )
                     for idx in sorted((i, j, k), reverse=True):
                         del steps[idx]
                     steps.insert(i, fused)
+                    if curr_spec is not None:
+                        steps.remove(w_step)
+                        steps.remove(a_step)
                     if atrap_spec is not None:
                         steps.remove(at_step)
                         steps.remove(at_tp)

@@ -26,6 +26,13 @@ _modules = {
     "fused_energy_front": "fused",
     "fused_conv_bank": "fused",
     "fused_t0_front": "fused",
+    "fused_current_front": "fused",
+    "windower": "windower",
+    "moving_window_left": "moving_windows",
+    "moving_window_right": "moving_windows",
+    "moving_window_multi": "moving_windows",
+    "avg_current": "moving_windows",
+    "upsampler": "upsampler",
     "t0_filter": "kernels",
     "moving_slope": "kernels",
     "step": "kernels",

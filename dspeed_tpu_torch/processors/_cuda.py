@@ -8,16 +8,25 @@ Each kernel replaces one Pallas TPU kernel of the JAX package
   front (``_fused_energy_kernel`` :287, entry ``fused_energy`` :1451);
 - :func:`banded_conv_multi` (``csrc/banded_conv.cu``) — K4, the banded
   convolution bank (``_banded_conv_kernel`` :999, entry :1063);
-- :func:`fused_t0` (``csrc/fused_t0.cu``) — K3, the t0 front
-  (``_fused_t0_kernel`` :1140, entry ``fused_t0`` :1315);
+- :func:`fused_t0` (``csrc/fused_t0.cu``) — K3, the t0 front with its
+  absorbed A/E current (``_fused_t0_kernel`` :1140, entry ``fused_t0``
+  :1315);
 - :func:`cascade_tp` (``csrc/cascade_tp.cu``) — K2, the rise-time cascade
-  (``_cascade_kernel`` :1528, entry ``cascade_tp`` :1650).
+  (``_cascade_kernel`` :1528, entry ``cascade_tp`` :1650);
+- :func:`fused_current` (``csrc/fused_current.cu``) — the A/E current
+  front (entry ``fused_current`` :1398): K5, the polyphase route
+  (``_fused_current_poly_kernel`` :804), where the plan of
+  :mod:`._poly_plan` holds, else K6, the up-domain route
+  (``_fused_current_kernel`` :572, also :func:`fused_current_updomain`).
 
 A wrapper given a CPU tensor computes the kernel's plain version
 (:func:`fused_energy_plain`, :func:`banded_conv_plain`,
-:func:`fused_t0_plain`, :func:`cascade_tp_plain`); given a CUDA tensor
-it launches the kernel or raises — it never falls back. Every launch adds one
-to ``LAUNCHES[<kernel>]``.
+:func:`fused_t0_plain`, :func:`cascade_tp_plain`,
+:func:`fused_current_plain`); given a CUDA tensor it launches the kernel or
+raises — it never falls back. Every launch adds one to
+``LAUNCHES[<kernel>]`` (K5 counts as ``fused_current_poly``, K6 as
+``fused_current``). :func:`fused_current_poly_plain` is K5's own arithmetic
+in PyTorch, for holding the kernel and the plan; no path runs it.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into shared libraries
 with a plain C interface under ``dspeed_tpu_torch/_build/`` on first use (or
@@ -50,6 +59,10 @@ __all__ = [
     "fused_t0_plain",
     "cascade_tp",
     "cascade_tp_plain",
+    "fused_current",
+    "fused_current_updomain",
+    "fused_current_plain",
+    "fused_current_poly_plain",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,10 +73,12 @@ SOURCES = {
     "banded_conv": "banded_conv.cu",
     "fused_t0": "fused_t0.cu",
     "cascade_tp": "cascade_tp.cu",
+    "fused_current": "fused_current.cu",
 }
 
 LAUNCHES = {
     "fused_energy": 0, "banded_conv_multi": 0, "fused_t0": 0, "cascade_tp": 0,
+    "fused_current_poly": 0, "fused_current": 0,
 }
 
 _LIBS: dict = {}
@@ -139,11 +154,19 @@ def _bind(name: str, so: str):
         ]
         lib.dspeed_fused_t0_smem_bytes.restype = ctypes.c_int
         lib.dspeed_fused_t0_smem_bytes.argtypes = [ctypes.c_int] * 3
-    else:
+    elif name == "cascade_tp":
         lib.dspeed_cascade_tp.restype = ctypes.c_int
         lib.dspeed_cascade_tp.argtypes = [
             ctypes.POINTER(_CascadeParams), ctypes.c_void_p,
         ]
+    else:
+        for fn in (lib.dspeed_fused_current, lib.dspeed_fused_current_poly):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(_CurrentParams), ctypes.c_void_p]
+        lib.dspeed_fused_current_smem_bytes.restype = ctypes.c_int
+        lib.dspeed_fused_current_smem_bytes.argtypes = [ctypes.c_int]
+        lib.dspeed_fused_current_poly_smem_bytes.restype = ctypes.c_int
+        lib.dspeed_fused_current_poly_smem_bytes.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -544,6 +567,7 @@ class _T0Params(ctypes.Structure):
         ("taps", ctypes.c_void_p),
         ("a", ctypes.c_void_p),
         ("out", ctypes.c_void_p * 6),
+        ("curr", ctypes.c_void_p),
         ("B", ctypes.c_int),
         ("n", ctypes.c_int),
         ("m", ctypes.c_int),
@@ -551,26 +575,53 @@ class _T0Params(ctypes.Structure):
         ("need_min", ctypes.c_int),
         ("has_atrap", ctypes.c_int),
         ("atrap", _TrapSpec),
+        ("win_m", ctypes.c_int),
+        ("avg_len", ctypes.c_int),
+        ("n_curr", ctypes.c_int),
     ]
 
 
-def fused_t0_plain(w, kern, a_std, atrap_spec=None, need=(True,) * 4):
+def _curr_spec(curr_spec, n):
+    """``curr_spec`` as ints, with the limits of ``windower`` (a window
+    shorter than the row) and ``avg_current`` (``0 < avg_len < win_m``)."""
+    if curr_spec is None:
+        return None
+    win_m, avg_len, n_curr = (int(x) for x in curr_spec)
+    if not (0 < avg_len < win_m < n and n_curr > 0):
+        raise DSPFatal(
+            f"curr_spec {(win_m, avg_len, n_curr)} needs 0 < avg_len < win_m "
+            f"< {n} (the row) and n_curr > 0"
+        )
+    return win_m, avg_len, n_curr
+
+
+def fused_t0_plain(w, kern, a_std, curr_spec=None, atrap_spec=None,
+                   need=(True,) * 4):
     """Plain version of K3: ``convolve_wf(w, kern, 's')`` -> ``min_max`` ->
-    ``time_point_thresh(conv, a_std, t_max, 0)``, plus ``trap(w)`` ->
-    ``time_point_thresh(trap, a_std, t_max, 0)`` for ``atrap_spec`` — the
-    JAX package's fallback composition (``fused.py:236-262``). Returns
-    ``(t_min, t_max, a_min, a_max, tp_0[, tp_atrap])``; ``need`` is
-    accepted for the kernel's signature and every output is computed."""
+    ``time_point_thresh(conv, a_std, t_max, 0)``; with ``curr_spec =
+    (win_m, avg_len, n_curr)`` the A/E current ``avg_current(windower(w,
+    tp_0, win_m), avg_len)``; with ``atrap_spec`` ``trap(w)`` ->
+    ``time_point_thresh(trap, a_std, t_max, 0)`` — the JAX package's
+    fallback composition (``fused.py:236-262``). Returns ``(t_min, t_max,
+    a_min, a_max, tp_0[, curr][, tp_atrap])``; ``need`` is accepted for the
+    kernel's signature and every output is computed."""
     from .convolutions import convolve_wf
     from .min_max import min_max
+    from .moving_windows import avg_current
     from .time_point_thresh import time_point_thresh
     from .trap_filters import asym_trap_filter, trap_norm
+    from .windower import windower
 
     n = w.shape[-1]
+    curr_spec = _curr_spec(curr_spec, n)
     (c,) = convolve_wf(w, np.asarray(kern), ord("s"), dims={"p": n})
     t_min, t_max, a_min, a_max = min_max(c)
     (tp0,) = time_point_thresh(c, a_std, t_max, 0)
     res = [t_min, t_max, a_min, a_max, tp0]
+    if curr_spec is not None:
+        win_m, avg_len, n_curr = curr_spec
+        (wle,) = windower(w, tp0, dims={"m": win_m})
+        res += avg_current(wle, float(avg_len), dims={"m": n_curr})
     if atrap_spec is not None:
         sp = _trap_tuple(atrap_spec)
         if sp[0] == "norm":
@@ -581,17 +632,20 @@ def fused_t0_plain(w, kern, a_std, atrap_spec=None, need=(True,) * 4):
     return tuple(res)
 
 
-def fused_t0(w, kern, a_std, atrap_spec=None, need=(True,) * 4):
+def fused_t0(w, kern, a_std, curr_spec=None, atrap_spec=None,
+             need=(True,) * 4):
     """K3: the t0 front of the HPGe chain in one pass per row — the
     ``'same'`` convolution of ``w`` with the constant 1-D ``kern`` (numpy),
     its first-occurrence ``min_max``, and the backward threshold search
-    from ``t_max`` against ``a_std``; with ``atrap_spec`` (a ``("norm",
-    rise, flat)`` / ``("asym", rise, flat, fall)`` trapezoid of ``w``) the
-    trap's own backward search from the same ``t_max`` too. The filtered
-    row never leaves the card's shared memory. ``need`` flags which of
-    ``(t_min, t_max, a_min, a_max)`` anything reads; the kernel skips the
-    minimum where neither ``t_min`` nor ``a_min`` is needed, and an elided
-    output holds 0. Same outputs as :func:`fused_t0_plain`."""
+    from ``t_max`` against ``a_std``; with ``curr_spec = (win_m, avg_len,
+    n_curr)`` the A/E current of the ``win_m`` samples from ``tp_0`` (a
+    ``(..., n_curr)`` output); with ``atrap_spec`` (a ``("norm", rise,
+    flat)`` / ``("asym", rise, flat, fall)`` trapezoid of ``w``) the trap's
+    own backward search from the same ``t_max`` too. The filtered row never
+    leaves the card's shared memory. ``need`` flags which of ``(t_min,
+    t_max, a_min, a_max)`` anything reads; the kernel skips the minimum
+    where neither ``t_min`` nor ``a_min`` is needed, and an elided output
+    holds 0. Same outputs as :func:`fused_t0_plain`."""
     kern = np.asarray(kern)
     if kern.ndim != 1:
         raise DSPFatal("fused_t0 needs a 1-D kernel")
@@ -601,9 +655,10 @@ def fused_t0(w, kern, a_std, atrap_spec=None, need=(True,) * 4):
     if atrap_spec is not None:
         atrap_spec = _trap_tuple(atrap_spec)
     if w.device.type == "cpu":
-        return fused_t0_plain(w, kern, a_std, atrap_spec, need)
+        return fused_t0_plain(w, kern, a_std, curr_spec, atrap_spec, need)
     _require_cuda_f32(w, "fused_t0")
     *lead, n = w.shape
+    curr_spec = _curr_spec(curr_spec, n)
     m = int(kern.shape[-1])
     if not 1 <= m <= n:
         raise ValueError(f"fused_t0: {m} taps for a row of {n} samples")
@@ -632,10 +687,20 @@ def fused_t0(w, kern, a_std, atrap_spec=None, need=(True,) * 4):
     P.has_atrap = int(atrap_spec is not None)
     if atrap_spec is not None:
         _set_trap(P.atrap, atrap_spec)
+    curr = None
+    if curr_spec is not None:
+        P.win_m, P.avg_len, P.n_curr = curr_spec
+        curr = torch.empty((B, curr_spec[2]), dtype=torch.float32, device=dev)
+        P.curr = curr.data_ptr()
     rc = lib.dspeed_fused_t0(ctypes.byref(P), _stream())
     _check_rc(lib, rc, "fused_t0")
     LAUNCHES["fused_t0"] += 1
-    return tuple(out[q].reshape(lead) for q in range(nout))
+    res = [out[q].reshape(lead) for q in range(5)]
+    if curr is not None:
+        res.append(curr.reshape(*lead, curr_spec[2]))
+    if atrap_spec is not None:
+        res.append(out[5].reshape(lead))
+    return tuple(res)
 
 
 # ---------------------------------------------------------------------------
@@ -760,3 +825,231 @@ def cascade_tp(w, a_base, t_start, factors, dirs, starts, badrow=None):
     _check_rc(lib, rc, "cascade_tp")
     LAUNCHES["cascade_tp"] += 1
     return tuple(out[k].reshape(lead) for k in range(m))
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: the A/E current front
+# ---------------------------------------------------------------------------
+
+
+class _CurrentParams(ctypes.Structure):
+    """Field for field the ``CurrentParams`` struct of ``fused_current.cu``."""
+
+    _fields_ = [
+        ("c", ctypes.c_void_p),
+        ("H", ctypes.c_void_p),
+        ("out", ctypes.c_void_p * 4),
+        ("B", ctypes.c_int),
+        ("n_curr", ctypes.c_int),
+        ("ratio", ctypes.c_int),
+        ("half", ctypes.c_int),
+        ("n_up", ctypes.c_int),
+        ("L", ctypes.c_int),
+        ("num", ctypes.c_int),
+        ("mtype", ctypes.c_int),
+        ("need", ctypes.c_int * 4),
+        ("W", ctypes.c_int),
+        ("EL", ctypes.c_int),
+        ("ERW", ctypes.c_int),
+        ("nq", ctypes.c_int),
+        ("q_min", ctypes.c_int),
+    ]
+
+
+def _current_geometry(c, ratio, half, n_up, L, num, mtype, need):
+    """The front's arguments as ints, checked against its limits
+    (``fused.py:126-146`` of the JAX package): an integer ratio whose
+    replication map writes every output slot, ``half = ratio // 2`` (the
+    upsampler's map), ``0 <= L < n_up`` and ``L <= 128``, ``num >= 0`` and
+    ``mtype`` in 0, 1, 2."""
+    ratio, half, n_up = int(ratio), int(half), int(n_up)
+    L, num, mtype = int(L), int(num), int(mtype)
+    need = tuple(bool(x) for x in need)
+    if len(need) != 4:
+        raise DSPFatal("need must have four entries")
+    n_curr = c.shape[-1]
+    geom = (f"n_curr={n_curr}, ratio={ratio}, half={half}, n_up={n_up}, "
+            f"L={L}, num={num}, mtype={mtype}")
+    if ratio < 1 or half != ratio // 2 or half + n_up > n_curr * ratio:
+        raise ValueError(
+            f"fused_current: the replication map of ratio {ratio} must write "
+            f"every one of n_up slots with half = ratio // 2 ({geom})"
+        )
+    if not (0 <= L < n_up and L <= 128 and num >= 0 and mtype in (0, 1, 2)):
+        raise ValueError(f"fused_current: geometry out of range ({geom})")
+    return (ratio, half, n_up, L, num, mtype), need, geom
+
+
+def fused_current_plain(c, ratio, half, n_up, L, num, mtype, need=(True,) * 4):
+    """Plain version of K5 and K6: the port's ``upsampler(c, ratio)`` ->
+    ``moving_window_multi(., L, num, mtype)`` -> ``min_max`` — the JAX
+    package's fallback composition (``fused.py:153-161``). Returns
+    ``(t_min, t_max, a_min, a_max)``; ``need`` is accepted for the kernels'
+    signature and every output is computed."""
+    from .min_max import min_max
+    from .moving_windows import moving_window_multi
+    from .upsampler import upsampler
+
+    (ratio, _half, n_up, L, num, mtype), _, _ = _current_geometry(
+        c, ratio, half, n_up, L, num, mtype, need
+    )
+    (up,) = upsampler(c, float(ratio), dims={"m": n_up})
+    (av,) = moving_window_multi(up, float(L), float(num), np.int32(mtype))
+    return min_max(av)
+
+
+def _extrema(y, need):
+    """First-occurrence ``(t_min, t_max, a_min, a_max)`` of the rows of
+    ``y``; an extremum that ``need`` does not ask for is not reduced, and
+    an output nothing needs holds 0 (the kernels' rule)."""
+    n = y.shape[-1]
+    idx = torch.arange(n, device=y.device)
+    zero = torch.zeros(y.shape[:-1], dtype=y.dtype, device=y.device)
+    t_min = t_max = a_min = a_max = zero
+    if need[0] or need[2]:
+        a_min = y.amin(dim=-1)
+        if need[0]:
+            t_min = torch.where(y == a_min[..., None], idx, n).amin(dim=-1)
+    if need[1] or need[3]:
+        a_max = y.amax(dim=-1)
+        if need[1]:
+            t_max = torch.where(y == a_max[..., None], idx, n).amin(dim=-1)
+    return t_min.to(y.dtype), t_max.to(y.dtype), a_min, a_max
+
+
+def fused_current_poly_plain(c, ratio, half, n_up, L, num, mtype,
+                             need=(True,) * 4):
+    """K5's arithmetic in PyTorch, for holding the kernel and its plan: the
+    two edge windows of :mod:`._poly_plan` run the staged cascade (the
+    port's moving-window bodies, float64 prefix sums rounded to float32 per
+    stage), the interior is the per-phase filters ``Hm`` (in float32, summed
+    in ascending tap order) on the current itself, and the regions'
+    first-occurrence extrema are taken over the curve laid out in ascending
+    order, as the kernel's ordered fold takes them. NaN rows poison all four
+    outputs; ``need`` elides as in the kernel. Raises where the plan does
+    not hold."""
+    from ._helpers import isnan_any, nanmask
+    from ._poly_plan import W, poly_plan
+    from .moving_windows import mw_cascade
+
+    (ratio, half, n_up, L, num, mtype), need, geom = _current_geometry(
+        c, ratio, half, n_up, L, num, mtype, need
+    )
+    plan = poly_plan(c.shape[-1], ratio, half, n_up, L, num, mtype)
+    if plan is None:
+        raise ValueError(f"fused_current_poly_plain: no polyphase plan ({geom})")
+    EL, ERW, nq, q_min = plan["EL"], plan["ERW"], plan["nq"], plan["q_min"]
+    dev = c.device
+    j = torch.arange(W, device=dev)
+
+    def edge(j0):
+        return mw_cascade(c[..., (j0 + j + half) // ratio], float(L), num, mtype)
+
+    left = edge(0)[..., :EL]
+    right = edge(n_up - W)[..., W - ERW:]
+    total_t = (n_up - ERW - EL) // ratio
+    t = plan["t0_base"] + torch.arange(total_t, device=dev)
+    H = torch.from_numpy(plan["Hm"]).to(device=dev, dtype=c.dtype)
+    y = torch.zeros((*c.shape[:-1], total_t, ratio), dtype=c.dtype, device=dev)
+    for k in range(nq):
+        y = y + c[..., t + q_min + k][..., None] * H[:, k]
+    curve = torch.cat([left, y.flatten(-2), right], dim=-1)
+    bad = isnan_any(c, 1)
+    return tuple(nanmask(bad, o) for o in _extrema(curve, need))
+
+
+def _launch_current(lib, entry, c, geometry, need, plan=None):
+    ratio, half, n_up, L, num, mtype = geometry
+    *lead, n_curr = c.shape
+    B = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty((4, B), dtype=torch.float32, device=c.device)
+    P = _CurrentParams()
+    P.c = c.data_ptr()
+    for q in range(4):
+        P.out[q] = out[q].data_ptr()
+        P.need[q] = int(need[q])
+    P.B, P.n_curr, P.ratio, P.half = B, n_curr, ratio, half
+    P.n_up, P.L, P.num, P.mtype = n_up, L, num, mtype
+    if plan is not None:
+        from ._poly_plan import W
+
+        H = _taps_on([plan["Hm"].ravel()], c.device)
+        P.H, P.W = H.data_ptr(), W
+        P.EL, P.ERW, P.nq, P.q_min = (
+            plan["EL"], plan["ERW"], plan["nq"], plan["q_min"]
+        )
+    rc = entry(ctypes.byref(P), _stream())
+    _check_rc(lib, rc, "fused_current")
+    return tuple(out[q].reshape(lead) for q in range(4))
+
+
+def fused_current_updomain(c, ratio, half, n_up, L, num, mtype,
+                           need=(True,) * 4):
+    """K6, the up-domain route of :func:`fused_current`: the cascade at the
+    full upsampled width, for any geometry whose row fits one block's
+    shared memory. Same outputs as :func:`fused_current`."""
+    geometry, need, geom = _current_geometry(
+        c, ratio, half, n_up, L, num, mtype, need
+    )
+    if c.device.type == "cpu":
+        return fused_current_plain(c, *geometry, need)
+    _require_cuda_f32(c, "fused_current")
+    lib = _lib("fused_current")
+    smem = lib.dspeed_fused_current_smem_bytes(geometry[2])
+    if smem > _MAX_SMEM or (geometry[4] > 0 and geometry[3] < 1):
+        raise ValueError(
+            f"fused_current: the up-domain kernel does not take this geometry "
+            f"({geom}: {smem} bytes of shared memory, at most {_MAX_SMEM}; "
+            f"L >= 1 where num > 0)"
+        )
+    outs = _launch_current(lib, lib.dspeed_fused_current, c, geometry, need)
+    LAUNCHES["fused_current"] += 1
+    return outs
+
+
+def fused_current(c, ratio, half, n_up, L, num, mtype, need=(True,) * 4):
+    """The A/E current front: upsample each row of ``c`` ``(..., n_curr)``
+    by replication (``x[j] = c[(j + half) // ratio]``, ``j < n_up``), run
+    ``num`` alternating moving averages of ``L`` samples (``mtype`` as in
+    ``moving_window_multi``), and return the first-occurrence ``(t_min,
+    t_max, a_min, a_max)`` per row. ``need`` flags the outputs anything
+    reads: an extremum neither of whose outputs is needed is not reduced,
+    and an output nothing needs holds 0. A row with a NaN gives NaN.
+
+    CPU: :func:`fused_current_plain`. CUDA: K5, the polyphase kernel, where
+    :func:`._poly_plan.poly_plan` finds a plan for the geometry, else K6
+    (:func:`fused_current_updomain`). Both are float32 kernels; a geometry
+    that fits neither raises. On a near-tie the two routes, and the plain
+    version, may report indices some upsampled samples apart, as in the JAX
+    package (``_pallas.py:1413-1420``): the amplitudes agree within float32
+    rounding."""
+    from ._poly_plan import poly_plan
+
+    geometry, need, geom = _current_geometry(
+        c, ratio, half, n_up, L, num, mtype, need
+    )
+    if c.device.type == "cpu":
+        return fused_current_plain(c, *geometry, need)
+    _require_cuda_f32(c, "fused_current")
+    plan = None
+    if geometry[3] >= 1 or geometry[4] == 0:
+        plan = poly_plan(c.shape[-1], *geometry)
+    if plan is None:
+        return fused_current_updomain(c, *geometry, need)
+    lib = _lib("fused_current")
+    ratio, _, n_up = geometry[:3]
+    from ._poly_plan import W
+
+    smem = lib.dspeed_fused_current_poly_smem_bytes(
+        c.shape[-1], n_up, ratio * plan["nq"], W
+    )
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"fused_current: the polyphase kernel needs {smem} bytes of shared "
+            f"memory ({geom}); one block holds at most {_MAX_SMEM}"
+        )
+    outs = _launch_current(
+        lib, lib.dspeed_fused_current_poly, c, geometry, need, plan
+    )
+    LAUNCHES["fused_current_poly"] += 1
+    return outs

@@ -14,12 +14,20 @@ import torch.nn.functional as F
 
 from .. import config
 
-__all__ = ["hp_cumsum", "shift_right"]
+__all__ = ["hp_cumsum", "shift_right", "true_div"]
 
 
 def hp_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum over the last axis at accumulation precision."""
     return torch.cumsum(x.to(config.accum_dtype()), dim=-1)
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded once, with ``d`` in ``x``'s type. On CUDA PyTorch
+    divides by a python scalar as a product with its rounded reciprocal; a
+    divisor on the device is a true division, as in the kernels and the JAX
+    package."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def shift_right(x: torch.Tensor, k: int, fill: float = 0.0) -> torch.Tensor:

@@ -12,7 +12,13 @@ from __future__ import annotations
 import numpy as np
 
 from ..errors import DSPFatal
-from ._cuda import _trap_tuple, banded_conv_multi, fused_energy, fused_t0
+from ._cuda import (
+    _trap_tuple,
+    banded_conv_multi,
+    fused_current,
+    fused_energy,
+    fused_t0,
+)
 from ._helpers import nanmask, static_float, static_int
 from ._kernel import Kernel, kernel
 
@@ -20,6 +26,7 @@ __all__ = [
     "fused_energy_filter",
     "fused_energy_front",
     "fused_conv_bank",
+    "fused_current_front",
     "fused_t0_front",
 ]
 
@@ -171,27 +178,88 @@ def fused_energy_filter(w_in, a_baseline, t_tau, rise, flat):
     return pz, traps[0], emaxes[0]
 
 
+def fused_current_front(
+    n_up: int, ratio: int, length: int, num_mw: int, mw_type: int,
+    need: tuple = (True,) * 4,
+) -> Kernel:
+    """Factory: the A/E current branch — ``upsampler(ratio)`` ->
+    ``moving_window_multi(length, num_mw, mw_type)`` -> ``min_max`` — as one
+    pass (JAX package ``fused.py:104``). Returns a kernel ``(curr,) ->
+    (t_min, t_max, a_min, a_max)``; the upsampled rows are never written
+    out. ``need`` flags the outputs anything reads (the fusion pass clears
+    those without readers): an extremum neither of whose outputs is needed
+    is not reduced on the card, and an output nothing needs holds 0 there.
+
+    Requires an integer ``ratio`` whose replication map writes every output
+    slot (``ratio // 2 + n_up <= n * ratio``) and ``length <= 128``.
+
+    CUDA: kernel K5, or K6 where the polyphase plan does not hold
+    (:func:`._cuda.fused_current`); CPU: the plain composition, which gives
+    the unfused steps' numbers.
+    """
+    n_up = int(n_up)
+    ratio = int(ratio)
+    length = int(length)
+    num_mw = int(num_mw)
+    mw_type = int(mw_type)
+    half = ratio // 2
+    if length > 128:
+        raise DSPFatal("fused_current_front requires length <= 128")
+    if mw_type not in (0, 1, 2):
+        raise DSPFatal("Invalid mw_type")
+    need = tuple(bool(x) for x in need)
+    if len(need) != 4:
+        raise DSPFatal("need must have four entries")
+
+    def fn(c_in):
+        n = c_in.shape[-1]
+        if not (0 <= length < n_up):
+            raise DSPFatal("The length of the moving window is out of range")
+        if half + n_up > n * ratio:
+            raise DSPFatal(
+                "fused_current_front requires an all-valid upsample map"
+            )
+        # the kernels and the plain composition poison NaN rows themselves
+        outs = fused_current(
+            c_in, ratio, half, n_up, length, num_mw, mw_type, need=need
+        )
+        return tuple(o.to(c_in.dtype) for o in outs)
+
+    return Kernel(
+        fn,
+        "(n)->(),(),(),()",
+        ["f->ffff", "d->dddd"],
+        name="fused_current_front",
+    )
+
+
 def fused_t0_front(
-    kernel_arr, atrap_spec=None, need: tuple = (True,) * 4
+    kernel_arr, curr_spec=None, atrap_spec=None, need: tuple = (True,) * 4
 ) -> Kernel:
     """Factory: the t0/pileup branch — ``convolve_wf(w, kern, 's')`` ->
     ``min_max`` -> ``time_point_thresh(conv, a_std, tp_start, 0)`` — as one
     pass (JAX package ``fused.py:178``). Returns a kernel ``(w, a_std) ->
     (t_min, t_max, a_min, a_max, tp_0)``; the filtered waveform is never
-    written out. With ``atrap_spec`` (a ``("norm", rise, flat)`` /
-    ``("asym", rise, flat, fall)`` trap tuple) the trapezoid of ``w`` and its
-    backward search ``time_point_thresh(trap(w), a_std, tp_start, 0)`` are
-    absorbed as a final scalar output. ``need`` flags the min_max outputs
-    anything reads (the kernel skips the minimum when neither ``t_min`` nor
-    ``a_min`` is).
+    written out. With ``curr_spec = (win_m, avg_len, n_curr)`` the A/E
+    current ``avg_current(windower(w, tp_0, win_m), avg_len)`` is absorbed
+    as a sixth output of ``n_curr`` samples, so ``w`` is not read again for
+    the window and the window itself never exists. With ``atrap_spec`` (a
+    ``("norm", rise, flat)`` / ``("asym", rise, flat, fall)`` trap tuple)
+    the trapezoid of ``w`` and its backward search
+    ``time_point_thresh(trap(w), a_std, tp_start, 0)`` are absorbed as a
+    final scalar output. ``need`` flags the min_max outputs anything reads
+    (the kernel skips the minimum when neither ``t_min`` nor ``a_min`` is).
 
     CUDA: kernel K3 (``fused_t0``); CPU: its plain version, which composes
-    the unfused kernel bodies. The JAX package's A/E current absorption
-    (``curr_spec``) arrives with the A/E slice (ROADMAP slice 3).
+    the unfused kernel bodies.
     """
     kern_arr = np.asarray(kernel_arr)
     if kern_arr.ndim != 1 or np.isnan(kern_arr).any():
         raise DSPFatal("fused_t0_front needs a 1-D NaN-free kernel")
+    if curr_spec is not None:
+        curr_spec = tuple(int(x) for x in curr_spec)
+        if len(curr_spec) != 3 or curr_spec[1] <= 0:
+            raise DSPFatal("curr_spec must be (win_m, avg_len, n_curr)")
     if atrap_spec is not None:
         atrap_spec = _trap_tuple(atrap_spec)
     need = tuple(bool(x) for x in need)
@@ -203,11 +271,18 @@ def fused_t0_front(
         # itself, which is exactly the threaded bad-row mask
         if kern_arr.shape[-1] > w_in.shape[-1]:
             raise DSPFatal("The filter is longer than the input waveform")
-        outs = fused_t0(w_in, kern_arr, a_std, atrap_spec=atrap_spec, need=need)
+        outs = fused_t0(
+            w_in, kern_arr, a_std, curr_spec=curr_spec, atrap_spec=atrap_spec,
+            need=need,
+        )
         return tuple(o.to(w_in.dtype) for o in outs)
 
-    nout = 5 + (atrap_spec is not None)
-    sig = "(n),()->(),(),(),(),()" + (",()" if atrap_spec else "")
+    nout = 5 + (curr_spec is not None) + (atrap_spec is not None)
+    sig = (
+        "(n),()->(),(),(),(),()"
+        + (",(p)" if curr_spec else "")
+        + (",()" if atrap_spec else "")
+    )
     return Kernel(
         fn,
         sig,

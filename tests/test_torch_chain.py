@@ -1,9 +1,10 @@
-"""The port's energy and timing configurations end to end, against the JAX
-package.
+"""The port's energy and timing configurations and the whole flagship end to
+end, against the JAX package.
 
 The energy configuration is ``configs/hpge-energy-timing.yaml`` with its
 ``outputs`` cut to the 17 energy and baseline columns; the timing
-configuration keeps every column but the three A/E ones (31). Each runs
+configuration keeps every column but the three A/E ones (31); the flagship
+configuration is the YAML as it stands (34 columns). Each runs
 through the port's ``build_dsp`` on the CPU (Table -> Table and file -> file)
 and through the JAX package's ``build_dsp`` (x64 CPU) on the same synthetic
 HPGe events, one of them with a NaN sample and one with a NaN baseline.
@@ -53,8 +54,9 @@ REL = 1e-5
 AOE = ("A_max", "tp_aoe_max", "tp_aoe_samp")
 CASCADE = ["tp_100", "tp_99", "tp_95", "tp_90", "tp_80", "tp_50", "tp_20",
            "tp_10", "tp_01"]
-# columns that read tp_0_est (directly or through the cascade)
-READS_TP0 = ("trapEftp", "QDrift", "dt_eff", "tp_0_atrap", *CASCADE)
+# columns that read tp_0_est (directly, through the cascade, or through the
+# A/E current's window)
+READS_TP0 = ("trapEftp", "QDrift", "dt_eff", "tp_0_atrap", *CASCADE, *AOE)
 # the four columns the banded f32 convolution decides, and the bound of
 # their summation-order gap to the golden (twice the measured 9.6e-7)
 CONV_COLUMNS = ("cuspEmax", "cuspEftp", "zacEmax", "zacEftp")
@@ -81,6 +83,13 @@ def _timing_config():
         cfg = yaml.safe_load(f)
     cfg["outputs"] = [o for o in cfg["outputs"] if o not in AOE]
     assert len(cfg["outputs"]) == 31
+    return cfg
+
+
+def _flagship_config():
+    with open(CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    assert len(cfg["outputs"]) == 34
     return cfg
 
 
@@ -331,7 +340,7 @@ def _f64_conv_columns(wf, bl):
     return cols
 
 
-@pytest.mark.parametrize("config", ["energy", "timing"])
+@pytest.mark.parametrize("config", ["energy", "timing", "flagship"])
 def test_chain_meets_golden_replay_tolerance(config):
     """Every column the port reproduces at the golden replay's own tolerance
     (rtol 1e-9, atol 1e-12; index columns exact); the four CUSP/ZAC columns
@@ -340,7 +349,8 @@ def test_chain_meets_golden_replay_tolerance(config):
     summation order, not a fault of either."""
     golden = np.load(GOLDEN)
     wf, bl, _ = _events(n=32, nan_rows=False)  # tools/make_goldens.py:35
-    cfg = _energy_config() if config == "energy" else _timing_config()
+    cfg = {"energy": _energy_config, "timing": _timing_config,
+           "flagship": _flagship_config}[config]()
     out = dspeed_tpu_torch.build_dsp(
         _table(dspeed_tpu_torch.lh5, wf, bl), dsp_config=cfg,
         database=DB_FLAT, device="cpu",
@@ -520,3 +530,103 @@ def test_t0_front_claims_orphan_trap_search(monkeypatch):
         f, u = np.asarray(fused[k].nda), np.asarray(unfused[k].nda)
         np.testing.assert_array_equal(f, u, err_msg=k)
         assert np.isnan(f[4]) and np.isfinite(f).sum() >= 4, k
+
+
+# ---------------------------------------------------------------------------
+# the flagship configuration: the whole chain, A/E included
+
+FLAGSHIP_FUSIONS = [
+    "cse[trap_norm]", "cse[amax]", "cse[wf_blsub[:1996]]",
+    "fused_energy_front[2+1m]", "chained_time_point_thresh[9]",
+    "fused_current_front", "fused_t0_front", "fused_conv_bank[2]",
+    "badrow:fused_t0_front", "badrow:chained_time_point_thresh",
+    "badrow:fixed_time_pickoff", "badrow:fixed_time_pickoff",
+    "badrow:fused_conv_bank", "badrow:fixed_time_pickoff",
+    "badrow:fixed_time_pickoff",
+]
+
+
+@pytest.fixture(scope="module")
+def jax_flagship_columns(events):
+    wf, bl, _ = events
+    cfg = _flagship_config()
+    out = dspeed_tpu.build_dsp(
+        _table(dspeed_tpu.lh5, wf, bl), dsp_config=cfg, database=DB_FLAT,
+    )
+    return _columns(out, cfg["outputs"])
+
+
+def test_flagship_chain_table_matches_jax(events, jax_flagship_columns):
+    wf, bl, _ = events
+    cfg = _flagship_config()
+    out = dspeed_tpu_torch.build_dsp(
+        _table(dspeed_tpu_torch.lh5, wf, bl), dsp_config=cfg,
+        database=DB_FLAT, device="cpu",
+    )
+    got = _columns(out, cfg["outputs"])
+    _assert_timing_columns(got, jax_flagship_columns)
+    for k, v in got.items():
+        assert np.isnan(v[3]), k
+    good = [i for i in range(len(v)) if i not in (3, 5)]
+    for k in AOE:
+        assert np.isfinite(got[k][good]).all(), k
+        # the current's maximum lies inside the rise, after tp_0_est
+        if k == "tp_aoe_samp":
+            assert (got[k][good] > got["tp_0_est"][good]).all()
+
+
+def test_flagship_chain_file_matches_jax(events, jax_flagship_columns, tmp_path):
+    wf, bl, _ = events
+    raw = str(tmp_path / "flagship_raw.lh5")
+    dspeed_tpu_torch.lh5.write(_table(dspeed_tpu_torch.lh5, wf, bl), "geds/raw", raw)
+    db = {"geds": DB_FLAT}
+    cfg = _flagship_config()
+    out_t = str(tmp_path / "flagship_dsp_torch.lh5")
+    out_j = str(tmp_path / "flagship_dsp_jax.lh5")
+    # three chunks, the last one short
+    dspeed_tpu_torch.build_dsp(raw, out_t, cfg, database=db, device="cpu",
+                               buffer_len=12)
+    dspeed_tpu.build_dsp(raw, out_j, cfg, database=db)
+    with h5py.File(out_t, "r") as ft, h5py.File(out_j, "r") as fj:
+        got = {k: ft[f"geds/dsp/{k}"][()] for k in cfg["outputs"]}
+        want = {k: fj[f"geds/dsp/{k}"][()] for k in cfg["outputs"]}
+        for k in cfg["outputs"]:
+            assert dict(ft[f"geds/dsp/{k}"].attrs) == dict(fj[f"geds/dsp/{k}"].attrs), k
+    _assert_timing_columns(got, want)
+    _assert_timing_columns(got, jax_flagship_columns)
+
+
+def test_flagship_fusion_pass_matches_jax(monkeypatch, events):
+    jc, tc = _chains(monkeypatch, events, _flagship_config())
+    assert _kinds(tc) == _kinds(jc)
+    assert len(tc._steps) == 76
+    applied = tc.optimize_fusions()
+    assert applied == jc.optimize_fusions() == FLAGSHIP_FUSIONS
+    assert _kinds(tc) == _kinds(jc)
+    assert len(tc._steps) == 40
+    kernels = [k for _, k in _kinds(tc) if k]
+    for gone in ("windower", "avg_current", "upsampler", "moving_window_multi"):
+        assert gone not in kernels
+    # the t0 front writes the current the current front reads
+    assert kernels.index("fused_t0_front") < kernels.index("fused_current_front")
+    front = next(s for s in tc._steps if "fused_t0_front" in str(s))
+    assert [o.key for o in front.out_specs][5].startswith("curr")
+    cur = next(s for s in tc._steps if "fused_current_front" in str(s))
+    jcur = next(s for s in jc._steps if "fused_current_front" in str(s))
+    assert str(cur) == str(jcur)
+    # aoe_t_min and A_min have no readers: the minimum is elided
+    reads = tc._env_read_counts()
+    assert tuple(reads.get(o.key, 0) > 0 for o in cur.out_specs) == (
+        False, True, False, True
+    )
+
+
+def test_flagship_unfused_chain_matches_fused(events):
+    wf, bl, _ = events
+    cfg = _flagship_config()
+    kw = dict(dsp_config=cfg, database=DB_FLAT, device="cpu")
+    tb = _table(dspeed_tpu_torch.lh5, wf, bl)
+    fused = _columns(dspeed_tpu_torch.build_dsp(tb, fuse=True, **kw), cfg["outputs"])
+    unfused = _columns(dspeed_tpu_torch.build_dsp(tb, fuse=False, **kw), cfg["outputs"])
+    for k in cfg["outputs"]:
+        np.testing.assert_array_equal(unfused[k], fused[k], err_msg=k)

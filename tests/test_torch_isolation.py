@@ -81,6 +81,15 @@ def test_timing_chain_runs_without_jax_or_the_jax_package():
     _run_without_jax(["trapEmax", "tp_0_est", "tp_0_atrap", "tp_50", "dt_eff"])
 
 
+def test_flagship_chain_runs_without_jax_or_the_jax_package():
+    _run_without_jax(["trapEmax", "tp_0_est", "A_max", "tp_aoe_max", "tp_aoe_samp"])
+
+
+def test_sources_cover_the_a_e_modules():
+    for mod in ("windower", "moving_windows", "upsampler", "_poly_plan"):
+        assert os.path.join("dspeed_tpu_torch", "processors", f"{mod}.py") in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES)
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     with open(os.path.join(REPO, path)) as f:

@@ -5,7 +5,10 @@ against the JAX package's Pallas kernels run in interpret mode (as
 - K1 ``fused_energy`` (``dspeed_tpu_torch/csrc/fused_energy.cu``);
 - K2 ``cascade_tp`` (``dspeed_tpu_torch/csrc/cascade_tp.cu``);
 - K3 ``fused_t0`` (``dspeed_tpu_torch/csrc/fused_t0.cu``);
-- K4 ``banded_conv_multi`` (``dspeed_tpu_torch/csrc/banded_conv.cu``).
+- K4 ``banded_conv_multi`` (``dspeed_tpu_torch/csrc/banded_conv.cu``);
+- K5 and K6, the A/E current front's polyphase and up-domain routes
+  (``dspeed_tpu_torch/csrc/fused_current.cu``), with the polyphase plan
+  (``dspeed_tpu_torch/processors/_poly_plan.py``) against the JAX package's.
 
 Float outputs agree within 1e-5 of their column's scale (max |jax|), index
 outputs exactly, NaN positions identically. Crossing-mask bits agree exactly
@@ -13,7 +16,11 @@ wherever the trapezoid sits more than 1e-5 of its scale from the threshold.
 The cascade (K2) is bit-identical. K3's index outputs may differ on at most
 one near-tie per column, where the two float32 convolutions (or trapezoids)
 round differently, as the JAX package's own K3 test allows
-(``test_pallas.py:735``).
+(``test_pallas.py:735``). K3's absorbed A/E current equals the Pallas
+kernel's bit for bit on every row where ``tp_0`` agrees. The current front's
+amplitudes agree within 2e-5 of scale (``test_pallas.py:332-339``) and its
+indices exactly, except on a near-tie: a row where the plain curve's value
+at the other index lies within that tolerance of its extremum.
 
 The tests marked ``gpu`` hold each CUDA kernel against its plain version on
 the card; without one they skip. The JAX package is imported inside the CPU
@@ -305,12 +312,22 @@ T0_CASES = {
     "walk_odd_length": dict(atrap_spec=None, need=(True,) * 4),
     # the flagship's 133-tap t0 kernel (rise 8, fall 125) on HPGe pulses
     "flagship": dict(atrap_spec=("asym", 8, 4, 125), need=(True,) * 4),
+    # the absorbed A/E current: test_pallas.py:587's window (many rows run
+    # past the end), one with a longer difference, and the flagship's
+    "walk_curr": dict(atrap_spec=None, need=(True,) * 4, curr_spec=(101, 1, 100)),
+    "walk_curr_len3": dict(
+        atrap_spec=("asym", 8, 4, 32), need=(False, True, False, True),
+        curr_spec=(101, 3, 120),
+    ),
+    "flagship_curr": dict(
+        atrap_spec=None, need=(False, True, False, True), curr_spec=(301, 1, 300)
+    ),
 }
 
 
 def _t0_inputs(case, n_ev=12, seed=3):
     rng = np.random.default_rng(seed)
-    if case == "flagship":
+    if case.startswith("flagship"):
         import dspeed_tpu_torch.processors as tp
 
         wf, bl = _hpge(n_ev=n_ev, n=1024, seed=seed)
@@ -328,6 +345,25 @@ def _t0_inputs(case, n_ev=12, seed=3):
         std = rng.uniform(0.5, 2.0, n_ev).astype("float32")
     std[6] = np.nan  # a NaN threshold: the searches find nothing
     return w, kern, std
+
+
+def _split_curr(outs, kw):
+    """K3's outputs without the current plane, and the plane (or None)."""
+    outs = list(outs)
+    if kw.get("curr_spec") is None:
+        return outs, None
+    return outs[:5] + outs[6:], outs[5]
+
+
+def _check_curr(got, want, tp0_got, tp0_want, what):
+    """The current plane: bit for bit, NaN included, on every row where
+    tp_0 agrees; returns the number of rows with a finite current."""
+    g, w = np.asarray(got), np.asarray(want)
+    assert g.shape == w.shape and g.dtype == w.dtype, what
+    rows = (tp0_got == tp0_want) | (np.isnan(tp0_got) & np.isnan(tp0_want))
+    same = (g == w) | (np.isnan(g) & np.isnan(w))
+    assert same[rows].all(), (what, np.argwhere(~same[rows])[:5])
+    return int(np.isfinite(w[rows]).any(axis=1).sum())
 
 
 def _check_t0(got, want, need, what):
@@ -354,17 +390,265 @@ def test_fused_t0_plain_matches_pallas_interpret(case):
     w, kern, std = _t0_inputs(case)
     want = _pallas.fused_t0(w, kern, std, interpret=True, **kw)
     got = _cuda.fused_t0(torch.from_numpy(w), kern, torch.from_numpy(std), **kw)
-    assert len(got) == 5 + (kw["atrap_spec"] is not None)
-    _check_t0([o.numpy() for o in got], [np.asarray(o) for o in want],
-              kw["need"], case)
-    tp0 = got[4].numpy()
+    n_curr = kw.get("curr_spec") is not None
+    assert len(got) == 5 + n_curr + (kw["atrap_spec"] is not None)
+    got, g_curr = _split_curr([o.numpy() for o in got], kw)
+    want, w_curr = _split_curr([np.asarray(o) for o in want], kw)
+    _check_t0(got, want, kw["need"], case)
+    tp0 = got[4]
     assert np.isnan(tp0[6]) and np.isfinite(np.delete(tp0, [6, 9])).sum() >= 6
+    if n_curr:
+        import dspeed_tpu.processors as jp
+
+        win_m, avg_len, n_c = kw["curr_spec"]
+        # the JAX package's unfused steps, driven by the Pallas kernel's tp_0
+        (wle,) = jp.windower(w, want[4], dims={"m": win_m})
+        (steps,) = jp.avg_current(np.asarray(wle), float(avg_len), dims={"m": n_c})
+        finite = _check_curr(g_curr, np.asarray(steps), tp0, want[4], case)
+        assert finite >= 2, "the case must hold rows whose window fits"
+        assert np.isnan(g_curr[np.isnan(tp0)]).all()
+        if avg_len == 1:
+            _check_curr(g_curr, w_curr, tp0, want[4], case)
+        else:
+            # the Pallas kernel multiplies by the rounded reciprocal of
+            # avg_len: one rounding from its own unfused steps (ROADMAP §3)
+            ok = np.isfinite(w_curr)
+            np.testing.assert_array_equal(np.isnan(g_curr), np.isnan(w_curr))
+            np.testing.assert_allclose(g_curr[ok], w_curr[ok], rtol=2.4e-7, atol=0)
 
 
 def test_cascade_links_are_checked():
     w = torch.zeros(2, 64)
     with pytest.raises(Exception, match="earlier time point"):
         _cuda.cascade_tp(w, torch.ones(2), torch.zeros(2), [1, 1], [1, 0], [-1, 1])
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: the A/E current front
+
+# test_pallas.py:290-297, the geometries the polyphase plan accepts
+POLY_GEOMETRIES = {
+    "flagship_4788": (301, 16, 4788, 48, 3, 0),
+    "flagship": (301, 16, 4784, 48, 3, 0),
+    "lr_ratio8": (200, 8, 1590, 24, 2, 0),
+    "all_left": (300, 16, 4700, 32, 3, 1),
+    "all_right": (300, 16, 4700, 32, 3, 2),
+    "one_stage": (128, 4, 500, 12, 1, 0),
+}
+# test_pallas.py:342-350, geometries it rejects (n_curr, ratio, half, n_up,
+# L, num, mtype)
+POLY_REJECTED = {
+    "n_up_below_window": (100, 4, 2, 200, 24, 3, 0),
+    "map_not_all_valid": (30, 16, 8, 600, 48, 3, 0),
+    "L_128": (301, 16, 8, 4788, 128, 3, 0),
+}
+# the chain's geometry (curr has 300 samples) and two more of the list
+CURRENT_CASES = {
+    "flagship": (300, 16, 4784, 48, 3, 0),
+    "lr_ratio8": (200, 8, 1590, 24, 2, 0),
+    "all_right": (300, 16, 4700, 32, 3, 2),
+}
+CUR_REL = 2e-5  # test_pallas.py:333
+
+
+@pytest.mark.parametrize("case", sorted(POLY_GEOMETRIES))
+def test_poly_plan_matches_jax(case):
+    from dspeed_tpu.processors import _pallas
+
+    from dspeed_tpu_torch.processors._poly_plan import T, W, poly_plan
+
+    n_curr, ratio, n_up, L, num, mtype = POLY_GEOMETRIES[case]
+    half = ratio // 2
+    want = _pallas._poly_plan(n_curr, ratio, half, n_up, L, num, mtype)
+    got = poly_plan(n_curr, ratio, half, n_up, L, num, mtype)
+    assert want is not None and got is not None
+    assert (W, T) == (_pallas._POLY_W, _pallas._POLY_T)
+    for k in ("EL", "ERW", "nq", "q_min", "t0_base", "nblk", "T_last"):
+        assert got[k] == want[k], k
+    # the TPU's band matrices are the per-phase filters laid out per block
+    Hm, nq = got["Hm"], got["nq"]
+    for key, tb in (("A", T), ("A_last", got["T_last"])):
+        A = np.zeros((tb + nq - 1, ratio * tb))
+        for tl in range(tb):
+            A[tl : tl + nq, ratio * tl : ratio * (tl + 1)] = Hm.T
+        np.testing.assert_array_equal(A.astype(np.float32), want[key])
+    # and the edge windows' one-hot matrices are the replication map
+    for key, j0 in (("RL", 0), ("RR", n_up - W)):
+        src = (j0 + np.arange(W) + half) // ratio
+        np.testing.assert_array_equal(want[key].argmax(0), src)
+        assert (want[key].sum(0) == 1).all()
+
+
+@pytest.mark.parametrize("case", sorted(POLY_REJECTED))
+def test_poly_plan_rejects_what_jax_rejects(case):
+    from dspeed_tpu.processors import _pallas
+
+    from dspeed_tpu_torch.processors._poly_plan import poly_plan
+
+    g = POLY_REJECTED[case]
+    assert _pallas._poly_plan(*g) is None
+    assert poly_plan(*g) is None
+
+
+def _current_inputs(n_curr, b=64, seed=42):
+    """test_pallas.py:311-313: random currents with a common spike."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0, 30, (b, n_curr)).astype("float32")
+    c[:, n_curr // 3] += 500.0
+    return c
+
+
+def _updomain_curve(c, ratio, n_up, L, num, mtype):
+    """The plain version's upsampled, averaged rows (float64)."""
+    from dspeed_tpu_torch.processors import moving_window_multi, upsampler
+
+    (up,) = upsampler(torch.as_tensor(c), float(ratio), dims={"m": n_up})
+    (av,) = moving_window_multi(up, float(L), float(num), np.int32(mtype))
+    return av.double().cpu().numpy()
+
+
+def _check_current(got, want, curve, rel, what):
+    """The current front's rule: a_min/a_max within ``rel`` of scale;
+    t_min/t_max equal, except on a near-tie, where ``curve`` (the plain
+    version's rows) at the other index lies within that tolerance of the
+    extremum. NaN rows must agree. Returns the excused rows per index."""
+    got = [np.asarray(o, np.float64) for o in got]
+    want = [np.asarray(o, np.float64) for o in want]
+    for q in range(4):
+        np.testing.assert_array_equal(np.isnan(got[q]), np.isnan(want[q]), what)
+    ok = ~np.isnan(want[3])
+    scale = max(np.abs(want[2][ok]).max(), np.abs(want[3][ok]).max(), 1.0)
+    tol = rel * scale
+    for q in (2, 3):
+        err = np.abs(got[q][ok] - want[q][ok]).max()
+        assert err <= tol, f"{what} output {q}: {err:.3e} > {tol:.3e}"
+    excused = {}
+    for q, ext in ((0, np.min), (1, np.max)):
+        rows = np.flatnonzero(ok & (got[q] != want[q]))
+        for r in rows:
+            v = curve[r, [int(got[q][r]), int(want[q][r])]]
+            assert np.abs(v - ext(curve[r])).max() <= tol, (what, q, r, v)
+        excused[("t_min", "t_max")[q]] = rows.tolist()
+    print(f"{what}: rows excused as near-ties {excused}")
+    return excused
+
+
+@pytest.mark.parametrize("case", sorted(CURRENT_CASES))
+def test_fused_current_poly_plain_matches_pallas_interpret(case):
+    import jax.numpy as jnp
+    from dspeed_tpu.processors import _pallas
+
+    n_curr, ratio, n_up, L, num, mtype = CURRENT_CASES[case]
+    half = ratio // 2
+    c = _current_inputs(n_curr)
+    b = c.shape[0]
+    cp = jnp.pad(jnp.asarray(c), ((0, (-b) % _pallas._POLY_TILE_B), (0, 0)))
+    want = [
+        np.asarray(o[:b, 0])
+        for o in _pallas._fused_current_poly_call(
+            cp, n_curr, ratio, half, n_up, L, num, mtype, interpret=True
+        )
+    ]
+    got = _cuda.fused_current_poly_plain(
+        torch.from_numpy(c), ratio, half, n_up, L, num, mtype
+    )
+    curve = _updomain_curve(c, ratio, n_up, L, num, mtype)
+    _check_current([o.numpy() for o in got], want, curve, CUR_REL, case)
+
+
+@pytest.mark.parametrize("case", sorted(CURRENT_CASES))
+def test_fused_current_plain_matches_pallas_interpret(case):
+    import jax.numpy as jnp
+    from dspeed_tpu.processors import _pallas
+
+    n_curr, ratio, n_up, L, num, mtype = CURRENT_CASES[case]
+    half = ratio // 2
+    c = _current_inputs(n_curr)
+    rep = jnp.repeat(jnp.asarray(c), ratio, axis=-1)
+    if half + n_up > rep.shape[-1]:
+        rep = jnp.pad(rep, ((0, 0), (0, half + n_up - rep.shape[-1])))
+    want = [
+        np.asarray(o[:, 0])
+        for o in _pallas._fused_current_call(
+            rep, half, n_up, L, num, mtype, interpret=True
+        )
+    ]
+    got = _cuda.fused_current(torch.from_numpy(c), ratio, half, n_up, L, num, mtype)
+    curve = _updomain_curve(c, ratio, n_up, L, num, mtype)
+    _check_current([o.numpy() for o in got], want, curve, CUR_REL, case)
+
+
+@pytest.mark.parametrize(
+    "need",
+    [(False, True, False, True), (True, False, False, False),
+     (False, False, True, True)],
+    ids=["max_side", "t_min_only", "amplitudes"],
+)
+def test_fused_current_need_leaves_needed_outputs_unchanged(need):
+    n_curr, ratio, n_up, L, num, mtype = CURRENT_CASES["flagship"]
+    c = torch.from_numpy(np.abs(_current_inputs(n_curr, b=16)))
+    for fn in (_cuda.fused_current_poly_plain, _cuda.fused_current):
+        full = fn(c, ratio, ratio // 2, n_up, L, num, mtype)
+        part = fn(c, ratio, ratio // 2, n_up, L, num, mtype, need=need)
+        for q in range(4):
+            if need[q]:
+                np.testing.assert_array_equal(part[q].numpy(), full[q].numpy())
+    # the polyphase route reduces neither side nothing needs: zeros there
+    part = _cuda.fused_current_poly_plain(c, ratio, ratio // 2, n_up, L, num,
+                                          mtype, need=need)
+    if not (need[0] or need[2]):
+        assert (part[0] == 0).all() and (part[2] == 0).all()
+    if not need[1]:
+        assert (part[1] == 0).all()
+
+
+@pytest.mark.parametrize("mtype,num", [(0, 3), (1, 2), (2, 2), (0, 0)])
+def test_fused_current_plain_equals_unfused_steps(mtype, num):
+    """test_pallas.py:257-274: the front's plain composition against the
+    JAX package's unfused upsampler -> moving_window_multi -> min_max, bit
+    for bit, through the port's factory."""
+    import dspeed_tpu.processors as jp
+    import dspeed_tpu_torch.processors as tp
+
+    rng = np.random.default_rng(5)
+    c = rng.normal(0, 5, (6, 100)).astype("float32")
+    n_up = 790
+    got = tp.fused_current_front(n_up, 8, 32, num, mtype)(torch.from_numpy(c))
+    (up,) = jp.upsampler(c, 8.0, dims={"m": n_up})
+    (av,) = jp.moving_window_multi(np.asarray(up), 32.0, float(num), np.int32(mtype))
+    want = jp.min_max(np.asarray(av))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_fused_current_nan_poisoning():
+    """test_pallas.py:277-285: a NaN in a row of the current poisons its
+    four outputs, in the factory and in the polyphase plain version."""
+    import dspeed_tpu_torch.processors as tp
+
+    rng = np.random.default_rng(6)
+    c = rng.normal(0, 5, (4, 100)).astype("float32")
+    c[2, 50] = np.nan
+    for o in tp.fused_current_front(790, 8, 32, 3, 0)(torch.from_numpy(c)):
+        o = o.numpy()
+        assert np.isnan(o[2]).all() and np.isfinite(o[[0, 1, 3]]).all()
+    c = _current_inputs(300, b=4)
+    c[1, 7] = np.nan
+    for o in _cuda.fused_current_poly_plain(torch.from_numpy(c), 16, 8, 4784, 48, 3, 0):
+        o = o.numpy()
+        assert np.isnan(o[1]) and np.isfinite(o[[0, 2, 3]]).all()
+
+
+def test_fused_current_checks_its_geometry():
+    c = torch.zeros(2, 300)
+    with pytest.raises(ValueError, match="replication map"):
+        _cuda.fused_current(c, 16, 8, 4800, 48, 3, 0)  # half + n_up > 4800
+    with pytest.raises(ValueError, match="replication map"):
+        _cuda.fused_current(c, 16, 3, 4784, 48, 3, 0)  # half != ratio // 2
+    with pytest.raises(ValueError, match="out of range"):
+        _cuda.fused_current(c, 16, 8, 4784, 129, 3, 0)
+    with pytest.raises(ValueError, match="no polyphase plan"):
+        _cuda.fused_current_poly_plain(torch.zeros(2, 301), 16, 8, 4788, 128, 3, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -440,8 +724,10 @@ def test_fused_t0_kernel_matches_plain_on_the_card(case, cuda_device):
     assert _cuda.LAUNCHES["fused_t0"] == before + 1
     want = _cuda.fused_t0_plain(wt, kern, st, **kw)
     torch.cuda.synchronize()
-    got = [o.cpu().numpy() for o in got]
-    want = [o.cpu().numpy() for o in want]
+    got, g_curr = _split_curr([o.cpu().numpy() for o in got], kw)
+    want, w_curr = _split_curr([o.cpu().numpy() for o in want], kw)
+    if g_curr is not None:
+        assert _check_curr(g_curr, w_curr, got[4], want[4], case) >= 2
     # on the card the plain version's convolution is K4's 's' window, whose
     # summation order K3 shares: the filtered rows, hence t_min, t_max and
     # tp_0, agree bit for bit
@@ -450,6 +736,60 @@ def test_fused_t0_kernel_matches_plain_on_the_card(case, cuda_device):
             same = (got[q] == want[q]) | (np.isnan(got[q]) & np.isnan(want[q]))
             assert same.all(), (case, q, np.where(~same)[0][:5])
     _check_t0(got, want, kw["need"], case)
+
+
+def _card_currents(cuda_device, n_curr, b=512):
+    c = _current_inputs(n_curr, b=b)
+    c[3, 11] = np.nan
+    return torch.from_numpy(c).to(cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CURRENT_CASES))
+@pytest.mark.parametrize(
+    "need", [(True,) * 4, (False, True, False, True)], ids=["all", "max_side"]
+)
+def test_fused_current_poly_kernel_matches_plain_on_the_card(case, need, cuda_device):
+    n_curr, ratio, n_up, L, num, mtype = CURRENT_CASES[case]
+    c = _card_currents(cuda_device, n_curr)
+    args = (c, ratio, ratio // 2, n_up, L, num, mtype)
+    before = _cuda.LAUNCHES["fused_current_poly"]
+    got = _cuda.fused_current(*args, need=need)
+    assert _cuda.LAUNCHES["fused_current_poly"] == before + 1
+    poly = _cuda.fused_current_poly_plain(*args, need=need)
+    plain = _cuda.fused_current_plain(*args)
+    torch.cuda.synchronize()
+    got = [o.cpu().numpy() for o in got]
+    curve = _updomain_curve(c, ratio, n_up, L, num, mtype)
+    keep = [q for q in range(4) if need[q]]
+    for ref, rel, what in ((poly, 1e-5, "poly"), (plain, 2e-5, "plain")):
+        ref = [o.cpu().numpy() for o in ref]
+        g = [got[q] if q in keep else ref[q] for q in range(4)]
+        _check_current(g, ref, curve, rel, f"{case} {what}")
+    assert np.isnan(got[3][3]) and np.isfinite(np.delete(got[3], 3)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flagship", "L_128"])
+def test_fused_current_updomain_kernel_matches_plain_on_the_card(case, cuda_device):
+    n_curr, ratio, n_up, L, num, mtype = (
+        CURRENT_CASES["flagship"] if case == "flagship"
+        else (301, 16, 4788, 128, 3, 0)
+    )
+    c = _card_currents(cuda_device, n_curr)
+    args = (c, ratio, ratio // 2, n_up, L, num, mtype)
+    before = dict(_cuda.LAUNCHES)
+    if case == "flagship":
+        got = _cuda.fused_current_updomain(*args)
+    else:  # no polyphase plan: the front itself takes K6
+        got = _cuda.fused_current(*args)
+        assert _cuda.LAUNCHES["fused_current_poly"] == before["fused_current_poly"]
+    assert _cuda.LAUNCHES["fused_current"] == before["fused_current"] + 1
+    want = _cuda.fused_current_plain(*args)
+    torch.cuda.synchronize()
+    curve = _updomain_curve(c, ratio, n_up, L, num, mtype)
+    _check_current([o.cpu().numpy() for o in got], [o.cpu().numpy() for o in want],
+                   curve, 1e-6, case)
 
 
 def test_cuda_wrappers_never_fall_back_on_a_cuda_tensor(monkeypatch):
@@ -472,6 +812,7 @@ def test_cuda_wrappers_never_fall_back_on_a_cuda_tensor(monkeypatch):
     monkeypatch.setattr(_cuda, "banded_conv_plain", None)
     monkeypatch.setattr(_cuda, "fused_t0_plain", None)
     monkeypatch.setattr(_cuda, "cascade_tp_plain", None)
+    monkeypatch.setattr(_cuda, "fused_current_plain", None)
     with pytest.raises(RuntimeError, match="no fused_energy library"):
         _cuda.fused_energy(FakeCuda(), np.zeros(4, "float32"), TAU, (("norm", 8, 2),))
     before = dict(_cuda.LAUNCHES)
@@ -482,5 +823,9 @@ def test_cuda_wrappers_never_fall_back_on_a_cuda_tensor(monkeypatch):
     with pytest.raises(RuntimeError, match="no cascade_tp library"):
         _cuda.cascade_tp(FakeCuda(), np.ones(4, "float32"), np.zeros(4, "float32"),
                          [1, 0.5, 0.2], [1, 0, 0], [-1, 0, 1])
+    FakeCuda.shape = (4, 300)
+    for fn in (_cuda.fused_current, _cuda.fused_current_updomain):
+        with pytest.raises(RuntimeError, match="no fused_current library"):
+            fn(FakeCuda(), 16, 8, 4784, 48, 3, 0)
     assert _cuda.LAUNCHES == before
 

@@ -263,3 +263,82 @@ def test_tp_from_cross_mask_bit_identical(walk):
     tf, tb = (x.numpy() for x in _crossing_masks(_t(w), _t(a)))
     np.testing.assert_array_equal(tf, fwd)
     np.testing.assert_array_equal(tb, bwd)
+
+
+# ---------------------------------------------------------------------------
+# the A/E slice: window, current, upsampling and moving windows, bit for bit
+
+
+def _same_bits(got, want):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), np.argwhere(~same)[:5]
+
+
+def _walks(n_ev=12, n=256, seed=9):
+    rng = np.random.default_rng(seed)
+    w = np.cumsum(rng.normal(0.1, 1.0, (n_ev, n)), axis=1).astype("float32")
+    w[4, 77] = np.nan
+    return w
+
+
+@pytest.mark.parametrize("start", ["per_event", "scalar"])
+def test_windower_bit_identical(start):
+    w = _walks()
+    m = 101
+    t0 = np.linspace(-20.0, 240.0, 12).astype("float32")
+    # inside the row, negative, non-integral, NaN, past the end, at the end
+    t0[0], t0[1], t0[2], t0[3], t0[5], t0[6] = 10.0, -3.0, 17.75, np.nan, 255.0, 300.0
+    t_in = t0 if start == "per_event" else 33.5
+    (want,) = jp.windower(w, t_in, dims={"m": m})
+    (got,) = tp.windower(_t(w), _t(t0) if start == "per_event" else 33.5,
+                         dims={"m": m})
+    _same_bits(got, want)
+    assert np.isnan(np.asarray(want)[4]).all()  # the NaN sample's row
+    assert np.isfinite(np.asarray(want)[0]).all()
+
+
+@pytest.mark.parametrize("length, m", [(1, 300), (1, 100), (5, 251), (5, 60)])
+def test_avg_current_bit_identical(length, m):
+    # m > n - length pads with NaN, m < n - length cuts
+    w = _walks()[:, :256]
+    (want,) = jp.avg_current(w, float(length), dims={"m": m})
+    (got,) = tp.avg_current(_t(w), float(length), dims={"m": m})
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize(
+    "up, m",
+    [
+        (16.0, 4784),  # the flagship's ratio: every slot written
+        (16.0, 4096),  # fewer slots than the rows give
+        (8.0, 2100),   # half + m > n * ratio: a NaN tail
+        (2.5, 620),    # a non-integer ratio: the gather map
+    ],
+)
+def test_upsampler_bit_identical(up, m):
+    w = _walks(n=256)
+    (want,) = jp.upsampler(w, up, dims={"m": m})
+    (got,) = tp.upsampler(_t(w), up, dims={"m": m})
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("length", [1, 7, 48])
+def test_moving_window_bit_identical(side, length):
+    w = _walks(n=300)
+    name = f"moving_window_{side}"
+    (want,) = getattr(jp, name)(w, float(length))
+    (got,) = getattr(tp, name)(_t(w), float(length))
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("mtype", [0, 1, 2])
+@pytest.mark.parametrize("num", [0, 1, 2, 3])
+def test_moving_window_multi_bit_identical(mtype, num):
+    w = _walks(n=600)
+    (want,) = jp.moving_window_multi(w, 48.0, float(num), np.int32(mtype))
+    (got,) = tp.moving_window_multi(_t(w), 48.0, float(num), np.int32(mtype))
+    _same_bits(got, want)

@@ -2,14 +2,15 @@
 """Where one ``build_dsp`` chunk of the PyTorch port spends its time on the
 card.
 
-    python3 tools/profile_torch_chain.py [--config timing|energy]
+    python3 tools/profile_torch_chain.py [--config flagship|timing|energy]
                                          [--events 16384] [--repeats 3]
 
-Runs one of the configurations ``chip_smoke.py`` drives — the timing
-configuration (``configs/hpge-energy-timing.yaml`` without its three A/E
-columns, 31 outputs; the default) or the energy configuration (its 17
-energy and baseline outputs) — through ``dspeed_tpu_torch.build_dsp`` Table
--> Table on 16384 synthetic 4096-sample events, and prints:
+Runs one of the configurations ``chip_smoke.py`` drives — the flagship
+configuration (``configs/hpge-energy-timing.yaml``, all 34 outputs; the
+default), the timing configuration (without its three A/E columns, 31
+outputs) or the energy configuration (its 17 energy and baseline outputs) —
+through ``dspeed_tpu_torch.build_dsp`` Table -> Table on 16384 synthetic
+4096-sample events, and prints:
 
 1. the host-clock split of one warm chunk: chain build, input gather, the
    host -> device copy, the step loop (and each step), the device -> host
@@ -78,7 +79,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("timing", "energy"), default="timing")
+    ap.add_argument("--config", choices=("flagship", "timing", "energy"),
+                    default="flagship")
     ap.add_argument("--events", type=int, default=16384)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", help="write the Chrome trace to this path")
@@ -87,7 +89,9 @@ def main() -> int:
         print("profile_torch_chain: no CUDA device", file=sys.stderr)
         return 2
 
-    from chip_smoke import TAU, card_line, config, energy_config, make_hpge_waveforms
+    from chip_smoke import (
+        TAU, card_line, config, energy_config, make_hpge_waveforms, timing_config,
+    )
     from dspeed_tpu_torch import build_dsp, lh5
     from dspeed_tpu_torch import processing_chain as pc
     from dspeed_tpu_torch.processors import _cuda
@@ -99,14 +103,15 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     _cuda.build_all()
-    wf, _amp, _t0, bl = make_hpge_waveforms(args.events)
+    wf, _amp, _t0, bl, _rt = make_hpge_waveforms(args.events)
     tb = lh5.Table({
         "waveform": lh5.WaveformTable(
             values=wf, t0=0.0, t0_units="ns", dt=16.0, dt_units="ns"
         ),
         "baseline": lh5.Array(bl.astype(np.float32)),
     })
-    cfg = config() if args.config == "timing" else energy_config()
+    cfg = {"flagship": config, "timing": timing_config,
+           "energy": energy_config}[args.config]()
     kw = dict(dsp_config=cfg, database={"pz": {"tau": TAU}},
               buffer_len=args.events, device="cuda")
 
