@@ -6,15 +6,18 @@
 Builds the port's hand-written CUDA kernels from ``dspeed_tpu_torch/csrc``
 (K1 energy front, K2 rise-time cascade, K3 t0 front with its absorbed A/E
 current, K4 convolution bank, K5 and K6 the A/E current front's polyphase
-and up-domain routes), holds each against its plain PyTorch version on the
-card at the main path's shapes (16384 events x 4096 samples, and the
-16384 x 300 current, NaN rows included), times kernel, plain version and a
-library yardstick with CUDA events, then drives the main paths:
-``build_dsp`` over 16384 synthetic HPGe events with the **flagship
-configuration** (``configs/hpge-energy-timing.yaml``, all 34 outputs), the
-**timing configuration** (without its three A/E columns, 31 outputs) and the
-**energy configuration** (its 17 energy and baseline columns), file -> file
-where ``h5py`` is installed, else Table -> Table. It checks the physics
+and up-domain routes, K7 the generic fusion groups' row-tape interpreter),
+holds each against its plain PyTorch version on the card at the main
+path's shapes (16384 events x 4096 samples, the 16384 x 300 current, and
+the generic flagship's two groups, NaN rows included), times kernel, plain
+version and a library yardstick with CUDA events, then drives the main
+paths: ``build_dsp`` over 16384 synthetic HPGe events with the **flagship
+configuration** (``configs/hpge-energy-timing.yaml``, all 34 outputs) fused
+by the hand patterns and in the **generic mode** (``fuse="generic"``: two K7
+launches and the CUSP/ZAC K4 route), the **timing configuration** (without
+its three A/E columns, 31 outputs) and the **energy configuration** (its 17
+energy and baseline columns), file -> file where ``h5py`` is installed,
+else Table -> Table. It checks the physics
 (``trapEmax`` against the injected amplitudes, ``tp_0_est`` against the
 injected start, the order of the cascade, ``A_max`` against amplitude over
 rise time and ``tp_aoe_samp`` inside the rise), the first 256 events
@@ -705,6 +708,237 @@ def k2_phase(_cuda, w, base, t_start):
     )
 
 
+def check_generic(program, vals, got, want, label) -> tuple[float, float, int, int]:
+    """K7's outputs ``got`` against the plain walk's ``want`` (every key
+    ``program`` writes; its inputs ``vals``), op by op in tape order. Float
+    outputs: NaN positions equal, within REL_TOL of their scale. Index outputs (a search's time
+    point, min_max's t_min and t_max): exact, except on a near-tie of the
+    plain version's plane (``near_crossing``'s rule for a search, two
+    samples within REL_TOL of the scale for an extremum). A row excused in
+    one output is excused in every output computed from it. The
+    convolution's plane must equal the plain version's bit for bit on every
+    row whose input plane does. Returns (max abs float error, max error
+    over scale, rows excused, rows of the convolution checked bit for bit)."""
+    import torch
+
+    from dspeed_tpu_torch.processors._tile_program import OPCODES
+
+    slots = program.slots
+    B = next(iter(got.values())).shape[0]
+    dev = next(iter(got.values())).device
+    moved: dict = {}  # root slot -> rows excused (bool, (B,))
+    worst_abs = worst_rel = 0.0
+    conv_rows = 0
+
+    def plain(key):
+        return want[key] if key in want else vals[key]
+
+    def kernel(key):
+        return got[key] if key in got else vals[key]
+
+    def same_rows(g, w):
+        s = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        return s.all(1) if s.ndim == 2 else s
+
+    for op in program.ops:
+        if op.code == OPCODES["load"]:
+            continue
+        mv = torch.zeros(B, dtype=torch.bool, device=dev)
+        for e in op.ins:
+            if not isinstance(e, tuple) and slots[e].root in moved:
+                mv |= moved[slots[e].root]
+        for q, sid in enumerate(op.outs):
+            key = slots[sid].key
+            g, w = got[key].double(), want[key].double()
+            if g.shape != w.shape:
+                raise AssertionError(f"K7 {label} {key}: shape {tuple(g.shape)} "
+                                     f"against {tuple(w.shape)}")
+            index = op.code == OPCODES["time_point_thresh"] or (
+                op.code == OPCODES["min_max"] and q < 2)
+            if index:
+                src = plain(slots[op.ins[0]].key)
+                moved_rows = mv.cpu().numpy()
+
+                def plane(r):
+                    return src[r].double().cpu().numpy()
+
+                if op.code == OPCODES["time_point_thresh"]:
+                    a = op.ins[1]
+
+                    def near(r, gi, wi, a=a):
+                        thr = a[1] if isinstance(a, tuple) else float(
+                            plain(slots[a].key)[r])
+                        return moved_rows[r] or near_crossing(
+                            plane(r), np.float32(thr), (gi, wi))
+                else:
+                    def near(r, gi, wi):
+                        x = plane(r)
+                        return moved_rows[r] or (
+                            np.isfinite(gi) and np.isfinite(wi)
+                            and abs(x[int(gi)] - x[int(wi)])
+                            <= REL_TOL * np.abs(x[np.isfinite(x)]).max())
+
+                index_mismatches(f"K7 {label} {key}", g, w, near)
+                moved[sid] = mv | ~same_rows(g, w)
+                continue
+            keep = ~mv if g.ndim == 1 else (~mv)[:, None].expand_as(g)
+            gn, wn = torch.isnan(g), torch.isnan(w)
+            if bool(((gn != wn) & keep).any()):
+                raise AssertionError(f"K7 {label} {key}: NaN positions differ")
+            ok = ~wn & keep
+            if bool(ok.any()):
+                err = float((g[ok] - w[ok]).abs().max())
+                scale = float(w[ok].abs().max())
+                if err > REL_TOL * scale:
+                    raise AssertionError(
+                        f"K7 {label} {key}: max |kernel - plain| {err:.3e} > "
+                        f"{REL_TOL * scale:.3e}"
+                    )
+                worst_abs = max(worst_abs, err)
+                worst_rel = max(worst_rel, err / max(scale, 1e-30))
+            moved[sid] = mv
+        if op.code == OPCODES["conv"]:
+            src = slots[op.ins[0]].key
+            dst = slots[op.outs[0]].key
+            rows = same_rows(kernel(src), plain(src)) & ~mv
+            if not bool(same_rows(got[dst], want[dst])[rows].all()):
+                raise AssertionError(
+                    f"K7 {label} {dst}: the convolution differs from the plain "
+                    f"version on a row whose input it shares"
+                )
+            conv_rows += int(rows.sum())
+    excused = int(torch.stack(list(moved.values())).any(0).sum()) if moved else 0
+    return worst_abs, worst_rel, excused, conv_rows
+
+
+def generic_bound(program, B) -> tuple[float, str]:
+    """The least time for one K7 launch of ``program`` on B rows: every
+    external plane it loads and scalar it reads, once; every stored output
+    written once; the operations its ops need per row (a convolution's
+    multiply-adds in float32; float64 prefix sums, window sums, pole-zero
+    products, slope-fit sums and moving-window stages; a comparison per
+    sample for each reduction)."""
+    from dspeed_tpu_torch.processors._tile_program import OPCODES
+
+    slots = program.slots
+    nbytes = 0
+    for key in program.ext_keys:
+        s = slots[program.by_key[key]]
+        loaded = any(op.code == OPCODES["load"] and op.ins[0] == program.by_key[key]
+                     for op in program.ops)
+        if s.kind == "plane":
+            nbytes += 4 * s.length if loaded else 0
+        else:
+            nbytes += s.dtype.itemsize
+    for sid in program.esc_roots:
+        s = slots[sid]
+        nbytes += 4 * s.length if s.kind == "plane" else s.dtype.itemsize
+    f32 = f64 = 0
+    for op in program.ops:
+        n = slots[op.ins[0]].length if op.ins and not isinstance(op.ins[0], tuple) else 0
+        if op.code == OPCODES["conv"]:
+            f32 += 2 * op.ip[1] * slots[op.outs[0]].length
+        elif op.code == OPCODES["trap"]:
+            rise, fall = op.ip[1], op.ip[3]
+            f64 += n * (1 + 2 + (rise if rise <= 32 else 2) + (fall if fall <= 32 else 2))
+        elif op.code == OPCODES["pole_zero"]:
+            f64 += 2 * n
+        elif op.code == OPCODES["linear_slope_fit"]:
+            f64 += 5 * n
+        elif op.code == OPCODES["moving_window_multi"]:
+            f64 += op.ip[1] * (3 * n + 2 * op.ip[0])
+        elif op.code == OPCODES["min_max"]:
+            f32 += 2 * n
+        elif op.code == OPCODES["amax"]:
+            f32 += n
+    t_bytes = B * nbytes / PEAK_BYTES_S * 1e3
+    t_ops = B * (f32 / PEAK_F32_S + f64 / PEAK_F64_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev):
+    """K7 on the generic flagship's two groups: the chain built on the CPU
+    over every event (NaN rows included), its steps run on the card up to
+    the second group, each group lowered twice: with every key it writes
+    (held against the plain walk by ``check_generic``) and with the chain's
+    own escapes (timed against the plain walk). Returns the figures."""
+    import torch
+
+    from dspeed_tpu_torch.processing_chain import GroupStep
+    from dspeed_tpu_torch.processors._tile_program import lower
+
+    wf = wf.copy()
+    bl = bl.copy()
+    wf[NAN_SAMPLE_ROW, 500] = np.nan
+    bl[NAN_BASELINE_ROW] = np.nan
+    tb = lh5.Table({
+        "waveform": lh5.WaveformTable(
+            values=wf, t0=0.0, t0_units="ns", dt=DT, dt_units="ns"
+        ),
+        "baseline": lh5.Array(bl.astype(np.float32)),
+    })
+    chain, _, _ = build_processing_chain(
+        config(), tb, db_dict={"pz": {"tau": TAU}}, device="cpu", fuse="generic"
+    )
+    inputs, B = chain._gather_inputs(0, len(wf))
+    env = {k: v.to(dev) for k, v in chain._to_device(inputs).items()}
+    env.update({k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                for k, v in chain._const_env().items()})
+    groups = [s for s in chain._steps if isinstance(s, GroupStep)]
+    if [len(g.members) for g in groups] != [34, 19]:
+        raise AssertionError(f"generic groups {[len(g.members) for g in groups]}")
+    figs = []
+    with torch.no_grad():
+        for step in chain._steps:
+            if not isinstance(step, GroupStep):
+                step.run(env)
+                continue
+            label = "A" if not figs else "B"
+            vals = {k: env[k] for k in step.ext_in}
+            prog = lower(step.members, vals, step.escapes)
+            every = sorted(s.key for s in prog.slots if not s.ext)
+            full = lower(step.members, vals, every)
+            got = _cuda.generic_rows(full, vals)
+            want = _cuda.generic_rows_plain(full, vals)
+            torch.cuda.synchronize()
+            err, rel, excused, conv_rows = check_generic(full, vals, got, want,
+                                                         label)
+            outs = _cuda.generic_rows(prog, vals)
+            for k in step.escapes:
+                g, w = outs[k], got[k]
+                if g.shape != w.shape or g.stride() != w.stride() or not bool(
+                        ((g == w) | (torch.isnan(g) & torch.isnan(w))).all()):
+                    raise AssertionError(f"K7 {label} {k}: the chain's launch differs")
+            ms = time_ms(lambda: _cuda.generic_rows(prog, vals), 20)
+            plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, vals), 3, 1)
+            bound, by = generic_bound(prog, B)
+            print(
+                f"K7 generic_rows [group {label}: {len(step.members)} members, "
+                f"{len(prog.ops)} ops, {len(prog.ext_keys)} inputs, "
+                f"{len(step.escapes)} escapes, {prog.smem_bytes} B of shared "
+                f"memory] {B} rows: max |kernel - plain| {err:.3e} ({rel:.3e} of "
+                f"scale), {excused} rows excused as near-ties, convolution bit "
+                f"for bit on {conv_rows} rows; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+                flush=True,
+            )
+            figs.append(dict(ms=ms, plain_ms=plain_ms, bound=bound, by=by,
+                             err=err, smem=prog.smem_bytes))
+            env.update({k: got[k] for k in step.escapes})
+            if len(figs) == 2:
+                break
+    a, b = figs
+    return dict(
+        max_abs_err=max(a["err"], b["err"]), ms=a["ms"] + b["ms"],
+        plain_ms=a["plain_ms"] + b["plain_ms"],
+        bound_ms=a["bound"] + b["bound"],
+        bound_by=a["by"] if a["bound"] >= b["bound"] else b["by"],
+        group_a_ms=a["ms"], group_b_ms=b["ms"], group_a_plain_ms=a["plain_ms"],
+        group_b_plain_ms=b["plain_ms"], group_a_bound_ms=a["bound"],
+        group_b_bound_ms=b["bound"],
+    )
+
+
 def compare_columns(cols, cpu, wf, bl, n_cpu) -> tuple[int, float]:
     """Hold the card's first ``n_cpu`` events against the port's CPU run:
     float columns within REL_TOL of column scale, index columns exact, NaN
@@ -861,17 +1095,21 @@ def aoe_checks(cols, good, amp, t0, rt, label) -> None:
 
 
 def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
-              expect, rt=None, device="cuda"):
-    """A main path: ``build_dsp`` of ``cfg`` over every event of ``wf`` on
-    ``device``, file -> file where ``h5py`` is installed, else Table ->
-    Table; launch counts read around the first run, and each kernel of
-    ``expect`` must have been launched; physics and CPU cross-checks on the
-    output. Event ``NAN_SAMPLE_ROW`` gets a NaN sample and event
-    ``NAN_BASELINE_ROW`` a NaN baseline, so the NaN rules are checked end
-    to end. Returns the launch counts."""
+              expect, rt=None, device="cuda", fuse=True, forbid=()):
+    """A main path: ``build_dsp`` of ``cfg`` with fusion mode ``fuse`` over
+    every event of ``wf`` on ``device``, file -> file where ``h5py`` is
+    installed, else Table -> Table; launch counts and generic-group splits
+    read around the first run: each kernel of ``expect`` must have been
+    launched, none of ``forbid``, and no group split; physics and CPU
+    cross-checks (the CPU run in the same mode) on the output. Event
+    ``NAN_SAMPLE_ROW`` gets a NaN sample and event ``NAN_BASELINE_ROW`` a
+    NaN baseline, so the NaN rules are checked end to end. Returns the
+    launch counts."""
     import importlib.util
 
     import torch
+
+    from dspeed_tpu_torch.processors import _tile_program
 
     outputs = list(cfg["outputs"])
     wf = wf.copy()
@@ -899,13 +1137,14 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
             def run(dev, n):
                 out = os.path.join(tmp, f"smoke_dsp_{dev}.lh5")
                 build_dsp(raw, out, cfg, database={"ch001": {"pz": {"tau": TAU}}},
-                          n_entries=n, buffer_len=n, device=dev, write_mode="r")
+                          n_entries=n, buffer_len=n, device=dev, write_mode="r",
+                          fuse=fuse)
                 with h5py.File(out, "r") as f:
                     return {k: f[f"ch001/dsp/{k}"][()] for k in outputs}
         else:
             def run(dev, n):
                 out = build_dsp(tb, dsp_config=cfg, database={"pz": {"tau": TAU}},
-                                n_entries=n, buffer_len=n, device=dev)
+                                n_entries=n, buffer_len=n, device=dev, fuse=fuse)
                 return {k: np.asarray(out[k].nda) for k in outputs}
 
         route = "file -> file" if files else "Table -> Table (no h5py)"
@@ -918,9 +1157,12 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
             return cols, time.time() - t_0
 
         _cuda.reset_launches()
+        _tile_program.reset_splits()
         cols, cold_s = timed(device, n_ev)
         launches = dict(_cuda.LAUNCHES)
-        print(f"build_dsp [{label}] launches: {launches}", flush=True)
+        splits = dict(_tile_program.SPLITS)
+        print(f"build_dsp [{label}] launches: {launches}; generic-group splits: "
+              f"{splits}", flush=True)
         cols, warm_s = timed(device, n_ev)
         print(
             f"build_dsp [{label}] {route}, {n_ev} events, {len(outputs)} "
@@ -978,6 +1220,11 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     for name in expect:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the {label} path")
+    for name in forbid:
+        if launches.get(name, 0) != 0:
+            raise AssertionError(f"{name} was launched on the {label} path")
+    if splits:
+        raise AssertionError(f"generic groups split on the {label} path: {splits}")
     return launches
 
 
@@ -1107,6 +1354,10 @@ def main() -> int:
     del pz, trap_tmax, bl_std, a_std, t0_out, t0c_out, curr, w, b, w_nan, b_nan
     torch.cuda.empty_cache()
 
+    # -- K7 on the generic flagship's two groups --------------------------------
+    k7 = k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev)
+    torch.cuda.empty_cache()
+
     # -- the main paths: build_dsp -------------------------------------------
     launches = e2e_phase(
         build_dsp, lh5, _cuda, config(), wf, amp, inj_t0, bl, card, "flagship",
@@ -1114,6 +1365,19 @@ def main() -> int:
                 "fused_current_poly"),
         rt=rt, device=DEVICE,
     )
+    # the generic mode: no hand pattern, the two groups as two K7 launches
+    gen_launches = e2e_phase(
+        build_dsp, lh5, _cuda, config(), wf, amp, inj_t0, bl, card,
+        "flagship generic", expect=("generic_rows", "banded_conv_multi"),
+        rt=rt, device=DEVICE, fuse="generic",
+        forbid=("fused_energy", "cascade_tp", "fused_t0", "fused_current_poly",
+                "fused_current"),
+    )
+    if gen_launches["generic_rows"] != 2:
+        raise AssertionError(
+            f"generic_rows launched {gen_launches['generic_rows']} times on one "
+            f"chunk of the generic flagship, not 2"
+        )
     e2e_phase(
         build_dsp, lh5, _cuda, timing_config(), wf, amp, inj_t0, bl, card,
         "timing",
@@ -1161,6 +1425,12 @@ def main() -> int:
             source="dspeed_tpu_torch/csrc/fused_current.cu",
             replaces="dspeed_tpu/processors/_pallas.py:572",
             launches=launches["fused_current"], library_ms=None, **k6,
+        ),
+        dict(
+            name="generic_rows", route="cuda",
+            source="dspeed_tpu_torch/csrc/generic_rows.cu",
+            replaces="dspeed_tpu/processors/_pallas.py:1782",
+            launches=gen_launches["generic_rows"], library_ms=None, **k7,
         ),
     ]
     print(json.dumps({"kernels": kernels}))

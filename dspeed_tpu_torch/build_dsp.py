@@ -79,14 +79,17 @@ def build_dsp(
     block_width: int = 16,
     chan_config: str | Mapping[str, str] = None,
     device=None,
-    fuse: bool = True,
+    fuse: bool | str = True,
 ):
     """Run a DSP recipe over raw waveform data; see the reference docstring
     (``build_dsp.py:27-126``) for parameter semantics, which are preserved.
 
     ``buffer_len`` is the number of events per chunk, i.e. per device pass.
     ``device``: where the chains run (default CUDA; ``"cpu"`` on request).
-    ``fuse``: run the fusion pass on each chain.
+    ``fuse``: the fusion pass of each chain: ``True`` (the hand patterns,
+    then the generic pass), ``"generic"`` (the generic pass only, one K7
+    launch per group) or ``False``
+    (:func:`~dspeed_tpu_torch.processing_chain.build_processing_chain`).
     """
     if not isinstance(buffer_len, int):
         raise ValueError(

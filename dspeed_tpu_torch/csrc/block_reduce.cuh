@@ -1,5 +1,5 @@
 // Block-wide reductions shared by the port's one-row-per-block kernels
-// (fused_energy.cu, fused_t0.cu, cascade_tp.cu). Every function is called by
+// (fused_energy.cu, fused_t0.cu, cascade_tp.cu, generic_rows.cu). Every function is called by
 // all threads of the block (blockDim.x a multiple of 32, at most 1024) and
 // hands every thread the result; the scratch arrays hold 32 entries.
 #pragma once
@@ -119,6 +119,36 @@ __device__ void block_argext(float& v, int& i, bool is_max, int n, float* redf,
     __syncthreads();
     v = redf[0];
     i = redi[0];
+}
+
+// linear_slope_fit over x[a0:b0]: (mean, sample stdev, slope, intercept).
+__device__ void slope_fit(const float* x, int a0, int b0, double* red,
+                          float* q) {
+    const int L = b0 - a0;
+    double sy = 0.0, sxy = 0.0;
+    for (int j = threadIdx.x; j < L; j += blockDim.x) {
+        const double v = (double)x[a0 + j];
+        sy += v;
+        sxy += v * (double)j;
+    }
+    sy = block_sum(sy, red);
+    sxy = block_sum(sxy, red);
+    const double mean = sy / L;
+    double ss = 0.0;
+    for (int j = threadIdx.x; j < L; j += blockDim.x) {
+        const double d = (double)x[a0 + j] - mean;
+        ss += d * d;
+    }
+    ss = block_sum(ss, red);
+    const double var = L > 1 ? ss / (double)(L - 1) : 0.0;
+    const double Ld = (double)L;
+    const double sum_x = Ld * (Ld - 1.0) / 2.0;
+    const double sum_x2 = (Ld - 1.0) * Ld * (2.0 * Ld - 1.0) / 6.0;
+    const double slope = (Ld * sxy - sum_x * sy) / (Ld * sum_x2 - sum_x * sum_x);
+    q[0] = (float)mean;
+    q[1] = (float)sqrt(var);
+    q[2] = (float)slope;
+    q[3] = (float)((sy - sum_x * slope) / Ld);
 }
 
 // The threshold-crossing predicates of time_point_thresh

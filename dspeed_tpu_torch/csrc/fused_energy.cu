@@ -22,7 +22,7 @@
 // array, so the waveform is read from device memory once and every output is
 // written once. The prefix sums and the trapezoid windows are the f64 block
 // scans of row_prefix.cuh (shared with the t0 front, fused_t0.cu); the
-// block reductions are those of block_reduce.cuh.
+// block reductions and the slope fit are those of block_reduce.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,36 +66,6 @@ struct EnergyParams {
     int mask_bwd[EN_MAX_MASKS];
     uint8_t* mask_out[EN_MAX_MASKS];
 };
-
-// linear_slope_fit over x[a0:b0]: (mean, sample stdev, slope, intercept).
-__device__ void slope_fit(const float* x, int a0, int b0, double* red,
-                          float* q) {
-    const int L = b0 - a0;
-    double sy = 0.0, sxy = 0.0;
-    for (int j = threadIdx.x; j < L; j += blockDim.x) {
-        const double v = (double)x[a0 + j];
-        sy += v;
-        sxy += v * (double)j;
-    }
-    sy = block_sum(sy, red);
-    sxy = block_sum(sxy, red);
-    const double mean = sy / L;
-    double ss = 0.0;
-    for (int j = threadIdx.x; j < L; j += blockDim.x) {
-        const double d = (double)x[a0 + j] - mean;
-        ss += d * d;
-    }
-    ss = block_sum(ss, red);
-    const double var = L > 1 ? ss / (double)(L - 1) : 0.0;
-    const double Ld = (double)L;
-    const double sum_x = Ld * (Ld - 1.0) / 2.0;
-    const double sum_x2 = (Ld - 1.0) * Ld * (2.0 * Ld - 1.0) / 6.0;
-    const double slope = (Ld * sxy - sum_x * sy) / (Ld * sum_x2 - sum_x * sum_x);
-    q[0] = (float)mean;
-    q[1] = (float)sqrt(var);
-    q[2] = (float)slope;
-    q[3] = (float)((sy - sum_x * slope) / Ld);
-}
 
 __global__ void __launch_bounds__(EN_THREADS)
 fused_energy_kernel(const EnergyParams P) {

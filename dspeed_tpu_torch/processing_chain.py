@@ -466,6 +466,18 @@ def _ufunc_types(func) -> list[str]:
     ]
 
 
+def _align_shape(target, shape) -> list:
+    """``shape`` with its core dims aligned against ``target`` from the
+    right, singleton axes inserted at mismatches (reference :1726-1732)."""
+    arshape = list(shape)
+    for idim in range(-1, -1 - len(target), -1):
+        if len(arshape) < -idim or (
+            target[idim] != -1 and arshape[idim] != target[idim]
+        ):
+            arshape.insert(len(arshape) + idim + 1, 1)
+    return arshape
+
+
 class _ArgSpec:
     """How one kernel argument is fetched at run time."""
 
@@ -846,15 +858,7 @@ class KernelStep(Step):
             return spec.value
         v = env[spec.key]
         if spec.reshape is not None and hasattr(v, "ndim"):
-            # align core dims against the target shape from the right,
-            # inserting singleton axes at mismatches (reference :1726-1732)
-            target = spec.reshape
-            arshape = list(v.shape)
-            for idim in range(-1, -1 - len(target), -1):
-                if len(arshape) < -idim or (
-                    target[idim] != -1 and arshape[idim] != target[idim]
-                ):
-                    arshape.insert(len(arshape) + idim + 1, 1)
+            arshape = _align_shape(spec.reshape, v.shape)
             if tuple(arshape) != tuple(v.shape):
                 v = v.reshape(arshape)
         if spec.dtype is not None and isinstance(v, torch.Tensor):
@@ -1046,6 +1050,124 @@ class FuncStep(Step):
         env[self.out_key] = out
 
 
+def _step_writes(s):
+    """Env keys a step writes; ``None`` for unknown step kinds."""
+    if isinstance(s, KernelStep):
+        return {sp.key for sp in s.out_specs}
+    if isinstance(s, (ConvertStep, FuncStep, SliceStep)):
+        return {s.out_key}
+    if isinstance(s, AliasStep):
+        return {s.dst_key}
+    if isinstance(s, GroupStep):
+        return set(s.escapes)
+    return None
+
+
+class GroupStep(Step):
+    """A contiguous run of tile-safe steps run as ONE launch of the row-tape
+    kernel K7 (``processors/_cuda.py`` :func:`generic_rows`; the generic,
+    pattern-free fusion pass, JAX package ``processing_chain.py:1015``).
+
+    The members are lowered into a tape (:mod:`.processors._tile_program`):
+    on the card, one block per row reads the group's external planes once,
+    keeps every internal plane in shared memory and writes only the
+    escaping outputs. On the CPU the same tape runs as
+    :func:`generic_rows_plain`, each op calling its member kernel's own
+    body, so a generic chain equals the unfused chain bit for bit.
+
+    A member list the tape cannot take (a member with no K7 op, a plane
+    that is not float32 on the card, a plan over the shared memory of one
+    block) raises :class:`LoweringError` at lowering, before any launch.
+    The run then bisects as the JAX package's ``_exec`` does (:1050-1112):
+    halves of 4 or more members retry, shorter runs run their members
+    unfused. Every split is logged and counted in
+    ``_tile_program.SPLITS``. A failed build or launch raises.
+    """
+
+    def __init__(self, proc_chain, members, ext_in, escapes,
+                 name: str = "") -> None:
+        self.proc_chain = proc_chain
+        self.members = list(members)
+        self.ext_in = list(ext_in)
+        self.escapes = list(escapes)
+        self._programs: dict = {}
+        self.name = name or (
+            "fusion_group["
+            + ",".join(str(getattr(m, "name", m)).split("(")[0]
+                       for m in self.members)
+            + "]"
+        )
+
+    @staticmethod
+    def _run_members(members, vals: dict, escapes) -> dict:
+        local = dict(vals)
+        for m in members:
+            m.run(local)
+        return {k: local[k] for k in escapes}
+
+    def _program(self, members, vals: dict, escapes):
+        """The lowered tape of ``members`` for inputs like ``vals``, built
+        once per member list, escapes and input signature."""
+        from .processors._tile_program import lower
+
+        key = (
+            tuple(id(m) for m in members), tuple(escapes),
+            tuple((k, v.dtype, tuple(v.shape[1:])) if isinstance(v, torch.Tensor)
+                  else (k, type(v)) for k, v in sorted(vals.items())),
+        )
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = lower(members, vals, escapes)
+        return prog
+
+    def _exec(self, members, env: dict, needed: set) -> dict:
+        """Run ``members`` producing ``needed & writes``: one K7 launch
+        when the run lowers; else bisect, down to plain runs of fewer than
+        4 members."""
+        from .processors import _cuda
+        from .processors._tile_program import LoweringError, count_split
+
+        reads_fn = self.proc_chain._step_env_reads
+        ext: set = set()
+        written: set = set()
+        for m in members:
+            ext |= reads_fn(m) - written
+            written |= _step_writes(m)
+        escapes = sorted(needed & written)
+        vals = {k: env[k] for k in ext if k in env}
+        if len(vals) == len(ext):
+            try:
+                prog = self._program(members, vals, escapes)
+            except LoweringError as e:
+                count_split(self, members, e)
+                prog = None
+            if prog is not None:
+                return _cuda.generic_rows(prog, vals)
+            if len(members) >= 4:
+                mid = len(members) // 2
+                first, second = members[:mid], members[mid:]
+                needed1 = set(needed)
+                for m in second:
+                    needed1 |= reads_fn(m)
+                out1 = self._exec(first, env, needed1)
+                out2 = self._exec(second, {**env, **out1}, needed)
+                return {**out1, **out2}
+        return self._run_members(members, vals, escapes)
+
+    def run(self, env: dict) -> None:
+        if any(k not in env for k in self.ext_in):
+            env.update(self._run_members(
+                self.members, {k: env[k] for k in self.ext_in if k in env},
+                self.escapes,
+            ))
+            return
+        outs = self._exec(self.members, env, set(self.escapes))
+        env.update({k: outs[k] for k in self.escapes if k in outs})
+
+    def __str__(self) -> str:
+        return self.name
+
+
 # ---------------------------------------------------------------------------
 # ProcessingChain
 # ---------------------------------------------------------------------------
@@ -1105,14 +1227,15 @@ class ProcessingChain:
 
     # -- fusion pass -------------------------------------------------------
 
-    def optimize_fusions(self) -> list[str]:
+    def optimize_fusions(self, generic_only: bool = False) -> list[str]:
         """Substitute fused kernels for their canonical step patterns.
 
         Patterns are matched on the *built* step list so any config spelling
         that produces them fuses — including the reference's unmodified icpc
         JSON. The passes run in the JAX package's order
-        (``dspeed_tpu/processing_chain.py:1258``); generic fusion
-        (``_fuse_generic``) is not ported yet and is queued in ROADMAP.
+        (``dspeed_tpu/processing_chain.py:1258``), the pattern-free
+        :meth:`_fuse_generic` last; ``generic_only`` runs only the CSE and
+        the generic pass (the JAX package's ``DSPEED_TPU_FUSE=generic``).
         A matcher's exception propagates: a dead matcher must not pass for
         an unfusable chain.
 
@@ -1140,7 +1263,9 @@ class ProcessingChain:
           current ``windower(w, tp_0) -> avg_current`` where it can;
         - conv bank: parallel constant-kernel convolutions of one array (the
           CUSP + ZAC pair) share one window read
-          (:func:`~dspeed_tpu_torch.processors.fused_conv_bank`, kernel K4).
+          (:func:`~dspeed_tpu_torch.processors.fused_conv_bank`, kernel K4);
+        - generic: maximal runs of tile-safe steps the patterns left become
+          :class:`GroupStep`\\ s (kernel K7).
 
         Returns the list of substitutions applied (for logging/tests).
         """
@@ -1157,7 +1282,10 @@ class ProcessingChain:
             self._fuse_current_front,
             self._fuse_t0_front,
             self._fuse_conv_bank,
+            self._fuse_generic,
         )
+        if generic_only:
+            fuses = (self._cse_steps, self._fuse_generic)
         for fuse in fuses:
             for _ in range(len(self._steps)):
                 got = fuse()
@@ -2131,6 +2259,144 @@ class ProcessingChain:
             self._steps[:] = new_steps
         return applied
 
+    # names of expression-parser ufunc kernels that may join a generic
+    # group (the JAX package's list, :2169)
+    _GENERIC_UFUNC_SAFE = frozenset(
+        "add subtract multiply divide true_divide floor_divide negative "
+        "less less_equal greater greater_equal equal not_equal logical_and "
+        "logical_or logical_not maximum minimum where abs absolute fabs "
+        "sqrt exp expm1 log log1p log10 square sign isnan isfinite rint "
+        "floor ceil trunc amax amin max min sum mean nanmax nanmin "
+        "nansum nanmean power mod remainder".split()
+    )
+
+    def _groupable_step(self, step) -> bool:
+        """True when a step may join a generic group: views, conversions,
+        torch ops and kernels flagged ``tile_safe`` (a bool or a predicate
+        of the step), as the JAX package decides (:2178)."""
+        if isinstance(step, (AliasStep, SliceStep, ConvertStep)):
+            return True
+        if isinstance(step, FuncStep):
+            mod = getattr(step.fn, "__module__", "") or ""
+            return mod == "torch" or mod.startswith("torch.")
+        if isinstance(step, KernelStep):
+            k = step.kernel
+            safe = getattr(k, "tile_safe", False)
+            if callable(safe):
+                return bool(safe(step))
+            if safe:
+                return True
+            return k.__name__ in self._GENERIC_UFUNC_SAFE
+        return False
+
+    def _key_core_ndims(self) -> dict:
+        """env key -> core rank (0 scalar, 1 plane, ...); None = chain
+        constant; absent = unknown (the JAX package's :2200)."""
+        m: dict = {}
+        for var in self._vars_dict.values():
+            if not isinstance(var, ProcChainVar):
+                continue
+            if var.is_const and var.const_value is not None:
+                m[var.key] = None
+            elif var.shape is not auto:
+                m[var.key] = len(var.shape)
+        for step in self._steps:
+            if isinstance(step, KernelStep):
+                for sp in step.out_specs:
+                    if isinstance(sp.shape, tuple):
+                        m[sp.key] = len(sp.shape)
+            elif isinstance(step, ConvertStep):
+                if step.out_key not in m and step.in_key in m:
+                    m[step.out_key] = m[step.in_key]
+            elif isinstance(step, AliasStep):
+                if step.dst_key not in m and step.src_key in m:
+                    m[step.dst_key] = m[step.src_key]
+            elif isinstance(step, SliceStep):
+                if (
+                    step.out_key not in m
+                    and step.src_key in m
+                    and isinstance(step.sl, slice)
+                ):
+                    m[step.out_key] = m[step.src_key]
+        return m
+
+    def _fuse_generic(self) -> list[str]:
+        """Pattern-free fusion (the JAX package's :2364-2452): maximal
+        contiguous runs of groupable steps become :class:`GroupStep`\\ s,
+        one K7 launch each. Runs after the hand patterns, so it only claims
+        their leftovers. A run forms a group only when it elides a live
+        internal plane (one that a later member reads and nothing after the
+        run needs) and has a known plane input."""
+        if not self._output_managers:
+            # liveness is seeded from the output managers (as in
+            # _prune_dead_steps): without them nothing can be elided
+            return []
+        steps = self._steps
+        core_of = self._key_core_ndims()
+        needed = set()
+        for man in self._output_managers.values():
+            needed.update(man.out_keys())
+        reads_fn = self._step_env_reads
+
+        def make_group(members, later_steps):
+            written: set = set()
+            ext: set = set()
+            consumed: set = set()  # keys read by a member after their writer
+            for mstep in members:
+                r = reads_fn(mstep)
+                w = _step_writes(mstep)
+                if r is None or w is None:
+                    return None
+                ext |= r - written
+                consumed |= r & written
+                written |= w
+            later = set(needed)
+            unknown_later = False
+            for ls in later_steps:
+                lr = reads_fn(ls)
+                if lr is None:
+                    unknown_later = True
+                    break
+                later |= lr
+            escapes = sorted(written) if unknown_later else sorted(
+                written & later
+            )
+            elided = [
+                k
+                for k in written
+                if k not in escapes
+                and k in consumed
+                and (core_of.get(k) or 0) >= 1
+            ]
+            if not elided:
+                return None
+            if not any(core_of.get(k) == 1 for k in ext):
+                return None  # no known plane input
+            return GroupStep(self, members, sorted(ext), escapes)
+
+        applied: list[str] = []
+        # maximal runs of groupable steps, spliced back to front so the
+        # indices of earlier runs stay valid
+        runs = []
+        start = None
+        for i, step in enumerate(steps):
+            if self._groupable_step(step) and not isinstance(step, GroupStep):
+                if start is None:
+                    start = i
+            else:
+                if start is not None and i - start >= 2:
+                    runs.append((start, i))
+                start = None
+        if start is not None and len(steps) - start >= 2:
+            runs.append((start, len(steps)))
+        for a, b in reversed(runs):
+            grp = make_group(steps[a:b], steps[b:])
+            if grp is None:
+                continue
+            steps[a:b] = [grp]
+            applied.append(f"fusion_group[{len(grp.members)}]")
+        return applied
+
     def _prune_dead_steps(self) -> None:
         """Remove steps whose outputs nothing reads (e.g. the ``0.99*base``
         multiplies absorbed into a fused cascade). Conservative: a step of
@@ -2149,20 +2415,9 @@ class ProcessingChain:
 
         reads = self._step_env_reads  # None = unknown: reads everything
 
-        def writes(step):
-            if isinstance(step, KernelStep):
-                return {s.key for s in step.out_specs}
-            if isinstance(step, (ConvertStep, FuncStep)):
-                return {step.out_key}
-            if isinstance(step, AliasStep):
-                return {step.dst_key}
-            if isinstance(step, SliceStep):
-                return {step.out_key}
-            return None
-
         keep = []
         for step in reversed(self._steps):
-            w = writes(step)
+            w = _step_writes(step)
             r = reads(step)
             if w is None or r is None or (w & needed) or not isinstance(
                 step, (KernelStep, FuncStep, AliasStep, SliceStep)
@@ -2201,6 +2456,8 @@ class ProcessingChain:
             return {step.src_key}
         if isinstance(step, FuncStep):
             return {k for k in step.in_keys if isinstance(k, str)}
+        if isinstance(step, GroupStep):
+            return set(step.ext_in)
         return None
 
     def _thread_nan_masks(self) -> list[str]:
@@ -3524,7 +3781,7 @@ def build_processing_chain(
     outputs: list[str] = None,
     block_width: int = 16,
     device=None,
-    fuse: bool = True,
+    fuse: bool | str = True,
 ) -> tuple[ProcessingChain, list[str], lgdo.Table]:
     """Compile a JSON/YAML DSP recipe into a :class:`ProcessingChain` plus an
     output table. Config schema, ``db.*`` substitution, dependency
@@ -3533,10 +3790,15 @@ def build_processing_chain(
     recipe format.
 
     ``device``: where the chain runs (default CUDA; see :mod:`.config`).
-    ``fuse``: run the fusion pass (:meth:`ProcessingChain.optimize_fusions`).
+    ``fuse``: run the fusion pass (:meth:`ProcessingChain.optimize_fusions`):
+    ``True`` the hand patterns then the generic pass, ``"generic"`` only the
+    generic pass (what a config matching no hand pattern gets; the JAX
+    package's ``DSPEED_TPU_FUSE=generic``), ``False`` none.
     Processor modules named ``dspeed.*`` or ``dspeed_tpu.*`` (the reference's
     and the JAX package's configs) resolve to ``dspeed_tpu_torch.*``.
     """
+    if fuse not in (True, False, "generic"):
+        raise ValueError(f"fuse must be True, False or 'generic', got {fuse!r}")
     processors = _load_config(processors)
 
     if outputs is None:
@@ -3876,5 +4138,5 @@ def build_processing_chain(
 
     field_mask = input_par_list + copy_par_list
     if fuse:
-        proc_chain.optimize_fusions()
+        proc_chain.optimize_fusions(generic_only=fuse == "generic")
     return proc_chain, field_mask, tb_out

@@ -17,13 +17,16 @@ Each kernel replaces one Pallas TPU kernel of the JAX package
   front (entry ``fused_current`` :1398): K5, the polyphase route
   (``_fused_current_poly_kernel`` :804), where the plan of
   :mod:`._poly_plan` holds, else K6, the up-domain route
-  (``_fused_current_kernel`` :572, also :func:`fused_current_updomain`).
+  (``_fused_current_kernel`` :572, also :func:`fused_current_updomain`);
+- :func:`generic_rows` (``csrc/generic_rows.cu``) — K7, a generic fusion
+  group as one row-tape launch (``generic_rows`` :1782), its tape lowered
+  by :mod:`._tile_program`.
 
 A wrapper given a CPU tensor computes the kernel's plain version
 (:func:`fused_energy_plain`, :func:`banded_conv_plain`,
 :func:`fused_t0_plain`, :func:`cascade_tp_plain`,
-:func:`fused_current_plain`); given a CUDA tensor it launches the kernel or
-raises — it never falls back. Every launch adds one to
+:func:`fused_current_plain`, :func:`generic_rows_plain`); given a CUDA
+tensor it launches the kernel or raises — it never falls back. Every launch adds one to
 ``LAUNCHES[<kernel>]`` (K5 counts as ``fused_current_poly``, K6 as
 ``fused_current``). :func:`fused_current_poly_plain` is K5's own arithmetic
 in PyTorch, for holding the kernel and the plan; no path runs it.
@@ -63,6 +66,8 @@ __all__ = [
     "fused_current_updomain",
     "fused_current_plain",
     "fused_current_poly_plain",
+    "generic_rows",
+    "generic_rows_plain",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,11 +79,12 @@ SOURCES = {
     "fused_t0": "fused_t0.cu",
     "cascade_tp": "cascade_tp.cu",
     "fused_current": "fused_current.cu",
+    "generic_rows": "generic_rows.cu",
 }
 
 LAUNCHES = {
     "fused_energy": 0, "banded_conv_multi": 0, "fused_t0": 0, "cascade_tp": 0,
-    "fused_current_poly": 0, "fused_current": 0,
+    "fused_current_poly": 0, "fused_current": 0, "generic_rows": 0,
 }
 
 _LIBS: dict = {}
@@ -159,6 +165,11 @@ def _bind(name: str, so: str):
         lib.dspeed_cascade_tp.argtypes = [
             ctypes.POINTER(_CascadeParams), ctypes.c_void_p,
         ]
+    elif name == "generic_rows":
+        lib.dspeed_generic_rows.restype = ctypes.c_int
+        lib.dspeed_generic_rows.argtypes = [
+            ctypes.POINTER(_GenParams), ctypes.c_int, ctypes.c_void_p,
+        ]
     else:
         for fn in (lib.dspeed_fused_current, lib.dspeed_fused_current_poly):
             fn.restype = ctypes.c_int
@@ -209,11 +220,14 @@ def _stream() -> int:
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
 
 
-def _require_cuda_f32(x: torch.Tensor, what: str) -> None:
+def _require_cuda_f32(x: torch.Tensor, what: str, strided_rows=False) -> None:
+    """Float32, and contiguous; with ``strided_rows`` a 2-D tensor whose rows
+    are contiguous at any row stride (a slice ``x[:, a:b]``) is taken too."""
     if x.dtype != torch.float32:
         raise TypeError(f"{what}: the CUDA kernel takes float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{what}: the CUDA kernel takes a contiguous tensor")
+    if x.is_contiguous() or (strided_rows and x.dim() == 2 and x.stride(1) == 1):
+        return
+    raise ValueError(f"{what}: the CUDA kernel takes a contiguous tensor")
 
 
 # ---------------------------------------------------------------------------
@@ -527,7 +541,7 @@ def banded_conv_multi(w, kerns, lo, p, n_in=None):
         raise ValueError(f"banded_conv_multi: n_in={n} exceeds the row ({n_full})")
     if w.device.type == "cpu":
         return banded_conv_plain(w, kerns, lo, p, n_in)
-    _require_cuda_f32(w, "banded_conv_multi")
+    _require_cuda_f32(w, "banded_conv_multi", strided_rows=True)
     if nk > _BC_MAX_NK:
         raise ValueError(
             f"banded_conv_multi: the CUDA kernel takes at most {_BC_MAX_NK} "
@@ -545,9 +559,10 @@ def banded_conv_multi(w, kerns, lo, p, n_in=None):
     B = int(np.prod(lead, dtype=np.int64))
     taps = _taps_on(kerns, w.device)
     out = torch.empty((B, nk, p), dtype=torch.float32, device=w.device)
+    row_stride = w.stride(0) if w.dim() == 2 else n_full
     rc = lib.dspeed_banded_conv(
-        w.data_ptr(), taps.data_ptr(), out.data_ptr(), B, n_full, n, m, nk,
-        lo, p, _stream(),
+        w.data_ptr(), taps.data_ptr(), out.data_ptr(), B, row_stride, n, m,
+        nk, lo, p, _stream(),
     )
     _check_rc(lib, rc, "banded_conv_multi")
     LAUNCHES["banded_conv_multi"] += 1
@@ -1053,3 +1068,133 @@ def fused_current(c, ratio, half, n_up, L, num, mtype, need=(True,) * 4):
     )
     LAUNCHES["fused_current_poly"] += 1
     return outs
+
+
+# ---------------------------------------------------------------------------
+# K7: a generic fusion group as one row-tape launch
+# ---------------------------------------------------------------------------
+
+_GEN_MAX_EXT, _GEN_MAX_ESC = 32, 64
+
+
+class _GenParams(ctypes.Structure):
+    """Field for field the ``GenParams`` struct of ``generic_rows.cu``."""
+
+    _fields_ = [
+        ("code", ctypes.c_void_p),
+        ("dpar", ctypes.c_void_p),
+        ("taps", ctypes.c_void_p),
+        ("B", ctypes.c_int),
+        ("n_ops", ctypes.c_int),
+        ("n_slots", ctypes.c_int),
+        ("n_scal", ctypes.c_int),
+        ("scratch_dbl", ctypes.c_int),
+        ("arena_floats", ctypes.c_int),
+        ("ext", ctypes.c_void_p * _GEN_MAX_EXT),
+        ("ext_stride", ctypes.c_longlong * _GEN_MAX_EXT),
+        ("esc", ctypes.c_void_p * _GEN_MAX_ESC),
+    ]
+
+
+def _slot_value(program, roots: dict, sid: int):
+    """Slot ``sid``'s value from its root's (slot id -> tensor): a slice is a
+    view of its root, an alias the root itself."""
+    s = program.slots[sid]
+    v = roots[s.root]
+    if s.kind == "plane" and (s.start, s.length) != (0, program.slots[s.root].length):
+        v = v[..., s.start : s.start + s.length]
+    return v
+
+
+def _escape_values(program, roots: dict) -> dict:
+    return {k: _slot_value(program, roots, sid) for k, sid in program.escapes.items()}
+
+
+def generic_rows_plain(program, vals: dict) -> dict:
+    """Plain version of K7: the tape of ``program`` (:mod:`._tile_program`)
+    walked in PyTorch. Each op calls its member kernel's own body on the
+    slots' values, cast as the unfused step casts them, and binds its
+    outputs in the slots' types; views are slices of their root. On the CPU
+    this is the unfused chain's arithmetic exactly. Returns the escapes."""
+    from ._tile_program import OPCODES
+
+    roots = {program.by_key[k]: vals[k] for k in program.ext_keys}
+
+    def value(sid, dtype):
+        v = _slot_value(program, roots, sid)
+        return v if dtype is None or v.dtype == dtype else v.to(dtype)
+
+    for op in program.ops:
+        if op.code == OPCODES["load"]:
+            continue
+        args = [value(a[1], a[2]) if a[0] == "slot" else a[1] for a in op.args]
+        kern = op.step.kernel
+        if getattr(kern, "uses_dims", False):
+            outs = kern.fn(*args, dims=op.step.dims)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+        else:
+            outs = kern(*args)
+        for sid, o in zip(op.outs, outs):
+            want = program.slots[sid].dtype
+            roots[sid] = o if o.dtype == want else o.to(want)
+    return _escape_values(program, roots)
+
+
+def _program_on(program, device):
+    """The tape's arrays on ``device``, uploaded once per program."""
+    arrs = program._dev.get(str(device))
+    if arrs is None:
+        ints, dbls, taps = program.encode()
+        arrs = program._dev[str(device)] = tuple(
+            torch.from_numpy(a).to(device) for a in (ints, dbls, taps)
+        )
+    return arrs
+
+
+def generic_rows(program, vals: dict) -> dict:
+    """K7: run a lowered generic group (:func:`._tile_program.lower`) over
+    the rows of its external inputs ``vals`` (env key -> ``(B,)`` scalar or
+    ``(B, n)`` float32 plane), one block per row, and return its escapes
+    (env key -> tensor) with the shapes and strides the unfused chain gives
+    them: an escaping slice is a view of its root's plane. CPU tensors run
+    :func:`generic_rows_plain`."""
+    ref = vals[program.ext_keys[0]]
+    if ref.device.type == "cpu":
+        return generic_rows_plain(program, vals)
+    n_ext, n_esc = len(program.ext_keys), len(program.esc_roots)
+    if n_ext > _GEN_MAX_EXT or n_esc > _GEN_MAX_ESC:
+        raise ValueError(
+            f"generic_rows: the kernel takes at most {_GEN_MAX_EXT} inputs and "
+            f"{_GEN_MAX_ESC} stored outputs, got {n_ext} and {n_esc}"
+        )
+    dev = ref.device
+    B = int(ref.shape[0])
+    P = _GenParams()
+    keep = []
+    for e, key in enumerate(program.ext_keys):
+        v = vals[key]
+        if v.device != dev or v.shape[0] != B:
+            raise ValueError(f"generic_rows: input {key} is not {B} rows on {dev}")
+        if v.ndim == 2:
+            _require_cuda_f32(v, f"generic_rows input {key}", strided_rows=True)
+            P.ext_stride[e] = v.stride(0)
+        elif v.stride(0) != 1:
+            v = v.contiguous()
+        keep.append(v)
+        P.ext[e] = v.data_ptr()
+    roots = {program.by_key[k]: vals[k] for k in program.ext_keys}
+    for q, sid in enumerate(program.esc_roots):
+        s = program.slots[sid]
+        shape = (B, s.length) if s.kind == "plane" else (B,)
+        roots[sid] = torch.empty(shape, dtype=s.dtype, device=dev)
+        P.esc[q] = roots[sid].data_ptr()
+    ints, dbls, taps = _program_on(program, dev)
+    P.code, P.dpar, P.taps = ints.data_ptr(), dbls.data_ptr(), taps.data_ptr()
+    P.B, P.n_ops, P.n_slots = B, len(program.ops), len(program.slots)
+    P.n_scal, P.scratch_dbl = program.n_scal, program.scratch_dbl
+    P.arena_floats = program.arena_floats
+    lib = _lib("generic_rows")
+    rc = lib.dspeed_generic_rows(ctypes.byref(P), program.smem_bytes, _stream())
+    _check_rc(lib, rc, "generic_rows")
+    LAUNCHES["generic_rows"] += 1
+    return _escape_values(program, roots)

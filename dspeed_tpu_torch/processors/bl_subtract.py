@@ -19,3 +19,7 @@ def bl_subtract(w_in, a_baseline, badrow=None):
     out = w_in - cdim(a_baseline)
     row = isnan_any(w_in, 1) if badrow is None else badrow
     return nanmask(any_bad(row, isnan_any(a_baseline)), out)
+
+# generic row-tile fusion (the JAX package's flags, so that both packages
+# form the same groups)
+bl_subtract.tile_safe = True

@@ -204,3 +204,70 @@ def fft_convolve_wf(w_in, kernel_in, mode_in, dims, badrow=None):
     NaN events poison their output rows.
     """
     return _conv(w_in, kernel_in, mode_in, "fft_convolve_wf", badrow)
+
+
+# band-matrix budget of the JAX package's in-tile route
+# (``dspeed_tpu/processors/convolutions.py:158``): it decides which
+# convolutions join a generic row-tile group
+_TILE_BAND_BYTES = 1_200_000
+
+
+def _tile_blk(m: int, p: int) -> int | None:
+    """The JAX package's in-tile output-block width
+    (``dspeed_tpu/processors/convolutions.py:161``): the largest whose band
+    matrix fits ``_TILE_BAND_BYTES``; ``None`` when even 64 columns don't."""
+    for blk in (512, 384, 256, 192, 128, 96, 64):
+        if blk <= p or blk == 64:
+            if (min(blk, p) + m - 1) * min(blk, p) * 4 <= _TILE_BAND_BYTES:
+                return min(blk, p)
+    return None
+
+
+def _conv_step_taps(step, ik: int):
+    """The concrete taps array of a conv step's kernel operand, or None."""
+    p = step.params[ik] if len(step.params) > ik else None
+    if isinstance(p, np.ndarray):
+        return p
+    v = getattr(p, "const_value", None)
+    if v is not None and getattr(p, "is_const", False):
+        return np.asarray(v)
+    return None
+
+
+def _conv_tile_safe(step):
+    """Generic row-tile fusion: the JAX package's predicate
+    (``dspeed_tpu/processors/convolutions.py:431-472``), a TPU heuristic
+    kept as it is so that both packages form the same groups. Constant
+    NaN-free 1-D taps of the direct (``m <= 32``) or banded route join a
+    group; FFT routes, per-event kernels and long taps whose in-tile band
+    block would shrink below 256 columns (the CUSP/ZAC filters) stay out."""
+    kern = _conv_step_taps(step, 1)
+    if kern is None or kern.ndim != 1 or np.isnan(kern).any():
+        return False
+    m = kern.shape[-1]
+    if m <= 32:
+        return True
+    wvar = step.params[0]
+    shape = getattr(wvar, "shape", None)
+    if not shape or not isinstance(shape[-1], (int, np.integer)):
+        return False
+    n = int(shape[-1])
+    mode = step.params[2] if len(step.params) > 2 else ord("s")
+    if isinstance(mode, str):
+        ch = mode.strip("'\"")
+    else:
+        try:
+            ch = chr(int(mode))
+        except (TypeError, ValueError):
+            return False
+    if ch not in ("f", "v", "s"):
+        return False
+    _, p = _mode_window(ch, n, m)
+    if p * m > _MATMUL_MAC_LIMIT:
+        return False
+    blk = _tile_blk(m, p)
+    return blk is not None and blk >= min(256, p)
+
+
+convolve_wf.tile_safe = _conv_tile_safe
+fft_convolve_wf.tile_safe = _conv_tile_safe

@@ -92,3 +92,17 @@ def fixed_time_pickoff(w_in, t_in, mode_in, badrow=None):
     if bad_mode is not None:
         bad = bad | bad_mode
     return nanmask(bad, val.to(dtype))
+
+
+def _ftp_tile_safe(step):
+    """Generic row-tile fusion (the JAX package's predicate,
+    ``dspeed_tpu/processors/fixed_time_pickoff.py:149``): mode ``s`` runs a
+    spline solver and stays out of groups; every other mode is a per-row
+    pick."""
+    m = step.params[2] if len(step.params) > 2 else None
+    if isinstance(m, str):
+        return m.strip("'\"") != "s"
+    return isinstance(m, (int, np.integer)) and int(m) != ord("s")
+
+
+fixed_time_pickoff.tile_safe = _ftp_tile_safe

@@ -53,3 +53,7 @@ def linear_slope_fit(w_in, badrow=None):
         nanmask(bad, slope.to(dtype)),
         nanmask(bad, intercept.to(dtype)),
     )
+
+
+# generic row-tile fusion (the JAX package's flags)
+linear_slope_fit.tile_safe = True

@@ -33,3 +33,7 @@ def min_max(w_in, badrow=None):
         nanmask(bad, a_min.to(dtype)),
         nanmask(bad, a_max.to(dtype)),
     )
+
+
+# generic row-tile fusion (the JAX package's flags)
+min_max.tile_safe = True

@@ -144,3 +144,10 @@ def avg_current(w_in, length, dims):
     else:
         diff = diff[..., :m]
     return nanmask(isnan_any(w_in, 1), diff)
+
+
+# generic row-tile fusion (the JAX package's flags)
+moving_window_left.tile_safe = True
+moving_window_right.tile_safe = True
+moving_window_multi.tile_safe = True
+avg_current.tile_safe = True

@@ -36,3 +36,7 @@ def pole_zero(w_in, t_tau):
     prefix = shift_right(hp_cumsum(w_in), 1)
     out = (w_in + (cdim(one_minus_c) * prefix).to(dtype)).to(dtype)
     return nanmask(any_bad(isnan_any(w_in, 1), bad_tau), out)
+
+
+# generic row-tile fusion (the JAX package's flags)
+pole_zero.tile_safe = True

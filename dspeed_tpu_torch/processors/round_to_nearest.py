@@ -50,3 +50,10 @@ def ceil_to_nearest(val, to_nearest):
 def trunc_to_nearest(val, to_nearest):
     """Multiple of ``to_nearest`` closest to val, towards zero."""
     return _apply(val, to_nearest, torch.trunc)
+
+
+# generic row-tile fusion (the JAX package's flags)
+round_to_nearest.tile_safe = True
+floor_to_nearest.tile_safe = True
+ceil_to_nearest.tile_safe = True
+trunc_to_nearest.tile_safe = True

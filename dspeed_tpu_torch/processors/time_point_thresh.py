@@ -132,3 +132,7 @@ def tp_from_cross_mask(walk_forward: int) -> Kernel:
     return Kernel(
         fn, "(n),()->()", ["Bf->f", "Bd->d"], name="tp_from_cross_mask"
     )
+
+
+# generic row-tile fusion (the JAX package's flags)
+time_point_thresh.tile_safe = True

@@ -99,3 +99,9 @@ def asym_trap_filter(w_in, rise, flat, fall, badrow=None):
     return nanmask(
         isnan_any(w_in, 1) if badrow is None else badrow, out.to(w_in.dtype)
     )
+
+
+# generic row-tile fusion (the JAX package's flags)
+trap_filter.tile_safe = True
+trap_norm.tile_safe = True
+asym_trap_filter.tile_safe = True

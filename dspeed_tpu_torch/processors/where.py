@@ -16,3 +16,7 @@ def where(condition, a, b):
     """Return ``a`` where ``condition`` else ``b``; backs the parser's
     ``where()`` builtin and ``a if b else c`` ternary."""
     return torch.where(condition, a, b)
+
+
+# generic row-tile fusion (the JAX package's flags)
+where.tile_safe = True

@@ -43,3 +43,7 @@ def windower(w_in, t0_in, dims, badrow=None):
     # mask calls clean
     row = isnan_any(w_in, 1) if badrow is None else badrow
     return nanmask(row | isnan_any(t0), out)
+
+
+# generic row-tile fusion (the JAX package's flags)
+windower.tile_safe = True

@@ -47,7 +47,7 @@ with open({config!r}) as f:
     cfg = yaml.safe_load(f)
 cfg["outputs"] = {outputs!r}
 out = build_dsp(tb, dsp_config=cfg, database={{"pz": {{"tau": 27460.5}}}},
-                device="cpu")
+                device="cpu", fuse={fuse!r})
 assert np.isfinite(out["trapEmax"].nda).all()
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
@@ -56,11 +56,11 @@ print("dspeed_tpu_torch" in sys.modules)
 """
 
 
-def _run_without_jax(outputs):
+def _run_without_jax(outputs, fuse=True):
     code = _RUN_ENERGY_CHAIN.format(
         repo=REPO,
         config=os.path.join(REPO, "configs", "hpge-energy-timing.yaml"),
-        outputs=outputs,
+        outputs=outputs, fuse=fuse,
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run(
@@ -83,6 +83,19 @@ def test_timing_chain_runs_without_jax_or_the_jax_package():
 
 def test_flagship_chain_runs_without_jax_or_the_jax_package():
     _run_without_jax(["trapEmax", "tp_0_est", "A_max", "tp_aoe_max", "tp_aoe_samp"])
+
+
+def test_generic_flagship_runs_without_jax_or_the_jax_package():
+    _run_without_jax(["trapEmax", "tp_0_est", "A_max", "tp_aoe_samp", "cuspEmax"],
+                     fuse="generic")
+
+
+def test_sources_cover_the_generic_modules():
+    assert os.path.join("dspeed_tpu_torch", "processors", "_tile_program.py") in SOURCES
+    with open(os.path.join(PKG, "csrc", "generic_rows.cu")) as f:
+        src = f.read()
+    # a plain C interface: no PyTorch headers, built by nvcc alone
+    assert "torch/" not in src and 'extern "C" int dspeed_generic_rows' in src
 
 
 def test_sources_cover_the_a_e_modules():

@@ -2,15 +2,17 @@
 """Where one ``build_dsp`` chunk of the PyTorch port spends its time on the
 card.
 
-    python3 tools/profile_torch_chain.py [--config flagship|timing|energy]
-                                         [--events 16384] [--repeats 3]
+    python3 tools/profile_torch_chain.py
+        [--config flagship|flagship-generic|timing|energy]
+        [--events 16384] [--repeats 3]
 
 Runs one of the configurations ``chip_smoke.py`` drives — the flagship
 configuration (``configs/hpge-energy-timing.yaml``, all 34 outputs; the
-default), the timing configuration (without its three A/E columns, 31
-outputs) or the energy configuration (its 17 energy and baseline outputs) —
-through ``dspeed_tpu_torch.build_dsp`` Table -> Table on 16384 synthetic
-4096-sample events, and prints:
+default), the same in the generic fusion mode (``flagship-generic``:
+``fuse="generic"``, two K7 groups), the timing configuration (without its
+three A/E columns, 31 outputs) or the energy configuration (its 17 energy
+and baseline outputs) — through ``dspeed_tpu_torch.build_dsp`` Table ->
+Table on 16384 synthetic 4096-sample events, and prints:
 
 1. the host-clock split of one warm chunk: chain build, input gather, the
    host -> device copy, the step loop (and each step), the device -> host
@@ -79,8 +81,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("flagship", "timing", "energy"),
-                    default="flagship")
+    ap.add_argument("--config", default="flagship",
+                    choices=("flagship", "flagship-generic", "timing", "energy"))
     ap.add_argument("--events", type=int, default=16384)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", help="write the Chrome trace to this path")
@@ -110,10 +112,11 @@ def main() -> int:
         ),
         "baseline": lh5.Array(bl.astype(np.float32)),
     })
-    cfg = {"flagship": config, "timing": timing_config,
-           "energy": energy_config}[args.config]()
+    cfg = {"flagship": config, "flagship-generic": config,
+           "timing": timing_config, "energy": energy_config}[args.config]()
+    fuse = "generic" if args.config == "flagship-generic" else True
     kw = dict(dsp_config=cfg, database={"pz": {"tau": TAU}},
-              buffer_len=args.events, device="cuda")
+              buffer_len=args.events, device="cuda", fuse=fuse)
 
     def run():
         torch.cuda.synchronize()
@@ -196,7 +199,7 @@ def _steps_of(cfg, tb, kw):
     from dspeed_tpu_torch.processing_chain import build_processing_chain
 
     chain, _, _ = build_processing_chain(
-        cfg, tb[0:2], db_dict=kw["database"], device="cpu"
+        cfg, tb[0:2], db_dict=kw["database"], device="cpu", fuse=kw["fuse"]
     )
     return chain._steps
 
