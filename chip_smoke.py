@@ -243,23 +243,28 @@ def k1_phase(_cuda, w, bl, label, trap_specs, emax_for, slope_specs,
     scalars = len(emax_for) + 4 * len(slope_specs) + 4 * emit_minmax
     nbytes = 4 * B * n + 4 * B + 4 * B * n * planes + 4 * B * scalars + B * n * nm
     # f64: two prefix adds per sample and 4 per trap sample (a mask's trap
-    # is evaluated at three samples, a window of <= 32 summed directly);
-    # f32: subtract and pole-zero multiply-add per sample
-    mask_ops = sum(3 * (sp[1] + 4 if sp[1] <= 32 else 4) for sp, *_ in mask_specs)
-    f64_ops = B * n * (2 + 4 * len(trap_specs) + mask_ops)
+    # too, once per sample); f32: subtract and pole-zero multiply-add
+    f64_ops = B * n * (2 + 4 * (len(trap_specs) + nm))
     f32_ops = B * n * 3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = (f64_ops / PEAK_F64_S + f32_ops / PEAK_F32_S) * 1e3
+    launch = _cuda.fused_energy_launch(n)
     print(
         f"K1 fused_energy [{label}] {B}x{n}: max_abs_err {max_err:.3e}, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})",
+        f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}); "
+        f"{nbytes / ms / 1e6:.1f} GB/s, {t_bytes / ms:.1%} of {PEAK_BYTES_S / 1e12:.2f} TB/s; "
+        f"{launch['registers']} registers and {launch['local_bytes']} local bytes a "
+        f"thread, {launch['threads']} threads and {launch['smem_bytes']} bytes of "
+        f"shared memory a block, {launch['blocks_per_sm']} blocks per SM; on "
+        f"{card_line()}",
         flush=True,
     )
     return dict(
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
+        byte_share=t_bytes / ms, launch=launch,
     )
 
 
@@ -1275,8 +1280,9 @@ def main() -> int:
     b_nan[11] = float("nan")
 
     # -- K1 ----------------------------------------------------------------
-    flag = k1_phase(
-        _cuda, w_nan, b_nan, "flagship", trap_specs=[("norm", 625, 188)],
+    # the energy configuration's spec set
+    energy = k1_phase(
+        _cuda, w_nan, b_nan, "energy", trap_specs=[("norm", 625, 188)],
         emax_for=[0], slope_specs=[(0, 0, 750), (1, 1500, 4096)],
         mask_specs=[], emit_blsub=True, emit_minmax=True,
     )
@@ -1287,8 +1293,8 @@ def main() -> int:
         mask_specs=[(ATRAP, 0, 1, False, True)], emit_blsub=False,
         emit_minmax=False,
     )
-    # the timing configuration's spec set, which its main path and the
-    # flagship's launch: trapTmax/trapEmax (one CSE'd trap), the QDrift
+    # the flagship's spec set, which its main path and the timing
+    # configuration's launch: trapTmax/trapEmax (one CSE'd trap), the QDrift
     # trap, tp_0_atrap's mask
     timing_k1 = dict(
         trap_specs=[("norm", 625, 188), ("norm", 250, 6)], emax_for=[0],
@@ -1296,10 +1302,14 @@ def main() -> int:
         mask_specs=[(ATRAP, 0, 1, False, True)], emit_blsub=True,
         emit_minmax=True,
     )
-    k1 = k1_phase(_cuda, w_nan, b_nan, "timing", **timing_k1)
+    k1 = k1_phase(_cuda, w_nan, b_nan, "flagship", **timing_k1)
     k1["max_abs_err"] = max(
-        k1["max_abs_err"], flag["max_abs_err"], extra["max_abs_err"]
+        k1["max_abs_err"], energy["max_abs_err"], extra["max_abs_err"]
     )
+    k1["spec_sets"] = {
+        label: {q: fig[q] for q in ("ms", "plain_ms", "bound_ms", "byte_share")}
+        for label, fig in (("flagship", k1), ("energy", energy), ("asym+mask", extra))
+    }
 
     # -- K4 ----------------------------------------------------------------
     probe = lh5.Table({

@@ -25,7 +25,7 @@ from fnmatch import fnmatch
 from typing import Collection, Mapping  # noqa: UP035
 
 from . import lh5
-from .errors import ProcessingChainError
+from .errors import DSPFatal, ProcessingChainError
 from .lh5 import LGDO, LH5Iterator, LH5Store, Struct, Table
 from .processing_chain import build_processing_chain
 
@@ -256,7 +256,14 @@ def build_dsp(
         for tb_chunk in lh5_it:
             i_entry = getattr(lh5_it, "current_i_entry", 0)
             n = len(tb_chunk)
-            proc_chain(tb_chunk, tb_out)
+            try:
+                proc_chain(tb_chunk, tb_out)
+            except DSPFatal as e:
+                if e.wf_range is not None:  # checked mode: exact entry
+                    e.wf_range = (i_entry + e.wf_range[0], i_entry + e.wf_range[1])
+                else:
+                    e.wf_range = (i_entry, i_entry + n)
+                raise e
             out_view = tb_out[0:n] if n != len(tb_out) else tb_out
             if isinstance(dsp_st, LH5Store):
                 dsp_st.write(

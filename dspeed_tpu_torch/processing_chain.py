@@ -412,17 +412,41 @@ def _np_to_torch_ufunc(func):
     return fn
 
 
-# numpy reduction functions whose axis argument needs core-relative
-# remapping, and their torch counterparts (dim keyword)
-_REDUCTIONS = {
-    "amax": torch.amax, "max": torch.amax, "amin": torch.amin,
-    "min": torch.amin, "sum": torch.sum, "mean": torch.mean,
-    "prod": torch.prod, "argmax": torch.argmax, "argmin": torch.argmin,
-    "cumsum": torch.cumsum, "cumprod": torch.cumprod, "nansum": torch.nansum,
-    "nanmean": torch.nanmean,
-    "std": lambda x, dim: torch.std(x, dim=dim, correction=0),
-    "var": lambda x, dim: torch.var(x, dim=dim, correction=0),
-}
+def _numpy_processor(fname: str, signature: str):
+    """The tensor function for ``numpy.<fname>`` with numpy's positional
+    signature (:mod:`._numpy_funcs`); raises for a name with no entry."""
+    from ._numpy_funcs import NUMPY_FUNCS, REDUCTIONS
+    from .processors import parse_signature
+
+    fn = NUMPY_FUNCS.get(fname)
+    if fn is None:
+        raise ProcessingChainError(
+            f"numpy.{fname} has no counterpart with numpy's signature in "
+            f"dspeed_tpu_torch"
+        )
+    if fname in REDUCTIONS:
+        # the reference's axis arg counts from its (block, core...) buffer
+        # layout; remap to a negative, core-relative axis so the kernel is
+        # rank-polymorphic over extra batch dims
+        ncore0 = len(parse_signature(signature)[0][0])
+
+        def func(x, axis, *rest, _fn=fn, _nc=ncore0):
+            return _fn(_as_tensor(x), int(axis) - 1 - _nc, *rest)
+
+        token = ("npred", fname, ncore0)
+    else:
+        def func(x, *rest, _fn=fn):
+            return _fn(_as_tensor(x), *rest)
+
+        token = ("npfn", fname)
+    # the wrapper closure is fresh per step; give _cse_steps a stable
+    # identity so identical calls can merge
+    func._cse_token = token
+    return func
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
 def _to_numpy(v):
@@ -532,7 +556,7 @@ class KernelStep(Step):
         types: list[str] | None = None,
         grid: CoordinateGrid | None = None,
     ) -> None:
-        from .processors import Kernel, parse_signature
+        from .processors import Kernel
 
         kw_params = kw_params or {}
         self.proc_chain = proc_chain
@@ -563,28 +587,7 @@ class KernelStep(Step):
                 )
             fname = getattr(func, "__name__", "fn")
             if getattr(func, "__module__", "").split(".")[0] == "numpy":
-                red = _REDUCTIONS.get(fname)
-                if red is None:
-                    tfn = getattr(torch, fname, None)
-                    if tfn is None:
-                        raise ProcessingChainError(
-                            f"no PyTorch equivalent for numpy.{fname}"
-                        )
-                    func = tfn
-                else:
-                    # the reference's axis arg counts from its (block, core...)
-                    # buffer layout; remap to a negative, core-relative axis so
-                    # the kernel is rank-polymorphic over extra batch dims
-                    ncore0 = len(parse_signature(signature)[0][0])
-
-                    def func(x, axis, *rest, _red=red, _nc=ncore0):
-                        if not isinstance(x, torch.Tensor):
-                            x = torch.as_tensor(np.asarray(x))
-                        return _red(x, int(axis) - 1 - _nc, *rest)
-
-                    # the wrapper closure is fresh per step; give _cse_steps
-                    # a stable identity so identical reductions can merge
-                    func._cse_token = ("npred", fname, ncore0)
+                func = _numpy_processor(fname, signature)
 
             kern = Kernel(func, signature, types, name=fname)
         else:
@@ -1298,6 +1301,13 @@ class ProcessingChain:
             log.debug("fusion pass applied: %s", applied)
         return applied
 
+    def _hand_kernel_plane(self, spec) -> bool:
+        """Whether a hand pattern (K1 to K6) may fuse over the plane of the
+        argument ``spec``. On the card the hand kernels take float32 planes
+        only, so a chain over float64 waveforms runs its unfused processors
+        in float64 there; the CPU fuses any dtype, with the plain versions."""
+        return self.device.type != "cuda" or np.dtype(spec.dtype) == np.float32
+
     @staticmethod
     def _kname(step):
         return getattr(getattr(step, "kernel", None), "__name__", None)
@@ -1356,6 +1366,7 @@ class ProcessingChain:
                     self._kname(pz) != "pole_zero"
                     or len(pz.arg_specs) != 2
                     or self._env_key(pz.arg_specs[0]) != x_key
+                    or not self._hand_kernel_plane(pz.arg_specs[0])
                 ):
                     continue
                 tau = self._const_scalar(pz.arg_specs[1])
@@ -1672,6 +1683,8 @@ class ProcessingChain:
                 continue
             if len(st.arg_specs) != 3 or len(st.out_specs) != 1:
                 continue
+            if not self._hand_kernel_plane(st.arg_specs[0]):
+                continue
             k_spec = st.arg_specs[1]
             if (
                 k_spec.kind != "const"
@@ -1742,6 +1755,7 @@ class ProcessingChain:
                 self._kname(ups) != "upsampler"
                 or len(ups.out_specs) != 1
                 or len(ups.arg_specs) != 2
+                or not self._hand_kernel_plane(ups.arg_specs[0])
             ):
                 continue
             ratio = self._const_scalar(ups.arg_specs[1])
@@ -1842,6 +1856,8 @@ class ProcessingChain:
             if self._kname(cv) not in ("convolve_wf", "fft_convolve_wf"):
                 continue
             if len(cv.arg_specs) != 3 or len(cv.out_specs) != 1:
+                continue
+            if not self._hand_kernel_plane(cv.arg_specs[0]):
                 continue
             k_spec = cv.arg_specs[1]
             if (
@@ -2051,7 +2067,11 @@ class ProcessingChain:
         steps = self._steps
         links = []  # (idx, step, w_key, factor, base_key, base_var, dir, s_key)
         for idx, s in enumerate(steps):
-            if self._kname(s) != "time_point_thresh" or len(s.arg_specs) != 4:
+            if (
+                self._kname(s) != "time_point_thresh"
+                or len(s.arg_specs) != 4
+                or not self._hand_kernel_plane(s.arg_specs[0])
+            ):
                 continue
             w_key = self._env_key(s.arg_specs[0])
             a_key = self._env_key(s.arg_specs[1])

@@ -56,6 +56,7 @@ __all__ = [
     "build_all",
     "fused_energy",
     "fused_energy_plain",
+    "fused_energy_launch",
     "banded_conv_multi",
     "banded_conv_plain",
     "fused_t0",
@@ -146,6 +147,10 @@ def _bind(name: str, so: str):
         ]
         lib.dspeed_fused_energy_smem_bytes.restype = ctypes.c_int
         lib.dspeed_fused_energy_smem_bytes.argtypes = [ctypes.c_int]
+        lib.dspeed_fused_energy_config.restype = ctypes.c_int
+        lib.dspeed_fused_energy_config.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ]
     elif name == "banded_conv":
         lib.dspeed_banded_conv.restype = ctypes.c_int
         lib.dspeed_banded_conv.argtypes = (
@@ -372,6 +377,17 @@ def fused_energy_plain(
         outs.append(nanmask(bad, wsub.to(dt)))
     outs += masks
     return tuple(outs)
+
+
+def fused_energy_launch(n: int) -> dict:
+    """How K1 launches for rows of ``n`` samples on this card: threads and
+    shared memory per block, blocks per SM, and the kernel's registers and
+    local (spill) bytes per thread."""
+    lib = _lib("fused_energy")
+    out = (ctypes.c_int * 5)()
+    _check_rc(lib, lib.dspeed_fused_energy_config(int(n), out), "fused_energy")
+    keys = ("threads", "smem_bytes", "blocks_per_sm", "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 def fused_energy(

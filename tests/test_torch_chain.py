@@ -28,6 +28,7 @@ import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_build_dsp import DB_FLAT, make_hpge_waveforms  # noqa: E402
+from torch_flagship import flagship_config  # noqa: E402
 
 import torch  # noqa: E402
 
@@ -83,13 +84,6 @@ def _timing_config():
         cfg = yaml.safe_load(f)
     cfg["outputs"] = [o for o in cfg["outputs"] if o not in AOE]
     assert len(cfg["outputs"]) == 31
-    return cfg
-
-
-def _flagship_config():
-    with open(CONFIG) as f:
-        cfg = yaml.safe_load(f)
-    assert len(cfg["outputs"]) == 34
     return cfg
 
 
@@ -350,7 +344,7 @@ def test_chain_meets_golden_replay_tolerance(config):
     golden = np.load(GOLDEN)
     wf, bl, _ = _events(n=32, nan_rows=False)  # tools/make_goldens.py:35
     cfg = {"energy": _energy_config, "timing": _timing_config,
-           "flagship": _flagship_config}[config]()
+           "flagship": flagship_config}[config]()
     out = dspeed_tpu_torch.build_dsp(
         _table(dspeed_tpu_torch.lh5, wf, bl), dsp_config=cfg,
         database=DB_FLAT, device="cpu",
@@ -549,7 +543,7 @@ FLAGSHIP_FUSIONS = [
 @pytest.fixture(scope="module")
 def jax_flagship_columns(events):
     wf, bl, _ = events
-    cfg = _flagship_config()
+    cfg = flagship_config()
     out = dspeed_tpu.build_dsp(
         _table(dspeed_tpu.lh5, wf, bl), dsp_config=cfg, database=DB_FLAT,
     )
@@ -558,7 +552,7 @@ def jax_flagship_columns(events):
 
 def test_flagship_chain_table_matches_jax(events, jax_flagship_columns):
     wf, bl, _ = events
-    cfg = _flagship_config()
+    cfg = flagship_config()
     out = dspeed_tpu_torch.build_dsp(
         _table(dspeed_tpu_torch.lh5, wf, bl), dsp_config=cfg,
         database=DB_FLAT, device="cpu",
@@ -580,7 +574,7 @@ def test_flagship_chain_file_matches_jax(events, jax_flagship_columns, tmp_path)
     raw = str(tmp_path / "flagship_raw.lh5")
     dspeed_tpu_torch.lh5.write(_table(dspeed_tpu_torch.lh5, wf, bl), "geds/raw", raw)
     db = {"geds": DB_FLAT}
-    cfg = _flagship_config()
+    cfg = flagship_config()
     out_t = str(tmp_path / "flagship_dsp_torch.lh5")
     out_j = str(tmp_path / "flagship_dsp_jax.lh5")
     # three chunks, the last one short
@@ -597,7 +591,7 @@ def test_flagship_chain_file_matches_jax(events, jax_flagship_columns, tmp_path)
 
 
 def test_flagship_fusion_pass_matches_jax(monkeypatch, events):
-    jc, tc = _chains(monkeypatch, events, _flagship_config())
+    jc, tc = _chains(monkeypatch, events, flagship_config())
     assert _kinds(tc) == _kinds(jc)
     assert len(tc._steps) == 76
     applied = tc.optimize_fusions()
@@ -623,10 +617,92 @@ def test_flagship_fusion_pass_matches_jax(monkeypatch, events):
 
 def test_flagship_unfused_chain_matches_fused(events):
     wf, bl, _ = events
-    cfg = _flagship_config()
+    cfg = flagship_config()
     kw = dict(dsp_config=cfg, database=DB_FLAT, device="cpu")
     tb = _table(dspeed_tpu_torch.lh5, wf, bl)
     fused = _columns(dspeed_tpu_torch.build_dsp(tb, fuse=True, **kw), cfg["outputs"])
     unfused = _columns(dspeed_tpu_torch.build_dsp(tb, fuse=False, **kw), cfg["outputs"])
     for k in cfg["outputs"]:
         np.testing.assert_array_equal(unfused[k], fused[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the error contract: a DSPFatal carries the entries it was thrown on
+
+# a trapezoid wider than the 4096-sample waveform raises in its chunk
+WIDE_TRAP_CONFIG = {
+    "outputs": ["trapE"],
+    "processors": {
+        "wf_blsub": {
+            "function": "bl_subtract", "module": "dspeed_tpu.processors",
+            "args": ["waveform", "baseline", "wf_blsub"], "unit": "ADC",
+        },
+        "wf_trap": {
+            "function": "trap_norm", "module": "dspeed_tpu.processors",
+            "args": ["wf_blsub", 3000, 3000, "wf_trap"], "unit": "ADC",
+        },
+        "trapE": {
+            "function": "fixed_time_pickoff", "module": "dspeed_tpu.processors",
+            "args": ["wf_trap", 100, "'i'", "trapE"], "unit": "ADC",
+        },
+    },
+}
+
+
+def _fatal(pkg, wf, bl, **kw):
+    with pytest.raises(pkg.errors.DSPFatal) as err:
+        pkg.build_dsp(_table(pkg.lh5, wf, bl), dsp_config=WIDE_TRAP_CONFIG, **kw)
+    return err.value
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_dsp_fatal_carries_the_chunk_entries(fuse):
+    wf, bl, _ = _events(n=16, nan_rows=False)
+    want = _fatal(dspeed_tpu, wf, bl)
+    got = _fatal(dspeed_tpu_torch, wf, bl, device="cpu", fuse=fuse)
+    assert want.wf_range == got.wf_range == (0, 16)
+    lines = str(got).splitlines()
+    assert lines[:2] == str(want).splitlines()[:2] == [
+        "The trapezoid width is wider than the waveform",
+        "Thrown while processing entries (0, 16)",
+    ]
+
+
+# ---------------------------------------------------------------------------
+# float64 waveforms: the hand patterns fuse them on the CPU, not on the card
+
+HAND_PATTERNS = (
+    "fused_energy_front", "chained_time_point_thresh", "fused_current_front",
+    "fused_t0_front", "fused_conv_bank",
+)
+
+
+@pytest.mark.parametrize("device, dtype, fused", [
+    ("cuda", "float32", True),
+    ("cuda", "float64", False),
+    ("cpu", "float32", True),
+    ("cpu", "float64", True),
+])
+def test_hand_patterns_take_float64_planes_only_on_the_cpu(
+    events, device, dtype, fused
+):
+    wf, bl, _ = events
+    tc, _, _ = torch_build_chain(
+        flagship_config(dtype),
+        _table(dspeed_tpu_torch.lh5, wf.astype(dtype), bl.astype(dtype)),
+        db_dict=DB_FLAT, device="cpu", fuse=False,
+    )
+    # the pass decides from the device's type and the planes' dtypes only,
+    # so a CPU-built chain stands for one on the card
+    tc.device = torch.device(device)
+    blsub = next(s for s in tc._steps if tc._kname(s) == "bl_subtract")
+    assert np.dtype(blsub.arg_specs[0].dtype) == dtype
+    assert tc._hand_kernel_plane(blsub.arg_specs[0]) is fused
+    applied = tc.optimize_fusions()
+    hand = [a for a in applied if a.split("[")[0] in HAND_PATTERNS]
+    want = [a for a in FLAGSHIP_FUSIONS if a.split("[")[0] in HAND_PATTERNS]
+    assert hand == (want if fused else [])
+    kernels = {k for _, k in _kinds(tc) if k}
+    assert kernels.isdisjoint(HAND_PATTERNS) != fused
+    if fused and dtype == "float32":
+        assert applied == FLAGSHIP_FUSIONS

@@ -678,6 +678,105 @@ def test_fused_energy_kernel_matches_plain_on_the_card(case, cuda_device):
     _check_k1([o.cpu().numpy() for o in got], [o.cpu().numpy() for o in want], kw, case)
 
 
+def _card_k1_case(case, n):
+    """A K1 case with its slope slices cut to rows of ``n`` samples."""
+    kw = dict(K1_CASES[case])
+    kw["slope_specs"] = tuple(
+        (src, a0, min(b0, n)) for src, a0, b0 in kw.get("slope_specs", ())
+    )
+    return kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+@pytest.mark.parametrize("n", [4095, 1000, 5000, 8192, 19000])
+def test_fused_energy_kernel_takes_row_tails_on_the_card(case, n, cuda_device):
+    """Rows whose length is no multiple of 16 samples (4095: no multiple of
+    4 either, so no 16-byte vector access), and rows of more than 4096
+    samples, which take K1's long-row instance (8 lane-steps a warp, up to
+    1024 threads a block) with full (8192) or partial (5000, 19000) last
+    warps, against the plain version."""
+    kw = _card_k1_case(case, n)
+    wf, bl = _hpge(n_ev=64, n=n)
+    w, b = torch.from_numpy(wf).to(cuda_device), torch.from_numpy(bl).to(cuda_device)
+    got = _flat(_cuda.fused_energy(w, b, TAU, **kw))
+    want = _flat(_cuda.fused_energy_plain(w, b, TAU, **kw))
+    torch.cuda.synchronize()
+    _check_k1([o.cpu().numpy() for o in got], [o.cpu().numpy() for o in want], kw,
+              f"{case} n={n}")
+
+
+@pytest.mark.gpu
+def test_fused_energy_kernel_poisons_nan_rows_on_the_card(cuda_device):
+    """A NaN sample (row 3) and a NaN baseline (row 5): every float plane and
+    scalar of both rows is NaN, but the raw min_max of the NaN-baseline row,
+    and every mask byte of both rows is 0."""
+    kw = _card_k1_case("mask", 4096)
+    kw.update(emit_blsub=True, emit_minmax=True)
+    wf, bl = _hpge(n_ev=64, n=4096)
+    w, b = torch.from_numpy(wf).to(cuda_device), torch.from_numpy(bl).to(cuda_device)
+    flat = [o.cpu().numpy() for o in _flat(_cuda.fused_energy(w, b, TAU, **kw))]
+    mask = flat.pop()
+    s0 = 1 + len(kw["trap_specs"]) + len(kw["emax_for"]) + 4 * len(kw["slope_specs"])
+    mm = flat[s0 : s0 + 4]
+    good = [0, 1, 2, 4, 6, 7]
+    for q, o in enumerate(flat):
+        assert np.isnan(o[3]).all() and np.isfinite(o[good]).all(), q
+        assert np.isnan(o[5]).all() == (not any(o is m for m in mm)), q
+    assert not mask[[3, 5]].any() and mask[good].any()
+
+
+@pytest.mark.gpu
+def test_fused_energy_kernel_walks_more_rows_than_its_grid(cuda_device):
+    """Each block of the persistent grid takes several rows."""
+    n = 1024
+    cfg = _cuda.fused_energy_launch(n)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    rows = 2 * cfg["blocks_per_sm"] * sms + 5
+    kw = K1_CASES["mask"]
+    wf, bl = _hpge(n_ev=rows, n=n)
+    w, b = torch.from_numpy(wf).to(cuda_device), torch.from_numpy(bl).to(cuda_device)
+    got = _flat(_cuda.fused_energy(w, b, TAU, **kw))
+    want = _flat(_cuda.fused_energy_plain(w, b, TAU, **kw))
+    torch.cuda.synchronize()
+    _check_k1([o.cpu().numpy() for o in got], [o.cpu().numpy() for o in want], kw,
+              f"{rows} rows")
+
+
+@pytest.mark.gpu
+def test_f64_flagship_on_the_card_meets_the_golden_tolerance(cuda_device):
+    """A float64 flagship runs its unfused processors in float64 on the card
+    (no hand kernel takes it) and meets the golden replay's tolerance
+    (``tests/test_goldens.py:40-45``) against the CPU run of the events."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_flagship import flagship_config
+
+    import dspeed_tpu_torch
+    from dspeed_tpu_torch import lh5
+
+    wf, bl = _hpge(n_ev=64, n=4096)
+    table = lh5.Table({
+        "waveform": lh5.WaveformTable(values=wf.astype("float64"), t0=0.0,
+                                      t0_units="ns", dt=16.0, dt_units="ns"),
+        "baseline": lh5.Array(bl.astype("float64")),
+    })
+    kw = dict(dsp_config=flagship_config("float64"), database={"pz": {"tau": TAU}})
+    hand = ("fused_energy", "cascade_tp", "fused_t0", "banded_conv_multi",
+            "fused_current_poly", "fused_current")
+    before = dict(_cuda.LAUNCHES)
+    card = dspeed_tpu_torch.build_dsp(table, device="cuda", **kw)
+    assert all(_cuda.LAUNCHES[k] == before[k] for k in hand)
+    cpu = dspeed_tpu_torch.build_dsp(table, device="cpu", **kw)
+    for k in kw["dsp_config"]["outputs"]:
+        g, w = np.asarray(card[k].nda), np.asarray(cpu[k].nda)
+        assert g.dtype == w.dtype == np.float64, k
+        np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-12, equal_nan=True,
+                                   err_msg=k)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(K4_CASES))
 def test_banded_conv_kernel_matches_plain_on_the_card(case, cuda_device):
