@@ -268,7 +268,21 @@ def k1_phase(_cuda, w, bl, label, trap_specs, emax_for, slope_specs,
     )
 
 
-def k4_phase(_cuda, w, kerns, lo, p, n_in, label):
+def ptxas_report(log: str, kernel: str) -> dict:
+    """``ptxas -v``'s lines per instance of ``kernel`` (by its mangled
+    name): registers, spill stores and loads, static shared memory."""
+    report, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            name = line.split("'")[1] if "'" in line else line.split()[-1]
+            if kernel not in name:
+                name = None
+        elif name is not None and ("spill" in line or "registers" in line):
+            report.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in report.items()}
+
+
+def k4_phase(_cuda, w, kerns, lo, p, n_in, label, ptxas_log):
     """K4 against its plain version and torch's conv1d on the card."""
     import torch
     import torch.nn.functional as F
@@ -322,19 +336,32 @@ def k4_phase(_cuda, w, kerns, lo, p, n_in, label):
     ops = 2 * nk * p * m * B
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_S * 1e3
+    bound = max(t_bytes, t_ops)
+    launch = _cuda.banded_conv_launch(B, m, nk, p)
+    instance = f"banded_conv_kernelILi{nk}E"
+    ptxas = list(ptxas_report(ptxas_log, instance).values())
+    if not ptxas:
+        raise AssertionError(f"K4 [{label}]: no ptxas report for {instance}")
     print(
         f"K4 banded_conv_multi [{label}] {B}x{n} nk={nk} m={m} p={p} "
         f"lo={lo}: max_abs_err {max_err:.3e}, kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, conv1d {library_ms:.4f} ms (max |conv1d - "
-        f"plain| / max|plain| {lib_err:.3e}), bound {max(t_bytes, t_ops):.4f} ms "
-        f"({'bytes' if t_bytes >= t_ops else 'operations'})",
+        f"plain| / max|plain| {lib_err:.3e}), bound {bound:.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}), {bound / ms:.1%} "
+        f"of the bound; {launch['outputs_per_thread']} outputs a thread, "
+        f"{launch['threads']} threads, {launch['rows_per_block']} row(s), "
+        f"{launch['segments']} segment(s) a row and {launch['smem_bytes']} "
+        f"bytes of shared memory a block, {launch['blocks_per_sm']} blocks "
+        f"per SM, {launch['blocks']} blocks, {launch['registers']} registers and "
+        f"{launch['local_bytes']} local bytes a thread; ptxas for {instance}: "
+        f"{' | '.join(ptxas)}; on {card_line()}",
         flush=True,
     )
     return dict(
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=library_ms,
+        library_ms=library_ms, bound_share=bound / ms, launch=launch,
+        ptxas=ptxas,
     )
 
 
@@ -1329,11 +1356,16 @@ def main() -> int:
     m = bank[0].shape[-1]
     n_in = N_SAMPLES - round(33.6e3 / DT)
     p = n_in - m + 1
-    k4 = k4_phase(_cuda, w_nan, bank, m - 1, p, n_in, "flagship v")
+    k4 = k4_phase(_cuda, w_nan, bank, m - 1, p, n_in, "flagship v",
+                  logs["banded_conv"])
     t0_taps = consts["t0_kernel"]
     k4s = k4_phase(_cuda, w_nan, [t0_taps], (len(t0_taps) - 1) // 2, N_SAMPLES,
-                   None, f"s, {len(t0_taps)} taps")
+                   None, f"s, {len(t0_taps)} taps", logs["banded_conv"])
     k4["max_abs_err"] = max(k4["max_abs_err"], k4s["max_abs_err"])
+    k4["s_window"] = {
+        q: k4s[q] for q in ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "bound_share", "launch", "ptxas")
+    }
 
     # -- K3 on the card's own wf_pz, with bl_std as the threshold ------------
     outs = _cuda.fused_energy(w_nan, b_nan, TAU, **timing_k1)

@@ -57,6 +57,7 @@ __all__ = [
     "fused_energy",
     "fused_energy_plain",
     "fused_energy_launch",
+    "banded_conv_launch",
     "banded_conv_multi",
     "banded_conv_plain",
     "fused_t0",
@@ -109,7 +110,9 @@ def _nvcc() -> str:
 
 def _compile(name: str, verbose: bool = False) -> tuple[str, str]:
     """Compile ``csrc/<source>`` into ``_build/lib<name>.so`` unless an
-    up-to-date library is there; returns ``(path, compiler output)``."""
+    up-to-date library is there; returns ``(path, compiler output)``. With
+    ``verbose`` it always compiles, so that the output holds ``ptxas``'s
+    registers, shared memory and spills per kernel."""
     src = os.path.join(_CSRC, SOURCES[name])
     so = os.path.join(_BUILD, f"libdspeed_{name}.so")
     # a source is as new as the newest of itself and the shared headers
@@ -117,7 +120,7 @@ def _compile(name: str, verbose: bool = False) -> tuple[str, str]:
         os.path.getmtime(p)
         for p in [src, *glob.glob(os.path.join(_CSRC, "*.cuh"))]
     )
-    if os.path.exists(so) and os.path.getmtime(so) >= newest:
+    if not verbose and os.path.exists(so) and os.path.getmtime(so) >= newest:
         return so, ""
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -158,6 +161,10 @@ def _bind(name: str, so: str):
         )
         lib.dspeed_banded_conv_smem_bytes.restype = ctypes.c_int
         lib.dspeed_banded_conv_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.dspeed_banded_conv_config.restype = ctypes.c_int
+        lib.dspeed_banded_conv_config.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int),
+        ]
     elif name == "fused_t0":
         lib.dspeed_fused_t0.restype = ctypes.c_int
         lib.dspeed_fused_t0.argtypes = [
@@ -523,6 +530,22 @@ def _taps_on(kerns, device) -> torch.Tensor:
             _TAPS_CACHE.pop(next(iter(_TAPS_CACHE)))
         t = _TAPS_CACHE[key] = torch.from_numpy(arr).to(device)
     return t
+
+
+def banded_conv_launch(B: int, m: int, nk: int, p: int) -> dict:
+    """How K4 launches for ``B`` rows, ``nk`` kernels of ``m`` taps and
+    ``p`` outputs on this card: outputs per thread, threads, rows and
+    segments per row and shared memory per block, blocks per SM, blocks,
+    and the kernel instance's registers and local (spill) bytes per
+    thread."""
+    lib = _lib("banded_conv")
+    out = (ctypes.c_int * 9)()
+    rc = lib.dspeed_banded_conv_config(int(B), int(m), int(nk), int(p), out)
+    _check_rc(lib, rc, "banded_conv_multi")
+    keys = ("outputs_per_thread", "threads", "rows_per_block", "segments",
+            "smem_bytes", "blocks_per_sm", "blocks", "registers",
+            "local_bytes")
+    return dict(zip(keys, out))
 
 
 def banded_conv_plain(w, kerns, lo, p, n_in=None):

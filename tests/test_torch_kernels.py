@@ -198,6 +198,15 @@ K4_CASES = {
     # a 'f' window reaching past both ends of the row
     "f_nk1": dict(n=256, m=65, mode="f", nk=1, n_in=None),
     "f_nk2": dict(n=256, m=65, mode="f", nk=2, n_in=None),
+    # the flagship bank's geometry: a 4096-sample row read to 1996 samples
+    "v_nk2_flagship": dict(n=4096, m=1696, mode="v", nk=2, n_in=1996),
+    # banks of three and four kernels
+    "v_nk3": dict(n=600, m=200, mode="v", nk=3, n_in=None),
+    "v_nk4_n_in": dict(n=700, m=77, mode="v", nk=4, n_in=650),
+    # p = 1003 is a multiple of no kernel instance's outputs per thread
+    "s_nk2_p1003": dict(n=1003, m=33, mode="s", nk=2, n_in=None),
+    # 37 rows: a multiple of no block's rows
+    "v_nk2_37_rows": dict(n=499, m=100, mode="v", nk=2, n_in=None, rows=37),
 }
 
 
@@ -210,23 +219,38 @@ def _window(mode, n, m):
 
 
 @pytest.mark.parametrize("case", sorted(K4_CASES))
+def _k4_case(case, n_ev):
+    """The inputs of a K4 case: rows 2 and 4 hold a NaN; with ``n_in`` every
+    row holds NaNs beyond the read window, which must not poison."""
+    c = K4_CASES[case]
+    w, rng = _k4_inputs(c.get("rows", n_ev), c["n"])
+    n_read = c["n_in"] or c["n"]
+    if c["n_in"]:
+        w[:, n_read + 3 :] = np.nan  # beyond the read window: never seen
+        w[6, n_read] = np.nan
+    kerns = [rng.normal(0, 1, c["m"]) for _ in range(c["nk"])]
+    lo, p = _window(c["mode"], n_read, c["m"])
+    return w, kerns, lo, p
+
+
+def _check_k4_nan_rows(got, n_ev):
+    rows = np.isnan(got).all(1)
+    assert rows.tolist() == [i in (2, 4) for i in range(n_ev)]
+    assert not np.isnan(got[rows == 0]).any()
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
 def test_banded_conv_plain_matches_pallas_interpret(case):
     from dspeed_tpu.processors import _pallas
 
     c = K4_CASES[case]
-    w, rng = _k4_inputs(12, c["n"])
-    n_read = c["n_in"] or c["n"]
-    if c["n_in"]:
-        w[:, n_read + 3 :] = np.nan  # beyond the read window: never seen
-    kerns = [rng.normal(0, 1, c["m"]) for _ in range(c["nk"])]
-    lo, p = _window(c["mode"], n_read, c["m"])
+    w, kerns, lo, p = _k4_case(case, 12)
     want = _pallas.banded_conv_multi(w, kerns, lo, p, n_in=c["n_in"], interpret=True)
     got = _cuda.banded_conv_multi(torch.from_numpy(w), kerns, lo, p, n_in=c["n_in"])
     assert len(got) == len(want) == c["nk"]
     for j, (g, wv) in enumerate(zip(got, want)):
         _compare(g.numpy(), wv, what=f"{case} kernel {j}")
-        rows = np.isnan(g.numpy()).all(1)
-        assert rows.tolist() == [i in (2, 4) for i in range(12)]
+        _check_k4_nan_rows(g.numpy(), len(w))
 
 
 CASCADE_CASES = {
@@ -781,10 +805,7 @@ def test_f64_flagship_on_the_card_meets_the_golden_tolerance(cuda_device):
 @pytest.mark.parametrize("case", sorted(K4_CASES))
 def test_banded_conv_kernel_matches_plain_on_the_card(case, cuda_device):
     c = K4_CASES[case]
-    w, rng = _k4_inputs(64, c["n"])
-    kerns = [rng.normal(0, 1, c["m"]) for _ in range(c["nk"])]
-    n_read = c["n_in"] or c["n"]
-    lo, p = _window(c["mode"], n_read, c["m"])
+    w, kerns, lo, p = _k4_case(case, 64)
     wt = torch.from_numpy(w).to(cuda_device)
     before = _cuda.LAUNCHES["banded_conv_multi"]
     got = _cuda.banded_conv_multi(wt, kerns, lo, p, n_in=c["n_in"])
@@ -793,6 +814,26 @@ def test_banded_conv_kernel_matches_plain_on_the_card(case, cuda_device):
     torch.cuda.synchronize()
     for j, (g, wv) in enumerate(zip(got, want)):
         _compare(g.cpu().numpy(), wv.cpu().numpy(), what=f"{case} kernel {j}")
+        _check_k4_nan_rows(g.cpu().numpy(), len(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", sorted(k for k, c in K4_CASES.items() if c["nk"] > 1)
+)
+def test_banded_conv_bank_equals_its_kernels_alone_on_the_card(case, cuda_device):
+    """Each output is summed in the same order whatever the bank's size, so
+    a bank's outputs equal K4 launched with each of its kernels alone, bit
+    for bit."""
+    c = K4_CASES[case]
+    w, kerns, lo, p = _k4_case(case, 64)
+    wt = torch.from_numpy(w).to(cuda_device)
+    bank = _cuda.banded_conv_multi(wt, kerns, lo, p, n_in=c["n_in"])
+    for j, k in enumerate(kerns):
+        (alone,) = _cuda.banded_conv_multi(wt, [k], lo, p, n_in=c["n_in"])
+        g, a = bank[j].cpu().numpy(), alone.cpu().numpy()
+        same = (g == a) | (np.isnan(g) & np.isnan(a))
+        assert same.all(), (case, j, np.argwhere(~same)[:5])
 
 
 @pytest.mark.gpu
