@@ -398,11 +398,13 @@ def near_crossing(plane, a, idxs) -> bool:
     return False
 
 
-def k3_phase(_cuda, w, taps, a, label, atrap_spec=None, curr_spec=None):
+def k3_phase(_cuda, w, taps, a, label, ptxas_log, atrap_spec=None,
+             curr_spec=None):
     """K3 against its plain version on the card (rows of ``w`` with a NaN
     and a NaN threshold included); with ``curr_spec`` the absorbed current
     must equal the plain version's bit for bit, NaN positions included, on
-    every row where tp_0 agrees. Returns K3's outputs and its figures."""
+    every row where tp_0 agrees. Returns K3's outputs and its figures, with
+    its launch and ``ptxas -v``'s report for ``fused_t0_kernel``."""
     import torch
 
     from dspeed_tpu_torch.processors.trap_filters import asym_trap_filter
@@ -490,16 +492,27 @@ def k3_phase(_cuda, w, taps, a, label, atrap_spec=None, curr_spec=None):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = (f32_ops / PEAK_F32_S + f64_ops / PEAK_F64_S) * 1e3
     max_err = max(errs.values())
+    bound = max(t_bytes, t_ops)
+    launch = _cuda.fused_t0_launch(n, m, atrap_spec is not None)
+    ptxas = list(ptxas_report(ptxas_log, "fused_t0_kernel").values())
+    if not ptxas:
+        raise AssertionError(f"K3 [{label}]: no ptxas report for fused_t0_kernel")
     print(
         f"K3 fused_t0 [{label}] {B}x{n} m={m}: max_abs_err {max_err:.3e}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})",
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}), {bound / ms:.1%} "
+        f"of the bound; {launch['outputs_per_thread']} outputs a thread, "
+        f"{launch['threads']} threads and {launch['smem_bytes']} bytes of "
+        f"shared memory a block, {launch['blocks_per_sm']} blocks per SM, "
+        f"{launch['registers']} registers and {launch['local_bytes']} local "
+        f"bytes a thread; ptxas for fused_t0_kernel: {' | '.join(ptxas)}; on "
+        f"{card_line()}",
         flush=True,
     )
     return outs, dict(
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_share=bound / ms, launch=launch, ptxas=ptxas,
     )
 
 
@@ -1374,17 +1387,21 @@ def main() -> int:
     a_std = bl_std.clone()
     a_std[13] = float("nan")
     del outs, trap_t, _trap_q
-    t0_out, k3 = k3_phase(_cuda, pz, t0_taps, a_std, "flagship")
-    _, k3a = k3_phase(_cuda, pz, t0_taps, a_std, "flagship+atrap",
+    t0_log = logs["fused_t0"]
+    t0_out, k3 = k3_phase(_cuda, pz, t0_taps, a_std, "flagship", t0_log)
+    _, k3a = k3_phase(_cuda, pz, t0_taps, a_std, "flagship+atrap", t0_log,
                       atrap_spec=ATRAP)
     # as the flagship chain launches it: with the absorbed A/E current
     t0c_out, k3c = k3_phase(_cuda, pz, t0_taps, a_std, "flagship+curr",
-                            curr_spec=CURR_SPEC)
+                            t0_log, curr_spec=CURR_SPEC)
     k3["max_abs_err"] = max(
         k3["max_abs_err"], k3a["max_abs_err"], k3c["max_abs_err"]
     )
     k3.update(curr_spec_ms=k3c["ms"], curr_spec_plain_ms=k3c["plain_ms"],
-              curr_spec_bound_ms=k3c["bound_ms"])
+              curr_spec_bound_ms=k3c["bound_ms"],
+              curr_spec_bound_share=k3c["bound_share"],
+              atrap_ms=k3a["ms"], atrap_plain_ms=k3a["plain_ms"],
+              atrap_bound_ms=k3a["bound_ms"], atrap_launch=k3a["launch"])
 
     # -- K2: trapTmax as the base, K3's tp_0 as the start ---------------------
     k2 = k2_phase(_cuda, pz, trap_tmax, t0_out[4])

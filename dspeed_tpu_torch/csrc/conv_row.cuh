@@ -1,6 +1,7 @@
-// The f32 FMA convolution loop shared by banded_conv.cu (K4) and
-// fused_t0.cu (K3), so that the t0 front's 'same' convolution is K4's 's'
-// window bit for bit.
+// The f32 FMA convolution loop of generic_rows.cu (K7), and the order of
+// summation that conv_tile.cuh's register-tiled loop (K3, K4) keeps, so
+// that K7's convolutions equal K4's and K3's bit for bit. K3 and K4 take
+// only CONV_CHUNK from here.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -61,6 +61,7 @@ __all__ = [
     "banded_conv_multi",
     "banded_conv_plain",
     "fused_t0",
+    "fused_t0_launch",
     "fused_t0_plain",
     "cascade_tp",
     "cascade_tp_plain",
@@ -172,6 +173,10 @@ def _bind(name: str, so: str):
         ]
         lib.dspeed_fused_t0_smem_bytes.restype = ctypes.c_int
         lib.dspeed_fused_t0_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.dspeed_fused_t0_config.restype = ctypes.c_int
+        lib.dspeed_fused_t0_config.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int),
+        ]
     elif name == "cascade_tp":
         lib.dspeed_cascade_tp.restype = ctypes.c_int
         lib.dspeed_cascade_tp.argtypes = [
@@ -633,6 +638,20 @@ class _T0Params(ctypes.Structure):
         ("avg_len", ctypes.c_int),
         ("n_curr", ctypes.c_int),
     ]
+
+
+def fused_t0_launch(n: int, m: int, has_atrap: bool = False) -> dict:
+    """How K3 launches for rows of ``n`` samples and ``m`` taps (with an
+    absorbed trapezoid where ``has_atrap``) on this card: outputs per
+    thread, threads and shared memory per block, blocks per SM, and the
+    kernel's registers and local (spill) bytes per thread."""
+    lib = _lib("fused_t0")
+    out = (ctypes.c_int * 6)()
+    rc = lib.dspeed_fused_t0_config(int(n), int(m), int(bool(has_atrap)), out)
+    _check_rc(lib, rc, "fused_t0")
+    keys = ("outputs_per_thread", "threads", "smem_bytes", "blocks_per_sm",
+            "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 def _curr_spec(curr_spec, n):

@@ -346,7 +346,28 @@ T0_CASES = {
     "flagship_curr": dict(
         atrap_spec=None, need=(False, True, False, True), curr_spec=(301, 1, 300)
     ),
+    # edge cases of the register-tiled kernel: the flagship's full row with
+    # a NaN at its first and at its last sample (two rows)
+    "flagship_4096_nan_ends": dict(
+        atrap_spec=("asym", 8, 4, 125), need=(True,) * 4, curr_spec=(301, 1, 300)
+    ),
+    # whole 32-tap chunks only, a partial chunk only, a single tap
+    "walk_m64": dict(atrap_spec=None, need=(True,) * 4),
+    "walk_m7": dict(atrap_spec=None, need=(True,) * 4, curr_spec=(101, 1, 100)),
+    "walk_m1": dict(atrap_spec=("asym", 8, 4, 32), need=(True,) * 4),
+    # a falling walk: the maximum within the first samples, nothing found
+    "walk_falling": dict(atrap_spec=None, need=(True,) * 4),
+    # a constant row under a 33-tap box: a plateau of exact ties
+    "box_plateau": dict(atrap_spec=("asym", 8, 4, 32), need=(True,) * 4),
+    # a row longer than one tile of outputs
+    "walk_n5000": dict(atrap_spec=None, need=(True,) * 4, curr_spec=(101, 1, 100)),
 }
+
+# box_plateau's thresholds, cycled over its rows: the filtered row rises
+# from 12.75 by 0.75 a sample to its plateau of 24.75 at sample 16, so these
+# cross at samples 9, 10, 16 (t_max itself) and 1, and never
+PLATEAU_THRESHOLDS = (19.5, 20.0, 24.75, 13.0, 12.75, 30.0)
+PLATEAU_TP0 = (9.0, 10.0, 16.0, 1.0, np.nan, np.nan)
 
 
 def _t0_inputs(case, n_ev=12, seed=3):
@@ -354,12 +375,37 @@ def _t0_inputs(case, n_ev=12, seed=3):
     if case.startswith("flagship"):
         import dspeed_tpu_torch.processors as tp
 
-        wf, bl = _hpge(n_ev=n_ev, n=1024, seed=seed)
+        n = 4096 if case == "flagship_4096_nan_ends" else 1024
+        wf, bl = _hpge(n_ev=n_ev, n=n, seed=seed)
         bl[5] = 15000.0
         (pz,) = tp.pole_zero(torch.from_numpy(wf - bl[:, None]), TAU)
         w = pz.numpy().astype(np.float32)
         kern = np.asarray(tp.t0_filter(8.0, 125.0, dims={"n": 133})[0])
         std = rng.uniform(2.0, 4.0, n_ev).astype("float32")
+        if case == "flagship_4096_nan_ends":
+            w[1, 0] = np.nan
+            w[4, 4095] = np.nan
+    elif case == "box_plateau":
+        w = np.full((n_ev, 512), 3.0, np.float32)
+        w[9, 200] = np.nan
+        kern = np.full(33, 0.25)
+        std = np.resize(np.float32(PLATEAU_THRESHOLDS), n_ev)
+    elif case in ("walk_m64", "walk_m7", "walk_m1", "walk_falling", "walk_n5000"):
+        n = 5000 if case == "walk_n5000" else 512
+        drift, start = (-1.0, 1000.0) if case == "walk_falling" else (0.2, 0.0)
+        w = start + np.cumsum(rng.normal(drift, 1.0, (n_ev, n)), axis=1)
+        w = w.astype("float32")
+        w[9, :] = np.nan
+        if case == "walk_falling":  # a 7-tap triangle
+            kern = np.minimum(np.arange(1, 8), np.arange(7, 0, -1)) / 16.0
+        elif case == "walk_n5000":  # positive taps: t_max inside the row
+            kern = np.abs(rng.normal(0, 1, 33))
+            kern /= kern.sum()
+        else:
+            m = {"walk_m64": 64, "walk_m7": 7, "walk_m1": 1}.get(case, 33)
+            kern = rng.normal(0, 1, m)
+            kern *= np.sign(kern.sum()) / np.abs(kern).sum()
+        std = rng.uniform(0.5, 2.0, n_ev).astype("float32")
     else:
         n = 777 if case == "walk_odd_length" else 512
         w = np.cumsum(rng.normal(0.2, 1.0, (n_ev, n)), axis=1).astype("float32")
@@ -369,6 +415,37 @@ def _t0_inputs(case, n_ev=12, seed=3):
         std = rng.uniform(0.5, 2.0, n_ev).astype("float32")
     std[6] = np.nan  # a NaN threshold: the searches find nothing
     return w, kern, std
+
+
+def _check_nan_ends(w, got):
+    t_max, tp0 = got[1], got[4]
+    assert np.isnan(t_max[[1, 3, 4]]).all() and np.isnan(tp0[[1, 3, 4, 6]]).all()
+    assert np.isfinite(np.delete(tp0, [1, 3, 4, 6])).sum() >= 6
+
+
+def _check_falling(w, got):
+    t_max, tp0 = got[1], got[4]
+    assert np.isnan(tp0).all()
+    assert (np.delete(t_max, 9) <= 5).all() and np.isnan(t_max[9])
+
+
+def _check_plateau(w, got):
+    t_min, t_max, a_min, a_max, tp0 = got[:5]
+    rows = np.delete(np.arange(len(w)), 9)
+    assert (t_min[rows] == 0).all() and (t_max[rows] == 16).all()
+    assert (a_min[rows] == 12.75).all() and (a_max[rows] == 24.75).all()
+    want = np.resize(np.float32(PLATEAU_TP0), len(w))
+    want[[6, 9]] = np.nan
+    np.testing.assert_array_equal(tp0, want)
+
+
+# the CPU test's checks of what an edge case must find, beside the
+# comparison with the Pallas kernel
+T0_EDGE_CHECKS = {
+    "flagship_4096_nan_ends": _check_nan_ends,
+    "walk_falling": _check_falling,
+    "box_plateau": _check_plateau,
+}
 
 
 def _split_curr(outs, kw):
@@ -420,7 +497,10 @@ def test_fused_t0_plain_matches_pallas_interpret(case):
     want, w_curr = _split_curr([np.asarray(o) for o in want], kw)
     _check_t0(got, want, kw["need"], case)
     tp0 = got[4]
-    assert np.isnan(tp0[6]) and np.isfinite(np.delete(tp0, [6, 9])).sum() >= 6
+    if case in T0_EDGE_CHECKS:
+        T0_EDGE_CHECKS[case](w, got)
+    else:
+        assert np.isnan(tp0[6]) and np.isfinite(np.delete(tp0, [6, 9])).sum() >= 6
     if n_curr:
         import dspeed_tpu.processors as jp
 
