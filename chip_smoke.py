@@ -155,6 +155,27 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int = 40, cover_cycles: int = 60_000_000) -> float:
+    """Mean device milliseconds per call from CUDA events around ``iters``
+    calls that run back to back: a sleep kernel holds the stream while the
+    host enqueues them, so a call whose host side is slower than its kernel
+    is timed by its kernel, not by its enqueue."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cover_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def compare(name, got, want, exact=False) -> float:
     """Max |got - want| over one output, after checking NaN positions agree
     and the difference is within REL_TOL of the column scale (exact for
@@ -589,10 +610,12 @@ def current_bound(B, n_curr, n_up, L, num, need, poly_plan=None):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k5_phase(_cuda, c):
+def k5_phase(_cuda, c, ptxas_log):
     """K5 on the card's own current (K3's ``curr`` plane, NaN rows
     included) at the flagship geometry, against its polyphase plain
-    formulation and the up-domain plain version; returns its figures."""
+    formulation and the up-domain plain version; returns its figures, with
+    its launch and ``ptxas -v``'s report for ``fused_current_poly_kernel``
+    (one instance per tap bound and extrema asked for)."""
     import torch
 
     from dspeed_tpu_torch.processors._poly_plan import poly_plan
@@ -626,25 +649,47 @@ def k5_phase(_cuda, c):
             flush=True,
         )
         ms = time_ms(lambda: _cuda.fused_current(c, *g, need=need), 20)
+        dev_ms = device_ms(lambda: _cuda.fused_current(c, *g, need=need))
         poly_ms = time_ms(
             lambda: _cuda.fused_current_poly_plain(c, *g, need=need), 5
         )
         bound, by = current_bound(B, n_curr, g[2], g[3], g[4], need, plan)
-        figs[label] = dict(ms=ms, poly_ms=poly_ms, bound=bound, by=by,
-                           err=max(e_poly, e_up))
+        figs[label] = dict(ms=ms, dev_ms=dev_ms, poly_ms=poly_ms,
+                           bound=bound, by=by, err=max(e_poly, e_up))
     plain_ms = time_ms(lambda: _cuda.fused_current_plain(c, *g), 5)
+    launch = _cuda.fused_current_poly_launch(n_curr, g[0], g[2], plan["nq"],
+                                             AOE_NEED)
+    ptxas = list(ptxas_report(ptxas_log, "fused_current_poly_kernel").values())
+    if not ptxas:
+        raise AssertionError("K5: no ptxas report for fused_current_poly_kernel")
     for label, f in figs.items():
         print(
             f"K5 fused_current_poly [{label}] {B}x{n_curr} -> {g[2]}: kernel "
-            f"{f['ms']:.4f} ms, polyphase plain {f['poly_ms']:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {f['bound']:.4f} ms ({f['by']})",
+            f"{f['ms']:.4f} ms ({f['dev_ms']:.4f} ms on the device alone), "
+            f"polyphase plain {f['poly_ms']:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {f['bound']:.4f} ms ({f['by']}), "
+            f"{f['bound'] / f['ms']:.1%} of the bound "
+            f"({f['bound'] / f['dev_ms']:.1%} on the device alone)",
             flush=True,
         )
+    print(
+        f"K5 launch (the chain's need): {launch['events_per_block']} events "
+        f"and {launch['threads']} threads a block, {launch['smem_bytes']} bytes "
+        f"of shared memory a block, {launch['blocks_per_sm']} blocks per SM, "
+        f"{launch['registers']} registers and {launch['local_bytes']} local "
+        f"bytes a thread; ptxas for fused_current_poly_kernel: "
+        f"{' | '.join(ptxas)}; on {card_line()}",
+        flush=True,
+    )
     chain = figs["chain"]
     return dict(
         max_abs_err=max(f["err"] for f in figs.values()), ms=chain["ms"],
         plain_ms=plain_ms, bound_ms=chain["bound"], bound_by=chain["by"],
         polyphase_plain_ms=chain["poly_ms"], all_four_ms=figs["all four"]["ms"],
+        device_ms=chain["dev_ms"], all_four_device_ms=figs["all four"]["dev_ms"],
+        bound_share=chain["bound"] / chain["ms"],
+        device_bound_share=chain["bound"] / chain["dev_ms"], launch=launch,
+        ptxas=ptxas,
     )
 
 
@@ -1408,7 +1453,7 @@ def main() -> int:
 
     # -- K5 and K6 on K3's current -------------------------------------------
     curr = t0c_out[5]
-    k5 = k5_phase(_cuda, curr)
+    k5 = k5_phase(_cuda, curr, logs["fused_current"])
     k6 = k6_phase(_cuda, curr)
     del pz, trap_tmax, bl_std, a_std, t0_out, t0c_out, curr, w, b, w_nan, b_nan
     torch.cuda.empty_cache()

@@ -27,20 +27,22 @@
 // the interior plus 2 x 3 float64 prefix stages over 256 samples at the
 // edges, about 0.12 MFLOP a row; K6's is 3 float64 prefix stages over 4784
 // samples, with a handful of float64 operations per sample. Both are bound
-// by operations, and in practice by the barriers of their block scans.
+// by operations: K6 in practice by the barriers of its block scans, K5 by
+// its float64 divisions and the interior's FMAs.
 //
-// How the design meets it: one block of 256 threads per row, everything in
-// shared memory. The TPU's triangular-matmul cumsums (`tri`, `sup`,
-// `triL`), the dense banded interior matmuls (`A`, `A_last`), the one-hot
-// window matrices (`RL`, `RR`) and the row tilings exist for its matrix
-// unit and are gone. The cascade is mw_cascade.cuh (a float64 block scan
-// per stage, rounding to float32 per stage, as the plain version does); the
-// replication is plain indexing; K5's interior is float32 FMAs in ascending
-// tap order, thread by thread. Each route writes its whole upsampled curve
-// y[0, n_up) to shared memory in ascending j, region by region, and one
-// first-occurrence reduction (lower index on ties) takes the extrema: the
-// same result as the TPU kernel's ordered fold of the regions with strict
-// comparisons.
+// How the designs meet it. The TPU's triangular-matmul cumsums (`tri`,
+// `sup`, `triL`), the dense banded interior matmuls (`A`, `A_last`), the
+// one-hot window matrices (`RL`, `RR`) and the row tilings exist for its
+// matrix unit and are gone; the replication is plain indexing. K6: one
+// block of 256 threads per row, everything in shared memory. The cascade is
+// mw_cascade.cuh (a float64 block scan per stage, rounding to float32 per
+// stage, as the plain version does); the upsampled curve y[0, n_up) lands
+// in shared memory and one first-occurrence reduction (lower index on ties)
+// takes the extrema: the same result as the TPU kernel's ordered fold of
+// its regions with strict comparisons. K5: one warp per row and no block
+// barrier after the filters are staged (below); its edge samples and
+// interior sums equal K6's block-scan arithmetic and the TPU kernel's
+// per-phase sums bit for bit, and its extrema follow the same rule.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -146,68 +148,530 @@ extern "C" int dspeed_fused_current(const CurrentParams* p, void* stream) {
 
 // ---------------------------------------------------------------------------
 // K5: the polyphase route
+//
+// One warp per event, K5_EPB events a block. The per-phase filters are
+// staged once per block behind the kernel's only barrier; after it a warp
+// meets only its own lanes (__syncwarp, shuffles, votes). Shared memory
+// holds, per warp, its row of c and one edge window's float64 prefix; the
+// curve itself never leaves registers.
+//
+// The edge windows (W = 256) run the staged cascade eight samples a lane,
+// sample 32 s + l in lane l, stage by stage, the left window then the
+// right. Each stage's float64 prefix equals, bit for bit, the one
+// row_prefix.cuh's block scan takes over 256 threads (one sample a thread):
+// where every partial sum of the window is exact (k5_exact: nearly every
+// window of real currents) the order cannot change it, and the lanes sum
+// runs of eight samples and scan the run totals once; elsewhere the block
+// scan's own order is followed. The stage's formulas are mw_cascade.cuh's,
+// intrinsic for intrinsic, one division a sample; the left window's stages
+// divide only where its kept range depends on them. So every kept edge
+// sample equals the block kernel's bit for bit. The interior is
+// register-tiled: a lane owns K5_R consecutive current samples t, holds
+// the K5_R + nq - 1 samples of c they read in registers, and walks the
+// phases with each tap H[p][k] broadcast from shared memory to K5_R FMAs;
+// each output is fmaf over ascending k from 0.f, the per-phase sums of the
+// plan. The extrema: each lane keeps its kept edge samples'
+// first-occurrence (value, index) and, in the interior, only each column
+// t's extreme value (one fmaxf / fminf an output) and its first best
+// column. The warp agrees on the row's extreme value V, each lane offers
+// its first sample equal to V (recomputing at most one column's phases,
+// bit for bit), and the lowest index wins: the first occurrence, as the
+// block kernel's strict comparisons with the lower index on ties give it.
+// A row with a NaN or an infinite current sample gives NaN on all four
+// outputs, as the plain composition does (an infinite sample turns the
+// cascade's prefix differences into NaN), so no curve sample is NaN.
+//
+// On the H100 at the flagship geometry no single pipe bounds it: the
+// float64 divisions of the edge stages and the interior's FMAs and folds
+// are its largest costs, and 16 events a block at 64 registers (2 blocks
+// an SM) was the fastest launch without spills.
+
+#define K5_EPB 16         // events (warps) a block; fewer where a row does not fit
+#define K5_MIN_BLOCKS 2   // blocks an SM that the registers must allow
+#define K5_W 256          // edge-window width (_poly_plan.W)
+#define K5_SPL (K5_W / 32)  // window samples a lane
+#define K5_R 10           // consecutive current samples a lane filters
+#define K5_R2 5           // the same where both extrema are reduced, so that
+                          // the registers hold them without spills
+#define K5_NQ 11          // taps of the register-tiled instances (the flagship's)
+#define K5_MAX_SMEM 232448  // bytes of shared memory a block may use
+#define K5_FULL 0xffffffffu
+
+// Shared memory of a block of epb events: per warp a float64 window and its
+// row of c (rounded up to 4 floats but for the last), then the filters.
+__host__ __device__ inline int k5_cs_stride(int n_curr) {
+    return (n_curr + 3) / 4 * 4;
+}
+
+__host__ __device__ inline int k5_smem(int n_curr, int n_h, int epb) {
+    return 8 * K5_W * epb + 4 * (k5_cs_stride(n_curr) * (epb - 1) + n_curr) +
+           4 * n_h;
+}
+
+// Events a block: K5_EPB, halved until the block's memory fits.
+static int k5_epb(int n_curr, int n_h) {
+    int epb = K5_EPB;
+    while (epb > 1 && k5_smem(n_curr, n_h, epb) > K5_MAX_SMEM) epb /= 2;
+    return epb;
+}
 
 extern "C" int dspeed_fused_current_poly_smem_bytes(int n_curr, int n_up,
                                                     int n_h, int W) {
-    // f64 prefix of a window; c, the filters, the right window, the curve
-    return 8 * W + 4 * (n_curr + n_h + W + n_up);
+    (void)n_up;
+    if (W != K5_W) return 0x7fffffff;  // the kernel is built for one width
+    return k5_smem(n_curr, n_h, k5_epb(n_curr, n_h));
 }
 
-__global__ void __launch_bounds__(CUR_THREADS)
-fused_current_poly_kernel(const CurrentParams P) {
-    extern __shared__ double smem[];
-    __shared__ double red[32];
-    __shared__ float redf[32];
-    __shared__ int redi[32];
+template <bool MAX>
+__device__ __forceinline__ float k5_ext(float a, float b) {
+    return MAX ? fmaxf(a, b) : fminf(a, b);
+}
 
-    const int n_up = P.n_up, W = P.W, ratio = P.ratio, nq = P.nq;
-    const int tid = threadIdx.x, bd = blockDim.x;
-    double* ps = smem;
-    float* cs = (float*)(ps + W);
-    float* hs = cs + P.n_curr;
-    float* win = hs + ratio * nq;
-    float* y = win + W;
-    const long long row = blockIdx.x;
-    for (int k = tid; k < ratio * nq; k += bd) hs[k] = P.H[k];
-    const bool bad = load_current(P, row, cs);
-
-    // left edge: the window [0, W) cascaded in place in y; [0, EL) is kept
-    for (int j = tid; j < W; j += bd) y[j] = cs[(j + P.half) / ratio];
-    __syncthreads();
-    mw_cascade(y, W, P.L, P.num, P.mtype, ps, red);
-
-    // right edge: the window [n_up - W, n_up); its last ERW samples are kept
-    const int j0 = n_up - W;
-    for (int k = tid; k < W; k += bd) win[k] = cs[(j0 + k + P.half) / ratio];
-    __syncthreads();
-    mw_cascade(win, W, P.L, P.num, P.mtype, ps, red);
-    const int j_end = n_up - P.ERW;
-    for (int k = tid; k < P.ERW; k += bd) y[j_end + k] = win[W - P.ERW + k];
-
-    // interior [EL, j_end): per-phase filters on the current itself
-    for (int j = P.EL + tid; j < j_end; j += bd) {
-        const int t = j / ratio, p = j - t * ratio;
-        const float* cc = cs + t + P.q_min;
-        const float* hp = hs + p * nq;
-        float acc = 0.f;
-        for (int k = 0; k < nq; ++k) acc = fmaf(hp[k], cc[k], acc);
-        y[j] = acc;
+// Keep (v, j) where it is the better first-occurrence extremum.
+template <bool MAX>
+__device__ __forceinline__ void k5_take(float& bv, int& bi, float v, int j) {
+    if ((MAX ? v > bv : v < bv) || (v == bv && j < bi)) {
+        bv = v;
+        bi = j;
     }
-    __syncthreads();
-    store_extrema(P, y, n_up, bad, row, redf, redi);
+}
+
+// Where sample i of a window's float64 prefix lies in the warp's scratch:
+// the low four bits of i swizzled by the next four, so that both the
+// lanes' consecutive samples and eight-sample runs meet no bank conflict.
+__device__ __forceinline__ int k5_sw(int i) { return i ^ ((i >> 3) & 15); }
+
+// Whether every partial sum of the window is exact in float64, in any
+// order: its nonzero samples are finite float32, each a multiple of
+// 2^(f - 150) and below 2^(f - 126) (f its exponent field, 1 for a
+// denormal), so 256 of them sum exactly when the fields span at most
+// 53 - 24 - 8 = 21.
+__device__ __forceinline__ bool k5_exact(const float (&x)[K5_SPL]) {
+    int fmin = 255, fmax = 0;
+#pragma unroll
+    for (int s = 0; s < K5_SPL; ++s) {
+        const unsigned u = __float_as_uint(x[s]);
+        if (u << 1) {
+            const int f = max((int)((u >> 23) & 255), 1);
+            fmin = min(fmin, f);
+            fmax = max(fmax, f);
+        }
+    }
+    fmin = __reduce_min_sync(K5_FULL, fmin);
+    fmax = __reduce_max_sync(K5_FULL, fmax);
+    return fmax - fmin <= 21;
+}
+
+// A window's inclusive float64 prefix into ps, equal bit for bit to the
+// block scan's over 256 threads (one sample a thread). Where every partial
+// sum is exact (k5_exact) the order cannot matter, and the lanes sum runs of
+// eight consecutive samples (transposed through ps) and scan the run totals
+// once. Otherwise the block scan's order: a Kogge-Stone scan of each
+// 32-sample chunk, a Kogge-Stone scan of the eight chunk totals, then
+// (chunk offset + exclusive) + sample.
+__device__ __forceinline__ void k5_prefix(const float (&x)[K5_SPL], double* ps,
+                                          int lane) {
+    if (k5_exact(x)) {
+        float* xs = reinterpret_cast<float*>(ps);
+#pragma unroll
+        for (int s = 0; s < K5_SPL; ++s) xs[32 * s + lane] = x[s];
+        __syncwarp();
+        const float4 a = reinterpret_cast<const float4*>(xs)[2 * lane];
+        const float4 b = reinterpret_cast<const float4*>(xs)[2 * lane + 1];
+        __syncwarp();  // read before ps overwrites it
+        const float v[K5_SPL] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        double r[K5_SPL], t = 0.0;
+#pragma unroll
+        for (int j = 0; j < K5_SPL; ++j) {
+            t += (double)v[j];
+            r[j] = t;
+        }
+        double inc = t;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const double y = __shfl_up_sync(K5_FULL, inc, o);
+            if (lane >= o) inc += y;
+        }
+        const double off = inc - t;  // the lanes below
+#pragma unroll
+        for (int j = 0; j < K5_SPL; ++j)
+            ps[k5_sw(K5_SPL * lane + j)] = off + r[j];
+        return;
+    }
+    double incl[K5_SPL], tot[K5_SPL];
+#pragma unroll
+    for (int s = 0; s < K5_SPL; ++s) {
+        double v = 0.0;  // a thread's run of one sample, as summed there
+        v += (double)x[s];
+        incl[s] = v;
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1)
+#pragma unroll
+        for (int s = 0; s < K5_SPL; ++s) {
+            const double y = __shfl_up_sync(K5_FULL, incl[s], o);
+            if (lane >= o) incl[s] += y;
+        }
+#pragma unroll
+    for (int s = 0; s < K5_SPL; ++s) {
+        tot[s] = __shfl_sync(K5_FULL, incl[s], 31);
+        const double excl = __shfl_up_sync(K5_FULL, incl[s], 1);
+        incl[s] = lane == 0 ? 0.0 : excl;
+    }
+    // the chunk totals' scan, as the block scan's first warp runs it
+#pragma unroll
+    for (int o = 1; o < K5_SPL; o <<= 1)
+#pragma unroll
+        for (int s = K5_SPL - 1; s >= o; --s) tot[s] += tot[s - o];
+#pragma unroll
+    for (int s = 0; s < K5_SPL; ++s) {
+        double v = (s > 0 ? tot[s - 1] : 0.0) + incl[s];
+        v += (double)x[s];
+        ps[k5_sw(32 * s + lane)] = v;
+    }
+}
+
+// One moving average of L samples over a window, in place in x:
+// mw_cascade.cuh's mw_stage, formula for formula, for the samples in [lo,
+// hi). Each sample's numerator is chosen before its one division, so that
+// lanes on both sides of a ramp do not issue two divisions.
+__device__ __forceinline__ void k5_stage(float (&x)[K5_SPL], double* ps,
+                                         int lane, int L, bool right, int lo,
+                                         int hi) {
+    k5_prefix(x, ps, lane);
+    const double w0 = (double)__shfl_sync(K5_FULL, x[0], 0);
+    const double wl = (double)__shfl_sync(K5_FULL, x[K5_SPL - 1], 31);
+    __syncwarp();
+    const double lf = (double)L;
+    const int n = K5_W;
+#pragma unroll
+    for (int s = 0; s < K5_SPL; ++s) {
+        const int i = 32 * s + lane;
+        if (i < lo || i >= hi) continue;
+        double num, base;
+        bool ramp;
+        if (!right) {
+            // i < L: w0 + (S[i] - (i+1) w0) / L; else (S[i] - S[i-L]) / L
+            ramp = i < L;
+            const double sl = ps[k5_sw(max(i - L, 0))];
+            num = __dsub_rn(ps[k5_sw(i)],
+                            ramp ? __dmul_rn((double)(i + 1), w0) : sl);
+            base = w0;
+        } else {
+            // i > n-1-L: wl + ((S[n-1] - S[i-1]) - (n-i) wl) / L;
+            // else (S[i+L-1] - S[i-1]) / L
+            const double se = i > 0 ? ps[k5_sw(i - 1)] : 0.0;
+            ramp = i > n - 1 - L;
+            const double sr = ps[k5_sw(min(i + L - 1, n - 1))];
+            num = ramp ? __dsub_rn(__dsub_rn(sr, se),
+                                   __dmul_rn((double)(n - i), wl))
+                       : __dsub_rn(sr, se);
+            base = wl;
+        }
+        const double q = __ddiv_rn(num, lf);
+        x[s] = (float)(ramp ? __dadd_rn(base, q) : q);
+    }
+    __syncwarp();  // every lane has read ps before it is written again
+}
+
+// The end of the left window's samples [0, hi) that stage `it` must
+// compute: EL in the last stage; in each earlier stage, what the stage
+// after it reads: its own range for a left stage, that range widened by
+// L - 1 for a right stage, or the whole window where a right stage reads
+// its end ramp.
+__device__ __forceinline__ int k5_left_hi(const CurrentParams& P, int it) {
+    int hi = P.EL;
+    for (int j = P.num - 1; j > it; --j)
+        if (((j % 2 == 1) && P.mtype == 0) || P.mtype == 2)
+            hi = hi > K5_W - P.L ? K5_W : hi + P.L - 1;
+    return hi;
+}
+
+// A lane's interior extrema so far: the best column's value and its t
+// (-1: none yet), the first best in ascending t.
+struct K5Cols {
+    float v[2];  // min, max
+    int t[2];
+};
+
+template <bool MN, bool MX>
+__device__ __forceinline__ void k5_col(K5Cols& b, float vmin, float vmax,
+                                       int t) {
+    if (MN && (b.t[0] < 0 || vmin < b.v[0])) { b.v[0] = vmin; b.t[0] = t; }
+    if (MX && (b.t[1] < 0 || vmax > b.v[1])) { b.v[1] = vmax; b.t[1] = t; }
+}
+
+// y[ratio t + p] for p < ratio, t in [t_a, t_b): each column's extremes
+// into b. NQ > 0: R consecutive t a lane (K5_R, or K5_R2 where both
+// extrema are reduced), c from registers, nq == NQ taps; NQ == 0: any nq,
+// one t at a time from shared memory.
+template <int NQ, bool MN, bool MX>
+__device__ __forceinline__ void k5_interior(const CurrentParams& P,
+                                            const float* cs, const float* hs,
+                                            int t_a, int t_b, int lane,
+                                            K5Cols& b) {
+    const int ratio = P.ratio, nq = P.nq, q_min = P.q_min;
+    if constexpr (NQ == 0) {
+        for (int t = t_a + lane; t < t_b; t += 32) {
+            const float* cc = cs + t + q_min;
+            float mn = INFINITY, mx = -INFINITY;
+            for (int p = 0; p < ratio; ++p) {
+                const float* hp = hs + p * nq;
+                float acc = 0.f;
+                for (int k = 0; k < nq; ++k) acc = fmaf(hp[k], cc[k], acc);
+                mn = fminf(mn, acc);
+                mx = fmaxf(mx, acc);
+            }
+            k5_col<MN, MX>(b, mn, mx, t);
+        }
+    } else {
+        constexpr int R = MN && MX ? K5_R2 : K5_R;
+        constexpr int NW = R + NQ - 1;
+        for (int t0 = t_a + lane * R; t0 < t_b; t0 += 32 * R) {
+            float cw[NW];
+            const int g0 = t0 + q_min;  // >= 0 (the plan)
+#pragma unroll
+            for (int i = 0; i < NW; ++i)
+                cw[i] = g0 + i < P.n_curr ? cs[g0 + i] : 0.f;
+            float mn[R], mx[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                mn[r] = INFINITY;
+                mx[r] = -INFINITY;
+            }
+            for (int p = 0; p < ratio; ++p) {
+                float acc[R];
+#pragma unroll
+                for (int r = 0; r < R; ++r) acc[r] = 0.f;
+                const float* hp = hs + p * nq;
+#pragma unroll
+                for (int k = 0; k < NQ; ++k) {
+                    const float h = hp[k];
+#pragma unroll
+                    for (int r = 0; r < R; ++r)
+                        acc[r] = fmaf(h, cw[r + k], acc[r]);
+                }
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    if (MN) mn[r] = fminf(mn[r], acc[r]);
+                    if (MX) mx[r] = fmaxf(mx[r], acc[r]);
+                }
+            }
+            const int cnt = min(R, t_b - t0);
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                if (r < cnt) k5_col<MN, MX>(b, mn[r], mx[r], t0 + r);
+        }
+    }
+}
+
+// The row's first-occurrence extremum on one side, in every lane: from the
+// lane's edge candidate (ev, ei) and its best interior column (cv, ct).
+template <bool MAX>
+__device__ __forceinline__ void k5_resolve(const CurrentParams& P,
+                                           const float* cs, const float* hs,
+                                           float ev, int ei, float cv, int ct,
+                                           float& v_out, int& i_out) {
+    const int n_up = P.n_up, ratio = P.ratio, nq = P.nq;
+    float V = ct < 0 ? ev : (ei == n_up ? cv : k5_ext<MAX>(ev, cv));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        V = k5_ext<MAX>(V, __shfl_xor_sync(K5_FULL, V, off));
+    int ci = n_up;
+    float cval = 0.f;
+    if (ei < n_up && ev == V) {
+        ci = ei;
+        cval = ev;
+    }
+    if (ct >= 0 && cv == V) {  // the first phase of column ct that holds V
+        const float* cc = cs + ct + P.q_min;
+        for (int p = 0; p < ratio; ++p) {
+            const float* hp = hs + p * nq;
+            float acc = 0.f;
+            for (int k = 0; k < nq; ++k) acc = fmaf(hp[k], cc[k], acc);
+            if (acc == V) {
+                if (ratio * ct + p < ci) {
+                    ci = ratio * ct + p;
+                    cval = acc;
+                }
+                break;
+            }
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const int oi = __shfl_xor_sync(K5_FULL, ci, off);
+        const float ov = __shfl_xor_sync(K5_FULL, cval, off);
+        if (oi < ci) {
+            ci = oi;
+            cval = ov;
+        }
+    }
+    v_out = cval;
+    i_out = ci;
+}
+
+template <int NQ, bool MN, bool MX>
+__global__ void __launch_bounds__(32 * K5_EPB, K5_MIN_BLOCKS)
+fused_current_poly_kernel(const CurrentParams P, int epb) {
+    extern __shared__ double k5_sm[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_curr = P.n_curr, n_up = P.n_up, ratio = P.ratio;
+    const int n_h = ratio * P.nq, ncs = k5_cs_stride(n_curr);
+    float* const cbase = reinterpret_cast<float*>(k5_sm + K5_W * epb);
+    float* const hs = cbase + ncs * (epb - 1) + n_curr;
+    for (int k = threadIdx.x; k < n_h; k += blockDim.x) hs[k] = P.H[k];
+    __syncthreads();  // the kernel's only block barrier
+
+    const long long row = (long long)blockIdx.x * epb + warp;
+    if (row >= P.B) return;
+    double* const ps = k5_sm + K5_W * warp;
+    float* const cs = cbase + ncs * warp;
+
+    // the row of c, 16 bytes a lane where it is aligned, and whether it
+    // holds a NaN or an infinity
+    const float* cr = P.c + row * (long long)n_curr;
+    int bad = 0;
+    int head = 0;
+    if ((reinterpret_cast<unsigned long long>(cr) & 15) == 0) {
+        head = n_curr / 4 * 4;
+        for (int i = 4 * lane; i < head; i += 128) {
+            const float4 v = *reinterpret_cast<const float4*>(cr + i);
+            bad |= !isfinite(v.x) | !isfinite(v.y) | !isfinite(v.z) |
+                   !isfinite(v.w);
+            *reinterpret_cast<float4*>(cs + i) = v;
+        }
+    }
+    for (int i = head + lane; i < n_curr; i += 32) {
+        const float v = cr[i];
+        bad |= !isfinite(v);
+        cs[i] = v;
+    }
+    if (__any_sync(K5_FULL, bad)) {
+        if (lane == 0) {
+            const float qnan = __int_as_float(0x7fc00000);
+            for (int q = 0; q < 4; ++q) P.out[q][row] = qnan;
+        }
+        return;
+    }
+    __syncwarp();
+
+    // the edge windows [0, W) and [n_up - W, n_up), replicated from c, each
+    // through the cascade; the last stage computes only the kept ranges
+    const int half = P.half, jr = n_up - K5_W;
+    // j / ratio as the high word of j * (2^32 / ratio + 1), for ratio > 1:
+    // exact while j * ratio < 2^32, as every j < n_up + half is here when
+    // checked so
+    const bool magic = ratio > 1 &&
+        (unsigned long long)(n_up + half) * ratio < (1ull << 32);
+    const unsigned m = 0xffffffffu / (unsigned)ratio + 1u;
+    float xl[K5_SPL], xr[K5_SPL];
+#pragma unroll
+    for (int s = 0; s < K5_SPL; ++s) {
+        const unsigned i = 32 * s + lane + half, k = jr + i;
+        xl[s] = cs[magic ? __umulhi(i, m) : i / ratio];
+        xr[s] = cs[magic ? __umulhi(k, m) : k / ratio];
+    }
+    for (int it = 0; it < P.num; ++it) {
+        const bool right = ((it % 2 == 1) && P.mtype == 0) || P.mtype == 2;
+        const bool last = it == P.num - 1;
+        k5_stage(xl, ps, lane, P.L, right, 0, k5_left_hi(P, it));
+        k5_stage(xr, ps, lane, P.L, right, last ? K5_W - P.ERW : 0, K5_W);
+    }
+
+    // the lane's candidates: its kept edge samples, its interior columns
+    float emin = INFINITY, emax = -INFINITY;
+    int eimin = n_up, eimax = n_up;
+#pragma unroll
+    for (int s = 0; s < K5_SPL; ++s) {
+        const int i = 32 * s + lane;
+        if (i < P.EL) {
+            if (MN) k5_take<false>(emin, eimin, xl[s], i);
+            if (MX) k5_take<true>(emax, eimax, xl[s], i);
+        }
+        if (i >= K5_W - P.ERW) {
+            if (MN) k5_take<false>(emin, eimin, xr[s], jr + i);
+            if (MX) k5_take<true>(emax, eimax, xr[s], jr + i);
+        }
+    }
+    K5Cols cols = {{INFINITY, -INFINITY}, {-1, -1}};
+    k5_interior<NQ, MN, MX>(P, cs, hs, P.EL / ratio, (n_up - P.ERW) / ratio,
+                            lane, cols);
+
+    float vmin = 0.f, vmax = 0.f;
+    int imin = n_up, imax = n_up;
+    if (MN)
+        k5_resolve<false>(P, cs, hs, emin, eimin, cols.v[0], cols.t[0], vmin,
+                          imin);
+    if (MX)
+        k5_resolve<true>(P, cs, hs, emax, eimax, cols.v[1], cols.t[1], vmax,
+                         imax);
+    if (lane == 0) {
+        P.out[0][row] = P.need[0] ? (float)imin : 0.f;
+        P.out[1][row] = P.need[1] ? (float)imax : 0.f;
+        P.out[2][row] = vmin;
+        P.out[3][row] = vmax;
+    }
+}
+
+typedef void (*K5Kernel)(const CurrentParams, int);
+
+template <int NQ>
+static K5Kernel k5_by_sides(bool mn, bool mx) {
+    if (mn && mx) return fused_current_poly_kernel<NQ, true, true>;
+    if (mn) return fused_current_poly_kernel<NQ, true, false>;
+    if (mx) return fused_current_poly_kernel<NQ, false, true>;
+    return fused_current_poly_kernel<NQ, false, false>;
+}
+
+// The instance for nq taps and the extrema asked for: the register-tiled
+// one where nq == K5_NQ (the flagship's), else the generic one.
+static K5Kernel k5_kernel(int nq, bool mn, bool mx) {
+    if (nq == K5_NQ) return k5_by_sides<K5_NQ>(mn, mx);
+    return k5_by_sides<0>(mn, mx);
 }
 
 extern "C" int dspeed_fused_current_poly(const CurrentParams* p, void* stream) {
-    const int smem = dspeed_fused_current_poly_smem_bytes(
-        p->n_curr, p->n_up, p->ratio * p->nq, p->W);
+    if (p->W != K5_W) return (int)cudaErrorInvalidValue;
+    const int n_h = p->ratio * p->nq;
+    const bool mn = p->need[0] || p->need[2], mx = p->need[1] || p->need[3];
+    const int epb = k5_epb(p->n_curr, n_h);
+    const int smem = k5_smem(p->n_curr, n_h, epb);
+    const K5Kernel fn = k5_kernel(p->nq, mn, mx);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_current_poly_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     if (p->B == 0) return 0;
-    fused_current_poly_kernel<<<p->B, CUR_THREADS, smem, (cudaStream_t)stream>>>(
-        *p);
+    const int blocks = (int)((p->B + epb - 1) / epb);
+    fn<<<blocks, 32 * epb, smem, (cudaStream_t)stream>>>(*p, epb);
     return (int)cudaGetLastError();
+}
+
+// How a row of n_curr samples with nq taps a phase launches (the instance
+// for need_min / need_max): events and threads a block, shared memory bytes
+// a block, blocks per SM, registers and local bytes per thread.
+extern "C" int dspeed_fused_current_poly_config(int n_curr, int ratio,
+                                                int n_up, int nq, int need_min,
+                                                int need_max, int* out) {
+    (void)n_up;
+    const int n_h = ratio * nq;
+    const int epb = k5_epb(n_curr, n_h);
+    const int smem = k5_smem(n_curr, n_h, epb);
+    const K5Kernel fn = k5_kernel(nq, need_min != 0, need_max != 0);
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 32 * epb,
+                                                        smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return (int)err;
+    const int vals[] = {epb,    32 * epb,     smem,
+                        per_sm, attr.numRegs, (int)attr.localSizeBytes};
+    for (int i = 0; i < 6; ++i) out[i] = vals[i];
+    return 0;
 }
 
 extern "C" const char* dspeed_cuda_error_string(int code) {

@@ -195,6 +195,10 @@ def _bind(name: str, so: str):
         lib.dspeed_fused_current_smem_bytes.argtypes = [ctypes.c_int]
         lib.dspeed_fused_current_poly_smem_bytes.restype = ctypes.c_int
         lib.dspeed_fused_current_poly_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.dspeed_fused_current_poly_config.restype = ctypes.c_int
+        lib.dspeed_fused_current_poly_config.argtypes = [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_int),
+        ]
     return lib
 
 
@@ -1056,6 +1060,25 @@ def _launch_current(lib, entry, c, geometry, need, plan=None):
     return tuple(out[q].reshape(lead) for q in range(4))
 
 
+def fused_current_poly_launch(n_curr: int, ratio: int, n_up: int, nq: int,
+                              need=(False, True, False, True)) -> dict:
+    """How K5 launches for rows of ``n_curr`` current samples, ``ratio``
+    phases of ``nq`` taps and ``n_up`` upsampled samples on this card, in
+    the instance for ``need`` (the flagship chain's by default): events
+    (one a warp) and threads a block, shared memory per block, blocks per
+    SM, and the kernel's registers and local (spill) bytes per thread."""
+    lib = _lib("fused_current")
+    out = (ctypes.c_int * 6)()
+    rc = lib.dspeed_fused_current_poly_config(
+        int(n_curr), int(ratio), int(n_up), int(nq),
+        int(bool(need[0] or need[2])), int(bool(need[1] or need[3])), out,
+    )
+    _check_rc(lib, rc, "fused_current_poly")
+    keys = ("events_per_block", "threads", "smem_bytes", "blocks_per_sm",
+            "registers", "local_bytes")
+    return dict(zip(keys, out))
+
+
 def fused_current_updomain(c, ratio, half, n_up, L, num, mtype,
                            need=(True,) * 4):
     """K6, the up-domain route of :func:`fused_current`: the cascade at the
@@ -1087,7 +1110,10 @@ def fused_current(c, ratio, half, n_up, L, num, mtype, need=(True,) * 4):
     ``moving_window_multi``), and return the first-occurrence ``(t_min,
     t_max, a_min, a_max)`` per row. ``need`` flags the outputs anything
     reads: an extremum neither of whose outputs is needed is not reduced,
-    and an output nothing needs holds 0. A row with a NaN gives NaN.
+    and an output nothing needs holds 0. A row with a NaN gives NaN, and
+    so does a row with an infinite sample, whose cascade's prefix
+    differences are NaN (on the card, K5 gives all four outputs NaN there,
+    as the plain version does).
 
     CPU: :func:`fused_current_plain`. CUDA: K5, the polyphase kernel, where
     :func:`._poly_plan.poly_plan` finds a plan for the geometry, else K6

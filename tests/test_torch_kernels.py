@@ -546,11 +546,14 @@ POLY_REJECTED = {
     "map_not_all_valid": (30, 16, 8, 600, 48, 3, 0),
     "L_128": (301, 16, 8, 4788, 128, 3, 0),
 }
-# the chain's geometry (curr has 300 samples) and two more of the list
+# the chain's geometry (curr has 300 samples) and the rest of the list
 CURRENT_CASES = {
     "flagship": (300, 16, 4784, 48, 3, 0),
+    "flagship_4788": POLY_GEOMETRIES["flagship_4788"],
     "lr_ratio8": (200, 8, 1590, 24, 2, 0),
+    "all_left": POLY_GEOMETRIES["all_left"],
     "all_right": (300, 16, 4700, 32, 3, 2),
+    "one_stage": POLY_GEOMETRIES["one_stage"],
 }
 CUR_REL = 2e-5  # test_pallas.py:333
 
@@ -987,6 +990,150 @@ def test_fused_current_poly_kernel_matches_plain_on_the_card(case, need, cuda_de
         g = [got[q] if q in keep else ref[q] for q in range(4)]
         _check_current(g, ref, curve, rel, f"{case} {what}")
     assert np.isnan(got[3][3]) and np.isfinite(np.delete(got[3], 3)).all()
+
+
+def _k5_rows(case, n_curr):
+    """Currents for K5's edge cases on the card (flagship geometry)."""
+    if case == "batch_1":
+        return _current_inputs(n_curr, b=1, seed=3)
+    c = _current_inputs(n_curr, b=37, seed=4)
+    if case == "nan_ends":  # NaN at the first and at the last sample
+        c[2, 0] = np.nan
+        c[30, n_curr - 1] = np.nan
+    elif case == "constant":  # exact ties across lanes, windows and interior
+        c[:] = 0.0
+        c[::2] = 7.0
+    elif case == "max_left":  # the maximum in the left window's kept range
+        c[:, n_curr // 3] -= 500.0
+        c[:, 0] += 4000.0 + 10 * np.arange(37)
+    elif case == "max_right":  # and in the right window's
+        c[:, n_curr // 3] -= 500.0
+        c[:, n_curr - 1] += 4000.0 + 10 * np.arange(37)
+    elif case == "inf":  # infinite samples: at both ends, inside, both signs
+        c[5, 0] = np.inf
+        c[6, n_curr - 1] = -np.inf
+        c[7, n_curr // 2] = np.inf
+        c[8, n_curr // 2 + 1] = -np.inf
+        c[9, 100], c[9, 200] = np.inf, -np.inf
+    return c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case",
+    ["batch_37", "batch_1", "nan_ends", "constant", "max_left", "max_right", "inf"],
+)
+@pytest.mark.parametrize(
+    "need", [(True,) * 4, (False, True, False, True)], ids=["all", "max_side"]
+)
+def test_fused_current_poly_kernel_edge_cases_on_the_card(case, need, cuda_device):
+    from dspeed_tpu_torch.processors._poly_plan import poly_plan
+
+    n_curr, ratio, n_up, L, num, mtype = CURRENT_CASES["flagship"]
+    c_np = _k5_rows(case, n_curr)
+    c = torch.from_numpy(c_np).to(cuda_device)
+    args = (c, ratio, ratio // 2, n_up, L, num, mtype)
+    before = _cuda.LAUNCHES["fused_current_poly"]
+    got = _cuda.fused_current(*args, need=need)
+    assert _cuda.LAUNCHES["fused_current_poly"] == before + 1
+    poly = _cuda.fused_current_poly_plain(*args, need=need)
+    plain = _cuda.fused_current_plain(*args)
+    torch.cuda.synchronize()
+    got = [o.cpu().numpy() for o in got]
+    curve = _updomain_curve(c_np, ratio, n_up, L, num, mtype)
+    keep = [q for q in range(4) if need[q]]
+    bad = ~np.isfinite(c_np).all(axis=1)
+    inf = np.isinf(c_np).any(axis=1)
+    assert inf.sum() == (5 if case == "inf" else 0)
+    # an infinite sample: the composition gives NaN on all four outputs, and
+    # the polyphase formulation a NaN amplitude (its indices are n_up there)
+    plain = [o.cpu().numpy() for o in plain]
+    poly = [o.cpu().numpy() for o in poly]
+    assert all(np.isnan(plain[q][inf]).all() for q in range(4))
+    assert np.isnan(poly[3][inf]).all()
+    poly = [np.where(inf, np.nan, o) for o in poly]
+    for ref, rel, what in ((poly, 1e-5, "poly"), (plain, 2e-5, "plain")):
+        g = [got[q] if q in keep else ref[q] for q in range(4)]
+        _check_current(g, ref, curve, rel, f"{case} {what}")
+    for q in range(4):
+        assert (np.isnan(got[q]) == bad).all()
+        if not need[q] and not (q >= 2 and need[q - 2]):
+            assert (got[q][~bad] == 0).all()
+    plan = poly_plan(n_curr, ratio, ratio // 2, n_up, L, num, mtype)
+    if case == "constant":  # a flat zero curve: the first sample wins
+        flat = np.flatnonzero((curve == 0).all(axis=1))
+        assert flat.size == 18
+        for q in keep:
+            assert (got[q][flat] == 0).all()
+    elif case in ("max_left", "max_right"):
+        lo, hi = (0, plan["EL"]) if case == "max_left" else (n_up - plan["ERW"], n_up)
+        where = curve.argmax(axis=1)
+        assert ((where >= lo) & (where < hi)).all()
+        if need[1]:
+            assert ((got[1] >= lo) & (got[1] < hi)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "need", [(True,) * 4, (False, True, False, True), (True, False, False, False)],
+    ids=["all", "max_side", "min_side"],
+)
+def test_fused_current_poly_launch_has_no_spills(need, cuda_device):
+    """K5's instance for each side, at the flagship geometry (the
+    register-tiled instance) and at geometries of the generic instance:
+    registers without local memory, and a launch that fits the card."""
+    from dspeed_tpu_torch.processors._poly_plan import poly_plan
+
+    for case in ("flagship", "lr_ratio8", "one_stage"):
+        n_curr, ratio, n_up, L, num, mtype = CURRENT_CASES[case]
+        plan = poly_plan(n_curr, ratio, ratio // 2, n_up, L, num, mtype)
+        launch = _cuda.fused_current_poly_launch(n_curr, ratio, n_up, plan["nq"],
+                                                 need)
+        assert launch["local_bytes"] == 0, (case, launch)
+        assert launch["blocks_per_sm"] >= 1, (case, launch)
+        assert launch["threads"] == 32 * launch["events_per_block"]
+    launch = _cuda.fused_current_poly_launch(400, 4, 1500, 31, need)  # generic
+    assert launch["local_bytes"] == 0 and launch["blocks_per_sm"] >= 1, launch
+
+
+@pytest.mark.gpu
+def test_fused_current_poly_takes_every_geometry_the_block_kernel_took(cuda_device):
+    """Every plan geometry on a grid that the block-per-row K5 accepted,
+    ``8 W + 4 (n_curr + ratio nq + W + n_up) <= _MAX_SMEM`` bytes of shared
+    memory, is still launched, at B = 2, and agrees with its polyphase
+    plain version."""
+    from dspeed_tpu_torch.processors._poly_plan import W, poly_plan
+
+    L, num, mtype = 24, 3, 0
+    taken = 0
+    for ratio in (4, 8, 16):
+        half = ratio // 2
+        n_h = ratio * poly_plan(1000, ratio, half, 512, L, num, mtype)["nq"]
+        # the largest n_curr the block-per-row kernel took with n_up = 512
+        top = (_cuda._MAX_SMEM - 8 * W - 4 * (n_h + W + 512)) // 4
+        for n_curr in sorted({64, 100, 300, 1000, 3000, 10000, top - 1, top}):
+            for n_up in (512, n_curr * ratio - half):
+                if 4 * (n_curr + n_h + W + n_up) + 8 * W > _cuda._MAX_SMEM:
+                    continue
+                plan = poly_plan(n_curr, ratio, half, n_up, L, num, mtype)
+                if plan is None:
+                    continue
+                assert ratio * plan["nq"] == n_h
+                c_np = _current_inputs(n_curr, b=2, seed=n_curr)
+                c = torch.from_numpy(c_np).to(cuda_device)
+                args = (c, ratio, half, n_up, L, num, mtype)
+                before = _cuda.LAUNCHES["fused_current_poly"]
+                got = _cuda.fused_current(*args)
+                assert _cuda.LAUNCHES["fused_current_poly"] == before + 1
+                want = _cuda.fused_current_poly_plain(*args)
+                torch.cuda.synchronize()
+                for q in (2, 3):
+                    np.testing.assert_allclose(
+                        got[q].cpu().numpy(), want[q].cpu().numpy(),
+                        rtol=0, atol=1e-5 * float(want[q].abs().max()),
+                    )
+                taken += 1
+    assert taken >= 30
 
 
 @pytest.mark.gpu
