@@ -743,10 +743,11 @@ def k6_phase(_cuda, c):
     )
 
 
-def k2_phase(_cuda, w, base, t_start):
+def k2_phase(_cuda, w, base, t_start, ptxas_log):
     """K2 against its plain version on the card, bit for bit, with rows of
     a NaN base and of NaN, non-integral, negative and out-of-range starts
-    added; returns its figures."""
+    added; returns its figures, with its time on the device alone, its
+    launch and ``ptxas -v``'s report for ``cascade_tp_kernel``."""
     import torch
 
     base = base.clone()
@@ -779,22 +780,43 @@ def k2_phase(_cuda, w, base, t_start):
         d = (r - s0).abs()
         walked += int(d[torch.isfinite(d)].sum()) + int(torch.isfinite(d).sum())
     ms = time_ms(lambda: _cuda.cascade_tp(*args), 20)
+    dev_ms = device_ms(lambda: _cuda.cascade_tp(*args))
     plain_ms = time_ms(lambda: _cuda.cascade_tp_plain(*args), 3, 1)
     m = len(CASCADE_FACTORS)
-    nbytes = 4 * B * n + 4 * B * m + 4 * B + 4 * B * m
+    # the function's own inputs and outputs: w, base, t and the m time
+    # points (the parent kernel's wrapper also wrote and read a (B, m)
+    # threshold plane, about 0.2% of these bytes; not counted)
+    nbytes = 4 * B * n + 4 * B + 4 * B + 4 * B * m
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = 4 * walked / PEAK_F32_S * 1e3
+    bound = max(t_bytes, t_ops)
+    launch = _cuda.cascade_tp_launch(n)
+    ptxas = list(ptxas_report(ptxas_log, "cascade_tp_kernel").values())
+    if not ptxas:
+        raise AssertionError("K2: no ptxas report for cascade_tp_kernel")
     print(
         f"K2 cascade_tp {B}x{n}, {m} links: bit-identical to the plain version "
-        f"(found per link {found}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {max(t_bytes, t_ops):.4f} ms "
-        f"({'bytes' if t_bytes >= t_ops else 'operations'})",
+        f"(found per link {found}; samples walked {walked}), kernel {ms:.4f} ms "
+        f"({dev_ms:.4f} ms on the device alone), plain {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}), "
+        f"{bound / ms:.1%} of the bound ({bound / dev_ms:.1%} on the device "
+        f"alone)",
+        flush=True,
+    )
+    print(
+        f"K2 launch: {launch['rows_per_block']} rows (one a warp) and "
+        f"{launch['threads']} threads a block, {launch['smem_bytes']} bytes of "
+        f"shared memory a block, {launch['blocks_per_sm']} blocks per SM, "
+        f"{launch['registers']} registers and {launch['local_bytes']} local "
+        f"bytes a thread; ptxas for cascade_tp_kernel: {' | '.join(ptxas)}; "
+        f"on {card_line()}",
         flush=True,
     )
     return dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
+        device_ms=dev_ms, bound_share=bound / ms,
+        device_bound_share=bound / dev_ms, launch=launch, ptxas=ptxas,
     )
 
 
@@ -1449,7 +1471,7 @@ def main() -> int:
               atrap_bound_ms=k3a["bound_ms"], atrap_launch=k3a["launch"])
 
     # -- K2: trapTmax as the base, K3's tp_0 as the start ---------------------
-    k2 = k2_phase(_cuda, pz, trap_tmax, t0_out[4])
+    k2 = k2_phase(_cuda, pz, trap_tmax, t0_out[4], logs["cascade_tp"])
 
     # -- K5 and K6 on K3's current -------------------------------------------
     curr = t0c_out[5]

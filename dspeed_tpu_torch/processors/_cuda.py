@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import glob
+import math
 import os
 import shutil
 import subprocess
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from ..errors import DSPFatal
+from ._helpers import as_tensor
 
 __all__ = [
     "LAUNCHES",
@@ -64,6 +66,7 @@ __all__ = [
     "fused_t0_launch",
     "fused_t0_plain",
     "cascade_tp",
+    "cascade_tp_launch",
     "cascade_tp_plain",
     "fused_current",
     "fused_current_updomain",
@@ -181,6 +184,10 @@ def _bind(name: str, so: str):
         lib.dspeed_cascade_tp.restype = ctypes.c_int
         lib.dspeed_cascade_tp.argtypes = [
             ctypes.POINTER(_CascadeParams), ctypes.c_void_p,
+        ]
+        lib.dspeed_cascade_tp_config.restype = ctypes.c_int
+        lib.dspeed_cascade_tp_config.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ]
     elif name == "generic_rows":
         lib.dspeed_generic_rows.restype = ctypes.c_int
@@ -792,12 +799,13 @@ class _CascadeParams(ctypes.Structure):
 
     _fields_ = [
         ("w", ctypes.c_void_p),
-        ("thr", ctypes.c_void_p),
+        ("base", ctypes.c_void_p),
         ("t", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
         ("B", ctypes.c_int),
         ("n", ctypes.c_int),
         ("m", ctypes.c_int),
+        ("factors", ctypes.c_float * _CT_MAX_LINKS),
         ("dirs", ctypes.c_int * _CT_MAX_LINKS),
         ("starts", ctypes.c_int * _CT_MAX_LINKS),
     ]
@@ -819,8 +827,6 @@ def _cascade_thresholds(w, a_base, factors):
     the engine's arithmetic for a ``0.99*trapTmax`` expression (a python
     float times the tensor), so that the fused and the unfused chains see
     the same bits; factor 1 is the base itself."""
-    from ._helpers import as_tensor
-
     base = as_tensor(a_base, w, w.dtype).expand(w.shape[:-1])
     return [f * base if f != 1.0 else base for f in factors]
 
@@ -863,10 +869,11 @@ def cascade_tp(w, a_base, t_start, factors, dirs, starts, badrow=None):
     Link ``k`` has the threshold ``factors[k] * a_base``, walks forward
     (``dirs[k] == 1``: first crossing at or after its start) or backward
     (last crossing at or before it), and starts from ``t_start``
-    (``starts[k] == -1``) or from link ``starts[k]``'s result. Computes
-    the thresholds once here, in PyTorch, and hands them to the kernel.
-    Bit-identical to :func:`cascade_tp_plain`; ``badrow`` is used on the
-    CPU only (the kernel scans its resident row)."""
+    (``starts[k] == -1``) or from link ``starts[k]``'s result. The kernel
+    takes the base and the factors and forms each threshold with the bits
+    of :func:`_cascade_thresholds`. Bit-identical to
+    :func:`cascade_tp_plain`; ``badrow`` is used on the CPU only (the
+    kernel scans its staged row)."""
     factors, dirs, starts = _cascade_links(factors, dirs, starts)
     if w.device.type == "cpu":
         return cascade_tp_plain(w, a_base, t_start, factors, dirs, starts, badrow)
@@ -878,30 +885,41 @@ def cascade_tp(w, a_base, t_start, factors, dirs, starts, badrow=None):
             f"got {m}"
         )
     *lead, n = w.shape
-    B = int(np.prod(lead, dtype=np.int64))
-    if 4 * n > _MAX_SMEM:
+    B = math.prod(lead)
+    row_bytes = 4 * (-(-n // 4) * 4)  # a warp's buffer: n rounded up to 16 B
+    if row_bytes > _MAX_SMEM:
         raise ValueError(
-            f"cascade_tp: a row of {n} samples needs {4 * n} bytes of shared "
-            f"memory; one block holds at most {_MAX_SMEM}"
+            f"cascade_tp: a row of {n} samples needs {row_bytes} bytes of "
+            f"shared memory; one block holds at most {_MAX_SMEM}"
         )
     lib = _lib("cascade_tp")
     dev = w.device
-    thr = torch.stack(_cascade_thresholds(w, a_base, factors), dim=-1)
-    thr = thr.reshape(B, m).contiguous()
+    base = as_tensor(a_base, w, w.dtype).expand(lead).contiguous()
     t = torch.as_tensor(t_start, device=dev)
     if t.dtype == torch.float64:
         raise TypeError("cascade_tp: the CUDA kernel takes a float32 start")
     t = t.to(torch.float32).expand(lead).contiguous()
     out = torch.empty((m, B), dtype=torch.float32, device=dev)
     P = _CascadeParams()
-    P.w, P.thr, P.t, P.out = w.data_ptr(), thr.data_ptr(), t.data_ptr(), out.data_ptr()
+    P.w, P.base, P.t, P.out = w.data_ptr(), base.data_ptr(), t.data_ptr(), out.data_ptr()
     P.B, P.n, P.m = B, n, m
-    for k in range(m):
-        P.dirs[k], P.starts[k] = dirs[k], starts[k]
+    P.factors[:m], P.dirs[:m], P.starts[:m] = factors, dirs, starts
     rc = lib.dspeed_cascade_tp(ctypes.byref(P), _stream())
     _check_rc(lib, rc, "cascade_tp")
     LAUNCHES["cascade_tp"] += 1
-    return tuple(out[k].reshape(lead) for k in range(m))
+    return out.view(m, *lead).unbind(0)
+
+
+def cascade_tp_launch(n: int) -> dict:
+    """How K2 launches for rows of ``n`` samples on this card: rows (one a
+    warp) and threads a block, shared memory per block, blocks per SM, and
+    the kernel's registers and local (spill) bytes per thread."""
+    lib = _lib("cascade_tp")
+    out = (ctypes.c_int * 6)()
+    _check_rc(lib, lib.dspeed_cascade_tp_config(int(n), out), "cascade_tp")
+    keys = ("rows_per_block", "threads", "smem_bytes", "blocks_per_sm",
+            "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 # ---------------------------------------------------------------------------

@@ -266,13 +266,46 @@ CASCADE_CASES = {
         [1, 1, 0, 0, 0, 0, 0, 0, 0],
         [-1, -1, 1, 2, 3, 4, 5, 6, 7],
     ),
+    # a forward link above every sample walks to n - 2 and finds nothing;
+    # on row 15 its crossing is the last position, n - 2
+    "fwd_walks_to_end": ([1.0, 1.5, 0.5], [1, 1, 0], [-1, -1, 1]),
+    # a backward link from n - 1 walks down to sample 1 (rows 14-17: the
+    # crossing at 1, or, on row 17, none: w[0] equals the threshold)
+    "bwd_walks_to_one": ([1.0, 0.5], [1, 0], [-1, -1]),
+    # rows quantized to an eighth of their maximum: thresholds equal to
+    # samples, and plateaus at a threshold
+    "exact_ties": ([0.5, 0.25, 0.125], [1, 0, 0], [-1, 0, 1]),
+    # a NaN at sample 0 (row 14) and at sample n - 1 (row 15)
+    "nan_ends": (
+        [1, 0.99, 0.95, 0.9, 0.8, 0.5, 0.2, 0.1, 0.01],
+        [1, 1, 0, 0, 0, 0, 0, 0, 0],
+        [-1, -1, 1, 2, 3, 4, 5, 6, 7],
+    ),
+    "one_link": ([0.5], [1], [-1]),
+    # rows of noise: many crossings in every 32-sample window, both ways
+    "crossings_everywhere": ([0.1, 0.05, 0.02], [1, 0, 1], [-1, 0, 1]),
+    # the most links the kernel takes (the Pallas kernel takes 15)
+    "sixteen_links": (
+        [1, 0.99, 0.95, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2, 0.1, 0.05,
+         0.02, 0.01, 0.005],
+        [1, 1] + [0] * 14,
+        [-1, -1] + list(range(1, 15)),
+    ),
+    # rows of 1001 samples: on the card a row starts off 16 bytes (the
+    # Pallas kernel takes n % 128 == 0 only)
+    "misaligned_1001": (
+        [1, 0.99, 0.95, 0.9, 0.8, 0.5, 0.2, 0.1, 0.01],
+        [1, 1, 0, 0, 0, 0, 0, 0, 0],
+        [-1, -1, 1, 2, 3, 4, 5, 6, 7],
+    ),
 }
 
 
 def _cascade_inputs(case, n_ev=48, seed=4):
     """Rows and bases for a cascade, with the edge rows of the JAX
     package's test: exact ties at the extremum, a NaN sample, a NaN base,
-    and NaN, non-integral, negative and out-of-range starts."""
+    and NaN, non-integral, negative and out-of-range starts; each case's
+    own rows on 14-17."""
     rng = np.random.default_rng(seed)
     if case == "ten_links":
         n = 512
@@ -282,20 +315,63 @@ def _cascade_inputs(case, n_ev=48, seed=4):
         t0 = np.full(n_ev, 40.0, "float32")
         base = (np.nanmax(w, axis=1) * 0.97).astype("float32")
     else:
-        wf, bl = _hpge(n_ev=n_ev, n=1024, seed=seed)
+        n = 1001 if case == "misaligned_1001" else 1024
+        wf, bl = _hpge(n_ev=n_ev, n=n, seed=seed)
         w = (wf - bl[:, None]).astype("float32")
         w[5] = wf[5] - 15000.0  # the NaN-baseline row keeps a waveform
+        if case == "exact_ties":
+            q = (np.nanmax(w, 1) / 8).astype("float32")[:, None]
+            w = (np.round(w / q) * q).astype("float32")
         # tp_0_est sits on the baseline, just before the rise
         t0 = (np.argmax(w > 0.05 * np.nanmax(w, 1)[:, None], 1) - 3).astype(
             "float32"
         )
         base = np.nanmax(w, axis=1).astype("float32")
-        n = w.shape[1]
+        if case == "crossings_everywhere":
+            w = rng.normal(0, 1, w.shape).astype("float32")
+            base, t0 = np.nanmax(w, axis=1), np.full(n_ev, n // 2, "float32")
+    if case == "fwd_walks_to_end":
+        w[15, n - 1] = 1.6 * base[15]
+    elif case == "bwd_walks_to_one":
+        w[14:18, 1:] = np.abs(w[14:18, 1:]) + 1.0
+        w[14:18, 0] = -1.0
+        w[17, 0] = 0.5
+        base[14:18], t0[14:18] = 1.0, n - 1
+    elif case == "nan_ends":
+        w[14, 0] = w[15, n - 1] = np.nan
     w[2, 300:310] = w[2, 299]  # exact ties
     w[3, 100] = np.nan
     base[5] = np.nan
     t0[7], t0[9], t0[11], t0[13] = t0[7] + 0.5, -3.0, np.nan, n
     return w, base, t0
+
+
+def _check_cascade_case(case, w, base, got):
+    """The case's own rows did what it is for, and its links found
+    crossings elsewhere; every edge row is NaN on every link."""
+    n = w.shape[1]
+    got = [np.asarray(g) for g in got]
+    for g in got:
+        assert np.isnan(g[[3, 5, 7, 9, 11, 13]]).all()
+    assert np.isfinite(got[5] if len(got) > 5 else got[0]).sum() >= 20
+    if case == "fwd_walks_to_end":
+        assert got[1][15] == n - 2
+        assert np.isnan(np.delete(got[1], 15)).all()
+    elif case == "bwd_walks_to_one":
+        assert (got[1][14:17] == 1).all() and np.isnan(got[1][17])
+    elif case == "exact_ties":
+        for k, f in enumerate(CASCADE_CASES[case][0]):
+            # a sample equals the threshold where a link found its crossing
+            rows = np.flatnonzero(np.isfinite(got[k]))
+            idx = got[k][rows].astype(int)
+            a = np.float32(f) * base[rows]
+            assert ((w[rows, idx] == a) | (w[rows, idx - 1] == a)).sum() >= 20
+    elif case == "nan_ends":
+        assert all(np.isnan(g[[14, 15]]).all() for g in got)
+    elif case == "crossings_everywhere":
+        # each link found a crossing within a few samples of its start
+        ok = np.isfinite(got[2])
+        assert ok.sum() >= 30 and (np.abs(got[2] - got[1])[ok] < 32).all()
 
 
 @pytest.mark.parametrize("case", sorted(CASCADE_CASES))
@@ -315,16 +391,18 @@ def test_cascade_plain_bit_identical_to_pallas_and_xla(case):
         torch.from_numpy(w), torch.from_numpy(base), torch.from_numpy(t0),
         factors, dirs, starts,
     )
-    assert len(got) == len(pallas) == len(xla) == len(factors)
-    for k, (g, p, x) in enumerate(zip(got, pallas, xla)):
-        g, p, x = g.numpy(), np.asarray(p), np.asarray(x)
-        for ref, what in ((p, "pallas"), (x, "xla")):
-            same = (g == ref) | (np.isnan(g) & np.isnan(ref))
+    refs = [(xla, "xla")]
+    if pallas is None:  # beyond the Pallas kernel's gates: 15 links, n % 128
+        assert len(factors) > 15 or w.shape[1] % 128
+    else:
+        refs.append((pallas, "pallas"))
+    for ref, what in refs:
+        assert len(got) == len(ref) == len(factors)
+        for k, (g, r) in enumerate(zip(got, ref)):
+            g, r = g.numpy(), np.asarray(r)
+            same = (g == r) | (np.isnan(g) & np.isnan(r))
             assert same.all(), (case, what, k, np.where(~same)[0][:5])
-    # every edge row is NaN on every link; the links find crossings elsewhere
-    for g in got:
-        assert np.isnan(g.numpy()[[3, 5, 7, 9, 11, 13]]).all()
-    assert np.isfinite(got[5].numpy()).sum() >= 20
+    _check_cascade_case(case, w, base, got)
 
 
 T0_CASES = {
@@ -525,6 +603,34 @@ def test_cascade_links_are_checked():
     w = torch.zeros(2, 64)
     with pytest.raises(Exception, match="earlier time point"):
         _cuda.cascade_tp(w, torch.ones(2), torch.zeros(2), [1, 1], [1, 0], [-1, 1])
+
+
+def test_cascade_wrapper_checks_what_the_kernel_takes(monkeypatch):
+    """On a CUDA tensor the wrapper refuses, before any build, more than 16
+    links and a row whose warp buffer (n rounded up to 16 bytes) exceeds a
+    block's shared memory; a row that fits goes on to the kernel's build."""
+
+    class FakeCuda:
+        device = torch.device("cuda")
+        dtype = torch.float32
+
+        def __init__(self, n):
+            self.shape = (4, n)
+
+        def is_contiguous(self):
+            return True
+
+    def no_lib(name):
+        raise RuntimeError(f"no {name} library")
+
+    monkeypatch.setattr(_cuda, "_lib", no_lib)
+    base, t = np.ones(4, "float32"), np.zeros(4, "float32")
+    with pytest.raises(ValueError, match="1 to 16 links"):
+        _cuda.cascade_tp(FakeCuda(64), base, t, [1] * 17, [1] * 17, [-1] * 17)
+    with pytest.raises(ValueError, match="232464 bytes"):
+        _cuda.cascade_tp(FakeCuda(58113), base, t, [1], [1], [-1])
+    with pytest.raises(RuntimeError, match="no cascade_tp library"):
+        _cuda.cascade_tp(FakeCuda(58112), base, t, [1], [1], [-1])
 
 
 # ---------------------------------------------------------------------------
@@ -922,18 +1028,78 @@ def test_banded_conv_bank_equals_its_kernels_alone_on_the_card(case, cuda_device
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(CASCADE_CASES))
 def test_cascade_kernel_bit_identical_to_plain_on_the_card(case, cuda_device):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in _cascade_inputs(case, n_ev=256)]
+    _check_cascade_on_the_card(case, *args)
+
+
+def _check_cascade_on_the_card(case, w, base, t0):
     factors, dirs, starts = CASCADE_CASES[case]
-    w, base, t0 = _cascade_inputs(case, n_ev=256)
-    args = [torch.from_numpy(x).to(cuda_device) for x in (w, base, t0)]
     before = _cuda.LAUNCHES["cascade_tp"]
-    got = _cuda.cascade_tp(*args, factors, dirs, starts)
+    got = _cuda.cascade_tp(w, base, t0, factors, dirs, starts)
     assert _cuda.LAUNCHES["cascade_tp"] == before + 1
-    want = _cuda.cascade_tp_plain(*args, factors, dirs, starts)
+    want = _cuda.cascade_tp_plain(w, base, t0, factors, dirs, starts)
     torch.cuda.synchronize()
     for k, (g, wv) in enumerate(zip(got, want)):
         g, wv = g.cpu().numpy(), wv.cpu().numpy()
         same = (g == wv) | (np.isnan(g) & np.isnan(wv))
         assert same.all(), (case, k, np.where(~same)[0][:5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CASCADE_CASES))
+@pytest.mark.parametrize("batch", ["37_rows", "beyond_the_grid"])
+def test_cascade_kernel_odd_batches_on_the_card(case, batch, cuda_device):
+    """A batch that is not a multiple of the rows a block takes, and one
+    of more rows than the persistent grid holds at once."""
+    n = _cascade_inputs(case, n_ev=18)[0].shape[1]
+    n_ev = 37
+    if batch == "beyond_the_grid":
+        launch = _cuda.cascade_tp_launch(n)
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        n_ev += launch["rows_per_block"] * launch["blocks_per_sm"] * sms
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in _cascade_inputs(case, n_ev=n_ev)]
+    _check_cascade_on_the_card(case, *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flagship", "nan_ends", "bwd_walks_to_one"])
+def test_cascade_kernel_takes_an_offset_row_pointer_on_the_card(case, cuda_device):
+    """Rows of n % 4 == 0 samples that start 4 bytes past 16-byte
+    alignment take the kernel's 4-byte copies."""
+    w, base, t0 = _cascade_inputs(case, n_ev=64)
+    flat = torch.zeros(w.size + 1, dtype=torch.float32, device=cuda_device)
+    flat[1:] = torch.from_numpy(w.ravel()).to(cuda_device)
+    w_off = flat[1:].view(w.shape)
+    assert w_off.data_ptr() % 16 == 4 and w_off.is_contiguous()
+    _check_cascade_on_the_card(
+        case, w_off, *[torch.from_numpy(x).to(cuda_device) for x in (base, t0)]
+    )
+
+
+@pytest.mark.gpu
+def test_cascade_kernel_launches_once_with_no_local_memory(cuda_device):
+    """One warp a row, as many rows a block as its shared memory holds (at
+    most 16), no local memory, one launch a call at every row length up to
+    the largest one warp's buffer takes."""
+    for n in (4096, 1024, 1001, 19000, 58112):
+        launch = _cuda.cascade_tp_launch(n)
+        assert launch["local_bytes"] == 0, (n, launch)
+        assert launch["blocks_per_sm"] >= 1, (n, launch)
+        assert launch["threads"] == 32 * launch["rows_per_block"], (n, launch)
+        row_bytes = 4 * (-(-n // 4) * 4)
+        assert launch["smem_bytes"] == launch["rows_per_block"] * row_bytes
+        assert launch["rows_per_block"] == min(16, 232448 // row_bytes), (n, launch)
+        w = torch.linspace(0, 1, n, device=cuda_device).repeat(3, 1)
+        base = torch.ones(3, device=cuda_device)
+        t0 = torch.zeros(3, device=cuda_device)
+        before = _cuda.LAUNCHES["cascade_tp"]
+        got = _cuda.cascade_tp(w, base, t0, [0.5, 0.25], [1, 0], [-1, 0])
+        assert _cuda.LAUNCHES["cascade_tp"] == before + 1
+        want = _cuda.cascade_tp_plain(w, base, t0, [0.5, 0.25], [1, 0], [-1, 0])
+        for g, wv in zip(got, want):
+            assert torch.equal(g, wv), (n, g, wv)
 
 
 @pytest.mark.gpu
