@@ -693,19 +693,49 @@ def k5_phase(_cuda, c, ptxas_log):
     )
 
 
+def with_infinite_rows(c):
+    """A copy of the current ``c`` whose rows 30 to 34 hold infinite
+    samples: at the first and the last sample, inside, of both signs."""
+    c = c.clone()
+    n = c.shape[1]
+    c[30, 0] = float("inf")
+    c[31, n - 1] = float("-inf")
+    c[32, n // 2] = float("inf")
+    c[33, n // 2 + 1] = float("-inf")
+    c[34, 100], c[34, 200] = float("inf"), float("-inf")
+    return c
+
+
+def check_infinite_rows(name, got, want):
+    """Rows 30 to 34 (``with_infinite_rows``) are NaN on all four outputs,
+    in the kernel as in the plain version."""
+    import torch
+
+    for q in range(4):
+        for o, who in ((got[q], "kernel"), (want[q], "plain")):
+            if not bool(torch.isnan(o[30:35]).all()):
+                raise AssertionError(
+                    f"{name}: output {q} of the {who} is not NaN on a row with "
+                    f"an infinite sample"
+                )
+
+
 def k6_phase(_cuda, c):
     """K6 at the flagship geometry, called directly, and as the front's
     route at a geometry the polyphase plan rejects (L = 128, n_up 4788,
-    n_curr 301); each against the plain version. Returns its figures."""
+    n_curr 301); each against the plain version, with five rows of
+    infinite samples (NaN on all four outputs). Returns its figures."""
     import torch
 
     from dspeed_tpu_torch.processors._poly_plan import poly_plan
 
     g = AOE_GEOMETRY
+    c = with_infinite_rows(c)
     B, n_curr = c.shape
     got = _cuda.fused_current_updomain(c, *g)
     want = _cuda.fused_current_plain(c, *g)
     torch.cuda.synchronize()
+    check_infinite_rows("K6 flagship", got, want)
     err, ex = check_current("K6 flagship vs plain", got, want, c, g, K6_REL)
     ms = time_ms(lambda: _cuda.fused_current_updomain(c, *g), 20)
     plain_ms = time_ms(lambda: _cuda.fused_current_plain(c, *g), 5)
@@ -727,6 +757,7 @@ def k6_phase(_cuda, c):
         raise AssertionError("fused_current did not take K6 for the L = 128 geometry")
     want2 = _cuda.fused_current_plain(c2, *g2)
     torch.cuda.synchronize()
+    check_infinite_rows("K6 L=128", got2, want2)
     err2, ex2 = check_current("K6 L=128 vs plain", got2, want2, c2, g2, K6_REL)
     ms2 = time_ms(lambda: _cuda.fused_current(c2, *g2), 20)
     plain2 = time_ms(lambda: _cuda.fused_current_plain(c2, *g2), 5)
@@ -829,7 +860,8 @@ def check_generic(program, vals, got, want, label) -> tuple[float, float, int, i
     samples within REL_TOL of the scale for an extremum). A row excused in
     one output is excused in every output computed from it. The
     convolution's plane must equal the plain version's bit for bit on every
-    row whose input plane does. Returns (max abs float error, max error
+    row whose input plane does, on the card, where the plain walk reaches
+    K4 (on the CPU it sums in another order). Returns (max abs float error, max error
     over scale, rows excused, rows of the convolution checked bit for bit)."""
     import torch
 
@@ -909,7 +941,7 @@ def check_generic(program, vals, got, want, label) -> tuple[float, float, int, i
                 worst_abs = max(worst_abs, err)
                 worst_rel = max(worst_rel, err / max(scale, 1e-30))
             moved[sid] = mv
-        if op.code == OPCODES["conv"]:
+        if op.code == OPCODES["conv"] and dev.type == "cuda":
             src = slots[op.ins[0]].key
             dst = slots[op.outs[0]].key
             rows = same_rows(kernel(src), plain(src)) & ~mv
@@ -968,12 +1000,14 @@ def generic_bound(program, B) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev):
+def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log):
     """K7 on the generic flagship's two groups: the chain built on the CPU
     over every event (NaN rows included), its steps run on the card up to
     the second group, each group lowered twice: with every key it writes
     (held against the plain walk by ``check_generic``) and with the chain's
-    own escapes (timed against the plain walk). Returns the figures."""
+    own escapes (timed against the plain walk, through the wrapper and on
+    the device alone). Returns the figures, with each group's launch and
+    ``ptxas -v``'s report for ``generic_rows_kernel``."""
     import torch
 
     from dspeed_tpu_torch.processing_chain import GroupStep
@@ -1022,32 +1056,52 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev):
                         ((g == w) | (torch.isnan(g) & torch.isnan(w))).all()):
                     raise AssertionError(f"K7 {label} {k}: the chain's launch differs")
             ms = time_ms(lambda: _cuda.generic_rows(prog, vals), 20)
+            dev_ms = device_ms(lambda: _cuda.generic_rows(prog, vals))
             plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, vals), 3, 1)
             bound, by = generic_bound(prog, B)
+            launch = _cuda.generic_rows_launch(prog)
             print(
                 f"K7 generic_rows [group {label}: {len(step.members)} members, "
-                f"{len(prog.ops)} ops, {len(prog.ext_keys)} inputs, "
+                f"{len(prog.ops)} ops, {sum(op.plan for op in prog.ops)} planned "
+                f"barriers, {len(prog.ext_keys)} inputs, "
                 f"{len(step.escapes)} escapes, {prog.smem_bytes} B of shared "
                 f"memory] {B} rows: max |kernel - plain| {err:.3e} ({rel:.3e} of "
                 f"scale), {excused} rows excused as near-ties, convolution bit "
-                f"for bit on {conv_rows} rows; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+                f"for bit on {conv_rows} rows; kernel {ms:.4f} ms ({dev_ms:.4f} "
+                f"ms on the device alone), plain {plain_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}), {bound / ms:.1%} of the bound "
+                f"({bound / dev_ms:.1%} on the device alone); launch: "
+                f"{launch['threads']} threads and {launch['smem_bytes']} + "
+                f"{launch['static_smem_bytes']} B of shared memory a block, "
+                f"{launch['blocks_per_sm']} blocks per SM, "
+                f"{launch['registers']} registers and {launch['local_bytes']} "
+                f"local bytes a thread",
                 flush=True,
             )
-            figs.append(dict(ms=ms, plain_ms=plain_ms, bound=bound, by=by,
-                             err=err, smem=prog.smem_bytes))
+            figs.append(dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
+                             bound=bound, by=by, err=err, launch=launch))
             env.update({k: got[k] for k in step.escapes})
             if len(figs) == 2:
                 break
     a, b = figs
+    ptxas = list(ptxas_report(ptxas_log, "generic_rows_kernel").values())
+    if not ptxas:
+        raise AssertionError("K7: no ptxas report for generic_rows_kernel")
+    print(f"K7 ptxas for generic_rows_kernel: {' | '.join(ptxas)}; on "
+          f"{card_line()}", flush=True)
     return dict(
         max_abs_err=max(a["err"], b["err"]), ms=a["ms"] + b["ms"],
         plain_ms=a["plain_ms"] + b["plain_ms"],
         bound_ms=a["bound"] + b["bound"],
         bound_by=a["by"] if a["bound"] >= b["bound"] else b["by"],
-        group_a_ms=a["ms"], group_b_ms=b["ms"], group_a_plain_ms=a["plain_ms"],
+        device_ms=a["dev_ms"] + b["dev_ms"],
+        bound_share=(a["bound"] + b["bound"]) / (a["ms"] + b["ms"]),
+        device_bound_share=(a["bound"] + b["bound"]) / (a["dev_ms"] + b["dev_ms"]),
+        group_a_ms=a["ms"], group_b_ms=b["ms"], group_a_device_ms=a["dev_ms"],
+        group_b_device_ms=b["dev_ms"], group_a_plain_ms=a["plain_ms"],
         group_b_plain_ms=b["plain_ms"], group_a_bound_ms=a["bound"],
-        group_b_bound_ms=b["bound"],
+        group_b_bound_ms=b["bound"], group_a_launch=a["launch"],
+        group_b_launch=b["launch"], ptxas=ptxas,
     )
 
 
@@ -1481,7 +1535,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- K7 on the generic flagship's two groups --------------------------------
-    k7 = k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev)
+    k7 = k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev,
+                  logs["generic_rows"])
     torch.cuda.empty_cache()
 
     # -- the main paths: build_dsp -------------------------------------------

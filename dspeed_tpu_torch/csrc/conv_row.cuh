@@ -1,7 +1,7 @@
-// The f32 FMA convolution loop of generic_rows.cu (K7), and the order of
-// summation that conv_tile.cuh's register-tiled loop (K3, K4) keeps, so
-// that K7's convolutions equal K4's and K3's bit for bit. K3 and K4 take
-// only CONV_CHUNK from here.
+// The reference f32 FMA convolution loop, and the order of summation that
+// conv_tile.cuh's register-tiled loop (K3, K4, K7) keeps, so that the
+// port's convolutions equal each other bit for bit. The kernels take only
+// CONV_CHUNK from here.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,12 +1,12 @@
-// The register-tiled f32 FMA convolution loop of banded_conv.cu (K4) and
-// fused_t0.cu (K3).
+// The register-tiled f32 FMA convolution loop of banded_conv.cu (K4),
+// fused_t0.cu (K3) and generic_rows.cu (K7).
 //
 // Each thread owns R consecutive outputs for NK kernels. Every output is
 // summed in exactly the order of conv_row.cuh's conv_row_accumulate: per
 // chunk of CONV_CHUNK taps a partial starts at 0.f and takes one fmaf per
 // tap in increasing tap order, then acc += partial, chunks in increasing
-// order. So the outputs equal, bit for bit, those of the kernel that sums
-// with conv_row.cuh (generic_rows.cu), whatever R; only which thread sums
+// order. So the outputs equal, bit for bit, those of conv_row.cuh's
+// reference loop, whatever R; only which thread sums
 // which output, and how the operands reach the registers, differ.
 //
 // Per chunk a thread loads the R + CONV_CHUNK - 1 window samples its

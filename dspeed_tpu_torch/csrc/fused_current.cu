@@ -75,16 +75,22 @@ struct CurrentParams {
 };
 
 // Reads row `row` of c into cs (when not null) and returns, to every
-// thread, whether it holds a NaN; ends with a barrier.
+// thread, whether it holds a NaN, or an infinity among the samples that the
+// upsampled row reads, c[(j + half) / ratio] for j < n_up (the cascade's
+// prefix differences are then NaN: the plain version gives NaN on all four
+// outputs); ends with a barrier.
 __device__ bool load_current(const CurrentParams& P, long long row, float* cs) {
     const float* cr = P.c + row * (long long)P.n_curr;
-    int has_nan = 0;
+    int bad = 0;
     for (int i = threadIdx.x; i < P.n_curr; i += blockDim.x) {
         const float v = cr[i];
-        has_nan |= isnan(v);
+        // sample i is read where j = i * ratio - half + k, k < ratio, has
+        // 0 <= j < n_up (bitwise: a short-circuit form costs K6 3%)
+        const int j0 = i * P.ratio - P.half;
+        bad |= isnan(v) | (isinf(v) & (j0 <= P.n_up - 1) & (j0 + P.ratio > 0));
         if (cs) cs[i] = v;
     }
-    return __syncthreads_or(has_nan) != 0;
+    return __syncthreads_or(bad) != 0;
 }
 
 // First-occurrence extrema of y[0, n) into the row's four outputs.

@@ -1,6 +1,6 @@
-// The moving-window cascade of the A/E current front, shared by the
-// up-domain kernel (K6) and the polyphase kernel's edge windows (K5) in
-// fused_current.cu.
+// The moving-window cascade of the A/E current front, used by the
+// up-domain kernel (K6) in fused_current.cu; the polyphase kernel (K5) and
+// generic_rows.cu (K7) carry its arithmetic in code of their own.
 //
 // Replaces `_mw_apply` (dspeed_tpu/processors/_pallas.py:497), which takes
 // each window sum from 128-wide triangular-matmul cumsums plus the previous

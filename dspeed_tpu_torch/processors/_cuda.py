@@ -73,6 +73,7 @@ __all__ = [
     "fused_current_plain",
     "fused_current_poly_plain",
     "generic_rows",
+    "generic_rows_launch",
     "generic_rows_plain",
 ]
 
@@ -193,6 +194,10 @@ def _bind(name: str, so: str):
         lib.dspeed_generic_rows.restype = ctypes.c_int
         lib.dspeed_generic_rows.argtypes = [
             ctypes.POINTER(_GenParams), ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.dspeed_generic_rows_config.restype = ctypes.c_int
+        lib.dspeed_generic_rows_config.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ]
     else:
         for fn in (lib.dspeed_fused_current, lib.dspeed_fused_current_poly):
@@ -1177,14 +1182,15 @@ def fused_current(c, ratio, half, n_up, L, num, mtype, need=(True,) * 4):
 # ---------------------------------------------------------------------------
 
 _GEN_MAX_EXT, _GEN_MAX_ESC = 32, 64
+# the tape's ints and doubles that K7's parameters hold (GEN_MAX_CODE,
+# GEN_MAX_DP); a longer tape is refused at lowering
+GEN_MAX_CODE, GEN_MAX_DP = 3072, 512
 
 
 class _GenParams(ctypes.Structure):
     """Field for field the ``GenParams`` struct of ``generic_rows.cu``."""
 
     _fields_ = [
-        ("code", ctypes.c_void_p),
-        ("dpar", ctypes.c_void_p),
         ("taps", ctypes.c_void_p),
         ("B", ctypes.c_int),
         ("n_ops", ctypes.c_int),
@@ -1192,9 +1198,14 @@ class _GenParams(ctypes.Structure):
         ("n_scal", ctypes.c_int),
         ("scratch_dbl", ctypes.c_int),
         ("arena_floats", ctypes.c_int),
+        ("tape_dbl", ctypes.c_int),
+        ("n_dpar", ctypes.c_int),
+        ("n_code", ctypes.c_int),
         ("ext", ctypes.c_void_p * _GEN_MAX_EXT),
         ("ext_stride", ctypes.c_longlong * _GEN_MAX_EXT),
         ("esc", ctypes.c_void_p * _GEN_MAX_ESC),
+        ("dpar", ctypes.c_double * GEN_MAX_DP),
+        ("code", ctypes.c_int * GEN_MAX_CODE),
     ]
 
 
@@ -1243,14 +1254,36 @@ def generic_rows_plain(program, vals: dict) -> dict:
 
 
 def _program_on(program, device):
-    """The tape's arrays on ``device``, uploaded once per program."""
+    """``(params, taps)``: the launch parameters with the tape filled in,
+    and the taps on ``device``, both made once per program."""
     arrs = program._dev.get(str(device))
     if arrs is None:
-        ints, dbls, taps = program.encode()
-        arrs = program._dev[str(device)] = tuple(
-            torch.from_numpy(a).to(device) for a in (ints, dbls, taps)
-        )
+        ints, dbls, taps = program.encode()  # _plan refused a longer tape
+        P = _GenParams()
+        ctypes.memmove(P.code, ints.ctypes.data, ints.nbytes)
+        ctypes.memmove(P.dpar, dbls.ctypes.data, dbls.nbytes)
+        P.n_ops, P.n_slots = len(program.ops), len(program.slots)
+        P.n_scal, P.scratch_dbl = program.n_scal, program.scratch_dbl
+        P.arena_floats = program.arena_floats
+        P.tape_dbl, P.n_dpar, P.n_code = program.tape_dbl, len(dbls), len(ints)
+        arrs = program._dev[str(device)] = (P, torch.from_numpy(taps).to(device))
     return arrs
+
+
+def generic_rows_launch(program) -> dict:
+    """How K7 launches a lowered program on this card: threads a block,
+    blocks per SM at the program's shared memory, the kernel's registers
+    and local (spill) bytes per thread, and its shared bytes (static, and
+    the program's)."""
+    lib = _lib("generic_rows")
+    out = (ctypes.c_int * 5)()
+    rc = lib.dspeed_generic_rows_config(int(program.smem_bytes), out)
+    _check_rc(lib, rc, "generic_rows")
+    keys = ("threads", "blocks_per_sm", "registers", "local_bytes",
+            "static_smem_bytes")
+    launch = dict(zip(keys, out))
+    launch["smem_bytes"] = int(program.smem_bytes)
+    return launch
 
 
 def generic_rows(program, vals: dict) -> dict:
@@ -1269,9 +1302,11 @@ def generic_rows(program, vals: dict) -> dict:
             f"generic_rows: the kernel takes at most {_GEN_MAX_EXT} inputs and "
             f"{_GEN_MAX_ESC} stored outputs, got {n_ext} and {n_esc}"
         )
+    lib = _lib("generic_rows")
     dev = ref.device
     B = int(ref.shape[0])
-    P = _GenParams()
+    template, taps = _program_on(program, dev)
+    P = _GenParams.from_buffer_copy(template)
     keep = []
     for e, key in enumerate(program.ext_keys):
         v = vals[key]
@@ -1290,12 +1325,7 @@ def generic_rows(program, vals: dict) -> dict:
         shape = (B, s.length) if s.kind == "plane" else (B,)
         roots[sid] = torch.empty(shape, dtype=s.dtype, device=dev)
         P.esc[q] = roots[sid].data_ptr()
-    ints, dbls, taps = _program_on(program, dev)
-    P.code, P.dpar, P.taps = ints.data_ptr(), dbls.data_ptr(), taps.data_ptr()
-    P.B, P.n_ops, P.n_slots = B, len(program.ops), len(program.slots)
-    P.n_scal, P.scratch_dbl = program.n_scal, program.scratch_dbl
-    P.arena_floats = program.arena_floats
-    lib = _lib("generic_rows")
+    P.taps, P.B = taps.data_ptr(), B
     rc = lib.dspeed_generic_rows(ctypes.byref(P), program.smem_bytes, _stream())
     _check_rc(lib, rc, "generic_rows")
     LAUNCHES["generic_rows"] += 1

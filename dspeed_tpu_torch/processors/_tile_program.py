@@ -39,7 +39,7 @@ from ..processing_chain import (
     AliasStep, ConvertStep, KernelStep, SliceStep, _align_shape, _device_dtype,
     auto,
 )
-from ._cuda import _MAX_SMEM
+from ._cuda import _MAX_SMEM, GEN_MAX_CODE, GEN_MAX_DP
 from .convolutions import _MATMUL_MAC_LIMIT, _mode_window
 
 log = logging.getLogger("dspeed_tpu_torch.generic")
@@ -76,9 +76,21 @@ OP_INTS = 1 + OP_IN + OP_OUT + OP_IP  # code, in, out, ip
 SLOT_INTS = 8  # kind, f64, off, len, sidx, ext, esc, root
 UFUNCS = {"add": 0, "multiply": 1, "divide": 2, "true_divide": 2}
 THREADS = 256  # threads per block, one row per block
-CONV_R = 4  # outputs per thread per tile of the convolution
 STATIC_SMEM = 512  # bytes of static shared memory (the reduction scratch)
 ALIGN = 4  # planes start on 16-byte boundaries
+IP_PLAN = 4  # ip[4]: the barrier plan (bit 0: a block barrier before the op)
+# ops that run on warp 0 alone (the others on every thread of the block)
+WARP_OPS = ("time_point_thresh", "fixed_time_pickoff", "ufunc", "convert")
+# ops with a block barrier of their own after their first reads of their
+# operands and before any of their writes (csrc/generic_rows.cu)
+BARRIERED_OPS = ("min_max", "linear_slope_fit", "pole_zero", "trap", "amax",
+                 "conv", "moving_window_multi")
+# the block reductions' two alternating buffers: for each op that takes
+# them (its first one before its first barrier), how many of the buffers
+# it took last it still reads after its last barrier. One is safe, since
+# the next reduction takes the other buffer; two would meet its first write
+LATE_REDUCTION_READS = {"min_max": 1, "linear_slope_fit": 1, "pole_zero": 1,
+                        "amax": 1, "trap": 0, "moving_window_multi": 0}
 
 
 class Slot:
@@ -104,7 +116,8 @@ class Op:
     (``("slot", id, dtype)`` or ``("const", value)``), for the plain walk;
     ``ins``/``ip``/``dp`` its device operands and static parameters."""
 
-    __slots__ = ("name", "code", "args", "outs", "ins", "ip", "dp", "step")
+    __slots__ = ("name", "code", "args", "outs", "ins", "ip", "dp", "step",
+                 "plan")
 
     def __init__(self, name, code, args, outs, step=None):
         self.name = name
@@ -115,6 +128,7 @@ class Op:
         self.ip: list = []
         self.dp: list = []
         self.step = step  # the member step, whose kernel the plain walk calls
+        self.plan = 0  # ip[IP_PLAN]: bit 0, a block barrier before the op
 
 
 class TileProgram:
@@ -132,6 +146,9 @@ class TileProgram:
         self.n_scal = 0
         self.scratch_dbl = 0
         self.arena_floats = 0
+        self.tape_dbl = 0  # shared memory: where the tape's copy starts
+        self.n_dpar = 0
+        self.n_code = 0
         self.smem_bytes = 0
         self._dev: dict = {}
 
@@ -180,6 +197,7 @@ class TileProgram:
             rec[1 + OP_IN : 1 + OP_IN + OP_OUT] = -(2**30)
             rec[1 + OP_IN : 1 + OP_IN + len(op.outs)] = op.outs
             rec[1 + OP_IN + OP_OUT : 1 + OP_IN + OP_OUT + len(op.ip)] = op.ip
+            rec[1 + OP_IN + OP_OUT + IP_PLAN] = op.plan
             dbls[k * OP_DP : k * OP_DP + len(dps)] = dps
         base = len(self.ops) * OP_INTS
         for sid, s in enumerate(self.slots):
@@ -496,6 +514,8 @@ def _plan(prog: TileProgram) -> None:
         if (len(op.ins) > OP_IN or len(op.outs) > OP_OUT or len(op.ip) > OP_IP
                 or len(op.dp) + n_const > OP_DP):
             raise LoweringError(f"{op.name}: too many operands for a tape record")
+        # the plan's fields are free in every record
+        assert not any(op.ip[IP_PLAN : IP_PLAN + 3]), op.name
 
     # live range [def, last read] of each root plane, in op order
     first, last = {}, {}
@@ -523,7 +543,11 @@ def _plan(prog: TileProgram) -> None:
             if sz >= size:
                 free[j] = (off + size, sz - size)
                 return off
-        off, top = top, top + size
+        if free and free[-1][0] + free[-1][1] == top:  # grow the top hole
+            off = free.pop()[0]
+        else:
+            off = top
+        top = off + size
         return off
 
     def release(off, size):
@@ -539,37 +563,125 @@ def _plan(prog: TileProgram) -> None:
         free[:] = merged
 
     for k in range(len(ops)):
+        # a moving window whose input plane dies here runs in that plane's
+        # space: its stages rewrite their row in place anyway
+        op = ops[k]
+        if op.code == OPCODES["moving_window_multi"]:
+            src = prog.slots[op.ins[0]]
+            r, o = src.root, op.outs[0]
+            if (last[r] == k and src.start == 0
+                    and src.length == prog.slots[r].length
+                    and prog.slots[o].length == src.length):
+                prog.slots[o].off = prog.slots[r].off
+                live[o] = live.pop(r)
         for r, d in first.items():
-            if d == k:
+            if d == k and r not in live:
                 prog.slots[r].off = alloc(prog.slots[r].length)
                 live[r] = (prog.slots[r].off, prog.slots[r].length)
         for r in [r for r in live if last[r] == k]:
             release(*live.pop(r))
     prog.arena_floats = top
 
-    # per-row scalars, and the scratch the ops need (a float64 prefix of
-    # the row, or the convolution's zero-padded row and taps)
+    # per-row scalars (an even count, so that the scratch after them starts
+    # on 16 bytes), and the scratch the ops need: a float64 prefix of the
+    # row (with a pad double after every 16 where the scan's runs are of an
+    # even length), or the convolution's zero-padded window (the outputs
+    # and the taps' 32-tap chunks, with the 16-byte loads' tail) and its
+    # taps padded to 4
     for sid, s in enumerate(prog.slots):
         if s.root == sid and s.kind == "scalar":
             s.sidx = prog.n_scal
             prog.n_scal += 1
+    prog.n_scal += prog.n_scal % 2
     scratch = 0
     for op in ops:
         if op.code in (OPCODES["trap"], OPCODES["moving_window_multi"]):
-            scratch = max(scratch, prog.slots[op.ins[0]].length)
+            n = prog.slots[op.ins[0]].length
+            even = -(-n // THREADS) % 2 == 0  # runs of an even length
+            scratch = max(scratch, n + ((n >> 4) + 1 if even else 0))
         elif op.code == OPCODES["conv"]:
             p, m = prog.slots[op.outs[0]].length, op.ip[1]
-            tile = THREADS * CONV_R
-            span = -(-p // tile) * tile + m - 1
-            scratch = max(scratch, -(-(span + m) // 2))
-    prog.scratch_dbl = scratch + ((prog.n_scal + scratch) % 2)
-    prog.smem_bytes = (8 * (prog.n_scal + prog.scratch_dbl)
-                       + 4 * (prog.arena_floats + len(prog.slots)))
+            mc = -(-m // 32) * 32
+            span = -(-(p + mc + 4) // 4) * 4
+            scratch = max(scratch, -(-(span + -(-m // 4) * 4) // 2))
+    prog.scratch_dbl = scratch + scratch % 2
+    _barriers(prog)
+    # then the tape's copy, its doubles on 8 bytes, then its ints
+    prog.n_code = len(ops) * OP_INTS + len(prog.slots) * SLOT_INTS
+    prog.n_dpar = max(1, len(ops) * OP_DP)
+    prog.tape_dbl = -(-(8 * (prog.n_scal + prog.scratch_dbl)
+                        + 4 * (prog.arena_floats + len(prog.slots))) // 8)
+    prog.smem_bytes = 8 * (prog.tape_dbl + prog.n_dpar) + 4 * prog.n_code
+    if prog.n_code > GEN_MAX_CODE or prog.n_dpar > GEN_MAX_DP:
+        raise LoweringError(
+            f"a tape of {len(ops)} ops and {len(prog.slots)} slots; K7's "
+            f"parameters hold {GEN_MAX_CODE} ints and {GEN_MAX_DP} doubles"
+        )
     if prog.smem_bytes + STATIC_SMEM > _MAX_SMEM:
         raise LoweringError(
             f"the plan needs {prog.smem_bytes} bytes of shared memory; one "
             f"block holds at most {_MAX_SMEM - STATIC_SMEM}"
         )
+
+
+def _barriers(prog: TileProgram) -> None:
+    """The barrier plan: ``op.plan`` = 1 on each op that must wait at a
+    block barrier. An op waits when, since the last barrier, another thread
+    wrote what it reads (a plane and its flag word, or for an op of the
+    whole block a scalar that warp 0 stored), or read or wrote the arena or
+    scratch space that it writes before its own first barrier, or still
+    reads the reduction buffer that it takes first. Ops of ``WARP_OPS`` run
+    on warp 0 alone, and read what warp 0 stored after a ``__syncwarp``. An
+    op of ``BARRIERED_OPS`` settles, at its own barrier, everything before
+    it; what it does after that barrier stays pending."""
+    slots = prog.slots
+    names = {v: k for k, v in OPCODES.items()}
+    planes: set = set()  # root planes written, with their flag words
+    scalars: set = set()  # root scalars stored by warp 0
+    spans: list = []  # arena [lo, hi) read or written
+    scratch = False  # the scratch read or written
+    late = 0  # reduction buffers read after the last barrier
+
+    def span(sid):
+        s = slots[sid]
+        lo = slots[s.root].off + s.start
+        return lo, lo + s.length
+
+    def overlaps(a):
+        return any(a[0] < b[1] and b[0] < a[1] for b in spans)
+
+    for op in prog.ops:
+        name = names[op.code]
+        warp = name in WARP_OPS
+        ins = [] if name == "load" else [e for e in op.ins if not isinstance(e, tuple)]
+        in_planes = [e for e in ins if slots[e].kind == "plane"]
+        out_planes = [o for o in op.outs if slots[o].kind == "plane"]
+        uses_scratch = name in ("trap", "moving_window_multi", "conv")
+        own_barrier = name in BARRIERED_OPS
+        need = any(slots[e].root in planes for e in in_planes)
+        need |= not warp and any(slots[e].root in scalars for e in ins
+                                 if slots[e].kind == "scalar")
+        if not own_barrier:
+            # writes before any barrier of the op's own
+            need |= any(overlaps(span(o)) for o in out_planes)
+        if name == "conv":  # stages its window before its barrier
+            need |= scratch
+        if name in LATE_REDUCTION_READS:  # of two buffers
+            need |= late > 1
+        if need:
+            planes, scalars, spans, scratch, late = set(), set(), [], False, 0
+        op.plan = int(need)
+        if own_barrier:
+            planes, scalars, spans, scratch = set(), set(), [], False
+            late = LATE_REDUCTION_READS.get(name, 0)
+            if name in ("trap", "pole_zero"):  # reads its input after it
+                spans += [span(e) for e in in_planes]
+        else:
+            spans += [span(e) for e in in_planes]
+        spans += [span(o) for o in out_planes]
+        planes |= {slots[o].root for o in out_planes}
+        scalars |= {slots[o].root for o in op.outs if slots[o].kind == "scalar"}
+        scratch |= uses_scratch
 
 
 def lower(members, vals: dict, escapes) -> TileProgram:

@@ -15,9 +15,18 @@ row-tape kernel K7 (``csrc/generic_rows.cu``) through its plain walk
   atol 2e-5 (``tests/test_tile_safety.py:91-122``), NaN positions exact.
 - A refused lowering bisects the group; a member with no op splits it.
 
-The JAX package is imported inside the CPU tests only. The ``gpu`` test
-runs K7 on both flagship groups at 512 rows against the plain walk
-(``chip_smoke.k7_phase``):
+- The barrier plan orders every hazard between ops (planes, their flag
+  words, scalars, the scratch and the reduction buffers), and sits in
+  record fields the block-per-op kernel never read.
+- ``tests/test_torch_k7_emulation.py`` runs the kernel itself on the CPU
+  under ThreadSanitizer and AddressSanitizer (``tools/k7_emu``).
+
+The JAX package is imported inside the CPU tests only. The ``gpu`` tests
+run K7 on both flagship groups at 512 rows against the plain walk
+(``chip_smoke.k7_phase``), on each op kind alone, on the small chain at
+batches of 37 and 1, on reductions back to back, at 1001 and 5000
+samples, on NaN rows, infinite samples, flat tails and exact ties, and
+check its launch:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_generic.py
 """
@@ -381,6 +390,47 @@ OP_CASES = {
 }
 
 
+_AMAX = {"function": "amax", "module": "numpy", "unit": "ADC",
+         "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}}
+
+
+def _fit(src, p):
+    return {"function": "linear_slope_fit", "module": "dspeed_tpu.processors",
+            "args": [src] + [f"{p}_{q}" for q in ("mean", "std", "slope", "icpt")],
+            "unit": ["ADC"] * 4}
+
+
+def _min_max(src, p):
+    return {"function": "min_max", "module": "dspeed_tpu.processors",
+            "args": [src] + [f"{p}_{q}" for q in ("tmin", "tmax", "min", "max")],
+            "unit": ["ns", "ns", "ADC", "ADC"]}
+
+
+# block reductions back to back, each reading a plane written before the
+# one before it, so that the plan puts no barrier between them: two slope
+# fits, two amaxes, two min_maxes, a fit after pole_zero's scan
+RED_CONFIG = {
+    "outputs": [f"{p}_{q}" for p in ("ba", "ta") for q in ("mean", "std", "slope", "icpt")]
+    + [f"{p}_{q}" for p in ("ma", "mb") for q in ("tmin", "tmax", "min", "max")]
+    + ["m_all", "m_mid", "wf_pz"] + [f"pa_{q}" for q in ("mean", "std", "slope", "icpt")]
+    + ["m_pz"],
+    "processors": {
+        "wf_blsub": {"function": "bl_subtract", "module": "dspeed_tpu.processors",
+                     "args": ["waveform", "baseline", "wf_blsub(unit='ADC')"]},
+        "ba_mean, ba_std, ba_slope, ba_icpt": _fit("wf_blsub[0:50]", "ba"),
+        "ta_mean, ta_std, ta_slope, ta_icpt": _fit("wf_blsub[150:256]", "ta"),
+        "m_all": dict(_AMAX, args=["wf_blsub", 1, "m_all"]),
+        "m_mid": dict(_AMAX, args=["wf_blsub[100:200]", 1, "m_mid"]),
+        "ma_tmin, ma_tmax, ma_min, ma_max": _min_max("wf_blsub", "ma"),
+        "mb_tmin, mb_tmax, mb_min, mb_max": _min_max("wf_blsub[0:128]", "mb"),
+        "wf_pz": {"function": "pole_zero", "module": "dspeed_tpu.processors",
+                  "args": ["wf_blsub", "500.0", "wf_pz"], "unit": "ADC"},
+        "pa_mean, pa_std, pa_slope, pa_icpt": _fit("wf_blsub[50:100]", "pa"),
+        "m_pz": dict(_AMAX, args=["wf_pz", 1, "m_pz"]),
+    },
+}
+
+
 @pytest.fixture(scope="module")
 def ops_chain():
     """The small op chain built unfused and run on the CPU: (chain, env)."""
@@ -571,6 +621,298 @@ def test_plan_reuses_dead_planes(flagship_events):
     assert (s.start, s.length) == (0, 750)
 
 
+# ---------------------------------------------------------------------------
+# the barrier plan (ip[4]) and the tape's records
+
+# what csrc/generic_rows.cu does around its own block barriers: ops that
+# run on warp 0 alone, and for each op with a barrier of its own, which of
+# its accesses come after that barrier (its input read again, the scratch)
+WARP_OP_NAMES = {"time_point_thresh", "fixed_time_pickoff", "ufunc", "convert"}
+AFTER_OWN_BARRIER = {
+    "min_max": (), "amax": (), "linear_slope_fit": (),
+    "pole_zero": ("input",), "trap": ("input", "scratch"),
+    "conv": ("scratch",), "moving_window_multi": ("scratch",),
+}
+SCRATCH_BEFORE_BARRIER = {"conv"}  # stages its window before its barrier
+# the reduction buffers (two, alternating) each op takes, the first before
+# its first barrier, and how many of the last it reads after its last
+# barrier; moving_window_multi takes one a stage
+REDUCTION_BUFFERS = {
+    "min_max": (1, 1), "amax": (1, 1), "linear_slope_fit": (2, 1),
+    "pole_zero": (1, 1), "trap": (1, 0), "moving_window_multi": (None, 0),
+}
+
+
+def _program_groups(cfg, wf, bl, db=None):
+    """Each generic group of ``cfg`` on ``(wf, bl)``, lowered with its chain's
+    escapes: ``[(program, vals)]``, the steps between them run on the CPU."""
+    chain, _, _ = torch_build_chain(
+        cfg, _table(dspeed_tpu_torch.lh5, wf, bl), db_dict=db, device="cpu",
+        fuse="generic",
+    )
+    inputs, _ = chain._gather_inputs(0, chain._buffer_len)
+    env = chain._to_device(inputs)
+    env.update(chain._const_env())
+    out = []
+    for step in chain._steps:
+        if not isinstance(step, GroupStep):
+            step.run(env)
+            continue
+        vals = {k: env[k] for k in step.ext_in}
+        prog = _tile_program.lower(step.members, vals, step.escapes)
+        out.append((prog, vals, step))
+        env.update(_cuda.generic_rows_plain(prog, vals))
+    return out
+
+
+@pytest.fixture(scope="module")
+def plan_programs(flagship_events):
+    wf, bl = flagship_events
+    (a, _, _), (b, _, _) = _program_groups(_flagship(), wf, bl, DB_FLAT)
+    owf, obl = _events(n=8, nsamp=N_OPS, seed=5)
+    ((ops, _, _),) = _program_groups(OPS_CONFIG, owf, obl)
+    ((red, _, _),) = _program_groups(RED_CONFIG, owf, obl)
+    return {"A": a, "B": b, "ops": ops, "red": red}
+
+
+def _accesses(prog, op, taken):
+    """``(before, after)``: the op's accesses before its first block barrier
+    and after it (all before, for an op with no barrier of its own). An
+    access is ``(kind, what)``: a plane span read or written, its root's
+    flag word read or written, a scalar root read or written, the scratch,
+    or reduction buffer ``taken + i`` (mod 2) written or read (``taken``:
+    the buffers the ops before this one took)."""
+    name = {v: k for k, v in _tile_program.OPCODES.items()}[op.code]
+    slots = prog.slots
+
+    def span(sid):
+        s = slots[sid]
+        lo = slots[s.root].off + s.start
+        return (lo, lo + s.length)
+
+    ins = [] if name == "load" else [e for e in op.ins if not isinstance(e, tuple)]
+    reads = [("read", span(e)) for e in ins if slots[e].kind == "plane"]
+    reads += [("read_scalar", slots[e].root) for e in ins if slots[e].kind == "scalar"]
+    writes = [("write", span(o)) for o in op.outs if slots[o].kind == "plane"]
+    writes += [("write_scalar", o) for o in op.outs if slots[o].kind == "scalar"]
+    reads += [("read_flag", slots[e].root) for e in ins if slots[e].kind == "plane"]
+    writes += [("write_flag", slots[o].root) for o in op.outs if slots[o].kind == "plane"]
+    scratch = [("scratch", None)] if name in ("trap", "moving_window_multi", "conv") else []
+    if name not in AFTER_OWN_BARRIER:
+        return reads + writes + scratch, []
+    before = reads + (scratch if name in SCRATCH_BEFORE_BARRIER else [])
+    after = writes + (scratch if "scratch" in AFTER_OWN_BARRIER[name] else [])
+    after += [a for a in reads if a[0] == "read"] if "input" in AFTER_OWN_BARRIER[name] else []
+    if name in REDUCTION_BUFFERS:
+        n, late = REDUCTION_BUFFERS[name]
+        n = op.ip[1] if n is None else n
+        before.append(("red_write", taken % 2))
+        after += [("red_read", (taken + n - 1 - i) % 2) for i in range(late)]
+    return before, after
+
+
+def _buffers_taken(prog):
+    """The reduction buffers the ops before each op took."""
+    names = {v: k for k, v in _tile_program.OPCODES.items()}
+    out, t = [], 0
+    for op in prog.ops:
+        out.append(t)
+        n = REDUCTION_BUFFERS.get(names[op.code], (0, 0))[0]
+        t += op.ip[1] if n is None else n
+    return out
+
+
+def _conflict(a, b, reader_on_warp0):
+    """Whether access ``a`` of an earlier op and ``b`` of a later one need a
+    barrier between them (``reader_on_warp0``: the later op runs on warp 0,
+    which sees what warp 0 stored after a __syncwarp)."""
+    def overlap(x, y):
+        return x[0] < y[1] and y[0] < x[1]
+
+    if a[0] == "write" and b[0] in ("read", "write"):
+        return overlap(a[1], b[1])
+    if a[0] == "read" and b[0] == "write":
+        return overlap(a[1], b[1])
+    if a[0] == "write_scalar" and b[0] == "read_scalar":
+        return a[1] == b[1] and not reader_on_warp0
+    if a[0] == "write_flag" and b[0] in ("read_flag", "write_flag"):
+        return a[1] == b[1]
+    if a[0] == "read_flag" and b[0] == "write_flag":
+        return a[1] == b[1]
+    if a[0] == "red_read" and b[0] == "red_write":
+        return a[1] == b[1]
+    return a[0] == b[0] == "scratch"
+
+
+@pytest.mark.parametrize("group", ["A", "B", "ops", "red"])
+def test_barrier_plan_orders_every_hazard(plan_programs, group):
+    """Every pair of ops whose accesses conflict (a plane, its flag word or
+    a scalar written, then read; an arena span, the scratch or a reduction
+    buffer read or written, then written) has a barrier between them: one
+    the plan puts before an op after the first, or a barrier of an op's own
+    in between. Ops on warp 0 alone need none among themselves."""
+    prog = plan_programs[group]
+    names = {v: k for k, v in _tile_program.OPCODES.items()}
+    ops = prog.ops
+    acc = [_accesses(prog, op, t) for op, t in zip(ops, _buffers_taken(prog))]
+    warp = [names[op.code] in WARP_OP_NAMES for op in ops]
+    own = [names[op.code] in AFTER_OWN_BARRIER for op in ops]
+    checked = 0
+    for k, op in enumerate(ops):
+        for j in range(k):
+            if warp[j] and warp[k]:
+                continue
+            if any(ops[m].plan for m in range(j + 1, k + 1)) or any(own[j + 1 : k]):
+                continue
+            visible = acc[j][1] if own[j] else acc[j][0]
+            for a in visible:
+                for b in acc[k][0]:
+                    checked += 1
+                    assert not _conflict(a, b, warp[k]), (
+                        f"{group}: op {k} {op.name} meets op {j} {ops[j].name} "
+                        f"({a} then {b}) with no barrier between")
+    assert checked > 0
+
+
+def _reductions_back_to_back(prog):
+    """Pairs of reductions with no barrier between them but their own."""
+    names = {v: k for k, v in _tile_program.OPCODES.items()}
+    red = [k for k, op in enumerate(prog.ops)
+           if names[op.code] in _tile_program.LATE_REDUCTION_READS]
+    return [(names[prog.ops[j].code], names[prog.ops[k].code])
+            for j, k in zip(red, red[1:])
+            if not any(op.plan for op in prog.ops[j + 1 : k + 1])
+            and not any(names[op.code] in _tile_program.BARRIERED_OPS
+                        for op in prog.ops[j + 1 : k])]
+
+
+def test_reductions_run_back_to_back(plan_programs):
+    """The reduction chain puts two slope fits, two amaxes, two min_maxes
+    and a fit after pole_zero's scan back to back, each pair with no
+    barrier between them but their own: the buffers alternate."""
+    pairs = _reductions_back_to_back(plan_programs["red"])
+    for pair in [("linear_slope_fit", "linear_slope_fit"), ("amax", "amax"),
+                 ("min_max", "min_max"), ("pole_zero", "linear_slope_fit")]:
+        assert pair in pairs, pairs
+
+
+def test_barrier_plan_guards_a_reduction_buffer_read_late(monkeypatch,
+                                                          plan_programs):
+    """An op that read both buffers after its last barrier would meet the
+    next reduction's first write: the plan then puts a barrier before each
+    reduction that follows a slope fit."""
+    prog = plan_programs["red"]
+    names = {v: k for k, v in _tile_program.OPCODES.items()}
+    monkeypatch.setitem(_tile_program.LATE_REDUCTION_READS, "linear_slope_fit", 2)
+    monkeypatch.setitem(REDUCTION_BUFFERS, "linear_slope_fit", (2, 2))
+    _tile_program._barriers(prog)
+    assert ("linear_slope_fit", "linear_slope_fit") not in _reductions_back_to_back(prog)
+    fits = [k for k, op in enumerate(prog.ops) if names[op.code] == "linear_slope_fit"]
+    nxt = [next(k for k in range(f + 1, len(prog.ops))
+                if names[prog.ops[k].code] in _tile_program.LATE_REDUCTION_READS)
+           for f in fits]
+    assert all(prog.ops[k].plan for k in nxt)
+    test_barrier_plan_orders_every_hazard({"red": prog}, "red")
+    monkeypatch.undo()
+    _tile_program._barriers(prog)
+
+
+def test_barrier_plan_of_the_flagship_groups(plan_programs):
+    """Group A waits at 8 barriers, none inside its run of threshold
+    multiplies and searches; group B at 5."""
+    a, b = plan_programs["A"], plan_programs["B"]
+    names = {v: k for k, v in _tile_program.OPCODES.items()}
+    assert sum(op.plan for op in a.ops) == 8
+    assert sum(op.plan for op in b.ops) == 5
+    run = [k for k, op in enumerate(a.ops)
+           if names[op.code] == "ufunc" and op.ip[0] == 1]  # the multiplies
+    assert len(run) == 8
+    last = max(k for k, op in enumerate(a.ops) if names[op.code] == "time_point_thresh")
+    assert all(names[op.code] in ("ufunc", "time_point_thresh")
+               for op in a.ops[run[0] : last + 1])
+    assert not any(op.plan for op in a.ops[run[0] : last + 1])
+    assert a.ops[last + 1].plan  # the windower waits for the searches
+
+
+# each op record's (code, ip[0:4], ip[7]) on the flagship's two groups: the
+# lowering's, unchanged by the barrier plan
+FLAGSHIP_RECORDS = {
+    "A": [(1, 0, 0, 0, 0, 0), (2, 0, 0, 0, 0, 0), (3, 0, 0, 0, 0, 2),
+          (4, 0, 0, 0, 0, 0), (5, 0, 0, 0, 0, 0), (14, 0, 0, 0, 0, 0),
+          (4, 0, 0, 0, 0, 0), (6, 0, 625, 188, 625, 0), (7, 0, 0, 0, 0, 0),
+          (8, 0, 133, 66, 0, 0), (2, 0, 0, 0, 0, 0), (9, 0, 0, 0, 0, 6),
+          (6, 1, 8, 4, 125, 0), (9, 0, 0, 0, 0, 6), (14, 1, 1, 0, 0, 3),
+          (9, 1, 0, 0, 0, 6)] + [(14, 1, 1, 0, 0, 3), (9, 0, 0, 0, 0, 6)] * 7
+         + [(9, 1, 0, 0, 0, 6), (10, 0, 0, 0, 0, 2), (11, 1, 0, 0, 0, 0)],
+    "B": [(1, 0, 0, 0, 0, 0), (12, 48, 3, 0, 0, 0), (2, 0, 0, 0, 0, 0),
+          (1, 0, 0, 0, 0, 0), (6, 0, 250, 6, 250, 0), (14, 0, 1, 0, 0, 3),
+          (13, 108, 0, 0, 0, 2), (14, 1, 1, 0, 0, 3), (14, 2, 1, 0, 0, 3),
+          (14, 2, 1, 0, 0, 3), (14, 0, 1, 0, 0, 3), (14, 0, 1, 0, 0, 3),
+          (14, 0, 1, 0, 0, 3), (15, 0, 0, 0, 0, 0), (15, 1, 1, 0, 0, 0),
+          (1, 0, 0, 0, 0, 0), (13, 108, 0, 0, 0, 2)],
+}
+
+
+@pytest.mark.parametrize("group", ["A", "B", "ops"])
+def test_plan_sits_in_fields_the_records_left_free(plan_programs, group):
+    """The plan is ip[4] (ip[5] and ip[6] stay 0); every other field of every
+    record is the op's own: its code, operands (a constant as -1 - j),
+    outputs and ip[0:4], ip[7]. On the flagship's groups those are pinned,
+    so the block-per-op kernel, which reads ip[0:4] and ip[7], runs the
+    same tape."""
+    T = _tile_program
+    prog = plan_programs[group]
+    ints = prog.encode()[0]
+    base = 1 + T.OP_IN + T.OP_OUT
+    pinned = []
+    for k, op in enumerate(prog.ops):
+        rec = ints[k * T.OP_INTS : (k + 1) * T.OP_INTS]
+        ip = rec[base:]
+        assert rec[0] == op.code
+        ins, j = [], len(op.dp)
+        for e in op.ins:
+            if isinstance(e, tuple):
+                ins.append(-1 - j)
+                j += 1
+            else:
+                ins.append(e)
+        assert list(rec[1 : 1 + len(ins)]) == ins
+        assert all(v == -(2**30) for v in rec[1 + len(ins) : 1 + T.OP_IN])
+        assert list(rec[1 + T.OP_IN : 1 + T.OP_IN + len(op.outs)]) == op.outs
+        want_ip = list(op.ip) + [0] * (T.OP_IP - len(op.ip))
+        assert list(ip[:4]) == want_ip[:4] and ip[7] == want_ip[7]
+        assert (ip[T.IP_PLAN], ip[5], ip[6]) == (op.plan, 0, 0)
+        pinned.append((int(rec[0]), *(int(v) for v in ip[:4]), int(ip[7])))
+    if group in FLAGSHIP_RECORDS:
+        assert pinned == FLAGSHIP_RECORDS[group]
+
+
+def test_moving_window_runs_in_its_dead_input(plan_programs):
+    """Group B's moving window writes its 4784 samples over the plane it
+    reads, which dies there, and the planes after it fit the same space:
+    two 4096-sample planes, so three blocks fit an SM."""
+    b = plan_programs["B"]
+    names = {v: k for k, v in _tile_program.OPCODES.items()}
+    (mw,) = [op for op in b.ops if names[op.code] == "moving_window_multi"]
+    src, dst = b.slots[mw.ins[0]], b.slots[mw.outs[0]]
+    assert (src.length, dst.length) == (4784, 4784) and src.off == dst.off
+    assert b.arena_floats == 2 * 4096
+    assert 3 * (b.smem_bytes + _tile_program.STATIC_SMEM + 1024) <= 233472
+
+
+def test_lowering_refuses_a_tape_over_the_kernel_parameters(monkeypatch, plan_programs):
+    """A tape longer than K7's parameters hold is refused at lowering, so the
+    group splits."""
+    wf, bl = _events(n=8, nsamp=N_OPS, seed=5)
+    monkeypatch.setattr(_tile_program, "GEN_MAX_CODE", 100)
+    _tile_program.reset_splits()
+    got = _run(wf, bl, "generic", OPS_CONFIG)
+    assert any("parameters hold" in k for k in _tile_program.SPLITS)
+    want = _run(wf, bl, False, OPS_CONFIG)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def test_escaping_slice_keeps_the_plain_strides(flagship_events):
     wf, bl = flagship_events
     chain, _, _ = torch_build_chain(
@@ -617,7 +959,7 @@ def test_k7_wrapper_never_falls_back_on_a_cuda_tensor(monkeypatch, ops_chain):
 
     monkeypatch.setattr(_cuda, "_lib", no_lib)
     monkeypatch.setattr(_cuda, "_program_on", lambda program, device: (
-        torch.zeros(1), torch.zeros(1), torch.zeros(1)))
+        _cuda._GenParams(), torch.zeros(1)))
     monkeypatch.setattr(_cuda, "generic_rows_plain", None)
     monkeypatch.setattr(torch, "empty", lambda *a, **k: torch.zeros(1))
     before = dict(_cuda.LAUNCHES)
@@ -628,6 +970,167 @@ def test_k7_wrapper_never_falls_back_on_a_cuda_tensor(monkeypatch, ops_chain):
 
 # ---------------------------------------------------------------------------
 # on the card
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on_the_card(members, vals, label, dev):
+    """K7 on ``members`` lowered with every key they write, against the
+    plain walk of the same tape on the same card, by
+    ``chip_smoke.check_generic``'s rule (the convolution bit for bit); one
+    launch."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    vals = {k: v.to(dev) for k, v in vals.items()}
+    prog = _tile_program.lower(members, vals, [])
+    every = sorted(s.key for s in prog.slots if not s.ext)
+    full = _tile_program.lower(members, vals, every)
+    before = _cuda.LAUNCHES["generic_rows"]
+    got = _cuda.generic_rows(full, vals)
+    assert _cuda.LAUNCHES["generic_rows"] == before + 1
+    want = _cuda.generic_rows_plain(full, vals)
+    torch.cuda.synchronize()
+    chip_smoke.check_generic(full, vals, got, want, label)
+    return full, got, want
+
+
+def _group_on_the_card(cfg, wf, bl, label, dev, db=None):
+    ((_, vals, step),) = _program_groups(cfg, wf, bl, db)
+    return _on_the_card(step.members, vals, label, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(OP_CASES))
+def test_k7_op_kind_alone_on_the_card(ops_chain, kind, cuda_device):
+    """Each op kind of the small chain, lowered alone, on the card."""
+    from dspeed_tpu_torch.processing_chain import ConvertStep, KernelStep
+
+    chain, env = ops_chain
+    steps = [s for s in chain._steps
+             if isinstance(s, (KernelStep, ConvertStep))
+             and s.kernel.__name__ == OP_CASES[kind]]
+    assert steps, kind
+    for step in steps:
+        reads = sorted(chain._step_env_reads(step))
+        writes = ([sp.key for sp in step.out_specs] if isinstance(step, KernelStep)
+                  else [step.out_key])
+        _on_the_card([step], {k: env[k] for k in reads}, kind, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [37, 1])
+def test_k7_ops_chain_as_one_group_on_the_card(rows, cuda_device):
+    wf, bl = _events(n=max(rows, 8), nsamp=N_OPS, seed=5)
+    _group_on_the_card(OPS_CONFIG, wf[:rows], bl[:rows], f"ops x{rows}", cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [37, 1])
+def test_k7_reductions_back_to_back_on_the_card(rows, cuda_device):
+    """Slope fit after slope fit, amax after amax, min_max after min_max
+    and a fit after pole_zero's scan, with no barrier between them but
+    their own (``RED_CONFIG``)."""
+    wf, bl = _events(n=max(rows, 8), nsamp=N_OPS, seed=3)
+    full, _, _ = _group_on_the_card(RED_CONFIG, wf[:rows], bl[:rows],
+                                    f"reductions x{rows}", cuda_device)
+    assert ("linear_slope_fit", "linear_slope_fit") in _reductions_back_to_back(full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nsamp", [1001, 5000])
+def test_k7_rows_of_other_lengths_on_the_card(nsamp, cuda_device):
+    """1001 samples: rows off 16-byte alignment (4-byte loads) and runs of 4;
+    5000: runs of 20 and a longer prefix."""
+    wf, bl = _events(n=16, nsamp=nsamp, seed=7)
+    _group_on_the_card(OPS_CONFIG, wf, bl, f"{nsamp} samples", cuda_device)
+
+
+@pytest.mark.gpu
+def test_k7_nan_rows_on_the_card(cuda_device):
+    """A NaN at a row's first and at its last sample, and a NaN baseline:
+    those rows are poisoned where their members poison them."""
+    wf, bl = _events(n=12, nsamp=N_OPS, seed=9)
+    wf[0, 0] = np.nan
+    wf[1, -1] = np.nan
+    bl[2] = np.nan
+    _, got, _ = _group_on_the_card(OPS_CONFIG, wf, bl, "NaN rows", cuda_device)
+    key = next(k for k in got if k.startswith("trapTmax"))
+    assert bool(torch.isnan(got[key][[0, 1, 2, 3, 5]]).all())
+    assert not bool(torch.isnan(got[key][[4, 6]]).any())
+
+
+@pytest.mark.gpu
+def test_k7_infinite_samples_on_the_card(cuda_device):
+    """Rows with infinite samples, as in ``_k5_rows``: at both ends, inside,
+    of both signs."""
+    wf, bl = _events(n=12, nsamp=N_OPS, seed=9)
+    wf[6, 0] = np.inf
+    wf[7, -1] = -np.inf
+    wf[8, N_OPS // 2] = np.inf
+    wf[9, N_OPS // 2 + 1] = -np.inf
+    wf[10, 100], wf[10, 200] = np.inf, -np.inf
+    _group_on_the_card(OPS_CONFIG, wf, bl, "infinite samples", cuda_device)
+
+
+@pytest.mark.gpu
+def test_k7_flat_tails_on_the_card(cuda_device):
+    """Rows that go flat: the searches find nothing and walk to the row's
+    end (or its start), the pickoffs read the last samples."""
+    wf, bl = _events(n=8, nsamp=N_OPS, seed=5)
+    wf[2:6, N_OPS // 3:] = wf[2:6, N_OPS // 3 - 1 : N_OPS // 3]
+    _, got, _ = _group_on_the_card(OPS_CONFIG, wf, bl, "flat tails", cuda_device)
+    key = next(k for k in got if k.startswith("tp_50"))
+    assert bool(torch.isnan(got[key]).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("walk", [1, 0])
+def test_k7_searches_on_exact_ties_on_the_card(walk, cuda_device):
+    """Plateaus that sit exactly on the threshold, rising and falling: the
+    search stops at the plain version's index, bit for bit."""
+    cfg = {"outputs": ["tp"], "processors": {"tp": {
+        "function": "time_point_thresh", "module": "dspeed_tpu.processors",
+        "args": ["waveform", "baseline", 128, walk, "tp"], "unit": "ns"}}}
+    n = 256
+    wf = np.zeros((6, n), "float32")
+    bl = np.full(6, 5.0, "float32")
+    for r in range(6):
+        wf[r] = np.where(np.arange(n) // (7 + 3 * r) % 2 == 0, 5.0, 5.0 + r - 2.0)
+    wf[5] = 5.0  # a row flat on the threshold
+    chain, _, _ = torch_build_chain(
+        cfg, _table(dspeed_tpu_torch.lh5, wf, bl), device="cpu", fuse=False)
+    inputs, _ = chain._gather_inputs(0, chain._buffer_len)
+    env = chain._run_steps(chain._to_device(inputs))
+    (step,) = [s for s in chain._steps if getattr(s, "kernel", None) is not None
+               and s.kernel.__name__ == "time_point_thresh"]
+    vals = {k: env[k] for k in sorted(chain._step_env_reads(step))}
+    _, got, want = _on_the_card([step], vals, f"ties walk {walk}", cuda_device)
+    (k,) = [k for k in want if k.startswith("tp")]
+    g, w = got[k].cpu(), want[k].cpu()
+    assert bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+    assert bool(torch.isfinite(w).any())
+
+
+@pytest.mark.gpu
+def test_k7_launch_on_the_flagship_groups(flagship_events, cuda_device):
+    """One launch a group, no local memory, at least three blocks an SM
+    on both flagship groups."""
+    wf, bl = flagship_events
+    for prog, vals, _ in _program_groups(_flagship(), wf, bl, DB_FLAT):
+        launch = _cuda.generic_rows_launch(prog)
+        assert launch["local_bytes"] == 0, launch
+        assert launch["blocks_per_sm"] >= 3, launch
+        before = _cuda.LAUNCHES["generic_rows"]
+        _cuda.generic_rows(prog, {k: v.to(cuda_device) for k, v in vals.items()})
+        assert _cuda.LAUNCHES["generic_rows"] == before + 1
 
 
 @pytest.mark.gpu
@@ -641,9 +1144,10 @@ def test_k7_matches_plain_on_the_card():
 
     wf, _amp, _t0, bl, _rt = chip_smoke.make_hpge_waveforms(512)
     before = _cuda.LAUNCHES["generic_rows"]
+    _, ptxas_log = _cuda._compile("generic_rows", verbose=True)
     figs = chip_smoke.k7_phase(
         torch_build_chain, dspeed_tpu_torch.lh5, _cuda, wf, bl,
-        torch.device("cuda"),
+        torch.device("cuda"), ptxas_log,
     )
     assert _cuda.LAUNCHES["generic_rows"] > before
     assert figs["ms"] > 0 and figs["bound_ms"] > 0

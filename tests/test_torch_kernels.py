@@ -1310,6 +1310,15 @@ def test_fused_current_updomain_kernel_matches_plain_on_the_card(case, cuda_devi
         else (301, 16, 4788, 128, 3, 0)
     )
     c = _card_currents(cuda_device, n_curr)
+    # _k5_rows' infinite rows (5 to 9) in place of rows 5 to 9: all four
+    # outputs NaN, as the plain version gives them, where the upsampled row
+    # reads an infinite sample (c[(j + half) / ratio], j < n_up); at L = 128
+    # row 6's -inf sits in the last sample, which it does not read
+    inf_rows = torch.from_numpy(_k5_rows("inf", n_curr)[5:10]).to(cuda_device)
+    c[5:10] = inf_rows
+    read = c[:, ratio // 2 // ratio : (n_up - 1 + ratio // 2) // ratio + 1]
+    inf_read = torch.nonzero(torch.isinf(read).any(1)).flatten().tolist()
+    assert inf_read == ([5, 6, 7, 8, 9] if case == "flagship" else [5, 7, 8, 9])
     args = (c, ratio, ratio // 2, n_up, L, num, mtype)
     before = dict(_cuda.LAUNCHES)
     if case == "flagship":
@@ -1320,6 +1329,9 @@ def test_fused_current_updomain_kernel_matches_plain_on_the_card(case, cuda_devi
     assert _cuda.LAUNCHES["fused_current"] == before["fused_current"] + 1
     want = _cuda.fused_current_plain(*args)
     torch.cuda.synchronize()
+    for q in range(4):
+        assert bool(torch.isnan(want[q][inf_read]).all()), q
+        assert bool(torch.isnan(got[q][inf_read]).all()), q
     curve = _updomain_curve(c, ratio, n_up, L, num, mtype)
     _check_current([o.cpu().numpy() for o in got], [o.cpu().numpy() for o in want],
                    curve, 1e-6, case)
