@@ -13,8 +13,10 @@ the generic flagship's two groups, NaN rows included), times kernel, plain
 version and a library yardstick with CUDA events, then drives the main
 paths: ``build_dsp`` over 16384 synthetic HPGe events with the **flagship
 configuration** (``configs/hpge-energy-timing.yaml``, all 34 outputs) fused
-by the hand patterns and in the **generic mode** (``fuse="generic"``: two K7
-launches and the CUSP/ZAC K4 route), the **timing configuration** (without
+by the hand patterns, the same with its A/E window at 128 upsampled samples
+(**flagship L128**: no polyphase plan, so the current front runs K6) and in
+the **generic mode** (``fuse="generic"``: two K7 launches and the CUSP/ZAC
+K4 route), the **timing configuration** (without
 its three A/E columns, 31 outputs) and the **energy configuration** (its 17
 energy and baseline columns), file -> file where ``h5py`` is installed,
 else Table -> Table. It checks the physics
@@ -65,6 +67,13 @@ READS_TP0 = ("trapEftp", "QDrift", "dt_eff", "tp_0_atrap", *CASCADE, *AOE_OUTPUT
 CURR_SPEC = (301, 1, 300)
 AOE_GEOMETRY = (16, 8, 4784, 48, 3, 0)  # ratio, half, n_up, L, num, mtype
 AOE_NEED = (False, True, False, True)  # the chain reads tp_aoe_max, A_max
+# the same front with a 128-sample (128 ns) A/E smoothing window, which the
+# polyphase plan rejects (L >= W / 2): the flagship L128 path takes K6
+AOE_L128_GEOMETRY = (16, 8, 4784, 128, 3, 0)
+# median A_max * rt / amp on events with amp / rt > 50 (aoe_checks): the JAX
+# package's value on this generator, x64 on a CPU (L = 48: 1.010; L = 128:
+# 1.0037 over 8192 events, 1.0038 over 2048), held within 2%
+AOE_RATIO = {48: 1.010, 128: 1.0037}
 # the current front's tolerances, of the column scale: the polyphase kernel
 # against its plain formulation and against the up-domain plain version
 # (test_pallas.py:333), the up-domain kernel against its plain version
@@ -114,6 +123,14 @@ def config(outputs=None) -> dict:
         cfg = yaml.safe_load(f)
     if outputs is not None:
         cfg["outputs"] = list(outputs)
+    return cfg
+
+
+def l128_config() -> dict:
+    """The flagship with its A/E smoothing window (``curr_av``) at 128
+    upsampled samples instead of 48; the YAML file is not changed."""
+    cfg = config()
+    cfg["processors"]["curr_av"]["args"][1] = "128"
     return cfg
 
 
@@ -720,11 +737,14 @@ def check_infinite_rows(name, got, want):
                 )
 
 
-def k6_phase(_cuda, c):
+def k6_phase(_cuda, c, ptxas_log):
     """K6 at the flagship geometry, called directly, and as the front's
-    route at a geometry the polyphase plan rejects (L = 128, n_up 4788,
-    n_curr 301); each against the plain version, with five rows of
-    infinite samples (NaN on all four outputs). Returns its figures."""
+    route at geometries the polyphase plan rejects (L = 128: n_up 4788 and
+    n_curr 301, and the flagship L128 path's 4784 and 300); each against
+    the plain version, with five rows of infinite samples (NaN on all four
+    outputs). Times each through the wrapper (``time_ms``) and on the
+    device alone (``device_ms``); returns its figures, with its launch and
+    ``ptxas -v``'s report for ``fused_current_kernel``."""
     import torch
 
     from dspeed_tpu_torch.processors._poly_plan import poly_plan
@@ -738,12 +758,15 @@ def k6_phase(_cuda, c):
     check_infinite_rows("K6 flagship", got, want)
     err, ex = check_current("K6 flagship vs plain", got, want, c, g, K6_REL)
     ms = time_ms(lambda: _cuda.fused_current_updomain(c, *g), 20)
+    dev_ms = device_ms(lambda: _cuda.fused_current_updomain(c, *g))
     plain_ms = time_ms(lambda: _cuda.fused_current_plain(c, *g), 5)
     bound, by = current_bound(B, n_curr, g[2], g[3], g[4], (True,) * 4)
     print(
         f"K6 fused_current [flagship, direct] {B}x{n_curr} -> {g[2]}: max "
         f"|amplitude diff| {err:.3e} ({ex} index rows excused as near-ties), "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+        f"kernel {ms:.4f} ms ({dev_ms:.4f} ms on the device alone), plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), {bound / ms:.1%} of "
+        f"the bound ({bound / dev_ms:.1%} on the device alone)",
         flush=True,
     )
     g2 = (16, 8, 4788, 128, 3, 0)
@@ -760,17 +783,51 @@ def k6_phase(_cuda, c):
     check_infinite_rows("K6 L=128", got2, want2)
     err2, ex2 = check_current("K6 L=128 vs plain", got2, want2, c2, g2, K6_REL)
     ms2 = time_ms(lambda: _cuda.fused_current(c2, *g2), 20)
+    dev2 = device_ms(lambda: _cuda.fused_current(c2, *g2))
     plain2 = time_ms(lambda: _cuda.fused_current_plain(c2, *g2), 5)
     bound2, by2 = current_bound(B, c2.shape[-1], g2[2], g2[3], g2[4], (True,) * 4)
     print(
         f"K6 fused_current [L=128, n_up 4788, n_curr 301] {B} rows: max "
-        f"|amplitude diff| {err2:.3e} ({ex2} excused), kernel {ms2:.4f} ms, "
-        f"plain {plain2:.4f} ms, bound {bound2:.4f} ms ({by2})",
+        f"|amplitude diff| {err2:.3e} ({ex2} excused), kernel {ms2:.4f} ms "
+        f"({dev2:.4f} ms on the device alone), plain {plain2:.4f} ms, bound "
+        f"{bound2:.4f} ms ({by2})",
+        flush=True,
+    )
+    # the flagship L128 path's launch: n_curr 300, n_up 4784, its need
+    g3 = AOE_L128_GEOMETRY
+    if poly_plan(n_curr, *g3) is not None:
+        raise AssertionError("the flagship L128 geometry must have no polyphase plan")
+    got3 = _cuda.fused_current(c, *g3, need=AOE_NEED)
+    want3 = _cuda.fused_current_plain(c, *g3)
+    torch.cuda.synchronize()
+    err3, ex3 = check_current("K6 flagship L128 vs plain", got3, want3, c, g3,
+                              K6_REL, AOE_NEED)
+    ms3 = time_ms(lambda: _cuda.fused_current(c, *g3, need=AOE_NEED), 20)
+    dev3 = device_ms(lambda: _cuda.fused_current(c, *g3, need=AOE_NEED))
+    bound3, by3 = current_bound(B, n_curr, g3[2], g3[3], g3[4], AOE_NEED)
+    launch = _cuda.fused_current_launch(g3[2], AOE_NEED)
+    ptxas = list(ptxas_report(ptxas_log, "fused_current_kernel").values())
+    if not ptxas:
+        raise AssertionError("K6: no ptxas report for fused_current_kernel")
+    print(
+        f"K6 fused_current [flagship L128 launch, need {AOE_NEED}] {B}x{n_curr} "
+        f"-> {g3[2]}: max |a_max diff| {err3:.3e} ({ex3} excused), kernel "
+        f"{ms3:.4f} ms ({dev3:.4f} ms on the device alone), bound "
+        f"{bound3:.4f} ms ({by3}); launch: {launch['threads']} threads and "
+        f"{launch['rows_per_block']} row a block, {launch['smem_bytes']} bytes "
+        f"of shared memory a block, {launch['blocks_per_sm']} blocks per SM, "
+        f"{launch['registers']} registers and {launch['local_bytes']} local "
+        f"bytes a thread; ptxas for fused_current_kernel: {' | '.join(ptxas)}; "
+        f"on {card_line()}",
         flush=True,
     )
     return dict(
-        max_abs_err=max(err, err2), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=by, l128_ms=ms2, l128_plain_ms=plain2, l128_bound_ms=bound2,
+        max_abs_err=max(err, err2, err3), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, device_ms=dev_ms,
+        bound_share=bound / ms, device_bound_share=bound / dev_ms,
+        l128_ms=ms2, l128_device_ms=dev2, l128_plain_ms=plain2,
+        l128_bound_ms=bound2, chain_l128_ms=ms3, chain_l128_device_ms=dev3,
+        chain_l128_bound_ms=bound3, launch=launch, ptxas=ptxas,
     )
 
 
@@ -1105,7 +1162,8 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log):
     )
 
 
-def compare_columns(cols, cpu, wf, bl, n_cpu) -> tuple[int, float]:
+def compare_columns(cols, cpu, wf, bl, n_cpu,
+                    aoe_geometry=AOE_GEOMETRY) -> tuple[int, float]:
     """Hold the card's first ``n_cpu`` events against the port's CPU run:
     float columns within REL_TOL of column scale, index columns exact, NaN
     positions identical. Excused, and counted: an event whose ``tp_0_est``
@@ -1159,7 +1217,7 @@ def compare_columns(cols, cpu, wf, bl, n_cpu) -> tuple[int, float]:
                     excused[k][r] = True
                     later = k != "tp_0_atrap"
     if "tp_aoe_max" in cols:
-        aoe_near_ties(a, c, excused, wf, bl, n_cpu)
+        aoe_near_ties(a, c, excused, wf, bl, n_cpu, aoe_geometry)
     worst = 0.0
     for k in cols:
         keep = ~excused[k]
@@ -1183,7 +1241,7 @@ def compare_columns(cols, cpu, wf, bl, n_cpu) -> tuple[int, float]:
     return n_ex, worst
 
 
-def aoe_near_ties(a, c, excused, wf, bl, n_cpu) -> None:
+def aoe_near_ties(a, c, excused, wf, bl, n_cpu, geometry=AOE_GEOMETRY) -> None:
     """Excuse, in ``excused``, the events whose ``tp_aoe_max`` (and so
     ``tp_aoe_samp``) differs between the card (``a``) and the CPU run
     (``c``) with both values on a near-tie of the CPU's current curve:
@@ -1210,7 +1268,7 @@ def aoe_near_ties(a, c, excused, wf, bl, n_cpu) -> None:
     tp0 = torch.from_numpy((c["tp_0_est"][rows] / DT).astype(np.float32))
     (wle,) = windower(pz, tp0, dims={"m": CURR_SPEC[0]})
     (cur,) = avg_current(wle, float(CURR_SPEC[1]), dims={"m": CURR_SPEC[2]})
-    curve = current_curve(cur, AOE_GEOMETRY).double().numpy()
+    curve = current_curve(cur, geometry).double().numpy()
     tol = REL_TOL * np.nanmax(np.abs(c["A_max"]))
     for j, r in enumerate(rows):
         top = curve[j].max()
@@ -1225,11 +1283,12 @@ def aoe_near_ties(a, c, excused, wf, bl, n_cpu) -> None:
           f"current: {rows.tolist()}", flush=True)
 
 
-def aoe_checks(cols, good, amp, t0, rt, label) -> None:
+def aoe_checks(cols, good, amp, t0, rt, label, ref=AOE_RATIO[48]) -> None:
     """The A/E columns' physics on good events: ``A_max`` is the current's
     maximum, about ``amp / rt`` for a linear rise (the median of ``A_max *
-    rt / amp`` on events with ``amp / rt > 50`` within 2% of 1.010, the
-    JAX package's value), and ``tp_aoe_samp`` lies inside the rise (at
+    rt / amp`` on events with ``amp / rt > 50`` within 2% of ``ref``, the
+    JAX package's value of ``AOE_RATIO``), and ``tp_aoe_samp`` lies inside
+    the rise (at
     least 98% of events with ``(tp_aoe_samp / 16 ns - t0) / rt`` in [0,
     1]). A column that is NaN because ``tp_0_est`` is, or because the
     window runs past the row, is counted; any other NaN fails."""
@@ -1254,14 +1313,15 @@ def aoe_checks(cols, good, amp, t0, rt, label) -> None:
           f"{int(steep.sum())} events with amp/rt > 50; (tp_aoe_samp/16 ns - t0)"
           f"/rt: median {np.median(frac):.3f}, {inside:.2%} of {int(live.sum())} "
           f"events in [0, 1]", flush=True)
-    if abs(med / 1.010 - 1) > 0.02:
-        raise AssertionError("A_max * rt / amp is more than 2% from 1.010")
+    if abs(med / ref - 1) > 0.02:
+        raise AssertionError(f"A_max * rt / amp is more than 2% from {ref}")
     if inside < 0.98:
         raise AssertionError("tp_aoe_samp lies outside the rise on > 2% of events")
 
 
 def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
-              expect, rt=None, device="cuda", fuse=True, forbid=()):
+              expect, rt=None, device="cuda", fuse=True, forbid=(),
+              aoe_geometry=AOE_GEOMETRY):
     """A main path: ``build_dsp`` of ``cfg`` with fusion mode ``fuse`` over
     every event of ``wf`` on ``device``, file -> file where ``h5py`` is
     installed, else Table -> Table; launch counts and generic-group splits
@@ -1269,8 +1329,9 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     launched, none of ``forbid``, and no group split; physics and CPU
     cross-checks (the CPU run in the same mode) on the output. Event
     ``NAN_SAMPLE_ROW`` gets a NaN sample and event ``NAN_BASELINE_ROW`` a
-    NaN baseline, so the NaN rules are checked end to end. Returns the
-    launch counts."""
+    NaN baseline, so the NaN rules are checked end to end;
+    ``aoe_geometry`` is the current front's (its window length picks the A/E
+    reference of ``AOE_RATIO``). Returns the launch counts."""
     import importlib.util
 
     import torch
@@ -1379,8 +1440,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
             if (link[both] > start[both]).any():
                 raise AssertionError(f"{CASCADE[k]} lies after its start")
     if "A_max" in cols:
-        aoe_checks(cols, good, amp, t0, rt, label)
-    n_ex, worst = compare_columns(cols, cpu, wf, bl, n_cpu)
+        aoe_checks(cols, good, amp, t0, rt, label, AOE_RATIO[aoe_geometry[3]])
+    n_ex, worst = compare_columns(cols, cpu, wf, bl, n_cpu, aoe_geometry)
     print(f"[{label}] first {n_cpu} events vs the port's CPU run: worst "
           f"|diff|/max|col| {worst:.3e}, {n_ex} events excused", flush=True)
     for name in expect:
@@ -1530,7 +1591,7 @@ def main() -> int:
     # -- K5 and K6 on K3's current -------------------------------------------
     curr = t0c_out[5]
     k5 = k5_phase(_cuda, curr, logs["fused_current"])
-    k6 = k6_phase(_cuda, curr)
+    k6 = k6_phase(_cuda, curr, logs["fused_current"])
     del pz, trap_tmax, bl_std, a_std, t0_out, t0c_out, curr, w, b, w_nan, b_nan
     torch.cuda.empty_cache()
 
@@ -1545,6 +1606,16 @@ def main() -> int:
         expect=("fused_energy", "cascade_tp", "fused_t0", "banded_conv_multi",
                 "fused_current_poly"),
         rt=rt, device=DEVICE,
+    )
+    # the A/E window at 128 upsampled samples: no polyphase plan, so the
+    # front takes the up-domain route, K6, once a chunk
+    l128_launches = e2e_phase(
+        build_dsp, lh5, _cuda, l128_config(), wf, amp, inj_t0, bl, card,
+        "flagship L128",
+        expect=("fused_energy", "cascade_tp", "fused_t0", "banded_conv_multi",
+                "fused_current"),
+        rt=rt, device=DEVICE, forbid=("fused_current_poly",),
+        aoe_geometry=AOE_L128_GEOMETRY,
     )
     # the generic mode: no hand pattern, the two groups as two K7 launches
     gen_launches = e2e_phase(
@@ -1605,7 +1676,7 @@ def main() -> int:
             name="fused_current", route="cuda",
             source="dspeed_tpu_torch/csrc/fused_current.cu",
             replaces="dspeed_tpu/processors/_pallas.py:572",
-            launches=launches["fused_current"], library_ms=None, **k6,
+            launches=l128_launches["fused_current"], library_ms=None, **k6,
         ),
         dict(
             name="generic_rows", route="cuda",

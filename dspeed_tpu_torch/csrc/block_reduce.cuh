@@ -1,7 +1,8 @@
-// Block-wide reductions of the port's one-row-per-block kernels, fused_t0.cu
-// (K3) and fused_current.cu's up-domain kernel (K6); cascade_tp.cu (K2) and
-// generic_rows.cu (K7) take only the warp-level pieces (FULL_MASK,
-// warp_sum, ext_better, the crossing predicates). Every block function is
+// Block-wide reductions of the port's one-row-per-block kernels: fused_t0.cu
+// (K3), and mw_cascade.cuh's reference order; cascade_tp.cu (K2),
+// generic_rows.cu (K7) and fused_current.cu (K5, K6) take only the
+// warp-level pieces (FULL_MASK, warp_sum, ext_better, the crossing
+// predicates). Every block function is
 // called by all threads of the block (blockDim.x a multiple of 32, at most
 // 1024) and hands every thread the result; the scratch arrays hold 32
 // entries.

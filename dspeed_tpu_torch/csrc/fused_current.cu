@@ -17,7 +17,8 @@
 // flagship geometry). Only the two W-sample windows at the true edges run
 // the staged cascade; the plan proves which outputs each method owns.
 //
-// Both: a row of c holding a NaN gives NaN in all four outputs. With need
+// Both: a row of c holding a NaN, or an infinity that the upsampled row
+// reads, gives NaN in all four outputs (cur_bad). With need
 // clearing both t_min and a_min (or t_max and a_max) that extremum is not
 // reduced, and an output nothing needs holds 0.
 //
@@ -27,30 +28,27 @@
 // the interior plus 2 x 3 float64 prefix stages over 256 samples at the
 // edges, about 0.12 MFLOP a row; K6's is 3 float64 prefix stages over 4784
 // samples, with a handful of float64 operations per sample. Both are bound
-// by operations: K6 in practice by the barriers of its block scans, K5 by
-// its float64 divisions and the interior's FMAs.
+// by operations: K6 by its float32 <-> float64 conversions and instruction
+// issue, K5 by its float64 divisions and the interior's FMAs.
 //
 // How the designs meet it. The TPU's triangular-matmul cumsums (`tri`,
 // `sup`, `triL`), the dense banded interior matmuls (`A`, `A_last`), the
 // one-hot window matrices (`RL`, `RR`) and the row tilings exist for its
 // matrix unit and are gone; the replication is plain indexing. K6: one
-// block of 256 threads per row, everything in shared memory. The cascade is
-// mw_cascade.cuh (a float64 block scan per stage, rounding to float32 per
-// stage, as the plain version does); the upsampled curve y[0, n_up) lands
-// in shared memory and one first-occurrence reduction (lower index on ties)
-// takes the extrema: the same result as the TPU kernel's ordered fold of
-// its regions with strict comparisons. K5: one warp per row and no block
-// barrier after the filters are staged (below); its edge samples and
-// interior sums equal K6's block-scan arithmetic and the TPU kernel's
-// per-phase sums bit for bit, and its extrema follow the same rule.
+// block of 256 threads per row, each thread's run of the row in registers
+// (below). Each stage is mw_cascade.cuh's (a float64 block scan, rounding
+// to float32 per stage, as the plain version does), bit for bit, and one
+// first-occurrence reduction (lower index on ties) takes the extrema: the
+// same result as the TPU kernel's ordered fold of its regions with strict
+// comparisons. K5: one warp per row and no block barrier after the filters
+// are staged (below); its edge samples and interior sums equal K6's
+// block-scan arithmetic and the TPU kernel's per-phase sums bit for bit,
+// and its extrema follow the same rule.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "block_reduce.cuh"
-#include "mw_cascade.cuh"
-
-#define CUR_THREADS 256
 
 // Mirrored field for field by ctypes in processors/_cuda.py.
 struct CurrentParams {
@@ -74,82 +72,476 @@ struct CurrentParams {
     int q_min;
 };
 
-// Reads row `row` of c into cs (when not null) and returns, to every
-// thread, whether it holds a NaN, or an infinity among the samples that the
-// upsampled row reads, c[(j + half) / ratio] for j < n_up (the cascade's
-// prefix differences are then NaN: the plain version gives NaN on all four
-// outputs); ends with a barrier.
-__device__ bool load_current(const CurrentParams& P, long long row, float* cs) {
-    const float* cr = P.c + row * (long long)P.n_curr;
-    int bad = 0;
-    for (int i = threadIdx.x; i < P.n_curr; i += blockDim.x) {
-        const float v = cr[i];
-        // sample i is read where j = i * ratio - half + k, k < ratio, has
-        // 0 <= j < n_up (bitwise: a short-circuit form costs K6 3%)
-        const int j0 = i * P.ratio - P.half;
-        bad |= isnan(v) | (isinf(v) & (j0 <= P.n_up - 1) & (j0 + P.ratio > 0));
-        if (cs) cs[i] = v;
-    }
-    return __syncthreads_or(bad) != 0;
+// The last sample of c that the upsampled row reads, c[(j + half) / ratio]
+// for j < n_up; every sample before it is read too (half < ratio).
+__device__ __forceinline__ int cur_last_read(const CurrentParams& P) {
+    return (P.n_up - 1 + P.half) / P.ratio;
 }
 
-// First-occurrence extrema of y[0, n) into the row's four outputs.
-__device__ void store_extrema(const CurrentParams& P, const float* y, int n,
-                              bool bad, long long row, float* redf,
-                              int* redi) {
-    const bool nmin = P.need[0] || P.need[2], nmax = P.need[1] || P.need[3];
-    float vmin = 0.f, vmax = 0.f;
-    int imin = n, imax = n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const float v = y[i];
-        if (nmin && (imin == n || v < vmin)) { vmin = v; imin = i; }
-        if (nmax && (imax == n || v > vmax)) { vmax = v; imax = i; }
-    }
-    if (nmin) block_argext(vmin, imin, false, n, redf, redi);
-    if (nmax) block_argext(vmax, imax, true, n, redf, redi);
-    if (threadIdx.x == 0) {
-        const float qnan = __int_as_float(0x7fc00000);
-        P.out[0][row] = bad ? qnan : (P.need[0] ? (float)imin : 0.f);
-        P.out[1][row] = bad ? qnan : (P.need[1] ? (float)imax : 0.f);
-        P.out[2][row] = bad ? qnan : (nmin ? vmin : 0.f);
-        P.out[3][row] = bad ? qnan : (nmax ? vmax : 0.f);
-    }
+// Whether sample i of a row, v, poisons the row: a NaN anywhere, or an
+// infinity among the samples that the upsampled row reads, i <= last (the
+// cascade's prefix differences are then NaN: the plain version gives NaN
+// on all four outputs). Bitwise: a short-circuit form cost K6 3%.
+__device__ __forceinline__ int cur_bad(float v, int i, int last) {
+    return isnan(v) | (isinf(v) & (i <= last));
 }
 
 // ---------------------------------------------------------------------------
 // K6: the up-domain route
+//
+// One block of K6_THREADS = 256 threads a row, thread t standing for thread
+// t of row_prefix.cuh's block scan (mw_cascade.cuh, the reference order):
+// it owns the run [t per, t per + per) of the upsampled row, per = ceil(n_up
+// / 256). Where per is K6_RUN = 19 (4609 <= n_up <= 4864: the flagship's
+// 4784, and 4788) the run is held in registers as float64, widened once,
+// samples past the row's end as +0.0 (they leave every sum as it is);
+// other rows keep their runs in a float32 row in shared memory (the
+// generic instance). The run is gathered from c before the NaN test's
+// barrier, so that both reads of the row wait on memory together. A stage
+// is three passes over the run and two barriers:
+// - the run's sum from 0.0 in float64, serially; block_excl_scan's warp
+//   Kogge-Stone scan; the warp totals through shared memory (barrier 1),
+//   where every warp repeats warp 0's scan of them on lanes 0..7 (the lanes
+//   above 7 add nothing there), so the run's start is the block scan's,
+//   (warp offset + exclusive), bit for bit;
+// - the inclusive prefix from that start along the run, kept in registers
+//   and stored to shared memory as float64 (barrier 2);
+// - the window: mw_stage's formulas, ramps included, in the same roundings,
+//   the far end of each window read from shared memory, the quotient by L
+//   through k6_div (below). A warp whose runs hold no ramp sample and no
+//   sample past the row's end takes a pass with no select and no clamp. The
+//   stage's output, rounded to float32, replaces the run in registers; the
+//   last stage folds it into the extrema instead.
+// Barrier 1 of a stage also orders the previous stage's prefix reads before
+// this stage's prefix stores; the warp totals are read between barriers 1
+// and 2, and the stages' end samples (the ramps' x[0] and x[n-1]) come from
+// pass 3 of the stage before through a buffer of two by stage parity. The
+// extrema: each thread's first occurrence along its run (strict comparisons
+// in ascending index), then block_argext's rule (the more extreme value,
+// the lower index on equal values) over the warp by shuffles and over the
+// warps by thread 0: the same (value, index) as the reference's block
+// reduction, since a curve of finite samples has one first-occurrence
+// extremum. A row that the NaN rule poisons skips the cascade and gives NaN
+// on all four outputs. Eight barriers a row at three stages, against 26 in
+// mw_cascade.cuh's order; 8 * 256 per bytes of shared memory, against 12
+// n_up, so 3 rows an SM at 80 registers.
+//
+// On the H100 at the flagship geometry its pipes would allow ~0.12 ms (two
+// float32 <-> float64 conversions a sample and stage, at 16 a clock an SM);
+// it takes about 0.44 ms, bound by each block's latency: the passes' serial
+// chains, the barriers, and the warps whose runs hold ramp samples (their
+// pass 3 takes about twice as long, and the block waits for them).
 
-extern "C" int dspeed_fused_current_smem_bytes(int n_up) {
-    return 8 * n_up + 4 * n_up;  // f64 prefix, the upsampled row
+#define K6_THREADS 256
+#define K6_WARPS (K6_THREADS / 32)
+#define K6_RUN 19         // samples of a run held in registers (4609..4864)
+#define K6_MIN_BLOCKS 3   // blocks an SM that the registers must allow
+
+__host__ __device__ inline int k6_per(int n_up) {
+    return (n_up + K6_THREADS - 1) / K6_THREADS;
 }
 
-__global__ void __launch_bounds__(CUR_THREADS)
-fused_current_kernel(const CurrentParams P) {
-    extern __shared__ double smem[];
-    __shared__ double red[32];
-    __shared__ float redf[32];
-    __shared__ int redi[32];
+__host__ __device__ inline bool k6_in_registers(int n_up) {
+    return k6_per(n_up) == K6_RUN;
+}
 
-    const int n_up = P.n_up;
-    double* ps = smem;
-    float* x = (float*)(ps + n_up);
+extern "C" int dspeed_fused_current_smem_bytes(int n_up) {
+    // the float64 prefix of 256 whole runs; the generic instance: the prefix
+    // of the row, and the row beside it
+    return k6_in_registers(n_up) ? 8 * K6_THREADS * k6_per(n_up) : 12 * n_up;
+}
+
+// a / L, correctly rounded, from yl = RN(1/L) (generic_rows.cu's div_by):
+// q = RN(a yl) lies within an ulp of a / L, the residual a - L q is exact by
+// FMA, and RN(q + (a - L q) yl) is RN(a / L) (Markstein's theorem), where no
+// step under- or overflows. Here 1 <= L <= 128, and every numerator is a
+// difference of prefix sums of float32 samples, or a prefix sum less a
+// multiple of a sample: finite (below 2^128 * 2^15 in magnitude), a
+// multiple of 2^-149, so zero or at least 2^-149 in magnitude, and never
+// -0 (every sum starts from +0.0). So no step under- or overflows, and a
+// zero numerator gives +0, as the division does.
+__device__ __forceinline__ double k6_div(double a, double lf, double yl) {
+    const double q = __dmul_rn(a, yl);
+    return __fma_rn(__fma_rn(-lf, q, a), yl, q);
+}
+
+// The start of this thread's run in the block scan over 256 threads:
+// row_prefix.cuh's block_excl_scan, bit for bit, with one barrier.
+__device__ __forceinline__ double k6_start(double run, double* red, int lane,
+                                           int wid) {
+    double x = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const double y = __shfl_up_sync(FULL_MASK, x, o);
+        if (lane >= o) x += y;
+    }
+    double excl = __shfl_up_sync(FULL_MASK, x, 1);
+    if (lane == 0) excl = 0.0;
+    if (lane == 31) red[wid] = x;
+    __syncthreads();
+    double t = lane < K6_WARPS ? red[lane] : 0.0;
+#pragma unroll
+    for (int o = 1; o < K6_WARPS; o <<= 1) {
+        const double y = __shfl_up_sync(FULL_MASK, t, o);
+        if (lane >= o) t += y;
+    }
+    const double tw = __shfl_sync(FULL_MASK, t, max(wid - 1, 0));
+    return (wid > 0 ? tw : 0.0) + excl;
+}
+
+// mw_stage's left window at sample i, from the prefix si = S[i] and ps;
+// fi = i + 1 (as a double, for the ramp); without RAMP, for i >= L only.
+template <bool RAMP>
+__device__ __forceinline__ double k6_left(const double* ps, double si, int i,
+                                          int L, double w0, double lf,
+                                          double yl, double fi) {
+    // i < L: w0 + (S[i] - (i+1) w0) / L; else (S[i] - S[i-L]) / L
+    if (!RAMP) return k6_div(__dsub_rn(si, ps[i - L]), lf, yl);
+    const bool ramp = i < L;
+    const double sl = ps[max(i - L, 0)];
+    const double q =
+        k6_div(__dsub_rn(si, ramp ? __dmul_rn(fi, w0) : sl), lf, yl);
+    return ramp ? __dadd_rn(w0, q) : q;
+}
+
+// mw_stage's right window at sample i, from se = S[i-1] (0 at i = 0), the
+// row's total stot = S[n-1] and ps; fr = n - i (as a double, for the ramp);
+// without RAMP, for i <= n-1-L only.
+template <bool RAMP>
+__device__ __forceinline__ double k6_right(const double* ps, double se,
+                                           double stot, int i, int n, int L,
+                                           double wl, double lf, double yl,
+                                           double fr) {
+    // i > n-1-L: wl + ((S[n-1] - S[i-1]) - (n-i) wl) / L;
+    // else (S[i+L-1] - S[i-1]) / L
+    if (!RAMP) return k6_div(__dsub_rn(ps[i + L - 1], se), lf, yl);
+    const bool ramp = i > n - 1 - L;
+    const double sr = ps[min(i + L - 1, n - 1)];
+    const double q = k6_div(
+        ramp ? __dsub_rn(__dsub_rn(stot, se), __dmul_rn(fr, wl))
+             : __dsub_rn(sr, se),
+        lf, yl);
+    return ramp ? __dadd_rn(wl, q) : q;
+}
+
+// A thread's first-occurrence extrema along its run, in ascending index.
+struct K6Ext {
+    float v[2];  // min, max
+    int i[2];    // n: none
+    __device__ __forceinline__ void take(float y, int j, bool mn, bool mx,
+                                         int n) {
+        if (mn && (i[0] == n || y < v[0])) { v[0] = y; i[0] = j; }
+        if (mx && (i[1] == n || y > v[1])) { v[1] = y; i[1] = j; }
+    }
+};
+
+// What pass 3 of a stage reads besides the run: the prefix, the run's
+// place, the geometry, the ramp's end sample (x[0] left, x[n-1] right), L
+// and its reciprocal, which extrema the last stage takes, and where the
+// next stage's end samples go.
+struct K6Win {
+    const double* ps;
+    double* wb;
+    int j0, cnt, n, L;
+    double w, lf, yl;
+    bool mn, mx;
+};
+
+// Pass 3 of a stage over a run of RUN samples in registers: s holds the
+// run's prefix on entry and the stage's output (rounded to float32) on
+// exit, unless LAST, where the output goes to the extrema instead. Without
+// EDGE the run is whole (cnt == RUN) and holds no ramp sample: no sample
+// needs a select or a clamp. With EDGE, a sample past the row (k >= cnt)
+// is computed on clamped indices and dropped, its slot kept at +0.0, and
+// S[i] is read from shared memory, so that the registers hold no more than
+// the run while the selects are live. The row's first and last outputs go
+// to wb as they are computed: a store of s[k] chosen by a runtime index
+// would put s in local memory.
+template <bool RIGHT, bool LAST, bool EDGE, int RUN>
+__device__ __forceinline__ void k6_window(double (&s)[RUN], const K6Win& W,
+                                          K6Ext& e) {
+    const double stot = RIGHT && EDGE ? W.ps[W.n - 1] : 0.0;
+    double sp = RIGHT && W.j0 > 0 ? W.ps[W.j0 - 1] : 0.0;  // S[i - 1]
+    // the ramps' factors i + 1 and n - i at k = 0, exact in float64; a
+    // constant k added or taken off each sample, for no conversion a sample
+    const double fi0 = EDGE ? (double)(W.j0 + 1) : 0.0;
+    const double fr0 = EDGE ? (double)(W.n - W.j0) : 0.0;
+#pragma unroll
+    for (int k = 0; k < RUN; ++k) {
+        const int i = W.j0 + k;
+        const double si = EDGE ? W.ps[i] : s[k];
+        const double v =
+            RIGHT ? k6_right<EDGE>(W.ps, sp, stot, i, W.n, W.L, W.w, W.lf,
+                                   W.yl, __dsub_rn(fr0, (double)k))
+                  : k6_left<EDGE>(W.ps, si, i, W.L, W.w, W.lf, W.yl,
+                                  __dadd_rn(fi0, (double)k));
+        sp = si;
+        const float y = (float)v;
+        const bool in = !EDGE || k < W.cnt;
+        if (LAST && !EDGE) {
+            // a whole run: its first sample starts the extrema
+            if (W.mn && (k == 0 || y < e.v[0])) { e.v[0] = y; e.i[0] = i; }
+            if (W.mx && (k == 0 || y > e.v[1])) { e.v[1] = y; e.i[1] = i; }
+        } else if (LAST) {
+            if (in) e.take(y, i, W.mn, W.mx, W.n);
+        } else {
+            const double yd = (double)y;
+            s[k] = in ? yd : 0.0;
+            if (k == 0 && W.j0 == 0) W.wb[0] = yd;
+            if ((EDGE || k == RUN - 1) && i == W.n - 1) W.wb[1] = yd;
+        }
+    }
+}
+
+// Pass 3 of a stage: the instance for the stage's last-ness and for the
+// warp's runs, chosen for the whole warp (a warp that diverged here would
+// run both instances).
+template <bool RIGHT, int RUN>
+__device__ __forceinline__ void k6_window_run(double (&s)[RUN], const K6Win& W,
+                                              K6Ext& e, bool last) {
+    const bool edge = __any_sync(
+        FULL_MASK,
+        W.cnt < RUN || (RIGHT ? W.j0 + RUN > W.n - W.L : W.j0 < W.L));
+    if (last) {
+        if (edge) k6_window<RIGHT, true, true>(s, W, e);
+        else k6_window<RIGHT, true, false>(s, W, e);
+    } else {
+        if (edge) k6_window<RIGHT, false, true>(s, W, e);
+        else k6_window<RIGHT, false, false>(s, W, e);
+    }
+}
+
+// The row's extrema from every thread's (block_argext's rule) into its
+// four outputs; an output nothing needs holds 0.
+__device__ __forceinline__ void k6_store(const CurrentParams& P, K6Ext e,
+                                         bool mn, bool mx, int n,
+                                         float (*redf)[K6_WARPS],
+                                         int (*redi)[K6_WARPS], int lane,
+                                         int wid) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+        if (!(s == 0 ? mn : mx)) continue;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            const float v2 = __shfl_down_sync(FULL_MASK, e.v[s], o);
+            const int i2 = __shfl_down_sync(FULL_MASK, e.i[s], o);
+            if (ext_better(v2, i2, e.v[s], e.i[s], s == 1, n)) {
+                e.v[s] = v2;
+                e.i[s] = i2;
+            }
+        }
+        if (lane == 0) {
+            redf[s][wid] = e.v[s];
+            redi[s][wid] = e.i[s];
+        }
+    }
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    float v[2] = {0.f, 0.f};
+    int ix[2] = {n, n};
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+        if (!(s == 0 ? mn : mx)) continue;
+        for (int w = 0; w < K6_WARPS; ++w)
+            if (ext_better(redf[s][w], redi[s][w], v[s], ix[s], s == 1, n)) {
+                v[s] = redf[s][w];
+                ix[s] = redi[s][w];
+            }
+    }
+    const long long row = blockIdx.x;
+    P.out[0][row] = P.need[0] ? (float)ix[0] : 0.f;
+    P.out[1][row] = P.need[1] ? (float)ix[1] : 0.f;
+    P.out[2][row] = mn ? v[0] : 0.f;
+    P.out[3][row] = mx ? v[1] : 0.f;
+}
+
+// RUN == K6_RUN: a thread's run in registers; RUN == 0: the generic
+// instance, the runs in a float32 row in shared memory after the prefix. MN,
+// MX: whether the minimum and the maximum are reduced (need).
+template <int RUN, bool MN, bool MX>
+__global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS)
+fused_current_kernel(const CurrentParams P) {
+    extern __shared__ double k6_sm[];  // the float64 prefix
+    __shared__ double red[K6_WARPS];   // the warp totals of a stage's runs
+    __shared__ double wb[2][2];        // a stage's first and last sample
+    __shared__ float redf[2][K6_WARPS];
+    __shared__ int redi[2][K6_WARPS];
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    const int n = P.n_up, L = P.L;
     const long long row = blockIdx.x;
     const float* cr = P.c + row * (long long)P.n_curr;
-    for (int j = threadIdx.x; j < n_up; j += blockDim.x)
-        x[j] = cr[(j + P.half) / P.ratio];
-    const bool bad = load_current(P, row, nullptr);
-    mw_cascade(x, n_up, P.L, P.num, P.mtype, ps, red);
-    store_extrema(P, x, n_up, bad, row, redf, redi);
+
+    double* const ps = k6_sm;
+    const int half = P.half, ratio = P.ratio;
+    // j / ratio as the high word of j * (2^32 / ratio + 1) (K5's), exact
+    // while j * ratio < 2^32, as every j < n_up + half is here when checked so
+    const bool magic =
+        ratio > 1 && (unsigned long long)(n + half) * ratio < (1ull << 32);
+    const unsigned m = 0xffffffffu / (unsigned)ratio + 1u;
+    auto src = [=](int j) {
+        const unsigned u = j + half;
+        return __ldg(cr + (magic ? __umulhi(u, m) : u / ratio));
+    };
+    const bool mn = MN, mx = MX;
+    // the register instances' run [j0, j0 + RUN) in float64, widened once:
+    // the stage's input, then (pass 2) its prefix, then (pass 3) the
+    // stage's output. Its samples past the row are +0.0, which leave every
+    // sum as it is; the prefix has slots for 256 whole runs. It is gathered
+    // before the NaN test's barrier, so that the two reads of the row wait
+    // on memory together.
+    const int per = RUN > 0 ? RUN : k6_per(n);
+    const int j0 = RUN > 0 ? tid * RUN : min(n, tid * per);
+    const int cnt = max(0, min(per, n - j0));  // samples in the row
+    double s[RUN > 0 ? RUN : 1];
+    if constexpr (RUN > 0) {
+#pragma unroll
+        for (int k = 0; k < RUN; ++k) {
+            const float v = src(min(j0 + k, n - 1));  // no branch a sample
+            s[k] = k < cnt ? (double)v : 0.0;
+        }
+    }
+
+    int bad = 0;
+    const int last_read = cur_last_read(P);
+    for (int i = tid; i < P.n_curr; i += K6_THREADS)
+        bad |= cur_bad(__ldg(cr + i), i, last_read);
+    if (__syncthreads_or(bad)) {
+        if (tid == 0) {
+            const float qnan = __int_as_float(0x7fc00000);
+            for (int q = 0; q < 4; ++q) P.out[q][row] = qnan;
+        }
+        return;
+    }
+
+    if constexpr (RUN > 0) {
+        // the stages' first and last samples, by stage parity: the first
+        // stage's from the row, each later stage's from pass 3 of the one
+        // before it (read after barrier 2, written after the next barrier 2)
+        if (tid == 0) wb[0][0] = s[0];
+        if (cnt > 0 && j0 + cnt == n) wb[0][1] = (double)src(n - 1);
+        for (int it = 0; it < P.num; ++it) {
+            const bool right = ((it % 2 == 1) && P.mtype == 0) || P.mtype == 2;
+            const bool last = it == P.num - 1;
+            double run = 0.0;
+#pragma unroll
+            for (int k = 0; k < RUN; ++k) run += s[k];
+            double acc = k6_start(run, red, lane, wid);
+#pragma unroll
+            for (int k = 0; k < RUN; ++k) {
+                acc += s[k];
+                s[k] = acc;
+                ps[j0 + k] = acc;
+            }
+            __syncthreads();
+            // the run's start and L, taken anew each stage (shuffles), so
+            // that the compiler keeps neither L's reciprocal nor the ramps'
+            // per-sample constants live across the passes in registers it
+            // does not have
+            const int jb = __shfl_sync(FULL_MASK, j0, lane);
+            const int Lb = __shfl_sync(FULL_MASK, L, lane);
+            const double lf = (double)Lb;
+            const double w = wb[it & 1][right];
+            const K6Win W = {ps, wb[(it + 1) & 1], jb, cnt, n, Lb, w, lf,
+                             __drcp_rn(lf), mn, mx};
+            K6Ext e = {{0.f, 0.f}, {n, n}};
+            if (right) k6_window_run<true>(s, W, e, last);
+            else k6_window_run<false>(s, W, e, last);
+            if (last) k6_store(P, e, mn, mx, n, redf, redi, lane, wid);
+        }
+        if (P.num == 0) {
+            K6Ext e = {{0.f, 0.f}, {n, n}};
+#pragma unroll
+            for (int k = 0; k < RUN; ++k)
+                if (k < cnt) e.take((float)s[k], j0 + k, mn, mx, n);
+            k6_store(P, e, mn, mx, n, redf, redi, lane, wid);
+        }
+    } else {
+        K6Ext e = {{0.f, 0.f}, {n, n}};
+        const double lf = (double)L, yl = __drcp_rn(lf);
+        float* const xs = reinterpret_cast<float*>(ps + n);
+        const bool owns_last = cnt > 0 && j0 + cnt == n;
+        for (int k = 0; k < cnt; ++k) xs[j0 + k] = src(j0 + k);
+        for (int it = 0; it < P.num; ++it) {
+            const bool right = ((it % 2 == 1) && P.mtype == 0) || P.mtype == 2;
+            const bool last = it == P.num - 1;
+            double run = 0.0;
+            for (int k = 0; k < cnt; ++k) run += (double)xs[j0 + k];
+            if (tid == 0) wb[0][0] = (double)xs[0];
+            if (owns_last) wb[0][1] = (double)xs[n - 1];
+            double acc = k6_start(run, red, lane, wid);
+            const double w0 = wb[0][0], wl = wb[0][1];
+            for (int k = 0; k < cnt; ++k) {
+                acc += (double)xs[j0 + k];
+                ps[j0 + k] = acc;
+            }
+            __syncthreads();
+            const double stot = ps[n - 1];
+            for (int k = 0; k < cnt; ++k) {
+                const int i = j0 + k;
+                const double v =
+                    right ? k6_right<true>(ps, i > 0 ? ps[i - 1] : 0.0, stot, i,
+                                           n, L, wl, lf, yl, (double)(n - i))
+                          : k6_left<true>(ps, ps[i], i, L, w0, lf, yl,
+                                          (double)(i + 1));
+                xs[i] = (float)v;  // the thread's own run: no other reads it
+                if (last) e.take(xs[i], i, mn, mx, n);
+            }
+        }
+        if (P.num == 0)
+            for (int k = 0; k < cnt; ++k) e.take(xs[j0 + k], j0 + k, mn, mx, n);
+        k6_store(P, e, mn, mx, n, redf, redi, lane, wid);
+    }
+}
+
+typedef void (*K6Kernel)(const CurrentParams);
+
+template <int RUN>
+static K6Kernel k6_by_sides(bool mn, bool mx) {
+    if (mn && mx) return fused_current_kernel<RUN, true, true>;
+    if (mn) return fused_current_kernel<RUN, true, false>;
+    if (mx) return fused_current_kernel<RUN, false, true>;
+    return fused_current_kernel<RUN, false, false>;
+}
+
+// The instance for rows of n_up samples and the extrema asked for.
+static K6Kernel k6_kernel(int n_up, bool mn, bool mx) {
+    return k6_in_registers(n_up) ? k6_by_sides<K6_RUN>(mn, mx)
+                                 : k6_by_sides<0>(mn, mx);
 }
 
 extern "C" int dspeed_fused_current(const CurrentParams* p, void* stream) {
     const int smem = dspeed_fused_current_smem_bytes(p->n_up);
+    const K6Kernel fn = k6_kernel(p->n_up, p->need[0] || p->need[2],
+                                  p->need[1] || p->need[3]);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_current_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     if (p->B == 0) return 0;
-    fused_current_kernel<<<p->B, CUR_THREADS, smem, (cudaStream_t)stream>>>(*p);
+    fn<<<p->B, K6_THREADS, smem, (cudaStream_t)stream>>>(*p);
     return (int)cudaGetLastError();
+}
+
+// How a row of n_up upsampled samples launches (the instance for need_min
+// / need_max): threads and rows a block, shared memory bytes a block
+// (dynamic), blocks per SM, registers and local bytes per thread.
+extern "C" int dspeed_fused_current_config(int n_up, int need_min, int need_max,
+                                           int* out) {
+    const int smem = dspeed_fused_current_smem_bytes(n_up);
+    const K6Kernel fn = k6_kernel(n_up, need_min != 0, need_max != 0);
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, K6_THREADS,
+                                                        smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return (int)err;
+    const int vals[] = {K6_THREADS, 1,           smem,
+                        per_sm,     attr.numRegs, (int)attr.localSizeBytes};
+    for (int i = 0; i < 6; ++i) out[i] = vals[i];
+    return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -183,9 +575,10 @@ extern "C" int dspeed_fused_current(const CurrentParams* p, void* stream) {
 // its first sample equal to V (recomputing at most one column's phases,
 // bit for bit), and the lowest index wins: the first occurrence, as the
 // block kernel's strict comparisons with the lower index on ties give it.
-// A row with a NaN or an infinite current sample gives NaN on all four
-// outputs, as the plain composition does (an infinite sample turns the
-// cascade's prefix differences into NaN), so no curve sample is NaN.
+// A row with a NaN, or an infinite current sample that the upsampled row
+// reads, gives NaN on all four outputs, as the plain composition does (an
+// infinite sample turns the cascade's prefix differences into NaN), so no
+// curve sample is NaN.
 //
 // On the H100 at the flagship geometry no single pipe bounds it: the
 // float64 divisions of the edge stages and the interior's FMAs and folds
@@ -554,11 +947,20 @@ fused_current_poly_kernel(const CurrentParams P, int epb) {
         cs[i] = v;
     }
     if (__any_sync(K5_FULL, bad)) {
-        if (lane == 0) {
-            const float qnan = __int_as_float(0x7fc00000);
-            for (int q = 0; q < 4; ++q) P.out[q][row] = qnan;
+        // a row with a non-finite sample, taken again from its copy: a NaN
+        // anywhere, or an infinity that the upsampled row reads, poisons it
+        // (cur_bad; testing each sample so in the loop above costs K5 1%)
+        __syncwarp();
+        const int last_read = cur_last_read(P);
+        bad = 0;
+        for (int i = lane; i < n_curr; i += 32) bad |= cur_bad(cs[i], i, last_read);
+        if (__any_sync(K5_FULL, bad)) {
+            if (lane == 0) {
+                const float qnan = __int_as_float(0x7fc00000);
+                for (int q = 0; q < 4; ++q) P.out[q][row] = qnan;
+            }
+            return;
         }
-        return;
     }
     __syncwarp();
 

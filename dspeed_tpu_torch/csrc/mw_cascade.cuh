@@ -1,6 +1,8 @@
-// The moving-window cascade of the A/E current front, used by the
-// up-domain kernel (K6) in fused_current.cu; the polyphase kernel (K5) and
-// generic_rows.cu (K7) carry its arithmetic in code of their own.
+// The moving-window cascade of the A/E current front in its reference
+// order. No kernel includes it: the up-domain kernel (K6), the polyphase
+// kernel (K5, both in fused_current.cu) and generic_rows.cu (K7) carry its
+// arithmetic in code of their own, bit for bit; tools/k6_emu runs it as the
+// reference that holds K6.
 //
 // Replaces `_mw_apply` (dspeed_tpu/processors/_pallas.py:497), which takes
 // each window sum from 128-wide triangular-matmul cumsums plus the previous

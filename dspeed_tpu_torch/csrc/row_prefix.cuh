@@ -1,7 +1,8 @@
 // Float64 prefix sums of one row in shared memory and the trapezoid windows
-// read off them, used by fused_t0.cu (K3) and, through mw_cascade.cuh, by
-// the up-domain kernel K6; generic_rows.cu (K7) keeps their runs, scan tree
-// and window rule in a conflict-free layout of its own.
+// read off them, used by fused_t0.cu (K3) and by mw_cascade.cuh's reference
+// order; the up-domain kernel K6 (fused_current.cu) keeps the block scan's
+// runs and scan tree with each run in registers, and generic_rows.cu (K7)
+// in a conflict-free layout of its own.
 //
 // The TPU kernels fight float32 cancellation in long prefix sums with
 // split-bf16 matmul prefixes (dspeed_tpu/processors/_pallas.py `_split3_k`

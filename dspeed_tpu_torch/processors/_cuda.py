@@ -70,6 +70,7 @@ __all__ = [
     "cascade_tp_plain",
     "fused_current",
     "fused_current_updomain",
+    "fused_current_launch",
     "fused_current_plain",
     "fused_current_poly_plain",
     "generic_rows",
@@ -205,6 +206,10 @@ def _bind(name: str, so: str):
             fn.argtypes = [ctypes.POINTER(_CurrentParams), ctypes.c_void_p]
         lib.dspeed_fused_current_smem_bytes.restype = ctypes.c_int
         lib.dspeed_fused_current_smem_bytes.argtypes = [ctypes.c_int]
+        lib.dspeed_fused_current_config.restype = ctypes.c_int
+        lib.dspeed_fused_current_config.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int),
+        ]
         lib.dspeed_fused_current_poly_smem_bytes.restype = ctypes.c_int
         lib.dspeed_fused_current_poly_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.dspeed_fused_current_poly_config.restype = ctypes.c_int
@@ -1102,11 +1107,30 @@ def fused_current_poly_launch(n_curr: int, ratio: int, n_up: int, nq: int,
     return dict(zip(keys, out))
 
 
+def fused_current_launch(n_up: int, need=(False, True, False, True)) -> dict:
+    """How K6 launches for rows of ``n_up`` upsampled samples on this card,
+    in the instance for ``need`` (the flagship chain's by default): threads
+    and rows a block, shared memory per block (the float64 prefix, and the
+    row where a thread's run is not held in registers), blocks per SM, and
+    the kernel's registers and local (spill) bytes per thread."""
+    lib = _lib("fused_current")
+    out = (ctypes.c_int * 6)()
+    rc = lib.dspeed_fused_current_config(
+        int(n_up), int(bool(need[0] or need[2])), int(bool(need[1] or need[3])),
+        out,
+    )
+    _check_rc(lib, rc, "fused_current")
+    keys = ("threads", "rows_per_block", "smem_bytes", "blocks_per_sm",
+            "registers", "local_bytes")
+    return dict(zip(keys, out))
+
+
 def fused_current_updomain(c, ratio, half, n_up, L, num, mtype,
                            need=(True,) * 4):
     """K6, the up-domain route of :func:`fused_current`: the cascade at the
-    full upsampled width, for any geometry whose row fits one block's
-    shared memory. Same outputs as :func:`fused_current`."""
+    full upsampled width, one row a block, for any geometry whose float64
+    prefix (and, past 5120 samples, its row) fits one block's shared
+    memory. Same outputs as :func:`fused_current`."""
     geometry, need, geom = _current_geometry(
         c, ratio, half, n_up, L, num, mtype, need
     )

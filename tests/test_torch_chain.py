@@ -626,6 +626,55 @@ def test_flagship_unfused_chain_matches_fused(events):
         np.testing.assert_array_equal(unfused[k], fused[k], err_msg=k)
 
 
+# the flagship with its A/E smoothing window at 128 upsampled samples, a
+# geometry the polyphase plan rejects: the current front takes the
+# up-domain route (K6 on the card)
+
+
+def _l128_config():
+    cfg = flagship_config()
+    cfg["processors"]["curr_av"]["args"][1] = "128"
+    return cfg
+
+
+def test_flagship_l128_chain_takes_the_updomain_front(monkeypatch, events):
+    from dspeed_tpu.processors import _pallas
+
+    from dspeed_tpu_torch.processors._poly_plan import poly_plan
+
+    cfg = _l128_config()
+    jc, tc = _chains(monkeypatch, events, cfg)
+    applied = tc.optimize_fusions()
+    assert applied == jc.optimize_fusions() == FLAGSHIP_FUSIONS
+    cur = next(s for s in tc._steps if "fused_current_front" in str(s))
+    jcur = next(s for s in jc._steps if "fused_current_front" in str(s))
+    assert str(cur) == str(jcur)
+    # the current of 300 samples, x16 to 4784, three 128-sample windows: no
+    # polyphase plan in either package
+    geometry = (300, 16, 8, 4784, 128, 3, 0)
+    assert poly_plan(*geometry) is None
+    assert _pallas._poly_plan(*geometry) is None
+    monkeypatch.delenv("DSPEED_TPU_FUSE")
+    wf, bl, _ = events
+    got = _columns(dspeed_tpu_torch.build_dsp(
+        _table(dspeed_tpu_torch.lh5, wf, bl), dsp_config=cfg, database=DB_FLAT,
+        device="cpu",
+    ), cfg["outputs"])
+    want = _columns(dspeed_tpu.build_dsp(
+        _table(dspeed_tpu.lh5, wf, bl), dsp_config=cfg, database=DB_FLAT,
+    ), cfg["outputs"])
+    _assert_timing_columns(got, want)
+    good = [i for i in range(len(wf)) if i not in (3, 5)]
+    for k in AOE:
+        assert np.isfinite(got[k][good]).all(), k
+    # the wider window smooths the current's peak: below the 48-sample one's
+    base = _columns(dspeed_tpu_torch.build_dsp(
+        _table(dspeed_tpu_torch.lh5, wf, bl), dsp_config=flagship_config(),
+        database=DB_FLAT, device="cpu",
+    ), ["A_max"])
+    assert (got["A_max"][good] < base["A_max"][good]).all()
+
+
 # ---------------------------------------------------------------------------
 # the error contract: a DSPFatal carries the entries it was thrown on
 

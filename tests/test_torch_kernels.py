@@ -662,6 +662,9 @@ CURRENT_CASES = {
     "one_stage": POLY_GEOMETRIES["one_stage"],
 }
 CUR_REL = 2e-5  # test_pallas.py:333
+# the up-domain route's cases: those, and L = 128, which only it serves (the
+# polyphase plan rejects L >= W / 2)
+UPDOMAIN_CASES = {**CURRENT_CASES, "L_128": (301, 16, 4788, 128, 3, 0)}
 
 
 @pytest.mark.parametrize("case", sorted(POLY_GEOMETRIES))
@@ -769,12 +772,12 @@ def test_fused_current_poly_plain_matches_pallas_interpret(case):
     _check_current([o.numpy() for o in got], want, curve, CUR_REL, case)
 
 
-@pytest.mark.parametrize("case", sorted(CURRENT_CASES))
+@pytest.mark.parametrize("case", sorted(UPDOMAIN_CASES))
 def test_fused_current_plain_matches_pallas_interpret(case):
     import jax.numpy as jnp
     from dspeed_tpu.processors import _pallas
 
-    n_curr, ratio, n_up, L, num, mtype = CURRENT_CASES[case]
+    n_curr, ratio, n_up, L, num, mtype = UPDOMAIN_CASES[case]
     half = ratio // 2
     c = _current_inputs(n_curr)
     rep = jnp.repeat(jnp.asarray(c), ratio, axis=-1)
@@ -1335,6 +1338,146 @@ def test_fused_current_updomain_kernel_matches_plain_on_the_card(case, cuda_devi
     curve = _updomain_curve(c, ratio, n_up, L, num, mtype)
     _check_current([o.cpu().numpy() for o in got], [o.cpu().numpy() for o in want],
                    curve, 1e-6, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "need", [(True,) * 4, (False, True, False, True)], ids=["all", "max_side"]
+)
+def test_fused_current_poly_kernel_unread_infinite_tail_on_the_card(need, cuda_device):
+    """K5 poisons a row for an infinity only where its upsampled row reads
+    it: at ``all_right`` (n_up 4700) the row reads c[0..294], so infinities
+    in c[295..299] leave the outputs finite and equal to both plain
+    versions; an infinity at c[294], or a NaN anywhere, gives NaN."""
+    n_curr, ratio, n_up, L, num, mtype = CURRENT_CASES["all_right"]
+    half = ratio // 2
+    assert (n_up - 1 + half) // ratio == 294
+    c_np = _current_inputs(n_curr, b=37, seed=8)
+    c_np[1, 295:] = np.inf
+    c_np[2, 299] = -np.inf
+    c_np[3, 296], c_np[3, 298] = -np.inf, np.inf
+    c_np[4, 294] = np.inf
+    c_np[5, 299] = np.nan
+    c = torch.from_numpy(c_np).to(cuda_device)
+    args = (c, ratio, half, n_up, L, num, mtype)
+    before = _cuda.LAUNCHES["fused_current_poly"]
+    got = _cuda.fused_current(*args, need=need)
+    assert _cuda.LAUNCHES["fused_current_poly"] == before + 1
+    poly = _cuda.fused_current_poly_plain(*args, need=need)
+    plain = _cuda.fused_current_plain(*args)
+    torch.cuda.synchronize()
+    got = [o.cpu().numpy() for o in got]
+    plain = [o.cpu().numpy() for o in plain]
+    bad = np.zeros(len(c_np), bool)
+    bad[[4, 5]] = True
+    # the polyphase formulation gives n_up, not NaN, as the index of a row
+    # whose read sample is infinite
+    poly = [np.where(bad, np.nan, o.cpu().numpy()) for o in poly]
+    keep = [q for q in range(4) if need[q]]
+    curve = _updomain_curve(c_np, ratio, n_up, L, num, mtype)
+    for ref, rel, what in ((poly, 1e-5, "poly"), (plain, 2e-5, "plain")):
+        g = [got[q] if q in keep else ref[q] for q in range(4)]
+        _check_current(g, ref, curve, rel, f"unread tail {what}")
+    for q in range(4):
+        assert (np.isnan(got[q]) == bad).all(), q
+        assert (np.isnan(plain[q]) == bad).all(), q
+
+
+# K6 at the geometries it serves: the flagship's, called directly, and
+# L = 128, which the polyphase plan rejects, through the front itself
+K6_GEOMETRIES = {
+    "flagship": CURRENT_CASES["flagship"],
+    "L_128": UPDOMAIN_CASES["L_128"],
+}
+
+
+def _k6_call(geometry, c, need):
+    n_curr, ratio, n_up, L, num, mtype = K6_GEOMETRIES[geometry]
+    args = (c, ratio, ratio // 2, n_up, L, num, mtype)
+    before = dict(_cuda.LAUNCHES)
+    if geometry == "flagship":
+        got = _cuda.fused_current_updomain(*args, need=need)
+    else:
+        got = _cuda.fused_current(*args, need=need)
+    assert _cuda.LAUNCHES["fused_current"] == before["fused_current"] + 1
+    assert _cuda.LAUNCHES["fused_current_poly"] == before["fused_current_poly"]
+    return got, _cuda.fused_current_plain(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", sorted(K6_GEOMETRIES))
+@pytest.mark.parametrize(
+    "case",
+    ["batch_37", "batch_1", "nan_ends", "constant", "max_left", "max_right", "inf"],
+)
+@pytest.mark.parametrize(
+    "need", [(True,) * 4, (False, True, False, True)], ids=["all", "max_side"]
+)
+def test_fused_current_updomain_kernel_edge_cases_on_the_card(
+    geometry, case, need, cuda_device
+):
+    """K6's edge cases, as K5's (``_k5_rows``), against the plain version:
+    batches of 37 and 1 rows, NaN at a row's first and last sample, exact
+    ties (a flat curve: index 0), the maximum at either end of the row, and
+    infinite samples (NaN on all four outputs where the upsampled row reads
+    one; at L = 128 the last of 301 samples is not read, and its -inf
+    leaves the row finite); both ``need`` settings."""
+    n_curr, ratio, n_up, L, num, mtype = K6_GEOMETRIES[geometry]
+    last_read = (n_up - 1 + ratio // 2) // ratio
+    c_np = _k5_rows(case, n_curr)
+    if case == "max_right" and last_read < n_curr - 1:
+        # the maximum on the last sample the upsampled row reads
+        c_np[:, [last_read, n_curr - 1]] = c_np[:, [n_curr - 1, last_read]]
+    c = torch.from_numpy(c_np).to(cuda_device)
+    got, want = _k6_call(geometry, c, need)
+    torch.cuda.synchronize()
+    got = [o.cpu().numpy() for o in got]
+    want = [o.cpu().numpy() for o in want]
+    read = np.arange(n_curr) <= last_read
+    bad = np.isnan(c_np).any(axis=1) | (np.isinf(c_np) & read).any(axis=1)
+    if case == "inf":
+        assert bad.sum() == (5 if geometry == "flagship" else 4)
+    keep = [q for q in range(4) if need[q]]
+    curve = _updomain_curve(c_np, ratio, n_up, L, num, mtype)
+    g = [got[q] if q in keep else want[q] for q in range(4)]
+    _check_current(g, want, curve, 1e-6, f"{geometry} {case}")
+    for q in range(4):
+        assert (np.isnan(got[q]) == bad).all(), q
+        if not need[q] and not (q >= 2 and need[q - 2]):
+            assert (got[q][~bad] == 0).all(), q
+    if case == "constant":  # a flat zero curve: the first sample wins
+        flat = np.flatnonzero((curve == 0).all(axis=1))
+        assert flat.size == 18
+        for q in keep:
+            assert (got[q][flat] == 0).all(), q
+    elif case in ("max_left", "max_right"):
+        edge = n_up // 10
+        for where in [curve.argmax(axis=1)] + ([got[1]] if need[1] else []):
+            assert (where < edge if case == "max_left" else where >= n_up - edge).all()
+
+
+@pytest.mark.gpu
+def test_fused_current_updomain_launch_on_the_card(cuda_device):
+    """K6's launch: one row a block of 256 threads; shared memory as
+    ``dspeed_fused_current_smem_bytes`` states it, the float64 prefix of 256
+    whole runs where the runs are held in registers (19 samples: 4609 <=
+    n_up <= 4864), the prefix and the row (12 n_up) otherwise; three
+    blocks an SM in the register instances; and no local memory in the
+    instances a chain launches for one extremum or none (the flagship's
+    reads the maximum only)."""
+    lib = _cuda._lib("fused_current")
+    for n_up in (4100, 4608, 4609, 4784, 4788, 4864, 5120, 5121, 790, 6392):
+        per = -(-n_up // 256)
+        regs = per == 19
+        smem = 8 * 256 * per if regs else 12 * n_up
+        assert lib.dspeed_fused_current_smem_bytes(n_up) == smem, n_up
+        for need in ((False, True, False, True), (True, False, False, False),
+                     (False,) * 4):
+            launch = _cuda.fused_current_launch(n_up, need)
+            assert launch["smem_bytes"] == smem, (n_up, launch)
+            assert launch["threads"] == 256 and launch["rows_per_block"] == 1
+            assert launch["local_bytes"] == 0, (n_up, need, launch)
+            assert launch["blocks_per_sm"] >= (3 if regs else 1), (n_up, launch)
 
 
 def test_cuda_wrappers_never_fall_back_on_a_cuda_tensor(monkeypatch):

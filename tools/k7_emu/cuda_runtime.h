@@ -178,6 +178,7 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 using std::isfinite;
+using std::isinf;
 using std::isnan;
 
 typedef int cudaError_t;

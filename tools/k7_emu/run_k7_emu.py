@@ -58,8 +58,12 @@ FLAGS = {
 }
 
 
-def host_source(src: str, out: str) -> str:
-    """``src`` as host C++ up to its host-side launch code, into ``out``."""
+K7_CUTS = ("static cudaError_t gen_launch", 'extern "C" int dspeed_generic_rows')
+
+
+def host_source(src: str, out: str, cuts=K7_CUTS) -> str:
+    """``src`` as host C++ up to its host-side launch code (the first of
+    ``cuts`` found), into ``out``."""
     text = open(src).read()
     text = re.sub(
         r"extern __shared__\s+(?:__align__\(\d+\)\s+)?(\w+)\s+(\w+)\[\];",
@@ -73,22 +77,22 @@ def host_source(src: str, out: str) -> str:
                         "emu_cp_wait_all();")
     if "asm" in text:
         raise SystemExit(f"{src}: an asm statement the emulation does not rewrite")
-    cut = min(i for i in (text.find("static cudaError_t gen_launch"),
-                          text.find('extern "C" int dspeed_generic_rows'))
-              if i >= 0)
+    cut = min(i for i in (text.find(c) for c in cuts) if i >= 0)
     with open(out, "w") as f:
         f.write(text[:cut])
     return out
 
 
-def build(src: str, mode: str, build_dir: str, tag: str = "k7") -> str:
-    """The emulation of ``src`` built for ``mode``; returns the executable."""
+def build(src: str, mode: str, build_dir: str, tag: str = "k7",
+          main: str = os.path.join(HERE, "k7_main.cpp"), cuts=K7_CUTS) -> str:
+    """The emulation of ``src`` built for ``mode`` with the host program
+    ``main``; returns the executable."""
     os.makedirs(build_dir, exist_ok=True)
     exe = os.path.join(build_dir, f"{tag}_{mode}")
-    inc = host_source(src, os.path.join(build_dir, f"{tag}.inc"))
+    inc = host_source(src, os.path.join(build_dir, f"{tag}.inc"), cuts)
     cmd = ["g++", "-std=c++17", "-g", "-ffp-contract=off", "-pthread",
            *FLAGS[mode], f"-I{HERE}", f"-I{os.path.dirname(src)}",
-           f'-DKSRC="{inc}"', "-o", exe, os.path.join(HERE, "k7_main.cpp")]
+           f'-DKSRC="{inc}"', "-o", exe, main]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"g++ failed for {src} ({mode}):\n{r.stderr[-4000:]}")

@@ -3,15 +3,16 @@
 card.
 
     python3 tools/profile_torch_chain.py
-        [--config flagship|flagship-generic|timing|energy]
+        [--config flagship|flagship-l128|flagship-generic|timing|energy]
         [--events 16384] [--repeats 3]
 
 Runs one of the configurations ``chip_smoke.py`` drives — the flagship
 configuration (``configs/hpge-energy-timing.yaml``, all 34 outputs; the
-default), the same in the generic fusion mode (``flagship-generic``:
-``fuse="generic"``, two K7 groups), the timing configuration (without its
-three A/E columns, 31 outputs) or the energy configuration (its 17 energy
-and baseline outputs) — through ``dspeed_tpu_torch.build_dsp`` Table ->
+default), the same with its A/E window at 128 upsampled samples
+(``flagship-l128``: the current front on K6), the same in the generic fusion
+mode (``flagship-generic``: ``fuse="generic"``, two K7 groups), the timing
+configuration (without its three A/E columns, 31 outputs) or the energy
+configuration (its 17 energy and baseline outputs) — through ``dspeed_tpu_torch.build_dsp`` Table ->
 Table on 16384 synthetic 4096-sample events, and prints:
 
 1. the host-clock split of one warm chunk: chain build, input gather, the
@@ -82,7 +83,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "flagship-generic", "timing", "energy"))
+                    choices=("flagship", "flagship-l128", "flagship-generic",
+                             "timing", "energy"))
     ap.add_argument("--events", type=int, default=16384)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", help="write the Chrome trace to this path")
@@ -92,7 +94,8 @@ def main() -> int:
         return 2
 
     from chip_smoke import (
-        TAU, card_line, config, energy_config, make_hpge_waveforms, timing_config,
+        TAU, card_line, config, energy_config, l128_config, make_hpge_waveforms,
+        timing_config,
     )
     from dspeed_tpu_torch import build_dsp, lh5
     from dspeed_tpu_torch import processing_chain as pc
@@ -112,8 +115,9 @@ def main() -> int:
         ),
         "baseline": lh5.Array(bl.astype(np.float32)),
     })
-    cfg = {"flagship": config, "flagship-generic": config,
-           "timing": timing_config, "energy": energy_config}[args.config]()
+    cfg = {"flagship": config, "flagship-l128": l128_config,
+           "flagship-generic": config, "timing": timing_config,
+           "energy": energy_config}[args.config]()
     fuse = "generic" if args.config == "flagship-generic" else True
     kw = dict(dsp_config=cfg, database={"pz": {"tau": TAU}},
               buffer_len=args.events, device="cuda", fuse=fuse)
