@@ -19,12 +19,17 @@ the **generic mode** (``fuse="generic"``: two K7 launches and the CUSP/ZAC
 K4 route), the **timing configuration** (without
 its three A/E columns, 31 outputs) and the **energy configuration** (its 17
 energy and baseline columns), file -> file where ``h5py`` is installed,
-else Table -> Table. It checks the physics
+else Table -> Table, each twice: the second call must take its chain from
+the chain cache. It checks the physics
 (``trapEmax`` against the injected amplitudes, ``tp_0_est`` against the
 injected start, the order of the cascade, ``A_max`` against amplitude over
 rise time and ``tp_aoe_samp`` inside the rise), the first 256 events
 against the port's own CPU run, and that every kernel of each path was
-launched on it.
+launched on it. Then the **flagship pipeline**: four chunks of 16384
+distinct events through ``build_dsp``'s production loop (read-ahead,
+staging on the copy stream, write-behind), every output of every chunk
+held bit for bit against the synchronous call of the same chain, with the
+host waits one pipelined chunk makes; and ``buffer_len="auto"``'s pick.
 
 Prints the card's name and power limit, one JSON line of kernel figures
 (``{"kernels": [...]}``), and as the last line
@@ -70,6 +75,9 @@ AOE_NEED = (False, True, False, True)  # the chain reads tp_aoe_max, A_max
 # the same front with a 128-sample (128 ns) A/E smoothing window, which the
 # polyphase plan rejects (L >= W / 2): the flagship L128 path takes K6
 AOE_L128_GEOMETRY = (16, 8, 4784, 128, 3, 0)
+# no moving-window stage: the curve is the upsampled current itself
+NO_STAGE_GEOMETRY = (16, 8, 4784, 48, 0, 0)
+PIPELINE_CHUNKS = 4  # chunks of N_EVENTS through the production loop
 # median A_max * rt / amp on events with amp / rt > 50 (aoe_checks): the JAX
 # package's value on this generator, x64 on a CPU (L = 48: 1.010; L = 128:
 # 1.0037 over 8192 events, 1.0038 over 2048), held within 2%
@@ -145,6 +153,81 @@ def energy_config() -> dict:
 
 def is_index(col: str) -> bool:
     return col.startswith("tp_")
+
+
+class Chunks:
+    """An in-memory source of ``Table`` chunks, read as an ``LH5Iterator``
+    is: while a chunk is consumed, ``current_i_entry`` holds its first
+    entry."""
+
+    def __init__(self, tables):
+        self.tables = tables
+        self.current_i_entry = 0
+
+    def __iter__(self):
+        i = 0
+        for tb in self.tables:
+            self.current_i_entry = i
+            yield tb
+            i += len(tb)
+
+
+def distinct_chunks(lh5, wf, bl, n_chunks, offset=1237):
+    """``n_chunks`` tables of all the events of ``wf`` and ``bl``, chunk k
+    rolled by ``k * offset`` rows: no two chunks hold the same event at the
+    same row, so a chunk written at the wrong place, or a pinned staging
+    buffer refilled too early, shows in the outputs."""
+    tables = []
+    for k in range(n_chunks):
+        w = np.ascontiguousarray(np.roll(wf, -k * offset, axis=0))
+        b = np.roll(bl, -k * offset).astype(np.float32)
+        tables.append(lh5.Table({
+            "waveform": lh5.WaveformTable(
+                values=w, t0=0.0, t0_units="ns", dt=DT, dt_units="ns"
+            ),
+            "baseline": lh5.Array(b),
+        }))
+    return tables
+
+
+def run_pipeline(build_dsp, chain, tb_out, tables):
+    """Every chunk of ``tables`` through ``build_dsp``'s production loop
+    (``_process_chunks``: read-ahead and staging on a worker thread and the
+    device's copy stream, each chunk's fetch and write on the writer thread
+    while the next one computes). Returns each chunk's outputs, copied from
+    ``tb_out`` as the writer saw them (by first entry), the loop's timing
+    split and its wall seconds."""
+    driver = sys.modules[build_dsp.__module__]
+    got = {}
+
+    def write(n, i_entry):
+        got[i_entry] = {k: np.array(tb_out[k].nda[:n]) for k, _ in tb_out.items()}
+
+    t_0 = time.time()
+    split = driver._process_chunks(chain, Chunks(tables), write, read_ahead=True)
+    return got, split, time.time() - t_0
+
+
+class counted_builds:
+    """Counts the chains ``build_dsp`` builds while the block runs (the
+    driver's ``build_processing_chain``, wrapped): 0 on a chain-cache hit."""
+
+    def __init__(self, build_dsp):
+        self.driver = sys.modules[build_dsp.__module__]
+        self.n = 0
+
+    def __enter__(self):
+        self.orig = self.driver.build_processing_chain
+
+        def build(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+
+        self.driver.build_processing_chain = build
+        return self
+
+    def __exit__(self, *exc):
+        self.driver.build_processing_chain = self.orig
 
 
 def card_line() -> str:
@@ -578,10 +661,18 @@ def check_current(name, got, want, c, geometry, rel, need=(True,) * 4):
             raise AssertionError(f"{name} output {q}: NaN positions differ")
     ok = ~torch.isnan(want[3] if need[3] or need[1] else want[2])
     amps = [q for q in (2, 3) if need[q]]
-    scale = max(float(want[q][ok].abs().max()) for q in amps)
+    # the scale of the finite amplitudes; an infinite one (no stage) must
+    # be equal, so that its difference counts 0, never inf - inf = NaN
+    scale = max(
+        float(want[q][ok & torch.isfinite(want[q])].abs().max()) for q in amps
+    )
     tol = rel * scale
-    err = max(float((got[q][ok] - want[q][ok]).abs().max()) for q in amps)
-    if err > tol:
+    err = max(
+        float(torch.where(got[q][ok] == want[q][ok], 0.0,
+                          (got[q][ok] - want[q][ok]).abs()).max())
+        for q in amps
+    )
+    if not err <= tol:
         raise AssertionError(f"{name}: max |amplitude diff| {err:.3e} > {tol:.3e}")
     excused = 0
     for q, is_max in ((0, False), (1, True)):
@@ -594,7 +685,7 @@ def check_current(name, got, want, c, geometry, rel, need=(True,) * 4):
         ext = curve.amax(1) if is_max else curve.amin(1)
         for idx in (got[q][rows], want[q][rows]):
             v = curve.gather(1, idx.long()[:, None])[:, 0]
-            far = (v - ext).abs() > tol
+            far = ~(((v - ext).abs() <= tol) | (v == ext))
             if bool(far.any()):
                 r = int(rows[torch.nonzero(far)[0, 0]])
                 raise AssertionError(
@@ -699,8 +790,10 @@ def k5_phase(_cuda, c, ptxas_log):
         flush=True,
     )
     chain = figs["chain"]
+    err0 = no_stage_phase("K5", _cuda.fused_current, _cuda, c,
+                          "fused_current_poly", K5_UP_REL)
     return dict(
-        max_abs_err=max(f["err"] for f in figs.values()), ms=chain["ms"],
+        max_abs_err=max(err0, *(f["err"] for f in figs.values())), ms=chain["ms"],
         plain_ms=plain_ms, bound_ms=chain["bound"], bound_by=chain["by"],
         polyphase_plain_ms=chain["poly_ms"], all_four_ms=figs["all four"]["ms"],
         device_ms=chain["dev_ms"], all_four_device_ms=figs["all four"]["dev_ms"],
@@ -735,6 +828,39 @@ def check_infinite_rows(name, got, want):
                     f"{name}: output {q} of the {who} is not NaN on a row with "
                     f"an infinite sample"
                 )
+
+
+def no_stage_phase(name, front, _cuda, c, counter, rel):
+    """The current front ``front`` at ``NO_STAGE_GEOMETRY`` on
+    ``with_infinite_rows(c)``: with no stage an infinity the upsampled row
+    reads is the curve's extremum, as the plain composition gives it, and
+    only a NaN poisons a row; held by ``check_current``'s rule. The kernel
+    ``counter`` of ``_cuda.LAUNCHES`` must launch once. Returns the max
+    amplitude error."""
+    import torch
+
+    g = NO_STAGE_GEOMETRY
+    c = with_infinite_rows(c)
+    before = _cuda.LAUNCHES[counter]
+    got = front(c, *g)
+    if _cuda.LAUNCHES[counter] != before + 1:
+        raise AssertionError(f"{name}: {counter} was not launched")
+    want = _cuda.fused_current_plain(c, *g)
+    torch.cuda.synchronize()
+    nan_rows = torch.isnan(c).any(1)
+    for q in range(4):
+        for o, who in ((got[q], "kernel"), (want[q], "plain")):
+            if not torch.equal(torch.isnan(o), nan_rows):
+                raise AssertionError(f"{name}: output {q} of the {who} is NaN "
+                                     "on other rows than those holding a NaN")
+    if not bool(torch.isinf(want[3][[30, 32, 34]]).all()):
+        raise AssertionError(f"{name}: the plain a_max is not the infinity")
+    err, ex = check_current(name, got, want, c, g, rel)
+    print(f"{name} {tuple(c.shape)}, no stage: rows 30-34 with infinite samples "
+          f"equal to the plain version (a_max {want[3][30:35].tolist()}), "
+          f"max |amplitude diff| {err:.3e} ({ex} index rows excused), NaN rows "
+          f"{int(nan_rows.sum())}", flush=True)
+    return err
 
 
 def k6_phase(_cuda, c, ptxas_log):
@@ -821,8 +947,10 @@ def k6_phase(_cuda, c, ptxas_log):
         f"on {card_line()}",
         flush=True,
     )
+    err0 = no_stage_phase("K6", _cuda.fused_current_updomain, _cuda, c,
+                          "fused_current", K6_REL)
     return dict(
-        max_abs_err=max(err, err2, err3), ms=ms, plain_ms=plain_ms,
+        max_abs_err=max(err, err2, err3, err0), ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, device_ms=dev_ms,
         bound_share=bound / ms, device_bound_share=bound / dev_ms,
         l128_ms=ms2, l128_device_ms=dev2, l128_plain_ms=plain2,
@@ -1361,42 +1489,54 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
             raw = os.path.join(tmp, "smoke_raw.lh5")
             lh5.write(tb, "ch001/raw", raw)
 
-            def run(dev, n):
+            def run(dev, n, stats=None):
                 out = os.path.join(tmp, f"smoke_dsp_{dev}.lh5")
                 build_dsp(raw, out, cfg, database={"ch001": {"pz": {"tau": TAU}}},
                           n_entries=n, buffer_len=n, device=dev, write_mode="r",
-                          fuse=fuse)
+                          fuse=fuse, stats=stats)
                 with h5py.File(out, "r") as f:
                     return {k: f[f"ch001/dsp/{k}"][()] for k in outputs}
         else:
-            def run(dev, n):
+            def run(dev, n, stats=None):
                 out = build_dsp(tb, dsp_config=cfg, database={"pz": {"tau": TAU}},
-                                n_entries=n, buffer_len=n, device=dev, fuse=fuse)
+                                n_entries=n, buffer_len=n, device=dev, fuse=fuse,
+                                stats=stats)
                 return {k: np.asarray(out[k].nda) for k in outputs}
 
         route = "file -> file" if files else "Table -> Table (no h5py)"
 
+        call_stats = []
+
         def timed(dev, n):
+            stats: dict = {}
             torch.cuda.synchronize()
             t_0 = time.time()
-            cols = run(dev, n)
+            cols = run(dev, n, stats)
             torch.cuda.synchronize()
+            call_stats.append({k: round(v * 1e3, 3) for k, v in stats.items()
+                           if k.endswith("_s")})
             return cols, time.time() - t_0
 
         _cuda.reset_launches()
         _tile_program.reset_splits()
         cols, cold_s = timed(device, n_ev)
         launches = dict(_cuda.LAUNCHES)
-        splits = dict(_tile_program.SPLITS)
+        group_splits = dict(_tile_program.SPLITS)
         print(f"build_dsp [{label}] launches: {launches}; generic-group splits: "
-              f"{splits}", flush=True)
-        cols, warm_s = timed(device, n_ev)
+              f"{group_splits}", flush=True)
+        with counted_builds(build_dsp) as builds:
+            cols, warm_s = timed(device, n_ev)
         print(
             f"build_dsp [{label}] {route}, {n_ev} events, {len(outputs)} "
             f"columns: first call {cold_s:.3f} s ({n_ev / cold_s:.0f} wf/s), "
-            f"second call {warm_s:.3f} s ({n_ev / warm_s:.0f} wf/s) on {card}",
+            f"second call {warm_s:.3f} s ({n_ev / warm_s:.0f} wf/s) on {card}; "
+            f"second call a chain-cache {'miss' if builds.n else 'hit'}; stats "
+            f"(ms) {json.dumps(call_stats[0])}, {json.dumps(call_stats[1])}",
             flush=True,
         )
+        if builds.n:
+            raise AssertionError(f"[{label}] the second build_dsp call built "
+                                 f"{builds.n} chain(s): no chain-cache hit")
         cpu = run("cpu", n_cpu)
     searches = ("tp_0_est", *READS_TP0)
     not_found = {}
@@ -1450,9 +1590,115 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     for name in forbid:
         if launches.get(name, 0) != 0:
             raise AssertionError(f"{name} was launched on the {label} path")
-    if splits:
-        raise AssertionError(f"generic groups split on the {label} path: {splits}")
+    if group_splits:
+        raise AssertionError(
+            f"generic groups split on the {label} path: {group_splits}")
     return launches
+
+
+def pipeline_phase(build_dsp, build_processing_chain, lh5, _cuda, wf, bl, card,
+                   expect):
+    """The flagship through ``build_dsp``'s production loop
+    (``run_pipeline``) over ``PIPELINE_CHUNKS`` chunks of distinct events
+    (``distinct_chunks``), twice, on one chain: every output of every chunk
+    must equal, bit for bit, the synchronous ``chain(chunk)`` of the same
+    chain on the same chunk. Launch counts are read around the first pass:
+    each kernel of ``expect`` once a chunk. A third pass over one chunk runs
+    under ``torch.cuda.set_sync_debug_mode("warn")`` and lists where the
+    host waits for the device. Returns the figures."""
+    import traceback
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    tables = distinct_chunks(lh5, wf, bl, PIPELINE_CHUNKS)
+    total = sum(len(t) for t in tables)
+    chain, _, tb_out = build_processing_chain(
+        config(), tables[0], db_dict={"pz": {"tau": TAU}}, device=DEVICE
+    )
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    got, split, first_s = run_pipeline(build_dsp, chain, tb_out, tables)
+    launches = dict(_cuda.LAUNCHES)
+    got2, split2, warm_s = run_pipeline(build_dsp, chain, tb_out, tables)
+    for name in expect:
+        if launches.get(name, 0) != len(tables):
+            raise AssertionError(f"pipeline: {name} launched "
+                                 f"{launches.get(name, 0)} times on "
+                                 f"{len(tables)} chunks")
+    syncs: Counter = Counter()
+    pkg = os.path.join(REPO, "dspeed_tpu_torch")
+    armed = [False]
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # the warning's own site, and the innermost frame of the port (of
+        # this script, where none) on the thread that waited
+        if not armed[0] or "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        ours = ([f for f in stack if f.filename.startswith(pkg)]
+                or [f for f in stack if f.filename.startswith(REPO)])
+        via = (f" via {os.path.relpath(ours[-1].filename, REPO)}:"
+               f"{ours[-1].lineno} ({ours[-1].name})" if ours else "")
+        syncs[f"{os.path.basename(filename)}:{lineno}{via}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        armed[0] = True
+        try:
+            run_pipeline(build_dsp, chain, tb_out, tables[:1])
+        finally:
+            armed[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    # the synchronous path, chunk by chunk, on the same chain
+    torch.cuda.synchronize()
+    t_0 = time.time()
+    want, i_entry = {}, 0
+    for tb in tables:
+        out = chain(tb)
+        want[i_entry] = {k: np.array(col.nda[: len(tb)]) for k, col in out.items()}
+        i_entry += len(tb)
+    sync_s = time.time() - t_0
+    for label, run in (("first", got), ("warm", got2)):
+        if sorted(run) != sorted(want):
+            raise AssertionError(f"pipeline [{label} pass]: chunks written at "
+                                 f"{sorted(run)}, not {sorted(want)}")
+        for i_entry, cols in want.items():
+            for k, w in cols.items():
+                g = run[i_entry][k]
+                if g.dtype != w.dtype or g.tobytes() != w.tobytes():
+                    raise AssertionError(
+                        f"pipeline [{label} pass]: {k} of the chunk at entry "
+                        f"{i_entry} differs from the synchronous call")
+    print(f"pipeline [flagship] {len(tables)} chunks x {len(tables[0])} events, "
+          f"{len(want[0])} columns, every output of every chunk equal to the "
+          f"synchronous call bit for bit; launches {launches}", flush=True)
+    print(f"pipeline [flagship] first pass {first_s:.3f} s ({total / first_s:.0f} "
+          f"wf/s), warm pass {warm_s:.3f} s ({total / warm_s:.0f} wf/s), the "
+          f"synchronous calls {sync_s:.3f} s ({total / sync_s:.0f} wf/s); split "
+          f"of the warm pass (s): {json.dumps(split2)}; first pass: "
+          f"{json.dumps(split)}; on {card}", flush=True)
+    print(f"pipeline [flagship] host waits on the device in one pipelined chunk "
+          f"(set_sync_debug_mode): {json.dumps(dict(syncs))}", flush=True)
+    return dict(first_wfps=total / first_s, warm_wfps=total / warm_s,
+                sync_wfps=total / sync_s, split=split2, syncs=dict(syncs),
+                launches=launches)
+
+
+def auto_buffer_len_line(build_dsp, card) -> int:
+    """``buffer_len="auto"``'s probe on the card: the pick and the rates."""
+    driver = sys.modules[build_dsp.__module__]
+    rates: dict = {}
+    pick = driver._auto_buffer_len(DEVICE, rates=rates)
+    print(f"buffer_len='auto': picked {pick}; events/s by candidate "
+          f"{json.dumps({n: round(r) for n, r in rates.items()})}; on {card}",
+          flush=True)
+    if pick not in rates:
+        raise AssertionError(f"buffer_len='auto' picked {pick}, not a candidate")
+    return pick
 
 
 def main() -> int:
@@ -1640,6 +1886,15 @@ def main() -> int:
         build_dsp, lh5, _cuda, energy_config(), wf, amp, inj_t0, bl, card,
         "energy", expect=("fused_energy", "banded_conv_multi"), device=DEVICE,
     )
+    torch.cuda.empty_cache()
+    # the flagship through the production loop: read-ahead, staging on the
+    # copy stream, write-behind, over chunks of distinct events
+    pipeline_phase(
+        build_dsp, build_processing_chain, lh5, _cuda, wf, bl, card,
+        expect=("fused_energy", "cascade_tp", "fused_t0", "banded_conv_multi",
+                "fused_current_poly"),
+    )
+    auto_buffer_len_line(build_dsp, card)
 
     kernels = [
         dict(

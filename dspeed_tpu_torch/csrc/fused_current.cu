@@ -17,8 +17,10 @@
 // flagship geometry). Only the two W-sample windows at the true edges run
 // the staged cascade; the plan proves which outputs each method owns.
 //
-// Both: a row of c holding a NaN, or an infinity that the upsampled row
-// reads, gives NaN in all four outputs (cur_bad). With need
+// Both: a row of c holding a NaN, or, where a moving-window stage runs
+// (num > 0), an infinity that the upsampled row reads, gives NaN in all
+// four outputs (cur_bad, cur_poison_last). With no stage the curve is the
+// upsampled row itself, and an infinity it reads is its extremum. With need
 // clearing both t_min and a_min (or t_max and a_max) that extremum is not
 // reduced, and an output nothing needs holds 0.
 //
@@ -78,10 +80,17 @@ __device__ __forceinline__ int cur_last_read(const CurrentParams& P) {
     return (P.n_up - 1 + P.half) / P.ratio;
 }
 
+// The last sample whose infinity poisons a row: cur_last_read where a
+// stage takes prefix differences (they are then NaN: the plain version
+// gives NaN on all four outputs), and none (-1) with no stage, where the
+// plain version reports the infinity as the extremum.
+__device__ __forceinline__ int cur_poison_last(const CurrentParams& P) {
+    return P.num > 0 ? cur_last_read(P) : -1;
+}
+
 // Whether sample i of a row, v, poisons the row: a NaN anywhere, or an
-// infinity among the samples that the upsampled row reads, i <= last (the
-// cascade's prefix differences are then NaN: the plain version gives NaN
-// on all four outputs). Bitwise: a short-circuit form cost K6 3%.
+// infinity at i <= last (cur_poison_last). Bitwise: a short-circuit form
+// cost K6 3%.
 __device__ __forceinline__ int cur_bad(float v, int i, int last) {
     return isnan(v) | (isinf(v) & (i <= last));
 }
@@ -402,9 +411,9 @@ fused_current_kernel(const CurrentParams P) {
     }
 
     int bad = 0;
-    const int last_read = cur_last_read(P);
+    const int last_bad = cur_poison_last(P);
     for (int i = tid; i < P.n_curr; i += K6_THREADS)
-        bad |= cur_bad(__ldg(cr + i), i, last_read);
+        bad |= cur_bad(__ldg(cr + i), i, last_bad);
     if (__syncthreads_or(bad)) {
         if (tid == 0) {
             const float qnan = __int_as_float(0x7fc00000);
@@ -578,7 +587,10 @@ extern "C" int dspeed_fused_current_config(int n_up, int need_min, int need_max,
 // A row with a NaN, or an infinite current sample that the upsampled row
 // reads, gives NaN on all four outputs, as the plain composition does (an
 // infinite sample turns the cascade's prefix differences into NaN), so no
-// curve sample is NaN.
+// curve sample is NaN. With no stage (num == 0) an infinity poisons
+// nothing: the curve is the upsampled row itself, and each phase's filter
+// is a single 1 among zeros (nq <= 2, the generic instance), whose zero
+// taps add nothing (k5_tap) rather than 0 * inf = NaN.
 //
 // On the H100 at the flagship geometry no single pipe bounds it: the
 // float64 divisions of the edge stages and the interior's FMAs and folds
@@ -800,6 +812,13 @@ __device__ __forceinline__ void k5_col(K5Cols& b, float vmin, float vmax,
     if (MX && (b.t[1] < 0 || vmax > b.v[1])) { b.v[1] = vmax; b.t[1] = t; }
 }
 
+// acc + h c in the generic instance's sums, a zero tap adding nothing: with
+// no stage a phase's filter is a 1 among zeros, and 0 * inf would be NaN.
+// A finite sum is unchanged (but for the sign of a zero).
+__device__ __forceinline__ float k5_tap(float h, float c, float acc) {
+    return h == 0.f ? acc : fmaf(h, c, acc);
+}
+
 // y[ratio t + p] for p < ratio, t in [t_a, t_b): each column's extremes
 // into b. NQ > 0: R consecutive t a lane (K5_R, or K5_R2 where both
 // extrema are reduced), c from registers, nq == NQ taps; NQ == 0: any nq,
@@ -817,7 +836,7 @@ __device__ __forceinline__ void k5_interior(const CurrentParams& P,
             for (int p = 0; p < ratio; ++p) {
                 const float* hp = hs + p * nq;
                 float acc = 0.f;
-                for (int k = 0; k < nq; ++k) acc = fmaf(hp[k], cc[k], acc);
+                for (int k = 0; k < nq; ++k) acc = k5_tap(hp[k], cc[k], acc);
                 mn = fminf(mn, acc);
                 mx = fmaxf(mx, acc);
             }
@@ -865,8 +884,9 @@ __device__ __forceinline__ void k5_interior(const CurrentParams& P,
 }
 
 // The row's first-occurrence extremum on one side, in every lane: from the
-// lane's edge candidate (ev, ei) and its best interior column (cv, ct).
-template <bool MAX>
+// lane's edge candidate (ev, ei) and its best interior column (cv, ct),
+// whose phases are summed again as k5_interior<NQ> sums them.
+template <int NQ, bool MAX>
 __device__ __forceinline__ void k5_resolve(const CurrentParams& P,
                                            const float* cs, const float* hs,
                                            float ev, int ei, float cv, int ct,
@@ -887,7 +907,9 @@ __device__ __forceinline__ void k5_resolve(const CurrentParams& P,
         for (int p = 0; p < ratio; ++p) {
             const float* hp = hs + p * nq;
             float acc = 0.f;
-            for (int k = 0; k < nq; ++k) acc = fmaf(hp[k], cc[k], acc);
+            for (int k = 0; k < nq; ++k)
+                acc = NQ == 0 ? k5_tap(hp[k], cc[k], acc)
+                              : fmaf(hp[k], cc[k], acc);
             if (acc == V) {
                 if (ratio * ct + p < ci) {
                     ci = ratio * ct + p;
@@ -948,12 +970,13 @@ fused_current_poly_kernel(const CurrentParams P, int epb) {
     }
     if (__any_sync(K5_FULL, bad)) {
         // a row with a non-finite sample, taken again from its copy: a NaN
-        // anywhere, or an infinity that the upsampled row reads, poisons it
-        // (cur_bad; testing each sample so in the loop above costs K5 1%)
+        // anywhere, or an infinity that poisons (cur_poison_last), gives
+        // NaN (cur_bad; testing each sample so in the loop above costs K5
+        // 1%)
         __syncwarp();
-        const int last_read = cur_last_read(P);
+        const int last_bad = cur_poison_last(P);
         bad = 0;
-        for (int i = lane; i < n_curr; i += 32) bad |= cur_bad(cs[i], i, last_read);
+        for (int i = lane; i < n_curr; i += 32) bad |= cur_bad(cs[i], i, last_bad);
         if (__any_sync(K5_FULL, bad)) {
             if (lane == 0) {
                 const float qnan = __int_as_float(0x7fc00000);
@@ -1009,11 +1032,11 @@ fused_current_poly_kernel(const CurrentParams P, int epb) {
     float vmin = 0.f, vmax = 0.f;
     int imin = n_up, imax = n_up;
     if (MN)
-        k5_resolve<false>(P, cs, hs, emin, eimin, cols.v[0], cols.t[0], vmin,
-                          imin);
+        k5_resolve<NQ, false>(P, cs, hs, emin, eimin, cols.v[0], cols.t[0], vmin,
+                              imin);
     if (MX)
-        k5_resolve<true>(P, cs, hs, emax, eimax, cols.v[1], cols.t[1], vmax,
-                         imax);
+        k5_resolve<NQ, true>(P, cs, hs, emax, eimax, cols.v[1], cols.t[1], vmax,
+                             imax);
     if (lane == 0) {
         P.out[0][row] = P.need[0] ? (float)imin : 0.f;
         P.out[1][row] = P.need[1] ? (float)imax : 0.f;

@@ -39,6 +39,7 @@ substitution with defaults, dependency resolution with cycle detection,
 from __future__ import annotations
 
 import ast
+import functools
 import importlib
 import itertools as it
 import json
@@ -403,8 +404,7 @@ def _np_to_torch_ufunc(func):
         if ref is None:
             return func(*args)
         return tfn(*(
-            a if isinstance(a, torch.Tensor)
-            else torch.as_tensor(np.asarray(a), device=ref.device)
+            a if isinstance(a, torch.Tensor) else _device_operand(a, ref.device)
             for a in args
         ))
 
@@ -443,6 +443,16 @@ def _numpy_processor(fname: str, signature: str):
     # identity so identical calls can merge
     func._cse_token = token
     return func
+
+
+def _device_operand(a, device) -> torch.Tensor:
+    """A host operand of a tensor op as a tensor on ``device``, of numpy's
+    dtype for it. A scalar is filled in on the device: a copy of a host
+    scalar to the card would make the host wait for the stream."""
+    t = torch.as_tensor(np.asarray(a))
+    if t.ndim == 0 and device.type == "cuda":
+        return torch.full((), t.item(), dtype=t.dtype, device=device)
+    return t.to(device)
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -1222,8 +1232,6 @@ class ProcessingChain:
         # unitted-scalar conversion when a processor has no gridded array arg
         # (e.g. const kernel generators like cusp_filter taking tau/period)
         self._default_grid: CoordinateGrid | None = None
-        # pinned host staging buffers for the input copies, per env key
-        self._pinned: dict[str, torch.Tensor] = {}
         # constant variables on the device, rebuilt when the steps change
         self._consts: dict | None = None
         self.time_total = 0.0
@@ -2776,61 +2784,84 @@ class ProcessingChain:
             self._consts = env
         return self._consts
 
-    def _to_device(self, inputs: dict) -> dict:
-        """Copy one chunk of host inputs to the device: each array is staged
-        once in pinned host memory and copied asynchronously."""
-        out = {}
-        for k, v in inputs.items():
-            v = np.asarray(v)
-            want = _NP_FROM_TORCH[_device_dtype(v.dtype)]
-            if v.dtype != want:
-                v = v.astype(want)
-            if not (v.flags.c_contiguous and v.flags.writeable):
-                v = np.array(v, order="C")
-            t = torch.from_numpy(v)
-            if self.device.type == "cuda":
-                buf = self._pinned.get(k)
-                if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-                    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    self._pinned[k] = buf
-                buf.copy_(t)
-                t = buf.to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+    def _stage(self, inputs: dict):
+        """Start one chunk's host -> device copy: each input is copied into
+        pinned host memory, then to the card on the device's copy stream
+        without blocking. Returns ``(tensors, event)``; the event marks the
+        copies' end (None on the CPU).
 
-    def _run_steps(self, env: dict) -> dict:
+        The pinned buffers come from PyTorch's caching host allocator,
+        which records the event of each copy that reads one and hands the
+        buffer out again only once that copy has ended: a chunk staged
+        ahead never overwrites one still in flight, and the buffers are
+        shared by every chain of the process instead of held by each."""
+        host = {k: _host_tensor(v) for k, v in inputs.items()}
+        if self.device.type != "cuda":
+            return host, None
+        with torch.cuda.device(self.device):
+            stream = _copy_stream(torch.cuda.current_device())
+            pinned = {}
+            for k, t in host.items():
+                pinned[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                pinned[k].copy_(t)
+            with torch.cuda.stream(stream):
+                dev = {k: v.to(self.device, non_blocking=True)
+                       for k, v in pinned.items()}
+                event = torch.cuda.Event()
+                event.record(stream)
+        return dev, event
+
+    def _to_device(self, inputs: dict) -> dict:
+        """One chunk's inputs on the device, their copy ended."""
+        tensors, event = self._stage(inputs)
+        if event is not None:
+            event.synchronize()
+        return tensors
+
+    def _run_steps(self, env: dict, profile: bool = False) -> dict:
+        """Run the steps over ``env``; with ``profile``, each step's wall
+        time (the device synchronized after it) is summed into its
+        ``time_total``."""
         env.update(self._const_env())
         with torch.no_grad():
             for step in self._steps:
+                t0 = time.time()
                 try:
                     step.run(env)
                 except DSPFatal as e:
                     e.processor = str(step)
                     raise
+                if profile:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    step.time_total += time.time() - t0
         return env
 
-    def _fetch_outputs(self, env: dict, n: int) -> dict:
-        """Copy the chunk's outputs to the host: on the card, one transfer
-        per dtype, the columns packed side by side on the device first."""
-        out: dict[str, np.ndarray] = {}
+    def _start_fetch(self, env: dict, n: int):
+        """Enqueue the chunk's outputs' copy to the host: on the card one
+        transfer per dtype, the columns packed side by side with one
+        ``torch.cat``, into pinned memory without blocking, then an event.
+        Returns the in-flight handle that :meth:`fetch` completes."""
+        ready: dict = {}
         groups: dict = {}
         for k in self._out_keys():
             v = env[k]
-            if not isinstance(v, torch.Tensor):
-                out[k] = np.asarray(v)
-            elif v.ndim == 0 or v.shape[0] != n or self.device.type == "cpu":
-                out[k] = v.cpu().numpy()
+            if not isinstance(v, torch.Tensor) or self.device.type == "cpu":
+                ready[k] = v
+            elif v.ndim == 0 or v.shape[0] != n:
+                ready[k] = _to_pinned(v)
             else:
                 groups.setdefault(v.dtype, []).append((k, v))
-        for items in groups.values():
-            host = torch.cat([v.reshape(n, -1) for _, v in items], dim=1)
-            host = host.cpu().numpy()
-            c0 = 0
-            for k, v in items:
-                c1 = c0 + int(np.prod(v.shape[1:], dtype=np.int64))
-                out[k] = host[:, c0:c1].reshape(v.shape)
-                c0 = c1
-        return out
+        packed = [
+            (_to_pinned(torch.cat([v.reshape(n, -1) for _, v in items], dim=1)),
+             [(k, tuple(v.shape)) for k, v in items])
+            for items in groups.values()
+        ]
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return ready, packed, event
 
     def _gather_inputs(self, start: int, stop: int):
         inputs: dict[str, np.ndarray] = {}
@@ -2844,24 +2875,7 @@ class ProcessingChain:
             inputs = {k: v[:n] for k, v in inputs.items()}
         return inputs, n
 
-    def execute(self, start: int = 0, stop: int = None) -> None:
-        """Run the chain over rows ``[start, stop)`` of the linked buffers."""
-        if stop is None:
-            stop = self._buffer_len
-        try:
-            inputs, n = self._gather_inputs(start, stop)
-        except EndExecute:
-            return
-        if n <= 0:
-            return
-        t0 = time.time()
-        env = self._run_steps(self._to_device(inputs))
-        results = self._fetch_outputs(env, n)
-        self.time_total += time.time() - t0
-        for man in self._output_managers.values():
-            man.write(results, start, start + n)
-
-    def __call__(self, tb_in: lgdo.Table, out: lgdo.Table = None) -> lgdo.Table:
+    def _link_inputs(self, tb_in) -> None:
         # only grow the nominal buffer length: the output buffers are sized
         # for the longest chunk seen
         if self._buffer_len is None or self._buffer_len < len(tb_in):
@@ -2870,6 +2884,142 @@ class ProcessingChain:
             if varname not in tb_in:
                 raise ProcessingChainError(f"Require column {varname} in tb_in")
             self.link_input_buffer(varname, tb_in[varname])
+
+    def stage_inputs(self, tb_in):
+        """Link ``tb_in``, gather it and start its host -> device copy on
+        the copy stream (:meth:`_stage`).
+
+        Returns an opaque ``(tensors, event, n)`` handle for
+        :meth:`dispatch`, ``execute(staged=...)`` or ``__call__(...,
+        staged=...)``, or ``None`` at the end of input. On a worker thread
+        this overlaps chunk ``i+1``'s upload with chunk ``i``'s steps. A
+        short chunk runs at its own length: no padding.
+        """
+        self._link_inputs(tb_in)
+        try:
+            inputs, n = self._gather_inputs(0, self._buffer_len)
+        except EndExecute:
+            return None
+        if n <= 0:
+            return None
+        return (*self._stage(inputs), n)
+
+    def dispatch(self, staged):
+        """Enqueue one staged chunk and return an in-flight handle: the
+        compute stream waits on the staging copy's event (each staged
+        tensor is recorded on it, so that the allocator does not hand its
+        memory back to the copy stream early), then the steps, then the
+        outputs' copy to the host (:meth:`_start_fetch`). :meth:`fetch`
+        blocks on that copy, so a driver can overlap chunk ``i``'s fetch
+        and write with chunk ``i+1``'s steps (the production pipeline in
+        :func:`~dspeed_tpu_torch.build_dsp.build_dsp`)."""
+        tensors, event, n = staged
+        if event is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(event)
+            for t in tensors.values():
+                t.record_stream(compute)
+        return self._start_fetch(self._run_steps(dict(tensors)), n)
+
+    def fetch(self, pending) -> dict:
+        """Complete a :meth:`dispatch` handle: wait for its copy, unpack
+        each dtype group into per-output host arrays. Thread-safe: touches
+        no chain state beyond the handle."""
+        ready, packed, event = pending
+        if event is not None:
+            event.synchronize()
+        out = {
+            k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in ready.items()
+        }
+        for host, items in packed:
+            host = host.numpy()
+            c0 = 0
+            for k, shape in items:
+                c1 = c0 + int(np.prod(shape[1:], dtype=np.int64))
+                out[k] = host[:, c0:c1].reshape(shape)
+                c0 = c1
+        return out
+
+    def _run_device(self, staged) -> dict:
+        """Run and fetch one staged chunk synchronously."""
+        t0 = time.time()
+        out = self.fetch(self.dispatch(staged))
+        self.time_total += time.time() - t0
+        return out
+
+    def dispatch_chunk(self, tb_in, staged=None):
+        """Link ``tb_in``'s columns, stage (unless ``staged``) and dispatch:
+        no output link, no fetch. Returns ``(pending, n)`` (``None, 0`` at
+        the end of input). Pair with :meth:`finish_chunk`, which a writer
+        thread may run while this thread dispatches the next chunk."""
+        if staged is None:
+            staged = self.stage_inputs(tb_in)
+            if staged is None:
+                return None, 0
+        return self.dispatch(staged), staged[2]
+
+    def finish_chunk(self, pending, n: int) -> None:
+        """Fetch a dispatched chunk and write it through the output managers
+        into their linked buffers."""
+        t0 = time.time()
+        results = self.fetch(pending)
+        for man in self._output_managers.values():
+            man.write(results, 0, n)
+        self.time_total += time.time() - t0
+
+    def execute(self, start: int = 0, stop: int = None, staged=None) -> None:
+        """Run the chain over rows ``[start, stop)`` of the linked buffers;
+        ``staged``, a :meth:`stage_inputs` handle, stands for rows ``[0,
+        n)`` already on their way to the device."""
+        if staged is None:
+            if stop is None:
+                stop = self._buffer_len
+            try:
+                inputs, n = self._gather_inputs(start, stop)
+            except EndExecute:
+                return
+            if n <= 0:
+                return
+            staged = (*self._stage(inputs), n)
+        else:
+            start = 0
+        results = self._run_device(staged)
+        for man in self._output_managers.values():
+            man.write(results, start, start + staged[2])
+
+    def execute_profiled(self, start: int = 0, stop: int = None) -> None:
+        """:meth:`execute`, each step's wall time (the device synchronized
+        after it) summed into its ``time_total`` for :meth:`get_timing`."""
+        if stop is None:
+            stop = self._buffer_len
+        try:
+            inputs, n = self._gather_inputs(start, stop)
+        except EndExecute:
+            return
+        if n <= 0:
+            return
+        try:
+            env = self._run_steps(self._to_device(inputs), profile=True)
+        except DSPFatal as e:
+            e.wf_range = (start, stop)
+            raise
+        results = self.fetch(self._start_fetch(env, n))
+        for man in self._output_managers.values():
+            man.write(results, start, start + n)
+
+    def get_timing(self) -> dict[str, float]:
+        """Per-step cumulative wall time, filled by :meth:`execute_profiled`
+        (the chunk's total is ``self.time_total``)."""
+        return {str(step): step.time_total for step in self._steps}
+
+    def __call__(
+        self, tb_in: lgdo.Table, out: lgdo.Table = None, staged=None
+    ) -> lgdo.Table:
+        if staged is None:
+            self._link_inputs(tb_in)
+        elif self._buffer_len is None or self._buffer_len < len(tb_in):
+            self._buffer_len = len(tb_in)
         if out is None:
             out = lgdo.Table(
                 {
@@ -2883,7 +3033,7 @@ class ProcessingChain:
                 if varname not in out:
                     raise ProcessingChainError(f"Require column {varname} in out")
                 self.link_output_buffer(varname, out[varname])
-        self.execute()
+        self.execute(staged=staged)
         return out
 
     def __str__(self) -> str:
@@ -3422,6 +3572,36 @@ class ProcessingChain:
         "loadlh5": _loadlh5,
     }
     module_list = {"np": np, "numpy": np}
+
+
+@functools.cache
+def _copy_stream(index: int) -> torch.cuda.Stream:
+    """The stream the input copies to card ``index`` run on, one for the
+    process: the device memory they allocate stays in one stream's pool,
+    which the next chain's copies reuse."""
+    return torch.cuda.Stream(index)
+
+
+def _host_tensor(v) -> torch.Tensor:
+    """One gathered input as a C-contiguous host tensor of its device
+    dtype."""
+    v = np.asarray(v)
+    want = _NP_FROM_TORCH[_device_dtype(v.dtype)]
+    if v.dtype != want:
+        v = v.astype(want)
+    if not (v.flags.c_contiguous and v.flags.writeable):
+        v = np.array(v, order="C")
+    return torch.from_numpy(v)
+
+
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """Enqueue a copy of the device tensor ``t`` into new pinned host memory
+    on the current stream, without blocking. The caching host allocator
+    hands that memory out again only once the copy has ended and the
+    returned tensor is gone."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 def _py_round(val, to_nearest, mode: str):

@@ -28,7 +28,10 @@ import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_build_dsp import DB_FLAT, make_hpge_waveforms  # noqa: E402
-from torch_flagship import flagship_config  # noqa: E402
+from torch_flagship import (  # noqa: E402
+    assert_timing_columns as _assert_timing_columns,
+    flagship_config,
+)
 
 import torch  # noqa: E402
 
@@ -41,6 +44,19 @@ from dspeed_tpu_torch.processing_chain import (  # noqa: E402
     build_processing_chain as torch_build_chain,
 )
 from dspeed_tpu_torch.processors import convolutions as tconv  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def fresh_chain_cache():
+    """Each test builds its own chains: one that another test cached (with
+    other fusion passes or settings patched in) must not serve it."""
+    from dspeed_tpu_torch import build_dsp
+
+    cache = sys.modules[build_dsp.__module__]._CHAIN_CACHE
+    cache.clear()
+    yield
+    cache.clear()
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "hpge-energy-timing.yaml")
@@ -55,9 +71,6 @@ REL = 1e-5
 AOE = ("A_max", "tp_aoe_max", "tp_aoe_samp")
 CASCADE = ["tp_100", "tp_99", "tp_95", "tp_90", "tp_80", "tp_50", "tp_20",
            "tp_10", "tp_01"]
-# columns that read tp_0_est (directly, through the cascade, or through the
-# A/E current's window)
-READS_TP0 = ("trapEftp", "QDrift", "dt_eff", "tp_0_atrap", *CASCADE, *AOE)
 # the four columns the banded f32 convolution decides, and the bound of
 # their summation-order gap to the golden (twice the measured 9.6e-7)
 CONV_COLUMNS = ("cuspEmax", "cuspEftp", "zacEmax", "zacEftp")
@@ -107,32 +120,6 @@ def _table(lh5, wf, bl):
 
 def _columns(out, outputs=ENERGY_OUTPUTS) -> dict:
     return {k: np.asarray(out[k].nda) for k in outputs}
-
-
-def _assert_timing_columns(got: dict, want: dict) -> int:
-    """The column rule of the timing configuration (module docstring);
-    returns the number of excused events."""
-    assert set(got) == set(want)
-    g0 = np.asarray(got["tp_0_est"], np.float64)
-    w0 = np.asarray(want["tp_0_est"], np.float64)
-    moved = np.isfinite(g0) & np.isfinite(w0) & (g0 != w0)
-    assert (np.abs(g0 - w0)[moved] == 16.0).all(), "tp_0_est moved > 1 sample"
-    if moved.any():
-        print(f"tp_0_est moved one sample on events {np.flatnonzero(moved)}")
-    for k in got:
-        g, w = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
-        assert g.shape == w.shape, k
-        if k in READS_TP0:
-            g, w = g[~moved], w[~moved]
-        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=f"{k}: NaN")
-        ok = ~np.isnan(w)
-        if k.startswith("tp_"):
-            np.testing.assert_array_equal(g[ok], w[ok], err_msg=k)
-            continue
-        err = np.abs(g[ok] - w[ok]).max()
-        scale = np.abs(w[ok]).max()
-        assert err <= REL * scale, f"{k}: {err:.3e} > {REL:g} * {scale:.3e}"
-    return int(moved.sum())
 
 
 def _assert_columns(got: dict, want: dict):

@@ -46,6 +46,19 @@ from dspeed_tpu_torch.processing_chain import (
 )
 from dspeed_tpu_torch.processors import _cuda, _tile_program
 
+
+@pytest.fixture(autouse=True)
+def fresh_chain_cache():
+    """Each test builds its own chains: one that another test cached (with
+    other fusion passes or settings patched in) must not serve it."""
+    from dspeed_tpu_torch import build_dsp
+
+    cache = sys.modules[build_dsp.__module__]._CHAIN_CACHE
+    cache.clear()
+    yield
+    cache.clear()
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "hpge-energy-timing.yaml")
 DB_FLAT = {"pz": {"tau": 27460.5}}

@@ -13,6 +13,19 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True)
+def fresh_chain_cache():
+    """Each test builds its own chains: one that another test cached (with
+    other fusion passes or settings patched in) must not serve it."""
+    from dspeed_tpu_torch import build_dsp
+
+    cache = sys.modules[build_dsp.__module__]._CHAIN_CACHE
+    cache.clear()
+    yield
+    cache.clear()
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "dspeed_tpu_torch")
 SOURCES = sorted(

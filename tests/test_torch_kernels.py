@@ -30,11 +30,26 @@ collects:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from dspeed_tpu_torch.processors import _cuda
+
+
+@pytest.fixture(autouse=True)
+def fresh_chain_cache():
+    """Each test builds its own chains: one that another test cached (with
+    other fusion passes or settings patched in) must not serve it."""
+    from dspeed_tpu_torch import build_dsp
+
+    cache = sys.modules[build_dsp.__module__]._CHAIN_CACHE
+    cache.clear()
+    yield
+    cache.clear()
+
 
 TAU = 27460.5
 REL = 1e-5
@@ -1381,6 +1396,47 @@ def test_fused_current_poly_kernel_unread_infinite_tail_on_the_card(need, cuda_d
     for q in range(4):
         assert (np.isnan(got[q]) == bad).all(), q
         assert (np.isnan(plain[q]) == bad).all(), q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["K5", "K6"])
+@pytest.mark.parametrize(
+    "need", [(True,) * 4, (False, True, False, True)], ids=["all", "max_side"]
+)
+def test_fused_current_no_stage_infinite_rows_on_the_card(route, need, cuda_device):
+    """With no moving-window stage (num = 0) the curve is the upsampled row
+    itself: an infinity it reads is the extremum, as the plain composition
+    gives it, and only a NaN poisons a row. K5 (the route ``fused_current``
+    takes, since the polyphase plan holds) and K6 called directly, on
+    ``chip_smoke.with_infinite_rows``' five rows, by
+    ``chip_smoke.check_current``'s rule."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    from dspeed_tpu_torch.processors._poly_plan import poly_plan
+
+    g = (16, 8, 4784, 48, 0, 0)
+    assert poly_plan(300, *g) is not None
+    c = chip_smoke.with_infinite_rows(_card_currents(cuda_device, 300, b=64))
+    before = dict(_cuda.LAUNCHES)
+    if route == "K5":
+        got = _cuda.fused_current(c, *g, need=need)
+        assert _cuda.LAUNCHES["fused_current_poly"] == before["fused_current_poly"] + 1
+    else:
+        got = _cuda.fused_current_updomain(c, *g, need=need)
+        assert _cuda.LAUNCHES["fused_current"] == before["fused_current"] + 1
+    want = _cuda.fused_current_plain(c, *g)
+    torch.cuda.synchronize()
+    # rows 30, 32 and 34 hold a +inf (the maximum), 31, 33 and 34 a -inf
+    assert bool((want[3][[30, 32, 34]] == float("inf")).all())
+    assert bool((want[2][[31, 33, 34]] == float("-inf")).all())
+    for q in range(4):
+        if need[q]:
+            assert torch.isnan(got[q]).nonzero().flatten().tolist() == [3], q
+    chip_smoke.check_current(f"{route} no stage", got, want, c, g, 1e-6, need)
 
 
 # K6 at the geometries it serves: the flagship's, called directly, and

@@ -12,6 +12,8 @@ not of each element: a partial sum near zero carries the rounding of the
 larger terms before it.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,19 @@ import dspeed_tpu
 import dspeed_tpu_torch
 from dspeed_tpu_torch._numpy_funcs import NUMPY_FUNCS
 from dspeed_tpu_torch.errors import ProcessingChainError
+
+
+@pytest.fixture(autouse=True)
+def fresh_chain_cache():
+    """Each test builds its own chains: one that another test cached (with
+    other fusion passes or settings patched in) must not serve it."""
+    from dspeed_tpu_torch import build_dsp
+
+    cache = sys.modules[build_dsp.__module__]._CHAIN_CACHE
+    cache.clear()
+    yield
+    cache.clear()
+
 
 # name -> (input args, signature, types[, the output's declaration])
 CASES = {

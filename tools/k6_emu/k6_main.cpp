@@ -3,7 +3,8 @@
 // and writes both kernels' four outputs.
 //
 // The reference is the up-domain kernel as it stood before its register
-// design: load_current's NaN rule, the replication, mw_cascade.cuh's block
+// design: load_current's NaN rule (with no stage, an infinity poisons
+// nothing), the replication, mw_cascade.cuh's block
 // scan and stages over the whole row in shared memory (12 n_up bytes), and
 // block_argext's first-occurrence extrema, over the unchanged headers.
 //
@@ -29,7 +30,9 @@ static bool ref_load_current(const CurrentParams& P, long long row) {
     for (int i = threadIdx.x; i < P.n_curr; i += blockDim.x) {
         const float v = cr[i];
         const int j0 = i * P.ratio - P.half;
-        bad |= isnan(v) | (isinf(v) & (j0 <= P.n_up - 1) & (j0 + P.ratio > 0));
+        // an infinity poisons only where a stage takes prefix differences
+        bad |= isnan(v) | (isinf(v) & (P.num > 0) & (j0 <= P.n_up - 1) &
+                           (j0 + P.ratio > 0));
     }
     return __syncthreads_or(bad) != 0;
 }

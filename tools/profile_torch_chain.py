@@ -4,7 +4,7 @@ card.
 
     python3 tools/profile_torch_chain.py
         [--config flagship|flagship-l128|flagship-generic|timing|energy]
-        [--events 16384] [--repeats 3]
+        [--events 16384] [--repeats 3] [--chunks 4] [--trace PATH]
 
 Runs one of the configurations ``chip_smoke.py`` drives — the flagship
 configuration (``configs/hpge-energy-timing.yaml``, all 34 outputs; the
@@ -15,14 +15,29 @@ configuration (without its three A/E columns, 31 outputs) or the energy
 configuration (its 17 energy and baseline outputs) — through ``dspeed_tpu_torch.build_dsp`` Table ->
 Table on 16384 synthetic 4096-sample events, and prints:
 
-1. the host-clock split of one warm chunk: chain build, input gather, the
-   host -> device copy, the step loop (and each step), the device -> host
-   copy, and the rest of ``build_dsp``; every phase ends in
+1. the first call in the process and the warm calls after it, each with
+   whether it built its chain or took it from the chain cache;
+2. the host-clock split of one warm chunk, a chain-cache hit and then a
+   miss (the cache emptied first): chain build, input gather, the host ->
+   device copy, the step loop (and each step), the device -> host copy,
+   and the rest of ``build_dsp``; every phase ends in
    ``torch.cuda.synchronize()``;
-2. a ``torch.profiler`` table of device time by kernel over one more warm
+3. a ``torch.profiler`` table of device time by kernel over one more warm
    chunk, and the device's busy share of that chunk's wall time (busy =
    the union of the device's kernel and copy intervals);
-3. the host operations that take the most time in the process's first
+4. the production loop (``build_dsp``'s ``_process_chunks``, as
+   ``chip_smoke.run_pipeline`` drives it) over ``--chunks`` chunks of
+   distinct events: its wall and wf/s; the host time of each thread (the
+   read-ahead worker's staging, the main thread's dispatch, the writer's
+   fetch and write), unsynced, which overlap one another and are not parts
+   of the wall; and, in a profiled pass, the device's busy share of the
+   wall and of each chunk;
+5. the staging copy alone: one chunk's waveform plane into a pinned
+   buffer (``torch.Tensor.copy_``, as ``ProcessingChain._stage`` makes it)
+   on the main thread, on a worker thread, and on a worker while the main
+   thread dispatches a chunk; and the plane's copy straight from pageable
+   memory to the card (``.to("cuda")``), for comparison;
+6. the host operations that take the most time in the process's first
    ``build_dsp`` call (profiled, so slower than unprofiled).
 
 With ``--trace PATH`` the profiler's Chrome trace is written there. Needs
@@ -36,6 +51,7 @@ import importlib
 import json
 import os
 import sys
+import threading
 import time
 from collections import defaultdict
 
@@ -87,6 +103,8 @@ def main() -> int:
                              "timing", "energy"))
     ap.add_argument("--events", type=int, default=16384)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--chunks", type=int, default=4,
+                    help="chunks of --events through the production loop")
     ap.add_argument("--trace", help="write the Chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -94,8 +112,8 @@ def main() -> int:
         return 2
 
     from chip_smoke import (
-        TAU, card_line, config, energy_config, l128_config, make_hpge_waveforms,
-        timing_config,
+        TAU, card_line, config, counted_builds, distinct_chunks, energy_config,
+        l128_config, make_hpge_waveforms, run_pipeline, timing_config,
     )
     from dspeed_tpu_torch import build_dsp, lh5
     from dspeed_tpu_torch import processing_chain as pc
@@ -129,54 +147,72 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def run_counted():
+        with counted_builds(build_dsp) as builds:
+            wall = run()
+        return wall, "miss" if builds.n else "hit"
+
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as first:
-        cold = run()
-    walls = [run() for _ in range(args.repeats)]
+        cold, cold_cache = run_counted()
+    walls = [run_counted() for _ in range(args.repeats)]
     print(f"build_dsp Table -> Table, {args.config} configuration "
-          f"({len(cfg['outputs'])} columns), {args.events} events: cold {cold * 1e3:.3f} ms, "
-          f"warm {[round(w * 1e3, 3) for w in walls]} ms on {card}", flush=True)
+          f"({len(cfg['outputs'])} columns), {args.events} events: cold "
+          f"{cold * 1e3:.3f} ms (chain cache {cold_cache}), warm "
+          f"{[round(w * 1e3, 3) for w, _ in walls]} ms (chain cache "
+          f"{[c for _, c in walls]}) on {card}", flush=True)
 
-    # 1. host-clock split of one warm chunk
-    totals: dict = defaultdict(float)
+    # 1. host-clock split of one warm chunk: a chain-cache hit, then a miss
+    # (the cache emptied first; not the process's first call)
     chain_cls = pc.ProcessingChain
     patches = {
         (bd_mod, "build_processing_chain"): "chain build",
         (chain_cls, "_gather_inputs"): "input gather",
-        (chain_cls, "_to_device"): "host -> device",
+        (chain_cls, "_stage"): "host -> device",
         (chain_cls, "_run_steps"): "step loop",
-        (chain_cls, "_fetch_outputs"): "device -> host",
+        (chain_cls, "_start_fetch"): "device -> host",
+        (chain_cls, "fetch"): "device -> host",
     }
-    saved = {k: getattr(*k) for k in patches}
-    steps: dict = defaultdict(float)
-    step_run = {}
-    for cls in {type(s) for s in _steps_of(cfg, tb, kw)}:
-        step_run[cls] = cls.run
+    step_classes = {type(s) for s in _steps_of(cfg, tb, kw)}
 
-        def timed_run(self, env, _orig=cls.run):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _orig(self, env)
-            torch.cuda.synchronize()
-            steps[str(self).split("(")[0][:40]] += time.perf_counter() - t0
+    def synced_split(label):
+        totals: dict = defaultdict(float)
+        saved = {k: getattr(*k) for k in patches}
+        steps: dict = defaultdict(float)
+        step_run = {}
+        for cls in step_classes:
+            step_run[cls] = cls.run
 
-        cls.run = timed_run
-    try:
-        for (obj, name), key in patches.items():
-            setattr(obj, name, _timed(saved[(obj, name)], totals, key))
-        wall = run()
-    finally:
-        for (obj, name), fn in saved.items():
-            setattr(obj, name, fn)
-        for cls, fn in step_run.items():
-            cls.run = fn
-    split = {k: round(v * 1e3, 3) for k, v in totals.items()}
-    split["rest of build_dsp"] = round((wall - sum(totals.values())) * 1e3, 3)
-    print(f"host-clock split of one chunk ({wall * 1e3:.3f} ms with a sync "
-          f"after every phase): {json.dumps(split)}", flush=True)
-    print("step loop by step (ms, sync after each): "
-          + json.dumps({k: round(v * 1e3, 3) for k, v in steps.items()}), flush=True)
+            def timed_run(self, env, _orig=cls.run):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _orig(self, env)
+                torch.cuda.synchronize()
+                steps[str(self).split("(")[0][:40]] += time.perf_counter() - t0
+
+            cls.run = timed_run
+        try:
+            for (obj, name), key in patches.items():
+                setattr(obj, name, _timed(saved[(obj, name)], totals, key))
+            wall = run()
+        finally:
+            for (obj, name), fn in saved.items():
+                setattr(obj, name, fn)
+            for cls, fn in step_run.items():
+                cls.run = fn
+        split = {k: round(v * 1e3, 3) for k, v in totals.items()}
+        split["rest of build_dsp"] = round((wall - sum(totals.values())) * 1e3, 3)
+        print(f"host-clock split of one chunk, chain cache {label} "
+              f"({wall * 1e3:.3f} ms with a sync after every phase): "
+              f"{json.dumps(split)}", flush=True)
+        print(f"step loop by step, chain cache {label} (ms, sync after each): "
+              + json.dumps({k: round(v * 1e3, 3) for k, v in steps.items()}),
+              flush=True)
+
+    synced_split("hit")
+    bd_mod._CHAIN_CACHE.clear()
+    synced_split("miss")
 
     # 2. device time by kernel over one more warm chunk
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -188,7 +224,95 @@ def main() -> int:
           f"({100 * busy / (wall * 1e3):.1f}% busy, "
           f"{100 - 100 * busy / (wall * 1e3):.1f}% idle)", flush=True)
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
-    # 3. where the first call's host time goes
+
+    # 4. the production loop over chunks of distinct events
+    tables = distinct_chunks(lh5, wf, bl, args.chunks)
+    total = args.events * args.chunks
+    chain, _, tb_out = pc.build_processing_chain(
+        cfg, tables[0], db_dict=kw["database"], device="cuda", fuse=fuse
+    )
+    run_pipeline(build_dsp, chain, tb_out, tables[:1])  # warm the chain
+    threads: dict = defaultdict(float)
+    loop_patches = {
+        (chain_cls, "stage_inputs"): "staging",
+        (chain_cls, "dispatch"): "dispatch",
+        (chain_cls, "finish_chunk"): "fetch + output managers",
+    }
+    saved = {k: getattr(*k) for k in loop_patches}
+
+    def on_thread(fn, key):
+        def wrap(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            name = threading.current_thread().name.split("_")[0]
+            threads[f"{key} [{name}]"] += time.perf_counter() - t0
+            return out
+
+        return wrap
+
+    try:
+        for (obj, name), key in loop_patches.items():
+            setattr(obj, name, on_thread(saved[(obj, name)], key))
+        torch.cuda.synchronize()
+        _, split, wall = run_pipeline(build_dsp, chain, tb_out, tables)
+        torch.cuda.synchronize()
+    finally:
+        for (obj, name), fn in saved.items():
+            setattr(obj, name, fn)
+    print(f"production loop, {args.chunks} chunks x {args.events} events: wall "
+          f"{wall * 1e3:.3f} ms ({total / wall:.0f} wf/s, {wall * 1e3 / args.chunks:.3f} "
+          f"ms a chunk); _process_chunks split (s) {json.dumps(split)}", flush=True)
+    print("host time by thread, unsynced, overlapped (ms; not parts of the wall): "
+          + json.dumps({k: round(v * 1e3, 3) for k, v in sorted(threads.items())}),
+          flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as lprof:
+        torch.cuda.synchronize()
+        _, _, lwall = run_pipeline(build_dsp, chain, tb_out, tables)
+        torch.cuda.synchronize()
+    lbusy = _busy_ms(lprof.events())
+    print(f"profiled production loop: wall {lwall * 1e3:.3f} ms, device busy "
+          f"{lbusy:.3f} ms ({100 * lbusy / (lwall * 1e3):.1f}% busy; a chunk: wall "
+          f"{lwall * 1e3 / args.chunks:.3f} ms, busy {lbusy / args.chunks:.3f} ms)",
+          flush=True)
+
+    # 5. the staging copy alone
+    from concurrent.futures import ThreadPoolExecutor
+
+    plane = torch.from_numpy(wf)
+    pinned = torch.empty(plane.shape, dtype=plane.dtype, pin_memory=True)
+
+    def copy_ms():
+        t0 = time.perf_counter()
+        pinned.copy_(plane)
+        return (time.perf_counter() - t0) * 1e3
+
+    def pageable_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plane.to("cuda")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    copy_ms()
+    main_ms = [round(copy_ms(), 3) for _ in range(3)]
+    with ThreadPoolExecutor(1) as ex:
+        worker_ms = [round(ex.submit(copy_ms).result(), 3) for _ in range(3)]
+        busy_ms = []
+        for _ in range(3):
+            staged = chain.stage_inputs(tables[0])
+            fut = ex.submit(copy_ms)
+            chain.fetch(chain.dispatch(staged))
+            busy_ms.append(round(fut.result(), 3))
+    paged = [round(pageable_ms(), 3) for _ in range(3)]
+    mb = plane.numel() * plane.element_size() / 1e6
+    print(f"staging copy of one {tuple(plane.shape)} float32 plane ({mb:.0f} MB) "
+          f"into pinned memory, ms: main thread {main_ms}, worker thread "
+          f"{worker_ms}, worker while the main thread dispatches a chunk "
+          f"{busy_ms}; pageable -> card .to('cuda') {paged}; "
+          f"torch.get_num_threads() {torch.get_num_threads()}, "
+          f"os.cpu_count() {os.cpu_count()}", flush=True)
+
+    # 6. where the first call's host time goes
     print(f"first call in the process (profiled): {cold * 1e3:.3f} ms; host "
           "operations by self CPU time:")
     print(first.key_averages().table(sort_by="self_cpu_time_total", row_limit=12))
