@@ -6,7 +6,8 @@
 Builds the port's hand-written CUDA kernels from ``dspeed_tpu_torch/csrc``
 (K1 energy front, K2 rise-time cascade, K3 t0 front with its absorbed A/E
 current, K4 convolution bank, K5 and K6 the A/E current front's polyphase
-and up-domain routes, K7 the generic fusion groups' row-tape interpreter),
+and up-domain routes, K7 the generic fusion groups' row-tape interpreter,
+and the SiPM peak finder's sweep, which replaces a ``lax.scan``),
 holds each against its plain PyTorch version on the card at the main
 path's shapes (16384 events x 4096 samples, the 16384 x 300 current, and
 the generic flagship's two groups, NaN rows included), times kernel, plain
@@ -30,6 +31,12 @@ distinct events through ``build_dsp``'s production loop (read-ahead,
 staging on the copy stream, write-behind), every output of every chunk
 held bit for bit against the synchronous call of the same chain, with the
 host waits one pipelined chunk makes; and ``buffer_len="auto"``'s pick.
+Then the **SiPM path** (``configs/sipm-pulse-finding.yaml``, 16384 events x
+1024 samples, VectorOfVectors outputs): K7 on its group and the sweep on
+its current, each bit for bit against its plain version, ``build_dsp``
+twice (a chain-cache hit) with the pulse count held against the JAX
+package's, the first 256 events against the port's CPU run, and two chunks
+through the production loop against the synchronous calls.
 
 Prints the card's name and power limit, one JSON line of kernel figures
 (``{"kernels": [...]}``), and as the last line
@@ -99,6 +106,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_F64_S = 34e12
 DEVICE = "cuda"
+SIPM_CONFIG = os.path.join(REPO, "configs", "sipm-pulse-finding.yaml")
+SIPM_SAMPLES = 1024  # the SiPM chain's record length (bench.py:73)
+FULL_SLOT_ROW, NAN_FWHM_ROW = 3, 4  # rows the SiPM sweep's checks set apart
 
 
 def make_hpge_waveforms(n, nsamp=N_SAMPLES, seed=11, dt=16.0):
@@ -121,6 +131,44 @@ def make_hpge_waveforms(n, nsamp=N_SAMPLES, seed=11, dt=16.0):
     wf = bl[:, None] + amp[:, None] * rise * decay
     wf += rng.normal(0, 3, (n, nsamp))
     return wf.astype("float32"), amp, t0, bl, rt
+
+
+def make_sipm_waveforms(n, nsamp=SIPM_SAMPLES, seed=3):
+    """Synthetic SiPM events: unit noise plus Poisson(2) fast pulses of
+    amplitude U(20, 200) (the generator ``_build_sipm_inputs`` of
+    ``bench.py``). Returns ``(wf, n_pulses)``."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(nsamp)[None, :]
+    wf = rng.normal(0.0, 1.0, (n, nsamp))
+    n_pulse = rng.poisson(2.0, n)
+    for i in range(n):
+        for t0 in rng.uniform(50, nsamp - 50, n_pulse[i]):
+            a = rng.uniform(20, 200)
+            wf[i] += a * np.exp(-np.abs(t[0] - t0) / np.where(t[0] > t0, 80, 3))
+    return wf.astype("float32"), n_pulse
+
+
+def sipm_edge_rows(wf):
+    """``wf`` with its first rows made into the SiPM group's edge cases: a
+    NaN sample (row 0), an infinite sample (row 1), the row's maximum and
+    minimum in the samples the reflected pad copies (row 2: samples 1 and
+    n - 2), and a sine of period 40 samples (row ``FULL_SLOT_ROW``: more
+    maxima than the peak finder's 20 slots)."""
+    wf = wf.copy()
+    wf[0, 300] = np.nan
+    wf[1, 700] = np.inf
+    hi, lo = np.abs(wf[2]).max() + 50, -np.abs(wf[2]).max() - 50
+    wf[2, 1], wf[2, -2] = hi, lo
+    i = np.arange(wf.shape[1])
+    wf[FULL_SLOT_ROW] += (100 * np.sin(2 * np.pi * i / 40)).astype(np.float32)
+    return wf
+
+
+def sipm_config() -> dict:
+    import yaml
+
+    with open(SIPM_CONFIG) as f:
+        return yaml.safe_load(f)
 
 
 def config(outputs=None) -> dict:
@@ -173,20 +221,19 @@ class Chunks:
 
 
 def distinct_chunks(lh5, wf, bl, n_chunks, offset=1237):
-    """``n_chunks`` tables of all the events of ``wf`` and ``bl``, chunk k
+    """``n_chunks`` tables of all the events of ``wf`` and ``bl`` (no
+    baseline column where ``bl`` is None), chunk k
     rolled by ``k * offset`` rows: no two chunks hold the same event at the
     same row, so a chunk written at the wrong place, or a pinned staging
     buffer refilled too early, shows in the outputs."""
     tables = []
     for k in range(n_chunks):
         w = np.ascontiguousarray(np.roll(wf, -k * offset, axis=0))
-        b = np.roll(bl, -k * offset).astype(np.float32)
-        tables.append(lh5.Table({
-            "waveform": lh5.WaveformTable(
-                values=w, t0=0.0, t0_units="ns", dt=DT, dt_units="ns"
-            ),
-            "baseline": lh5.Array(b),
-        }))
+        cols = {"waveform": lh5.WaveformTable(
+            values=w, t0=0.0, t0_units="ns", dt=DT, dt_units="ns")}
+        if bl is not None:
+            cols["baseline"] = lh5.Array(np.roll(bl, -k * offset).astype(np.float32))
+        tables.append(lh5.Table(cols))
     return tables
 
 
@@ -201,7 +248,7 @@ def run_pipeline(build_dsp, chain, tb_out, tables):
     got = {}
 
     def write(n, i_entry):
-        got[i_entry] = {k: np.array(tb_out[k].nda[:n]) for k, _ in tb_out.items()}
+        got[i_entry] = {k: column_arrays(col, n) for k, col in tb_out.items()}
 
     t_0 = time.time()
     split = driver._process_chunks(chain, Chunks(tables), write, read_ahead=True)
@@ -1146,7 +1193,11 @@ def generic_bound(program, B) -> tuple[float, str]:
     written once; the operations its ops need per row (a convolution's
     multiply-adds in float32; float64 prefix sums, window sums, pole-zero
     products, slope-fit sums and moving-window stages; a comparison per
-    sample for each reduction)."""
+    sample for each reduction; the reflected convolution's products and
+    sums and the current's difference and division, in the output's
+    type)."""
+    import torch
+
     from dspeed_tpu_torch.processors._tile_program import OPCODES
 
     slots = program.slots
@@ -1161,7 +1212,7 @@ def generic_bound(program, B) -> tuple[float, str]:
             nbytes += s.dtype.itemsize
     for sid in program.esc_roots:
         s = slots[sid]
-        nbytes += 4 * s.length if s.kind == "plane" else s.dtype.itemsize
+        nbytes += s.dtype.itemsize * (s.length if s.kind == "plane" else 1)
     f32 = f64 = 0
     for op in program.ops:
         n = slots[op.ins[0]].length if op.ins and not isinstance(op.ins[0], tuple) else 0
@@ -1180,6 +1231,13 @@ def generic_bound(program, B) -> tuple[float, str]:
             f32 += 2 * n
         elif op.code == OPCODES["amax"]:
             f32 += n
+        elif op.code in (OPCODES["reflected_conv"], OPCODES["avg_current"]):
+            p = slots[op.outs[0]].length
+            ops = 2 * (op.ip[1] if op.code == OPCODES["reflected_conv"] else 1) * p
+            if slots[op.outs[0]].dtype == torch.float64:
+                f64 += ops
+            else:
+                f32 += ops
     t_bytes = B * nbytes / PEAK_BYTES_S * 1e3
     t_ops = B * (f32 / PEAK_F32_S + f64 / PEAK_F64_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -1288,6 +1346,324 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log):
         group_b_bound_ms=b["bound"], group_a_launch=a["launch"],
         group_b_launch=b["launch"], ptxas=ptxas,
     )
+
+
+def sipm_table(lh5, wf):
+    return lh5.Table({"waveform": lh5.WaveformTable(
+        values=wf, t0=0.0, t0_units="ns", dt=DT, dt_units="ns")})
+
+
+def same_bits(a, b) -> bool:
+    """Equal values, NaN where NaN, of equal shape and type (two tensors)."""
+    import torch
+
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()))
+
+
+def sipm_k7_phase(build_processing_chain, lh5, _cuda, wf, dev):
+    """K7 on the SiPM chain's group (``reflected_convolve_wf`` and
+    ``avg_current``, float64 from the smoothed waveform on), lowered from
+    the chain the port builds on the CPU over ``wf`` (``sipm_edge_rows``:
+    a NaN row, a row with an infinite sample, a row whose reflected edges
+    hold its extremes). Every key the group writes, on every row, must
+    equal the tape's plain walk bit for bit; the chain's own launch (its
+    escape ``curr``) is timed against the plain walk, through the wrapper
+    and on the device alone. Returns the figures and ``curr``."""
+    from dspeed_tpu_torch.processing_chain import GroupStep
+    from dspeed_tpu_torch.processors._tile_program import lower
+
+    chain, _, _ = build_processing_chain(sipm_config(), sipm_table(lh5, wf),
+                                         device="cpu")
+    groups = [s for s in chain._steps if isinstance(s, GroupStep)]
+    kinds = [[m.kernel.__name__ for m in g.members] for g in groups]
+    if kinds != [["reflected_convolve_wf", "avg_current"]]:
+        raise AssertionError(f"SiPM generic groups {kinds}")
+    (step,) = groups
+    inputs, B = chain._gather_inputs(0, len(wf))
+    env = {k: v.to(dev) for k, v in chain._to_device(inputs).items()}
+    vals = {k: env[k] for k in step.ext_in}
+    prog = lower(step.members, vals, step.escapes)
+    every = sorted(s.key for s in prog.slots if not s.ext)
+    full = lower(step.members, vals, every)
+    got = _cuda.generic_rows(full, vals)
+    want = _cuda.generic_rows_plain(full, vals)
+    for k in every:
+        if not same_bits(got[k], want[k]):
+            raise AssertionError(f"K7 SiPM {k}: not the plain walk's bits")
+    outs = _cuda.generic_rows(prog, vals)
+    (curr_key,) = step.escapes
+    if not same_bits(outs[curr_key], got[curr_key]):
+        raise AssertionError("K7 SiPM: the chain's launch differs")
+    ms = time_ms(lambda: _cuda.generic_rows(prog, vals), 20)
+    dev_ms = device_ms(lambda: _cuda.generic_rows(prog, vals))
+    plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, vals), 5, 1)
+    bound, by = generic_bound(prog, B)
+    launch = _cuda.generic_rows_launch(prog)
+    print(
+        f"K7 generic_rows [SiPM group: {len(step.members)} members, "
+        f"{len(prog.ops)} ops, {sum(op.plan for op in prog.ops)} planned "
+        f"barriers, {prog.smem_bytes} B of shared memory, planes "
+        f"{[str(s.dtype).split('.')[-1] for s in prog.slots if s.kind == 'plane']}] "
+        f"{B} rows x {wf.shape[1]} samples (a NaN row, an infinite sample, "
+        f"extremes in the reflected edges): every key it writes equal to the "
+        f"plain walk bit for bit on every row; kernel {ms:.4f} ms ({dev_ms:.4f} "
+        f"ms on the device alone), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({by}), {bound / ms:.1%} of the bound ({bound / dev_ms:.1%} on the "
+        f"device alone); launch: {launch['threads']} threads and "
+        f"{launch['smem_bytes']} + {launch['static_smem_bytes']} B of shared "
+        f"memory a block, {launch['blocks_per_sm']} blocks per SM, "
+        f"{launch['registers']} registers and {launch['local_bytes']} local "
+        f"bytes a thread; on {card_line()}",
+        flush=True,
+    )
+    figs = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, bound_share=bound / ms,
+                device_bound_share=bound / dev_ms, launch=launch,
+                max_abs_err=0.0)
+    return figs, outs[curr_key]
+
+
+SIPM_DMAX, SIPM_DMIN, SIPM_SLOTS = 5.0, 0.1, 20  # the config's peak finder
+
+
+def sipm_amax(curr):
+    """``3 * fwhm`` of ``curr`` as the SiPM chain computes it: the port's
+    own ``histogram`` (100 bins) and ``histogram_stats``."""
+    from dspeed_tpu_torch.processors import histogram, histogram_stats
+
+    hw, hb = histogram(curr, dims={"m": 100, "p": 101})
+    _, _, fwhm = histogram_stats(hw, hb, np.nan)
+    return 3 * fwhm
+
+
+def scan_bound(curr, m_max, m_min) -> float:
+    """The sweep's least time: the row read once, the slots and the two
+    int32 counts written once (bytes; a few comparisons a sample are far
+    below the card's operation rate)."""
+    B, n = curr.shape
+    isz = curr.element_size()
+    nbytes = B * (n * isz + (m_max + m_min) * isz + 2 * 4)
+    return nbytes / PEAK_BYTES_S * 1e3
+
+
+def sipm_scan_phase(_cuda, curr):
+    """The peak finder's sweep (``csrc/peakdet_scan.cu``) on the SiPM
+    group's ``curr`` with the chain's parameters (``dmax`` 5, ``dmin`` 0.1,
+    ``amax`` = 3 fwhm from the port's ``histogram_stats``, ``amin`` 0, 20
+    slots each), one launch a direction: both directions' slots and counts
+    equal to the plain version on every row, rows of NaN fwhm included (one
+    set NaN, ``NAN_FWHM_ROW``, beside those the histogram gives) and a row
+    that fills all 20 slots (``FULL_SLOT_ROW``, its ``amax`` set to 0).
+    Directions 2 and 3 through the processor against the processor on the
+    CPU. Returns the figures."""
+    import torch
+
+    from dspeed_tpu_torch.processors import get_multi_local_extrema
+
+    amax = sipm_amax(curr)
+    natural_nan = int(torch.isnan(amax).sum())
+    amax[FULL_SLOT_ROW] = 0.0
+    amax[NAN_FWHM_ROW] = float("nan")
+    m = SIPM_SLOTS
+    args = (SIPM_DMAX, SIPM_DMIN, amax, 0.0, m, m)
+    for reverse in (False, True):
+        got = _cuda.peakdet_scan(curr, *args, reverse=reverse)
+        want = _cuda.peakdet_scan_plain(curr, *args, reverse=reverse)
+        for name, g, w in zip(("vt_max", "vt_min", "n_max", "n_min"), got, want):
+            if not same_bits(g, w):
+                raise AssertionError(f"peakdet_scan (reverse={reverse}) {name}: "
+                                     f"not the plain version's bits")
+        if int(got[2][FULL_SLOT_ROW]) != m:
+            raise AssertionError(f"peakdet_scan: row {FULL_SLOT_ROW} declared "
+                                 f"{int(got[2][FULL_SLOT_ROW])} maxima, not {m}")
+        nan_rows = torch.isnan(amax)
+        if int(got[2][nan_rows].max()) != 0 or int(got[3][nan_rows].max()) != 0:
+            raise AssertionError("peakdet_scan: a row of NaN amax declared extrema")
+    full_rows = int((got[2] == m).sum())
+    curr_cpu = curr.cpu()
+    for direction in (2, 3):
+        dims = {"m": m, "p": m}
+        pa = (SIPM_DMAX, SIPM_DMIN, direction)
+        g = get_multi_local_extrema(curr, *pa, amax, 0.0, dims=dims)
+        w = get_multi_local_extrema(curr_cpu, *pa, amax.cpu(), 0.0, dims=dims)
+        for q, (a, b) in enumerate(zip(g, w)):
+            if not same_bits(a.cpu(), b):
+                raise AssertionError(f"get_multi_local_extrema direction "
+                                     f"{direction}, output {q}: card and CPU differ")
+    ms = time_ms(lambda: _cuda.peakdet_scan(curr, *args, reverse=True), 20)
+    dev_ms = device_ms(lambda: _cuda.peakdet_scan(curr, *args, reverse=True))
+    plain_ms = time_ms(
+        lambda: _cuda.peakdet_scan_plain(curr, *args, reverse=True), 1, 1)
+    bound = scan_bound(curr, m, m)
+    launch = _cuda.peakdet_scan_launch()
+    B, n = curr.shape
+    print(
+        f"peakdet_scan {B} rows x {n} {str(curr.dtype).split('.')[-1]} samples, "
+        f"{m} + {m} slots: both directions equal to the plain version bit for "
+        f"bit on every row ({natural_nan} rows of NaN fwhm from the histogram, "
+        f"row {NAN_FWHM_ROW} set NaN, {full_rows} rows filling all {m} slots), "
+        f"directions 2 and 3 through the processor equal to the CPU's; kernel "
+        f"{ms:.4f} ms ({dev_ms:.4f} ms on the device alone), plain {plain_ms:.1f} "
+        f"ms, bound {bound:.4f} ms (bytes), {bound / ms:.1%} of the bound "
+        f"({bound / dev_ms:.1%} on the device alone); launch: "
+        f"{launch['threads']} threads a block, {launch['blocks_per_sm']} blocks "
+        f"per SM, {launch['registers']} registers and {launch['local_bytes']} "
+        f"local bytes a thread; on {card_line()}",
+        flush=True,
+    )
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", bound_share=bound / ms,
+                device_bound_share=bound / dev_ms, launch=launch,
+                natural_nan_fwhm_rows=natural_nan)
+
+
+# mean |found - injected| pulse count per event of the JAX package's SiPM
+# chain on make_sipm_waveforms(16384): its build_dsp on the CPU in x64,
+# buffer_len 2048 (2766 miscounted pulses over 16384 events). The port's CPU
+# run gives the same trigger positions on every event, so the margin only
+# allows for a near-tie that the card's float64 sums might move: 0.001 is
+# 16 miscounts more or fewer
+SIPM_PULSE_ERR = 0.1688232421875
+SIPM_PULSE_MARGIN = 0.001
+
+
+def vov_arrays(col, n):
+    """The first ``n`` rows of a ``VectorOfVectors`` column: (cumulative
+    lengths, flattened data)."""
+    cl = np.array(col.cumulative_length.nda[:n])
+    return cl, np.array(col.flattened_data.nda[: int(cl[-1]) if n else 0])
+
+
+def column_arrays(col, n):
+    """A copy of the first ``n`` rows of an output column: an array, or
+    for a ``VectorOfVectors`` its cumulative lengths and flattened data by
+    name."""
+    if hasattr(col, "cumulative_length"):
+        cl, flat = vov_arrays(col, n)
+        return {"cumulative_length": cl, "flattened_data": flat}
+    return np.array(col.nda[:n])
+
+
+def sipm_e2e_phase(build_dsp, lh5, _cuda, wf, n_pulses, card):
+    """The SiPM path: ``build_dsp`` of ``configs/sipm-pulse-finding.yaml``
+    over every event of ``wf`` on the card, Table -> Table (file -> file is
+    tested on the CPU), twice: the second call a chain-cache hit. One chunk:
+    ``generic_rows`` and ``peakdet_scan`` launched once each, no group
+    split. The VoV columns of the first 256 events equal the port's CPU run
+    (cumulative lengths and flattened data); the mean |found - injected|
+    pulse count lies within ``SIPM_PULSE_MARGIN`` of the JAX package's.
+    Returns the launch counts and rates."""
+    import torch
+
+    from dspeed_tpu_torch.processors import _tile_program
+
+    cfg = sipm_config()
+    tb = sipm_table(lh5, wf)
+    n_ev = len(wf)
+    n_cpu = min(256, n_ev)
+
+    def run(dev, n):
+        return build_dsp(tb, dsp_config=cfg, n_entries=n, buffer_len=n, device=dev)
+
+    def timed():
+        torch.cuda.synchronize()
+        t_0 = time.time()
+        out = run(DEVICE, n_ev)
+        torch.cuda.synchronize()
+        return out, time.time() - t_0
+
+    _cuda.reset_launches()
+    _tile_program.reset_splits()
+    out, cold_s = timed()
+    launches = dict(_cuda.LAUNCHES)
+    splits = dict(_tile_program.SPLITS)
+    print(f"build_dsp [SiPM] launches: {launches}; generic-group splits: {splits}",
+          flush=True)
+    with counted_builds(build_dsp) as builds:
+        out2, warm_s = timed()
+    if builds.n:
+        raise AssertionError(f"[SiPM] the second build_dsp call built {builds.n} "
+                             f"chain(s): no chain-cache hit")
+    for name in ("generic_rows", "peakdet_scan"):
+        if launches.get(name, 0) != 1:
+            raise AssertionError(f"[SiPM] {name} launched {launches.get(name, 0)} "
+                                 f"times on one chunk, not once")
+    if splits:
+        raise AssertionError(f"generic groups split on the SiPM path: {splits}")
+    cpu = run("cpu", n_cpu)
+    for k in cfg["outputs"]:
+        a, b = column_arrays(out[k], n_ev), column_arrays(out2[k], n_ev)
+        if any(a[q].tobytes() != b[q].tobytes() for q in a):
+            raise AssertionError(f"[SiPM] {k}: the two calls differ")
+        got, want = column_arrays(out[k], n_cpu), column_arrays(cpu[k], n_cpu)
+        for q in want:
+            if got[q].dtype != want[q].dtype or got[q].tobytes() != want[q].tobytes():
+                raise AssertionError(f"[SiPM] {k} {q}: the first {n_cpu} events "
+                                     f"differ from the port's CPU run")
+    cl, _ = vov_arrays(out["trigger_pos"], n_ev)
+    found = np.diff(cl.astype(np.int64), prepend=0)
+    err = float(np.abs(found - n_pulses).mean())
+    print(f"build_dsp [SiPM] Table -> Table (no h5py here), {n_ev} events x "
+          f"{wf.shape[1]} samples, VoV outputs {cfg['outputs']}: first call "
+          f"{cold_s:.3f} s ({n_ev / cold_s:.0f} wf/s), second call {warm_s:.3f} s "
+          f"({n_ev / warm_s:.0f} wf/s, a chain-cache hit) on {card}; first "
+          f"{n_cpu} events equal to the port's CPU run (cumulative lengths and "
+          f"flattened data); {int(found.sum())} pulses found against "
+          f"{int(n_pulses.sum())} injected, mean |found - injected| {err:.6f} "
+          f"per event (the JAX package: {SIPM_PULSE_ERR})", flush=True)
+    if abs(err - SIPM_PULSE_ERR) > SIPM_PULSE_MARGIN:
+        raise AssertionError(f"[SiPM] mean |found - injected| {err} is not within "
+                             f"{SIPM_PULSE_MARGIN} of the JAX package's "
+                             f"{SIPM_PULSE_ERR}")
+    return dict(launches=launches, first_wfps=n_ev / cold_s,
+                warm_wfps=n_ev / warm_s, pulse_err=err)
+
+
+def sipm_pipeline_phase(build_dsp, build_processing_chain, lh5, _cuda, wf, card):
+    """Two chunks of distinct SiPM events (the second rolled by 1237 rows)
+    through ``build_dsp``'s production loop: every VoV output of every
+    chunk bit for bit against the synchronous call of the same chain;
+    ``generic_rows`` and ``peakdet_scan`` once a chunk."""
+    import torch
+
+    tables = distinct_chunks(lh5, wf, None, 2)
+    total = sum(len(t) for t in tables)
+    chain, _, tb_out = build_processing_chain(sipm_config(), tables[0],
+                                              device=DEVICE)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    got, split, run_s = run_pipeline(build_dsp, chain, tb_out, tables)
+    launches = dict(_cuda.LAUNCHES)
+    for name in ("generic_rows", "peakdet_scan"):
+        if launches.get(name, 0) != len(tables):
+            raise AssertionError(f"pipeline [SiPM]: {name} launched "
+                                 f"{launches.get(name, 0)} times on {len(tables)} "
+                                 f"chunks")
+    torch.cuda.synchronize()
+    t_0 = time.time()
+    want, i_entry = {}, 0
+    for tb in tables:
+        out = chain(tb)
+        want[i_entry] = {k: column_arrays(col, len(tb)) for k, col in out.items()}
+        i_entry += len(tb)
+    sync_s = time.time() - t_0
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"pipeline [SiPM]: chunks written at {sorted(got)}")
+    for i_entry, cols in want.items():
+        for k, arrs in cols.items():
+            for q, w in arrs.items():
+                g = got[i_entry][k][q]
+                if g.dtype != w.dtype or g.tobytes() != w.tobytes():
+                    raise AssertionError(f"pipeline [SiPM]: {k} {q} of the chunk "
+                                         f"at entry {i_entry} differs from the "
+                                         f"synchronous call")
+    print(f"pipeline [SiPM] {len(tables)} chunks x {len(tables[0])} events, every "
+          f"VoV output of every chunk equal to the synchronous call bit for bit; "
+          f"launches {launches}; production loop {run_s:.3f} s ({total / run_s:.0f} "
+          f"wf/s), the synchronous calls {sync_s:.3f} s ({total / sync_s:.0f} "
+          f"wf/s); split (s): {json.dumps(split)}; on {card}", flush=True)
+    return dict(wfps=total / run_s, sync_wfps=total / sync_s, launches=launches)
 
 
 def compare_columns(cols, cpu, wf, bl, n_cpu,
@@ -1846,6 +2222,17 @@ def main() -> int:
                   logs["generic_rows"])
     torch.cuda.empty_cache()
 
+    # -- the SiPM chain's K7 group, then the peak finder's sweep on its curr --
+    t0 = time.time()
+    swf, n_pulses = make_sipm_waveforms(N_EVENTS)
+    print(f"SiPM inputs: {N_EVENTS}x{SIPM_SAMPLES} f32 made in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    k7["sipm_group"], curr = sipm_k7_phase(
+        build_processing_chain, lh5, _cuda, sipm_edge_rows(swf), dev)
+    scan = sipm_scan_phase(_cuda, curr)
+    del curr
+    torch.cuda.empty_cache()
+
     # -- the main paths: build_dsp -------------------------------------------
     launches = e2e_phase(
         build_dsp, lh5, _cuda, config(), wf, amp, inj_t0, bl, card, "flagship",
@@ -1895,6 +2282,11 @@ def main() -> int:
                 "fused_current_poly"),
     )
     auto_buffer_len_line(build_dsp, card)
+    # the SiPM path: VoV outputs, K7's group and the sweep
+    sipm = sipm_e2e_phase(build_dsp, lh5, _cuda, swf, n_pulses, card)
+    scan["sipm_wfps"] = {"first": sipm["first_wfps"], "warm": sipm["warm_wfps"]}
+    scan["pipeline"] = sipm_pipeline_phase(build_dsp, build_processing_chain, lh5,
+                                           _cuda, swf, card)
 
     kernels = [
         dict(
@@ -1938,6 +2330,12 @@ def main() -> int:
             source="dspeed_tpu_torch/csrc/generic_rows.cu",
             replaces="dspeed_tpu/processors/_pallas.py:1782",
             launches=gen_launches["generic_rows"], library_ms=None, **k7,
+        ),
+        dict(
+            name="peakdet_scan", route="cuda",
+            source="dspeed_tpu_torch/csrc/peakdet_scan.cu",
+            replaces="dspeed_tpu/processors/peak_finding.py:49 (lax.scan)",
+            launches=sipm["launches"]["peakdet_scan"], library_ms=None, **scan,
         ),
     ]
     print(json.dumps({"kernels": kernels}))

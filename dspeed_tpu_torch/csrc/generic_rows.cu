@@ -20,6 +20,10 @@
 //   moving_window_multi              of <= 32 samples summed directly
 //   convolve_wf (banded route)       conv_tile.cuh's register-tiled loop, in
 //                                    conv_row.cuh's order (K3's and K4's)
+//   reflected_convolve_wf (m <= 32)  each output from the row's own samples
+//                                    through the reflect index map, summed in
+//                                    the plain version's order, unfused, in
+//                                    float32 or (float64 taps) float64
 //   time_point_thresh                K2's warp search: 32 positions a
 //                                    ballot, GEN_WIN ballots a step
 //   windower, avg_current            a gather, __fsub_rn and __fdiv_rn
@@ -103,7 +107,7 @@ enum { S_KIND, S_F64, S_OFF, S_LEN, S_SIDX, S_EXT, S_ESC, S_ROOT };
 enum {
     OP_LOAD = 1, OP_MIN_MAX, OP_BL_SUB, OP_SLOPE_FIT, OP_POLE_ZERO, OP_TRAP,
     OP_AMAX, OP_CONV, OP_TPT, OP_WINDOWER, OP_AVG_CURRENT, OP_MW_MULTI,
-    OP_FTP, OP_UFUNC, OP_CONVERT
+    OP_FTP, OP_UFUNC, OP_CONVERT, OP_REFL_CONV
 };
 
 // Mirrored field for field by ctypes in processors/_cuda.py. The tape rides
@@ -190,6 +194,20 @@ __device__ __forceinline__ float* esc_plane(const GenParams& P, const Row& R,
     return (float*)P.esc[e] + R.row * (long long)sf(P, s, S_LEN);
 }
 
+// The same for a float64 plane (S_F64 set: reflected_convolve_wf with
+// float64 taps, avg_current over its output), which spans two words a
+// sample of the arena and has no slices.
+__device__ __forceinline__ double* plane64(const GenParams& P, int s) {
+    return reinterpret_cast<double*>(plane(P, s));
+}
+
+__device__ __forceinline__ double* esc_plane64(const GenParams& P, const Row& R,
+                                               int s) {
+    const int e = sf(P, s, S_ESC);
+    if (e < 0) return nullptr;
+    return (double*)P.esc[e] + R.row * (long long)sf(P, s, S_LEN);
+}
+
 // Scalar operand k of op `o`: a slot, or a constant of the op's dp (in[k]
 // = -1 - j); bit k of `cast` rounds it to float32, its argument type.
 __device__ __forceinline__ double operand(const GenParams& P, int o, int k,
@@ -216,6 +234,10 @@ __device__ __forceinline__ void put(const GenParams& P, const Row& R, int s,
 #define GEN_NAN 1
 #define GEN_INF 2
 __device__ __forceinline__ int nan_inf(float v) {
+    return isnan(v) ? GEN_NAN : isinf(v) ? GEN_INF : 0;
+}
+
+__device__ __forceinline__ int nan_inf(double v) {
     return isnan(v) ? GEN_NAN : isinf(v) ? GEN_INF : 0;
 }
 
@@ -947,6 +969,63 @@ __device__ __forceinline__ void op_conv(const GenParams& P, const Row& R,
     flag_plane(P, out[0], h);
 }
 
+// numpy's 'reflect' index of position q of a row of n samples, for a pad
+// shorter than the row (one reflection, the edge sample not repeated).
+__device__ __forceinline__ int reflect_at(int q, int n) {
+    return q < 0 ? -q : q >= n ? 2 * (n - 1) - q : q;
+}
+
+__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double rn_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(a, b); }
+
+// reflected_convolve_wf (direct route, m <= 32 taps): the plain version pads
+// the row by m / 2 + 1 reflected samples, convolves in full and keeps the
+// 'same' window, whose output j reads the padded row at 1 + j ... m + j
+// only. So out[j] = sum_k taps[k] * x[reflect_at(j + (m - 1) / 2 - k, n)],
+// summed as _conv_full_direct sums it: taps[m-1]'s product first, then
+// k = m-2 down to 0, each product and each sum rounded apart (an FMA would
+// change the bits), in the output's type T: float32, or float64 where the
+// taps are float64 (the float32 row widened exactly). No pad is built: the
+// index map reads the row in place, its neighbours and reflected edges
+// written by other threads (the plan puts a barrier before the op).
+template <typename T>
+__device__ __forceinline__ int reflected_conv_row(const float* x, int n,
+                                                  const T* ks, int m, bool bad,
+                                                  T* o, T* g) {
+    const int d = (m - 1) / 2;
+    int h = 0;
+    for (int j = threadIdx.x; j < n; j += GEN_THREADS) {
+        T acc = (T)__int_as_float(0x7fc00000);
+        if (!bad) {
+            acc = rn_mul(__ldg(ks + m - 1), (T)x[reflect_at(j + d - (m - 1), n)]);
+            for (int k = m - 2; k >= 0; --k)
+                acc = rn_add(acc, rn_mul(__ldg(ks + k), (T)x[reflect_at(j + d - k, n)]));
+        }
+        o[j] = acc;
+        if (g) g[j] = acc;
+        h |= nan_inf(acc);
+    }
+    return h;
+}
+
+__device__ __forceinline__ void op_reflected_conv(const GenParams& P,
+                                                  const Row& R, const int* in,
+                                                  const int* out,
+                                                  const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const bool bad = plane_nan(P, in[0], false);
+    // float64 taps sit in pairs of words from an even word (8 bytes)
+    const int h = sf(P, out[0], S_F64)
+        ? reflected_conv_row(x, n, reinterpret_cast<const double*>(P.taps + ip[0]),
+                             ip[1], bad, plane64(P, out[0]), esc_plane64(P, R, out[0]))
+        : reflected_conv_row(x, n, P.taps + ip[0], ip[1], bad, plane(P, out[0]),
+                             esc_plane(P, R, out[0]));
+    flag_plane(P, out[0], h);
+}
+
 // bl_subtract, windower and avg_current: one pass over the output.
 __device__ __forceinline__ void op_gather(const GenParams& P, const Row& R,
                                           int k, int code, const int* in,
@@ -994,6 +1073,22 @@ __device__ __forceinline__ void op_gather(const GenParams& P, const Row& R,
             const float v = (bad || q < 0 || q >= nx) ? qnan : x[q];
             o[j] = v;
             if (g) g[j] = v;
+            h |= nan_inf(v);
+        }
+    } else if (sf(P, out[0], S_F64)) {  // OP_AVG_CURRENT over float64 planes
+        const int L = ip[0];
+        const double lf = tape_dp(P)[k * OP_DP];
+        const bool bad = plane_nan(P, in[0], false);
+        const double* xd = plane64(P, in[0]);
+        double* od = plane64(P, out[0]);
+        double* gd = esc_plane64(P, R, out[0]);
+        const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+#pragma unroll 4
+        for (int i = tid; i < m; i += GEN_THREADS) {
+            const double v = (bad || i >= nx - L) ? dnan
+                             : __ddiv_rn(__dsub_rn(xd[i + L], xd[i]), lf);
+            od[i] = v;
+            if (gd) gd[i] = v;
             h |= nan_inf(v);
         }
     } else {  // OP_AVG_CURRENT
@@ -1120,6 +1215,7 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         case OP_WINDOWER:
         case OP_AVG_CURRENT: op_gather(P, R, k, code, in, out, ip); break;
         case OP_MW_MULTI: op_mw_multi(P, R, in, out, ip); break;
+        case OP_REFL_CONV: op_reflected_conv(P, R, in, out, ip); break;
         default: break;
         }
     }

@@ -2738,7 +2738,7 @@ class ProcessingChain:
         elif isinstance(buff, lgdo.ArrayOfEqualSizedArrays):
             man = LGDOArrayOfEqualSizedArraysIOManager(buff, var, output)
         elif isinstance(buff, lgdo.VectorOfVectors):
-            raise _vov_unsupported(var)
+            man = LGDOVectorOfVectorsIOManager(buff, var, output)
         elif isinstance(buff, lgdo.Array):
             man = LGDOArrayIOManager(buff, var, output)
         elif isinstance(buff, lgdo.WaveformTable):
@@ -2822,6 +2822,9 @@ class ProcessingChain:
         """Run the steps over ``env``; with ``profile``, each step's wall
         time (the device synchronized after it) is summed into its
         ``time_total``."""
+        # an output manager may add its unit conversion on first use
+        # (LGDOVectorOfVectorsIOManager): before the steps run, not after
+        self._out_keys()
         env.update(self._const_env())
         with torch.no_grad():
             for step in self._steps:
@@ -3795,11 +3798,138 @@ class LGDOArrayOfEqualSizedArraysIOManager(LGDOArrayIOManager):
         )
 
 
-def _vov_unsupported(var) -> ProcessingChainError:
-    return ProcessingChainError(
-        f"{var}: VectorOfVectors buffers arrive with the SiPM path "
-        "(ROADMAP queue 1, item 7)"
-    )
+class LGDOVectorOfVectorsIOManager(IOManager):
+    """Variable-length rows <-> (padded dense array, length variable), the
+    JAX package's manager (``processing_chain.py:3961-4088``).
+
+    Rows are padded and packed on the host by the native codec
+    (:mod:`.lh5._native`); the device sees fixed shapes only: a ``(B,
+    maxlen)`` plane and the length variable ``len(<name>)`` (or the
+    variable the config names as ``vector_len``). Both are ordinary env
+    keys, so they travel through staging, :meth:`ProcessingChain.fetch` and
+    the write-behind of the production loop like any other column.
+    """
+
+    def __init__(self, io_vov, var: ProcChainVar, output: bool) -> None:
+        if var.vector_len is None:
+            var.vector_len = ProcChainVar(
+                var.proc_chain,
+                f"len({var.name})",
+                shape=(),
+                dtype=np.dtype("uint32"),
+                grid=None,
+                unit=None,
+            )
+        # the published configs use float count outputs (e.g.
+        # peak_snr_threshold's no_out) as vector lengths: any numeric
+        # dtype, truncated when written
+        if var.vector_len.dtype is not auto and var.vector_len.dtype.kind not in "iuf":
+            raise ProcessingChainError(
+                f"{var.vector_len} must be numeric to act as a vector len"
+            )
+        unit = io_vov.attrs.get("units", None)
+        var.update_auto(dtype=io_vov.dtype, unit=unit)
+        self.var = var
+        self.unit = _resolve_io_unit(var, unit)
+        self.key = None  # resolved once var.shape is known
+        self.len_key = var.vector_len.key
+        self.output = output
+        if not output:
+            var.defined = True
+            var.vector_len.defined = True
+        self.set_buffer(io_vov)
+
+    def set_buffer(self, io_vov) -> None:
+        if not isinstance(io_vov, lgdo.VectorOfVectors):
+            raise ProcessingChainError(
+                f"{self.var} must be set using an lgdo.VectorOfVectors"
+            )
+        _set_units_attr(io_vov, self.var)
+        if self.var.dtype != io_vov.dtype:
+            raise ProcessingChainError(
+                f"LGDO object {io_vov.form_datatype()} is incompatible "
+                f"with {self.var}"
+            )
+        self.io_vov = io_vov
+
+    def _resolve_key(self, start, stop):
+        if self.key is not None:
+            return
+        if self.var.shape is auto:
+            cl = self.io_vov.cumulative_length.nda
+            lens = np.diff(cl[start:stop], prepend=cl[start - 1] if start else 0)
+            maxlen = 2 * int(lens.max()) if len(lens) else 2
+            self.var.update_auto(shape=maxlen)
+            log.warning(
+                "No maximum length provided for VectorOfVectors %s; using %d "
+                "(twice the maximum of the first batch)", self.var, maxlen
+            )
+        self.key = self.var.value_in(self.unit)
+
+    def read(self, start, stop):
+        from .lh5._native import vov_unpack
+
+        if start >= len(self.io_vov):
+            raise EndExecute
+        stop = min(stop, len(self.io_vov))
+        self._resolve_key(start, stop)
+        n = stop - start
+        maxlen = self.var.shape[-1]
+        cl = self.io_vov.cumulative_length.nda
+        flat = self.io_vov.flattened_data.nda
+        starts = np.empty(n, dtype="int64")
+        starts[0] = cl[start - 1] if start > 0 else 0
+        starts[1:] = cl[start : stop - 1]
+        stops = cl[start:stop]
+        fill = 0 if np.issubdtype(self.var.dtype, np.integer) else np.nan
+        padded, lens, overflow = vov_unpack(
+            flat, starts, stops, maxlen, fill, self.var.dtype
+        )
+        if overflow:
+            raise DSPFatal(
+                "VectorOfVectors entry has length larger than array variable "
+                "length"
+            )
+        return {
+            self.key: padded,
+            self.len_key: lens.astype(self.var.vector_len.dtype),
+        }, n
+
+    def write(self, results, start, end):
+        from .lh5._native import vov_pack
+
+        self._resolve_key(start, end)
+        n = end - start
+        arr = np.asarray(results[self.key][:n]).astype(
+            self.io_vov.dtype, copy=False
+        )
+        lens = np.clip(
+            np.asarray(results[self.len_key][:n]).astype("int64"), 0, arr.shape[1]
+        )
+        if len(self.io_vov) < end:
+            self.io_vov.resize(end)
+        base = int(self.io_vov.cumulative_length[start - 1]) if start > 0 else 0
+        need = base + int(lens.sum())
+        if len(self.io_vov.flattened_data.nda) < need:
+            self.io_vov.flattened_data.resize(need)
+        cum = np.empty(n, dtype="uint64")
+        vov_pack(np.ascontiguousarray(arr), lens, base,
+                 self.io_vov.flattened_data.nda, cum)
+        self.io_vov.cumulative_length.nda[start:end] = cum.astype(
+            self.io_vov.cumulative_length.dtype
+        )
+
+    def out_keys(self):
+        if self.key is None:
+            self._resolve_key(0, 0)
+        return [self.key, self.len_key]
+
+    def __str__(self):
+        return (
+            f"{self.var} linked to lgdo.VectorOfVectors"
+            f"(vector_len={self.var.vector_len}, dtype={self.io_vov.dtype}, "
+            f"attrs={self.io_vov.attrs})"
+        )
 
 
 class LGDOWaveformIOManager(IOManager):
@@ -3847,10 +3977,13 @@ class LGDOWaveformIOManager(IOManager):
             var.proc_chain._default_grid = var.grid
 
         if isinstance(wf_table.values, lgdo.VectorOfVectors):
-            raise _vov_unsupported(var)
-        self.val_ioman = LGDOArrayOfEqualSizedArraysIOManager(
-            wf_table.values, var, output
-        )
+            self.val_ioman = LGDOVectorOfVectorsIOManager(
+                wf_table.values, var, output
+            )
+        else:
+            self.val_ioman = LGDOArrayOfEqualSizedArraysIOManager(
+                wf_table.values, var, output
+            )
         if dt_units is None:
             dt_units = var.grid.unit_str()
             t0_units = var.grid.unit_str()

@@ -60,6 +60,17 @@ _modules = {
     "zac_filter": "energy_kernels",
     "convolve_wf": "convolutions",
     "fft_convolve_wf": "convolutions",
+    "reflected_convolve_wf": "convolutions",
+    "gaussian_filter1d": "gaussian_filter1d",
+    "histogram": "histogram",
+    "histogram_around_mode": "histogram",
+    "histogram_stats": "histogram_stats",
+    "histogram_peakstats": "histogram_stats",
+    "get_multi_local_extrema": "peak_finding",
+    "peak_snr_threshold": "peak_finding",
+    "remove_duplicates": "peak_finding",
+    "multi_t_filter": "peak_finding",
+    "multi_a_filter": "peak_finding",
 }
 
 __all__ = ["Kernel", "kernel", "parse_signature", *sorted(set(_modules))]

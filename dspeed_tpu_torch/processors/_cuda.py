@@ -22,10 +22,15 @@ Each kernel replaces one Pallas TPU kernel of the JAX package
   group as one row-tape launch (``generic_rows`` :1782), its tape lowered
   by :mod:`._tile_program`.
 
+One kernel replaces no Pallas kernel: :func:`peakdet_scan`
+(``csrc/peakdet_scan.cu``), the Billauer peak finder's sweep, which the JAX
+package runs as a ``lax.scan`` (``dspeed_tpu/processors/peak_finding.py:49``).
+
 A wrapper given a CPU tensor computes the kernel's plain version
 (:func:`fused_energy_plain`, :func:`banded_conv_plain`,
 :func:`fused_t0_plain`, :func:`cascade_tp_plain`,
-:func:`fused_current_plain`, :func:`generic_rows_plain`); given a CUDA
+:func:`fused_current_plain`, :func:`generic_rows_plain`,
+:func:`peakdet_scan_plain`); given a CUDA
 tensor it launches the kernel or raises — it never falls back. Every launch adds one to
 ``LAUNCHES[<kernel>]`` (K5 counts as ``fused_current_poly``, K6 as
 ``fused_current``). :func:`fused_current_poly_plain` is K5's own arithmetic
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 
 from ..errors import DSPFatal
-from ._helpers import as_tensor
+from ._helpers import as_tensor, per_row
 
 __all__ = [
     "LAUNCHES",
@@ -76,6 +81,9 @@ __all__ = [
     "generic_rows",
     "generic_rows_launch",
     "generic_rows_plain",
+    "peakdet_scan",
+    "peakdet_scan_launch",
+    "peakdet_scan_plain",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,11 +96,13 @@ SOURCES = {
     "cascade_tp": "cascade_tp.cu",
     "fused_current": "fused_current.cu",
     "generic_rows": "generic_rows.cu",
+    "peakdet_scan": "peakdet_scan.cu",
 }
 
 LAUNCHES = {
     "fused_energy": 0, "banded_conv_multi": 0, "fused_t0": 0, "cascade_tp": 0,
     "fused_current_poly": 0, "fused_current": 0, "generic_rows": 0,
+    "peakdet_scan": 0,
 }
 
 _LIBS: dict = {}
@@ -200,6 +210,13 @@ def _bind(name: str, so: str):
         lib.dspeed_generic_rows_config.argtypes = [
             ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ]
+    elif name == "peakdet_scan":
+        lib.dspeed_peakdet_scan.restype = ctypes.c_int
+        lib.dspeed_peakdet_scan.argtypes = [
+            ctypes.POINTER(_PeakdetParams), ctypes.c_void_p,
+        ]
+        lib.dspeed_peakdet_scan_config.restype = ctypes.c_int
+        lib.dspeed_peakdet_scan_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
     else:
         for fn in (lib.dspeed_fused_current, lib.dspeed_fused_current_poly):
             fn.restype = ctypes.c_int
@@ -1354,3 +1371,118 @@ def generic_rows(program, vals: dict) -> dict:
     _check_rc(lib, rc, "generic_rows")
     LAUNCHES["generic_rows"] += 1
     return _escape_values(program, roots)
+
+
+# ---------------------------------------------------------------------------
+# the Billauer peak finder's sweep (no Pallas counterpart: a lax.scan)
+# ---------------------------------------------------------------------------
+
+
+class _PeakdetParams(ctypes.Structure):
+    """Field for field the ``PeakdetParams`` struct of ``peakdet_scan.cu``."""
+
+    _fields_ = [
+        ("w", ctypes.c_void_p),
+        ("stride", ctypes.c_longlong),
+        ("dmax", ctypes.c_void_p),
+        ("dmin", ctypes.c_void_p),
+        ("amax", ctypes.c_void_p),
+        ("amin", ctypes.c_void_p),
+        ("smax", ctypes.c_void_p),
+        ("smin", ctypes.c_void_p),
+        ("nmax", ctypes.c_void_p),
+        ("nmin", ctypes.c_void_p),
+    ] + [(f, ctypes.c_int) for f in ("B", "n", "m_max", "m_min", "reverse", "f64")]
+
+
+def _row_params(w, *xs):
+    """Each of ``xs`` (scalar or ``(B,)``) as a contiguous ``(B,)`` tensor in
+    ``w``'s type on its device."""
+    return [per_row(x, w).contiguous() for x in xs]
+
+
+def peakdet_scan_plain(w, dmax, dmin, amax, amin, m_max, m_min, reverse=False):
+    """Plain version of :func:`peakdet_scan`: the step of the JAX package's
+    ``_peakdet_scan`` (``peak_finding.py:49``) as a loop over the samples in
+    PyTorch, batched over the rows. Returns ``(vt_max (B, m_max), vt_min
+    (B, m_min), n_max (B,) int32, n_min (B,) int32)``: NaN-padded sample
+    indices in declaration order, in ``w``'s type."""
+    B, n = w.shape
+    dt, dev = w.dtype, w.device
+    dM, dm, aM, am = _row_params(w, dmax, dmin, amax, amin)
+    vx = torch.full((B,), -math.inf, dtype=dt, device=dev)
+    vn = torch.full((B,), math.inf, dtype=dt, device=dev)
+    ix = torch.zeros(B, dtype=torch.int32, device=dev)
+    im = torch.zeros_like(ix)
+    find_max = torch.ones(B, dtype=torch.bool, device=dev)
+    nmx = torch.zeros_like(ix)
+    nmn = torch.zeros_like(ix)
+    smax = torch.full((B, m_max), math.nan, dtype=dt, device=dev)
+    smin = torch.full((B, m_min), math.nan, dtype=dt, device=dev)
+    slot_mx = torch.arange(m_max, device=dev)[None, :]
+    slot_mn = torch.arange(m_min, device=dev)[None, :]
+    for i in (range(n - 1, -1, -1) if reverse else range(n)):
+        wi = w[:, i]
+        iv = torch.full((B,), i, dtype=torch.int32, device=dev)
+        newmax = wi > vx
+        vx = torch.where(newmax, wi, vx)
+        ix = torch.where(newmax, iv, ix)
+        newmin = wi < vn
+        vn = torch.where(newmin, wi, vn)
+        im = torch.where(newmin, iv, im)
+        decl_max = find_max & (wi < vx - dM) & (nmx < m_max) & (vx > aM)
+        decl_min = ~find_max & (wi > vn + dm) & (nmn < m_min) & (vn < am)
+        smax = torch.where(decl_max[:, None] & (slot_mx == nmx[:, None]),
+                           ix[:, None].to(dt), smax)
+        smin = torch.where(decl_min[:, None] & (slot_mn == nmn[:, None]),
+                           im[:, None].to(dt), smin)
+        nmx = nmx + decl_max.to(torch.int32)
+        nmn = nmn + decl_min.to(torch.int32)
+        # a declaration restarts the opposite tracker at the current sample
+        vn = torch.where(decl_max, wi, vn)
+        im = torch.where(decl_max, iv, im)
+        vx = torch.where(decl_min, wi, vx)
+        ix = torch.where(decl_min, iv, ix)
+        find_max = torch.where(decl_max, False, torch.where(decl_min, True, find_max))
+    return smax, smin, nmx, nmn
+
+
+def peakdet_scan_launch() -> dict:
+    """How the sweep launches on this card (its float32 instance): threads
+    a block, blocks per SM, registers and local (spill) bytes a thread."""
+    lib = _lib("peakdet_scan")
+    out = (ctypes.c_int * 4)()
+    _check_rc(lib, lib.dspeed_peakdet_scan_config(out), "peakdet_scan")
+    return dict(zip(("threads", "blocks_per_sm", "registers", "local_bytes"), out))
+
+
+def peakdet_scan(w, dmax, dmin, amax, amin, m_max, m_min, reverse=False):
+    """One direction of the Billauer sweep over the rows of ``w`` (``(B,
+    n)``; ``dmax``, ``dmin``, ``amax``, ``amin`` scalars or ``(B,)``), one
+    thread per row, ``reverse`` visiting ``n-1 ... 0``; see
+    :func:`peakdet_scan_plain` for the outputs, which it equals bit for bit.
+    CPU tensors run :func:`peakdet_scan_plain`."""
+    if w.device.type == "cpu":
+        return peakdet_scan_plain(w, dmax, dmin, amax, amin, m_max, m_min, reverse)
+    if w.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"peakdet_scan: the CUDA kernel takes float rows, got {w.dtype}")
+    if w.dim() != 2 or w.stride(1) != 1:
+        raise ValueError("peakdet_scan: the CUDA kernel takes rows of contiguous samples")
+    lib = _lib("peakdet_scan")
+    B, n = w.shape
+    dev = w.device
+    pars = _row_params(w, dmax, dmin, amax, amin)
+    smax = torch.empty((B, m_max), dtype=w.dtype, device=dev)
+    smin = torch.empty((B, m_min), dtype=w.dtype, device=dev)
+    nmx = torch.empty(B, dtype=torch.int32, device=dev)
+    nmn = torch.empty(B, dtype=torch.int32, device=dev)
+    P = _PeakdetParams(
+        w.data_ptr(), w.stride(0), *(t.data_ptr() for t in pars),
+        smax.data_ptr(), smin.data_ptr(), nmx.data_ptr(), nmn.data_ptr(),
+        B, n, int(m_max), int(m_min), int(bool(reverse)),
+        int(w.dtype == torch.float64),
+    )
+    rc = lib.dspeed_peakdet_scan(ctypes.byref(P), _stream())
+    _check_rc(lib, rc, "peakdet_scan")
+    LAUNCHES["peakdet_scan"] += 1
+    return smax, smin, nmx, nmn

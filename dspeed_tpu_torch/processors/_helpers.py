@@ -11,6 +11,7 @@ __all__ = [
     "any_bad",
     "nanmask",
     "as_tensor",
+    "per_row",
     "take_per_row",
     "static_float",
     "static_int",
@@ -39,6 +40,20 @@ def as_tensor(x, like: torch.Tensor, dtype=None) -> torch.Tensor:
     else:
         t = torch.tensor(x, dtype=like.dtype, device=like.device)
     return t if dtype is None else t.to(dtype)
+
+
+def per_row(x, like: torch.Tensor) -> torch.Tensor:
+    """A per-row parameter (a scalar, or a tensor of one value per row of
+    ``like``) as a ``like.shape[:-1]`` tensor in ``like``'s type on its
+    device. A scalar is filled in on the device, rounded there from float64
+    as a host conversion rounds it: no host -> device copy, which would wait
+    for the stream."""
+    lead = like.shape[:-1]
+    if isinstance(x, torch.Tensor):
+        v = x.to(like.device, like.dtype)
+        return v.expand(lead) if v.ndim == 0 else v
+    return torch.full(lead, float(x), dtype=torch.float64,
+                      device=like.device).to(like.dtype)
 
 
 def isnan_any(x, core_ndim: int = 0):

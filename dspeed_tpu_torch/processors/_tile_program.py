@@ -9,7 +9,11 @@ Here the host lowers the member list into a tape before any launch:
 - a **slot** is a per-row plane (shared memory on the card) or a per-row
   scalar, in the dtype the unfused chain gives the same env key (float64
   where the plain path computes in float64); a slice or an alias is a view
-  of its root slot and copies nothing;
+  of its root slot and copies nothing. Planes are float32, except the
+  float64 planes that ``reflected_convolve_wf`` writes from float64 taps
+  and ``avg_current`` reads and writes (the SiPM chain computes in float64
+  from its smoothed waveform on), which take two words each and have no
+  slices;
 - an **op** is an opcode, its operand slots (or constants) and output slots,
   and static parameters (window lengths, taps, mode, direction);
 - a **liveness plan** gives each plane a place in shared memory from its
@@ -21,7 +25,8 @@ Here the host lowers the member list into a tape before any launch:
 A member with no op, a plane that is not float32 or an operand shape the
 tape does not take raises :class:`LoweringError`; the group then splits
 (``GroupStep._exec``). The op set is the one the flagship's two generic
-groups need (``ROADMAP.md`` lists the tile-safe kernels still without one).
+groups and the SiPM chain's group need (``ROADMAP.md`` lists the tile-safe
+kernels still without one).
 
 :func:`~dspeed_tpu_torch.processors._cuda.generic_rows` runs a program on
 the card; :func:`~dspeed_tpu_torch.processors._cuda.generic_rows_plain`
@@ -69,7 +74,7 @@ OPCODES = {
     "load": 1, "min_max": 2, "bl_subtract": 3, "linear_slope_fit": 4,
     "pole_zero": 5, "trap": 6, "amax": 7, "conv": 8, "time_point_thresh": 9,
     "windower": 10, "avg_current": 11, "moving_window_multi": 12,
-    "fixed_time_pickoff": 13, "ufunc": 14, "convert": 15,
+    "fixed_time_pickoff": 13, "ufunc": 14, "convert": 15, "reflected_conv": 16,
 }
 OP_IN, OP_OUT, OP_IP, OP_DP = 6, 4, 8, 4
 OP_INTS = 1 + OP_IN + OP_OUT + OP_IP  # code, in, out, ip
@@ -79,6 +84,8 @@ THREADS = 256  # threads per block, one row per block
 STATIC_SMEM = 512  # bytes of static shared memory (the reduction scratch)
 ALIGN = 4  # planes start on 16-byte boundaries
 IP_PLAN = 4  # ip[4]: the barrier plan (bit 0: a block barrier before the op)
+# ops whose output planes may be float64 (two words a sample)
+F64_PLANE_OPS = ("reflected_convolve_wf", "avg_current")
 # ops that run on warp 0 alone (the others on every thread of the block)
 WARP_OPS = ("time_point_thresh", "fixed_time_pickoff", "ufunc", "convert")
 # ops with a block barrier of their own after their first reads of their
@@ -267,7 +274,7 @@ def _kernel_args(prog: TileProgram, step) -> list:
     return args
 
 
-def _out_slots(prog: TileProgram, step) -> list[int]:
+def _out_slots(prog: TileProgram, step, f64_planes=False) -> list[int]:
     outs = []
     for sp in step.out_specs:
         dt = _device_dtype(sp.dtype)
@@ -275,7 +282,7 @@ def _out_slots(prog: TileProgram, step) -> list[int]:
             raise LoweringError(f"{step.kernel.__name__}: output {sp.key} "
                                 f"is not a float scalar or plane")
         if len(sp.shape) == 1:
-            if dt != torch.float32:
+            if dt != torch.float32 and not f64_planes:
                 raise LoweringError(f"K7 takes float32 planes; {sp.key} is {dt}")
             outs.append(prog.new_slot(sp.key, "plane", dt, int(sp.shape[0])))
         else:
@@ -283,12 +290,18 @@ def _out_slots(prog: TileProgram, step) -> list[int]:
     return outs
 
 
-def _plane(prog, arg, what) -> int:
+def _plane(prog, arg, what, dtypes=(torch.float32,)) -> int:
+    """A plane operand, read in its slot's own type, one of ``dtypes``."""
     if arg[0] != "slot" or prog.slots[arg[1]].kind != "plane":
         raise LoweringError(f"{what} must be a plane")
-    if arg[2] != torch.float32:
+    if arg[2] not in dtypes or prog.slots[arg[1]].dtype != arg[2]:
         raise LoweringError(f"{what}: K7 takes float32 planes")
     return arg[1]
+
+
+def _plane_words(s: Slot) -> int:
+    """The 32-bit words of the arena a plane slot spans."""
+    return s.length * (2 if s.dtype == torch.float64 else 1)
 
 
 def _scalar(prog, arg, what):
@@ -324,7 +337,7 @@ def _f32(arg) -> int:
 def _lower_kernel(prog: TileProgram, step) -> None:
     name = step.kernel.__name__
     args = _kernel_args(prog, step)
-    outs = _out_slots(prog, step)
+    outs = _out_slots(prog, step, f64_planes=name in F64_PLANE_OPS)
     o = [prog.slots[s] for s in outs]
     kinds = tuple(s.kind for s in o)
 
@@ -388,6 +401,36 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x.ip = [prog.n_taps, m, lo]
         prog.taps.append(np.asarray(kern, np.float32))
         prog.n_taps += m
+    elif name == "reflected_convolve_wf":
+        need(len(args) == 2 and kinds == ("plane",), "signature")
+        # a float32 plane, read in the step's type: float64 taps make the
+        # step (and its output) float64
+        need(args[0][0] == "slot" and prog.slots[args[0][1]].kind == "plane"
+             and prog.slots[args[0][1]].dtype == torch.float32
+             and o[0].dtype == args[0][2], "a float32 plane read in the output's type")
+        w = args[0][1]
+        kern = args[1][1] if args[1][0] == "const" else None
+        need(isinstance(kern, np.ndarray) and kern.ndim == 1, "taps not constant")
+        n, m = prog.slots[w].length, int(kern.shape[-1])
+        need(1 <= m <= 32 and not np.isnan(kern).any(),
+             "only the direct route (m <= 32 NaN-free taps) has an op")
+        # one reflection of the edge: a pad of m // 2 + 1 shorter than the row
+        need(m <= n and m // 2 + 1 < n and o[0].length == n,
+             "a row no longer than its reflected edge")
+        x = op("reflected_conv")
+        x.ins = [w]
+        if o[0].dtype == torch.float64:
+            # float64 taps as pairs of words, on 8 bytes
+            if prog.n_taps % 2:
+                prog.taps.append(np.zeros(1, np.float32))
+                prog.n_taps += 1
+            x.ip = [prog.n_taps, m]
+            prog.taps.append(np.asarray(kern, np.float64).view(np.float32))
+            prog.n_taps += 2 * m
+        else:
+            x.ip = [prog.n_taps, m]
+            prog.taps.append(np.asarray(kern, np.float32))
+            prog.n_taps += m
     elif name == "time_point_thresh":
         need(len(args) == 4 and kinds == ("scalar",), "signature")
         walk = _static(args[3], "walk_forward")
@@ -405,13 +448,15 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x.ip = [0] * 7 + [_f32(args[1]) << 1]
     elif name == "avg_current":
         need(len(args) == 2 and kinds == ("plane",), "signature")
-        w = _plane(prog, args[0], name)
+        w = _plane(prog, args[0], name, _FLOATS)
+        need(o[0].dtype == prog.slots[w].dtype, "mixed plane types")
         ln = float(_static(args[1], "length"))
         need(0 <= ln < prog.slots[w].length, "length out of range")
         x = op("avg_current")
         x.ins = [w]
         x.ip = [int(ln)]
-        x.dp = [float(np.float32(ln))]  # true_div divides by it in float32
+        # true_div divides by it in the row's type
+        x.dp = [ln if o[0].dtype == torch.float64 else float(np.float32(ln))]
     elif name == "moving_window_multi":
         need(len(args) == 4 and kinds == ("plane",), "signature")
         w = _plane(prog, args[0], name)
@@ -479,6 +524,8 @@ def _lower_step(prog: TileProgram, step) -> None:
         sl = step.sl
         if s.kind != "plane" or not isinstance(sl, slice) or sl.step not in (None, 1):
             raise LoweringError(f"{step.name}: only unit-step slices of a plane")
+        if s.dtype != torch.float32:
+            raise LoweringError(f"{step.name}: a slice of a float64 plane")
         a, b, _ = sl.indices(s.length)
         if b <= a:
             raise LoweringError(f"{step.name}: an empty slice")
@@ -576,8 +623,8 @@ def _plan(prog: TileProgram) -> None:
                 live[o] = live.pop(r)
         for r, d in first.items():
             if d == k and r not in live:
-                prog.slots[r].off = alloc(prog.slots[r].length)
-                live[r] = (prog.slots[r].off, prog.slots[r].length)
+                prog.slots[r].off = alloc(_plane_words(prog.slots[r]))
+                live[r] = (prog.slots[r].off, _plane_words(prog.slots[r]))
         for r in [r for r in live if last[r] == k]:
             release(*live.pop(r))
     prog.arena_floats = top
@@ -627,7 +674,9 @@ def _plan(prog: TileProgram) -> None:
 def _barriers(prog: TileProgram) -> None:
     """The barrier plan: ``op.plan`` = 1 on each op that must wait at a
     block barrier. An op waits when, since the last barrier, another thread
-    wrote what it reads (a plane and its flag word, or for an op of the
+    wrote what it reads (a plane and its flag word: ``reflected_conv`` reads
+    each output's neighbours and the reflected edges, written by other
+    threads; or for an op of the
     whole block a scalar that warp 0 stored), or read or wrote the arena or
     scratch space that it writes before its own first barrier, or still
     reads the reduction buffer that it takes first. Ops of ``WARP_OPS`` run
@@ -645,7 +694,7 @@ def _barriers(prog: TileProgram) -> None:
     def span(sid):
         s = slots[sid]
         lo = slots[s.root].off + s.start
-        return lo, lo + s.length
+        return lo, lo + _plane_words(s)
 
     def overlaps(a):
         return any(a[0] < b[1] and b[0] < a[1] for b in spans)

@@ -14,6 +14,11 @@ are batched and routed like the JAX package routes them
 - otherwise a batched real FFT (``torch.fft``).
 
 All produce the shapes and modes of ``numpy.convolve``.
+
+:func:`reflected_convolve_wf` (reference :132, JAX package :483) pads each
+row with numpy's ``'reflect'`` rule and keeps the ``'same'`` window: the
+direct shifted adds for ``m <= 32`` taps, else the FFT, as in the JAX
+package. In a generic fusion group it is K7's ``reflected_conv`` op.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from ..errors import DSPFatal
 from ._helpers import any_bad, as_tensor, isnan_any, nanmask, static_int
 from ._kernel import kernel
 
-__all__ = ["convolve_wf", "fft_convolve_wf"]
+__all__ = ["convolve_wf", "fft_convolve_wf", "reflected_convolve_wf"]
 
 # largest p*m (outputs x taps, per event) routed to the banded route; above
 # this the FFT has fewer operations
@@ -206,6 +211,33 @@ def fft_convolve_wf(w_in, kernel_in, mode_in, dims, badrow=None):
     return _conv(w_in, kernel_in, mode_in, "fft_convolve_wf", badrow)
 
 
+@kernel(
+    "(n),(m),(p)", ["fff", "ddd"], nout=1, uses_dims=True,
+    badrow_arg=0, mask_preserving=True,
+)
+def reflected_convolve_wf(w_in, kernel_in, dims, badrow=None):
+    """Reflect-pad by ``m // 2 + 1`` samples, convolve and keep the
+    ``'same'`` window of the row (reference ``convolutions.py:132``)."""
+    kern = _kernel_array(kernel_in)
+    if kern.ndim > 1:
+        raise DSPFatal("reflected_convolve_wf expects a shared 1-D kernel")
+    n = w_in.shape[-1]
+    m = kern.shape[-1]
+    if m > n:
+        raise DSPFatal("The filter is longer than the input waveform")
+    ext = int(m / 2) + 1
+    # numpy's 'reflect' pad as a gather (the edge sample is not repeated)
+    idx = np.pad(np.arange(n), ext, mode="reflect")
+    wpad = w_in[..., torch.from_numpy(idx).to(w_in.device)]
+    if m <= 32:
+        full = _conv_full_direct(wpad, kern)
+    else:
+        full = _conv_full_fft(wpad, kern)
+    same = _slice_mode(full, n + 2 * ext, m, "s")
+    out = same[..., ext:-ext].to(w_in.dtype)
+    return nanmask(isnan_any(w_in, 1) if badrow is None else badrow, out)
+
+
 # band-matrix budget of the JAX package's in-tile route
 # (``dspeed_tpu/processors/convolutions.py:158``): it decides which
 # convolutions join a generic row-tile group
@@ -271,3 +303,18 @@ def _conv_tile_safe(step):
 
 convolve_wf.tile_safe = _conv_tile_safe
 fft_convolve_wf.tile_safe = _conv_tile_safe
+
+
+def _reflected_tile_safe(step):
+    """The JAX package's predicate (``convolutions.py:514``): constant
+    NaN-free 1-D taps of the direct route (``m <= 32``)."""
+    kern = _conv_step_taps(step, 1)
+    return (
+        kern is not None
+        and kern.ndim == 1
+        and kern.shape[-1] <= 32
+        and not np.isnan(kern).any()
+    )
+
+
+reflected_convolve_wf.tile_safe = _reflected_tile_safe

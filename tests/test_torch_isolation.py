@@ -103,6 +103,62 @@ def test_generic_flagship_runs_without_jax_or_the_jax_package():
                      fuse="generic")
 
 
+_RUN_SIPM_CHAIN = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+from dspeed_tpu_torch import build_dsp, lh5
+
+rng = np.random.default_rng(3)
+wf = rng.normal(0, 1, (4, 1024)).astype("float32")
+t = np.arange(1024)
+wf[:, 300:] += (80 * np.exp(-(t[300:] - 300) / 80)).astype("float32")
+tb = lh5.Table({{
+    "waveform": lh5.WaveformTable(values=wf, t0=0.0, t0_units="ns", dt=16.0,
+                                  dt_units="ns"),
+}})
+out = build_dsp(tb, dsp_config={config!r}, device="cpu")
+assert isinstance(out["trigger_pos"], lh5.VectorOfVectors)
+assert len(out["energies"]) == 4
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax.")
+                        or m == "dspeed_tpu" or m.startswith("dspeed_tpu."))))
+print("dspeed_tpu_torch" in sys.modules)
+"""
+
+
+def test_sipm_chain_runs_without_jax_or_the_jax_package():
+    """The SiPM chain (VoV outputs, K7's group on its plain walk, the peak
+    finder's sweep) with JAX and the JAX package kept off the path: a
+    meta-path finder refuses to import either."""
+    guard = (
+        "import sys, importlib.abc\n"
+        "class _Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'dspeed_tpu'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, _Block())\n"
+    )
+    code = guard + _RUN_SIPM_CHAIN.format(
+        repo=REPO, config=os.path.join(REPO, "configs", "sipm-pulse-finding.yaml"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr
+    *_, modules, imported = res.stdout.strip().splitlines()
+    assert json.loads(modules) == []
+    assert imported == "True"
+
+
+def test_sources_cover_the_sipm_modules():
+    for mod in ("gaussian_filter1d", "histogram", "histogram_stats", "peak_finding",
+                "convolutions"):
+        assert os.path.join("dspeed_tpu_torch", "processors", f"{mod}.py") in SOURCES
+    with open(os.path.join(PKG, "csrc", "peakdet_scan.cu")) as f:
+        src = f.read()
+    assert "torch/" not in src and 'extern "C" int dspeed_peakdet_scan' in src
+
+
 def test_sources_cover_the_generic_modules():
     assert os.path.join("dspeed_tpu_torch", "processors", "_tile_program.py") in SOURCES
     with open(os.path.join(PKG, "csrc", "generic_rows.cu")) as f:

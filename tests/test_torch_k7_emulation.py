@@ -11,6 +11,10 @@ emulation of ``tools/k7_emu``: the kernel's own source, compiled with
   of 1001 samples start 4 bytes off 16-byte alignment.
 - In the call-path build every thread of a block barrier and every lane of
   a warp collective must arrive by one path.
+- The SiPM chain's group (``reflected_convolve_wf``'s op and ``avg_current``
+  over float64 planes) equals the plain walk bit for bit on every row; the
+  barrier before the op's reads of other threads' samples is what keeps
+  ThreadSanitizer quiet there.
 
 Every output of the group's ``full`` lowering is held against the plain
 walk by ``chip_smoke.check_generic``'s rule (the convolution within its
@@ -37,6 +41,9 @@ pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
     ("tsan", ["reductions", "ops256"]),
     ("asan", ["reductions", "ops1001"]),
     ("sites", ["ops256"]),
+    ("tsan", ["sipm"]),
+    ("asan", ["sipm"]),
+    ("sites", ["sipm"]),
 ])
 def test_k7_emulation(tmp_path, mode, cases):
     r = subprocess.run(

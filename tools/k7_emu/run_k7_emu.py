@@ -31,7 +31,10 @@ escape bit for bit against it.
 
 Cases: ``reductions`` (reductions back to back), ``ops256`` and ``ops1001``
 (the small op chain at 256 and 1001 samples, rows 4 bytes off 16-byte
-alignment included), ``flagship`` (the generic flagship's two groups).
+alignment included), ``flagship`` (the generic flagship's two groups),
+``sipm`` (the SiPM chain's group, ``reflected_convolve_wf`` and
+``avg_current`` in float64, on ``chip_smoke.sipm_edge_rows``: every escape
+bit for bit against the plain walk, the row with an infinite sample too).
 """
 
 import argparse
@@ -50,7 +53,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SRC = os.path.join(REPO, "dspeed_tpu_torch", "csrc", "generic_rows.cu")
-CASES = ("reductions", "ops256", "ops1001", "flagship")
+CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm")
 FLAGS = {
     "tsan": ["-fsanitize=thread", "-O1"],
     "asan": ["-fsanitize=address", "-O1"],
@@ -172,21 +175,21 @@ def run(exe, prog, vals, build_dir, tag, misalign=0) -> dict:
     return _cuda._escape_values(prog, roots)
 
 
-def chain_groups(cfg, wf, bl, db=None) -> list:
+def chain_groups(cfg, wf, bl, db=None, fuse="generic") -> list:
     """``[(program, full program, vals)]`` for each generic group of
-    ``cfg`` on ``(wf, bl)``; ``full`` stores every key the group writes."""
+    ``cfg`` on ``(wf, bl)`` (no baseline column where ``bl`` is None);
+    ``full`` stores every key the group writes."""
     from dspeed_tpu_torch import lh5
     from dspeed_tpu_torch.processing_chain import GroupStep, build_processing_chain
     from dspeed_tpu_torch.processors import _cuda
     from dspeed_tpu_torch.processors._tile_program import lower
 
-    tb = lh5.Table({
-        "waveform": lh5.WaveformTable(values=wf, t0=0.0, t0_units="ns",
-                                      dt=16.0, dt_units="ns"),
-        "baseline": lh5.Array(bl.astype(np.float32)),
-    })
-    chain, _, _ = build_processing_chain(cfg, tb, db_dict=db, device="cpu",
-                                         fuse="generic")
+    cols = {"waveform": lh5.WaveformTable(values=wf, t0=0.0, t0_units="ns",
+                                          dt=16.0, dt_units="ns")}
+    if bl is not None:
+        cols["baseline"] = lh5.Array(bl.astype(np.float32))
+    chain, _, _ = build_processing_chain(cfg, lh5.Table(cols), db_dict=db,
+                                         device="cpu", fuse=fuse)
     inputs, _ = chain._gather_inputs(0, len(wf))
     env = chain._to_device(inputs)
     env.update(chain._const_env())
@@ -231,6 +234,13 @@ def cases(names, rows=6):
         groups = chain_groups(cs.config(), wf, bl, {"pz": {"tau": cs.TAU}})
         for lab, (prog, full, vals) in zip("AB", groups):
             yield f"flagship {lab}", prog, full, vals
+    if "sipm" in names:
+        wf, _ = cs.make_sipm_waveforms(max(rows, 3))
+        # the SiPM chain's default mode forms its group
+        for prog, full, vals in chain_groups(cs.sipm_config(),
+                                             cs.sipm_edge_rows(wf)[:rows],
+                                             None, fuse=True):
+            yield "sipm", prog, full, vals
 
 
 def _same(a, b):
@@ -254,6 +264,13 @@ def check(label, prog, vals, got, parent=None) -> str:
     err, rel, excused, _ = cs.check_generic(
         prog, sub, {k: v[fin] for k, v in got.items()}, plain, label)
     msg = f"vs plain: max err {err:.3e} ({rel:.2e} of scale), {excused} rows excused"
+    if label == "sipm":
+        # unfused products and sums in the plain walk's order: every row
+        # bit for bit, the row with an infinite sample included
+        plain = _cuda.generic_rows_plain(prog, vals)
+        diff = [k for k in plain if not bool(_same(got[k], plain[k]).all())]
+        assert not diff, f"{label}: differs from the plain walk in {diff}"
+        msg += "; every row bit for bit"
     if parent is not None:
         diff = [k for k in parent if not bool(_same(got[k], parent[k]).all())]
         assert not diff, f"{label}: differs from the parent kernel in {diff}"

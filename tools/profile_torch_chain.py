@@ -3,7 +3,7 @@
 card.
 
     python3 tools/profile_torch_chain.py
-        [--config flagship|flagship-l128|flagship-generic|timing|energy]
+        [--config flagship|flagship-l128|flagship-generic|timing|energy|sipm]
         [--events 16384] [--repeats 3] [--chunks 4] [--trace PATH]
 
 Runs one of the configurations ``chip_smoke.py`` drives — the flagship
@@ -11,9 +11,12 @@ configuration (``configs/hpge-energy-timing.yaml``, all 34 outputs; the
 default), the same with its A/E window at 128 upsampled samples
 (``flagship-l128``: the current front on K6), the same in the generic fusion
 mode (``flagship-generic``: ``fuse="generic"``, two K7 groups), the timing
-configuration (without its three A/E columns, 31 outputs) or the energy
+configuration (without its three A/E columns, 31 outputs), the energy
 configuration (its 17 energy and baseline outputs) — through ``dspeed_tpu_torch.build_dsp`` Table ->
-Table on 16384 synthetic 4096-sample events, and prints:
+Table on 16384 synthetic 4096-sample events — or the SiPM chain
+(``configs/sipm-pulse-finding.yaml``: K7's group, the peak finder's sweep,
+VectorOfVectors outputs) on 16384 synthetic 1024-sample SiPM events, and
+prints:
 
 1. the first call in the process and the warm calls after it, each with
    whether it built its chain or took it from the chain cache;
@@ -100,7 +103,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="flagship",
                     choices=("flagship", "flagship-l128", "flagship-generic",
-                             "timing", "energy"))
+                             "timing", "energy", "sipm"))
     ap.add_argument("--events", type=int, default=16384)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--chunks", type=int, default=4,
@@ -113,7 +116,8 @@ def main() -> int:
 
     from chip_smoke import (
         TAU, card_line, config, counted_builds, distinct_chunks, energy_config,
-        l128_config, make_hpge_waveforms, run_pipeline, timing_config,
+        l128_config, make_hpge_waveforms, make_sipm_waveforms, run_pipeline,
+        sipm_config, timing_config,
     )
     from dspeed_tpu_torch import build_dsp, lh5
     from dspeed_tpu_torch import processing_chain as pc
@@ -126,18 +130,22 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     _cuda.build_all()
-    wf, _amp, _t0, bl, _rt = make_hpge_waveforms(args.events)
-    tb = lh5.Table({
-        "waveform": lh5.WaveformTable(
-            values=wf, t0=0.0, t0_units="ns", dt=16.0, dt_units="ns"
-        ),
-        "baseline": lh5.Array(bl.astype(np.float32)),
-    })
+    cols = {}
+    if args.config == "sipm":
+        wf, _ = make_sipm_waveforms(args.events)
+        bl = None
+    else:
+        wf, _amp, _t0, bl, _rt = make_hpge_waveforms(args.events)
+        cols["baseline"] = lh5.Array(bl.astype(np.float32))
+    cols["waveform"] = lh5.WaveformTable(
+        values=wf, t0=0.0, t0_units="ns", dt=16.0, dt_units="ns")
+    tb = lh5.Table(cols)
     cfg = {"flagship": config, "flagship-l128": l128_config,
            "flagship-generic": config, "timing": timing_config,
-           "energy": energy_config}[args.config]()
+           "energy": energy_config, "sipm": sipm_config}[args.config]()
     fuse = "generic" if args.config == "flagship-generic" else True
-    kw = dict(dsp_config=cfg, database={"pz": {"tau": TAU}},
+    kw = dict(dsp_config=cfg,
+              database=None if args.config == "sipm" else {"pz": {"tau": TAU}},
               buffer_len=args.events, device="cuda", fuse=fuse)
 
     def run():
