@@ -7,7 +7,9 @@ Builds the port's hand-written CUDA kernels from ``dspeed_tpu_torch/csrc``
 (K1 energy front, K2 rise-time cascade, K3 t0 front with its absorbed A/E
 current, K4 convolution bank, K5 and K6 the A/E current front's polyphase
 and up-domain routes, K7 the generic fusion groups' row-tape interpreter,
-and the SiPM peak finder's sweep, which replaces a ``lax.scan``),
+the SiPM peak finder's sweep, which replaces a ``lax.scan``, and the
+recurrence kernel of the recursive-filter family, which replaces scans
+and blocked matmuls),
 holds each against its plain PyTorch version on the card at the main
 path's shapes (16384 events x 4096 samples, the 16384 x 300 current, and
 the generic flagship's two groups, NaN rows included), times kernel, plain
@@ -31,6 +33,15 @@ distinct events through ``build_dsp``'s production loop (read-ahead,
 staging on the copy stream, write-behind), every output of every chunk
 held bit for bit against the synchronous call of the same chain, with the
 host waits one pipelined chunk makes; and ``buffer_len="auto"``'s pick.
+The **flagship DPZ** (``dpz_config``: the flagship with ``double_pole_zero``
+in place of ``pole_zero``, on ``make_hpge_dpz_waveforms``' two-exponential
+tails): the recurrence kernel through each of its clients, bit for bit
+against the plain recurrence; K7 on its two groups (the energy front, with
+``double_pole_zero``'s op, and the second), the op's plane bit for bit
+against the plain walk and within REL_TOL of ``double_pole_zero`` called
+alone; ``build_dsp`` twice over 16384 events (K7 twice a chunk, K3, K2, K5
+and K4 once, K1 and the recurrence never, no split; ``trapEmax`` within the
+JAX package's own worst error on the same events).
 Then the **SiPM path** (``configs/sipm-pulse-finding.yaml``, 16384 events x
 1024 samples, VectorOfVectors outputs): K7 on its group and the sweep on
 its current, each bit for bit against its plain version, ``build_dsp``
@@ -94,6 +105,11 @@ AOE_RATIO = {48: 1.010, 128: 1.0037}
 # (test_pallas.py:333), the up-domain kernel against its plain version
 K5_REL, K5_UP_REL, K6_REL = 1e-5, 2e-5, 1e-6
 TAU = 27460.5
+# the flagship DPZ's trapEmax bound: the JAX package's own worst
+# |trapEmax / amplitude - 1| on the same 16384 events (its float32 chain on
+# the CPU, tools/dpz_reference.py: 0.008622882489735861; its float64 chain
+# 0.006851252233267324), plus 1e-5; neither meets 0.5% on this generator
+DPZ_TRAP_TOL = 0.008622882489735861 + 1e-5
 DT = 16.0  # ns per sample
 N_EVENTS = 16384
 N_SAMPLES = 4096
@@ -129,6 +145,30 @@ def make_hpge_waveforms(n, nsamp=N_SAMPLES, seed=11, dt=16.0):
         1.0,
     )
     wf = bl[:, None] + amp[:, None] * rise * decay
+    wf += rng.normal(0, 3, (n, nsamp))
+    return wf.astype("float32"), amp, t0, bl, rt
+
+
+DPZ = {"tau1": 27460.5, "tau2": 250.0, "frac": 0.04}  # samples, samples, 1
+
+
+def make_hpge_dpz_waveforms(n, nsamp=N_SAMPLES, seed=11):
+    """The flagship's synthetic HPGe pulses (:func:`make_hpge_waveforms`)
+    with the two-exponential tail ``(1 - frac) exp(-t/tau1) + frac
+    exp(-t/tau2)`` that ``double_pole_zero`` inverts (``DPZ``; the
+    generator of ``tests/torch_flagship.py``). Returns ``(wf, amp, t0, bl,
+    rt)``."""
+    rng = np.random.default_rng(seed)
+    amp = rng.uniform(500, 30000, n)
+    t0 = rng.integers(950, 1050, n)
+    rt = rng.integers(40, 150, n)
+    bl = rng.uniform(14000, 16000, n)
+    t = np.arange(nsamp)[None, :]
+    rise = np.clip((t - t0[:, None]) / rt[:, None], 0, 1)
+    dt = t - t0[:, None] - rt[:, None]
+    tail = ((1 - DPZ["frac"]) * np.exp(-dt / DPZ["tau1"])
+            + DPZ["frac"] * np.exp(-dt / DPZ["tau2"]))
+    wf = bl[:, None] + amp[:, None] * rise * np.where(dt > 0, tail, 1.0)
     wf += rng.normal(0, 3, (n, nsamp))
     return wf.astype("float32"), amp, t0, bl, rt
 
@@ -187,6 +227,33 @@ def l128_config() -> dict:
     upsampled samples instead of 48; the YAML file is not changed."""
     cfg = config()
     cfg["processors"]["curr_av"]["args"][1] = "128"
+    return cfg
+
+
+def dpz_config(dtype="float32") -> dict:
+    """The flagship with its pole-zero step changed to the two-pole
+    correction of HPGe production chains, ``double_pole_zero(wf_blsub,
+    db.pz2.tau1, db.pz2.tau2, db.pz2.frac)`` with the defaults of ``DPZ``
+    (chosen for the synthetic tail; no published source gives them), all 34
+    outputs: the **flagship DPZ** (``tests/torch_flagship.py`` builds the
+    same). With ``dtype="float64"`` its float32 declarations are widened,
+    as ``tests/torch_flagship.flagship_config`` widens them."""
+    import yaml
+
+    with open(CONFIG) as f:
+        txt = f.read()
+    if dtype == "float64":
+        for f32, f64 in (("'f')", "'d')"), ("'f', grid", "'d', grid"),
+                         ('"fi->f"', '"di->d"')):
+            txt = txt.replace(f32, f64)
+    cfg = yaml.safe_load(txt)
+    cfg["processors"]["wf_pz"] = {
+        "function": "double_pole_zero",
+        "module": "dspeed_tpu.processors",
+        "args": ["wf_blsub", "db.pz2.tau1", "db.pz2.tau2", "db.pz2.frac", "wf_pz"],
+        "unit": "ADC",
+        "defaults": {f"db.pz2.{k}": repr(v) for k, v in DPZ.items()},
+    }
     return cfg
 
 
@@ -1223,6 +1290,10 @@ def generic_bound(program, B) -> tuple[float, str]:
             f64 += n * (1 + 2 + (rise if rise <= 32 else 2) + (fall if fall <= 32 else 2))
         elif op.code == OPCODES["pole_zero"]:
             f64 += 2 * n
+        elif op.code == OPCODES["double_pole_zero"]:
+            # the prefix, the numerator on it, the pole; the correction
+            f64 += 6 * n
+            f32 += 3 * n
         elif op.code == OPCODES["linear_slope_fit"]:
             f64 += 5 * n
         elif op.code == OPCODES["moving_window_multi"]:
@@ -1243,18 +1314,24 @@ def generic_bound(program, B) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log):
-    """K7 on the generic flagship's two groups: the chain built on the CPU
-    over every event (NaN rows included), its steps run on the card up to
-    the second group, each group lowered twice: with every key it writes
-    (held against the plain walk by ``check_generic``) and with the chain's
-    own escapes (timed against the plain walk, through the wrapper and on
-    the device alone). Returns the figures, with each group's launch and
-    ``ptxas -v``'s report for ``generic_rows_kernel``."""
+def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
+             cfg=None, fuse="generic", members=(34, 19), path="generic flagship"):
+    """K7 on the two groups of ``cfg`` (default: the generic flagship) in
+    fusion mode ``fuse``: the chain built on the CPU over every event (NaN
+    rows included), its steps run on the card up to the second group, each
+    group lowered twice: with every key it writes (held against the plain
+    walk by ``check_generic``) and with the chain's own escapes (timed
+    against the plain walk, through the wrapper and on the device alone).
+    A ``double_pole_zero`` op's plane must equal the plain walk's bit for
+    bit on every row, and, within REL_TOL of its scale, the kernel route's
+    (``double_pole_zero`` called alone, on the recurrence kernel). Returns
+    the figures, with each group's launch and ``ptxas -v``'s report for
+    ``generic_rows_kernel``."""
     import torch
 
+    import dspeed_tpu_torch.processors as tp
     from dspeed_tpu_torch.processing_chain import GroupStep
-    from dspeed_tpu_torch.processors._tile_program import lower
+    from dspeed_tpu_torch.processors._tile_program import OPCODES, lower
 
     wf = wf.copy()
     bl = bl.copy()
@@ -1267,15 +1344,16 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log):
         "baseline": lh5.Array(bl.astype(np.float32)),
     })
     chain, _, _ = build_processing_chain(
-        config(), tb, db_dict={"pz": {"tau": TAU}}, device="cpu", fuse="generic"
+        cfg or config(), tb, db_dict={"pz": {"tau": TAU}}, device="cpu", fuse=fuse
     )
     inputs, B = chain._gather_inputs(0, len(wf))
     env = {k: v.to(dev) for k, v in chain._to_device(inputs).items()}
     env.update({k: v.to(dev) if isinstance(v, torch.Tensor) else v
                 for k, v in chain._const_env().items()})
     groups = [s for s in chain._steps if isinstance(s, GroupStep)]
-    if [len(g.members) for g in groups] != [34, 19]:
-        raise AssertionError(f"generic groups {[len(g.members) for g in groups]}")
+    if [len(g.members) for g in groups] != list(members):
+        raise AssertionError(f"{path}: groups of {[len(g.members) for g in groups]} "
+                             f"members, not {list(members)}")
     figs = []
     with torch.no_grad():
         for step in chain._steps:
@@ -1292,6 +1370,28 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log):
             torch.cuda.synchronize()
             err, rel, excused, conv_rows = check_generic(full, vals, got, want,
                                                          label)
+            dpz = [op for op in full.ops if op.code == OPCODES["double_pole_zero"]]
+            for op in dpz:
+                src, dst = (full.slots[op.ins[0]].key, full.slots[op.outs[0]].key)
+                if not same_bits(got[dst], want[dst]):
+                    raise AssertionError(f"K7 {label} {dst}: double_pole_zero differs "
+                                         f"from the plain walk")
+                x = got[src] if src in got else vals[src]
+                alone = tp.double_pole_zero(x, *(a[1] for a in op.args[1:]))[0]
+                g, w = got[dst].double(), alone.double()
+                if not torch.equal(torch.isnan(g), torch.isnan(w)):
+                    raise AssertionError(f"K7 {label} {dst}: NaN rows differ from "
+                                         f"the kernel route's")
+                ok = ~torch.isnan(w)
+                d = float((g[ok] - w[ok]).abs().max())
+                scale = float(w[ok].abs().max())
+                n_diff = int((g[ok] != w[ok]).sum())
+                print(f"K7 {label} {dst} against double_pole_zero alone (the "
+                      f"recurrence kernel): max |diff| {d:.3e} ({d / scale:.3e} of "
+                      f"scale), {n_diff} of {int(ok.sum())} samples not equal",
+                      flush=True)
+                if d > REL_TOL * scale:
+                    raise AssertionError(f"K7 {label} {dst}: off the kernel route")
             outs = _cuda.generic_rows(prog, vals)
             for k in step.escapes:
                 g, w = outs[k], got[k]
@@ -1304,7 +1404,7 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log):
             bound, by = generic_bound(prog, B)
             launch = _cuda.generic_rows_launch(prog)
             print(
-                f"K7 generic_rows [group {label}: {len(step.members)} members, "
+                f"K7 generic_rows [{path} group {label}: {len(step.members)} members, "
                 f"{len(prog.ops)} ops, {sum(op.plan for op in prog.ops)} planned "
                 f"barriers, {len(prog.ext_keys)} inputs, "
                 f"{len(step.escapes)} escapes, {prog.smem_bytes} B of shared "
@@ -1346,6 +1446,101 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log):
         group_b_bound_ms=b["bound"], group_a_launch=a["launch"],
         group_b_launch=b["launch"], ptxas=ptxas,
     )
+
+
+def plain_recurrence():
+    """A context in which the recurrence's clients run its plain version
+    (``_cuda.recurrence_plain``, a PyTorch loop over the samples) on the
+    card, in place of the kernel."""
+    import contextlib
+
+    from dspeed_tpu_torch.processors import _cuda
+
+    @contextlib.contextmanager
+    def ctx():
+        kernel = _cuda.recurrence
+        _cuda.recurrence = _cuda.recurrence_plain
+        try:
+            yield
+        finally:
+            _cuda.recurrence = kernel
+
+    return ctx()
+
+
+def recurrence_phase(_cuda, w, ptxas_log):
+    """The recurrence kernel (``csrc/recurrence.cu``) through each of its
+    clients at the main path's shape, ``w`` the flagship DPZ's baseline-less
+    rows on the card (a NaN row and an infinite sample included): the
+    first-order recursion at the DPZ pole (``_numerics.iir_first_order``),
+    ``rc_cr2`` with a constant and a per-event tau, ``convolve_exp``, a
+    notch biquad, ``recursive_filter`` of order 3, ``fixed_time_pickoff``
+    mode ``'s'`` and ``interpolating_upsampler`` mode ``'s'`` (x2), each
+    held bit for bit against the same call with the plain recurrence.
+    Times the first-order call through the wrapper and on the device alone
+    against its byte bound (each row read and written once)."""
+    import torch
+
+    import dspeed_tpu_torch.processors as tp
+    from dspeed_tpu_torch.processors import _numerics
+    from dspeed_tpu_torch.processors.pole_zero import dpz_constants
+
+    B, n = w.shape
+    x = w.clone()
+    x[9, 2000] = float("inf")
+    p = dpz_constants(DPZ["tau1"], DPZ["tau2"], DPZ["frac"])["p"]
+    taus = torch.linspace(20.0, 200.0, B, device=w.device)
+    picks = torch.linspace(-1.0, n + 1.0, B, device=w.device)
+    a3, b4 = np.array([0.2, 0.3, 0.1]), np.array([1.0, -1.2, 0.4, -0.1])
+    clients = {
+        "iir_first_order": lambda: _numerics.iir_first_order(x, p),
+        "rc_cr2": lambda: tp.rc_cr2(x, 50.0)[0],
+        "rc_cr2 per event": lambda: tp.rc_cr2(x, taus)[0],
+        "convolve_exp": lambda: tp.convolve_exp(x, 100.0)[0],
+        "notch_filter": lambda: tp.notch_filter(0.1, 0.02)(x)[0],
+        "recursive_filter order 3": lambda: tp.recursive_filter(x, a3, b4, 0.0, 0.0)[0],
+        "fixed_time_pickoff 's'": lambda: tp.fixed_time_pickoff(x, picks, ord("s"))[0],
+        "interpolating_upsampler 's'": lambda: tp.interpolating_upsampler(
+            x, ord("s"), dims={"m": 2 * n})[0],
+    }
+    launches = {}
+    with torch.no_grad():
+        for name, fn in clients.items():
+            before = _cuda.LAUNCHES["recurrence"]
+            got = fn()
+            launches[name] = _cuda.LAUNCHES["recurrence"] - before
+            with plain_recurrence():
+                want = fn()
+            torch.cuda.synchronize()
+            if not launches[name] or not same_bits(got, want):
+                raise AssertionError(f"recurrence [{name}]: the kernel's call differs "
+                                     f"from the plain version's (or did not launch)")
+            print(f"recurrence [{name}] {tuple(got.shape)}: bit for bit against the "
+                  f"plain recurrence ({launches[name]} launches)", flush=True)
+            del got, want
+        ms = time_ms(lambda: _numerics.iir_first_order(w, p), 20)
+        dev_ms = device_ms(lambda: _numerics.iir_first_order(w, p))
+        plain_ms = time_ms(lambda: _cuda.recurrence_plain(w, p), 2, 1)
+    bound = 2 * w.numel() * w.element_size() / PEAK_BYTES_S * 1e3
+    launch = _cuda.recurrence_launch()
+    ptxas = ptxas_report(ptxas_log, "recurrence_kernel")
+    local = sorted(k for k, v in ptxas.items()
+                   if "0 bytes spill stores" not in v or "0 bytes stack frame" not in v)
+    ptxas = ([f"{len(ptxas)} instances, spills or a stack frame in {len(local)}"]
+             + [f"{k}: {ptxas[k]}" for k in local])
+    print(f"recurrence [first order, {B}x{n} f32]: kernel {ms:.4f} ms through the "
+          f"wrapper ({dev_ms:.4f} ms on the device alone), plain {plain_ms:.4f} ms, "
+          f"byte bound {bound:.4f} ms, {bound / ms:.1%} of it ({bound / dev_ms:.1%} "
+          f"on the device alone); launch: {launch['rows']} rows and "
+          f"{launch['threads']} threads a block, "
+          f"{launch['smem_bytes']} B of shared memory, {launch['blocks_per_sm']} "
+          f"blocks per SM, {launch['registers']} registers and "
+          f"{launch['local_bytes']} local bytes a thread; ptxas {' | '.join(ptxas)}; "
+          f"on {card_line()}", flush=True)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", device_ms=dev_ms, bound_share=bound / ms,
+                device_bound_share=bound / dev_ms, launch=launch, ptxas=ptxas,
+                client_launches=launches)
 
 
 def sipm_table(lh5, wf):
@@ -1825,7 +2020,7 @@ def aoe_checks(cols, good, amp, t0, rt, label, ref=AOE_RATIO[48]) -> None:
 
 def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
               expect, rt=None, device="cuda", fuse=True, forbid=(),
-              aoe_geometry=AOE_GEOMETRY):
+              aoe_geometry=AOE_GEOMETRY, trap_tol=0.005):
     """A main path: ``build_dsp`` of ``cfg`` with fusion mode ``fuse`` over
     every event of ``wf`` on ``device``, file -> file where ``h5py`` is
     installed, else Table -> Table; launch counts and generic-group splits
@@ -1835,7 +2030,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     ``NAN_SAMPLE_ROW`` gets a NaN sample and event ``NAN_BASELINE_ROW`` a
     NaN baseline, so the NaN rules are checked end to end;
     ``aoe_geometry`` is the current front's (its window length picks the A/E
-    reference of ``AOE_RATIO``). Returns the launch counts."""
+    reference of ``AOE_RATIO``); ``trapEmax`` must lie within ``trap_tol``
+    of the injected amplitudes. Returns the launch counts."""
     import importlib.util
 
     import torch
@@ -1937,8 +2133,9 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     rel = np.abs(cols["trapEmax"][good] / amp[good] - 1)
     print(f"[{label}] trapEmax vs injected amplitude: max {rel.max():.4%}, "
           f"median {np.median(rel):.4%}", flush=True)
-    if rel.max() > 0.005:
-        raise AssertionError("trapEmax misses the injected amplitudes by > 0.5%")
+    if rel.max() > trap_tol:
+        raise AssertionError(f"trapEmax misses the injected amplitudes by > "
+                             f"{trap_tol:.4%}")
     if "tp_0_est" in cols:
         tp0 = cols["tp_0_est"]
         ok = good & np.isfinite(tp0)
@@ -2222,6 +2419,23 @@ def main() -> int:
                   logs["generic_rows"])
     torch.cuda.empty_cache()
 
+    # -- the flagship DPZ: the recurrence kernel's clients, then K7 on its --
+    # -- two groups (the energy front with double_pole_zero, and the second) --
+    t0 = time.time()
+    dwf, damp, dt0, dbl, drt = make_hpge_dpz_waveforms(N_EVENTS)
+    print(f"DPZ inputs: {N_EVENTS}x{N_SAMPLES} f32 made in {time.time() - t0:.2f} s",
+          flush=True)
+    w = (torch.from_numpy(dwf).to(dev)
+         - torch.from_numpy(dbl.astype(np.float32)).to(dev)[:, None])
+    w[7, 123] = float("nan")
+    rec = recurrence_phase(_cuda, w, logs["recurrence"])
+    del w
+    torch.cuda.empty_cache()
+    k7["dpz_groups"] = k7_phase(build_processing_chain, lh5, _cuda, dwf, dbl, dev,
+                                logs["generic_rows"], cfg=dpz_config(), fuse=True,
+                                members=(10, 17), path="flagship DPZ")
+    torch.cuda.empty_cache()
+
     # -- the SiPM chain's K7 group, then the peak finder's sweep on its curr --
     t0 = time.time()
     swf, n_pulses = make_sipm_waveforms(N_EVENTS)
@@ -2263,6 +2477,22 @@ def main() -> int:
             f"generic_rows launched {gen_launches['generic_rows']} times on one "
             f"chunk of the generic flagship, not 2"
         )
+    # the flagship DPZ: K7 carries the energy front (double_pole_zero in
+    # its first group), K1 never; the recurrence kernel does not run, since
+    # double_pole_zero stands inside the group
+    dpz_launches = e2e_phase(
+        build_dsp, lh5, _cuda, dpz_config(), dwf, damp, dt0, dbl, card,
+        "flagship DPZ",
+        expect=("generic_rows", "fused_t0", "cascade_tp", "fused_current_poly",
+                "banded_conv_multi"),
+        rt=drt, device=DEVICE, forbid=("fused_energy", "fused_current", "recurrence"),
+        trap_tol=DPZ_TRAP_TOL,
+    )
+    per_chunk = {"generic_rows": 2, "fused_t0": 1, "cascade_tp": 1,
+                 "fused_current_poly": 1, "banded_conv_multi": 1}
+    if {k: dpz_launches[k] for k in per_chunk} != per_chunk:
+        raise AssertionError(f"flagship DPZ launches {dpz_launches}, not {per_chunk}")
+    del dwf
     e2e_phase(
         build_dsp, lh5, _cuda, timing_config(), wf, amp, inj_t0, bl, card,
         "timing",
@@ -2330,6 +2560,15 @@ def main() -> int:
             source="dspeed_tpu_torch/csrc/generic_rows.cu",
             replaces="dspeed_tpu/processors/_pallas.py:1782",
             launches=gen_launches["generic_rows"], library_ms=None, **k7,
+        ),
+        dict(
+            name="recurrence", route="cuda",
+            source="dspeed_tpu_torch/csrc/recurrence.cu",
+            replaces="dspeed_tpu/processors/_numerics.py:250 (iir_first_order), "
+                     "rc_cr2.py:39 (_one_pole_scan), recursive_filter.py:41 "
+                     "(iir_companion), _spline.py:27 (affine_recurrence); no "
+                     "pallas_call",
+            launches=dpz_launches["recurrence"], library_ms=None, **rec,
         ),
         dict(
             name="peakdet_scan", route="cuda",

@@ -18,6 +18,11 @@
 //   pole_zero, trap_norm,            float64 prefixes with row_prefix.cuh's
 //   asym_trap_filter,                runs (scan_run) and scan tree; windows
 //   moving_window_multi              of <= 32 samples summed directly
+//   double_pole_zero                 the numerator on that float64 prefix,
+//                                    the pole by runs and an affine scan of
+//                                    their maps in float64 (the plain
+//                                    walk's order), the correction from the
+//                                    host's p^i table
 //   convolve_wf (banded route)       conv_tile.cuh's register-tiled loop, in
 //                                    conv_row.cuh's order (K3's and K4's)
 //   reflected_convolve_wf (m <= 32)  each output from the row's own samples
@@ -107,7 +112,7 @@ enum { S_KIND, S_F64, S_OFF, S_LEN, S_SIDX, S_EXT, S_ESC, S_ROOT };
 enum {
     OP_LOAD = 1, OP_MIN_MAX, OP_BL_SUB, OP_SLOPE_FIT, OP_POLE_ZERO, OP_TRAP,
     OP_AMAX, OP_CONV, OP_TPT, OP_WINDOWER, OP_AVG_CURRENT, OP_MW_MULTI,
-    OP_FTP, OP_UFUNC, OP_CONVERT, OP_REFL_CONV
+    OP_FTP, OP_UFUNC, OP_CONVERT, OP_REFL_CONV, OP_DPZ
 };
 
 // Mirrored field for field by ctypes in processors/_cuda.py. The tape rides
@@ -885,6 +890,116 @@ __device__ __forceinline__ void op_pole_zero(const GenParams& P, Row& R,
     flag_plane(P, out[0], h);
 }
 
+// double_pole_zero's numerator after its integrator, from the prefix S:
+// z = S[j] - k1 S[j-1] + k2 S[j-2] in float64, rounded to float32 (each
+// operation rounded once, as the unfused body rounds it).
+__device__ __forceinline__ float dpz_z(double s, double s1, double s2, double k1,
+                                       double k2) {
+    return (float)__dadd_rn(__dsub_rn(s, __dmul_rn(k1, s1)), __dmul_rn(k2, s2));
+}
+
+// The exclusive scan of one affine map y -> m y + e per thread, in thread
+// order, composed left to right ((m1, e1) then (m2, e2) is (m1 m2,
+// m2 e1 + e2), each product and sum rounded once); returns the e of the
+// maps before this thread's, i.e. the value y reaches from y = 0. Lanes by
+// Hillis-Steele, then each warp folds the warps before it in order from
+// one reduction buffer, which it reads after the barrier. Called by every
+// thread. _numerics.iir_first_order_runs is this order in PyTorch.
+__device__ __forceinline__ double gen_affine_excl(Row& R, double m, double e) {
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    for (int o = 1; o < 32; o <<= 1) {
+        const double m2 = __shfl_up_sync(FULL_MASK, m, o);
+        const double e2 = __shfl_up_sync(FULL_MASK, e, o);
+        if (lane >= o) {
+            e = __dadd_rn(__dmul_rn(m, e2), e);
+            m = __dmul_rn(m2, m);
+        }
+    }
+    double mx = __shfl_up_sync(FULL_MASK, m, 1);
+    double ex = __shfl_up_sync(FULL_MASK, e, 1);
+    if (lane == 0) {
+        mx = 1.0;
+        ex = 0.0;
+    }
+    double* red = gen_red[R.rb];
+    R.rb ^= 1;
+    if (lane == 31) {
+        red[wid] = m;
+        red[GEN_WARPS + wid] = e;
+    }
+    __syncthreads();
+    if (wid == 0) return ex;
+    double am = red[0], ae = red[GEN_WARPS];
+    for (int l = 1; l < wid; ++l) {
+        const double bm = red[l], be = red[GEN_WARPS + l];
+        ae = __dadd_rn(__dmul_rn(bm, ae), be);
+        am = __dmul_rn(am, bm);
+    }
+    return __dadd_rn(__dmul_rn(mx, ae), ex);
+}
+
+// double_pole_zero (pole_zero.py's body, the JAX package's :63): z, the
+// numerator's prefix, from the row's inclusive float64 prefix S (scan_run's
+// runs and scan tree, as pole_zero's; S[j0 - 2] is S[j0 - 1] - x[j0 - 1],
+// exact where the prefix is), rounded to float32; the pole y[i] = p y[i-1]
+// + z[i] by runs: each thread's run from 0 in float64 into the scratch, the
+// runs' maps (p^len, y_end) scanned by gen_affine_excl, then each sample
+// plus p^(k+1) times its run's carry (the products p^k taken one factor at
+// a time); y rounded to float32, less alpha (1 - p^i) with alpha = x[0] ke
+// / kd, in float32. This is _numerics.iir_first_order_runs' order, which
+// the tape's plain walk takes (pole_zero.double_pole_zero_runs): it differs
+// from the sequential recurrence of double_pole_zero alone by rounding
+// only. The tape's doubles hold p, k1 = a+b and k2 = ab; the taps hold
+// ke = 1-a+frac(a-b), kd = 1-p and p^i (ip[0] their offset); ip[1] marks a
+// NaN parameter. It reads a neighbour's sample before its first barrier
+// (the plan puts a barrier before it), writes the scratch after it, and
+// reads x[0] and its last reduction buffer after its last.
+__device__ __forceinline__ void op_dpz(const GenParams& P, Row& R, int k,
+                                       const int* in, const int* out,
+                                       const int* ip) {
+    const float* x = plane(P, in[0]);
+    float* o = plane(P, out[0]);
+    float* g = esc_plane(P, R, out[0]);
+    const int n = plen(P, in[0]);
+    const double* dp = tape_dp(P) + k * OP_DP;
+    const double p = dp[0], k1 = dp[1], k2 = dp[2];
+    const float* tab = P.taps + ip[0];
+    const bool bad = plane_nan(P, in[0], false) || ip[1];
+    double* vs = scratch_of(P);
+    int j0, j1;
+    scan_run(n, j0, j1);
+    double run = 0.0;
+    for (int j = j0; j < j1; ++j) run += (double)x[j];
+    double s1 = gen_excl_scan(R, run);
+    double s2 = j0 >= 1 ? s1 - (double)x[j0 - 1] : 0.0;
+    double v = 0.0, m = 1.0;
+    for (int j = j0; j < j1; ++j) {
+        const double s = s1 + (double)x[j];
+        const float z = dpz_z(s, s1, s2, k1, k2);
+        v = __dadd_rn(__dmul_rn(p, v), (double)z);
+        m = __dmul_rn(m, p);
+        vs[j] = v;
+        s2 = s1;
+        s1 = s;
+    }
+    const double c = gen_affine_excl(R, m, v);
+    const float alpha = __fdiv_rn(__fmul_rn(x[0], tab[0]), tab[1]);
+    const float* pw = tab + 2;
+    const float qnan = __int_as_float(0x7fc00000);
+    double pk = p;
+    int h = 0;
+    for (int j = j0; j < j1; ++j) {
+        const float y = (float)__dadd_rn(vs[j], __dmul_rn(pk, c));
+        pk = __dmul_rn(pk, p);
+        const float val = bad ? qnan
+                              : __fsub_rn(y, __fmul_rn(alpha, __fsub_rn(1.f, pw[j])));
+        o[j] = val;
+        if (g) g[j] = val;
+        h |= nan_inf(val);
+    }
+    flag_plane(P, out[0], h);
+}
+
 // trap_norm / asym_trap_filter from the padded float64 prefix.
 __device__ __forceinline__ void op_trap(const GenParams& P, Row& R,
                                         const int* in, const int* out,
@@ -1216,6 +1331,7 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         case OP_AVG_CURRENT: op_gather(P, R, k, code, in, out, ip); break;
         case OP_MW_MULTI: op_mw_multi(P, R, in, out, ip); break;
         case OP_REFL_CONV: op_reflected_conv(P, R, in, out, ip); break;
+        case OP_DPZ: op_dpz(P, R, k, in, out, ip); break;
         default: break;
         }
     }

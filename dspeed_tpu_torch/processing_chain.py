@@ -3286,10 +3286,26 @@ class ProcessingChain:
             if dry_run:
                 return None
             if isinstance(index, ProcChainVar):
-                raise ProcessingChainError(
-                    f"indexing {val} by the per-event {index} needs the "
-                    "`get_default` processor (ROADMAP queue 1, item 8)"
+                # a per-event index: get_default, NaN (or the integer type's
+                # largest value) where it falls outside the row
+                from .processors import get_default
+
+                out = ProcChainVar(
+                    self,
+                    name=f"{val}[{index}]",
+                    shape=(),
+                    dtype=val.dtype,
+                    grid=val.grid if val.is_coord is True else None,
+                    unit=val.unit,
+                    is_coord=val.is_coord,
                 )
+                default = (
+                    np.nan
+                    if np.issubdtype(val.dtype, np.floating)
+                    else np.iinfo(val.dtype).max
+                )
+                self._add_step(KernelStep(self, get_default, [val, index, default, out]))
+                return out
             out_name = f"{val}[{index}]"
             out_shape = val.shape[:-1]
             out_grid = val.grid if val.is_coord is True else None

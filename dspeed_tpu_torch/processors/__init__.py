@@ -71,6 +71,29 @@ _modules = {
     "remove_duplicates": "peak_finding",
     "multi_t_filter": "peak_finding",
     "multi_a_filter": "peak_finding",
+    "double_pole_zero": "pole_zero",
+    "rc_exp": "pole_zero",
+    "convolve_exp": "pole_zero",
+    "convolve_damped_oscillator": "pole_zero",
+    "inject_damped_oscillation": "pole_zero",
+    "recursive_filter": "recursive_filter",
+    "iir_filter": "iir_filter",
+    "notch_filter": "iir_filter",
+    "peak_filter": "iir_filter",
+    "rc_cr2": "rc_cr2",
+    "interpolating_upsampler": "upsampler",
+    "get": "get",
+    "get_default": "get",
+    "mean_below_threshold": "arithmetic",
+    "time_over_threshold": "misc",
+    "saturation": "misc",
+    "presum": "misc",
+    "pad": "misc",
+    "log_check": "misc",
+    "sort": "misc",
+    "trap_pickoff": "trap_filters",
+    "min_max_norm": "min_max",
+    "linear_slope_diff": "linear_slope_fit",
 }
 
 __all__ = ["Kernel", "kernel", "parse_signature", *sorted(set(_modules))]

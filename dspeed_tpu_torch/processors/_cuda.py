@@ -22,15 +22,19 @@ Each kernel replaces one Pallas TPU kernel of the JAX package
   group as one row-tape launch (``generic_rows`` :1782), its tape lowered
   by :mod:`._tile_program`.
 
-One kernel replaces no Pallas kernel: :func:`peakdet_scan`
+Two kernels replace no Pallas kernel: :func:`peakdet_scan`
 (``csrc/peakdet_scan.cu``), the Billauer peak finder's sweep, which the JAX
-package runs as a ``lax.scan`` (``dspeed_tpu/processors/peak_finding.py:49``).
+package runs as a ``lax.scan`` (``dspeed_tpu/processors/peak_finding.py:49``),
+and :func:`recurrence` (``csrc/recurrence.cu``), the linear recurrences of
+the recursive-filter family, which the JAX package runs as blocked matmuls
+and ``associative_scan`` calls (``_numerics.py:250``, ``rc_cr2.py:39``,
+``recursive_filter.py:41``, ``_spline.py:27``).
 
 A wrapper given a CPU tensor computes the kernel's plain version
 (:func:`fused_energy_plain`, :func:`banded_conv_plain`,
 :func:`fused_t0_plain`, :func:`cascade_tp_plain`,
 :func:`fused_current_plain`, :func:`generic_rows_plain`,
-:func:`peakdet_scan_plain`); given a CUDA
+:func:`peakdet_scan_plain`, :func:`recurrence_plain`); given a CUDA
 tensor it launches the kernel or raises — it never falls back. Every launch adds one to
 ``LAUNCHES[<kernel>]`` (K5 counts as ``fused_current_poly``, K6 as
 ``fused_current``). :func:`fused_current_poly_plain` is K5's own arithmetic
@@ -84,6 +88,9 @@ __all__ = [
     "peakdet_scan",
     "peakdet_scan_launch",
     "peakdet_scan_plain",
+    "recurrence",
+    "recurrence_launch",
+    "recurrence_plain",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,12 +104,13 @@ SOURCES = {
     "fused_current": "fused_current.cu",
     "generic_rows": "generic_rows.cu",
     "peakdet_scan": "peakdet_scan.cu",
+    "recurrence": "recurrence.cu",
 }
 
 LAUNCHES = {
     "fused_energy": 0, "banded_conv_multi": 0, "fused_t0": 0, "cascade_tp": 0,
     "fused_current_poly": 0, "fused_current": 0, "generic_rows": 0,
-    "peakdet_scan": 0,
+    "peakdet_scan": 0, "recurrence": 0,
 }
 
 _LIBS: dict = {}
@@ -217,6 +225,15 @@ def _bind(name: str, so: str):
         ]
         lib.dspeed_peakdet_scan_config.restype = ctypes.c_int
         lib.dspeed_peakdet_scan_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    elif name == "recurrence":
+        lib.dspeed_recurrence.restype = ctypes.c_int
+        lib.dspeed_recurrence.argtypes = [
+            ctypes.POINTER(_RecParams), ctypes.c_void_p,
+        ]
+        lib.dspeed_recurrence_smem_order.restype = ctypes.c_int
+        lib.dspeed_recurrence_smem_order.argtypes = []
+        lib.dspeed_recurrence_config.restype = ctypes.c_int
+        lib.dspeed_recurrence_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
     else:
         for fn in (lib.dspeed_fused_current, lib.dspeed_fused_current_poly):
             fn.restype = ctypes.c_int
@@ -1269,7 +1286,10 @@ def generic_rows_plain(program, vals: dict) -> dict:
     walked in PyTorch. Each op calls its member kernel's own body on the
     slots' values, cast as the unfused step casts them, and binds its
     outputs in the slots' types; views are slices of their root. On the CPU
-    this is the unfused chain's arithmetic exactly. Returns the escapes."""
+    this is the unfused chain's arithmetic exactly, but for
+    ``double_pole_zero``, whose pole runs in K7's order
+    (:func:`.pole_zero.double_pole_zero_runs`). Returns the escapes."""
+    from .pole_zero import double_pole_zero_runs
     from ._tile_program import OPCODES
 
     roots = {program.by_key[k]: vals[k] for k in program.ext_keys}
@@ -1283,7 +1303,9 @@ def generic_rows_plain(program, vals: dict) -> dict:
             continue
         args = [value(a[1], a[2]) if a[0] == "slot" else a[1] for a in op.args]
         kern = op.step.kernel
-        if getattr(kern, "uses_dims", False):
+        if op.code == OPCODES["double_pole_zero"]:
+            outs = (double_pole_zero_runs(*args),)
+        elif getattr(kern, "uses_dims", False):
             outs = kern.fn(*args, dims=op.step.dims)
             outs = outs if isinstance(outs, tuple) else (outs,)
         else:
@@ -1486,3 +1508,151 @@ def peakdet_scan(w, dmax, dmin, amax, amin, m_max, m_min, reverse=False):
     _check_rc(lib, rc, "peakdet_scan")
     LAUNCHES["peakdet_scan"] += 1
     return smax, smin, nmx, nmn
+
+
+# ---------------------------------------------------------------------------
+# linear recurrences along a row (no Pallas counterpart: scans and matmuls)
+# ---------------------------------------------------------------------------
+
+
+class _RecParams(ctypes.Structure):
+    """Field for field the ``RecParams`` struct of ``recurrence.cu``."""
+
+    _fields_ = [
+        ("u", ctypes.c_void_p),
+        ("u_stride", ctypes.c_longlong),
+        ("y", ctypes.c_void_p),
+        ("m", ctypes.c_void_p),
+        ("m_const", ctypes.c_double),
+        ("c", ctypes.c_void_p),
+        ("y0", ctypes.c_void_p),
+        ("ring", ctypes.c_void_p),
+    ] + [(f, ctypes.c_int) for f in ("B", "n", "order", "m_kind", "c_per_row",
+                                     "reverse", "f64")]
+
+
+_M_CONST, _M_ROW, _M_POS = 0, 1, 2
+
+
+def _rec_args(u, m, y0, c, per_position):
+    """The recurrence's operands in float64 on ``u``'s device: ``(m, m_kind,
+    c, y0)``, with ``m`` a python float (``m_kind`` 0) or a ``(B,)`` /
+    ``(n,)`` tensor, ``c`` None or ``(d,)`` / ``(B, d)``, ``y0`` None or
+    ``(B,)`` (first order) / ``(B, d)``."""
+    B, n = u.shape
+    f64, dev = torch.float64, u.device
+
+    def t64(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev, f64)
+        return torch.as_tensor(np.asarray(x, np.float64), device=dev)
+
+    m_kind = _M_CONST
+    if c is None:
+        if isinstance(m, torch.Tensor) and m.ndim:
+            m = t64(m)
+            m_kind = _M_POS if per_position else _M_ROW
+            if m.shape != ((n,) if per_position else (B,)):
+                raise ValueError(f"recurrence: multipliers of shape {tuple(m.shape)}")
+        else:
+            m = float(m)
+        d = 1
+    else:
+        c = t64(c)
+        d = c.shape[-1]
+        if c.ndim not in (1, 2) or (c.ndim == 2 and c.shape[0] != B) or d == 0:
+            raise ValueError(f"recurrence: coefficients of shape {tuple(c.shape)}")
+    if y0 is not None:
+        y0 = t64(y0)
+        y0 = y0.expand(B) if c is None else y0.expand(B, d)
+        if c is None and y0.ndim != 1:
+            raise ValueError("recurrence: a first-order state is one value a row")
+    return m, m_kind, c, y0
+
+
+def recurrence_plain(u, m=0.0, y0=None, *, c=None, reverse=False,
+                     per_position=False):
+    """Plain version of :func:`recurrence`: a loop over the samples in
+    PyTorch, batched over the rows, each product and sum rounded once in
+    float64, in the kernel's order."""
+    B, n = u.shape
+    m, _, c, y0 = _rec_args(u, m, y0, c, per_position)
+    uu = u.to(torch.float64)
+    out = torch.empty((B, n), dtype=torch.float64, device=u.device)
+    order = range(n - 1, -1, -1) if reverse else range(n)
+    if c is None:
+        y = torch.zeros(B, dtype=torch.float64, device=u.device) if y0 is None else y0
+        for i in order:
+            y = (m[i] if per_position else m) * y + uu[:, i]
+            out[:, i] = y
+        return out.to(u.dtype)
+    d = c.shape[-1]
+    hist = [torch.zeros(B, dtype=torch.float64, device=u.device) if y0 is None
+            else y0[:, k] for k in range(d)]
+    ck = [c[..., k] for k in range(d)]
+    for i in order:
+        v = uu[:, i]
+        for k in range(d):
+            v = v - ck[k] * hist[k]
+        hist = [v] + hist[:-1]
+        out[:, i] = v
+    return out.to(u.dtype)
+
+
+def recurrence_launch() -> dict:
+    """How the first-order float32 instance launches on this card: rows a
+    block, blocks per SM, registers and local (spill) bytes a thread, its
+    shared bytes and threads a block."""
+    lib = _lib("recurrence")
+    out = (ctypes.c_int * 6)()
+    _check_rc(lib, lib.dspeed_recurrence_config(out), "recurrence")
+    return dict(zip(("rows", "blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes", "threads"), out))
+
+
+def recurrence(u, m=0.0, y0=None, *, c=None, reverse=False, per_position=False):
+    """A linear recurrence along each row of ``u`` (``(B, n)``, float32 or
+    float64), one thread per row (32 rows a block of 128 threads, which
+    stage the rows through shared memory), in float64, written in ``u``'s
+    type:
+
+    - without ``c``, first order: ``y[i] = m * y[i-1] + u[i]``, ``m`` a
+      number, a ``(B,)`` tensor (one a row) or, with ``per_position``, an
+      ``(n,)`` tensor; ``y0`` (a number or ``(B,)``) is ``y[-1]``; with
+      ``reverse`` it runs from the end: ``y[i] = m * y[i+1] + u[i]``;
+    - with ``c`` (``(d,)`` or ``(B, d)``), order d:
+      ``y[i] = u[i] - sum_k c[k] * y[i-1-k]``, ``y0`` (``(B, d)``) holding
+      ``y[-1], ..., y[-d]``.
+
+    Zero initial state without ``y0``. CPU tensors run
+    :func:`recurrence_plain`, which it equals bit for bit."""
+    if u.device.type == "cpu":
+        return recurrence_plain(u, m, y0, c=c, reverse=reverse,
+                                per_position=per_position)
+    if u.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"recurrence: the CUDA kernel takes float rows, got {u.dtype}")
+    if u.dim() != 2 or u.stride(1) != 1:
+        raise ValueError("recurrence: the CUDA kernel takes rows of contiguous samples")
+    lib = _lib("recurrence")
+    B, n = u.shape
+    m, m_kind, c, y0 = _rec_args(u, m, y0, c, per_position)
+    y = torch.empty((B, n), dtype=u.dtype, device=u.device)
+    keep = [t.contiguous() if isinstance(t, torch.Tensor) else None for t in (m, c, y0)]
+    d = 1 if c is None else c.shape[-1]
+    ring = None
+    if c is not None and d > lib.dspeed_recurrence_smem_order():
+        ring = torch.empty((B, d), dtype=torch.float64, device=u.device)
+    P = _RecParams(
+        u.data_ptr(), u.stride(0), y.data_ptr(),
+        keep[0].data_ptr() if keep[0] is not None else None,
+        m if m_kind == _M_CONST else 0.0,
+        keep[1].data_ptr() if keep[1] is not None else None,
+        keep[2].data_ptr() if keep[2] is not None else None,
+        ring.data_ptr() if ring is not None else None,
+        B, n, d, m_kind, int(c is not None and c.ndim == 2), int(bool(reverse)),
+        int(u.dtype == torch.float64),
+    )
+    rc = lib.dspeed_recurrence(ctypes.byref(P), _stream())
+    _check_rc(lib, rc, "recurrence")
+    LAUNCHES["recurrence"] += 1
+    return y

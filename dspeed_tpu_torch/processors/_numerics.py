@@ -5,6 +5,11 @@ differences of prefix sums and, for the TPU, carries those sums in
 compensated float32 (``dspeed_tpu/processors/_numerics.py``). Both the CPU
 and the H100 run float64 natively, so here a prefix sum is one ``cumsum`` in
 the accumulation dtype of :mod:`dspeed_tpu_torch.config`.
+
+The first-order recursion ``y[i] = x[i] + p*y[i-1]``, which the JAX package
+evaluates as blocked triangular matmuls (``_numerics.py:250``), runs here
+sample by sample in float64 on the recurrence kernel
+(:func:`._cuda.recurrence`), one thread per row.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import torch.nn.functional as F
 
 from .. import config
 
-__all__ = ["hp_cumsum", "shift_right", "true_div"]
+__all__ = ["hp_cumsum", "iir_first_order", "iir_first_order_runs", "shift_right",
+           "true_div"]
 
 
 def hp_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -37,3 +43,98 @@ def shift_right(x: torch.Tensor, k: int, fill: float = 0.0) -> torch.Tensor:
     n = x.shape[-1]
     k = min(k, n)
     return F.pad(x[..., : n - k], (k, 0), value=fill)
+
+
+def iir_first_order(x: torch.Tensor, p: float, y_init=0.0) -> torch.Tensor:
+    """``y[i] = x[i] + p*y[i-1]`` along the last axis, with ``y[-1] =
+    y_init`` (a number, or one value per row of ``x``). Accumulates in
+    :func:`config.accum_dtype` and rounds once to ``x``'s type; CUDA tensors
+    run the recurrence kernel, CPU tensors its plain version."""
+    from ._cuda import recurrence
+
+    *lead, n = x.shape
+    u = x.reshape(-1, n)
+    if u.stride(-1) != 1:
+        u = u.contiguous()
+    y0 = y_init
+    if isinstance(y_init, torch.Tensor) and y_init.ndim:
+        y0 = y_init.to(config.accum_dtype()).expand(*lead).reshape(-1)
+    elif float(y_init) == 0.0:
+        y0 = None
+    return recurrence(u, float(p), y0).reshape(*lead, n)
+
+
+def _affine(m1, e1, m2, e2):
+    """The affine map ``y -> m1 y + e1`` followed by ``y -> m2 y + e2``,
+    each product and sum rounded once: ``(m1 m2, m2 e1 + e2)``."""
+    return m1 * m2, m2 * e1 + e2
+
+
+K7_THREADS = 256  # threads a block of K7 (csrc/generic_rows.cu GEN_THREADS)
+
+
+def iir_first_order_runs(x: torch.Tensor, p: float) -> torch.Tensor:
+    """``y[i] = x[i] + p*y[i-1]`` from ``y[-1] = 0`` along the last axis of a
+    ``(B, n)`` tensor, in float64, in the order of K7's ``double_pole_zero``
+    op (``csrc/generic_rows.cu``, ``op_dpz``), which equals it bit for bit:
+
+    - the row is cut into ``K7_THREADS`` contiguous runs of ``ceil(n /
+      K7_THREADS)`` samples (``row_prefix.cuh``'s ``scan_run``); each run's
+      recurrence starts from 0 (``v``), and its map is ``(p^len, v_end)``,
+      ``p^len`` a product of ``p`` taken one factor at a time;
+    - the maps are scanned exclusively in run order as a block of warps of
+      32 scans them: Hillis-Steele over the lanes (offsets 1 .. 16) and a
+      shift by one lane; a warp's carry-in is the warps before it composed
+      in order, each thread folding them from shared memory;
+    - each sample adds ``p^(k+1)`` (a running product) times its run's
+      carry, the value before the run.
+
+    Differs from :func:`iir_first_order`'s sequential order by rounding
+    only. Returns float64."""
+    B, n = x.shape
+    dev, f64 = x.device, torch.float64
+    threads = K7_THREADS
+    per = -(-n // threads)
+    runs = torch.zeros((B, threads * per), dtype=f64, device=dev)
+    runs[:, :n] = x.to(f64)
+    runs = runs.view(B, threads, per)
+    cnt = (n - torch.arange(threads, device=dev) * per).clamp(0, per)
+    v = torch.zeros((B, threads), dtype=f64, device=dev)
+    m = torch.ones(threads, dtype=f64, device=dev)
+    vs = torch.empty_like(runs)
+    for k in range(per):
+        live = k < cnt
+        nv = p * v + runs[:, :, k]
+        vs[:, :, k] = nv
+        v = torch.where(live, nv, v)
+        m = torch.where(live, m * p, m)
+    warps = threads // 32
+    M = m.expand(B, threads).reshape(B, warps, 32)
+    E = v.reshape(B, warps, 32)
+    lane = torch.arange(32, device=dev)
+
+    def up(t, o, fill):
+        return torch.cat([torch.full_like(t[..., :o], fill), t[..., :-o]], dim=-1)
+
+    for o in (1, 2, 4, 8, 16):
+        nm, ne = _affine(up(M, o, 1.0), up(E, o, 0.0), M, E)
+        M = torch.where(lane >= o, nm, M)
+        E = torch.where(lane >= o, ne, E)
+    mx, ex = up(M, 1, 1.0), up(E, 1, 0.0)
+    # the warps' totals, folded in warp order: warp w's carry-in is warps
+    # 0 .. w-1 composed left to right
+    tm, te = M[..., 31], E[..., 31]
+    before = torch.zeros((B, warps), dtype=f64, device=dev)
+    am, ae = tm[:, 0], te[:, 0]
+    for w in range(1, warps):
+        before[:, w] = ae
+        am, ae = _affine(am, ae, tm[:, w], te[:, w])
+    carry = torch.where(torch.arange(warps, device=dev)[:, None] > 0,
+                        mx * before[..., None] + ex, ex).reshape(B, threads, 1)
+    pk = []
+    q = p
+    for _ in range(per):
+        pk.append(q)
+        q = q * p
+    y = vs + torch.tensor(pk, dtype=f64, device=dev) * carry
+    return y.reshape(B, threads * per)[:, :n]

@@ -25,8 +25,9 @@ Here the host lowers the member list into a tape before any launch:
 A member with no op, a plane that is not float32 or an operand shape the
 tape does not take raises :class:`LoweringError`; the group then splits
 (``GroupStep._exec``). The op set is the one the flagship's two generic
-groups and the SiPM chain's group need (``ROADMAP.md`` lists the tile-safe
-kernels still without one).
+groups, the SiPM chain's group and the flagship DPZ's energy-front group
+(``double_pole_zero``) need (``ROADMAP.md`` lists the tile-safe kernels
+still without one).
 
 :func:`~dspeed_tpu_torch.processors._cuda.generic_rows` runs a program on
 the card; :func:`~dspeed_tpu_torch.processors._cuda.generic_rows_plain`
@@ -45,7 +46,9 @@ from ..processing_chain import (
     auto,
 )
 from ._cuda import _MAX_SMEM, GEN_MAX_CODE, GEN_MAX_DP
+from ._numerics import K7_THREADS
 from .convolutions import _MATMUL_MAC_LIMIT, _mode_window
+from .pole_zero import dpz_constants, dpz_powers
 
 log = logging.getLogger("dspeed_tpu_torch.generic")
 
@@ -75,12 +78,13 @@ OPCODES = {
     "pole_zero": 5, "trap": 6, "amax": 7, "conv": 8, "time_point_thresh": 9,
     "windower": 10, "avg_current": 11, "moving_window_multi": 12,
     "fixed_time_pickoff": 13, "ufunc": 14, "convert": 15, "reflected_conv": 16,
+    "double_pole_zero": 17,
 }
 OP_IN, OP_OUT, OP_IP, OP_DP = 6, 4, 8, 4
 OP_INTS = 1 + OP_IN + OP_OUT + OP_IP  # code, in, out, ip
 SLOT_INTS = 8  # kind, f64, off, len, sidx, ext, esc, root
 UFUNCS = {"add": 0, "multiply": 1, "divide": 2, "true_divide": 2}
-THREADS = 256  # threads per block, one row per block
+THREADS = K7_THREADS  # threads per block, one row per block
 STATIC_SMEM = 512  # bytes of static shared memory (the reduction scratch)
 ALIGN = 4  # planes start on 16-byte boundaries
 IP_PLAN = 4  # ip[4]: the barrier plan (bit 0: a block barrier before the op)
@@ -91,13 +95,14 @@ WARP_OPS = ("time_point_thresh", "fixed_time_pickoff", "ufunc", "convert")
 # ops with a block barrier of their own after their first reads of their
 # operands and before any of their writes (csrc/generic_rows.cu)
 BARRIERED_OPS = ("min_max", "linear_slope_fit", "pole_zero", "trap", "amax",
-                 "conv", "moving_window_multi")
+                 "conv", "moving_window_multi", "double_pole_zero")
 # the block reductions' two alternating buffers: for each op that takes
 # them (its first one before its first barrier), how many of the buffers
 # it took last it still reads after its last barrier. One is safe, since
 # the next reduction takes the other buffer; two would meet its first write
 LATE_REDUCTION_READS = {"min_max": 1, "linear_slope_fit": 1, "pole_zero": 1,
-                        "amax": 1, "trap": 0, "moving_window_multi": 0}
+                        "amax": 1, "trap": 0, "moving_window_multi": 0,
+                        "double_pole_zero": 1}
 
 
 class Slot:
@@ -368,6 +373,25 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x.ins = [_plane(prog, args[0], name)]
         x.ip = [int(np.isnan(tau))]
         x.dp = [float(-np.expm1(-1.0 / tau)) if tau != 0 else 1.0]
+    elif name == "double_pole_zero":
+        need(len(args) == 4 and kinds == ("plane",), "signature")
+        w = _plane(prog, args[0], name)
+        tau1, tau2, frac = (float(_static(a, "a time constant or fraction"))
+                            for a in args[1:])
+        n = prog.slots[w].length
+        need(n > 3 and o[0].length == n, "a row of more than 3 samples")
+        k = dpz_constants(tau1, tau2, frac)
+        x = op("double_pole_zero")
+        x.ins = [w]
+        x.ip = [prog.n_taps, int(np.isnan([tau1, tau2, frac]).any())]
+        x.dp = [float(k["p"]), float(k["k1"]), float(k["k2"])]
+        # the correction's factors in the row's type, then p**i from float64
+        # (the JAX package's np.power), rounded likewise
+        with np.errstate(invalid="ignore", over="ignore"):
+            table = np.concatenate([[k["ke"], k["kd"]],
+                                    dpz_powers(k["p"], n)]).astype(np.float32)
+        prog.taps.append(table)
+        prog.n_taps += n + 2
     elif name in ("trap_norm", "asym_trap_filter"):
         sec = [int(_static(a, "a trapezoid section")) for a in args[1:]]
         need(kinds == ("plane",) and len(sec) == (2 if name == "trap_norm" else 3),
@@ -632,9 +656,9 @@ def _plan(prog: TileProgram) -> None:
     # per-row scalars (an even count, so that the scratch after them starts
     # on 16 bytes), and the scratch the ops need: a float64 prefix of the
     # row (with a pad double after every 16 where the scan's runs are of an
-    # even length), or the convolution's zero-padded window (the outputs
-    # and the taps' 32-tap chunks, with the 16-byte loads' tail) and its
-    # taps padded to 4
+    # even length), double_pole_zero's float64 runs, or the convolution's
+    # zero-padded window (the outputs and the taps' 32-tap chunks, with the
+    # 16-byte loads' tail) and its taps padded to 4
     for sid, s in enumerate(prog.slots):
         if s.root == sid and s.kind == "scalar":
             s.sidx = prog.n_scal
@@ -646,6 +670,9 @@ def _plan(prog: TileProgram) -> None:
             n = prog.slots[op.ins[0]].length
             even = -(-n // THREADS) % 2 == 0  # runs of an even length
             scratch = max(scratch, n + ((n >> 4) + 1 if even else 0))
+        elif op.code == OPCODES["double_pole_zero"]:
+            # the runs' float64 recurrence
+            scratch = max(scratch, prog.slots[op.ins[0]].length)
         elif op.code == OPCODES["conv"]:
             p, m = prog.slots[op.outs[0]].length, op.ip[1]
             mc = -(-m // 32) * 32
@@ -705,7 +732,8 @@ def _barriers(prog: TileProgram) -> None:
         ins = [] if name == "load" else [e for e in op.ins if not isinstance(e, tuple)]
         in_planes = [e for e in ins if slots[e].kind == "plane"]
         out_planes = [o for o in op.outs if slots[o].kind == "plane"]
-        uses_scratch = name in ("trap", "moving_window_multi", "conv")
+        uses_scratch = name in ("trap", "moving_window_multi", "conv",
+                                "double_pole_zero")
         own_barrier = name in BARRIERED_OPS
         need = any(slots[e].root in planes for e in in_planes)
         need |= not warp and any(slots[e].root in scalars for e in ins
@@ -723,7 +751,8 @@ def _barriers(prog: TileProgram) -> None:
         if own_barrier:
             planes, scalars, spans, scratch = set(), set(), [], False
             late = LATE_REDUCTION_READS.get(name, 0)
-            if name in ("trap", "pole_zero"):  # reads its input after it
+            # reads its input after it
+            if name in ("trap", "pole_zero", "double_pole_zero"):
                 spans += [span(e) for e in in_planes]
         else:
             spans += [span(e) for e in in_planes]

@@ -1,0 +1,30 @@
+"""Simple arithmetic reductions (reference
+``dspeed/processors/arithmetic.py:17``; JAX package
+``dspeed_tpu/processors/arithmetic.py:14``)."""
+
+from __future__ import annotations
+
+import torch
+
+from ._helpers import any_bad, as_tensor, cdim, isnan_any, nanmask
+from ._kernel import kernel
+
+__all__ = ["mean_below_threshold"]
+
+
+@kernel("(n),()->()", ["ff->f", "dd->d"])
+def mean_below_threshold(w_in, a_threshold):
+    """Mean of the samples strictly below ``a_threshold``; NaN when no sample
+    qualifies or inputs contain NaN."""
+    thr = cdim(as_tensor(a_threshold, w_in, w_in.dtype))
+    sel = w_in < thr
+    cnt = sel.sum(dim=-1)
+    tot = torch.where(sel, w_in, torch.zeros((), dtype=w_in.dtype,
+                                             device=w_in.device)).sum(dim=-1)
+    out = torch.where(cnt > 0, tot / cnt.clamp(min=1).to(w_in.dtype),
+                      torch.full((), float("nan"), dtype=w_in.dtype,
+                                 device=w_in.device))
+    return nanmask(any_bad(isnan_any(w_in, 1), isnan_any(a_threshold)), out)
+
+
+mean_below_threshold.tile_safe = True  # generic row-tile fusion: masked mean

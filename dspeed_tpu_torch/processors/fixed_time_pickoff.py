@@ -9,6 +9,7 @@ import torch
 from ..errors import DSPFatal
 from ._helpers import isnan_any, nanmask, static_int, take_per_row
 from ._kernel import kernel
+from ._spline import natural_spline_w2
 
 __all__ = ["fixed_time_pickoff"]
 
@@ -20,20 +21,15 @@ def fixed_time_pickoff(w_in, t_in, mode_in, badrow=None):
     """Pick off the waveform value at (fractional) index ``t_in``.
 
     Interpolation modes (static char, passed as ``ord(c)``): ``i`` integer,
-    ``n`` nearest, ``f`` floor, ``c`` ceil, ``l`` linear, ``h`` Hermite.
+    ``n`` nearest, ``f`` floor, ``c`` ceil, ``l`` linear, ``h`` Hermite,
+    ``s`` natural cubic spline (:func:`._spline.natural_spline_w2`).
     Out-of-range or NaN index gives NaN; mode ``'i'`` with a non-integral
-    index gives NaN (as in the JAX package). Mode ``s`` (natural cubic
-    spline) needs the spline solver, which is not ported yet.
+    index gives NaN (as in the JAX package).
     """
     mode = static_int(mode_in, "fixed_time_pickoff", "mode_in")
     if mode not in _MODES:
         raise DSPFatal("Unrecognized interpolation mode")
     ch = chr(mode)
-    if ch == "s":
-        raise NotImplementedError(
-            "fixed_time_pickoff mode 's' needs the spline solver "
-            "(_spline.py), ROADMAP queue 1 item 8"
-        )
     n = w_in.shape[-1]
     dtype = w_in.dtype
     static_t = isinstance(t_in, (int, float, np.integer, np.floating))
@@ -49,19 +45,19 @@ def fixed_time_pickoff(w_in, t_in, mode_in, badrow=None):
     t0 = frac
     t1 = 1.0 - t0
 
-    def pick(offs):
+    def pick(w, offs):
         if static_t and np.isfinite(t_in):
             # floor after casting to the dtype the tensor path floors
             j0 = int(np.floor(np.dtype(str(dtype).split(".")[-1]).type(t_in)))
-            return tuple(w_in[..., min(max(j0 + o, 0), n - 1)] for o in offs)
-        p = take_per_row(w_in, torch.stack([i0 + o for o in offs], dim=-1))
+            return tuple(w[..., min(max(j0 + o, 0), n - 1)] for o in offs)
+        p = take_per_row(w, torch.stack([i0 + o for o in offs], dim=-1))
         return tuple(p[..., k] for k in range(len(offs)))
 
     bad_mode = None
     if ch == "h":
-        w_im1, w_i, w_i1, w_i2 = pick((-1, 0, 1, 2))
+        w_im1, w_i, w_i1, w_i2 = pick(w_in, (-1, 0, 1, 2))
     else:
-        w_i, w_i1 = pick((0, 1))
+        w_i, w_i1 = pick(w_in, (0, 1))
     if ch == "i":
         val = w_i
         bad_mode = ~exact
@@ -73,6 +69,14 @@ def fixed_time_pickoff(w_in, t_in, mode_in, badrow=None):
         val = torch.where(exact, w_i, w_i1)
     elif ch == "l":
         val = torch.where(exact, w_i, t1 * w_i + t0 * w_i1)
+    elif ch == "s":
+        p2a, p2b = pick(natural_spline_w2(w_in), (0, 1))
+        s = (
+            t1 * w_i
+            + t0 * w_i1
+            + ((t1**3 - t1) * p2a + (t0**3 - t0) * p2b) / 6.0
+        )
+        val = torch.where(exact, w_i, s)
     else:  # 'h'
         m0 = torch.where(i0 == 0, w_in[..., 1] - w_in[..., 0], (w_i1 - w_im1) / 2.0)
         m1 = torch.where(

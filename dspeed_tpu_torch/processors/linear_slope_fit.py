@@ -1,7 +1,7 @@
 """Linear baseline fits (reference ``dspeed/processors/linear_slope_fit.py``).
 
 The reference runs Welford's method plus accumulated regression sums per
-sample (:19 ``linear_slope_fit``). Closed-form moments are mathematically
+sample (:19 ``linear_slope_fit``, :101 ``linear_slope_diff``). Closed-form moments are mathematically
 identical; the index sums are evaluated exactly on the host and the data sums
 at accumulation precision (float64), as in the JAX package under x64.
 """
@@ -11,10 +11,10 @@ from __future__ import annotations
 import torch
 
 from .. import config
-from ._helpers import isnan_any, nanmask
+from ._helpers import any_bad, as_tensor, cdim, isnan_any, nanmask
 from ._kernel import kernel
 
-__all__ = ["linear_slope_fit"]
+__all__ = ["linear_slope_fit", "linear_slope_diff"]
 
 
 @kernel(
@@ -55,5 +55,25 @@ def linear_slope_fit(w_in, badrow=None):
     )
 
 
+@kernel("(n),(),()->(),()", ["fff->ff", "ddd->dd"])
+def linear_slope_diff(w_in, slope, intercept):
+    """Mean and rms residual after removing a given line (reference
+    ``linear_slope_fit.py:101``). The reference's "mean" accumulates
+    ``resid[i] / (i + 1)``, a harmonic-weighted sum, and that weighting is
+    kept, as in the JAX package."""
+    n = w_in.shape[-1]
+    acc = config.accum_dtype()
+    i = torch.arange(n, dtype=acc, device=w_in.device)
+    resid = w_in.to(acc) - (cdim(as_tensor(slope, w_in, acc)) * i
+                            + cdim(as_tensor(intercept, w_in, acc)))
+    mean = (resid * (1.0 / (i + 1.0))).sum(dim=-1)
+    rms = (torch.sqrt((resid * resid).sum(dim=-1) / (n - 1)) if n > 1
+           else torch.zeros_like(mean))
+    dtype = w_in.dtype
+    bad = any_bad(isnan_any(w_in, 1), isnan_any(slope), isnan_any(intercept))
+    return nanmask(bad, mean.to(dtype)), nanmask(bad, rms.to(dtype))
+
+
 # generic row-tile fusion (the JAX package's flags)
 linear_slope_fit.tile_safe = True
+linear_slope_diff.tile_safe = True

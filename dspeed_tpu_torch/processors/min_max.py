@@ -4,10 +4,10 @@ from __future__ import annotations
 
 import torch
 
-from ._helpers import isnan_any, nanmask
+from ._helpers import as_tensor, cdim, isnan_any, nanmask
 from ._kernel import kernel
 
-__all__ = ["min_max"]
+__all__ = ["min_max", "min_max_norm"]
 
 
 @kernel(
@@ -35,5 +35,19 @@ def min_max(w_in, badrow=None):
     )
 
 
+@kernel("(n),(),()->(n)", ["fff->f", "ddd->d"])
+def min_max_norm(w_in, a_min, a_max):
+    """Normalize by ``max(|a_min|, |a_max|)`` unless either is zero
+    (reference ``min_max.py:93``)."""
+    amin = torch.abs(as_tensor(a_min, w_in))
+    amax = torch.abs(as_tensor(a_max, w_in))
+    denom = torch.where(amax >= amin, amax, amin)
+    either_zero = (amax == 0) | (amin == 0)
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom).to(w_in.dtype)
+    out = torch.where(cdim(either_zero), w_in, w_in / cdim(denom))
+    return nanmask(isnan_any(w_in, 1), out)
+
+
 # generic row-tile fusion (the JAX package's flags)
 min_max.tile_safe = True
+min_max_norm.tile_safe = True

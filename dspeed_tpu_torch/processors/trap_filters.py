@@ -2,7 +2,8 @@
 
 Reference semantics: ``dspeed/processors/trap_filters.py`` — four-phase
 running-sum recursions (:20 ``trap_filter``, :87 ``trap_norm``,
-:160 ``asym_trap_filter``).
+:160 ``asym_trap_filter``) and the trapezoid at one pick-off index
+(:238 ``trap_pickoff``).
 
 The recursions telescope exactly into differences of one inclusive prefix
 sum ``S`` (with ``S[k<0] = 0``):
@@ -15,14 +16,15 @@ package (``dspeed_tpu/processors/trap_filters.py``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..errors import DSPFatal
-from ._helpers import isnan_any, nanmask, static_int
+from ._helpers import any_bad, isnan_any, nanmask, static_int
 from ._kernel import kernel
 from ._numerics import hp_cumsum, shift_right
 
-__all__ = ["trap_filter", "trap_norm", "asym_trap_filter"]
+__all__ = ["trap_filter", "trap_norm", "asym_trap_filter", "trap_pickoff"]
 
 
 def _check(name: str, **sections) -> dict[str, int]:
@@ -101,7 +103,57 @@ def asym_trap_filter(w_in, rise, flat, fall, badrow=None):
     )
 
 
+@kernel("(n),(),(),()->()", ["fiif->f", "diid->d"])
+def trap_pickoff(w_in, rise, flat, t_pickoff):
+    """Trapezoid evaluated at one pick-off index (reference
+    ``trap_filters.py:238``; JAX package ``trap_filters.py:108``):
+    ``(sum w[t+1-rise : t+1] - sum w[t+1-2*rise-flat : t+1-rise-flat]) /
+    rise`` with ``t = int(t_pickoff)``, from the float64 prefix; NaN where
+    the window does not fit or ``t_pickoff`` is not an integer.
+    """
+    n = w_in.shape[-1]
+    p = _check("trap_pickoff", rise=rise, flat=flat)
+    if 2 * p["rise"] + p["flat"] > n:
+        raise DSPFatal("The trapezoid width is wider than the waveform")
+    t = torch.as_tensor(t_pickoff, device=w_in.device)
+    t = t.expand(w_in.shape[:-1]) if t.ndim == 0 else t
+    start = torch.trunc(t).to(torch.int64) + 1
+    ps = hp_cumsum(w_in)
+
+    def s_at(k):
+        # the inclusive prefix S[k], S[k < 0] = 0
+        v = torch.gather(ps, -1, k.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(k < 0, torch.zeros_like(v), v)
+
+    def win_sum(hi_idx, length):
+        # the sum of w[hi_idx-length : hi_idx]
+        return s_at(hi_idx - 1) - s_at(hi_idx - length - 1)
+
+    i1 = win_sum(start, p["rise"])
+    i2 = win_sum(start - p["rise"] - p["flat"], p["rise"])
+    val = ((i1 - i2) / np.float64(p["rise"])).to(w_in.dtype)
+    in_range = (start >= 2 * p["rise"] + p["flat"]) & (start <= n)
+    non_integer = torch.floor(t) != t
+    bad = any_bad(isnan_any(w_in, 1), isnan_any(t), ~in_range, non_integer)
+    return nanmask(bad, val)
+
+
+def _trap_pickoff_checker(w_in, rise, flat, t_pickoff):
+    """Checked-mode flag: the reference raises on a non-integral pick-off
+    index (``trap_filters.py:276-277``); NaN inputs give NaN."""
+    t = torch.as_tensor(t_pickoff, device=w_in.device)
+    lead = torch.broadcast_shapes(t.shape, w_in.shape[:-1])
+    if not t.is_floating_point():
+        return torch.zeros(lead, dtype=torch.int32, device=w_in.device)
+    code = ~isnan_any(w_in, 1) & ~torch.isnan(t) & (torch.floor(t) != t)
+    return code.to(torch.int32).expand(lead)
+
+
+trap_pickoff.checker = _trap_pickoff_checker
+trap_pickoff.check_messages = {1: "The pick-off index must be an integer"}
+
 # generic row-tile fusion (the JAX package's flags)
+trap_pickoff.tile_safe = True
 trap_filter.tile_safe = True
 trap_norm.tile_safe = True
 asym_trap_filter.tile_safe = True

@@ -167,6 +167,15 @@ def test_sources_cover_the_generic_modules():
     assert "torch/" not in src and 'extern "C" int dspeed_generic_rows' in src
 
 
+def test_sources_cover_the_filter_modules():
+    for mod in ("pole_zero", "recursive_filter", "iir_filter", "rc_cr2", "_spline",
+                "get", "arithmetic", "misc"):
+        assert os.path.join("dspeed_tpu_torch", "processors", f"{mod}.py") in SOURCES
+    with open(os.path.join(PKG, "csrc", "recurrence.cu")) as f:
+        src = f.read()
+    assert "torch/" not in src and 'extern "C" int dspeed_recurrence' in src
+
+
 def test_sources_cover_the_a_e_modules():
     for mod in ("windower", "moving_windows", "upsampler", "_poly_plan"):
         assert os.path.join("dspeed_tpu_torch", "processors", f"{mod}.py") in SOURCES

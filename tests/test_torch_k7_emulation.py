@@ -15,6 +15,10 @@ emulation of ``tools/k7_emu``: the kernel's own source, compiled with
   over float64 planes) equals the plain walk bit for bit on every row; the
   barrier before the op's reads of other threads' samples is what keeps
   ThreadSanitizer quiet there.
+- ``double_pole_zero``'s op (``dpz``) equals the plain walk bit for bit on
+  every row (a NaN sample, a NaN baseline, an infinite sample); the
+  barrier before it, where it reads the samples the baseline subtraction's
+  threads wrote, is what keeps ThreadSanitizer quiet.
 
 Every output of the group's ``full`` lowering is held against the plain
 walk by ``chip_smoke.check_generic``'s rule (the convolution within its
@@ -44,6 +48,8 @@ pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
     ("tsan", ["sipm"]),
     ("asan", ["sipm"]),
     ("sites", ["sipm"]),
+    ("tsan", ["dpz"]),
+    ("asan", ["dpz"]),
 ])
 def test_k7_emulation(tmp_path, mode, cases):
     r = subprocess.run(

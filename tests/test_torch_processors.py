@@ -181,9 +181,14 @@ def test_port_matches_jax(case, monkeypatch):
 
 
 def test_pickoff_spline_mode_is_not_ported_yet():
+    """Mode 's' (the natural spline) was the one mode the port raised on;
+    it is ported now, and agrees with the JAX package at this module's
+    rule (tests/test_torch_filters.py holds it at more pick times)."""
     wf, _ = _batch()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.fixed_time_pickoff(_t(wf), 10.5, ord("s"))
+    t = np.linspace(-1.0, N + 1.0, len(wf)).astype("float32")
+    want = jp.fixed_time_pickoff(wf, t, ord("s"))
+    got = tp.fixed_time_pickoff(_t(wf), _t(t), ord("s"))
+    _check(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -64,3 +64,43 @@ def assert_timing_columns(got: dict, want: dict) -> int:
         scale = np.abs(w[ok]).max()
         assert err <= REL * scale, f"{k}: {err:.3e} > {REL:g} * {scale:.3e}"
     return int(moved.sum())
+
+
+DPZ = {"tau1": 27460.5, "tau2": 250.0, "frac": 0.04}  # samples, samples, 1
+
+
+def dpz_config(dtype="float32"):
+    """The flagship with its pole-zero step changed to the two-pole
+    correction of HPGe production chains, ``double_pole_zero(wf_blsub,
+    db.pz2.tau1, db.pz2.tau2, db.pz2.frac)``, with the defaults of ``DPZ``
+    (chosen for the synthetic tail, no published source); every other step
+    and all 34 outputs are the flagship's."""
+    cfg = flagship_config(dtype)
+    cfg["processors"]["wf_pz"] = {
+        "function": "double_pole_zero",
+        "module": "dspeed_tpu.processors",
+        "args": ["wf_blsub", "db.pz2.tau1", "db.pz2.tau2", "db.pz2.frac", "wf_pz"],
+        "unit": "ADC",
+        "defaults": {f"db.pz2.{k}": repr(v) for k, v in DPZ.items()},
+    }
+    return cfg
+
+
+def make_hpge_dpz_waveforms(n, nsamp=4096, seed=11):
+    """The flagship's synthetic HPGe pulses (flat baseline, linear rise over
+    ``rt`` samples at ``t0``, noise of 3 ADC) with the two-exponential tail
+    ``(1 - frac) exp(-t/tau1) + frac exp(-t/tau2)`` that ``double_pole_zero``
+    inverts. Returns ``(wf, amp, t0, bl, rt)``."""
+    rng = np.random.default_rng(seed)
+    amp = rng.uniform(500, 30000, n)
+    t0 = rng.integers(950, 1050, n)
+    rt = rng.integers(40, 150, n)
+    bl = rng.uniform(14000, 16000, n)
+    t = np.arange(nsamp)[None, :]
+    rise = np.clip((t - t0[:, None]) / rt[:, None], 0, 1)
+    dt = t - t0[:, None] - rt[:, None]
+    tail = ((1 - DPZ["frac"]) * np.exp(-dt / DPZ["tau1"])
+            + DPZ["frac"] * np.exp(-dt / DPZ["tau2"]))
+    wf = bl[:, None] + amp[:, None] * rise * np.where(dt > 0, tail, 1.0)
+    wf += rng.normal(0, 3, (n, nsamp))
+    return wf.astype("float32"), amp, t0, bl, rt

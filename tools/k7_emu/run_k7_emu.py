@@ -34,7 +34,11 @@ Cases: ``reductions`` (reductions back to back), ``ops256`` and ``ops1001``
 alignment included), ``flagship`` (the generic flagship's two groups),
 ``sipm`` (the SiPM chain's group, ``reflected_convolve_wf`` and
 ``avg_current`` in float64, on ``chip_smoke.sipm_edge_rows``: every escape
-bit for bit against the plain walk, the row with an infinite sample too).
+bit for bit against the plain walk, the row with an infinite sample too),
+``dpz`` (``DPZ_CONFIG``: ``double_pole_zero`` between a baseline
+subtraction and the fit, trapezoid and maximum that read it, at 1001 and
+4100 samples, with a NaN sample, a NaN baseline and an infinite sample:
+every escape bit for bit against the plain walk).
 """
 
 import argparse
@@ -53,7 +57,29 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SRC = os.path.join(REPO, "dspeed_tpu_torch", "csrc", "generic_rows.cu")
-CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm")
+CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm", "dpz")
+# double_pole_zero in a group: it reads the samples bl_subtract's threads
+# wrote (the planned barrier before it), and the fit, trapezoid and maximum
+# read its output
+DPZ_CONFIG = {
+    "outputs": ["pz_mean", "pz_std", "pz_slope", "pz_icpt", "trap_max", "wf_pz"],
+    "processors": {
+        "wf_blsub": {"function": "bl_subtract", "module": "dspeed_tpu.processors",
+                     "args": ["waveform", "baseline", "wf_blsub(unit='ADC')"]},
+        "wf_pz": {"function": "double_pole_zero", "module": "dspeed_tpu.processors",
+                  "args": ["wf_blsub", "2000.0", "40.0", "0.05", "wf_pz"],
+                  "unit": "ADC"},
+        "pz_mean, pz_std, pz_slope, pz_icpt": {
+            "function": "linear_slope_fit", "module": "dspeed_tpu.processors",
+            "args": ["wf_pz[600:]", "pz_mean", "pz_std", "pz_slope", "pz_icpt"],
+            "unit": ["ADC"] * 4},
+        "wf_trap": {"function": "trap_norm", "module": "dspeed_tpu.processors",
+                    "args": ["wf_pz", "50", "10", "wf_trap"], "unit": "ADC"},
+        "trap_max": {"function": "amax", "module": "numpy", "unit": "ADC",
+                     "args": ["wf_trap", 1, "trap_max"],
+                     "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}},
+    },
+}
 FLAGS = {
     "tsan": ["-fsanitize=thread", "-O1"],
     "asan": ["-fsanitize=address", "-O1"],
@@ -234,6 +260,18 @@ def cases(names, rows=6):
         groups = chain_groups(cs.config(), wf, bl, {"pz": {"tau": cs.TAU}})
         for lab, (prog, full, vals) in zip("AB", groups):
             yield f"flagship {lab}", prog, full, vals
+    if "dpz" in names:
+        from torch_flagship import make_hpge_dpz_waveforms
+
+        # 1001 samples: runs of 4, some threads with none; 4100: runs of 17
+        for nsamp in (1001, 4100):
+            wf, _amp, _t0, bl, _rt = make_hpge_dpz_waveforms(max(rows, 4), nsamp=4800)
+            wf = np.ascontiguousarray(wf[:rows, 700:700 + nsamp])
+            wf[0, 300] = np.nan
+            bl[1 % rows] = np.nan
+            wf[min(2, rows - 1), 500] = np.inf
+            for prog, full, vals in chain_groups(DPZ_CONFIG, wf, bl[:rows]):
+                yield "dpz", prog, full, vals
     if "sipm" in names:
         wf, _ = cs.make_sipm_waveforms(max(rows, 3))
         # the SiPM chain's default mode forms its group
@@ -264,7 +302,7 @@ def check(label, prog, vals, got, parent=None) -> str:
     err, rel, excused, _ = cs.check_generic(
         prog, sub, {k: v[fin] for k, v in got.items()}, plain, label)
     msg = f"vs plain: max err {err:.3e} ({rel:.2e} of scale), {excused} rows excused"
-    if label == "sipm":
+    if label in ("sipm", "dpz"):
         # unfused products and sums in the plain walk's order: every row
         # bit for bit, the row with an infinite sample included
         plain = _cuda.generic_rows_plain(prog, vals)
