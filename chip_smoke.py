@@ -9,7 +9,8 @@ current, K4 convolution bank, K5 and K6 the A/E current front's polyphase
 and up-domain routes, K7 the generic fusion groups' row-tape interpreter,
 the SiPM peak finder's sweep, which replaces a ``lax.scan``, and the
 recurrence kernel of the recursive-filter family, which replaces scans
-and blocked matmuls),
+and blocked matmuls,
+and the bi-level trigger's sweep, which replaces a ``lax.scan``),
 holds each against its plain PyTorch version on the card at the main
 path's shapes (16384 events x 4096 samples, the 16384 x 300 current, and
 the generic flagship's two groups, NaN rows included), times kernel, plain
@@ -47,7 +48,19 @@ Then the **SiPM path** (``configs/sipm-pulse-finding.yaml``, 16384 events x
 its current, each bit for bit against its plain version, ``build_dsp``
 twice (a chain-cache hit) with the pulse count held against the JAX
 package's, the first 256 events against the port's CPU run, and two chunks
-through the production loop against the synchronous calls.
+through the production loop against the synchronous calls. Then the
+**flagship extras** (``extras_config``: the flagship's 34 columns and the
+12 processors of `poly_fit.py`, `soft_pileup_corr.py`, `corrections.py` and
+the rest of `time_point_thresh.py` on its waveforms): those processors called alone
+on the card against the CPU (``inl_correction`` among them, on the rows'
+integer codes), the bi-level trigger's sweep (``csrc/bilevel_scan.cu``) on
+the extras' ``rc_cr2`` rows bit for bit against its plain version, K7 on the
+extras' three groups (the new ops ``poly_residual``, ``soft_pileup``,
+``wf_correction``, ``wf_centroid`` and ``time_point_thresh``'s interpolation
+modes), and ``build_dsp`` twice over 16384 events (the hand fronts, K7 three
+times a chunk, ``rc_cr2`` on the recurrence kernel, the sweep once, no
+split; each new column finite on at least 90% of the events, the first 256
+events against the CPU run).
 
 Prints the card's name and power limit, one JSON line of kernel figures
 (``{"kernels": [...]}``), and as the last line
@@ -230,14 +243,9 @@ def l128_config() -> dict:
     return cfg
 
 
-def dpz_config(dtype="float32") -> dict:
-    """The flagship with its pole-zero step changed to the two-pole
-    correction of HPGe production chains, ``double_pole_zero(wf_blsub,
-    db.pz2.tau1, db.pz2.tau2, db.pz2.frac)`` with the defaults of ``DPZ``
-    (chosen for the synthetic tail; no published source gives them), all 34
-    outputs: the **flagship DPZ** (``tests/torch_flagship.py`` builds the
-    same). With ``dtype="float64"`` its float32 declarations are widened,
-    as ``tests/torch_flagship.flagship_config`` widens them."""
+def flagship_config(dtype="float32") -> dict:
+    """The flagship YAML; with ``dtype="float64"`` its float32 declarations
+    widened, as ``tests/torch_flagship.flagship_config`` widens them."""
     import yaml
 
     with open(CONFIG) as f:
@@ -246,7 +254,18 @@ def dpz_config(dtype="float32") -> dict:
         for f32, f64 in (("'f')", "'d')"), ("'f', grid", "'d', grid"),
                          ('"fi->f"', '"di->d"')):
             txt = txt.replace(f32, f64)
-    cfg = yaml.safe_load(txt)
+    return yaml.safe_load(txt)
+
+
+def dpz_config(dtype="float32") -> dict:
+    """The flagship with its pole-zero step changed to the two-pole
+    correction of HPGe production chains, ``double_pole_zero(wf_blsub,
+    db.pz2.tau1, db.pz2.tau2, db.pz2.frac)`` with the defaults of ``DPZ``
+    (chosen for the synthetic tail; no published source gives them), all 34
+    outputs: the **flagship DPZ** (``tests/torch_flagship.py`` builds the
+    same). With ``dtype="float64"`` its float32 declarations are widened,
+    as ``tests/torch_flagship.flagship_config`` widens them."""
+    cfg = flagship_config(dtype)
     cfg["processors"]["wf_pz"] = {
         "function": "double_pole_zero",
         "module": "dspeed_tpu.processors",
@@ -255,6 +274,136 @@ def dpz_config(dtype="float32") -> dict:
         "defaults": {f"db.pz2.{k}": repr(v) for k, v in DPZ.items()},
     }
     return cfg
+
+
+# the flagship-extras columns (extras_config): the 12 processors of the
+# port's `poly_fit.py`, `soft_pileup_corr.py`, `corrections.py` and the rest
+# of `time_point_thresh.py` beside the flagship's 34, with their windows and
+# thresholds chosen for make_hpge_waveforms' pulses (t0 in 950-1050, rise
+# 40-150 samples, amplitude 500-30000 ADC, noise 3 ADC)
+EXTRAS_BL = 750  # the baseline window, wf_blsub[0:750] (the flagship's)
+EXTRAS_TAIL = (2500, 4000)  # the tail window, wf_blsub[2500:4000]
+EXTRAS_RC_TAU = 20  # rc_cr2's time constant, samples
+EXTRAS_SLOTS = 8  # the bi-level trigger's slots
+EXTRAS_STEP = 64  # the step kernel's length, samples
+EXTRAS_ALIGN = 128  # wf_alignment's window, samples
+
+
+def extras_config(dtype="float32") -> dict:
+    """The **flagship extras**: ``configs/hpge-energy-timing.yaml``'s 34
+    columns, plus columns that run each of the 12 processors of the port's
+    ``poly_fit.py``, ``soft_pileup_corr.py``, ``corrections.py`` and the rest
+    of ``time_point_thresh.py`` at least once (``poly_fit``, ``poly_diff``, ``poly_exp_rms``,
+    ``soft_pileup_corr``, ``soft_pileup_corr_bl``,
+    ``interpolated_time_point_thresh``, ``multi_time_point_thresh``,
+    ``bi_level_zero_crossing_time_points``, ``get_wf_centroid``,
+    ``wf_alignment``, ``wf_correction``; ``inl_correction`` takes integer
+    ADC codes, which this config cannot give, so ``extras_card_phase``
+    holds it on the card alone). Built in memory; the YAML is not
+    changed. With ``dtype="float64"`` every float32 declaration is
+    widened, as :func:`flagship_config` widens the flagship's."""
+    cfg = flagship_config(dtype)
+    k = "dspeed_tpu.processors"
+    lo, hi = EXTRAS_TAIL
+    c = "d" if dtype == "float64" else "f"
+    f32 = {"signature": "(n),()->()", "types": [f"{c}i->{c}"]}
+    extra = {
+        # the baseline's linear fit, and its residual: sum(r_i / (i+1)) and
+        # rms (ADC)
+        "bl_poly": {"function": "poly_fit", "module": k,
+                    "init_args": [str(EXTRAS_BL), "1"],
+                    "args": [f"wf_blsub[0:{EXTRAS_BL}]", f"bl_poly(2, '{c}')"]},
+        "bl_pdiff_mean, bl_pdiff_rms": {
+            "function": "poly_diff", "module": k,
+            "args": [f"wf_blsub[0:{EXTRAS_BL}]", "bl_poly", "bl_pdiff_mean",
+                     "bl_pdiff_rms"], "unit": ["ADC", "ADC"]},
+        # the tail's exponential decay: a line fitted to its log, and the
+        # residual of the tail against the line's exponential (ADC)
+        "tail_log": {"function": "log", "module": "numpy",
+                     "args": [f"wf_blsub[{lo}:{hi}]", "tail_log"],
+                     "kwargs": {"signature": "(n)->(n)", "types": [f"{c}->{c}"]}},
+        "tail_poly": {"function": "poly_fit", "module": k,
+                      "init_args": [str(hi - lo), "1"],
+                      "args": ["tail_log", f"tail_poly(2, '{c}')"]},
+        "tail_pexp_mean, tail_pexp_rms": {
+            "function": "poly_exp_rms", "module": k,
+            "args": [f"wf_blsub[{lo}:{hi}]", "tail_poly", "tail_pexp_mean",
+                     "tail_pexp_rms"], "unit": ["ADC", "ADC"]},
+        # the waveform less a pile-up tail A exp(-i/tau) + B fitted to the
+        # baseline window, and its maximum (ADC); the corrected baseline's
+        # mean and slope would be the fit's rounding (the two terms are
+        # nearly collinear over 750 samples at tau = 27460.5)
+        "wf_spc": {"function": "soft_pileup_corr", "module": k,
+                   "args": ["wf_blsub", str(EXTRAS_BL), "db.pz.tau", "wf_spc"],
+                   "unit": "ADC", "defaults": {"db.pz.tau": "27460.5"}},
+        "spc_max": dict(function="amax", module="numpy", unit="ADC",
+                        args=["wf_spc", 1, "spc_max"], kwargs=f32),
+        # the same with the baseline fixed at the fitted bl_mean
+        "wf_spcbl": {"function": "soft_pileup_corr_bl", "module": k,
+                     "args": ["wf_blsub", str(EXTRAS_BL), "db.pz.tau", "bl_mean",
+                              "wf_spcbl"],
+                     "unit": "ADC", "defaults": {"db.pz.tau": "27460.5"}},
+        "spcbl_max": dict(function="amax", module="numpy", unit="ADC",
+                          args=["wf_spcbl", 1, "spcbl_max"], kwargs=f32),
+        # the 50% crossing of the pulse's rise, interpolated linearly (ns)
+        "tp_50_interp": {"function": "interpolated_time_point_thresh",
+                         "module": k,
+                         "args": ["wf_pz", "trapTmax*0.5", "tp_0_est", 1, "'l'",
+                                  "tp_50_interp"], "unit": "ns"},
+        # the 10%, 50% and 90% crossings in one chained sweep (ns, (3))
+        "tp_multi": {"function": "multi_time_point_thresh", "module": k,
+                     "args": ["wf_pz", "trapTmax*[0.1, 0.5, 0.9]", "tp_0_est", 1,
+                              "'l'", f"tp_multi(3, '{c}')"]},
+        # the RC-CR^2 shaped waveform, and its gated bipolar zero-crossing
+        # triggers: their count, polarities and samples (up to 8)
+        "wf_rc": {"function": "rc_cr2", "module": k,
+                  "args": ["wf_blsub", str(EXTRAS_RC_TAU), "wf_rc"], "unit": "ADC"},
+        "bl_ncross, bl_pol, bl_trig": {
+            "function": "bi_level_zero_crossing_time_points", "module": k,
+            "args": ["wf_rc", "500", "-500", "200", "0", "bl_ncross",
+                     f"bl_pol({EXTRAS_SLOTS}, '{c}')",
+                     f"bl_trig({EXTRAS_SLOTS}, '{c}')"]},
+        # the rise's centroid from a step-kernel convolution (ns), and the
+        # waveform aligned on it
+        "step_kernel": {"function": "step", "module": k,
+                        "args": ["16", f"step_kernel({EXTRAS_STEP}, '{c}')"]},
+        "wf_step": {"function": "convolve_wf", "module": k,
+                    "args": ["wf_blsub", "step_kernel", "'v'",
+                             f"wf_step(len(wf_blsub) - {EXTRAS_STEP - 1}, '{c}')"],
+                    "unit": "ADC"},
+        "centroid": {"function": "get_wf_centroid", "module": k,
+                     "args": ["wf_step", "0", "centroid"], "unit": "ns"},
+        "wf_aligned": {"function": "wf_alignment", "module": k,
+                       "args": ["wf_blsub", "centroid", "5",
+                                str(EXTRAS_ALIGN), f"wf_aligned({EXTRAS_ALIGN}, '{c}')"],
+                       "unit": "ADC"},
+        "aligned_max": dict(function="amax", module="numpy", unit="ADC",
+                            args=["wf_aligned", 1, "aligned_max"], kwargs=f32),
+        # the waveform less a fixed correction (the step kernel) over 64
+        # samples of the baseline, and that window's mean
+        "wf_corr": {"function": "wf_correction", "module": k,
+                    "args": ["wf_blsub", "step_kernel", "100", str(100 + EXTRAS_STEP),
+                             "wf_corr"], "unit": "ADC"},
+        "corr_mean, corr_std, corr_slope, corr_icpt": {
+            "function": "linear_slope_fit", "module": k,
+            "args": [f"wf_corr[100:{100 + EXTRAS_STEP}]", "corr_mean", "corr_std",
+                     "corr_slope", "corr_icpt"], "unit": ["ADC"] * 4},
+    }
+    cfg["processors"].update(extra)
+    cfg["outputs"] += EXTRAS_OUTPUTS
+    return cfg
+
+
+# in this order: multi_time_point_thresh's thresholds (a (3) plane, which
+# K7 does not take) are made right after the bi-level trigger, outside a
+# generic run; the (m) columns stay in samples, since K7 converts per-row
+# scalars only
+EXTRAS_OUTPUTS = [
+    "bl_pdiff_mean", "bl_pdiff_rms", "tail_pexp_mean", "tail_pexp_rms",
+    "spc_max", "spcbl_max", "tp_50_interp",
+    "bl_ncross", "bl_pol", "bl_trig", "tp_multi", "centroid", "aligned_max",
+    "corr_mean",
+]
 
 
 def timing_config() -> dict:
@@ -1262,7 +1411,8 @@ def generic_bound(program, B) -> tuple[float, str]:
     products, slope-fit sums and moving-window stages; a comparison per
     sample for each reduction; the reflected convolution's products and
     sums and the current's difference and division, in the output's
-    type)."""
+    type; the polynomial residual's, the soft pile-up fit's and the
+    correction's arithmetic, the centroid's comparisons)."""
     import torch
 
     from dspeed_tpu_torch.processors._tile_program import OPCODES
@@ -1302,6 +1452,21 @@ def generic_bound(program, B) -> tuple[float, str]:
             f32 += 2 * n
         elif op.code == OPCODES["amax"]:
             f32 += n
+        elif op.code == OPCODES["poly_residual"]:
+            # the polynomial's products and FMAs, the residual, its two
+            # products; two float64 sums (and the exponential, one)
+            m = op.ip[1]
+            f32 += n * (3 * (m - 1) + 4)
+            f64 += n * (2 + op.ip[0])
+        elif op.code == OPCODES["soft_pileup"]:
+            # the fit's exponential, division, two products and four sums
+            # over the window; the exponential, division, product and two
+            # sums of the correction over the row
+            f64 += 8 * op.ip[0] + 5 * n
+        elif op.code == OPCODES["wf_correction"]:
+            f32 += op.ip[1] - op.ip[0]
+        elif op.code == OPCODES["wf_centroid"]:
+            f32 += 3 * n
         elif op.code in (OPCODES["reflected_conv"], OPCODES["avg_current"]):
             p = slots[op.outs[0]].length
             ops = 2 * (op.ip[1] if op.code == OPCODES["reflected_conv"] else 1) * p
@@ -1316,9 +1481,9 @@ def generic_bound(program, B) -> tuple[float, str]:
 
 def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
              cfg=None, fuse="generic", members=(34, 19), path="generic flagship"):
-    """K7 on the two groups of ``cfg`` (default: the generic flagship) in
+    """K7 on the groups of ``cfg`` (default: the generic flagship's two) in
     fusion mode ``fuse``: the chain built on the CPU over every event (NaN
-    rows included), its steps run on the card up to the second group, each
+    rows included), its steps run on the card up to the last group, each
     group lowered twice: with every key it writes (held against the plain
     walk by ``check_generic``) and with the chain's own escapes (timed
     against the plain walk, through the wrapper and on the device alone).
@@ -1333,6 +1498,7 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
     from dspeed_tpu_torch.processing_chain import GroupStep
     from dspeed_tpu_torch.processors._tile_program import OPCODES, lower
 
+    names = {v: k for k, v in OPCODES.items()}
     wf = wf.copy()
     bl = bl.copy()
     wf[NAN_SAMPLE_ROW, 500] = np.nan
@@ -1360,7 +1526,7 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
             if not isinstance(step, GroupStep):
                 step.run(env)
                 continue
-            label = "A" if not figs else "B"
+            label = "ABCDEFGH"[len(figs)]
             vals = {k: env[k] for k in step.ext_in}
             prog = lower(step.members, vals, step.escapes)
             every = sorted(s.key for s in prog.slots if not s.ext)
@@ -1422,30 +1588,35 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
                 flush=True,
             )
             figs.append(dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
-                             bound=bound, by=by, err=err, launch=launch))
+                             bound=bound, by=by, err=err, launch=launch,
+                             ops=sorted({names[op.code] for op in prog.ops})))
             env.update({k: got[k] for k in step.escapes})
-            if len(figs) == 2:
+            if len(figs) == len(groups):
                 break
-    a, b = figs
     ptxas = list(ptxas_report(ptxas_log, "generic_rows_kernel").values())
     if not ptxas:
         raise AssertionError("K7: no ptxas report for generic_rows_kernel")
     print(f"K7 ptxas for generic_rows_kernel: {' | '.join(ptxas)}; on "
           f"{card_line()}", flush=True)
-    return dict(
-        max_abs_err=max(a["err"], b["err"]), ms=a["ms"] + b["ms"],
-        plain_ms=a["plain_ms"] + b["plain_ms"],
-        bound_ms=a["bound"] + b["bound"],
-        bound_by=a["by"] if a["bound"] >= b["bound"] else b["by"],
-        device_ms=a["dev_ms"] + b["dev_ms"],
-        bound_share=(a["bound"] + b["bound"]) / (a["ms"] + b["ms"]),
-        device_bound_share=(a["bound"] + b["bound"]) / (a["dev_ms"] + b["dev_ms"]),
-        group_a_ms=a["ms"], group_b_ms=b["ms"], group_a_device_ms=a["dev_ms"],
-        group_b_device_ms=b["dev_ms"], group_a_plain_ms=a["plain_ms"],
-        group_b_plain_ms=b["plain_ms"], group_a_bound_ms=a["bound"],
-        group_b_bound_ms=b["bound"], group_a_launch=a["launch"],
-        group_b_launch=b["launch"], ptxas=ptxas,
+
+    def total(q):
+        return sum(f[q] for f in figs)
+
+    worst = max(figs, key=lambda f: f["bound"])
+    out = dict(
+        max_abs_err=max(f["err"] for f in figs), ms=total("ms"),
+        plain_ms=total("plain_ms"), bound_ms=total("bound"), bound_by=worst["by"],
+        device_ms=total("dev_ms"), bound_share=total("bound") / total("ms"),
+        device_bound_share=total("bound") / total("dev_ms"), ptxas=ptxas,
     )
+    for lab, f in zip("abcdefgh", figs):
+        out.update({f"group_{lab}_ms": f["ms"], f"group_{lab}_device_ms": f["dev_ms"],
+                    f"group_{lab}_plain_ms": f["plain_ms"],
+                    f"group_{lab}_bound_ms": f["bound"],
+                    f"group_{lab}_launch": f["launch"]})
+        if len(figs) > 2:
+            out[f"group_{lab}_ops"] = f["ops"]
+    return out
 
 
 def plain_recurrence():
@@ -1476,7 +1647,8 @@ def recurrence_phase(_cuda, w, ptxas_log):
     ``rc_cr2`` with a constant and a per-event tau, ``convolve_exp``, a
     notch biquad, ``recursive_filter`` of order 3, ``fixed_time_pickoff``
     mode ``'s'`` and ``interpolating_upsampler`` mode ``'s'`` (x2), each
-    held bit for bit against the same call with the plain recurrence.
+    held bit for bit against the same call with the plain recurrence;
+    ``rc_cr2``'s row with ``w[0] = -inf`` NaN from sample 3 on (F9).
     Times the first-order call through the wrapper and on the device alone
     against its byte bound (each row read and written once)."""
     import torch
@@ -1488,6 +1660,7 @@ def recurrence_phase(_cuda, w, ptxas_log):
     B, n = w.shape
     x = w.clone()
     x[9, 2000] = float("inf")
+    x[11, 0] = -float("inf")  # F9: rc_cr2 gives NaN from sample 3 on
     p = dpz_constants(DPZ["tau1"], DPZ["tau2"], DPZ["frac"])["p"]
     taus = torch.linspace(20.0, 200.0, B, device=w.device)
     picks = torch.linspace(-1.0, n + 1.0, B, device=w.device)
@@ -1515,6 +1688,10 @@ def recurrence_phase(_cuda, w, ptxas_log):
             if not launches[name] or not same_bits(got, want):
                 raise AssertionError(f"recurrence [{name}]: the kernel's call differs "
                                      f"from the plain version's (or did not launch)")
+            if name == "rc_cr2" and not (bool(torch.isnan(got[11, 3:]).all())
+                                         and bool(torch.isfinite(got[11, 1:3]).all())):
+                raise AssertionError("rc_cr2: a row with w[0] = -inf is not NaN from "
+                                     "sample 3 on (F9)")
             print(f"recurrence [{name}] {tuple(got.shape)}: bit for bit against the "
                   f"plain recurrence ({launches[name]} launches)", flush=True)
             del got, want
@@ -2018,9 +2195,258 @@ def aoe_checks(cols, good, amp, t0, rt, label, ref=AOE_RATIO[48]) -> None:
         raise AssertionError("tp_aoe_samp lies outside the rise on > 2% of events")
 
 
+def bilevel_bound(B, n, m, itemsize=4) -> float:
+    """The sweep's least time: each row read once, the slots, counts and
+    per-row parameters moved once, over the card's memory rate."""
+    nbytes = B * (n * itemsize + 2 * m * itemsize + 4 + 2 * itemsize + 2 * 4)
+    return nbytes / PEAK_BYTES_S * 1e3
+
+
+def bilevel_phase(_cuda, wf, bl, dev, ptxas_log):
+    """The bi-level trigger's sweep (``csrc/bilevel_scan.cu``) on the
+    flagship extras' ``rc_cr2`` rows (``EXTRAS_RC_TAU``) of every event, with
+    the chain's thresholds (+-500), gate (200) and ``EXTRAS_SLOTS`` slots,
+    and rows made to hit the state machine's corners: a NaN sample (row 3),
+    an infinite one (row 4), a sine that crosses more often than the slots
+    hold (row 5), a start in the middle of the pulse (row 6), a gate of 5
+    samples (row 7). Every count, polarity and sample equal to the plain
+    version's bit for bit on the whole chunk; times through the wrapper, on
+    the device alone and of the plain version (a PyTorch loop over the
+    samples, on the card), against the byte bound."""
+    import torch
+
+    import dspeed_tpu_torch.processors as tp
+
+    x = torch.from_numpy(wf).to(dev) - torch.from_numpy(bl.astype(np.float32)).to(dev)[:, None]
+    rc = tp.rc_cr2(x, float(EXTRAS_RC_TAU))[0].contiguous()
+    del x
+    B, n = rc.shape
+    rc[3, 700] = float("nan")
+    rc[4, 2000] = float("inf")
+    i = torch.arange(n, device=dev, dtype=torch.float32)
+    rc[5] = 3000 * torch.sin(2 * np.pi * i / 64)
+    pos = torch.full((B,), 500.0, device=dev)
+    neg = -pos
+    gate = torch.full((B,), 200, dtype=torch.int32, device=dev)
+    gate[7] = 5
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    start[6] = 1000
+    m = EXTRAS_SLOTS
+    before = _cuda.LAUNCHES["bilevel_scan"]
+    got = _cuda.bilevel_scan(rc, pos, neg, gate, start, m)
+    if _cuda.LAUNCHES["bilevel_scan"] != before + 1:
+        raise AssertionError("bilevel_scan: the wrapper did not launch its kernel once")
+    torch.cuda.synchronize()
+    t_0 = time.time()
+    want = _cuda.bilevel_scan_plain(rc, pos, neg, gate, start, m)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t_0) * 1e3
+    for name, g, w in zip(("n_crossings", "polarity", "trigger"), got, want):
+        if not same_bits(g, w):
+            raise AssertionError(f"bilevel_scan {name}: not the plain version's bits")
+    nc = got[0].cpu().numpy()
+    if nc[5] <= m or not (nc > 0).mean() > 0.9:
+        raise AssertionError(f"bilevel_scan: counts {np.bincount(nc)[:12]} (row 5 {nc[5]})")
+    ms = time_ms(lambda: _cuda.bilevel_scan(rc, pos, neg, gate, start, m), 20)
+    dev_ms = device_ms(lambda: _cuda.bilevel_scan(rc, pos, neg, gate, start, m))
+    bound = bilevel_bound(B, n, m)
+    launch = _cuda.bilevel_scan_launch()
+    ptxas = list(ptxas_report(ptxas_log, "bilevel_scan_kernel").values())
+    if not ptxas:
+        raise AssertionError("bilevel_scan: no ptxas report")
+    print(
+        f"bilevel_scan {B} rows x {n} f32 samples, {m} slots: counts, polarities "
+        f"and samples equal to the plain version bit for bit on every row (counts "
+        f"{np.bincount(nc)[:6].tolist()}..., row 5 {int(nc[5])} past its {m} "
+        f"slots); kernel {ms:.4f} ms ({dev_ms:.4f} ms on the device alone), plain "
+        f"{plain_ms:.1f} ms, byte bound {bound:.4f} ms, {bound / ms:.1%} of it "
+        f"({bound / dev_ms:.1%} on the device alone); launch: {launch['rows']} rows "
+        f"and {launch['threads']} threads a block, {launch['smem_bytes']} B of "
+        f"shared memory, {launch['blocks_per_sm']} blocks per SM, "
+        f"{launch['registers']} registers and {launch['local_bytes']} local bytes "
+        f"a thread; ptxas {' | '.join(ptxas)}; on {card_line()}", flush=True)
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", bound_share=bound / ms,
+                device_bound_share=bound / dev_ms, launch=launch, ptxas=ptxas)
+
+
+def extras_card_phase(wf, bl, dev, n_cmp=1024):
+    """The extras' processors called alone on the card against the same
+    calls on the CPU (their plain versions; the sweep and K7's ops are held
+    by their own phases), on the first ``n_cmp`` events of the flagship
+    generator: ``poly_fit``, ``poly_diff``, ``poly_exp_rms``,
+    ``soft_pileup_corr(_bl)``, ``interpolated_time_point_thresh``,
+    ``multi_time_point_thresh``, ``wf_correction``, ``wf_alignment``,
+    ``get_wf_centroid`` and ``inl_correction`` (the rows as integer ADC codes,
+    with a shared 16-bit INL table and one a event; the extras config cannot
+    give it codes). Float outputs within REL_TOL of their scale, indices,
+    counts and codes exactly. Returns the worst float error over scale."""
+    import torch
+
+    import dspeed_tpu_torch.processors as tp
+
+    rng = np.random.default_rng(16)
+    w = wf[:n_cmp]
+    x = (w - bl[:n_cmp, None].astype(np.float32)).astype(np.float32)
+    x[NAN_SAMPLE_ROW, 500] = np.nan
+    lo, hi = EXTRAS_TAIL
+    codes = np.nan_to_num(np.rint(w), nan=0).astype(np.int32)
+    codes[7, 100] = 70000  # out of the table: the event is poisoned
+    inl = rng.uniform(-0.5, 0.5, 65536).astype(np.float32)
+    inl_ev = rng.uniform(-0.5, 0.5, (64, 65536)).astype(np.float32)
+    corr = np.linspace(-1, 1, EXTRAS_STEP).astype(np.float32)
+    thr = (np.nanmax(x, 1, keepdims=True) * [[0.1, 0.5, 0.9]]).astype(np.float32)
+    ts = np.full(n_cmp, 900.0, np.float32)
+    fit = tp.poly_fit(EXTRAS_BL, 1)
+    tail = tp.poly_fit(hi - lo, 1)
+
+    def calls(t):
+        """Each call on tensors made by ``t`` (CPU or card)."""
+        X = t(x)
+        pars = fit(X[:, :EXTRAS_BL])[0]
+        # the chain's log: float32 through float64, alike on both devices
+        tpars = tail(torch.log(X[:, lo:hi].double()).float())[0]
+        cen = tp.get_wf_centroid(X, t(np.float32(2.0)))[0]
+        return {
+            "poly_fit": pars,
+            "poly_diff": tp.poly_diff(X[:, :EXTRAS_BL], pars),
+            "poly_exp_rms": tp.poly_exp_rms(X[:, lo:hi], tpars),
+            "soft_pileup_corr": tp.soft_pileup_corr(X, EXTRAS_BL, TAU),
+            "soft_pileup_corr_bl": tp.soft_pileup_corr_bl(X, EXTRAS_BL, TAU, 0.5),
+            "interpolated_time_point_thresh": tp.interpolated_time_point_thresh(
+                X, t(thr[:, 1].copy()), t(ts), 1, ord("l")),
+            "multi_time_point_thresh": tp.multi_time_point_thresh(
+                X, t(thr), t(ts), 1, ord("l")),
+            "wf_correction": tp.wf_correction(X, t(corr), 100, 100 + EXTRAS_STEP),
+            "get_wf_centroid": cen,
+            "wf_alignment": tp.wf_alignment(X, cen, 5.0, EXTRAS_ALIGN,
+                                            dims={"m": EXTRAS_ALIGN}),
+            "inl_correction": tp.inl_correction(t(codes), t(inl)),
+            "inl_correction per event": tp.inl_correction(t(codes[:64]), t(inl_ev)),
+        }
+
+    with torch.no_grad():
+        card = calls(lambda a: torch.as_tensor(a).to(dev))
+        torch.cuda.synchronize()
+        cpu = calls(lambda a: torch.as_tensor(a))
+    worst = 0.0
+    for name in card:
+        outs_g = card[name] if isinstance(card[name], tuple) else (card[name],)
+        outs_w = cpu[name] if isinstance(cpu[name], tuple) else (cpu[name],)
+        for q, (g, wv) in enumerate(zip(outs_g, outs_w)):
+            exact = name in ("get_wf_centroid", "wf_alignment", "wf_correction")
+            compare(f"{name} [{q}] card vs CPU", g.cpu(), wv, exact=exact)
+            ok = ~torch.isnan(wv)
+            if ok.any():
+                scale = float(wv[ok].double().abs().max())
+                worst = max(worst, float((g.cpu()[ok].double() - wv[ok].double()).abs()
+                                         .max()) / max(scale, 1e-30))
+    if not torch.isnan(card["inl_correction"][0][7]).all():
+        raise AssertionError("inl_correction: an event with a code past the table "
+                             "was not poisoned")
+    print(f"the extras' processors on the card vs the CPU ({n_cmp} events, "
+          f"{len(card)} calls, inl_correction on the rows' integer codes): worst "
+          f"|diff|/max|col| {worst:.3e}", flush=True)
+    return worst
+
+
+def extras_checks(cols, cpu, wf, bl, n_cpu, good, t0):
+    """The flagship extras' own columns: each finite on at least 90% of the
+    events (the first slot of an (m) column; each share printed), one
+    trigger of polarity 1 on nearly every good event, the centroid on the
+    rise; the first ``n_cpu`` events against the port's CPU run, counts,
+    polarities, trigger samples and centroids exactly, the others within
+    REL_TOL of their scale. Excused, and counted: the crossing times of an
+    event whose ``tp_0_est`` (their start) moved by one sample or whose
+    ``wf_pz`` sits on a threshold at the crossing, and a
+    centroid whose step product holds a near-tie of its extremes or a sample
+    within REL_TOL of zero (``check_generic``'s rule for an extremum), and
+    the maximum of the window aligned on such a centroid."""
+    import torch
+
+    import dspeed_tpu_torch.processors as tp
+
+    shares = {}
+    for k in EXTRAS_OUTPUTS:
+        v = np.asarray(cols[k], np.float64).reshape(len(good), -1)[:, 0]
+        shares[k] = float(np.isfinite(v).mean())
+    print("flagship extras, finite share of each new column: "
+          + json.dumps({k: round(v, 4) for k, v in shares.items()}), flush=True)
+    low = [k for k, v in shares.items() if v < 0.9]
+    if low:
+        raise AssertionError(f"extras columns finite on < 90% of the events: {low}")
+    one = float((cols["bl_ncross"][good] == 1).mean())
+    rise = cols["centroid"][good] / DT - t0[good]
+    print(f"[flagship extras] events with one bi-level trigger: {one:.4f}; "
+          f"centroid - injected t0: median {np.nanmedian(rise):.1f} samples",
+          flush=True)
+    if one < 0.99 or np.nanmax(np.abs(rise)) > 64:
+        raise AssertionError("extras: the trigger or the centroid is off the pulses")
+    moved = np.isfinite(cpu["tp_0_est"]) & (cols["tp_0_est"][:n_cpu] != cpu["tp_0_est"])
+    excused = 0
+    centroid_moved: set = set()  # and so the window aligned on it
+
+    def crossing_tie(k, r):
+        """Whether ``wf_pz`` (the plain version's, on the CPU) sits within
+        REL_TOL of its scale from a threshold of column ``k`` next to the
+        card's or the CPU's crossing (``near_crossing``'s rule)."""
+        x = torch.from_numpy(wf[r : r + 1] - bl[r : r + 1, None].astype(np.float32))
+        pz = tp.pole_zero(x, TAU)[0][0].numpy()
+        fr = [0.5] if k == "tp_50_interp" else [0.1, 0.5, 0.9]
+        per = DT if k == "tp_50_interp" else 1.0
+        g = np.atleast_1d(np.asarray(cols[k][r], np.float64)) / per
+        w = np.atleast_1d(np.asarray(cpu[k][r], np.float64)) / per
+        return any(near_crossing(pz, np.float32(f) * np.float32(cpu["trapTmax"][r]),
+                                 (np.floor(gi), np.floor(wi)))
+                   for f, gi, wi in zip(fr, g, w))
+    for k in EXTRAS_OUTPUTS:
+        g = np.asarray(cols[k][:n_cpu], np.float64).reshape(n_cpu, -1)
+        w = np.asarray(cpu[k], np.float64).reshape(n_cpu, -1)
+        same = ((g == w) | (np.isnan(g) & np.isnan(w))).all(1)
+        exact = k in ("bl_ncross", "bl_pol", "bl_trig", "centroid")
+        ok = ~np.isnan(w)
+        scale = np.abs(w[ok]).max() if ok.any() else 0.0
+        within = ((np.isnan(g) == np.isnan(w)).all(1)
+                  & (np.nan_to_num(np.abs(g - w)) <= REL_TOL * scale).all(1))
+        near = same if exact else same | within
+        for r in np.flatnonzero(~near):
+            if k in ("tp_50_interp", "tp_multi") and (moved[r] or crossing_tie(k, r)):
+                excused += 1
+                continue
+            if k == "aligned_max" and r in centroid_moved:
+                excused += 1
+                continue
+            if k == "centroid":
+                x = torch.from_numpy(wf[r : r + 1] - bl[r : r + 1, None].astype(np.float32))
+                kern = tp.step(16.0, dims={"n": EXTRAS_STEP})[0]
+                st = tp.convolve_wf(x, np.asarray(kern, np.float32), ord("v"),
+                                    dims={"p": x.shape[-1] - EXTRAS_STEP + 1})[0][0].numpy()
+                tol = REL_TOL * np.abs(st).max()
+                # the extremes' samples, or a sample in the window between them
+                # that sits on 0 no later than its first positive sample or
+                # no earlier than its last negative one
+                lo, hi = int(np.argmin(st)), int(np.argmax(st))
+                win = np.arange(lo, hi)
+                pos, neg = win[st[lo:hi] > 0], win[st[lo:hi] < 0]
+                zero = win[np.abs(st[lo:hi]) <= tol]
+                ties = (np.sort(st)[1] - st.min() <= tol or st.max() - np.sort(st)[-2] <= tol
+                        or (pos.size and (zero <= pos[0]).any())
+                        or (neg.size and (zero >= neg[-1]).any()))
+                if ties:
+                    centroid_moved.add(int(r))
+                    excused += 1
+                    continue
+            raise AssertionError(f"{k}: event {r} differs from the CPU run "
+                                 f"({g[r][:3]} against {w[r][:3]})")
+    print(f"[flagship extras] first {n_cpu} events vs the port's CPU run: new "
+          f"columns equal within the rules, {excused} events excused", flush=True)
+    return shares
+
+
+
 def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
               expect, rt=None, device="cuda", fuse=True, forbid=(),
-              aoe_geometry=AOE_GEOMETRY, trap_tol=0.005):
+              aoe_geometry=AOE_GEOMETRY, trap_tol=0.005, extras=False):
     """A main path: ``build_dsp`` of ``cfg`` with fusion mode ``fuse`` over
     every event of ``wf`` on ``device``, file -> file where ``h5py`` is
     installed, else Table -> Table; launch counts and generic-group splits
@@ -2031,7 +2457,9 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     NaN baseline, so the NaN rules are checked end to end;
     ``aoe_geometry`` is the current front's (its window length picks the A/E
     reference of ``AOE_RATIO``); ``trapEmax`` must lie within ``trap_tol``
-    of the injected amplitudes. Returns the launch counts."""
+    of the injected amplitudes. With ``extras`` the flagship extras' own
+    columns are held by :func:`extras_checks` (the flagship's by the rules
+    above). Returns the launch counts."""
     import importlib.util
 
     import torch
@@ -2112,7 +2540,10 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
         cpu = run("cpu", n_cpu)
     searches = ("tp_0_est", *READS_TP0)
     not_found = {}
+    new_cols = EXTRAS_OUTPUTS if extras else ()
     for k, v in cols.items():
+        if k in new_cols:
+            continue
         if v.shape != (n_ev,):
             raise AssertionError(f"{k}: shape {v.shape}")
         if k in AOE_OUTPUTS:
@@ -2154,9 +2585,12 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
                 raise AssertionError(f"{CASCADE[k]} lies after its start")
     if "A_max" in cols:
         aoe_checks(cols, good, amp, t0, rt, label, AOE_RATIO[aoe_geometry[3]])
-    n_ex, worst = compare_columns(cols, cpu, wf, bl, n_cpu, aoe_geometry)
+    n_ex, worst = compare_columns({k: v for k, v in cols.items() if k not in new_cols},
+                                  cpu, wf, bl, n_cpu, aoe_geometry)
     print(f"[{label}] first {n_cpu} events vs the port's CPU run: worst "
           f"|diff|/max|col| {worst:.3e}, {n_ex} events excused", flush=True)
+    if extras:
+        extras_checks(cols, cpu, wf, bl, n_cpu, good, t0)
     for name in expect:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the {label} path")
@@ -2447,6 +2881,17 @@ def main() -> int:
     del curr
     torch.cuda.empty_cache()
 
+    # -- the flagship extras: their processors alone, the bi-level sweep ---
+    # -- sweep on the extras' rc_cr2 rows, K7 on the extras' three groups -----
+    extras_card_phase(wf, bl, dev)
+    bls = bilevel_phase(_cuda, wf, bl, dev, logs["bilevel_scan"])
+    torch.cuda.empty_cache()
+    k7["extras_groups"] = k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev,
+                                   logs["generic_rows"], cfg=extras_config(),
+                                   fuse=True, members=(9, 2, 22),
+                                   path="flagship extras")
+    torch.cuda.empty_cache()
+
     # -- the main paths: build_dsp -------------------------------------------
     launches = e2e_phase(
         build_dsp, lh5, _cuda, config(), wf, amp, inj_t0, bl, card, "flagship",
@@ -2493,6 +2938,20 @@ def main() -> int:
     if {k: dpz_launches[k] for k in per_chunk} != per_chunk:
         raise AssertionError(f"flagship DPZ launches {dpz_launches}, not {per_chunk}")
     del dwf
+    # the flagship extras: the flagship's hand fronts, K7 on its three
+    # groups, rc_cr2's three stages on the recurrence kernel and the
+    # bi-level sweep
+    extras_launches = e2e_phase(
+        build_dsp, lh5, _cuda, extras_config(), wf, amp, inj_t0, bl, card,
+        "flagship extras",
+        expect=("fused_energy", "cascade_tp", "fused_t0", "banded_conv_multi",
+                "fused_current_poly", "generic_rows", "recurrence", "bilevel_scan"),
+        rt=rt, device=DEVICE, forbid=("fused_current",), extras=True,
+    )
+    per_chunk = {"generic_rows": 3, "recurrence": 3, "bilevel_scan": 1}
+    if {k: extras_launches[k] for k in per_chunk} != per_chunk:
+        raise AssertionError(f"flagship extras launches {extras_launches}, not "
+                             f"{per_chunk} of those")
     e2e_phase(
         build_dsp, lh5, _cuda, timing_config(), wf, amp, inj_t0, bl, card,
         "timing",
@@ -2568,13 +3027,19 @@ def main() -> int:
                      "rc_cr2.py:39 (_one_pole_scan), recursive_filter.py:41 "
                      "(iir_companion), _spline.py:27 (affine_recurrence); no "
                      "pallas_call",
-            launches=dpz_launches["recurrence"], library_ms=None, **rec,
+            launches=extras_launches["recurrence"], library_ms=None, **rec,
         ),
         dict(
             name="peakdet_scan", route="cuda",
             source="dspeed_tpu_torch/csrc/peakdet_scan.cu",
             replaces="dspeed_tpu/processors/peak_finding.py:49 (lax.scan)",
             launches=sipm["launches"]["peakdet_scan"], library_ms=None, **scan,
+        ),
+        dict(
+            name="bilevel_scan", route="cuda",
+            source="dspeed_tpu_torch/csrc/bilevel_scan.cu",
+            replaces="dspeed_tpu/processors/time_point_thresh.py:400 (lax.scan)",
+            launches=extras_launches["bilevel_scan"], library_ms=None, **bls,
         ),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -29,8 +29,20 @@
 //                                    through the reflect index map, summed in
 //                                    the plain version's order, unfused, in
 //                                    float32 or (float64 taps) float64
-//   time_point_thresh                K2's warp search: 32 positions a
-//                                    ballot, GEN_WIN ballots a step
+//   time_point_thresh,               K2's warp search: 32 positions a
+//   interpolated_time_point_thresh   ballot, GEN_WIN ballots a step; the
+//                                    interpolation modes in float32
+//   poly_diff, poly_exp_rms          the polynomial by FMAs in float32, the
+//                                    residual's sums in float64
+//   soft_pileup_corr(_bl)            two ops: the exponential fit's
+//                                    float64 sums (exp(-i/tau) and its two
+//                                    sums from the host) into A and B, then
+//                                    the row less the fit
+//   wf_correction                    a subtraction of a constant over
+//                                    [start, stop)
+//   get_wf_centroid                  first-occurrence argmin and argmax,
+//                                    then the first positive and last
+//                                    negative sample between them
 //   windower, avg_current            a gather, __fsub_rn and __fdiv_rn
 //   fixed_time_pickoff 'l' / 'i'     a per-row gather
 //   add, multiply, divide, convert,  per-row scalar arithmetic with _rn
@@ -112,7 +124,8 @@ enum { S_KIND, S_F64, S_OFF, S_LEN, S_SIDX, S_EXT, S_ESC, S_ROOT };
 enum {
     OP_LOAD = 1, OP_MIN_MAX, OP_BL_SUB, OP_SLOPE_FIT, OP_POLE_ZERO, OP_TRAP,
     OP_AMAX, OP_CONV, OP_TPT, OP_WINDOWER, OP_AVG_CURRENT, OP_MW_MULTI,
-    OP_FTP, OP_UFUNC, OP_CONVERT, OP_REFL_CONV, OP_DPZ
+    OP_FTP, OP_UFUNC, OP_CONVERT, OP_REFL_CONV, OP_DPZ, OP_POLY_RESID,
+    OP_SOFT_PILEUP, OP_WF_CORR, OP_WF_CENTROID, OP_SOFT_PILEUP_OUT
 };
 
 // Mirrored field for field by ctypes in processors/_cuda.py. The tape rides
@@ -618,14 +631,31 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
         const double t = operand(P, k, 2, cast);
         const bool bad = plane_nan(P, in[0], true);
         const double tt = trunc(t);
-        const bool ok = tt >= 0.0 && tt < (double)n && tt == t;
+        const int mode = ip[1];
+        // interpolated_time_point_thresh takes any start inside the row
+        const bool ok = mode ? t >= 0.0 && t < (double)n
+                             : tt >= 0.0 && tt < (double)n && tt == t;
         int idx = -1;
         if (!bad && ok && !isnan(a)) {
             const int s = (int)tt;
             idx = ip[0] ? gen_search_fwd(x, n, s, (float)a, lane)
                         : gen_search_bwd(x, s, (float)a, lane);
+            // its backward walk stops at sample 2 and reports i - 1
+            if (mode && !ip[0]) idx = idx >= 2 ? idx - 1 : -1;
         }
-        if (idx >= 0) v = (double)idx;
+        if (idx >= 0 && !mode) {
+            v = (double)idx;
+        } else if (idx >= 0) {
+            const float af = (float)a, wc = x[idx], wc1 = x[idx + 1];
+            const float fi = (float)idx;
+            if (mode == 'a' || mode == 'f') v = (double)(idx + 1);
+            else if (mode == 'r') v = fabsf(__fsub_rn(af, wc)) < fabsf(__fsub_rn(af, wc1))
+                                      ? (double)idx : (double)(idx + 1);
+            else if (mode == 'n') v = (double)__fadd_rn(fi, 0.5f);
+            else if (mode == 'l')
+                v = (double)__fadd_rn(fi, __fdiv_rn(__fsub_rn(af, wc), __fsub_rn(wc1, wc)));
+            else v = (double)idx;  // 'i', 'b', 'c'
+        }
     } else if (code == OP_FTP) {
         const float* x = plane(P, in[0]);
         const int n = plen(P, in[0]);
@@ -1141,7 +1171,8 @@ __device__ __forceinline__ void op_reflected_conv(const GenParams& P,
     flag_plane(P, out[0], h);
 }
 
-// bl_subtract, windower and avg_current: one pass over the output.
+// bl_subtract, windower, avg_current and soft_pileup's second op: one pass
+// over the output.
 __device__ __forceinline__ void op_gather(const GenParams& P, const Row& R,
                                           int k, int code, const int* in,
                                           const int* out, const int* ip) {
@@ -1188,6 +1219,20 @@ __device__ __forceinline__ void op_gather(const GenParams& P, const Row& R,
             const float v = (bad || q < 0 || q >= nx) ? qnan : x[q];
             o[j] = v;
             if (g) g[j] = v;
+            h |= nan_inf(v);
+        }
+    } else if (code == OP_SOFT_PILEUP_OUT) {
+        // soft_pileup's second op: x - (A e + B) in float64, e from the
+        // taps (ip[2]), A and B the fit's scalars; NaN where the row, A or
+        // B is (a NaN b_in, or a NaN tau's NaN sums)
+        const double* e = reinterpret_cast<const double*>(P.taps + ip[2]);
+        const double a = operand(P, k, 1, 0), b = operand(P, k, 2, 0);
+        const bool bad = plane_nan(P, in[0], false) || isnan(a) || isnan(b);
+        for (int i = tid; i < m; i += GEN_THREADS) {
+            const float v = bad ? qnan
+                : (float)__dsub_rn((double)x[i], __dadd_rn(__dmul_rn(a, __ldg(e + i)), b));
+            o[i] = v;
+            if (g) g[i] = v;
             h |= nan_inf(v);
         }
     } else if (sf(P, out[0], S_F64)) {  // OP_AVG_CURRENT over float64 planes
@@ -1276,6 +1321,209 @@ __device__ __forceinline__ void op_mw_multi(const GenParams& P, Row& R,
     flag_plane(P, out[0], h);
 }
 
+// poly_diff / poly_exp_rms (ip[0] = 1): the polynomial of the per-row
+// parameter plane in[1] (ip[1] coefficients) at each sample as the JAX
+// package's einsum takes it, p0 then one FMA a higher term i^k p_k (i^k by
+// float32 products), its exponential with ip[0] (in float64, rounded to
+// float32, as the plain version takes it); the residual r = x - p,
+// and the float64 sums of RN(r / (i+1)) and RN(r * r), behind one barrier.
+// Thread 0 stores sum(r/(i+1)) and sqrt(sum(r*r) / (n-1)), each rounded
+// once. It reads the coefficients that other threads loaded (the plan puts
+// a barrier before it).
+__device__ __forceinline__ void op_poly_resid(const GenParams& P, Row& R,
+                                              const int* in, const int* out,
+                                              const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const int m = ip[1];
+    const float* pars = plane(P, in[1]);
+    const bool bad = plane_nan(P, in[0], false) || plane_nan(P, in[1], false);
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    double s1 = 0.0, s2 = 0.0;
+    for (int i = tid; i < n; i += GEN_THREADS) {
+        const float fi = (float)i;
+        float p = pars[0], ik = 1.f;
+        for (int q = 1; q < m; ++q) {
+            ik = __fmul_rn(ik, fi);
+            p = __fmaf_rn(ik, pars[q], p);
+        }
+        if (ip[0]) p = (float)exp((double)p);
+        const float r = __fsub_rn(x[i], p);
+        s1 += (double)__fmul_rn(r, __fdiv_rn(1.f, (float)(i + 1)));
+        s2 += (double)__fmul_rn(r, r);
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    double* red = gen_red[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        red[wid] = s1;
+        red[GEN_WARPS + wid] = s2;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    s1 = replay_sum(red);
+    s2 = replay_sum(red + GEN_WARPS);
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    put(P, R, out[0], bad ? dnan : (double)(float)s1);
+    put(P, R, out[1], bad ? dnan : (double)(float)sqrt(s2 / (double)(n - 1)));
+}
+
+// soft_pileup_corr(_bl) (soft_pileup_corr.py's body) with a constant tau,
+// as two ops. This one, the fit: e_i = exp(-i / tau) in float64 from the
+// taps (ip[2] their offset, pairs of words) and the fit's sums that depend
+// on tau alone, sum e and sum e*e over the first ip[0] samples (the tape's
+// doubles), all made on the host as the plain version makes them; sum e*x
+// and sum x from each thread's partial sums, reduced by warps into one
+// reduction buffer behind one barrier; thread 0 replays the two, solves for
+// B (or takes b_in, ip[1]: operand 1) and A in float64 and stores both in
+// the op's two float64 scalars. The second op (OP_SOFT_PILEUP_OUT, in
+// op_gather) writes x - (A e + B).
+__device__ __forceinline__ void op_soft_pileup(const GenParams& P, Row& R, int k,
+                                               const int* in, const int* out,
+                                               const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int nf = ip[0];
+    const double* e = reinterpret_cast<const double*>(P.taps + ip[2]);
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    double s4 = 0.0, s5 = 0.0;
+    for (int i = tid; i < nf; i += GEN_THREADS) {
+        const double v = (double)x[i];
+        s4 += __dmul_rn(__ldg(e + i), v);
+        s5 += v;
+    }
+    s4 = warp_sum(s4);
+    s5 = warp_sum(s5);
+    double* red = gen_red[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        red[wid] = s4;
+        red[GEN_WARPS + wid] = s5;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    s4 = replay_sum(red);
+    s5 = replay_sum(red + GEN_WARPS);
+    const double s1 = (double)nf;
+    const double s2 = tape_dp(P)[k * OP_DP], s3 = tape_dp(P)[k * OP_DP + 1];
+    const double b = ip[1] ? operand(P, k, 1, ip[7])
+        : __ddiv_rn(__dsub_rn(s5, __ddiv_rn(
+                        __dmul_rn(s2, __dsub_rn(__dmul_rn(s4, s1), __dmul_rn(s2, s5))),
+                        __dsub_rn(__dmul_rn(s3, s1), __dmul_rn(s2, s2)))), s1);
+    put(P, R, out[0], __ddiv_rn(__dsub_rn(s4, __dmul_rn(b, s2)), s3));
+    put(P, R, out[1], b);
+}
+
+// wf_correction: x[i] - c[i - start] over [ip[0], ip[1]), x elsewhere; c
+// the constant correction in the taps (ip[2] its offset), ip[3] marking a
+// NaN in it. One pass over the output.
+__device__ __forceinline__ void op_wf_correction(const GenParams& P, const Row& R,
+                                                 const int* in, const int* out,
+                                                 const int* ip) {
+    const float* x = plane(P, in[0]);
+    float* o = plane(P, out[0]);
+    float* g = esc_plane(P, R, out[0]);
+    const int n = plen(P, in[0]), start = ip[0], stop = ip[1];
+    const float* c = P.taps + ip[2];
+    const bool bad = plane_nan(P, in[0], false) || ip[3];
+    const float qnan = __int_as_float(0x7fc00000);
+    int h = 0;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
+        const float v = bad ? qnan
+            : (i >= start && i < stop) ? __fsub_rn(x[i], __ldg(c + i - start)) : x[i];
+        o[i] = v;
+        if (g) g[i] = v;
+        h |= nan_inf(v);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// get_wf_centroid: the row's first-occurrence minimum and maximum
+// (min_max's candidates, behind one barrier; every thread then folds the
+// warps' candidates in order), then the first positive and the last
+// negative sample in [imin, imax) (int reductions behind a second barrier);
+// thread 0 stores rint of their midpoint plus the shift: in float32 where
+// the shift is float32 (bit 1 of ip[7]), else float64.
+__device__ __forceinline__ void op_wf_centroid(const GenParams& P, Row& R, int k,
+                                               const int* in, const int* out,
+                                               const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const double sh = operand(P, k, 1, ip[7]);
+    const bool sh32 = (ip[7] >> 1) & 1;
+    const bool bad = plane_nan(P, in[0], false) || isnan(sh);
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    float vmin = 0.f, vmax = 0.f;
+    int imin = n, imax = n;
+    for (int i = tid; i < n; i += GEN_THREADS) {
+        const float v = x[i];
+        if (imin == n || v < vmin) { vmin = v; imin = i; }
+        if (imax == n || v > vmax) { vmax = v; imax = i; }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+        const float v2 = __shfl_down_sync(FULL_MASK, vmin, o);
+        const int i2 = __shfl_down_sync(FULL_MASK, imin, o);
+        if (ext_better(v2, i2, vmin, imin, false, n)) { vmin = v2; imin = i2; }
+        const float u2 = __shfl_down_sync(FULL_MASK, vmax, o);
+        const int j2 = __shfl_down_sync(FULL_MASK, imax, o);
+        if (ext_better(u2, j2, vmax, imax, true, n)) { vmax = u2; imax = j2; }
+    }
+    float* rf = gen_redf[R.rb];
+    int* ri = gen_redi[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        rf[wid] = vmin;
+        ri[wid] = imin;
+        rf[GEN_WARPS + wid] = vmax;
+        ri[GEN_WARPS + wid] = imax;
+    }
+    __syncthreads();
+    vmin = rf[0];
+    imin = ri[0];
+    vmax = rf[GEN_WARPS];
+    imax = ri[GEN_WARPS];
+#pragma unroll
+    for (int w = 1; w < GEN_WARPS; ++w) {
+        if (ext_better(rf[w], ri[w], vmin, imin, false, n)) { vmin = rf[w]; imin = ri[w]; }
+        if (ext_better(rf[GEN_WARPS + w], ri[GEN_WARPS + w], vmax, imax, true, n)) {
+            vmax = rf[GEN_WARPS + w];
+            imax = ri[GEN_WARPS + w];
+        }
+    }
+    int first_pos = n, last_neg = -1;
+    for (int i = imin + tid; i < imax; i += GEN_THREADS) {
+        const float v = x[i];
+        if (v > 0.f && first_pos == n) first_pos = i;
+        if (v < 0.f) last_neg = i;
+    }
+    first_pos = __reduce_min_sync(FULL_MASK, first_pos);
+    last_neg = __reduce_max_sync(FULL_MASK, last_neg);
+    int* r2 = gen_redi[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        r2[wid] = first_pos;
+        r2[GEN_WARPS + wid] = last_neg;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    for (int w = 0; w < GEN_WARPS; ++w) {
+        first_pos = min(first_pos, r2[w]);
+        last_neg = max(last_neg, r2[GEN_WARPS + w]);
+    }
+    double v = __longlong_as_double(0x7ff8000000000000LL);
+    if (!bad && first_pos < n && last_neg >= 0) {
+        if (sh32) {
+            const float s = (float)sh;
+            v = (double)rintf(__fdiv_rn(__fadd_rn(__fadd_rn((float)first_pos, s),
+                                                  __fadd_rn((float)last_neg, s)), 2.f));
+        } else {
+            v = rint(__ddiv_rn(__dadd_rn(__dadd_rn((double)first_pos, sh),
+                                         __dadd_rn((double)last_neg, sh)), 2.0));
+        }
+    }
+    put(P, R, out[0], v);
+}
+
 __global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS)
 generic_rows_kernel(const __grid_constant__ GenParams P) {
     Row R;
@@ -1328,10 +1576,15 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         case OP_CONV: op_conv(P, R, in, out, ip); break;
         case OP_BL_SUB:
         case OP_WINDOWER:
-        case OP_AVG_CURRENT: op_gather(P, R, k, code, in, out, ip); break;
+        case OP_AVG_CURRENT:
+        case OP_SOFT_PILEUP_OUT: op_gather(P, R, k, code, in, out, ip); break;
         case OP_MW_MULTI: op_mw_multi(P, R, in, out, ip); break;
         case OP_REFL_CONV: op_reflected_conv(P, R, in, out, ip); break;
         case OP_DPZ: op_dpz(P, R, k, in, out, ip); break;
+        case OP_POLY_RESID: op_poly_resid(P, R, in, out, ip); break;
+        case OP_SOFT_PILEUP: op_soft_pileup(P, R, k, in, out, ip); break;
+        case OP_WF_CORR: op_wf_correction(P, R, in, out, ip); break;
+        case OP_WF_CENTROID: op_wf_centroid(P, R, k, in, out, ip); break;
         default: break;
         }
     }

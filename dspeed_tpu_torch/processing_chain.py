@@ -390,6 +390,12 @@ _UFUNC_RENAMES = {
 }
 
 
+# float32 transcendental ufuncs taken in float64 and rounded once: the
+# card's and the CPU's float32 versions round differently in the last bit,
+# which a fit downstream (the flagship extras' log of a tail) amplifies
+_WIDENED_UFUNCS = frozenset(("exp", "expm1", "log", "log10", "log1p", "log2"))
+
+
 def _np_to_torch_ufunc(func):
     """Map a numpy ufunc (used by the expression parser) to a function on
     tensors. Operands that are all host values (build-time const folding)
@@ -399,16 +405,23 @@ def _np_to_torch_ufunc(func):
     if tfn is None:
         raise ProcessingChainError(f"no PyTorch equivalent for ufunc {name}")
 
+    widen = name in _WIDENED_UFUNCS
+
     def fn(*args):
         ref = next((a for a in args if isinstance(a, torch.Tensor)), None)
         if ref is None:
             return func(*args)
+        if widen and ref.dtype == torch.float32 and len(args) == 1:
+            return tfn(ref.double()).float()
         return tfn(*(
             a if isinstance(a, torch.Tensor) else _device_operand(a, ref.device)
             for a in args
         ))
 
     fn.__name__ = name
+    # a fresh closure per step: give _cse_steps the identity the JAX
+    # package's jnp function has, so that identical expressions merge
+    fn._cse_token = ("ufunc", name)
     return fn
 
 

@@ -94,6 +94,24 @@ _modules = {
     "trap_pickoff": "trap_filters",
     "min_max_norm": "min_max",
     "linear_slope_diff": "linear_slope_fit",
+    "poly_fit": "poly_fit",
+    "poly_diff": "poly_fit",
+    "poly_exp_rms": "poly_fit",
+    "soft_pileup_corr": "soft_pileup_corr",
+    "soft_pileup_corr_bl": "soft_pileup_corr",
+    "interpolated_time_point_thresh": "time_point_thresh",
+    "multi_time_point_thresh": "time_point_thresh",
+    "bi_level_zero_crossing_time_points": "time_point_thresh",
+    "inl_correction": "corrections",
+    "wf_correction": "corrections",
+    "wf_alignment": "corrections",
+    "get_wf_centroid": "corrections",
+    "fft": "fft",
+    "ifft": "fft",
+    "psd": "fft",
+    "abs2norm": "fft",
+    "discrete_wavelet_transform": "dwt",
+    "wiener_filter": "wiener_filter",
 }
 
 __all__ = ["Kernel", "kernel", "parse_signature", *sorted(set(_modules))]

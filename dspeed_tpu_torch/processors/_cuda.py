@@ -22,19 +22,23 @@ Each kernel replaces one Pallas TPU kernel of the JAX package
   group as one row-tape launch (``generic_rows`` :1782), its tape lowered
   by :mod:`._tile_program`.
 
-Two kernels replace no Pallas kernel: :func:`peakdet_scan`
+Three kernels replace no Pallas kernel: :func:`peakdet_scan`
 (``csrc/peakdet_scan.cu``), the Billauer peak finder's sweep, which the JAX
 package runs as a ``lax.scan`` (``dspeed_tpu/processors/peak_finding.py:49``),
-and :func:`recurrence` (``csrc/recurrence.cu``), the linear recurrences of
+:func:`recurrence` (``csrc/recurrence.cu``), the linear recurrences of
 the recursive-filter family, which the JAX package runs as blocked matmuls
 and ``associative_scan`` calls (``_numerics.py:250``, ``rc_cr2.py:39``,
-``recursive_filter.py:41``, ``_spline.py:27``).
+``recursive_filter.py:41``, ``_spline.py:27``), and :func:`bilevel_scan`
+(``csrc/bilevel_scan.cu``), the bi-level trigger's state machine, a
+``lax.scan`` over sample pairs in the JAX package
+(``time_point_thresh.py:400``).
 
 A wrapper given a CPU tensor computes the kernel's plain version
 (:func:`fused_energy_plain`, :func:`banded_conv_plain`,
 :func:`fused_t0_plain`, :func:`cascade_tp_plain`,
 :func:`fused_current_plain`, :func:`generic_rows_plain`,
-:func:`peakdet_scan_plain`, :func:`recurrence_plain`); given a CUDA
+:func:`peakdet_scan_plain`, :func:`recurrence_plain`,
+:func:`bilevel_scan_plain`); given a CUDA
 tensor it launches the kernel or raises — it never falls back. Every launch adds one to
 ``LAUNCHES[<kernel>]`` (K5 counts as ``fused_current_poly``, K6 as
 ``fused_current``). :func:`fused_current_poly_plain` is K5's own arithmetic
@@ -91,6 +95,9 @@ __all__ = [
     "recurrence",
     "recurrence_launch",
     "recurrence_plain",
+    "bilevel_scan",
+    "bilevel_scan_launch",
+    "bilevel_scan_plain",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -105,12 +112,13 @@ SOURCES = {
     "generic_rows": "generic_rows.cu",
     "peakdet_scan": "peakdet_scan.cu",
     "recurrence": "recurrence.cu",
+    "bilevel_scan": "bilevel_scan.cu",
 }
 
 LAUNCHES = {
     "fused_energy": 0, "banded_conv_multi": 0, "fused_t0": 0, "cascade_tp": 0,
     "fused_current_poly": 0, "fused_current": 0, "generic_rows": 0,
-    "peakdet_scan": 0, "recurrence": 0,
+    "peakdet_scan": 0, "recurrence": 0, "bilevel_scan": 0,
 }
 
 _LIBS: dict = {}
@@ -225,6 +233,17 @@ def _bind(name: str, so: str):
         ]
         lib.dspeed_peakdet_scan_config.restype = ctypes.c_int
         lib.dspeed_peakdet_scan_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    elif name == "bilevel_scan":
+        lib.dspeed_bilevel_scan.restype = ctypes.c_int
+        lib.dspeed_bilevel_scan.argtypes = [
+            ctypes.POINTER(_BilevelParams), ctypes.c_void_p,
+        ]
+        lib.dspeed_bilevel_scan_max_slots.restype = ctypes.c_int
+        lib.dspeed_bilevel_scan_max_slots.argtypes = [ctypes.c_int]
+        lib.dspeed_bilevel_scan_config.restype = ctypes.c_int
+        lib.dspeed_bilevel_scan_config.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ]
     elif name == "recurrence":
         lib.dspeed_recurrence.restype = ctypes.c_int
         lib.dspeed_recurrence.argtypes = [
@@ -1288,8 +1307,11 @@ def generic_rows_plain(program, vals: dict) -> dict:
     outputs in the slots' types; views are slices of their root. On the CPU
     this is the unfused chain's arithmetic exactly, but for
     ``double_pole_zero``, whose pole runs in K7's order
-    (:func:`.pole_zero.double_pole_zero_runs`). Returns the escapes."""
+    (:func:`.pole_zero.double_pole_zero_runs`); ``soft_pileup``'s first op
+    gives the fit's two coefficients (:func:`.soft_pileup_corr.soft_pileup_fit`),
+    its second the member's output. Returns the escapes."""
     from .pole_zero import double_pole_zero_runs
+    from .soft_pileup_corr import soft_pileup_fit
     from ._tile_program import OPCODES
 
     roots = {program.by_key[k]: vals[k] for k in program.ext_keys}
@@ -1305,6 +1327,8 @@ def generic_rows_plain(program, vals: dict) -> dict:
         kern = op.step.kernel
         if op.code == OPCODES["double_pole_zero"]:
             outs = (double_pole_zero_runs(*args),)
+        elif op.code == OPCODES["soft_pileup"]:
+            outs = soft_pileup_fit(*args)
         elif getattr(kern, "uses_dims", False):
             outs = kern.fn(*args, dims=op.step.dims)
             outs = outs if isinstance(outs, tuple) else (outs,)
@@ -1656,3 +1680,135 @@ def recurrence(u, m=0.0, y0=None, *, c=None, reverse=False, per_position=False):
     _check_rc(lib, rc, "recurrence")
     LAUNCHES["recurrence"] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# the bi-level zero-crossing trigger's sweep (no Pallas counterpart: a lax.scan)
+# ---------------------------------------------------------------------------
+
+
+class _BilevelParams(ctypes.Structure):
+    """Field for field the ``BilevelParams`` struct of ``bilevel_scan.cu``."""
+
+    _fields_ = [
+        ("w", ctypes.c_void_p),
+        ("stride", ctypes.c_longlong),
+        ("pos", ctypes.c_void_p),
+        ("neg", ctypes.c_void_p),
+        ("gate", ctypes.c_void_p),
+        ("start", ctypes.c_void_p),
+        ("nc", ctypes.c_void_p),
+        ("pol", ctypes.c_void_p),
+        ("trig", ctypes.c_void_p),
+    ] + [(f, ctypes.c_int) for f in ("B", "n", "m", "f64")]
+
+
+def bilevel_scan_plain(w, pos, neg, gate, start, m):
+    """Plain version of :func:`bilevel_scan`: the step of the JAX package's
+    ``bi_level_zero_crossing_time_points`` scan (``time_point_thresh.py:
+    460-505``) as a loop over the sample pairs in PyTorch, batched over the
+    rows, each row's update in the same order. Returns ``(n_crossings (B,)
+    int32, polarity (B, m), trigger (B, m))``, the slots in ``w``'s type,
+    NaN where not written."""
+    B, n = w.shape
+    dt, dev = w.dtype, w.device
+    i32 = torch.int32
+    above = torch.full((B,), -1, dtype=i32, device=dev)
+    below = torch.full((B,), -1, dtype=i32, device=dev)
+    crossed = torch.zeros(B, dtype=torch.bool, device=dev)
+    pos_cand = torch.zeros(B, dtype=i32, device=dev)
+    neg_cand = torch.zeros(B, dtype=i32, device=dev)
+    nc = torch.zeros(B, dtype=i32, device=dev)
+    pol = torch.full((B, m), math.nan, dtype=dt, device=dev)
+    trig = torch.full((B, m), math.nan, dtype=dt, device=dev)
+    slots = torch.arange(m, device=dev)[None, :]
+
+    def put(arr, emit, val):
+        sel = (emit & (nc < m))[:, None] & (slots == nc[:, None])
+        return torch.where(sel, val[:, None], arr)
+
+    zero, one = torch.zeros(B, dtype=dt, device=dev), torch.ones(B, dtype=dt, device=dev)
+    for i in range(n - 1):
+        w0, w1 = w[:, i], w[:, i + 1]
+        act = i >= start
+        below_on = below >= 0
+        zneg = act & below_on & (w0 <= 0) & (0 < w1)
+        crossed = crossed | zneg
+        neg_cand = torch.where(zneg, i, neg_cand)
+        # the positive threshold, then the zero crossing back down
+        pcross = act & (w0 <= pos) & (pos < w1)
+        armed = pcross & crossed & below_on
+        in_gate = (i - below) < gate
+        emit = armed & in_gate
+        pol = put(pol, emit, zero)
+        trig = put(trig, emit, neg_cand.to(dt))
+        nc = nc + emit.to(i32)
+        above = torch.where((armed & ~in_gate) | (pcross & ~(crossed & below_on)),
+                            i, above)
+        below = torch.where(armed, -1, below)
+        crossed = torch.where(pcross & below_on, False, crossed)
+        above_on = above >= 0
+        zpos = act & above_on & (w0 >= 0) & (0 > w1)
+        crossed = crossed | zpos
+        pos_cand = torch.where(zpos, i, pos_cand)
+        # the negative threshold
+        ncross = act & (w0 >= neg) & (neg > w1)
+        armed = ncross & crossed & above_on
+        in_gate = (i - above) < gate
+        emit = armed & in_gate
+        pol = put(pol, emit, one)
+        trig = put(trig, emit, pos_cand.to(dt))
+        nc = nc + emit.to(i32)
+        below = torch.where((armed & ~in_gate) | (ncross & ~(crossed & above_on)),
+                            i, below)
+        above = torch.where(armed, -1, above)
+        crossed = torch.where(ncross & above_on, False, crossed)
+    return nc, pol, trig
+
+
+def bilevel_scan_launch() -> dict:
+    """How the sweep's float32 instance launches on this card: rows and
+    threads a block, blocks per SM, registers and local (spill) bytes a
+    thread, and its shared bytes at ``m`` = 8."""
+    lib = _lib("bilevel_scan")
+    out = (ctypes.c_int * 6)()
+    _check_rc(lib, lib.dspeed_bilevel_scan_config(8, out), "bilevel_scan")
+    return dict(zip(("rows", "threads", "blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), out))
+
+
+def bilevel_scan(w, pos, neg, gate, start, m):
+    """The bi-level trigger's sweep over the rows of ``w`` (``(B, n)``,
+    float32 or float64, rows of contiguous samples): ``pos``, ``neg`` the
+    thresholds (``(B,)`` in ``w``'s type), ``gate`` and ``start`` the gate
+    length and first sample (``(B,)`` int32), ``m`` the slots a row. One
+    thread walks one row, 32 rows a block staged through shared memory; see
+    :func:`bilevel_scan_plain` for the outputs, which it equals bit for
+    bit. CPU tensors run :func:`bilevel_scan_plain`."""
+    if w.device.type == "cpu":
+        return bilevel_scan_plain(w, pos, neg, gate, start, m)
+    if w.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"bilevel_scan: the CUDA kernel takes float rows, got {w.dtype}")
+    if w.dim() != 2 or w.stride(1) != 1:
+        raise ValueError("bilevel_scan: the CUDA kernel takes rows of contiguous samples")
+    B, n = w.shape
+    dev = w.device
+    pars = [pos.to(dev, w.dtype).contiguous(), neg.to(dev, w.dtype).contiguous(),
+            gate.to(dev, torch.int32).contiguous(), start.to(dev, torch.int32).contiguous()]
+    if any(p.shape != (B,) for p in pars):
+        raise ValueError("bilevel_scan: the parameters take one value a row")
+    lib = _lib("bilevel_scan")
+    if m > lib.dspeed_bilevel_scan_max_slots(int(w.dtype == torch.float64)):
+        raise ValueError(f"bilevel_scan: {m} slots a row do not fit a block's "
+                         f"shared memory")
+    nc = torch.empty(B, dtype=torch.int32, device=dev)
+    pol = torch.empty((B, m), dtype=w.dtype, device=dev)
+    trig = torch.empty((B, m), dtype=w.dtype, device=dev)
+    P = _BilevelParams(
+        w.data_ptr(), w.stride(0), *(p.data_ptr() for p in pars), nc.data_ptr(),
+        pol.data_ptr(), trig.data_ptr(), B, n, int(m), int(w.dtype == torch.float64),
+    )
+    rc = lib.dspeed_bilevel_scan(ctypes.byref(P), _stream())
+    _check_rc(lib, rc, "bilevel_scan")
+    LAUNCHES["bilevel_scan"] += 1
+    return nc, pol, trig

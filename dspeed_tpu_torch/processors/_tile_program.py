@@ -25,9 +25,11 @@ Here the host lowers the member list into a tape before any launch:
 A member with no op, a plane that is not float32 or an operand shape the
 tape does not take raises :class:`LoweringError`; the group then splits
 (``GroupStep._exec``). The op set is the one the flagship's two generic
-groups, the SiPM chain's group and the flagship DPZ's energy-front group
-(``double_pole_zero``) need (``ROADMAP.md`` lists the tile-safe kernels
-still without one).
+groups, the SiPM chain's group, the flagship DPZ's energy-front group
+(``double_pole_zero``) and the flagship-extras groups need
+(``poly_residual``, ``soft_pileup``, ``time_point_thresh``'s interpolation
+modes, ``wf_correction``, ``wf_centroid``; ``ROADMAP.md`` lists the
+tile-safe kernels still without one).
 
 :func:`~dspeed_tpu_torch.processors._cuda.generic_rows` runs a program on
 the card; :func:`~dspeed_tpu_torch.processors._cuda.generic_rows_plain`
@@ -49,6 +51,7 @@ from ._cuda import _MAX_SMEM, GEN_MAX_CODE, GEN_MAX_DP
 from ._numerics import K7_THREADS
 from .convolutions import _MATMUL_MAC_LIMIT, _mode_window
 from .pole_zero import dpz_constants, dpz_powers
+from .soft_pileup_corr import exp_fit_sums
 
 log = logging.getLogger("dspeed_tpu_torch.generic")
 
@@ -78,7 +81,8 @@ OPCODES = {
     "pole_zero": 5, "trap": 6, "amax": 7, "conv": 8, "time_point_thresh": 9,
     "windower": 10, "avg_current": 11, "moving_window_multi": 12,
     "fixed_time_pickoff": 13, "ufunc": 14, "convert": 15, "reflected_conv": 16,
-    "double_pole_zero": 17,
+    "double_pole_zero": 17, "poly_residual": 18, "soft_pileup": 19,
+    "wf_correction": 20, "wf_centroid": 21, "soft_pileup_out": 22,
 }
 OP_IN, OP_OUT, OP_IP, OP_DP = 6, 4, 8, 4
 OP_INTS = 1 + OP_IN + OP_OUT + OP_IP  # code, in, out, ip
@@ -95,14 +99,18 @@ WARP_OPS = ("time_point_thresh", "fixed_time_pickoff", "ufunc", "convert")
 # ops with a block barrier of their own after their first reads of their
 # operands and before any of their writes (csrc/generic_rows.cu)
 BARRIERED_OPS = ("min_max", "linear_slope_fit", "pole_zero", "trap", "amax",
-                 "conv", "moving_window_multi", "double_pole_zero")
+                 "conv", "moving_window_multi", "double_pole_zero",
+                 "poly_residual", "soft_pileup", "wf_centroid")
+# barriered ops that read their input planes again after their own barrier
+READ_AFTER_BARRIER = ("trap", "pole_zero", "double_pole_zero", "wf_centroid")
 # the block reductions' two alternating buffers: for each op that takes
 # them (its first one before its first barrier), how many of the buffers
 # it took last it still reads after its last barrier. One is safe, since
 # the next reduction takes the other buffer; two would meet its first write
 LATE_REDUCTION_READS = {"min_max": 1, "linear_slope_fit": 1, "pole_zero": 1,
                         "amax": 1, "trap": 0, "moving_window_multi": 0,
-                        "double_pole_zero": 1}
+                        "double_pole_zero": 1, "poly_residual": 1,
+                        "soft_pileup": 1, "wf_centroid": 1}
 
 
 class Slot:
@@ -455,14 +463,79 @@ def _lower_kernel(prog: TileProgram, step) -> None:
             x.ip = [prog.n_taps, m]
             prog.taps.append(np.asarray(kern, np.float32))
             prog.n_taps += m
-    elif name == "time_point_thresh":
-        need(len(args) == 4 and kinds == ("scalar",), "signature")
+    elif name in ("time_point_thresh", "interpolated_time_point_thresh"):
+        interp = name != "time_point_thresh"
+        need(len(args) == 4 + interp and kinds == ("scalar",), "signature")
         walk = _static(args[3], "walk_forward")
+        mode = int(_static(args[4], "mode_in")) if interp else 0
+        need(not interp or chr(mode) in "iabrnlfc", "an interpolation mode")
         x = op("time_point_thresh")
         x.ins = [_plane(prog, args[0], name), _scalar(prog, args[1], "threshold"),
                  _scalar(prog, args[2], "t_start")]
-        # the threshold in the row's type (time_point_thresh casts it)
-        x.ip = [int(int(walk) == 1)] + [0] * 6 + [2 | _f32(args[2]) << 2]
+        # ip[1]: the interpolation mode (0: time_point_thresh's integral
+        # start and walk); the threshold in the row's type, as both cast it
+        fwd = walk > 0 if interp else int(walk) == 1
+        x.ip = [int(fwd), mode] + [0] * 5 + [2 | _f32(args[2]) << 2]
+    elif name in ("poly_diff", "poly_exp_rms"):
+        need(len(args) == 2 and kinds == ("scalar", "scalar"), "signature")
+        x = op("poly_residual")
+        pars = _plane(prog, args[1], "poly_pars")
+        x.ins = [_plane(prog, args[0], name), pars]
+        x.ip = [int(name == "poly_exp_rms"), prog.slots[pars].length]
+    elif name in ("soft_pileup_corr", "soft_pileup_corr_bl"):
+        bl = name == "soft_pileup_corr_bl"
+        need(len(args) == 3 + bl and kinds == ("plane",), "signature")
+        w = _plane(prog, args[0], name)
+        n = prog.slots[w].length
+        nf = int(_static(args[1], "n_in"))
+        need(2 <= nf <= n and o[0].length == n, "n_in out of range")
+        # a constant tau: exp(-i/tau) over the row (float64 pairs of words
+        # in the taps, on 8 bytes) and the fit's two sums that depend on it
+        # alone, from the host, as soft_pileup_corr.exp_fit_sums makes them
+        e, _, s2, s3, _, _ = exp_fit_sums(torch.zeros(1, n, dtype=torch.float64), nf,
+                                          float(_static(args[2], "a constant tau")))
+        if prog.n_taps % 2:
+            prog.taps.append(np.zeros(1, np.float32))
+            prog.n_taps += 1
+        tap = prog.n_taps
+        prog.taps.append(e.numpy().view(np.float32))
+        prog.n_taps += 2 * n
+        # two ops: the fit (its sums, one barrier) into two float64 per-row
+        # scalars, A and B, then the row less the fit, one pass
+        key = o[0].key
+        fit = [prog.new_slot(f"{key}@fit_a", "scalar", torch.float64),
+               prog.new_slot(f"{key}@fit_b", "scalar", torch.float64)]
+        x = Op(f"{name}[{step.name}]:fit", OPCODES["soft_pileup"], args, fit, step)
+        x.ins = [w] + ([_scalar(prog, args[3], "b_in")] if bl else [])
+        x.ip = [nf, int(bl), tap] + [0] * 4 + [_f32(args[3]) << 1 if bl else 0]
+        x.dp = [float(s2), float(s3)]
+        prog.ops.append(x)
+        y = op("soft_pileup_out")
+        y.ins = [w] + fit
+        y.ip = [0, 0, tap]
+    elif name == "wf_correction":
+        need(len(args) == 4 and kinds == ("plane",), "signature")
+        w = _plane(prog, args[0], name)
+        n = prog.slots[w].length
+        start, stop = (int(_static(a, "start_idx or stop_idx")) for a in args[2:])
+        corr = args[1][1] if args[1][0] == "const" else None
+        need(isinstance(corr, np.ndarray) and corr.ndim == 1 and o[0].dtype == torch.float32,
+             "a constant correction array")
+        need(0 <= start < stop <= n and stop - start <= corr.shape[0] and o[0].length == n,
+             "a window out of range")
+        x = op("wf_correction")
+        x.ins = [w]
+        # the correction in the row's type, in the taps; a NaN in it
+        # poisons every row
+        x.ip = [start, stop, prog.n_taps, int(np.isnan(corr.astype(np.float64)).any())]
+        prog.taps.append(corr.astype(np.float32))
+        prog.n_taps += corr.shape[0]
+    elif name == "get_wf_centroid":
+        need(len(args) == 2 and kinds == ("scalar",), "signature")
+        x = op("wf_centroid")
+        x.ins = [_plane(prog, args[0], name), _scalar(prog, args[1], "shift")]
+        # the shift's type decides the midpoint's (int + float32 in float32)
+        x.ip = [0] * 7 + [_f32(args[1]) << 1]
     elif name == "windower":
         need(len(args) == 2 and kinds == ("plane",), "signature")
         w = _plane(prog, args[0], name)
@@ -752,7 +825,7 @@ def _barriers(prog: TileProgram) -> None:
             planes, scalars, spans, scratch = set(), set(), [], False
             late = LATE_REDUCTION_READS.get(name, 0)
             # reads its input after it
-            if name in ("trap", "pole_zero", "double_pole_zero"):
+            if name in READ_AFTER_BARRIER:
                 spans += [span(e) for e in in_planes]
         else:
             spans += [span(e) for e in in_planes]

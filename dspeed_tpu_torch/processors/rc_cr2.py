@@ -69,6 +69,13 @@ def rc_cr2(w_in, t_tau):
     s1 = one_pole(u, y2 - 2.0 * a * y1 + a * a * y0)
     s2 = one_pole(s1, y2 - a * y1)
     y = one_pole(s2, y2)
+    if not isinstance(a, torch.Tensor):
+        # an infinite y0 makes the first stage's seed infinite, and the
+        # stages would carry ±inf to the end; with a static tau the JAX
+        # package gives NaN from sample 3 on there, which rc_cr2.checker
+        # flags (with a per-event tau its scan carries ±inf, as this does)
+        y = torch.where(torch.isinf(y0)[..., None], torch.full(
+            (), float("nan"), dtype=acc, device=w.device), y)
     out = torch.cat([w[..., :3], y], dim=-1).to(w_in.dtype)
     return nanmask(any_bad(isnan_any(w_in, 1), bad_tau), out)
 

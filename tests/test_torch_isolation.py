@@ -221,3 +221,56 @@ def test_cuda_without_a_card_raises(monkeypatch):
     cfg = {"outputs": ["y"], "processors": {"y": "x + 1"}}
     with pytest.raises(RuntimeError, match="cuda"):
         build_dsp(tb, dsp_config=cfg, device="cuda")
+
+
+def test_sources_cover_the_extras_modules():
+    for mod in ("poly_fit", "soft_pileup_corr", "corrections", "time_point_thresh",
+                "fft", "dwt", "wiener_filter"):
+        assert os.path.join("dspeed_tpu_torch", "processors", f"{mod}.py") in SOURCES
+    with open(os.path.join(PKG, "csrc", "bilevel_scan.cu")) as f:
+        src = f.read()
+    assert "torch/" not in src and 'extern "C" int dspeed_bilevel_scan' in src
+
+
+_RUN_EXTRAS_CHAIN = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import chip_smoke as cs
+from dspeed_tpu_torch import build_dsp, lh5
+
+wf, amp, t0, bl, rt = cs.make_hpge_waveforms(4)
+tb = lh5.Table({{
+    "waveform": lh5.WaveformTable(values=wf, t0=0.0, t0_units="ns", dt=16.0,
+                                  dt_units="ns"),
+    "baseline": lh5.Array(bl.astype("float32")),
+}})
+out = build_dsp(tb, dsp_config=cs.extras_config(), device="cpu")
+assert out["bl_trig"].nda.shape == (4, cs.EXTRAS_SLOTS)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax.")
+                        or m == "dspeed_tpu" or m.startswith("dspeed_tpu."))))
+print("dspeed_tpu_torch" in sys.modules)
+"""
+
+
+def test_extras_chain_runs_without_jax_or_the_jax_package():
+    """The flagship extras (the extras' processors, K7's new ops on their
+    plain walk, the bi-level sweep's plain version) with JAX and the JAX
+    package kept off the path, as the SiPM chain above."""
+    guard = (
+        "import sys, importlib.abc\n"
+        "class _Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'dspeed_tpu'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, _Block())\n"
+    )
+    code = guard + _RUN_EXTRAS_CHAIN.format(repo=REPO)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr
+    *_, modules, imported = res.stdout.strip().splitlines()
+    assert json.loads(modules) == []
+    assert imported == "True"

@@ -212,6 +212,7 @@ inline void emu_run_block(unsigned b, unsigned threads, size_t smem,
 }
 inline double __drcp_rn(double x) { return 1.0 / x; }
 inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
+inline float __fmaf_rn(float a, float b, float c) { return ::fmaf(a, b, c); }
 // cp.async: the copy lands at issue (EMU_CP_EAGER) or at the wait; the
 // inline asm of the kernels is rewritten into these calls by the runner.
 #include <vector>

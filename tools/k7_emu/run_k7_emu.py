@@ -38,7 +38,13 @@ bit for bit against the plain walk, the row with an infinite sample too),
 ``dpz`` (``DPZ_CONFIG``: ``double_pole_zero`` between a baseline
 subtraction and the fit, trapezoid and maximum that read it, at 1001 and
 4100 samples, with a NaN sample, a NaN baseline and an infinite sample:
-every escape bit for bit against the plain walk).
+every escape bit for bit against the plain walk), ``extras`` (``EXTRAS_CONFIG``:
+one group with each op of the flagship extras, ``poly_residual``,
+``soft_pileup``, ``time_point_thresh`` in an interpolation mode,
+``wf_correction`` and ``wf_centroid``, at 600 samples with a NaN sample, a
+NaN baseline and an infinite sample). ``--drop-barrier OP`` builds the
+kernel with the first ``__syncthreads()`` of that op's device function
+taken out (a mutation the ``tsan`` mode must report).
 """
 
 import argparse
@@ -57,7 +63,48 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SRC = os.path.join(REPO, "dspeed_tpu_torch", "csrc", "generic_rows.cu")
-CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm", "dpz")
+CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm", "dpz", "extras")
+# one group holding each op of the flagship extras, every op reading
+# samples that other threads wrote
+EXTRAS_CONFIG = {
+    "outputs": ["p_mean", "p_rms", "s_mean", "s_std", "s_slope", "s_icpt", "tp_i",
+                "c_max", "centroid"],
+    "processors": {
+        "wf_blsub": {"function": "bl_subtract", "module": "dspeed_tpu.processors",
+                     "args": ["waveform", "baseline", "wf_blsub(unit='ADC')"]},
+        "bl_poly": {"function": "poly_fit", "module": "dspeed_tpu.processors",
+                    "init_args": ["50", "1"],
+                    "args": ["wf_blsub[0:50]", "bl_poly(2, 'f')"]},
+        "p_mean, p_rms": {"function": "poly_diff", "module": "dspeed_tpu.processors",
+                          "args": ["wf_blsub[0:50]", "bl_poly", "p_mean", "p_rms"],
+                          "unit": ["ADC", "ADC"]},
+        "wf_spc": {"function": "soft_pileup_corr", "module": "dspeed_tpu.processors",
+                   "args": ["wf_blsub", "50", "2000.0", "wf_spc"], "unit": "ADC"},
+        "s_mean, s_std, s_slope, s_icpt": {
+            "function": "linear_slope_fit", "module": "dspeed_tpu.processors",
+            "args": ["wf_spc[0:50]", "s_mean", "s_std", "s_slope", "s_icpt"],
+            "unit": ["ADC"] * 4},
+        "tp_i": {"function": "interpolated_time_point_thresh",
+                 "module": "dspeed_tpu.processors",
+                 "args": ["wf_spc", "s_std", "300", 0, "'l'", "tp_i"], "unit": "ns"},
+        "step_kernel": {"function": "step", "module": "dspeed_tpu.processors",
+                        "args": ["16", "step_kernel(64, 'f')"]},
+        "wf_corr": {"function": "wf_correction", "module": "dspeed_tpu.processors",
+                    "args": ["wf_spc", "step_kernel", "90", "154", "wf_corr"],
+                    "unit": "ADC"},
+        "c_max": {"function": "amax", "module": "numpy", "unit": "ADC",
+                  "args": ["wf_corr", 1, "c_max"],
+                  "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}},
+        "wf_step": {"function": "convolve_wf", "module": "dspeed_tpu.processors",
+                    "args": ["wf_corr", "step_kernel", "'v'", "wf_step(537, 'f')"],
+                    "unit": "ADC"},
+        "centroid": {"function": "get_wf_centroid", "module": "dspeed_tpu.processors",
+                     "args": ["wf_step", "2", "centroid"], "unit": "ns"},
+    },
+}
+# the device function of each op with a barrier of its own (--drop-barrier)
+OP_FUNCTIONS = {"poly_residual": "op_poly_resid", "soft_pileup": "op_soft_pileup",
+                "wf_centroid": "op_wf_centroid"}
 # double_pole_zero in a group: it reads the samples bl_subtract's threads
 # wrote (the planned barrier before it), and the fit, trapezoid and maximum
 # read its output
@@ -90,10 +137,16 @@ FLAGS = {
 K7_CUTS = ("static cudaError_t gen_launch", 'extern "C" int dspeed_generic_rows')
 
 
-def host_source(src: str, out: str, cuts=K7_CUTS) -> str:
+def host_source(src: str, out: str, cuts=K7_CUTS, drop=None) -> str:
     """``src`` as host C++ up to its host-side launch code (the first of
-    ``cuts`` found), into ``out``."""
+    ``cuts`` found), into ``out``; with ``drop`` (an op of
+    ``OP_FUNCTIONS``) the first block barrier of that op's function taken
+    out."""
     text = open(src).read()
+    if drop is not None:
+        fn = text.index(f"void {OP_FUNCTIONS[drop]}(")
+        at = text.index("__syncthreads();", fn)
+        text = text[:at] + "/* barrier dropped */" + text[at + len("__syncthreads();"):]
     text = re.sub(
         r"extern __shared__\s+(?:__align__\(\d+\)\s+)?(\w+)\s+(\w+)\[\];",
         r"\n#define \2 ((\1*)emu_blk->smem)\n", text)
@@ -113,12 +166,13 @@ def host_source(src: str, out: str, cuts=K7_CUTS) -> str:
 
 
 def build(src: str, mode: str, build_dir: str, tag: str = "k7",
-          main: str = os.path.join(HERE, "k7_main.cpp"), cuts=K7_CUTS) -> str:
+          main: str = os.path.join(HERE, "k7_main.cpp"), cuts=K7_CUTS,
+          drop=None) -> str:
     """The emulation of ``src`` built for ``mode`` with the host program
-    ``main``; returns the executable."""
+    ``main`` (``drop``: see :func:`host_source`); returns the executable."""
     os.makedirs(build_dir, exist_ok=True)
     exe = os.path.join(build_dir, f"{tag}_{mode}")
-    inc = host_source(src, os.path.join(build_dir, f"{tag}.inc"), cuts)
+    inc = host_source(src, os.path.join(build_dir, f"{tag}.inc"), cuts, drop)
     cmd = ["g++", "-std=c++17", "-g", "-ffp-contract=off", "-pthread",
            *FLAGS[mode], f"-I{HERE}", f"-I{os.path.dirname(src)}",
            f'-DKSRC="{inc}"', "-o", exe, main]
@@ -272,6 +326,16 @@ def cases(names, rows=6):
             wf[min(2, rows - 1), 500] = np.inf
             for prog, full, vals in chain_groups(DPZ_CONFIG, wf, bl[:rows]):
                 yield "dpz", prog, full, vals
+    if "extras" in names:
+        from test_torch_generic import _events as events
+
+        wf, bl = events(n=max(rows, 8), nsamp=600, seed=7)
+        wf[0, 300] = np.nan
+        bl[1 % rows] = np.nan
+        wf[min(2, rows - 1), 450] = np.inf
+        for prog, full, vals in chain_groups(EXTRAS_CONFIG, wf[:rows], bl[:rows],
+                                             fuse=True):
+            yield "extras", prog, full, vals
     if "sipm" in names:
         wf, _ = cs.make_sipm_waveforms(max(rows, 3))
         # the SiPM chain's default mode forms its group
@@ -322,9 +386,11 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=6)
     ap.add_argument("--parent", help="another generic_rows.cu to hold bit for bit")
     ap.add_argument("--build", default=os.path.join(HERE, "build"))
+    ap.add_argument("--drop-barrier", choices=sorted(OP_FUNCTIONS),
+                    help="take out the first barrier of this op's function")
     ap.add_argument("cases", nargs="*", default=list(CASES[:3]))
     args = ap.parse_args(argv)
-    exe = build(SRC, args.mode, args.build)
+    exe = build(SRC, args.mode, args.build, drop=args.drop_barrier)
     par = build(args.parent, args.mode, args.build, "parent") if args.parent else None
     bad = 0
     for label, prog, full, vals in cases(args.cases, args.rows):
