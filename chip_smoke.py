@@ -60,7 +60,22 @@ extras' three groups (the new ops ``poly_residual``, ``soft_pileup``,
 modes), and ``build_dsp`` twice over 16384 events (the hand fronts, K7 three
 times a chunk, ``rc_cr2`` on the recurrence kernel, the sweep once, no
 split; each new column finite on at least 90% of the events, the first 256
-events against the CPU run).
+events against the CPU run). Then the **flagship injection + ML path**
+(``inject_ml_config``: the flagship's 34 columns, the four pulse injectors
+on a second, late pulse, a DPLMS filter's convolution and maximum, an NNLS
+fit of the rising edge against eight shifted reference pulses and a small
+classifier with seeded weights; ``inject_ml_db`` makes its database from
+the generator): K7 on its two groups (the ``inject`` and ``dense`` ops' outputs
+bit for bit against the plain walk on every row), each new op alone timed
+against its bound, and ``build_dsp`` twice over 16384 events (the hand
+fronts, K7 twice a chunk, no split; each new column finite on at least 99%
+of the events, the first 1024 events against the CPU run, the spread of
+``dplmsEmax`` and ``trapEmax`` over the amplitudes). Then the **optimisers**
+(``opt_configs``): ``optimize_1pz`` over the flagship's 16384 events (the
+median tau within 1% of the generator's) and ``optimize_2pz`` over 2048
+events of the DPZ generator on the recurrence kernel, its objective on the
+first 64 events against the JAX package's (``tests/torch_optimize_2pz_jax.npz``,
+from ``tools/optimize_2pz_reference.py``).
 
 Prints the card's name and power limit, one JSON line of kernel figures
 (``{"kernels": [...]}``), and as the last line
@@ -132,6 +147,7 @@ NAN_BASELINE_ROW = 5  # and this one a NaN baseline
 ATRAP = ("asym", 8, 4, 125)  # the flagship's wf_atrap (128 ns, 4, 2 us)
 # H100 SXM peaks (NVIDIA data sheet): HBM3, f32 and f64 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
+INJECT_OPS = 12  # operations an injected sample (each exp or pow as one)
 PEAK_F32_S = 67e12
 PEAK_F64_S = 34e12
 DEVICE = "cuda"
@@ -404,6 +420,197 @@ EXTRAS_OUTPUTS = [
     "bl_ncross", "bl_pol", "bl_trig", "tp_multi", "centroid", "aligned_max",
     "corr_mean",
 ]
+
+
+# the flagship injection + ML path (inject_ml_config): its choices, made for
+# make_hpge_waveforms' pulses (t0 in 950-1050, rise 40-150 samples,
+# amplitude 500-30000 ADC, noise 3 ADC, tau 27460.5); no published source
+INJ_STARTS = (3000, 3100, 3200, 3300)  # the injected pulses' starts, samples
+INJ_AMP = "(baseline + -14000)*4"  # the injected amplitudes, ADC: 0-8000, per event
+INJ_WINDOW = (896, 1152)  # the rising edge's window: NNLS fit, classifier input
+DPLMS_TAPS = 256  # the DPLMS filter's length, samples
+DPLMS_REF = 512  # the reference pulse's length, samples (t0 at its middle)
+DPLMS_PENALTIES = (1.0, 10.0, 0.0, 1.0)  # a1 (noise), a2 (reference), a3, ff
+NNLS_SHIFTS = 8  # the NNLS templates: the reference pulse t0 at 936 + 16 k
+NN_WIDTHS = (256, 32, 16)  # the classifier's layers: 256 -> 32 -> 16 -> 1
+
+
+def inject_ml_db(n=4096, seed=23) -> dict:
+    """The database of :func:`inject_ml_config`, made from ``n`` events of
+    the flagship generator (seed ``seed``, not the measured events'):
+
+    - ``dplms.noise_matrix``: the covariance of baseline-only windows of
+      ``DPLMS_TAPS`` samples (the three in each event's first 768 samples,
+      before any pulse starts), ``(256, 256)``;
+    - ``dplms.reference``: the mean pulse over amplitude, aligned on its
+      start at the middle of ``DPLMS_REF`` samples;
+    - ``nnls.templates``: that reference pulse in ``INJ_WINDOW`` with its
+      start at ``936 + 16 k`` for ``k < NNLS_SHIFTS``, ``(256, 8)``;
+    - ``nn``: the normalisation's means and variances (the window's, over
+      the events), seeded random weights for the three layers (He-scaled
+      normal, small biases): no trained network is in the repository and
+      nothing is downloaded, so the score only has to be a function of the
+      window, the same on the card and on the CPU;
+    - ``pz.tau``: the flagship's."""
+    wf, amp, t0, bl, _rt = make_hpge_waveforms(n, seed=seed)
+    x = wf.astype(np.float64) - bl[:, None]
+    noise = x[:, : 3 * DPLMS_TAPS].reshape(-1, DPLMS_TAPS)
+    idx = t0[:, None] - DPLMS_REF // 2 + np.arange(DPLMS_REF)
+    ref = (np.take_along_axis(x, idx, 1) / amp[:, None]).mean(0)
+    lo, hi = INJ_WINDOW
+    k = np.arange(hi - lo)[:, None]
+    starts = 936 + 16 * np.arange(NNLS_SHIFTS)[None, :]
+    templates = ref[np.clip(DPLMS_REF // 2 + lo + k - starts, 0, DPLMS_REF - 1)]
+    win = x[:, lo:hi]
+    rng = np.random.default_rng(seed)
+    n0, n1, n2 = NN_WIDTHS
+    a1, a2, a3, ff = DPLMS_PENALTIES
+    f32 = np.float32
+    return {
+        "pz": {"tau": TAU},
+        "dplms": {"noise_matrix": np.cov(noise.T), "reference": ref,
+                  "a1": a1, "a2": a2, "a3": a3, "ff": ff},
+        "nnls": {"templates": templates.astype(f32)},
+        "nn": {"mu": win.mean(0).astype(f32), "var": win.var(0).astype(f32),
+               "w1": rng.normal(0, np.sqrt(2 / n0), (n0, n1)).astype(f32),
+               "b1": rng.normal(0, 0.05, n1).astype(f32),
+               "w2": rng.normal(0, np.sqrt(1 / n1), (n1, n2)).astype(f32),
+               "v": rng.normal(0, np.sqrt(1 / n2), n2).astype(f32),
+               "v_nb": rng.normal(0, np.sqrt(1 / n2), n2).astype(f32)},
+    }
+
+
+def inject_ml_config(dtype="float32") -> dict:
+    """The **flagship injection + ML path**: ``configs/hpge-energy-timing.yaml``'s
+    34 columns, plus columns that run the pulse injectors, the DPLMS filter,
+    the NNLS template fit and a classifier (database :func:`inject_ml_db`).
+    Built in memory; the YAML is not changed. With ``dtype="float64"`` every
+    float32 declaration is widened, as :func:`flagship_config` widens the
+    flagship's.
+
+    - Pile-up injection, as LEGEND studies pile-up and the energy
+      estimators' robustness: each of the four injectors adds a second
+      pulse to ``wf_blsub`` late in the trace (``INJ_STARTS``) with an
+      amplitude from the baseline column (``INJ_AMP``, 0-8000 ADC; the
+      generator draws the baseline uniformly from a seed) and the
+      detector's decay; each injected plane's maximum, and for the
+      sigmoid one a pole zero, the flagship's energy trapezoid and its
+      maximum (``trapEmax_inj``).
+    - DPLMS (D'Andrea et al., EPJ C 83, 149 (2023), which LEGEND uses for
+      HPGe energies): the filter of ``DPLMS_TAPS`` taps from the noise
+      matrix and the reference pulse, its valid convolution with
+      ``wf_blsub`` and the maximum, ``dplmsEmax``.
+    - An NNLS fit of the rising edge's window (``INJ_WINDOW``) against
+      ``NNLS_SHIFTS`` shifted copies of the reference pulse: ``nnls_coef``
+      (8).
+    - A classifier of the same window: ``normalisation_layer``, then
+      ``dense_layer_with_bias`` (256 -> 32, ReLU), ``dense_layer_no_bias``
+      (32 -> 16, tanh), ``classification_layer_with_bias`` (16 -> 1,
+      sigmoid): ``nn_score``; and ``classification_layer_no_bias`` (leaky
+      ReLU) beside it: ``nn_score_nb``. Its weights are seeded random,
+      made by numpy (no trained network is in the repository, and nothing
+      is downloaded)."""
+    cfg = flagship_config(dtype)
+    k = "dspeed_tpu.processors"
+    c = "d" if dtype == "float64" else "f"
+    amax = {"signature": "(n),()->()", "types": [f"{c}i->{c}"]}
+    lo, hi = INJ_WINDOW
+    n0, n1, n2 = NN_WIDTHS
+    s0, s1, s2, s3 = INJ_STARTS
+    extra = {
+        "wf_sig": {"function": "inject_sig_pulse", "module": k, "unit": "ADC",
+                   "args": ["wf_blsub", f"{s0}", "60", INJ_AMP, "db.pz.tau", "wf_sig"],
+                   "defaults": {"db.pz.tau": "27460.5"}},
+        "wf_exp": {"function": "inject_exp_pulse", "module": k, "unit": "ADC",
+                   "args": ["wf_blsub", f"{s1}", "50", INJ_AMP, "db.pz.tau", "wf_exp"],
+                   "defaults": {"db.pz.tau": "27460.5"}},
+        "wf_gum": {"function": "inject_gumbel", "module": k, "unit": "ADC",
+                   "args": ["wf_blsub", INJ_AMP, f"{s2}", "20", "wf_gum"]},
+        "wf_log": {"function": "inject_general_logistic", "module": k, "unit": "ADC",
+                   "args": ["wf_blsub", INJ_AMP, f"{s3}", "60", "1.0", "1.0",
+                            "db.pz.tau", "wf_log"],
+                   "defaults": {"db.pz.tau": "27460.5"}},
+        **{f"{q}_amax": dict(function="amax", module="numpy", unit="ADC",
+                             args=[f"wf_{q}", 1, f"{q}_amax"], kwargs=amax)
+           for q in ("sig", "exp", "gum", "log")},
+        "wf_pz_inj": {"function": "pole_zero", "module": k, "unit": "ADC",
+                      "args": ["wf_sig", "db.pz.tau", "wf_pz_inj"],
+                      "defaults": {"db.pz.tau": "27460.5"}},
+        "wf_trap_inj": {"function": "trap_norm", "module": k, "unit": "ADC",
+                        "args": ["wf_pz_inj", "10*us", "3.008*us", "wf_trap_inj"]},
+        "trapEmax_inj": dict(function="amax", module="numpy", unit="ADC",
+                             args=["wf_trap_inj", 1, "trapEmax_inj"], kwargs=amax),
+        "dplms_kernel": {"function": "dplms", "module": k,
+                         "args": ["db.dplms.noise_matrix", "db.dplms.reference",
+                                  "db.dplms.a1", "db.dplms.a2", "db.dplms.a3",
+                                  "db.dplms.ff", f"dplms_kernel({DPLMS_TAPS}, '{c}')"]},
+        "wf_dplms": {"function": "convolve_wf", "module": k, "unit": "ADC",
+                     "args": ["wf_blsub", "dplms_kernel", "'v'",
+                              f"wf_dplms(len(wf_blsub) - {DPLMS_TAPS - 1}, '{c}')"]},
+        "dplmsEmax": dict(function="amax", module="numpy", unit="ADC",
+                          args=["wf_dplms", 1, "dplmsEmax"], kwargs=amax),
+        "nnls_coef": {"function": "optimize_nnls", "module": k,
+                      "args": ["db.nnls.templates", f"wf_blsub[{lo}:{hi}]", "0",
+                               "1e-6", "0", "0.0", f"nnls_coef({NNLS_SHIFTS}, '{c}')"]},
+        "nn_x": {"function": "normalisation_layer", "module": k,
+                 "args": [f"wf_blsub[{lo}:{hi}]", "db.nn.mu", "db.nn.var", "nn_x"]},
+        "nn_h1": {"function": "dense_layer_with_bias", "module": k,
+                  "args": ["nn_x", "db.nn.w1", "db.nn.b1", "'r'", f"nn_h1({n1}, '{c}')"]},
+        "nn_h2": {"function": "dense_layer_no_bias", "module": k,
+                  "args": ["nn_h1", "db.nn.w2", "'t'", f"nn_h2({n2}, '{c}')"]},
+        "nn_score": {"function": "classification_layer_with_bias", "module": k,
+                     "args": ["nn_h2", "db.nn.v", "0.1", "'s'", "nn_score"]},
+        "nn_score_nb": {"function": "classification_layer_no_bias", "module": k,
+                        "args": ["nn_h2", "db.nn.v_nb", "'l'", "nn_score_nb"]},
+    }
+    cfg["processors"].update(extra)
+    cfg["outputs"] += INJECT_ML_OUTPUTS
+    return cfg
+
+
+INJECT_ML_OUTPUTS = [
+    "sig_amax", "exp_amax", "gum_amax", "log_amax", "trapEmax_inj", "dplmsEmax",
+    "nnls_coef", "nn_score", "nn_score_nb",
+]
+
+
+# the optimisers' phase (opt_configs): one-pole on the flagship generator's
+# rows, two-pole on the DPZ generator's, from a start away from the truth
+OPT_2PZ_EVENTS = 2048  # events of the two-pole optimisation (150 iterations)
+OPT_1PZ_WINDOW = (1500, 4096)  # the one-pole objective's window, samples
+OPT_2PZ_WINDOW = (1200, 2800)  # the two-pole objective's window, samples
+OPT_2PZ_BOUNDS = (1e5, 0.5)  # tau_upper_bound (samples), frac_upper_bound
+OPT_2PZ_START = (20000.0, 400.0, 0.1)  # tau1, tau2 (samples), frac (DPZ's truth:
+# 27460.5, 250, 0.04)
+OPT_2PZ_REF = os.path.join(REPO, "tests", "torch_optimize_2pz_jax.npz")
+OPT_2PZ_REF_EVENTS = 64  # events of the JAX package's stored objectives
+
+
+def opt_configs(dtype="float32") -> tuple[dict, dict]:
+    """The optimisers through ``build_dsp``: ``optimize_1pz`` of the
+    baseline-subtracted rows over ``OPT_1PZ_WINDOW`` from ``db.pz.tau``
+    (``opt_tau``), and ``optimize_2pz`` over ``OPT_2PZ_WINDOW`` with the
+    bounds ``OPT_2PZ_BOUNDS`` from ``OPT_2PZ_START`` (``opt_tau1``,
+    ``opt_tau2``, ``opt_frac``)."""
+    k = "dspeed_tpu.processors"
+    blsub = {"function": "bl_subtract", "module": k,
+             "args": ["waveform", "baseline", "wf_blsub(unit='ADC')"]}
+    one = {"outputs": ["opt_tau"], "processors": {
+        "wf_blsub": blsub,
+        "opt_tau": {"function": "optimize_1pz", "module": k,
+                    "args": ["wf_blsub", "0", *map(str, OPT_1PZ_WINDOW), "db.pz.tau",
+                             "opt_tau"], "defaults": {"db.pz.tau": "27460.5"}}}}
+    two = {"outputs": ["opt_tau1", "opt_tau2", "opt_frac"], "processors": {
+        "wf_blsub": blsub,
+        "opt_tau1, opt_tau2, opt_frac": {
+            "function": "optimize_2pz", "module": k,
+            "args": ["wf_blsub", "0", *map(str, OPT_2PZ_WINDOW),
+                     *map(str, OPT_2PZ_BOUNDS), *map(str, OPT_2PZ_START),
+                     "opt_tau1", "opt_tau2", "opt_frac"]}}}
+    if dtype == "float64":
+        for cfg in (one, two):
+            cfg["processors"]["wf_blsub"]["args"][2] = "wf_blsub(unit='ADC', dtype='d')"
+    return one, two
 
 
 def timing_config() -> dict:
@@ -1412,7 +1619,8 @@ def generic_bound(program, B) -> tuple[float, str]:
     sample for each reduction; the reflected convolution's products and
     sums and the current's difference and division, in the output's
     type; the polynomial residual's, the soft pile-up fit's and the
-    correction's arithmetic, the centroid's comparisons)."""
+    correction's arithmetic, the centroid's comparisons; an injected pulse's
+    ``INJECT_OPS`` a sample, a layer's float64 products and sums)."""
     import torch
 
     from dspeed_tpu_torch.processors._tile_program import OPCODES
@@ -1467,6 +1675,15 @@ def generic_bound(program, B) -> tuple[float, str]:
             f32 += op.ip[1] - op.ip[0]
         elif op.code == OPCODES["wf_centroid"]:
             f32 += 3 * n
+        elif op.code == OPCODES["inject"]:
+            # a pulse's arithmetic, each exp or pow counted as one operation
+            f32 += INJECT_OPS * n
+        elif op.code == OPCODES["dense"]:
+            if op.ip[0] == 0:  # normalisation: a subtraction, root and division
+                f32 += 3 * n
+            else:  # the products and sums in float64, bias and activation
+                f64 += 2 * n * op.ip[5]
+                f32 += 2 * op.ip[5]
         elif op.code in (OPCODES["reflected_conv"], OPCODES["avg_current"]):
             p = slots[op.outs[0]].length
             ops = 2 * (op.ip[1] if op.code == OPCODES["reflected_conv"] else 1) * p
@@ -1480,7 +1697,8 @@ def generic_bound(program, B) -> tuple[float, str]:
 
 
 def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
-             cfg=None, fuse="generic", members=(34, 19), path="generic flagship"):
+             cfg=None, fuse="generic", members=(34, 19), path="generic flagship",
+             db=None):
     """K7 on the groups of ``cfg`` (default: the generic flagship's two) in
     fusion mode ``fuse``: the chain built on the CPU over every event (NaN
     rows included), its steps run on the card up to the last group, each
@@ -1489,9 +1707,11 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
     against the plain walk, through the wrapper and on the device alone).
     A ``double_pole_zero`` op's plane must equal the plain walk's bit for
     bit on every row, and, within REL_TOL of its scale, the kernel route's
-    (``double_pole_zero`` called alone, on the recurrence kernel). Returns
-    the figures, with each group's launch and ``ptxas -v``'s report for
-    ``generic_rows_kernel``."""
+    (``double_pole_zero`` called alone, on the recurrence kernel); the
+    ``inject`` and ``dense`` ops' outputs must equal the plain walk's bit for
+    bit on every row. ``db`` is the database (default: the flagship's).
+    Returns the figures, with each group's launch and ``ptxas -v``'s report
+    for ``generic_rows_kernel``."""
     import torch
 
     import dspeed_tpu_torch.processors as tp
@@ -1510,7 +1730,8 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
         "baseline": lh5.Array(bl.astype(np.float32)),
     })
     chain, _, _ = build_processing_chain(
-        cfg or config(), tb, db_dict={"pz": {"tau": TAU}}, device="cpu", fuse=fuse
+        cfg or config(), tb, db_dict=db or {"pz": {"tau": TAU}}, device="cpu",
+        fuse=fuse
     )
     inputs, B = chain._gather_inputs(0, len(wf))
     env = {k: v.to(dev) for k, v in chain._to_device(inputs).items()}
@@ -1558,6 +1779,16 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
                       flush=True)
                 if d > REL_TOL * scale:
                     raise AssertionError(f"K7 {label} {dst}: off the kernel route")
+            bits = [full.slots[sid].key for op in full.ops
+                    if op.code in (OPCODES["inject"], OPCODES["dense"]) for sid in op.outs]
+            for key in bits:
+                if not same_bits(got[key], want[key]):
+                    raise AssertionError(f"K7 {label} {key}: the {path} op differs "
+                                         f"from the plain walk")
+            if bits:
+                print(f"K7 {label} [{path}]: the {len(bits)} outputs of its inject and "
+                      f"dense ops equal the plain walk's bit for bit on all {B} rows",
+                      flush=True)
             outs = _cuda.generic_rows(prog, vals)
             for k in step.escapes:
                 g, w = outs[k], got[k]
@@ -1616,6 +1847,157 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
                     f"group_{lab}_launch": f["launch"]})
         if len(figs) > 2:
             out[f"group_{lab}_ops"] = f["ops"]
+    return out
+
+
+def new_ops_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, db):
+    """The ``inject`` and ``dense`` ops alone on the card at the injection +
+    ML path's shapes: its four injector steps lowered as one program (the
+    four ops and the row's load, nothing stored) and its five layer steps
+    (the normalisation, two dense layers, two classifications, storing the
+    two scores), each timed through the wrapper and on the device alone
+    against its bound, the plain walk timed beside it. Returns the figures
+    (``inject_op`` and ``dense_op``)."""
+    import torch
+
+    from dspeed_tpu_torch.processing_chain import KernelStep
+    from dspeed_tpu_torch.processors._tile_program import (
+        DENSE_KINDS, INJECT_KINDS, lower,
+    )
+
+    tb = lh5.Table({
+        "waveform": lh5.WaveformTable(values=wf, t0=0.0, t0_units="ns", dt=DT,
+                                      dt_units="ns"),
+        "baseline": lh5.Array(bl.astype(np.float32)),
+    })
+    chain, _, _ = build_processing_chain(inject_ml_config(), tb, db_dict=db,
+                                         device="cpu", fuse=False)
+    inputs, B = chain._gather_inputs(0, len(wf))
+    env = {k: v.to(dev) for k, v in chain._to_device(inputs).items()}
+    env.update({k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                for k, v in chain._const_env().items()})
+    with torch.no_grad():
+        for step in chain._steps:
+            step.run(env)
+    figs = {}
+    for label, kinds, keep in (("inject_op", INJECT_KINDS, ()),
+                               ("dense_op", DENSE_KINDS, ("nn_score", "nn_score_nb"))):
+        members = [st for st in chain._steps if isinstance(st, KernelStep)
+                   and st.kernel.__name__ in kinds]
+        writes = {sp.key for m in members for sp in m.out_specs}
+        reads = set()
+        for m in members:
+            reads |= chain._step_env_reads(m)
+        vals = {k: env[k] for k in sorted(reads - writes)}
+        escapes = [k for k in sorted(writes) if k.split("#")[0] in keep]
+        prog = lower(members, vals, escapes)
+        _cuda.generic_rows(prog, vals)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: _cuda.generic_rows(prog, vals), 20)
+        dev_ms = device_ms(lambda: _cuda.generic_rows(prog, vals))
+        plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, vals), 3, 1)
+        bound, by = generic_bound(prog, B)
+        launch = _cuda.generic_rows_launch(prog)
+        print(f"K7 {label} alone [{len(members)} steps, {len(prog.ops)} ops, "
+              f"{prog.smem_bytes} B of shared memory, {launch['blocks_per_sm']} blocks "
+              f"per SM] {B} rows: kernel {ms:.4f} ms ({dev_ms:.4f} ms on the device "
+              f"alone), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{bound / dev_ms:.1%} of the bound on the device alone; on "
+              f"{card_line()}", flush=True)
+        figs[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, launch=launch)
+    return figs
+
+
+def opt_phase(build_dsp, lh5, _cuda, wf, bl, card):
+    """The optimisers through ``build_dsp`` (:func:`opt_configs`), Table ->
+    Table: ``optimize_1pz`` on the flagship generator's rows ``wf`` (float32)
+    from ``db.pz.tau``, its median tau within 1% of the generator's;
+    ``optimize_2pz`` on the first ``OPT_2PZ_EVENTS`` events of the DPZ
+    generator (the waveform in float64, as ``tools/optimize_2pz_reference.py``
+    subtracts its baseline) from ``OPT_2PZ_START``, the recurrence kernel
+    launched, and its objective at the result on the first
+    ``OPT_2PZ_REF_EVENTS`` events (the port's, on the card, in float64)
+    against the JAX package's at its own result, stored in ``OPT_2PZ_REF``:
+    their sum at most ``max(2 x`` the JAX package's ``, 1e-2)`` (each event's
+    share of that bound printed). Returns the figures."""
+    import torch
+
+    from dspeed_tpu_torch.processors.optimize import dpz_traced, slope_objective
+
+    ref = np.load(OPT_2PZ_REF)
+    stored = (tuple(ref["window"]), tuple(ref["bounds"]), tuple(ref["start"]),
+              tuple(ref["events"]))
+    want = (OPT_2PZ_WINDOW, OPT_2PZ_BOUNDS, OPT_2PZ_START,
+            (OPT_2PZ_EVENTS, OPT_2PZ_REF_EVENTS))
+    if stored != want:
+        raise AssertionError(f"{OPT_2PZ_REF} was made for {stored}, not {want}: run "
+                             f"tools/optimize_2pz_reference.py")
+    one, two = opt_configs()
+
+    def table(w, b):
+        return lh5.Table({
+            "waveform": lh5.WaveformTable(values=w, t0=0.0, t0_units="ns", dt=DT,
+                                          dt_units="ns"),
+            "baseline": lh5.Array(b.astype(np.float32)),
+        })
+
+    out = {}
+    for label, cfg, w, b, db in (
+            ("optimize_1pz", one, wf, bl, {"pz": {"tau": TAU}}),
+            ("optimize_2pz", two, None, None, None)):
+        if w is None:
+            dwf, _amp, _t0, dbl, _rt = make_hpge_dpz_waveforms(OPT_2PZ_EVENTS)
+            w, b = dwf.astype(np.float64), dbl
+        _cuda.reset_launches()
+        torch.cuda.synchronize()
+        t_0 = time.time()
+        res = build_dsp(table(w, b), dsp_config=cfg, database=db, n_entries=len(w),
+                        buffer_len=len(w), device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.time() - t_0
+        launches = dict(_cuda.LAUNCHES)
+        cols = {k: np.asarray(res[k].nda) for k in cfg["outputs"]}
+        out[label] = dict(events=len(w), seconds=secs, launches=launches)
+        print(f"{label} through build_dsp on {card}: {len(w)} events x "
+              f"{w.shape[1]} samples in {secs:.3f} s (the first call, the chain "
+              f"built); launches {launches}", flush=True)
+        if label == "optimize_1pz":
+            med = float(np.nanmedian(cols["opt_tau"]))
+            print(f"optimize_1pz: median tau {med!r} samples against the generator's "
+                  f"{TAU!r} ({med / TAU - 1:+.4%})", flush=True)
+            if abs(med / TAU - 1) > 0.01:
+                raise AssertionError("optimize_1pz: the median tau is not within 1%")
+            out[label]["median_tau"] = med
+            continue
+        n_rec = launches.get("recurrence", 0)
+        if n_rec < 1 + 150:
+            raise AssertionError(f"optimize_2pz launched the recurrence kernel "
+                                 f"{n_rec} times, not once a Nelder-Mead step")
+        n = OPT_2PZ_REF_EVENTS
+        beg, end = OPT_2PZ_WINDOW
+        rows = torch.from_numpy(w[:n] - b[:n, None].astype(np.float32)
+                                .astype(np.float64)).to(DEVICE)
+        pars = [torch.from_numpy(cols[k][:n].astype(np.float64)).to(DEVICE)
+                for k in ("opt_tau1", "opt_tau2", "opt_frac")]
+        with torch.no_grad():
+            obj = slope_objective(dpz_traced(rows, *pars, end=end), beg, end).cpu().numpy()
+        jax_obj = ref["objective_centered"]
+        total, bound = float(obj.sum()), max(2.0 * float(jax_obj.sum()), 1e-2)
+        each = int((obj <= np.maximum(2.0 * jax_obj, 1e-2)).sum())
+        print(f"optimize_2pz: {n_rec} recurrence launches; objective on the first {n} "
+              f"events: sum {total!r} against the JAX package's {float(jax_obj.sum())!r} "
+              f"(bound {bound!r}); median {float(np.median(obj))!r} against "
+              f"{float(np.median(jax_obj))!r}; {each} of {n} events within max(2 x the "
+              f"JAX package's, 1e-2); medians tau1 {float(np.nanmedian(cols['opt_tau1']))!r}, "
+              f"tau2 {float(np.nanmedian(cols['opt_tau2']))!r}, frac "
+              f"{float(np.nanmedian(cols['opt_frac']))!r} (start {OPT_2PZ_START})",
+              flush=True)
+        if not np.isfinite(obj).all() or total > bound:
+            raise AssertionError("optimize_2pz: the objective at the result is above "
+                                 "the bound")
+        out[label].update(objective_sum=total, jax_objective_sum=float(jax_obj.sum()),
+                          events_within=each, recurrence_launches=n_rec)
     return out
 
 
@@ -2444,9 +2826,52 @@ def extras_checks(cols, cpu, wf, bl, n_cpu, good, t0):
 
 
 
+def inject_ml_checks(cols, cpu, amp, good, n_cpu, label):
+    """The injection + ML path's own columns: each finite on at least 99%
+    of the events (every slot of ``nnls_coef``; each share printed); on the
+    first ``n_cpu`` events against the port's CPU run, NaN positions equal
+    and each within REL_TOL of its scale; the spread of ``dplmsEmax`` and
+    ``trapEmax`` over the injected amplitudes, printed side by side."""
+    shares = {}
+    for k in INJECT_ML_OUTPUTS:
+        v = np.asarray(cols[k], np.float64).reshape(len(good), -1)
+        shares[k] = float(np.isfinite(v).all(1).mean())
+    print(f"[{label}] finite share of each new column: "
+          + json.dumps({k: round(v, 4) for k, v in shares.items()}), flush=True)
+    low = [k for k, v in shares.items() if v < 0.99]
+    if low:
+        raise AssertionError(f"{label}: columns finite on < 99% of the events: {low}")
+    worst = 0.0
+    for k in INJECT_ML_OUTPUTS:
+        g = np.asarray(cols[k][:n_cpu], np.float64)
+        w = np.asarray(cpu[k], np.float64)
+        if not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise AssertionError(f"{label} {k}: NaN events differ from the CPU run")
+        ok = ~np.isnan(w)
+        scale = np.abs(w[ok]).max()
+        err = np.abs(g[ok] - w[ok]).max()
+        worst = max(worst, err / scale)
+        if err > REL_TOL * scale:
+            raise AssertionError(f"{label} {k}: max |card - CPU| {err:.3e} > "
+                                 f"{REL_TOL * scale:.3e} on the first {n_cpu} events")
+    spread = {}
+    for k in ("dplmsEmax", "trapEmax"):
+        r = np.asarray(cols[k], np.float64)[good] / amp[good]
+        spread[k] = (float(np.std(r)), float(np.percentile(r, 1)),
+                     float(np.percentile(r, 99)))
+    print(f"[{label}] new columns, first {n_cpu} events vs the port's CPU run: worst "
+          f"|diff|/max|col| {worst:.3e}; over the generator's amplitude, dplmsEmax: std "
+          f"{spread['dplmsEmax'][0]!r}, 1st-99th percentile {spread['dplmsEmax'][1]!r} "
+          f"to {spread['dplmsEmax'][2]!r}; trapEmax: std {spread['trapEmax'][0]!r}, "
+          f"{spread['trapEmax'][1]!r} to {spread['trapEmax'][2]!r}; nn_score median "
+          f"{float(np.nanmedian(cols['nn_score'])):.4f}", flush=True)
+    return shares, spread
+
+
 def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
               expect, rt=None, device="cuda", fuse=True, forbid=(),
-              aoe_geometry=AOE_GEOMETRY, trap_tol=0.005, extras=False):
+              aoe_geometry=AOE_GEOMETRY, trap_tol=0.005, extras=False,
+              inject_ml=False, db=None, n_cpu=256):
     """A main path: ``build_dsp`` of ``cfg`` with fusion mode ``fuse`` over
     every event of ``wf`` on ``device``, file -> file where ``h5py`` is
     installed, else Table -> Table; launch counts and generic-group splits
@@ -2458,8 +2883,11 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     ``aoe_geometry`` is the current front's (its window length picks the A/E
     reference of ``AOE_RATIO``); ``trapEmax`` must lie within ``trap_tol``
     of the injected amplitudes. With ``extras`` the flagship extras' own
-    columns are held by :func:`extras_checks` (the flagship's by the rules
-    above). Returns the launch counts."""
+    columns are held by :func:`extras_checks`, with ``inject_ml`` the
+    injection + ML path's by :func:`inject_ml_checks` (the flagship's by
+    the rules above). ``db`` is the database (default: the flagship's
+    ``pz.tau``); the first ``n_cpu`` events are held against the CPU run.
+    Returns the launch counts."""
     import importlib.util
 
     import torch
@@ -2472,7 +2900,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     wf[NAN_SAMPLE_ROW, 500] = np.nan
     bl[NAN_BASELINE_ROW] = np.nan
     n_ev = wf.shape[0]
-    n_cpu = min(256, n_ev)
+    n_cpu = min(n_cpu, n_ev)
+    database = db or {"pz": {"tau": TAU}}
     good = np.ones(n_ev, dtype=bool)
     good[[NAN_SAMPLE_ROW, NAN_BASELINE_ROW]] = False
     tb = lh5.Table({
@@ -2491,14 +2920,14 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
 
             def run(dev, n, stats=None):
                 out = os.path.join(tmp, f"smoke_dsp_{dev}.lh5")
-                build_dsp(raw, out, cfg, database={"ch001": {"pz": {"tau": TAU}}},
+                build_dsp(raw, out, cfg, database={"ch001": database},
                           n_entries=n, buffer_len=n, device=dev, write_mode="r",
                           fuse=fuse, stats=stats)
                 with h5py.File(out, "r") as f:
                     return {k: f[f"ch001/dsp/{k}"][()] for k in outputs}
         else:
             def run(dev, n, stats=None):
-                out = build_dsp(tb, dsp_config=cfg, database={"pz": {"tau": TAU}},
+                out = build_dsp(tb, dsp_config=cfg, database=database,
                                 n_entries=n, buffer_len=n, device=dev, fuse=fuse,
                                 stats=stats)
                 return {k: np.asarray(out[k].nda) for k in outputs}
@@ -2540,7 +2969,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
         cpu = run("cpu", n_cpu)
     searches = ("tp_0_est", *READS_TP0)
     not_found = {}
-    new_cols = EXTRAS_OUTPUTS if extras else ()
+    new_cols = (EXTRAS_OUTPUTS if extras else []) + (
+        INJECT_ML_OUTPUTS if inject_ml else [])
     for k, v in cols.items():
         if k in new_cols:
             continue
@@ -2591,6 +3021,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
           f"|diff|/max|col| {worst:.3e}, {n_ex} events excused", flush=True)
     if extras:
         extras_checks(cols, cpu, wf, bl, n_cpu, good, t0)
+    if inject_ml:
+        inject_ml_checks(cols, cpu, amp, good, n_cpu, label)
     for name in expect:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the {label} path")
@@ -2892,6 +3324,19 @@ def main() -> int:
                                    path="flagship extras")
     torch.cuda.empty_cache()
 
+    # -- the flagship injection + ML path: K7 on its two groups (the inject --
+    # -- and dense ops among them), then each new op alone -------------------
+    t0 = time.time()
+    ml_db = inject_ml_db()
+    print(f"injection + ML database (DPLMS noise matrix and reference, NNLS "
+          f"templates, seeded weights) made in {time.time() - t0:.2f} s", flush=True)
+    k7["inject_ml_groups"] = k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev,
+                                      logs["generic_rows"], cfg=inject_ml_config(),
+                                      fuse=True, members=(28, 22),
+                                      path="flagship injection + ML", db=ml_db)
+    k7.update(new_ops_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ml_db))
+    torch.cuda.empty_cache()
+
     # -- the main paths: build_dsp -------------------------------------------
     launches = e2e_phase(
         build_dsp, lh5, _cuda, config(), wf, amp, inj_t0, bl, card, "flagship",
@@ -2952,6 +3397,23 @@ def main() -> int:
     if {k: extras_launches[k] for k in per_chunk} != per_chunk:
         raise AssertionError(f"flagship extras launches {extras_launches}, not "
                              f"{per_chunk} of those")
+    # the flagship injection + ML path: the flagship's hand fronts, K7 on its
+    # two groups (the injectors, the DPLMS convolution, the layers), the
+    # NNLS fit in plain tensor ops; the first 1024 events against the CPU
+    iml_launches = e2e_phase(
+        build_dsp, lh5, _cuda, inject_ml_config(), wf, amp, inj_t0, bl, card,
+        "flagship injection + ML",
+        expect=("fused_energy", "cascade_tp", "fused_t0", "banded_conv_multi",
+                "fused_current_poly", "generic_rows"),
+        rt=rt, device=DEVICE, forbid=("fused_current", "recurrence"), inject_ml=True,
+        db=ml_db, n_cpu=1024,
+    )
+    if iml_launches["generic_rows"] != 2:
+        raise AssertionError(f"flagship injection + ML launches {iml_launches}: "
+                             f"generic_rows not twice a chunk")
+    # the optimisers through build_dsp: optimize_2pz's pole on the recurrence
+    # kernel
+    opt = opt_phase(build_dsp, lh5, _cuda, wf, bl, card)
     e2e_phase(
         build_dsp, lh5, _cuda, timing_config(), wf, amp, inj_t0, bl, card,
         "timing",
@@ -3018,7 +3480,8 @@ def main() -> int:
             name="generic_rows", route="cuda",
             source="dspeed_tpu_torch/csrc/generic_rows.cu",
             replaces="dspeed_tpu/processors/_pallas.py:1782",
-            launches=gen_launches["generic_rows"], library_ms=None, **k7,
+            launches=gen_launches["generic_rows"], library_ms=None,
+            inject_ml_launches=iml_launches["generic_rows"], **k7,
         ),
         dict(
             name="recurrence", route="cuda",
@@ -3027,7 +3490,9 @@ def main() -> int:
                      "rc_cr2.py:39 (_one_pole_scan), recursive_filter.py:41 "
                      "(iir_companion), _spline.py:27 (affine_recurrence); no "
                      "pallas_call",
-            launches=extras_launches["recurrence"], library_ms=None, **rec,
+            launches=extras_launches["recurrence"], library_ms=None,
+            optimize_2pz_launches=opt["optimize_2pz"]["recurrence_launches"],
+            optimize_2pz_events=opt["optimize_2pz"]["events"], **rec,
         ),
         dict(
             name="peakdet_scan", route="cuda",

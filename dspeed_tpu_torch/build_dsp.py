@@ -124,14 +124,25 @@ def _chain_cache_key(processors, db_dict, outputs, tb_in, device, fuse):
     chunk length: a chain's output buffers are sized for it) it holds the
     resolved device and the fusion mode, which the JAX package reads from
     its environment: a chain built for one must not serve another."""
+    import hashlib
     import json as _json
 
     if os.getenv("DSPEED_TPU_CHAIN_CACHE", "1") in ("0", "false"):
         return None
+
+    def value(v):
+        # an array by its type, shape and bytes: its str() elides the middle
+        # of a large array, so two databases whose weights differ there
+        # would share a chain
+        if isinstance(v, np.ndarray):
+            return [v.dtype.str, list(v.shape),
+                    hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()]
+        return str(v)
+
     try:
         return (
-            _json.dumps(processors, sort_keys=True, default=str),
-            _json.dumps(db_dict, sort_keys=True, default=str),
+            _json.dumps(processors, sort_keys=True, default=value),
+            _json.dumps(db_dict, sort_keys=True, default=value),
             tuple(outputs) if outputs is not None else None,
             _schema_fingerprint(tb_in),
             len(tb_in),

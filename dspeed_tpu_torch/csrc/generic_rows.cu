@@ -43,6 +43,15 @@
 //   get_wf_centroid                  first-occurrence argmin and argmax,
 //                                    then the first positive and last
 //                                    negative sample between them
+//   inject_sig_pulse, _exp_pulse,    one op: the pulse in float32, each
+//   inject_gumbel,                   operation rounded once in the member
+//   inject_general_logistic          kernel's order (expf, powf), added
+//   normalisation_layer,             one op: the normalisation elementwise;
+//   dense_layer_*,                   a product's float64 sums in a fixed
+//   classification_layer_*           order (a contiguous run of the inputs a
+//                                    warp, then the 8 warps' sums in order,
+//                                    ml.layer_rows'), the weights read
+//                                    through L2; the activation in float32
 //   windower, avg_current            a gather, __fsub_rn and __fdiv_rn
 //   fixed_time_pickoff 'l' / 'i'     a per-row gather
 //   add, multiply, divide, convert,  per-row scalar arithmetic with _rn
@@ -125,7 +134,8 @@ enum {
     OP_LOAD = 1, OP_MIN_MAX, OP_BL_SUB, OP_SLOPE_FIT, OP_POLE_ZERO, OP_TRAP,
     OP_AMAX, OP_CONV, OP_TPT, OP_WINDOWER, OP_AVG_CURRENT, OP_MW_MULTI,
     OP_FTP, OP_UFUNC, OP_CONVERT, OP_REFL_CONV, OP_DPZ, OP_POLY_RESID,
-    OP_SOFT_PILEUP, OP_WF_CORR, OP_WF_CENTROID, OP_SOFT_PILEUP_OUT
+    OP_SOFT_PILEUP, OP_WF_CORR, OP_WF_CENTROID, OP_SOFT_PILEUP_OUT, OP_INJECT,
+    OP_DENSE
 };
 
 // Mirrored field for field by ctypes in processors/_cuda.py. The tape rides
@@ -853,15 +863,14 @@ __device__ __forceinline__ void op_slope_fit(const GenParams& P, Row& R,
 }
 
 // pole_zero: pz = w + omc * (exclusive prefix of w), K1's pass 2; each
-// thread's run from registers.
+// thread's run from registers. The output's places and the constant are
+// read from the tape after the scan's barrier, so that they are not held
+// in registers across it beside the run (K7's register cap).
 __device__ __forceinline__ void op_pole_zero(const GenParams& P, Row& R,
                                              int k, const int* in,
                                              const int* out, const int* ip) {
     const float* x = plane(P, in[0]);
-    float* o = plane(P, out[0]);
-    float* g = esc_plane(P, R, out[0]);
     const int n = plen(P, in[0]);
-    const double omc = tape_dp(P)[k * OP_DP];
     const bool bad = plane_nan(P, in[0], false) || ip[0];
     const float qnan = __int_as_float(0x7fc00000);
     int j0, j1;
@@ -876,8 +885,14 @@ __device__ __forceinline__ void op_pole_zero(const GenParams& P, Row& R,
         for (int q = 0; q < GEN_RUN; ++q)
             if (q < cnt) run += (double)r[q];
         double s = gen_excl_scan(R, run);
-        const bool vec = cnt == GEN_RUN &&
-            ((reinterpret_cast<uintptr_t>(o + j0) |
+        float* o = plane(P, out[0]);
+        float* g = esc_plane(P, R, out[0]);
+        const double omc = tape_dp(P)[k * OP_DP];
+        int i0, i1;  // the run's place again (j0, j1), not held across the scan
+        scan_run(plen(P, in[0]), i0, i1);
+        const int m = i1 - i0;
+        const bool vec = m == GEN_RUN &&
+            ((reinterpret_cast<uintptr_t>(o + i0) |
               reinterpret_cast<uintptr_t>(g)) & 15) == 0;
 #pragma unroll
         for (int c = 0; c < GEN_RUN / 4; ++c) {
@@ -886,21 +901,21 @@ __device__ __forceinline__ void op_pole_zero(const GenParams& P, Row& R,
             for (int u = 0; u < 4; ++u) {
                 const int q = 4 * c + u;
                 y[u] = bad ? qnan : __fadd_rn(r[q], (float)(omc * s));
-                if (q < cnt) {
+                if (q < m) {
                     s += (double)r[q];
                     h |= nan_inf(y[u]);
                 }
             }
             if (vec) {
                 const float4 v = make_float4(y[0], y[1], y[2], y[3]);
-                reinterpret_cast<float4*>(o + j0)[c] = v;
-                if (g) __stcs(reinterpret_cast<float4*>(g + j0) + c, v);
+                reinterpret_cast<float4*>(o + i0)[c] = v;
+                if (g) __stcs(reinterpret_cast<float4*>(g + i0) + c, v);
             } else {
 #pragma unroll
                 for (int u = 0; u < 4; ++u)
-                    if (4 * c + u < cnt) {
-                        o[j0 + 4 * c + u] = y[u];
-                        if (g) g[j0 + 4 * c + u] = y[u];
+                    if (4 * c + u < m) {
+                        o[i0 + 4 * c + u] = y[u];
+                        if (g) g[i0 + 4 * c + u] = y[u];
                     }
             }
         }
@@ -908,6 +923,9 @@ __device__ __forceinline__ void op_pole_zero(const GenParams& P, Row& R,
         double run = 0.0;
         for (int j = j0; j < j1; ++j) run += (double)x[j];
         double s = gen_excl_scan(R, run);
+        float* o = plane(P, out[0]);
+        float* g = esc_plane(P, R, out[0]);
+        const double omc = tape_dp(P)[k * OP_DP];
         for (int j = j0; j < j1; ++j) {
             const float v = x[j];
             const float y = bad ? qnan : __fadd_rn(v, (float)(omc * s));
@@ -1524,6 +1542,182 @@ __device__ __forceinline__ void op_wf_centroid(const GenParams& P, Row& R, int k
     put(P, R, out[0], v);
 }
 
+// The pulse of inject kind KIND at sample t, in float32 with each operation
+// rounded once in the member kernel's order; dt = t - t0, rise = 4 ln 99 /
+// rt. Parameters: sig and exp (t0, rt, a, decay); gumbel (a, t0, beta);
+// logistic (a, t0, rt, q, v, decay).
+template <int KIND>
+__device__ __forceinline__ float pulse_at(float t, float dt, float t0, float rise,
+                                          const float* p) {
+    if (KIND == 0) {
+        const float arg = __fmul_rn(-rise, __fsub_rn(t, __fadd_rn(t0, __fmul_rn(p[1], 0.5f))));
+        return __fmul_rn(__fdiv_rn(p[2], __fadd_rn(1.f, expf(arg))),
+                         expf(__fdiv_rn(-dt, p[3])));
+    }
+    if (KIND == 1) {
+        const float tail = expf(__fdiv_rn(-dt, p[3]));
+        const float end = __fadd_rn(t0, p[1]);
+        if (t <= t0 && t <= end)
+            return __fmul_rn(__fmul_rn(p[2], expf(__fdiv_rn(__fsub_rn(dt, p[1]), p[1]))),
+                             tail);
+        return t > end ? __fmul_rn(p[2], tail) : 0.f;
+    }
+    if (KIND == 2) {
+        const float b = p[2];
+        const float mu = __fadd_rn(t0, __fmul_rn(2.f, b));
+        if (!(t >= t0 && t < __fadd_rn(mu, __fmul_rn(8.f, b)))) return 0.f;
+        const float z = __fdiv_rn(__fsub_rn(t, mu), b);
+        return __fmul_rn(__fdiv_rn(p[0], b), expf(-__fadd_rn(z, expf(-z))));
+    }
+    const float arg = __fmul_rn(-rise, __fsub_rn(dt, __fmul_rn(p[2], 0.5f)));
+    const float base = __fadd_rn(1.f, __fmul_rn(p[3], expf(arg)));
+    return __fmul_rn(__fdiv_rn(p[0], powf(base, __fdiv_rn(1.f, p[4]))),
+                     expf(__fdiv_rn(-dt, p[5])));
+}
+
+// One pass of inject kind KIND over the row: x + pulse, NaN where `bad`;
+// the output's flag bits.
+template <int KIND>
+__device__ __forceinline__ int inject_row(const float* x, float* o, float* g, int n,
+                                          bool bad, const float* p, float lg) {
+    const float t0 = KIND >= 2 ? p[1] : p[0];
+    const float rise = KIND == 0 ? __fdiv_rn(lg, p[1]) : KIND == 3 ? __fdiv_rn(lg, p[2]) : 0.f;
+    const float qnan = __int_as_float(0x7fc00000);
+    int h = 0;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
+        const float t = (float)i;
+        const float y = bad ? qnan
+            : __fadd_rn(x[i], pulse_at<KIND>(t, __fsub_rn(t, t0), t0, rise, p));
+        o[i] = y;
+        if (g) g[i] = y;
+        h |= nan_inf(y);
+    }
+    return h;
+}
+
+// inject_sig_pulse, inject_exp_pulse, inject_gumbel,
+// inject_general_logistic (pulse_injector.py): x + pulse(t), t the sample
+// index, in float32 with each operation rounded once in the member kernel's
+// order (pulse_at). ip[0] the kind (the order above), ip[1] the taps' offset
+// of the six constant parameters (the function's own order, in float32),
+// ip[2] a bit for each parameter given one a row instead (operands 1.. in
+// order, rounded to float32: ip[7]); the tape's double 0 is 4 ln 99. A NaN
+// in the row or in a parameter gives a NaN row. One pass over the output,
+// one loop a kind.
+__device__ __forceinline__ void op_inject(const GenParams& P, const Row& R, int k,
+                                          const int* in, const int* out,
+                                          const int* ip) {
+    const float* x = plane(P, in[0]);
+    float* o = plane(P, out[0]);
+    float* g = esc_plane(P, R, out[0]);
+    const int n = plen(P, in[0]);
+    float p[6];
+    bool bad = plane_nan(P, in[0], false);
+#pragma unroll
+    for (int q = 0, j = 1; q < 6; ++q) {
+        p[q] = ((ip[2] >> q) & 1) ? (float)operand(P, k, j++, ip[7])
+                                  : __ldg(P.taps + ip[1] + q);
+        bad |= isnan(p[q]);
+    }
+    const float lg = (float)tape_dp(P)[k * OP_DP];
+    int h;
+    switch (ip[0]) {
+    case 0: h = inject_row<0>(x, o, g, n, bad, p, lg); break;
+    case 1: h = inject_row<1>(x, o, g, n, bad, p, lg); break;
+    case 2: h = inject_row<2>(x, o, g, n, bad, p, lg); break;
+    default: h = inject_row<3>(x, o, g, n, bad, p, lg); break;
+    }
+    flag_plane(P, out[0], h);
+}
+
+// ml.py's activations (its _activate), in float32: 's' sigmoid, 'r' ReLU
+// and 'l' leaky ReLU as selects (a NaN gives 0), 'm' softplus as
+// log1p(exp(t)), 't' tanh.
+__device__ __forceinline__ float activate(float t, int flag) {
+    const float pos = t > 0.f ? t : 0.f;
+    switch (flag) {
+    case 's': return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-t)));
+    case 'r': return pos;
+    case 'l': return __fadd_rn(pos, t < 0.f ? __fmul_rn((float)0.01, t) : 0.f);
+    case 'm': return log1pf(expf(t));
+    default: return tanhf(t);
+    }
+}
+
+// normalisation_layer, dense_layer_*, classification_layer_* (ml.py). ip[0]
+// the kind: 0, the normalisation (x - mean) / sqrt(var) elementwise, ip[2]
+// and ip[3] the taps' offsets of the means and the variances; 1, a dense
+// layer into an (m) plane (m = ip[5]), the weights (n, m) row-major at
+// ip[2], the bias at ip[3] (or -1); 2, a classification into a scalar, the
+// weights (n) at ip[2], the bias operand 1 where ip[6] (rounded to float32:
+// ip[7]). ip[1] the activation. A product: warp w sums the products of
+// the inputs [w c, (w + 1) c), c = ceil(n / 8), in order in float64 (each
+// exact), lane j for outputs j, j + 32, ...; the partial sums meet in the
+// scratch behind one barrier, and output j adds them in warp order, rounds
+// to float32, adds the bias and activates (ml.layer_rows' order). The
+// weights (8 KB to 32 KB and more) are read from device memory through L2
+// by every row's block, not staged. A NaN row gives NaN outputs.
+__device__ __forceinline__ void op_dense(const GenParams& P, const Row& R, int k,
+                                         const int* in, const int* out,
+                                         const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const bool bad = plane_nan(P, in[0], false);
+    const float qnan = __int_as_float(0x7fc00000);
+    const int tid = threadIdx.x;
+    if (ip[0] == 0) {
+        float* o = plane(P, out[0]);
+        float* g = esc_plane(P, R, out[0]);
+        const float* mu = P.taps + ip[2];
+        const float* var = P.taps + ip[3];
+        int h = 0;
+        for (int i = tid; i < n; i += GEN_THREADS) {
+            const float v = bad ? qnan
+                : __fdiv_rn(__fsub_rn(x[i], __ldg(mu + i)), sqrtf(__ldg(var + i)));
+            o[i] = v;
+            if (g) g[i] = v;
+            h |= nan_inf(v);
+        }
+        flag_plane(P, out[0], h);
+        return;
+    }
+    const int m = ip[5];
+    const float* wt = P.taps + ip[2];
+    double* part = scratch_of(P);
+    const int lane = tid & 31, wid = tid >> 5;
+    const int c = (n + GEN_WARPS - 1) / GEN_WARPS;
+    const int i0 = wid * c, i1 = min(n, i0 + c);
+    for (int j = lane; j < m; j += 32) {
+        double acc = 0.0;
+        for (int i = i0; i < i1; ++i)
+            acc = __dadd_rn(acc, __dmul_rn((double)x[i], (double)__ldg(wt + i * m + j)));
+        part[wid * m + j] = acc;
+    }
+    __syncthreads();
+    // output j: the warps' sums in order, the bias, the activation; a
+    // classification's one output by thread 0 into its scalar
+    float* o = ip[0] == 1 ? plane(P, out[0]) : nullptr;
+    float* g = ip[0] == 1 ? esc_plane(P, R, out[0]) : nullptr;
+    int h = 0;
+    for (int j = tid; j < m; j += GEN_THREADS) {
+        double s = 0.0;
+#pragma unroll
+        for (int q = 0; q < GEN_WARPS; ++q) s = __dadd_rn(s, part[q * m + j]);
+        float t = (float)s;
+        if (ip[3] >= 0) t = __fadd_rn(t, __ldg(P.taps + ip[3] + j));
+        if (ip[6]) t = __fadd_rn(t, (float)operand(P, k, 1, ip[7]));
+        const float v = bad ? qnan : activate(t, ip[1]);
+        if (o) {
+            o[j] = v;
+            if (g) g[j] = v;
+            h |= nan_inf(v);
+        } else {
+            put(P, R, out[0], (double)v);
+        }
+    }
+    if (o) flag_plane(P, out[0], h);
+}
+
 __global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS)
 generic_rows_kernel(const __grid_constant__ GenParams P) {
     Row R;
@@ -1585,6 +1779,8 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         case OP_SOFT_PILEUP: op_soft_pileup(P, R, k, in, out, ip); break;
         case OP_WF_CORR: op_wf_correction(P, R, in, out, ip); break;
         case OP_WF_CENTROID: op_wf_centroid(P, R, k, in, out, ip); break;
+        case OP_INJECT: op_inject(P, R, k, in, out, ip); break;
+        case OP_DENSE: op_dense(P, R, k, in, out, ip); break;
         default: break;
         }
     }

@@ -3,8 +3,9 @@
 Every processor is a :class:`~._kernel.Kernel`: a batched PyTorch function
 plus gufunc-style ``signature``/``types`` metadata that drives the chain
 compiler's shape/dtype/unit resolution — the contract of the JAX package's
-registry (``dspeed_tpu/processors/__init__.py``), whose names are kept. Only
-the processors ported so far are registered; the rest are queued in ROADMAP.
+registry (``dspeed_tpu/processors/__init__.py``), whose names are kept: every
+name of the JAX package's registry is here, and one of the port's own
+(``tp_from_cross_mask``).
 
 Processors are imported lazily on attribute access.
 """
@@ -112,6 +113,22 @@ _modules = {
     "abs2norm": "fft",
     "discrete_wavelet_transform": "dwt",
     "wiener_filter": "wiener_filter",
+    "inject_sig_pulse": "pulse_injector",
+    "inject_exp_pulse": "pulse_injector",
+    "inject_gumbel": "pmt_pulse_injector",
+    "inject_general_logistic": "pmt_pulse_injector",
+    "dense_layer_no_bias": "ml",
+    "dense_layer_with_bias": "ml",
+    "classification_layer_no_bias": "ml",
+    "classification_layer_with_bias": "ml",
+    "normalisation_layer": "ml",
+    "optimize_1pz": "optimize",
+    "optimize_2pz": "optimize",
+    "optimize_nnls": "nnls",
+    "dplms": "energy_kernels",
+    "dplms_filter": "energy_kernels",
+    "svm_predict": "svm",
+    "tf_model": "tf_model",
 }
 
 __all__ = ["Kernel", "kernel", "parse_signature", *sorted(set(_modules))]

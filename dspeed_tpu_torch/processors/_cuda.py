@@ -1309,7 +1309,9 @@ def generic_rows_plain(program, vals: dict) -> dict:
     ``double_pole_zero``, whose pole runs in K7's order
     (:func:`.pole_zero.double_pole_zero_runs`); ``soft_pileup``'s first op
     gives the fit's two coefficients (:func:`.soft_pileup_corr.soft_pileup_fit`),
-    its second the member's output. Returns the escapes."""
+    its second the member's output; a dense or classification layer sums in
+    K7's order (:func:`.ml.layer_rows`). Returns the escapes."""
+    from .ml import layer_rows
     from .pole_zero import double_pole_zero_runs
     from .soft_pileup_corr import soft_pileup_fit
     from ._tile_program import OPCODES
@@ -1329,6 +1331,9 @@ def generic_rows_plain(program, vals: dict) -> dict:
             outs = (double_pole_zero_runs(*args),)
         elif op.code == OPCODES["soft_pileup"]:
             outs = soft_pileup_fit(*args)
+        elif op.code == OPCODES["dense"] and op.ip[0]:
+            outs = (layer_rows(args[0], args[1], args[2] if len(args) == 4 else None,
+                               op.ip[1], kern.__name__),)
         elif getattr(kern, "uses_dims", False):
             outs = kern.fn(*args, dims=op.step.dims)
             outs = outs if isinstance(outs, tuple) else (outs,)

@@ -28,8 +28,9 @@ tape does not take raises :class:`LoweringError`; the group then splits
 groups, the SiPM chain's group, the flagship DPZ's energy-front group
 (``double_pole_zero``) and the flagship-extras groups need
 (``poly_residual``, ``soft_pileup``, ``time_point_thresh``'s interpolation
-modes, ``wf_correction``, ``wf_centroid``; ``ROADMAP.md`` lists the
-tile-safe kernels still without one).
+modes, ``wf_correction``, ``wf_centroid``) and the flagship's injection and
+ML path need (``inject`` for the four pulse injectors, ``dense`` for the
+five layers of ``ml.py``).
 
 :func:`~dspeed_tpu_torch.processors._cuda.generic_rows` runs a program on
 the card; :func:`~dspeed_tpu_torch.processors._cuda.generic_rows_plain`
@@ -50,7 +51,9 @@ from ..processing_chain import (
 from ._cuda import _MAX_SMEM, GEN_MAX_CODE, GEN_MAX_DP
 from ._numerics import K7_THREADS
 from .convolutions import _MATMUL_MAC_LIMIT, _mode_window
+from .ml import activation_flag
 from .pole_zero import dpz_constants, dpz_powers
+from .pulse_injector import _LOG99x4
 from .soft_pileup_corr import exp_fit_sums
 
 log = logging.getLogger("dspeed_tpu_torch.generic")
@@ -83,6 +86,7 @@ OPCODES = {
     "fixed_time_pickoff": 13, "ufunc": 14, "convert": 15, "reflected_conv": 16,
     "double_pole_zero": 17, "poly_residual": 18, "soft_pileup": 19,
     "wf_correction": 20, "wf_centroid": 21, "soft_pileup_out": 22,
+    "inject": 23, "dense": 24,
 }
 OP_IN, OP_OUT, OP_IP, OP_DP = 6, 4, 8, 4
 OP_INTS = 1 + OP_IN + OP_OUT + OP_IP  # code, in, out, ip
@@ -101,6 +105,14 @@ WARP_OPS = ("time_point_thresh", "fixed_time_pickoff", "ufunc", "convert")
 BARRIERED_OPS = ("min_max", "linear_slope_fit", "pole_zero", "trap", "amax",
                  "conv", "moving_window_multi", "double_pole_zero",
                  "poly_residual", "soft_pileup", "wf_centroid")
+# the dense op's kinds (ip[0]); all but the normalisation have a barrier
+# of their own, and take the scratch for their warps' partial sums
+DENSE_KINDS = {"normalisation_layer": 0, "dense_layer_no_bias": 1,
+               "dense_layer_with_bias": 1, "classification_layer_no_bias": 2,
+               "classification_layer_with_bias": 2}
+# the inject op's kinds (ip[0]), with their parameter counts
+INJECT_KINDS = {"inject_sig_pulse": (0, 4), "inject_exp_pulse": (1, 4),
+                "inject_gumbel": (2, 3), "inject_general_logistic": (3, 6)}
 # barriered ops that read their input planes again after their own barrier
 READ_AFTER_BARRIER = ("trap", "pole_zero", "double_pole_zero", "wf_centroid")
 # the block reductions' two alternating buffers: for each op that takes
@@ -536,6 +548,69 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x.ins = [_plane(prog, args[0], name), _scalar(prog, args[1], "shift")]
         # the shift's type decides the midpoint's (int + float32 in float32)
         x.ip = [0] * 7 + [_f32(args[1]) << 1]
+    elif name in INJECT_KINDS:
+        kind, npar = INJECT_KINDS[name]
+        need(len(args) == 1 + npar and kinds == ("plane",), "signature")
+        w = _plane(prog, args[0], name)
+        need(o[0].length == prog.slots[w].length, "a row as long as its input")
+        # the constant parameters in the row's type (as _bparam rounds them)
+        # in the taps, in the function's own order; one a row as operands
+        vec = np.zeros(6, np.float32)
+        ins, mask = [w], 0
+        for q, a in enumerate(args[1:]):
+            v = _scalar(prog, a, "a pulse parameter")
+            if isinstance(v, tuple):
+                vec[q] = np.float32(v[1])
+            else:
+                ins.append(v)
+                mask |= 1 << q
+        need(len(ins) <= OP_IN, "too many parameters given one a row")
+        x = op("inject")
+        x.ins = ins
+        x.ip = [kind, prog.n_taps, mask] + [0] * 4 + [(1 << len(ins)) - 2]
+        x.dp = [float(_LOG99x4)]
+        prog.taps.append(vec)
+        prog.n_taps += 6
+    elif name in DENSE_KINDS:
+        kind = DENSE_KINDS[name]
+        w = _plane(prog, args[0], name)
+        n = prog.slots[w].length
+
+        def const_array(arg, shape, what):
+            v = arg[1] if arg[0] == "const" else None
+            if isinstance(v, torch.Tensor):
+                v = v.cpu().numpy()
+            need(isinstance(v, np.ndarray) and v.shape == shape,
+                 f"{what}: a constant array of shape {shape}")
+            return v.astype(np.float32)
+
+        def tap(arr):
+            off = prog.n_taps
+            prog.taps.append(arr.reshape(-1))
+            prog.n_taps += arr.size
+            return off
+
+        x = op("dense")
+        x.ins = [w]
+        if kind == 0:
+            need(len(args) == 3 and kinds == ("plane",) and o[0].length == n,
+                 "signature")
+            x.ip = [0, 0, tap(const_array(args[1], (n,), "means")),
+                    tap(const_array(args[2], (n,), "variances"))]
+        else:
+            bias = name.endswith("with_bias")
+            need(len(args) == 3 + bias, "signature")
+            flag = activation_flag(_static(args[-1], "activation_func"), name)
+            m = o[0].length if kind == 1 else 1
+            need(kinds == (("plane",) if kind == 1 else ("scalar",)), "signature")
+            wts = tap(const_array(args[1], (n, m) if kind == 1 else (n,), "weights"))
+            b_tap = (tap(const_array(args[2], (m,), "bias")) if bias and kind == 1
+                     else -1)
+            scal = int(bias and kind == 2)
+            if scal:
+                x.ins.append(_scalar(prog, args[2], "bias"))
+            x.ip = [kind, flag, wts, b_tap, 0, m, scal,
+                    _f32(args[2]) << 1 if scal else 0]
     elif name == "windower":
         need(len(args) == 2 and kinds == ("plane",), "signature")
         w = _plane(prog, args[0], name)
@@ -658,8 +733,8 @@ def _plan(prog: TileProgram) -> None:
         if (len(op.ins) > OP_IN or len(op.outs) > OP_OUT or len(op.ip) > OP_IP
                 or len(op.dp) + n_const > OP_DP):
             raise LoweringError(f"{op.name}: too many operands for a tape record")
-        # the plan's fields are free in every record
-        assert not any(op.ip[IP_PLAN : IP_PLAN + 3]), op.name
+        # the plan's field is free in every record
+        assert len(op.ip) <= IP_PLAN or not op.ip[IP_PLAN], op.name
 
     # live range [def, last read] of each root plane, in op order
     first, last = {}, {}
@@ -746,6 +821,9 @@ def _plan(prog: TileProgram) -> None:
         elif op.code == OPCODES["double_pole_zero"]:
             # the runs' float64 recurrence
             scratch = max(scratch, prog.slots[op.ins[0]].length)
+        elif op.code == OPCODES["dense"] and op.ip[0]:
+            # each warp's partial sums of the m outputs
+            scratch = max(scratch, (THREADS // 32) * op.ip[5])
         elif op.code == OPCODES["conv"]:
             p, m = prog.slots[op.outs[0]].length, op.ip[1]
             mc = -(-m // 32) * 32
@@ -805,16 +883,17 @@ def _barriers(prog: TileProgram) -> None:
         ins = [] if name == "load" else [e for e in op.ins if not isinstance(e, tuple)]
         in_planes = [e for e in ins if slots[e].kind == "plane"]
         out_planes = [o for o in op.outs if slots[o].kind == "plane"]
-        uses_scratch = name in ("trap", "moving_window_multi", "conv",
-                                "double_pole_zero")
-        own_barrier = name in BARRIERED_OPS
+        products = name == "dense" and op.ip[0] != 0  # a dense or classification
+        uses_scratch = products or name in ("trap", "moving_window_multi", "conv",
+                                            "double_pole_zero")
+        own_barrier = products or name in BARRIERED_OPS
         need = any(slots[e].root in planes for e in in_planes)
         need |= not warp and any(slots[e].root in scalars for e in ins
                                  if slots[e].kind == "scalar")
         if not own_barrier:
             # writes before any barrier of the op's own
             need |= any(overlaps(span(o)) for o in out_planes)
-        if name == "conv":  # stages its window before its barrier
+        if name == "conv" or products:  # stage in the scratch before their barrier
             need |= scratch
         if name in LATE_REDUCTION_READS:  # of two buffers
             need |= late > 1

@@ -251,6 +251,18 @@ def test_cache_key_separates(change):
     assert _key(**change) != base
 
 
+def test_cache_key_separates_database_arrays_that_differ_inside():
+    """Two databases whose weight matrices differ only in the middle (which
+    an array's str() elides): two keys; the same arrays again: one key."""
+    w = np.zeros((256, 32), np.float32)
+    w2 = w.copy()
+    w2[128, 16] = 1.0
+    assert str(w) == str(w2)
+    a = _key(db_dict={"nn": {"w": w}})
+    assert a != _key(db_dict={"nn": {"w": w2}})
+    assert a == _key(db_dict={"nn": {"w": w.copy()}})
+
+
 def test_cache_off(raw60, monkeypatch):
     path, _, _ = raw60
     monkeypatch.setenv("DSPEED_TPU_CHAIN_CACHE", "0")

@@ -122,12 +122,20 @@ def flagship_events():
 
 
 def test_generic_groups_match_jax(monkeypatch, flagship_events):
+    import itertools
+
     from dspeed_tpu import lh5 as jlh5
     from dspeed_tpu.processing_chain import GroupStep as JaxGroupStep
+    from dspeed_tpu.processing_chain import ProcChainVar as JaxVar
     from dspeed_tpu.processing_chain import build_processing_chain as jax_build
+    from dspeed_tpu_torch.processing_chain import ProcChainVar as TorchVar
 
     wf, bl = flagship_events
     monkeypatch.setenv("DSPEED_TPU_FUSE", "generic")
+    # both packages number their variables from one count per process: start
+    # both here, whatever chains the process built before this test
+    monkeypatch.setattr(JaxVar, "_counter", itertools.count())
+    monkeypatch.setattr(TorchVar, "_counter", itertools.count())
     jc, _, _ = jax_build(_flagship(), _table(jlh5, wf, bl), db_dict=DB_FLAT)
     tc, _, _ = torch_build_chain(
         _flagship(), _table(dspeed_tpu_torch.lh5, wf, bl), db_dict=DB_FLAT,

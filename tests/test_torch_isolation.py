@@ -176,6 +176,13 @@ def test_sources_cover_the_filter_modules():
     assert "torch/" not in src and 'extern "C" int dspeed_recurrence' in src
 
 
+def test_sources_cover_the_injection_and_model_modules():
+    for mod in ("pulse_injector", "pmt_pulse_injector", "ml", "optimize", "nnls",
+                "energy_kernels", "svm", "tf_model"):
+        assert os.path.join("dspeed_tpu_torch", "processors", f"{mod}.py") in SOURCES
+    assert os.path.join("dspeed_tpu_torch", "utils.py") in SOURCES
+
+
 def test_sources_cover_the_a_e_modules():
     for mod in ("windower", "moving_windows", "upsampler", "_poly_plan"):
         assert os.path.join("dspeed_tpu_torch", "processors", f"{mod}.py") in SOURCES

@@ -19,6 +19,11 @@ emulation of ``tools/k7_emu``: the kernel's own source, compiled with
   every row (a NaN sample, a NaN baseline, an infinite sample); the
   barrier before it, where it reads the samples the baseline subtraction's
   threads wrote, is what keeps ThreadSanitizer quiet.
+- The ``inject`` and ``dense`` ops (``injml``: the four pulse injectors, a
+  normalisation, two dense layers and two classifications in one group)
+  under all three builds; with the dense op's barrier taken out of the
+  source (its warps' partial sums, written before it and read after it by
+  other threads), ThreadSanitizer must report a race.
 
 Every output of the group's ``full`` lowering is held against the plain
 walk by ``chip_smoke.check_generic``'s rule (the convolution within its
@@ -50,6 +55,9 @@ pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
     ("sites", ["sipm"]),
     ("tsan", ["dpz"]),
     ("asan", ["dpz"]),
+    ("tsan", ["injml"]),
+    ("asan", ["injml"]),
+    ("sites", ["injml"]),
 ])
 def test_k7_emulation(tmp_path, mode, cases):
     r = subprocess.run(
@@ -58,3 +66,12 @@ def test_k7_emulation(tmp_path, mode, cases):
         capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
     assert r.stdout.strip().endswith("OK")
+
+
+def test_k7_dense_without_its_barrier_races(tmp_path):
+    r = subprocess.run(
+        [sys.executable, TOOL, "--mode", "tsan", "--rows", "4", "--build", str(tmp_path),
+         "--drop-barrier", "dense", "injml"],
+        capture_output=True, text=True, timeout=600)
+    assert r.returncode != 0
+    assert "ThreadSanitizer: data race" in r.stdout + r.stderr, r.stdout[-4000:]

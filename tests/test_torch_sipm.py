@@ -360,7 +360,7 @@ def test_registry_holds_the_sipm_processors():
              "multi_t_filter", "multi_a_filter"]
     for n in names:
         assert isinstance(getattr(tp, n), tp.Kernel), n
-    assert len(tp._modules) == 92  # 51, the recursive filters' 23, the extras' 18
+    assert len(tp._modules) == 108  # 51, the recursive filters' 23, the extras' 18, slice 17's 16
 
 
 # ---------------------------------------------------------------------------

@@ -39,16 +39,17 @@ def events(dtype="float32", seed=11):
     return wf.astype(dtype), bl.astype(dtype)
 
 
-def one_op(processors: dict, name: str, wf, bl, outputs):
+def one_op(processors: dict, name: str, wf, bl, outputs, db=None):
     """``(step, vals, env, chain)``: the unfused chain of ``processors``
-    (after a baseline subtraction, ``wf_blsub``) on ``(wf, bl)``, its step
-    of kernel ``name``, and the env keys that step reads."""
+    (after a baseline subtraction, ``wf_blsub``) on ``(wf, bl)`` with the
+    database ``db``, its step of kernel ``name``, and the env keys that step
+    reads."""
     cfg = {"outputs": list(outputs), "processors": {
         "wf_blsub": {"function": "bl_subtract", "module": "dspeed_tpu.processors",
                      "args": ["waveform", "baseline", "wf_blsub(unit='ADC')"]},
         **processors}}
     chain, _, _ = torch_build_chain(cfg, table(dspeed_tpu_torch.lh5, wf, bl),
-                                    device="cpu", fuse=False)
+                                    db_dict=db, device="cpu", fuse=False)
     inputs, _ = chain._gather_inputs(0, len(wf))
     env = chain._run_steps(chain._to_device(inputs))
     step = next(s for s in chain._steps if isinstance(s, KernelStep)

@@ -42,7 +42,11 @@ every escape bit for bit against the plain walk), ``extras`` (``EXTRAS_CONFIG``:
 one group with each op of the flagship extras, ``poly_residual``,
 ``soft_pileup``, ``time_point_thresh`` in an interpolation mode,
 ``wf_correction`` and ``wf_centroid``, at 600 samples with a NaN sample, a
-NaN baseline and an infinite sample). ``--drop-barrier OP`` builds the
+NaN baseline and an infinite sample), ``injml`` (``INJML_CONFIG``: the four
+injectors, a normalisation, two dense layers and two classifications in one
+group at 600 samples, with a NaN sample, a NaN baseline and an infinite
+sample; the CPU's ``exp`` and ``sqrt`` are not the card's, so the plain
+walk holds it by ``check_generic``'s rule). ``--drop-barrier OP`` builds the
 kernel with the first ``__syncthreads()`` of that op's device function
 taken out (a mutation the ``tsan`` mode must report).
 """
@@ -63,7 +67,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SRC = os.path.join(REPO, "dspeed_tpu_torch", "csrc", "generic_rows.cu")
-CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm", "dpz", "extras")
+CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm", "dpz", "extras",
+         "injml")
 # one group holding each op of the flagship extras, every op reading
 # samples that other threads wrote
 EXTRAS_CONFIG = {
@@ -102,9 +107,58 @@ EXTRAS_CONFIG = {
                      "args": ["wf_step", "2", "centroid"], "unit": "ns"},
     },
 }
+# one group holding each kind of the inject and dense ops: the four
+# injectors on the baseline-subtracted row (a parameter one a row), the
+# maximum of one, and a normalisation, two dense layers and two
+# classifications (a bias one a row) of a window of the row
+K = "dspeed_tpu.processors"
+INJML_CONFIG = {
+    "outputs": ["sig_max", "exp_max", "gum_max", "log_max", "score", "score_nb", "h2"],
+    "processors": {
+        "wf_blsub": {"function": "bl_subtract", "module": K,
+                     "args": ["waveform", "baseline", "wf_blsub(unit='ADC')"]},
+        "wf_sig": {"function": "inject_sig_pulse", "module": K,
+                   "args": ["wf_blsub", "400.0", "6.0", "baseline*0.5", "200.0",
+                            "wf_sig"]},
+        "wf_exp": {"function": "inject_exp_pulse", "module": K,
+                   "args": ["wf_blsub", "420.0", "8.0", "80.0", "150.0", "wf_exp"]},
+        "wf_gum": {"function": "inject_gumbel", "module": K,
+                   "args": ["wf_blsub", "60.0", "baseline*2.2", "4.0", "wf_gum"]},
+        "wf_log": {"function": "inject_general_logistic", "module": K,
+                   "args": ["wf_blsub", "90.0", "450.0", "6.0", "1.5", "2.5", "250.0",
+                            "wf_log"]},
+        **{f"{k}_max": {"function": "amax", "module": "numpy", "unit": "ADC",
+                        "args": [f"wf_{k}", 1, f"{k}_max"],
+                        "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}}
+           for k in ("sig", "exp", "gum", "log")},
+        "xn": {"function": "normalisation_layer", "module": K,
+               "args": ["wf_sig[300:556]", "db.nn.mu", "db.nn.var", "xn"]},
+        "h1": {"function": "dense_layer_with_bias", "module": K,
+               "args": ["xn", "db.nn.w1", "db.nn.b1", "'r'", "h1(32, 'f')"]},
+        "h2": {"function": "dense_layer_no_bias", "module": K,
+               "args": ["h1", "db.nn.w2", "'t'", "h2(16, 'f')"]},
+        "score": {"function": "classification_layer_with_bias", "module": K,
+                  "args": ["h2", "db.nn.v", "baseline*0.001", "'s'", "score"]},
+        "score_nb": {"function": "classification_layer_no_bias", "module": K,
+                     "args": ["h2", "db.nn.v", "'l'", "score_nb"]},
+    },
+}
+
+
+def injml_db(seed=17) -> dict:
+    """Seeded weights for ``INJML_CONFIG``'s layers."""
+    rng = np.random.default_rng(seed)
+    return {"nn": {"mu": rng.uniform(-5, 5, 256).astype("float32"),
+                   "var": rng.uniform(50, 500, 256).astype("float32"),
+                   "w1": rng.normal(0, 0.06, (256, 32)).astype("float32"),
+                   "b1": rng.normal(0, 0.1, 32).astype("float32"),
+                   "w2": rng.normal(0, 0.2, (32, 16)).astype("float32"),
+                   "v": rng.normal(0, 0.3, 16).astype("float32")}}
+
+
 # the device function of each op with a barrier of its own (--drop-barrier)
 OP_FUNCTIONS = {"poly_residual": "op_poly_resid", "soft_pileup": "op_soft_pileup",
-                "wf_centroid": "op_wf_centroid"}
+                "wf_centroid": "op_wf_centroid", "dense": "op_dense"}
 # double_pole_zero in a group: it reads the samples bl_subtract's threads
 # wrote (the planned barrier before it), and the fit, trapezoid and maximum
 # read its output
@@ -336,6 +390,16 @@ def cases(names, rows=6):
         for prog, full, vals in chain_groups(EXTRAS_CONFIG, wf[:rows], bl[:rows],
                                              fuse=True):
             yield "extras", prog, full, vals
+    if "injml" in names:
+        from test_torch_generic import _events as events
+
+        wf, bl = events(n=max(rows, 8), nsamp=600, seed=9)
+        wf[0, 350] = np.nan
+        bl[1 % rows] = np.nan
+        wf[min(2, rows - 1), 450] = np.inf
+        for prog, full, vals in chain_groups(INJML_CONFIG, wf[:rows], bl[:rows],
+                                             injml_db(), fuse=True):
+            yield "injml", prog, full, vals
     if "sipm" in names:
         wf, _ = cs.make_sipm_waveforms(max(rows, 3))
         # the SiPM chain's default mode forms its group
