@@ -75,7 +75,16 @@ of the events, the first 1024 events against the CPU run, the spread of
 median tau within 1% of the generator's) and ``optimize_2pz`` over 2048
 events of the DPZ generator on the recurrence kernel, its objective on the
 first 64 events against the JAX package's (``tests/torch_optimize_2pz_jax.npz``,
-from ``tools/optimize_2pz_reference.py``).
+from ``tools/optimize_2pz_reference.py``). Then **checked mode**
+(``checked_phase``: the flagship through ``build_dsp(checked=True)`` equal to
+the unchecked call bit for bit with its four flagged pick-offs, the generic
+flagship checked with no K7 launch, a bad pick-off time raising ``DSPFatal``
+at its entry through the production loop), **stacked production**
+(``stacked_phase``: 4 channel tables x 4096 events in one dispatch, equal to
+four ``build_dsp`` calls bit for bit, K1 to K5 once) and **the mesh**
+(``mesh_phase``: NCCL at world size 1, the flagship over ``{"data": 1}`` and
+``sp_convolve_same`` over ``{"sp": 1}``; with two cards, two NCCL ranks,
+``--mesh-rank``).
 
 Prints the card's name and power limit, one JSON line of kernel figures
 (``{"kernels": [...]}``), and as the last line
@@ -584,6 +593,44 @@ OPT_2PZ_START = (20000.0, 400.0, 0.1)  # tau1, tau2 (samples), frac (DPZ's truth
 # 27460.5, 250, 0.04)
 OPT_2PZ_REF = os.path.join(REPO, "tests", "torch_optimize_2pz_jax.npz")
 OPT_2PZ_REF_EVENTS = 64  # events of the JAX package's stored objectives
+
+
+# checked mode: the steps the fused flagship flags (the JAX package flags
+# the same four, tests/test_torch_checked.py holds that; K1 absorbs
+# pole_zero and its checker in both packages)
+CHECKED_FLAGSHIP_STEPS = [
+    "fixed_time_pickoff(wf_trap2, (tp_0_est+8.096 us), l, trapQftp)",
+    "fixed_time_pickoff(wf_etrap, round(((tp_0_est+10.0 us)+2.4000000000000004 us), "
+    "(16.0 ns,waveform_dt)), l, trapEftp)",
+    "fixed_time_pickoff(wf_cusp, 50, i, cuspEftp)",
+    "fixed_time_pickoff(wf_zac, 50, i, zacEftp)",
+]
+PICK_BAD = 12345  # the event whose pick-off time is not an integer
+PICK_MESSAGE = "fixed_time_pickoff requires integer t_in when using mode 'i'"
+PICK_PROCESSOR = "fixed_time_pickoff(wf_blsub, t_pick, i, pick_i)"
+
+
+def checked_raise_config() -> dict:
+    """The flagship plus ``pick_i = fixed_time_pickoff(wf_blsub, t_pick,
+    'i')`` on a per-event float column ``t_pick`` (:func:`pickoff_times`):
+    checked mode raises at its one non-integral time."""
+    cfg = flagship_config()
+    cfg["processors"]["pick_i"] = {
+        "function": "fixed_time_pickoff",
+        "module": "dspeed_tpu.processors",
+        "args": ["wf_blsub", "t_pick", "'i'", "pick_i"],
+        "unit": "ADC",
+    }
+    cfg["outputs"] = cfg["outputs"] + ["pick_i"]
+    return cfg
+
+
+def pickoff_times(n, bad=PICK_BAD) -> np.ndarray:
+    """``t_pick``: integral sample indices in [1000, 2000), float32, but
+    half a sample off at event ``bad``."""
+    t = (1000 + np.arange(n) % 1000).astype(np.float32)
+    t[bad] += 0.5
+    return t
 
 
 def opt_configs(dtype="float32") -> tuple[dict, dict]:
@@ -3127,6 +3174,369 @@ def pipeline_phase(build_dsp, build_processing_chain, lh5, _cuda, wf, bl, card,
                 launches=launches)
 
 
+FLAGSHIP_KERNELS = ("fused_energy", "cascade_tp", "fused_t0", "banded_conv_multi",
+                    "fused_current_poly")
+
+
+def same_columns(got: dict, want: dict) -> bool:
+    """Every column equal bit for bit (dtype, shape and bytes)."""
+    return set(got) == set(want) and all(
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and got[k].tobytes() == want[k].tobytes() for k in want)
+
+
+def hpge_table(lh5, wf, bl, **cols):
+    tb = lh5.Table({
+        "waveform": lh5.WaveformTable(values=wf, t0=0.0, t0_units="ns", dt=DT,
+                                      dt_units="ns"),
+        "baseline": lh5.Array(bl.astype(np.float32)),
+    })
+    for k, v in cols.items():
+        tb.add_field(k, v)
+    return tb
+
+
+def checked_phase(build_dsp, build_processing_chain, lh5, _cuda, wf, bl, card):
+    """Checked mode on the card, at the flagship's full width. (1) The fused
+    flagship through ``build_dsp(checked=True)``: every column equal bit for
+    bit to the unchecked call, the flagged steps ``CHECKED_FLAGSHIP_STEPS``,
+    K1 to K5 once a chunk; warm wf/s of both. (2) The generic flagship
+    checked: no ``generic_rows`` launch, its columns within REL_TOL of the
+    unchecked generic run (the card-vs-CPU rule of ``compare_columns``),
+    then unchecked again on the same cached chain: ``generic_rows`` twice.
+    (3) A raise through the production loop: ``checked_raise_config``'s
+    chain over four chunks of 4096 events (``_process_chunks``, read-ahead
+    on): ``DSPFatal`` with the JAX package's message, the processor string
+    of the CPU run and ``wf_range == (PICK_BAD, PICK_BAD)``; the same chain
+    unchecked then gives NaN at ``PICK_BAD`` alone. Returns the figures."""
+    import torch
+
+    from dspeed_tpu_torch.errors import DSPFatal
+
+    bdsp = sys.modules[build_dsp.__module__]
+    n_ev = wf.shape[0]
+    cfg = config()
+    tb = hpge_table(lh5, wf, bl)
+    db = {"pz": {"tau": TAU}}
+
+    def run(checked, fuse=True):
+        torch.cuda.synchronize()
+        t_0 = time.time()
+        out = build_dsp(tb, dsp_config=cfg, database=db, buffer_len=n_ev,
+                        device=DEVICE, fuse=fuse, checked=checked)
+        cols = {k: np.array(out[k].nda) for k in cfg["outputs"]}
+        torch.cuda.synchronize()
+        return cols, n_ev / (time.time() - t_0)
+
+    # (1) the fused flagship
+    bdsp._CHAIN_CACHE.clear()
+    plain, _ = run(False)
+    _cuda.reset_launches()
+    checked, first_wfps = run(True)
+    launches = dict(_cuda.LAUNCHES)
+    (chain, _, _), = bdsp._CHAIN_CACHE.values()
+    flagged = [str(s) for _, s in chain._check_steps]
+    rates = {"checked": [], "unchecked": []}
+    for _ in range(2):
+        rates["unchecked"].append(run(False)[1])
+        rates["checked"].append(run(True)[1])
+    if not same_columns(checked, plain):
+        raise AssertionError("checked flagship: columns differ from the unchecked run")
+    if flagged != CHECKED_FLAGSHIP_STEPS:
+        raise AssertionError(f"checked flagship flags {flagged}")
+    for name in FLAGSHIP_KERNELS:
+        if launches.get(name, 0) != 1:
+            raise AssertionError(f"checked flagship: {name} launched "
+                                 f"{launches.get(name, 0)} times on one chunk")
+    print(f"checked [flagship] {n_ev} events: columns equal to the unchecked run "
+          f"bit for bit; flagged steps {flagged}; launches {launches}; first "
+          f"checked call {first_wfps:.0f} wf/s; warm checked "
+          f"{max(rates['checked']):.0f} wf/s, warm unchecked "
+          f"{max(rates['unchecked']):.0f} wf/s (best of 2 each, alternating) on "
+          f"{card}", flush=True)
+
+    # (2) the generic flagship: checked runs its groups member by member
+    bdsp._CHAIN_CACHE.clear()
+    gen_plain, _ = run(False, "generic")
+    _cuda.reset_launches()
+    gen_checked, gen_checked_wfps = run(True, "generic")
+    gen_launches = dict(_cuda.LAUNCHES)
+    _cuda.reset_launches()
+    gen_again, _ = run(False, "generic")
+    again_launches = dict(_cuda.LAUNCHES)
+    if len(bdsp._CHAIN_CACHE) != 1:
+        raise AssertionError("checked generic flagship: the toggle built a chain")
+    if gen_launches.get("generic_rows", 0) != 0:
+        raise AssertionError(f"checked generic flagship launched generic_rows: "
+                             f"{gen_launches}")
+    if again_launches.get("generic_rows", 0) != 2:
+        raise AssertionError(f"generic flagship unchecked again: {again_launches}")
+    if not same_columns(gen_again, gen_plain):
+        raise AssertionError("generic flagship unchecked again differs from the "
+                             "first unchecked run")
+    n_ex, worst = compare_columns(gen_checked, gen_plain, wf, bl, n_ev)
+    print(f"checked [flagship generic] no generic_rows launch ({gen_launches}); "
+          f"columns vs the unchecked generic run: worst |diff|/max|col| "
+          f"{worst:.3e}, {n_ex} events excused; unchecked again on the cached "
+          f"chain: generic_rows {again_launches.get('generic_rows', 0)}; checked "
+          f"{gen_checked_wfps:.0f} wf/s on {card}", flush=True)
+
+    # (3) a raise through the production loop
+    t_pick = pickoff_times(n_ev)
+    tables = [hpge_table(lh5, wf[i:i + 4096], bl[i:i + 4096],
+                         t_pick=lh5.Array(t_pick[i:i + 4096]))
+              for i in range(0, n_ev, 4096)]
+    rcfg = checked_raise_config()
+    chain, _, tb_out = build_processing_chain(rcfg, tables[0], db_dict=db,
+                                              device=DEVICE)
+    chain.set_checked(True)
+    written = {}
+
+    def write(n, i_entry):
+        written[i_entry] = np.array(tb_out["pick_i"].nda[:n])
+
+    try:
+        bdsp._process_chunks(chain, Chunks(tables), write, read_ahead=True)
+    except DSPFatal as e:
+        got = (e.args[0], e.processor, e.wf_range)
+    else:
+        raise AssertionError("checked run over the bad pick-off time did not raise")
+    want = (PICK_MESSAGE, PICK_PROCESSOR, (PICK_BAD, PICK_BAD))
+    if got != want:
+        raise AssertionError(f"checked raise {got}, not {want}")
+    chain.set_checked(False)
+    written.clear()
+    bdsp._process_chunks(chain, Chunks(tables), write, read_ahead=True)
+    pick = np.concatenate([written[i] for i in sorted(written)])
+    nan_at = np.flatnonzero(np.isnan(pick)).tolist()
+    if nan_at != [PICK_BAD]:
+        raise AssertionError(f"unchecked pick_i is NaN at {nan_at[:8]}, not "
+                             f"[{PICK_BAD}]")
+    print(f"checked [raise] {len(tables)} chunks of 4096 through the production "
+          f"loop: DSPFatal {got[0]!r} by {got[1]} at wf_range {got[2]}; the same "
+          f"chain unchecked: NaN at event {PICK_BAD} alone", flush=True)
+    return dict(checked_wfps=max(rates["checked"]),
+                unchecked_wfps=max(rates["unchecked"]),
+                first_checked_wfps=first_wfps, flagged=flagged,
+                generic_checked_wfps=gen_checked_wfps)
+
+
+def stacked_phase(build_dsp, lh5, _cuda, wf, bl, card, n_chan=4):
+    """``build_dsp_stacked``'s chunk step (``parallel.bulk``) on ``n_chan``
+    in-memory channel tables of ``len(wf) / n_chan`` events of the
+    flagship (one dispatch of ``len(wf)`` rows): each channel's columns
+    equal bit for bit to its own ``build_dsp`` call; K1 to K5 launched
+    once a stacked chunk; first and warm wf/s against the sequential
+    calls. Returns the figures."""
+    import copy
+
+    import torch
+
+    from dspeed_tpu_torch.parallel import bulk
+
+    n_ev = wf.shape[0]
+    per = n_ev // n_chan
+    db = {"pz": {"tau": TAU}}
+    cfg = config()
+    tables = [hpge_table(lh5, wf[c * per:(c + 1) * per], bl[c * per:(c + 1) * per])
+              for c in range(n_chan)]
+    bdsp = sys.modules[build_dsp.__module__]
+    bdsp._CHAIN_CACHE.clear()
+
+    def stacked():
+        torch.cuda.synchronize()
+        t_0 = time.time()
+        chain, _, tb_out = bulk.stacked_chain(cfg, tables[0], database=db,
+                                              device=DEVICE)
+        pending, n = bulk.stacked_dispatch(chain, tables, per)
+        tb_outs = [copy.deepcopy(tb_out) for _ in tables]
+        bulk.write_channels(chain, bulk.stacked_results(chain, pending), tb_outs, n)
+        cols = [{k: np.array(t[k].nda[:n]) for k in cfg["outputs"]} for t in tb_outs]
+        return cols, n_ev / (time.time() - t_0)
+
+    def sequential():
+        torch.cuda.synchronize()
+        t_0 = time.time()
+        cols = []
+        for tb in tables:
+            out = build_dsp(tb, dsp_config=cfg, database=db, buffer_len=per,
+                            device=DEVICE)
+            cols.append({k: np.array(out[k].nda) for k in cfg["outputs"]})
+        return cols, n_ev / (time.time() - t_0)
+
+    _cuda.reset_launches()
+    got, first_wfps = stacked()
+    launches = dict(_cuda.LAUNCHES)
+    want, seq_first = sequential()
+    warm = {"stacked": [], "sequential": []}
+    for _ in range(2):
+        warm["stacked"].append(stacked()[1])
+        warm["sequential"].append(sequential()[1])
+    for c in range(n_chan):
+        if not same_columns(got[c], want[c]):
+            bad = [k for k in cfg["outputs"] if got[c][k].tobytes() != want[c][k].tobytes()]
+            raise AssertionError(f"stacked: channel {c} differs from its build_dsp "
+                                 f"call in {bad}")
+    for name in FLAGSHIP_KERNELS:
+        if launches.get(name, 0) != 1:
+            raise AssertionError(f"stacked: {name} launched {launches.get(name, 0)} "
+                                 f"times on one stacked chunk")
+    print(f"stacked [flagship] {n_chan} channel tables x {per} events ({n_ev} rows "
+          f"a dispatch): every column equal to {n_chan} build_dsp calls bit for "
+          f"bit; launches {launches}; first {first_wfps:.0f} wf/s (the chain "
+          f"build included), warm {max(warm['stacked']):.0f} wf/s; the sequential "
+          f"calls first {seq_first:.0f} wf/s, warm {max(warm['sequential']):.0f} "
+          f"wf/s (best of 2 each, alternating) on {card}", flush=True)
+    return dict(first_wfps=first_wfps, warm_wfps=max(warm["stacked"]),
+                sequential_first_wfps=seq_first,
+                sequential_warm_wfps=max(warm["sequential"]), launches=launches)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_checks(lh5, wf, bl, mesh_data, mesh_sp, device):
+    """On the ranks of a mesh (NCCL on the card, gloo on the CPU): the
+    flagship sharded over ``mesh_data`` (``{"data": W}``) and
+    ``sp_convolve_same`` over ``mesh_sp`` (``{"sp": W}``) with the
+    flagship's t0 kernel in mode 's'. Returns ``(columns, conv)``."""
+    from dspeed_tpu_torch.parallel import shard_chain, sp_convolve_same
+    from dspeed_tpu_torch.processing_chain import build_processing_chain
+
+    tb = hpge_table(lh5, wf, bl)
+    chain, _, _ = build_processing_chain(config(), tb, db_dict={"pz": {"tau": TAU}},
+                                         device=device)
+    shard_chain(chain, mesh_data)
+    out = chain(tb)
+    cols = {k: np.array(v.nda[: len(wf)]) for k, v in out.items()}
+    taps = chain._vars_dict["t0_kernel"].const_value
+    conv = sp_convolve_same(wf, np.asarray(taps, np.float32), mesh_sp)
+    return cols, conv.cpu().numpy(), np.asarray(taps, np.float32)
+
+
+def mesh_phase(build_processing_chain, lh5, _cuda, wf, bl, card, n_ev=4096):
+    """The ``parallel`` package on the card: ``initialize_distributed`` with
+    NCCL at world size 1; the flagship sharded over ``make_mesh({"data":
+    1})`` equal bit for bit to the unsharded chain; ``sp_convolve_same``
+    over ``{"sp": 1}`` against the port's 'same' convolution of the same
+    rows (``convolve_wf``'s route: K4 on float32 rows), within REL_TOL of its
+    scale (bit equality printed); with two cards or more, two NCCL ranks
+    (``--mesh-rank``) run the data split and the halo exchange and are held
+    to these one-card results, else one line says so. Returns the
+    figures."""
+    import tempfile as _tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from dspeed_tpu_torch.parallel import make_mesh
+    from dspeed_tpu_torch.parallel.mesh import initialize_distributed
+    from dspeed_tpu_torch.processors.convolutions import _convolve_mode
+
+    wf, bl = wf[:n_ev], bl[:n_ev]
+    initialize_distributed(device=DEVICE, init_method=f"tcp://localhost:{free_port()}",
+                           rank=0, world_size=1)
+    try:
+        mesh_data = make_mesh({"data": 1}, device=DEVICE)
+        mesh_sp = make_mesh({"sp": 1}, device=DEVICE)
+        tb = hpge_table(lh5, wf, bl)
+        chain, _, _ = build_processing_chain(config(), tb, db_dict={"pz": {"tau": TAU}},
+                                             device=DEVICE)
+        plain = {k: np.array(v.nda[:n_ev]) for k, v in chain(tb).items()}
+        _cuda.reset_launches()
+        cols, conv, taps = mesh_checks(lh5, wf, bl, mesh_data, mesh_sp, DEVICE)
+        launches = dict(_cuda.LAUNCHES)
+        if not same_columns(cols, plain):
+            raise AssertionError("mesh: the flagship over {'data': 1} differs from "
+                                 "the unsharded chain")
+        w = torch.from_numpy(wf).to(DEVICE)
+        m = len(taps)
+        ref, _ = _convolve_mode(w, taps, "s", w.shape[-1], m)
+        ref = ref.cpu().numpy()
+        err = float(np.nanmax(np.abs(conv - ref)))
+        scale = float(np.nanmax(np.abs(ref)))
+        if not err <= REL_TOL * scale:
+            raise AssertionError(f"sp_convolve_same over {{'sp': 1}}: {err:.3e} from "
+                                 f"the 'same' convolution (scale {scale:.3e})")
+        print(f"mesh [NCCL, world 1] the flagship over {{'data': 1}} ({n_ev} "
+              f"events) equal to the unsharded chain bit for bit; sp_convolve_same "
+              f"over {{'sp': 1}} ({m} taps): max |diff| {err:.3e} of scale "
+              f"{scale:.3e} against convolve_wf's route, bit for bit: "
+              f"{conv.tobytes() == ref.tobytes()}; launches {launches}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    two = None
+    if torch.cuda.device_count() >= 2:
+        with _tempfile.TemporaryDirectory() as tmp:
+            np.savez(os.path.join(tmp, "one.npz"), wf=wf, bl=bl, conv=conv,
+                     **{f"col_{k}": v for k, v in plain.items()})
+            two = spawn_mesh_ranks(tmp, 2, DEVICE)
+        print(f"mesh [NCCL, 2 cards] data split and halo exchange equal to the "
+              f"one-card results: {two}", flush=True)
+    else:
+        print(f"mesh: the two-card check did not run: "
+              f"{torch.cuda.device_count()} card on this machine", flush=True)
+    return dict(launches=launches, sp_max_abs_err=err, two_cards=two)
+
+
+def spawn_mesh_ranks(tmp, world, device) -> dict:
+    """Run ``world`` ranks of ``--mesh-rank`` on ``tmp/one.npz``'s inputs;
+    each checks itself against the one-rank results there. Returns their
+    verdicts."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(world), str(port), tmp, device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        raise AssertionError("mesh ranks failed:\n" + "\n".join(
+            o[1][-2000:] for o in outs))
+    return {r: json.loads(o[0].strip().splitlines()[-1]) for r, o in enumerate(outs)}
+
+
+def mesh_rank_main(rank, world, port, tmp, device) -> int:
+    """One rank of :func:`spawn_mesh_ranks`: the flagship over ``{"data":
+    world}`` and ``sp_convolve_same`` over ``{"sp": world}`` on the
+    inputs of ``tmp/one.npz``, each equal bit for bit to its one-rank
+    result. Prints one JSON line."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from dspeed_tpu_torch import lh5
+    from dspeed_tpu_torch.parallel import make_mesh
+    from dspeed_tpu_torch.parallel.mesh import initialize_distributed
+
+    if device == "cuda":
+        os.environ["LOCAL_RANK"] = str(rank)
+    one = np.load(os.path.join(tmp, "one.npz"))
+    initialize_distributed(device=device, init_method=f"tcp://localhost:{port}",
+                           rank=rank, world_size=world)
+    try:
+        cols, conv, _ = mesh_checks(lh5, one["wf"], one["bl"],
+                                    make_mesh({"data": world}, device=device),
+                                    make_mesh({"sp": world}, device=device), device)
+    finally:
+        dist.destroy_process_group()
+    want = {k[4:]: one[k] for k in one.files if k.startswith("col_")}
+    verdict = {"columns_equal": same_columns(cols, want),
+               "sp_max_abs_err": float(np.nanmax(np.abs(conv - one["conv"])))}
+    print(json.dumps(verdict))
+    ok = verdict["columns_equal"] and verdict["sp_max_abs_err"] <= REL_TOL * float(
+        np.nanmax(np.abs(one["conv"])))
+    return 0 if ok else 1
+
+
 def auto_buffer_len_line(build_dsp, card) -> int:
     """``buffer_len="auto"``'s probe on the card: the pick and the rates."""
     driver = sys.modules[build_dsp.__module__]
@@ -3433,6 +3843,11 @@ def main() -> int:
                 "fused_current_poly"),
     )
     auto_buffer_len_line(build_dsp, card)
+    # checked mode, stacked production and the mesh at the flagship's width
+    chk = checked_phase(build_dsp, build_processing_chain, lh5, _cuda, wf, bl, card)
+    stk = stacked_phase(build_dsp, lh5, _cuda, wf, bl, card)
+    mesh = mesh_phase(build_processing_chain, lh5, _cuda, wf, bl, card)
+    torch.cuda.empty_cache()
     # the SiPM path: VoV outputs, K7's group and the sweep
     sipm = sipm_e2e_phase(build_dsp, lh5, _cuda, swf, n_pulses, card)
     scan["sipm_wfps"] = {"first": sipm["first_wfps"], "warm": sipm["warm_wfps"]}
@@ -3444,31 +3859,37 @@ def main() -> int:
             name="fused_energy", route="cuda",
             source="dspeed_tpu_torch/csrc/fused_energy.cu",
             replaces="dspeed_tpu/processors/_pallas.py:287",
-            launches=launches["fused_energy"], library_ms=None, **k1,
+            launches=launches["fused_energy"],
+            stacked_launches=stk["launches"].get("fused_energy", 0), library_ms=None, **k1,
         ),
         dict(
             name="cascade_tp", route="cuda",
             source="dspeed_tpu_torch/csrc/cascade_tp.cu",
             replaces="dspeed_tpu/processors/_pallas.py:1528",
-            launches=launches["cascade_tp"], library_ms=None, **k2,
+            launches=launches["cascade_tp"],
+            stacked_launches=stk["launches"].get("cascade_tp", 0), library_ms=None, **k2,
         ),
         dict(
             name="fused_t0", route="cuda",
             source="dspeed_tpu_torch/csrc/fused_t0.cu",
             replaces="dspeed_tpu/processors/_pallas.py:1140",
-            launches=launches["fused_t0"], library_ms=None, **k3,
+            launches=launches["fused_t0"],
+            stacked_launches=stk["launches"].get("fused_t0", 0), library_ms=None, **k3,
         ),
         dict(
             name="banded_conv_multi", route="cuda",
             source="dspeed_tpu_torch/csrc/banded_conv.cu",
             replaces="dspeed_tpu/processors/_pallas.py:999",
-            launches=launches["banded_conv_multi"], **k4,
+            launches=launches["banded_conv_multi"],
+            stacked_launches=stk["launches"].get("banded_conv_multi", 0),
+            sp_mesh_launches=mesh["launches"].get("banded_conv_multi", 0), **k4,
         ),
         dict(
             name="fused_current_poly", route="cuda",
             source="dspeed_tpu_torch/csrc/fused_current.cu",
             replaces="dspeed_tpu/processors/_pallas.py:804",
-            launches=launches["fused_current_poly"], library_ms=None, **k5,
+            launches=launches["fused_current_poly"],
+            stacked_launches=stk["launches"].get("fused_current_poly", 0), library_ms=None, **k5,
         ),
         dict(
             name="fused_current", route="cuda",
@@ -3507,6 +3928,11 @@ def main() -> int:
             launches=extras_launches["bilevel_scan"], library_ms=None, **bls,
         ),
     ]
+    print(json.dumps({"paths": {
+        "checked": chk,
+        "stacked": {k: v for k, v in stk.items() if k != "launches"},
+        "mesh": mesh,
+    }}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
@@ -3520,4 +3946,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                                sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -118,12 +118,23 @@ def _schema_fingerprint(tb) -> tuple:
     return tuple(fp)
 
 
-def _chain_cache_key(processors, db_dict, outputs, tb_in, device, fuse):
+def _mesh_key(mesh):
+    """A mesh by its layout: axis names, the ranks on it and device type."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.mesh_dim_names or ()), tuple(mesh.mesh.flatten().tolist()),
+            tuple(mesh.mesh.shape), mesh.device_type)
+
+
+def _chain_cache_key(processors, db_dict, outputs, tb_in, device, fuse,
+                     mesh=None):
     """The cache key of a chain, or None where the cache is off. Beside the
     JAX package's key (configuration, database, outputs, input schema and
     chunk length: a chain's output buffers are sized for it) it holds the
     resolved device and the fusion mode, which the JAX package reads from
-    its environment: a chain built for one must not serve another."""
+    its environment, and the mesh the chain is sharded over (None for
+    ``build_dsp``'s own chains): a chain built for one must not serve
+    another. Checked mode is not in the key: a cached chain is toggled."""
     import hashlib
     import json as _json
 
@@ -148,6 +159,7 @@ def _chain_cache_key(processors, db_dict, outputs, tb_in, device, fuse):
             len(tb_in),
             str(device),
             fuse,
+            _mesh_key(mesh),
         )
     except TypeError:
         return None
@@ -178,12 +190,26 @@ def _prefetched(iterable, chain=None):
 
     with ThreadPoolExecutor(1, thread_name_prefix="dsp-read-ahead") as ex:
         fut = ex.submit(fetch)
-        while True:
-            item = fut.result()
-            if item is sentinel:
-                return
-            fut = ex.submit(fetch)
-            yield item
+        try:
+            while True:
+                item = fut.result()
+                if item is sentinel:
+                    return
+                fut = ex.submit(fetch)
+                yield item
+        finally:
+            # the consumer stopped early (a checked chunk's DSPFatal): let
+            # the chunk read ahead finish staging and its copy end, so no
+            # worker still links the chain's inputs, and no copy is in
+            # flight, when the chain runs again
+            try:
+                item = fut.result()
+            except Exception:  # noqa: BLE001 - already propagating
+                item = None
+            if isinstance(item, tuple) and item[1] is not None:
+                event = item[1][1]
+                if event is not None:
+                    event.synchronize()
 
 
 def _process_chunks(proc_chain, chunks, write, read_ahead: bool = True) -> dict:
@@ -234,6 +260,7 @@ def _process_chunks(proc_chain, chunks, write, read_ahead: bool = True) -> dict:
 
     writer = ThreadPoolExecutor(1, thread_name_prefix="dsp-writer")
     in_flight = None  # (future, wf_range)
+    pending = None
     try:
         for tb_in, staged, i_entry in chunk_iter:
             loading_time += time.time() - curr
@@ -255,11 +282,16 @@ def _process_chunks(proc_chain, chunks, write, read_ahead: bool = True) -> dict:
                     writer.submit(_drain, pending, n, i_entry),
                     (i_entry, i_entry + n),
                 )
+                pending = None
             curr = time.time()
         if in_flight is not None:
             _join(in_flight)
     finally:
         writer.shutdown(wait=True)
+        if pending is not None and pending[2] is not None:
+            pending[2].synchronize()  # dispatched, never joined: let it end
+        if hasattr(chunk_iter, "close"):
+            chunk_iter.close()
     return {"loading_s": loading_time, "processing_s": processing_time,
             "write_s": write_time}
 
@@ -356,6 +388,7 @@ def build_dsp(
     stats: MutableMapping | None = None,
     device=None,
     fuse: bool | str = True,
+    checked: bool = False,
 ):
     """Run a DSP recipe over raw waveform data; see the reference docstring
     (``build_dsp.py:27-126``) for parameter semantics, which are preserved.
@@ -383,6 +416,17 @@ def build_dsp(
     then the generic pass), ``"generic"`` (the generic pass only, one K7
     launch per group) or ``False``
     (:func:`~dspeed_tpu_torch.processing_chain.build_processing_chain`).
+
+    ``checked``: data-dependent ``DSPFatal`` parity with the reference (the
+    JAX package's ``checked``, :256). Kernels whose reference bodies raise
+    per event on bad data (``get`` index out of range, non-integral or
+    out-of-range search starts, non-integral pick-off indices, filters that
+    overflow into NaN) emit per-event flag columns, copied to the host with
+    the outputs; after each chunk the flags are scanned and production
+    halts with the reference's message, the processor string and the exact
+    entry in ``wf_range``. Off by default: those events then become NaN.
+    Fusion groups run member by member while checked (no K7 launch); a
+    cached chain is toggled, not rebuilt.
 
     ``DSPEED_TPU_PROFILE=<dir>`` writes a ``torch.profiler`` trace (CPU,
     and CUDA on the card) of each table's chunk loop into ``<dir>``.
@@ -554,6 +598,8 @@ def build_dsp(
         if cached is not None:
             proc_chain, field_mask, tb_out = cached
             _CHAIN_CACHE[cache_key] = _CHAIN_CACHE.pop(cache_key)  # most recent
+            if proc_chain._checked != checked:  # the key holds no mode
+                proc_chain.set_checked(checked)
             log.debug("reusing the built chain for table %s", tb)
         else:
             proc_chain, field_mask, tb_out = build_processing_chain(
@@ -565,6 +611,8 @@ def build_dsp(
                 device=device,
                 fuse=fuse,
             )
+            if checked:
+                proc_chain.set_checked(True)
             if cache_key is not None:
                 _CHAIN_CACHE[cache_key] = (proc_chain, field_mask, tb_out)
                 while len(_CHAIN_CACHE) > _CHAIN_CACHE_MAX:

@@ -51,9 +51,7 @@ def dspeed_cli(argv=None) -> None:
     parser = argparse.ArgumentParser(
         prog="dspeed-tpu-torch",
         description="Process LH5 raw files into dsp files using a JSON/YAML "
-        "DSP configuration, on a CUDA device (PyTorch). Halting on "
-        "data-dependent kernel errors (the JAX CLI's --checked) is not "
-        "available yet: such events give NaN outputs.",
+        "DSP configuration, on a CUDA device (PyTorch).",
     )
     parser.add_argument("--version", action="version", version=__version__)
     parser.add_argument("--verbose", "-v", action="store_true",
@@ -83,6 +81,10 @@ def dspeed_cli(argv=None) -> None:
                         help="waveforms per disk read / device pass; 'auto' "
                         "probes the host -> device path and picks the fastest "
                         "chunk size")
+    parser.add_argument("--checked", action="store_true",
+                        help="halt with DSPFatal + entry range on "
+                             "data-dependent kernel errors (reference "
+                             "semantics) instead of NaN outputs")
     parser.add_argument("--device", default=DEFAULT_DEVICE,
                         help=f"torch device to run on (default: {DEFAULT_DEVICE})")
     parser.add_argument("--fuse", choices=sorted(_FUSE), default="true",
@@ -142,6 +144,7 @@ def dspeed_cli(argv=None) -> None:
             block_width=args.block,
             device=args.device,
             fuse=_FUSE[args.fuse],
+            checked=args.checked,
         )
 
 

@@ -35,3 +35,22 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+# -- sequence (sample-axis) parallelism ------------------------------------
+# The counterpart of the JAX package's ``config.sample_sharding()``
+# (``dspeed_tpu/config.py:44-52``). ``ProcessingChain.set_sharding(...,
+# sample_axis=...)`` sets it to ``(mesh, sample_axis_name, batch_axis_names)``
+# around a step whose waveform argument is this rank's block of samples; the
+# 'same' convolutions then take the halo-exchange route
+# (``processors/convolutions.py`` ``_sp_route``). It is None otherwise.
+_sample_sharding = None
+
+
+def set_sample_sharding(value) -> None:
+    global _sample_sharding
+    _sample_sharding = value
+
+
+def sample_sharding():
+    return _sample_sharding

@@ -48,7 +48,7 @@ import re
 import time
 from copy import deepcopy
 from numbers import Real
-from typing import Any, Collection, Mapping, MutableMapping
+from typing import Any, Collection, Mapping, MutableMapping, NamedTuple
 
 import numpy as np
 import torch
@@ -569,6 +569,13 @@ class KernelStep(Step):
     the batched PyTorch kernel, and binds the outputs into the environment.
     """
 
+    # checked mode: env key of this step's per-event flag column (set by
+    # ProcessingChain._run_plan while the chain is checked)
+    check_key: str | None = None
+    # while the chain runs this step on a block of its first argument's
+    # samples (ProcessingChain._run_sharded_step): the number of blocks
+    sample_blocks: int = 1
+
     def __init__(
         self,
         proc_chain: "ProcessingChain",
@@ -884,8 +891,17 @@ class KernelStep(Step):
             return spec.value
         v = env[spec.key]
         if spec.reshape is not None and hasattr(v, "ndim"):
-            arshape = _align_shape(spec.reshape, v.shape)
-            if tuple(arshape) != tuple(v.shape):
+            shape = tuple(v.shape)
+            if self.sample_blocks > 1 and spec is self.arg_specs[0]:
+                # this rank's block of the row's samples: aligned as the
+                # whole row
+                shape = (*shape[:-1], shape[-1] * self.sample_blocks)
+            arshape = _align_shape(spec.reshape, shape)
+            if tuple(arshape) != shape:
+                if self.sample_blocks > 1:
+                    raise ProcessingChainError(
+                        f"{self.kernel.__name__}: a block of samples needs no "
+                        "broadcast")
                 v = v.reshape(arshape)
         if spec.dtype is not None and isinstance(v, torch.Tensor):
             want = _device_dtype(spec.dtype)
@@ -896,6 +912,11 @@ class KernelStep(Step):
     def run(self, env: dict) -> None:
         args = [self._fetch(s, env) for s in self.arg_specs]
         kwargs = {k: self._fetch(s, env) for k, s in self.kwarg_specs.items()}
+        ck = self.check_key
+        if ck is not None and not self.kernel.checker_reads_outputs:
+            # checked mode: the per-event DSPFatal-condition flag from the
+            # same bound inputs, fetched with the outputs
+            env[ck] = self.kernel.checker(*args)
         if self.kernel.uses_dims:
             kwargs["dims"] = self.dims
         if self.badrow_key is not None:
@@ -911,6 +932,8 @@ class KernelStep(Step):
                 f"{self.kernel.__name__} returned {len(outs)} outputs; "
                 f"expected {len(self.out_specs)}"
             )
+        if ck is not None and self.kernel.checker_reads_outputs:
+            env[ck] = self.kernel.checker(*args, out=outs[0])
         for spec, val in zip(self.out_specs, outs):
             if isinstance(val, torch.Tensor):
                 want = _device_dtype(spec.dtype)
@@ -1215,6 +1238,18 @@ ast_ops_dict = {
 }
 
 
+class _Cut(NamedTuple):
+    """How a chunk was cut for a mesh or flattened from stacked batch dims
+    (:meth:`ProcessingChain._cut_chunk`): the chunk's batch dims (padded),
+    this rank's block of them, the chunk's events along the last, and the
+    inputs cut to this rank's block of samples."""
+
+    lead: tuple
+    local_lead: tuple
+    n: int
+    split: frozenset
+
+
 class EndExecute(Exception):
     """Raised by input managers when the input buffer is exhausted."""
 
@@ -1248,6 +1283,126 @@ class ProcessingChain:
         # constant variables on the device, rebuilt when the steps change
         self._consts: dict | None = None
         self.time_total = 0.0
+        # the steps as they run (:meth:`_run_plan`), keyed by the step list
+        self._plan: list | None = None
+        self._plan_key = None
+        # opt-in checked mode (the JAX package's :1184-1191): kernels with
+        # data-dependent DSPFatal conditions in the reference emit per-event
+        # int32 flag columns, scanned on the host after every chunk
+        # (set_checked / build_dsp checked=True / DSPEED_TPU_CHECKED=1)
+        self._checked = os.getenv("DSPEED_TPU_CHECKED", "0") not in (
+            "0", "", "false"
+        )
+        self._check_steps: list[tuple[str, Step]] = []
+        # set_sharding: a DeviceMesh, the axes the batch dims lie over and
+        # the axis the samples are split over
+        self._mesh = None
+        self._batch_axes: tuple[str, ...] = ("data",)
+        self._sample_axis: str | None = None
+
+    def set_checked(self, checked: bool = True) -> None:
+        """Enable/disable checked mode (data-dependent ``DSPFatal`` parity;
+        the JAX package's ``set_checked``, :1193).
+
+        The reference raises in-kernel on bad per-event *data* (``get``
+        index out of range, non-integral or out-of-range search starts,
+        non-integral pick-off indices) and production halts with the
+        waveform range. By default those events become NaN here (the
+        chain-wide convention). With checked mode on, every kernel that
+        declares a ``checker`` emits an int32 flag column, copied to the
+        host with the outputs and scanned by :meth:`raise_data_errors`,
+        which raises ``DSPFatal`` with the reference's message, the
+        processor string and the exact ``wf_range``. Generic fusion groups
+        run member by member while checked (no K7 launch), so every
+        member's checker runs; the groups and their K7 tapes stay, and
+        ``set_checked(False)`` runs them again."""
+        self._checked = bool(checked)
+        self._plan_key = None
+
+    def raise_data_errors(self, results: dict, offset: int = 0) -> None:
+        """Scan fetched check-flag columns; raise ``DSPFatal`` for the first
+        flagged event of the earliest flagged step (the reference's rule:
+        the first failing processor aborts the block)."""
+        for key, step in self._check_steps:
+            flag = results.get(key)
+            if flag is None:
+                continue
+            flag = np.asarray(flag).reshape(-1)
+            nz = np.nonzero(flag)[0]
+            if nz.size == 0:
+                continue
+            idx = int(nz[0])
+            code = int(flag[idx])
+            msg = step.kernel.check_messages.get(
+                code, f"data-dependent error (code {code})"
+            )
+            err = DSPFatal(msg)
+            err.processor = str(step)
+            err.wf_range = (offset + idx, offset + idx)
+            raise err
+
+    def set_sharding(self, mesh, batch_axes=("data",), sample_axis=None) -> None:
+        """Shard execution over a
+        :class:`~torch.distributed.device_mesh.DeviceMesh` (the JAX package's
+        ``set_sharding``, :1234; ``None`` undoes it).
+
+        Each rank runs the chain on its contiguous block of each chunk's
+        rows, taken along the mesh axes of ``batch_axes`` (events over
+        ``"data"``; a stacked ``(C, B, ...)`` chunk of
+        :func:`~dspeed_tpu_torch.parallel.build_dsp_stacked` over
+        ``("channel", "data")``, flattened to rows). The last batch dim is
+        padded to a multiple of its axis's size. The outputs (and checked
+        mode's flags) are gathered back, one collective per output dtype
+        plane and batch axis, so every rank's output managers see the whole
+        chunk, equal to the unsharded chain's. Fusion groups (K7) run on
+        each rank's rows.
+
+        ``sample_axis`` also splits the samples of the waveform-length
+        inputs over that axis (the rule of the JAX package's
+        ``_shard_inputs``, :2662). The 'same' convolutions take the
+        halo-exchange route on the blocks
+        (:func:`~dspeed_tpu_torch.parallel.sp_convolve_same_traced`); any
+        other step that reads a split plane gets it gathered along the
+        samples first, and a fusion group that reads one runs member by
+        member (as the JAX package runs a group's body under a mesh).
+        """
+        if mesh is not None:
+            names = tuple(mesh.mesh_dim_names or ())
+            for ax in (*batch_axes, *(() if sample_axis is None else (sample_axis,))):
+                if ax not in names:
+                    raise ProcessingChainError(
+                        f"set_sharding: the mesh has no axis {ax!r} ({names})")
+            if torch.device(mesh.device_type).type != self.device.type:
+                raise ProcessingChainError(
+                    f"set_sharding: a {mesh.device_type} mesh for a chain on "
+                    f"{self.device}")
+        self._mesh = mesh
+        self._batch_axes = tuple(batch_axes)
+        self._sample_axis = sample_axis if mesh is not None else None
+
+    def _run_plan(self) -> list:
+        """The steps as they run: the step list, with each fusion group
+        expanded into its members while checked (the JAX package's
+        ``_build_fn``, :2859-2882), and each step whose kernel declares a
+        checker given its flag key (``_check_steps``)."""
+        key = (self._checked, tuple(map(id, self._steps)))
+        if self._plan_key == key:
+            return self._plan
+        for s in self._steps:  # groups' members too: unchecked, they run in K7
+            for m in (s, *getattr(s, "members", ())):
+                if isinstance(m, KernelStep):
+                    m.check_key = None
+        steps = list(self._steps)
+        self._check_steps = []
+        if self._checked:
+            steps = [m for s in steps
+                     for m in (s.members if isinstance(s, GroupStep) else [s])]
+            for i, step in enumerate(steps):
+                if isinstance(step, KernelStep) and step.kernel.checker is not None:
+                    step.check_key = f"__check__{i}"
+                    self._check_steps.append((step.check_key, step))
+        self._plan, self._plan_key = steps, key
+        return steps
 
     # -- fusion pass -------------------------------------------------------
 
@@ -2185,7 +2340,9 @@ class ProcessingChain:
         for trapEmax); the reference interpreter runs both
         (reference ``dspeed/processing_chain.py:1144-1163``) — numerically
         the alias is the identical computation, so results are
-        bit-identical."""
+        bit-identical. Kernels that declare a checked-mode ``checker`` are
+        skipped, as in the JAX package (:2316), so each raise site keeps its
+        own flag column and step name."""
 
         def freeze(v):
             if isinstance(v, np.ndarray):
@@ -2255,6 +2412,7 @@ class ProcessingChain:
                 continue
             if (
                 not isinstance(step, KernelStep)
+                or step.kernel.checker is not None
                 or any(sp.var.is_const for sp in step.out_specs)
             ):
                 new_steps.append(step)
@@ -2700,6 +2858,7 @@ class ProcessingChain:
 
     def _invalidate(self) -> None:
         self._consts = None
+        self._plan_key = None
 
     # -- I/O buffers -------------------------------------------------------
 
@@ -2815,6 +2974,9 @@ class ProcessingChain:
             stream = _copy_stream(torch.cuda.current_device())
             pinned = {}
             for k, t in host.items():
+                if t.is_pinned():  # a stacked chunk (stage_stacked)
+                    pinned[k] = t
+                    continue
                 pinned[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 pinned[k].copy_(t)
             with torch.cuda.stream(stream):
@@ -2831,19 +2993,24 @@ class ProcessingChain:
             event.synchronize()
         return tensors
 
-    def _run_steps(self, env: dict, profile: bool = False) -> dict:
-        """Run the steps over ``env``; with ``profile``, each step's wall
-        time (the device synchronized after it) is summed into its
-        ``time_total``."""
+    def _run_steps(self, env: dict, profile: bool = False, split=None) -> dict:
+        """Run the steps (:meth:`_run_plan`) over ``env``; with ``profile``,
+        each step's wall time (the device synchronized after it) is summed
+        into its ``time_total``. ``split``: the env keys that hold this
+        rank's block of samples (a chain with a sample axis), kept up to
+        date as the steps run (:meth:`_run_sharded_step`)."""
         # an output manager may add its unit conversion on first use
         # (LGDOVectorOfVectorsIOManager): before the steps run, not after
         self._out_keys()
         env.update(self._const_env())
         with torch.no_grad():
-            for step in self._steps:
+            for step in self._run_plan():
                 t0 = time.time()
                 try:
-                    step.run(env)
+                    if split:
+                        self._run_sharded_step(step, env, split)
+                    else:
+                        step.run(env)
                 except DSPFatal as e:
                     e.processor = str(step)
                     raise
@@ -2853,31 +3020,96 @@ class ProcessingChain:
                     step.time_total += time.time() - t0
         return env
 
-    def _start_fetch(self, env: dict, n: int):
+    def _run_sharded_step(self, step, env: dict, split: set) -> None:
+        """Run ``step`` while the planes of ``split`` hold this rank's block
+        of samples: a 'same' convolution of such a plane takes the halo
+        route (its kernel's ``sample_parallel`` says whether it can) and its
+        output stays split; an alias stays split; a fusion group runs
+        member by member; any other step gets the split planes it reads
+        gathered along the samples first (the counterpart of the
+        collectives GSPMD inserts in the JAX package)."""
+        from .parallel.mesh import axis_size, gather_samples
+
+        reads = self._step_env_reads(step)
+        hit = set(split) if reads is None else reads & split
+        if not hit:
+            step.run(env)
+            return
+        if isinstance(step, AliasStep):
+            step.run(env)
+            split.add(step.dst_key)
+            return
+        if isinstance(step, GroupStep):
+            for m in step.members:
+                self._run_sharded_step(m, env, split)
+            return
+        mesh, axis = self._mesh, self._sample_axis
+        sp = getattr(getattr(step, "kernel", None), "sample_parallel", None)
+        if (
+            sp is not None
+            and isinstance(step, KernelStep)
+            and step.arg_specs[0].kind == "env"
+            and hit == {step.arg_specs[0].key}
+        ):
+            nsh = axis_size(mesh, axis)
+            if sp(step, env, env[step.arg_specs[0].key].shape[-1] * nsh, nsh):
+                config.set_sample_sharding((mesh, axis, self._batch_axes))
+                step.sample_blocks = nsh
+                try:
+                    step.run(env)
+                finally:
+                    config.set_sample_sharding(None)
+                    step.sample_blocks = 1
+                split.update(_step_writes(step))
+                return
+        for k in hit:
+            env[k] = gather_samples(env[k], mesh, axis)
+            split.discard(k)
+        step.run(env)
+
+    def _start_fetch(self, env: dict, n: int, cut=None, split=None):
         """Enqueue the chunk's outputs' copy to the host: on the card one
         transfer per dtype, the columns packed side by side with one
         ``torch.cat``, into pinned memory without blocking, then an event.
-        Returns the in-flight handle that :meth:`fetch` completes."""
+        Checked mode's flag columns ride in the same planes. A chunk cut for
+        a mesh or stacked (``cut``, :meth:`_cut_chunk`; ``n`` is then this
+        rank's rows) is packed on the CPU too, and each plane is gathered
+        over the batch axes (:func:`~dspeed_tpu_torch.parallel.mesh.gather_rows`)
+        after ``split``'s planes are gathered along the samples. Returns the
+        in-flight handle that :meth:`fetch` completes."""
+        from .parallel.mesh import gather_rows, gather_samples
+
+        keys = self._out_keys() + [k for k, _ in self._check_steps if k in env]
+        if split:
+            for k in keys:
+                if k in split:
+                    env[k] = gather_samples(env[k], self._mesh, self._sample_axis)
         ready: dict = {}
         groups: dict = {}
-        for k in self._out_keys():
+        on_host = self.device.type == "cpu" and cut is None
+        for k in keys:
             v = env[k]
-            if not isinstance(v, torch.Tensor) or self.device.type == "cpu":
+            if not isinstance(v, torch.Tensor) or on_host:
                 ready[k] = v
             elif v.ndim == 0 or v.shape[0] != n:
-                ready[k] = _to_pinned(v)
+                ready[k] = _to_pinned(v) if self.device.type == "cuda" else v
             else:
                 groups.setdefault(v.dtype, []).append((k, v))
-        packed = [
-            (_to_pinned(torch.cat([v.reshape(n, -1) for _, v in items], dim=1)),
-             [(k, tuple(v.shape)) for k, v in items])
-            for items in groups.values()
-        ]
+        packed = []
+        for items in groups.values():
+            plane = torch.cat([v.reshape(n, -1) for _, v in items], dim=1)
+            if cut is not None and self._mesh is not None:
+                plane = gather_rows(plane, self._mesh, self._batch_axes,
+                                    cut.local_lead)
+            if self.device.type == "cuda":
+                plane = _to_pinned(plane)
+            packed.append((plane, [(k, tuple(v.shape[1:])) for k, v in items]))
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return ready, packed, event
+        lead = (n,) if cut is None else cut.lead
+        return ready, packed, event, lead, (n if cut is None else cut.n)
 
     def _gather_inputs(self, start: int, stop: int):
         inputs: dict[str, np.ndarray] = {}
@@ -2901,15 +3133,84 @@ class ProcessingChain:
                 raise ProcessingChainError(f"Require column {varname} in tb_in")
             self.link_input_buffer(varname, tb_in[varname])
 
+    def _cut_chunk(self, inputs: dict, n: int, nb: int):
+        """This rank's part of a chunk whose arrays have ``nb`` leading batch
+        dims (the last holding ``n`` events), the batch dims flattened into
+        rows. Under a mesh the last batch dim is padded to a multiple of its
+        axis's size and each batch dim cut to this rank's block
+        (:func:`~dspeed_tpu_torch.parallel.mesh.batch_block`); with a sample
+        axis, the waveform-length inputs are cut to this rank's block of
+        samples by the JAX package's rule (``_shard_inputs``, :2662-2707:
+        the length of a gridded input; a longer auxiliary input stays
+        whole). Returns ``(inputs, cut)``."""
+        from .parallel.mesh import axis_rank, axis_size, batch_block
+
+        mesh = self._mesh
+        lead = next(iter(inputs.values())).shape[:nb]
+        local_lead = lead
+        if mesh is not None:
+            if len(self._batch_axes) != nb:
+                raise ProcessingChainError(
+                    f"a chain sharded over {self._batch_axes} takes chunks of "
+                    f"{len(self._batch_axes)} batch dims, not {nb}"
+                )
+            p = axis_size(mesh, self._batch_axes[-1])
+            pad = -(-lead[-1] // p) * p - lead[-1]
+            if pad:
+                inputs = {
+                    k: np.pad(v, [(0, 0)] * (nb - 1) + [(0, pad)]
+                              + [(0, 0)] * (v.ndim - nb))
+                    for k, v in inputs.items()
+                }
+                lead = (*lead[:-1], lead[-1] + pad)
+            block = batch_block(mesh, self._batch_axes, lead)
+            inputs = {k: v[block] for k, v in inputs.items()}
+            local_lead = tuple(sl.stop - sl.start for sl in block)
+        rows = int(np.prod(local_lead, dtype=np.int64))
+        inputs = {k: v.reshape(rows, *v.shape[nb:]) for k, v in inputs.items()}
+        split = set()
+        if mesh is not None and self._sample_axis is not None:
+            nsh = axis_size(mesh, self._sample_axis)
+            s = axis_rank(mesh, self._sample_axis)
+            wf_lens = {
+                var.shape[-1]
+                for var in self._vars_dict.values()
+                if isinstance(getattr(var, "grid", None), CoordinateGrid)
+                and var.key in inputs
+                and inputs[var.key].ndim > 1
+                and isinstance(var.shape, tuple) and len(var.shape) > 0
+            }
+            if not wf_lens:  # no gridded input: the widest array
+                wf_lens = {max((v.shape[-1] for v in inputs.values()
+                                if v.ndim > 1), default=0)}
+            for k, v in list(inputs.items()):
+                length = v.shape[-1]
+                if (v.ndim > 1 and length in wf_lens and length % nsh == 0
+                        and length >= nsh):
+                    loc = length // nsh
+                    inputs[k] = v[..., s * loc:(s + 1) * loc]
+                    split.add(k)
+        return inputs, _Cut(tuple(lead), tuple(local_lead), n, frozenset(split))
+
+    def _stage_chunk(self, inputs: dict, n: int, nb: int = 1):
+        """:meth:`_stage` of a gathered chunk, cut for the mesh or flattened
+        from ``nb`` batch dims first (:meth:`_cut_chunk`); the handle
+        :meth:`dispatch` takes."""
+        if self._mesh is None and nb == 1:
+            return (*self._stage(inputs), n, None)
+        inputs, cut = self._cut_chunk(inputs, n, nb)
+        return (*self._stage(inputs), n, cut)
+
     def stage_inputs(self, tb_in):
         """Link ``tb_in``, gather it and start its host -> device copy on
         the copy stream (:meth:`_stage`).
 
-        Returns an opaque ``(tensors, event, n)`` handle for
+        Returns an opaque ``(tensors, event, n, cut)`` handle for
         :meth:`dispatch`, ``execute(staged=...)`` or ``__call__(...,
         staged=...)``, or ``None`` at the end of input. On a worker thread
         this overlaps chunk ``i+1``'s upload with chunk ``i``'s steps. A
-        short chunk runs at its own length: no padding.
+        short chunk runs at its own length: no padding (under a mesh, to a
+        multiple of the data axis's size).
         """
         self._link_inputs(tb_in)
         try:
@@ -2918,7 +3219,29 @@ class ProcessingChain:
             return None
         if n <= 0:
             return None
-        return (*self._stage(inputs), n)
+        return self._stage_chunk(inputs, n)
+
+    def stage_stacked(self, channels: list, n: int):
+        """Stage a stacked chunk: ``channels`` holds one gathered chunk
+        (:meth:`_gather_inputs`) of each of ``C`` channel tables, whose
+        first ``n`` events are stacked into ``(C, n, ...)`` arrays
+        (``build_dsp_stacked``). The chain runs them as ``C * n`` rows
+        (under a mesh, its block of them); :meth:`fetch` returns
+        ``(C, n, ...)`` arrays. On the card without a mesh the stack is
+        written straight into pinned memory, so the chunk is copied on the
+        host once, as a flat chunk's staging copies it."""
+        if self.device.type == "cuda" and self._mesh is None:
+            stacked = {}
+            for k in channels[0]:
+                parts = [_host_tensor(chunk[k][:n]) for chunk in channels]
+                stacked[k] = torch.empty((len(parts), *parts[0].shape),
+                                         dtype=parts[0].dtype, pin_memory=True)
+                for c, part in enumerate(parts):
+                    stacked[k][c].copy_(part)
+        else:
+            stacked = {k: np.stack([chunk[k][:n] for chunk in channels])
+                       for k in channels[0]}
+        return self._stage_chunk(stacked, n, nb=2)
 
     def dispatch(self, staged):
         """Enqueue one staged chunk and return an in-flight handle: the
@@ -2929,31 +3252,37 @@ class ProcessingChain:
         blocks on that copy, so a driver can overlap chunk ``i``'s fetch
         and write with chunk ``i+1``'s steps (the production pipeline in
         :func:`~dspeed_tpu_torch.build_dsp.build_dsp`)."""
-        tensors, event, n = staged
+        tensors, event, n, cut = staged
         if event is not None:
             compute = torch.cuda.current_stream(self.device)
             compute.wait_event(event)
             for t in tensors.values():
                 t.record_stream(compute)
-        return self._start_fetch(self._run_steps(dict(tensors)), n)
+        rows = n if cut is None else int(np.prod(cut.local_lead, dtype=np.int64))
+        split = set(cut.split) if cut is not None else None
+        env = self._run_steps(dict(tensors), split=split)
+        return self._start_fetch(env, rows, cut, split)
 
     def fetch(self, pending) -> dict:
         """Complete a :meth:`dispatch` handle: wait for its copy, unpack
-        each dtype group into per-output host arrays. Thread-safe: touches
-        no chain state beyond the handle."""
-        ready, packed, event = pending
+        each dtype group into per-output host arrays (their batch dims as
+        the chunk's, cut to its events). Thread-safe: touches no chain
+        state beyond the handle."""
+        ready, packed, event, lead, n = pending
         if event is not None:
             event.synchronize()
         out = {
             k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
             for k, v in ready.items()
         }
+        cut = (slice(None),) * (len(lead) - 1) + (slice(0, n),)
         for host, items in packed:
             host = host.numpy()
             c0 = 0
-            for k, shape in items:
-                c1 = c0 + int(np.prod(shape[1:], dtype=np.int64))
-                out[k] = host[:, c0:c1].reshape(shape)
+            for k, inner in items:
+                c1 = c0 + int(np.prod(inner, dtype=np.int64))
+                v = host[:, c0:c1].reshape(*lead, *inner)
+                out[k] = v if lead[-1] == n else v[cut]
                 c0 = c1
         return out
 
@@ -2976,10 +3305,12 @@ class ProcessingChain:
         return self.dispatch(staged), staged[2]
 
     def finish_chunk(self, pending, n: int) -> None:
-        """Fetch a dispatched chunk and write it through the output managers
-        into their linked buffers."""
+        """Fetch a dispatched chunk, scan its flags (checked mode) and write
+        it through the output managers into their linked buffers."""
         t0 = time.time()
         results = self.fetch(pending)
+        if self._checked:
+            self.raise_data_errors(results, 0)
         for man in self._output_managers.values():
             man.write(results, 0, n)
         self.time_total += time.time() - t0
@@ -2997,10 +3328,12 @@ class ProcessingChain:
                 return
             if n <= 0:
                 return
-            staged = (*self._stage(inputs), n)
+            staged = self._stage_chunk(inputs, n)
         else:
             start = 0
         results = self._run_device(staged)
+        if self._checked:
+            self.raise_data_errors(results, start)
         for man in self._output_managers.values():
             man.write(results, start, start + staged[2])
 
@@ -3015,12 +3348,19 @@ class ProcessingChain:
             return
         if n <= 0:
             return
+        tensors, event, n, cut = self._stage_chunk(inputs, n)
+        if event is not None:
+            event.synchronize()
+        rows = n if cut is None else int(np.prod(cut.local_lead, dtype=np.int64))
+        split = set(cut.split) if cut is not None else None
         try:
-            env = self._run_steps(self._to_device(inputs), profile=True)
+            env = self._run_steps(dict(tensors), profile=True, split=split)
         except DSPFatal as e:
             e.wf_range = (start, stop)
             raise
-        results = self.fetch(self._start_fetch(env, n))
+        results = self.fetch(self._start_fetch(env, rows, cut, split))
+        if self._checked:
+            self.raise_data_errors(results, start)
         for man in self._output_managers.values():
             man.write(results, start, start + n)
 
@@ -3616,7 +3956,9 @@ def _copy_stream(index: int) -> torch.cuda.Stream:
 
 def _host_tensor(v) -> torch.Tensor:
     """One gathered input as a C-contiguous host tensor of its device
-    dtype."""
+    dtype (a host tensor, as ``stage_stacked`` makes, as it is)."""
+    if isinstance(v, torch.Tensor):
+        return v
     v = np.asarray(v)
     want = _NP_FROM_TORCH[_device_dtype(v.dtype)]
     if v.dtype != want:

@@ -108,6 +108,15 @@ class Kernel:
         # poisoned input rows (plus NaN-free consts), so the mask flows on.
         self.badrow_arg = badrow_arg
         self.mask_preserving = mask_preserving
+        # checked mode (the JAX package's ``_kernel.py:111-118``): the
+        # defining module may assign ``checker(*args) -> int32 per-event
+        # code`` (0 = ok) and ``check_messages`` (code -> the reference's
+        # message). A checker that takes ``out=`` reads the flag off the
+        # step's own outputs (``checker_reads_outputs``) instead of
+        # recomputing them. The chain evaluates checkers only when checked.
+        self.checker = None
+        self.checker_reads_outputs = False
+        self.check_messages: dict[int, str] = {}
         self.__doc__ = doc if doc is not None else getattr(fn, "__doc__", None)
 
     def __call__(self, *inputs, dims: dict | None = None):

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..errors import DSPFatal
+from ..errors import DSPFatal, ProcessingChainError
 from ._helpers import any_bad, as_tensor, isnan_any, nanmask, static_int
 from ._kernel import kernel
 
@@ -132,14 +132,13 @@ def _conv_banded_matmul(w, kern, lo, p, blk=512):
     return out.reshape(*out.shape[:-2], p_pad)[..., :p]
 
 
-def _convolve_mode(w, kern, ch, n, m):
-    """Route a mode-sliced convolution (see the module docstring).
-
-    Returns ``(out, poisoned)``: ``poisoned`` is True when the route already
-    NaN-poisoned bad rows."""
-    lo, p = _mode_window(ch, n, m)
+def _convolve_window(w, kern, lo, p):
+    """``full_conv(w, kern)[..., lo:lo+p]``, routed as the module docstring
+    says. Returns ``(out, poisoned)``: ``poisoned`` is True when the route
+    already NaN-poisoned bad rows."""
+    m = kern.shape[-1]
     if m <= 32 and kern.ndim == 1:
-        return _slice_mode(_conv_full_direct(w, kern), n, m, ch), False
+        return _conv_full_direct(w, kern)[..., lo:lo + p], False
     if (
         isinstance(kern, np.ndarray)
         and kern.ndim == 1
@@ -151,7 +150,62 @@ def _convolve_mode(w, kern, ch, n, m):
 
             return banded_conv_multi(w, [kern], lo, p)[0], True
         return _conv_banded_matmul(w, kern, lo, p), False
-    return _slice_mode(_conv_full_fft(w, kern), n, m, ch), False
+    return _conv_full_fft(w, kern)[..., lo:lo + p], False
+
+
+def _convolve_mode(w, kern, ch, n, m):
+    """Route a mode-sliced convolution (see the module docstring)."""
+    lo, p = _mode_window(ch, n, m)
+    return _convolve_window(w, kern, lo, p)
+
+
+def _sp_applicable(ch, kern, n, m, nsh) -> bool:
+    """Whether a convolution of rows of ``n`` samples split into ``nsh``
+    blocks takes the halo-exchange route: mode ``'s'``, a shared 1-D
+    kernel, blocks of equal length no shorter than the halo ``m - 1``."""
+    return (ch == "s" and getattr(kern, "ndim", 0) == 1 and n % nsh == 0
+            and m - 1 <= n // nsh)
+
+
+def _sp_route(w, kern, ch, n, m):
+    """The JAX package's ``_sp_route`` (``convolutions.py:315``): while the
+    chain runs this step on a block of samples
+    (:func:`~dspeed_tpu_torch.config.sample_sharding`), this rank's block of
+    the 'same' convolution through the halo exchange
+    (:func:`~dspeed_tpu_torch.parallel.conv.sp_convolve_same_traced`);
+    ``n`` is the whole row's length. ``None`` (the normal route) when the
+    samples are not split, the mode is not ``'s'``, the kernel is not 1-D,
+    ``n`` does not divide or the halo is longer than a block."""
+    from .. import config
+
+    ss = config.sample_sharding()
+    if ss is None:
+        return None
+    mesh, axis, batch_axes = ss
+    from ..parallel.mesh import axis_size
+
+    if not _sp_applicable(ch, kern, n, m, axis_size(mesh, axis)):
+        return None
+    from ..parallel.conv import sp_convolve_same_traced
+
+    return sp_convolve_same_traced(w, np.asarray(_to_host(kern)), mesh, axis,
+                                   batch_axes)
+
+
+def _to_host(kern):
+    return kern.cpu().numpy() if isinstance(kern, torch.Tensor) else kern
+
+
+def sp_step(step, env, n: int, nsh: int) -> bool:
+    """Whether ``step`` (a ``convolve_wf`` or ``fft_convolve_wf``), its
+    waveform a block of ``n / nsh`` samples of rows of ``n``, takes the
+    halo route (the chain asks before it runs the step on the block)."""
+    kern = _kernel_array(step._fetch(step.arg_specs[1], env))
+    try:
+        ch = _mode_char(step._fetch(step.arg_specs[2], env), step.kernel.__name__)
+    except DSPFatal:  # not a mode: the step raises it when it runs
+        return False
+    return _sp_applicable(ch, kern, n, kern.shape[-1], nsh)
 
 
 def _kernel_array(kernel_in):
@@ -162,16 +216,45 @@ def _kernel_array(kernel_in):
     return np.asarray(kernel_in)
 
 
+def _row_len(w_in) -> int:
+    """The whole row's length: ``w_in``'s own, or, while the chain runs the
+    step on a block of samples, the block's times the blocks."""
+    from .. import config
+
+    ss = config.sample_sharding()
+    if ss is None:
+        return w_in.shape[-1]
+    from ..parallel.mesh import axis_size
+
+    return w_in.shape[-1] * axis_size(ss[0], ss[1])
+
+
 def _conv(w_in, kernel_in, mode_in, name, badrow):
     kern = _kernel_array(kernel_in)
     if kern.ndim > 1:
         raise DSPFatal(f"{name} expects a shared 1-D kernel")
-    n = w_in.shape[-1]
+    n = _row_len(w_in)
     m = kern.shape[-1]
     if m > n:
         raise DSPFatal("The filter is longer than the input waveform")
     ch = _mode_char(mode_in, name)
-    out, poisoned = _convolve_mode(w_in, kern, ch, n, m)
+    sp = _sp_route(w_in, kern, ch, n, m)
+    if sp is not None:
+        out, poisoned = sp, False
+        if badrow is None:
+            # a NaN in any block of the row poisons the whole row
+            from .. import config
+            from ..parallel.mesh import any_across
+
+            mesh, axis, _ = config.sample_sharding()
+            badrow = any_across(isnan_any(w_in, 1), mesh, axis)
+    elif n != w_in.shape[-1]:
+        raise ProcessingChainError(
+            f"{name}: a block of samples reached a convolution that has no "
+            "halo route"
+        )
+    else:
+        out, poisoned = _convolve_mode(w_in, kern, ch, n, m)
     out = out.to(w_in.dtype)
     if poisoned:
         return out
@@ -190,7 +273,7 @@ def _conv(w_in, kernel_in, mode_in, name, badrow):
 )
 def convolve_wf(w_in, kernel_in, mode_in, dims, badrow=None):
     """Direct convolution with modes f/v/s (reference ``convolutions.py:24``)."""
-    n = w_in.shape[-1]
+    n = _row_len(w_in)
     m = _kernel_array(kernel_in).shape[-1]
     ch = _mode_char(mode_in, "convolve_wf")
     expect = {"f": n + m - 1, "v": abs(n - m) + 1, "s": max(n, m)}[ch]
@@ -303,6 +386,10 @@ def _conv_tile_safe(step):
 
 convolve_wf.tile_safe = _conv_tile_safe
 fft_convolve_wf.tile_safe = _conv_tile_safe
+# a chain whose samples are split asks these before it runs the step on a
+# block of samples (ProcessingChain._run_sharded_step)
+convolve_wf.sample_parallel = sp_step
+fft_convolve_wf.sample_parallel = sp_step
 
 
 def _reflected_tile_safe(step):

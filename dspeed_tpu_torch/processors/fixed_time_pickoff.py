@@ -98,6 +98,34 @@ def fixed_time_pickoff(w_in, t_in, mode_in, badrow=None):
     return nanmask(bad, val.to(dtype))
 
 
+def _ftp_checker(w_in, t_in, mode_in):
+    """Checked-mode flag (the JAX package's ``_ftp_checker``, :122): the
+    reference raises only in mode ``'i'`` on a non-integral in-range index
+    (``fixed_time_pickoff.py:70-85``); a NaN or out-of-range ``t_in`` and a
+    row holding a NaN give NaN silently there too."""
+    n = w_in.shape[-1]
+    mode = static_int(mode_in, "fixed_time_pickoff", "mode_in")
+    # a constant (numpy's own type: a python float is float64) is judged on
+    # the host: moving it to the card would wait for the card's queue
+    t = t_in if isinstance(t_in, torch.Tensor) else torch.from_numpy(np.asarray(t_in))
+    lead = torch.broadcast_shapes(t.shape, w_in.shape[:-1])
+    zeros = torch.zeros(lead, dtype=torch.int32, device=w_in.device)
+    if chr(mode) != "i" or not t.is_floating_point():
+        return zeros
+    bad_t = ~(torch.isnan(t) | (t < 0) | (t > n - 1)) & (torch.trunc(t) != t)
+    if t.device != w_in.device:
+        if not bad_t.any():
+            return zeros
+        bad_t = bad_t.to(w_in.device)
+    return (~isnan_any(w_in, 1) & bad_t).to(torch.int32).expand(lead)
+
+
+fixed_time_pickoff.checker = _ftp_checker
+fixed_time_pickoff.check_messages = {
+    1: "fixed_time_pickoff requires integer t_in when using mode 'i'",
+}
+
+
 def _ftp_tile_safe(step):
     """Generic row-tile fusion (the JAX package's predicate,
     ``dspeed_tpu/processors/fixed_time_pickoff.py:149``): mode ``s`` runs a

@@ -199,6 +199,26 @@ def inject_damped_oscillation(w_in, tau, omega, phase, frac):
     return recursive_filter_impl(w_in, a, b, w_in[..., 0], 0.0)
 
 
+def _pz_checker(w_in, t_tau, out=None):
+    """Checked-mode flag for the reference's output-NaN fatal
+    (``pole_zero.py:76-77``; the JAX package's ``_pz_checker``, :174): NaN
+    inputs give NaN outputs first (:57-58), so the flag is set only where
+    finite inputs overflow the recursion into NaN (a tiny negative tau). In
+    a chain ``out`` is the step's own output, read under the same rule; the
+    filter runs here only when called alone."""
+    skip = any_bad(isnan_any(w_in, 1), isnan_any(t_tau))
+    if out is None:
+        out = pole_zero.fn(w_in, t_tau)
+    code = isnan_any(out, 1)
+    code = code & ~skip if isinstance(skip, torch.Tensor) else code & (not skip)
+    return code.to(torch.int32).expand(
+        torch.broadcast_shapes(code.shape, w_in.shape[:-1]))
+
+
+pole_zero.checker = _pz_checker
+pole_zero.checker_reads_outputs = True
+pole_zero.check_messages = {1: "Pole-zero filter produced nans in output."}
+
 # generic row-tile fusion (the JAX package's flags)
 pole_zero.tile_safe = True
 double_pole_zero.tile_safe = True

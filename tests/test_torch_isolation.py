@@ -281,3 +281,63 @@ def test_extras_chain_runs_without_jax_or_the_jax_package():
     *_, modules, imported = res.stdout.strip().splitlines()
     assert json.loads(modules) == []
     assert imported == "True"
+
+
+def test_sources_cover_the_parallel_modules():
+    for mod in ("__init__", "mesh", "conv", "bulk"):
+        assert os.path.join("dspeed_tpu_torch", "parallel", f"{mod}.py") in SOURCES
+
+
+_RUN_PARALLEL = r"""
+import json, os, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch.distributed as dist
+import chip_smoke as cs
+from dspeed_tpu_torch import build_dsp, lh5
+from dspeed_tpu_torch.parallel import make_mesh, sp_convolve_same
+from dspeed_tpu_torch.parallel.mesh import initialize_distributed
+
+initialize_distributed(device="cpu", store=dist.FileStore({store!r}, 1), rank=0,
+                       world_size=1)
+w = np.random.default_rng(1).normal(0, 1, (2, 64)).astype("float32")
+taps = np.ones(5, "float32")
+got = sp_convolve_same(w, taps, make_mesh({{"sp": 1}}, device="cpu")).numpy()
+assert np.allclose(got, [np.convolve(r, taps, "same") for r in w], atol=1e-5)
+wf, amp, t0, bl, rt = cs.make_hpge_waveforms(4)
+tb = lh5.Table({{
+    "waveform": lh5.WaveformTable(values=wf, t0=0.0, t0_units="ns", dt=16.0,
+                                  dt_units="ns"),
+    "baseline": lh5.Array(bl.astype("float32")),
+}})
+out = build_dsp(tb, dsp_config=cs.flagship_config(), database={{"pz": {{"tau": 27460.5}}}},
+                device="cpu", checked=True)
+assert np.isfinite(out["trapEmax"].nda).all()
+dist.destroy_process_group()
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax.")
+                        or m == "dspeed_tpu" or m.startswith("dspeed_tpu."))))
+print("dspeed_tpu_torch.parallel" in sys.modules)
+"""
+
+
+def test_parallel_and_checked_run_without_jax_or_the_jax_package(tmp_path):
+    """The parallel package (a gloo group of one, a mesh, the halo route)
+    and a checked flagship with JAX and the JAX package kept off the
+    path."""
+    guard = (
+        "import sys, importlib.abc\n"
+        "class _Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'dspeed_tpu'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, _Block())\n"
+    )
+    code = guard + _RUN_PARALLEL.format(repo=REPO, store=str(tmp_path / "store"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr
+    *_, modules, imported = res.stdout.strip().splitlines()
+    assert json.loads(modules) == []
+    assert imported == "True"
