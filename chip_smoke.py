@@ -84,7 +84,16 @@ at its entry through the production loop), **stacked production**
 four ``build_dsp`` calls bit for bit, K1 to K5 once) and **the mesh**
 (``mesh_phase``: NCCL at world size 1, the flagship over ``{"data": 1}`` and
 ``sp_convolve_same`` over ``{"sp": 1}``; with two cards, two NCCL ranks,
-``--mesh-rank``).
+``--mesh-rank``). The **coverage path** (``coverage_config``: the flagship's
+34 columns and columns that run each of K7's twelve ops of slice 19 inside
+a generic group): K7 on its four groups, each new op alone on the values
+its group gave it, bit for bit against the plain walk on every row, timed
+against its bound; ``build_dsp`` twice in the generic mode (K7 four times a
+chunk, no split; each new column finite on at least 90% of the events, the
+first 1024 events against the CPU run). The **browser** (``vis_phase``:
+``dspeed_tpu_torch.vis.WaveformBrowser`` over the flagship's 16384 events,
+its chain's K1, K3 and K2 once each, fetched entries against ``build_dsp``
+on the card and a browser on the CPU, drawn where matplotlib is installed).
 
 Prints the card's name and power limit, one JSON line of kernel figures
 (``{"kernels": [...]}``), and as the last line
@@ -582,6 +591,93 @@ INJECT_ML_OUTPUTS = [
     "nnls_coef", "nn_score", "nn_score_nb",
 ]
 
+
+# the coverage path (coverage_config): columns that run each of the twelve
+# K7 ops of slice 19 inside a generic group, on make_hpge_waveforms' pulses
+# (baseline 14000-16000 ADC, noise 3 ADC, amplitude 500-30000 ADC)
+COVER_BIT_DEPTH = 16  # the ADC's bits: its rails at 0 and 2**16 - 16
+COVER_PRESUM = 4  # samples a presummed sample
+COVER_ROUND = 10.0  # ADC: trapTmax rounded to a multiple of it
+COVER_TOT_MIN = 10  # samples over half the trapezoid's maximum: a pulse
+
+
+def coverage_config() -> dict:
+    """The **coverage path**: the flagship's 34 columns, plus columns that
+    run each of the twelve K7 ops of slice 19 at least once inside a generic
+    group: ``mean_below_threshold`` (the baseline's mean below twice its
+    spread, and the log row's), ``time_over_threshold`` (the trapezoid's
+    samples over half its maximum), ``saturation`` at 16 bits,
+    ``trap_pickoff`` at the flat top (as ``trapEftp`` picks it),
+    ``min_max_norm`` then ``log_check`` of the raw row (positive: its
+    baseline), ``linear_slope_diff`` on the baseline's fit, ``get`` (the
+    pole-zero row's last sample; the first found maximum's amplitude),
+    ``get_default`` (``wf_pz[...]`` at ``tp_0_est``'s sample),
+    ``multi_a_filter`` after ``get_multi_local_extrema`` on the trapezoid,
+    ``presum`` by 4, ``where`` on a comparison and the four rounders on
+    ``trapTmax``. With ``fuse="generic"`` it forms the JAX package's four
+    groups (34, 19, 24 and 26 members). Built in memory; the YAML is not
+    changed."""
+    cfg = flagship_config()
+    k = "dspeed_tpu.processors"
+
+    def proc(fn, args, unit=None):
+        node = {"function": fn, "module": k, "args": args}
+        if unit is not None:
+            node["unit"] = unit
+        return node
+
+    def amax(src, out):
+        return {"function": "amax", "module": "numpy", "unit": "ADC",
+                "args": [src, 1, out],
+                "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}}
+
+    half = "trapTmax*0.5"
+    cfg["processors"].update({
+        "bl_below": proc("mean_below_threshold", ["wf_blsub[0:750]", "bl_std*2",
+                                                  "bl_below"], "ADC"),
+        "t_over": proc("time_over_threshold", ["wf_trap", half, "t_over"]),
+        "sat_lo, sat_hi": proc("saturation", ["waveform", str(COVER_BIT_DEPTH),
+                                              "sat_lo", "sat_hi"]),
+        "trapEpick": {**proc("trap_pickoff", [
+            "wf_pz", "db.etrap.rise", "db.etrap.flat",
+            "round(tp_0_est+db.etrap.rise+db.etrap.flat*db.etrap.sample, wf_pz.grid)",
+            "trapEpick"], "ADC"),
+            "defaults": {"db.etrap.rise": "10*us", "db.etrap.flat": "3.008*us",
+                         "db.etrap.sample": "0.8"}},
+        "wf_norm": proc("min_max_norm", ["waveform", "wf_min", "wf_max", "wf_norm"]),
+        "wf_log": proc("log_check", ["wf_norm", "wf_log"]),
+        "log_mean": proc("mean_below_threshold", ["wf_log", "0.0", "log_mean"]),
+        "bl_dmean, bl_drms": proc("linear_slope_diff", [
+            "wf_blsub[0:750]", "bl_slope", "bl_intercept", "bl_dmean", "bl_drms"],
+            ["ADC", "ADC"]),
+        "pz_tail": proc("get", ["wf_pz", "-1", "pz_tail"], "ADC"),
+        "pz_at_t0": f"wf_pz[round(tp_0_est, wf_pz.grid, 'int64')]",
+        "vt_max, vt_min, n_max, n_min": proc("get_multi_local_extrema", [
+            "wf_trap", half, half, "0", half, "0", "vt_max(4, vector_len=n_max)",
+            "vt_min(4, vector_len=n_min)", "n_max", "n_min"]),
+        "pk_amp": proc("multi_a_filter", ["wf_trap", "vt_max", "pk_amp"], "ADC"),
+        "pk_a0": proc("get", ["pk_amp", "0", "pk_a0"], "ADC"),
+        "ps_fact, wf_ps": proc("presum", [
+            "wf_blsub", "0", "ps_fact", f"wf_ps({N_SAMPLES // COVER_PRESUM}, 'f')"]),
+        "ps_max": amax("wf_ps", "ps_max"),
+        "trapT_sel": f"where(t_over > {COVER_TOT_MIN}, trapTmax, 0.0)",
+        **{f"E_{m}": proc(f"{m}_to_nearest", ["trapTmax", repr(COVER_ROUND), f"E_{m}"],
+                          "ADC")
+           for m in ("round", "floor", "ceil", "trunc")},
+    })
+    cfg["outputs"] = cfg["outputs"] + COVER_OUTPUTS
+    return cfg
+
+
+COVER_OUTPUTS = [
+    "bl_below", "t_over", "sat_lo", "sat_hi", "trapEpick", "log_mean", "bl_dmean",
+    "bl_drms", "pz_tail", "pz_at_t0", "pk_a0", "ps_fact", "ps_max", "trapT_sel",
+    "E_round", "E_floor", "E_ceil", "E_trunc",
+]
+# the new ops (the opcodes of _tile_program.OPCODES they lower to)
+COVER_OPS = ("mean_below_threshold", "count", "presum", "log_check", "trap_pickoff",
+             "min_max_norm", "linear_slope_diff", "get", "multi_a_filter", "where",
+             "round")
 
 # the optimisers' phase (opt_configs): one-pole on the flagship generator's
 # rows, two-pole on the DPZ generator's, from a start away from the truth
@@ -1667,7 +1763,11 @@ def generic_bound(program, B) -> tuple[float, str]:
     sums and the current's difference and division, in the output's
     type; the polynomial residual's, the soft pile-up fit's and the
     correction's arithmetic, the centroid's comparisons; an injected pulse's
-    ``INJECT_OPS`` a sample, a layer's float64 products and sums)."""
+    ``INJECT_OPS`` a sample, a layer's float64 products and sums; slice
+    19's ops: a comparison and a float64 sum a sample for a masked mean,
+    comparisons for a count, a residual's eight float64 operations, a
+    comparison and a float64 log, a prefix, a presum's additions, a
+    normalisation's division; a gather, select or rounding none)."""
     import torch
 
     from dspeed_tpu_torch.processors._tile_program import OPCODES
@@ -1731,6 +1831,24 @@ def generic_bound(program, B) -> tuple[float, str]:
             else:  # the products and sums in float64, bias and activation
                 f64 += 2 * n * op.ip[5]
                 f32 += 2 * op.ip[5]
+        elif op.code == OPCODES["mean_below_threshold"]:
+            f32 += n  # the comparisons
+            f64 += n  # the sums
+        elif op.code == OPCODES["count"]:
+            f32 += n * (1 + op.ip[0])
+        elif op.code == OPCODES["linear_slope_diff"]:
+            # the residual's product, two sums, the division and two
+            # products, the two sums
+            f64 += 8 * n
+        elif op.code == OPCODES["log_check"]:
+            f32 += n  # the comparison
+            f64 += n  # the log, as one operation
+        elif op.code == OPCODES["trap_pickoff"]:
+            f64 += 2 * n  # the prefix's run sums and stores
+        elif op.code == OPCODES["presum"]:
+            f32 += n * (1 + op.ip[0])
+        elif op.code == OPCODES["min_max_norm"]:
+            f32 += n
         elif op.code in (OPCODES["reflected_conv"], OPCODES["avg_current"]):
             p = slots[op.outs[0]].length
             ops = 2 * (op.ip[1] if op.code == OPCODES["reflected_conv"] else 1) * p
@@ -1743,9 +1861,69 @@ def generic_bound(program, B) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def alone_program(full, op, got, vals):
+    """``(program, inputs)``: the member step of ``op`` (an op of ``full``)
+    lowered alone over the values the group's launch gave its arguments
+    (``got``; ``vals``, the group's inputs), storing what it writes."""
+    from dspeed_tpu_torch.processors._tile_program import lower
+
+    step = op.step
+    ins = {sp.key: got[sp.key] if sp.key in got else vals[sp.key]
+           for sp in step.arg_specs if sp.kind == "env"}
+    return lower([step], ins, [sp.key for sp in step.out_specs]), ins
+
+
+def k7_alone_ops(_cuda, full, got, vals, codes, label, timed, B):
+    """Each op of ``full`` whose opcode is in ``codes``, alone on the
+    values the group gave its arguments: one launch, every output bit for
+    bit against the plain walk of that one-op program on every row, and the
+    group's own output bit for bit against the launch alone (the op in its
+    group computes what it computes alone). The first op of each opcode not
+    in ``timed`` is timed through the wrapper and on the device alone
+    against its bound, the plain walk beside it; returns those figures by
+    opcode name."""
+    import torch
+
+    from dspeed_tpu_torch.processors._tile_program import OPCODES
+
+    names = {v: k for k, v in OPCODES.items()}
+    figs = {}
+    for op in full.ops:
+        if op.code not in codes:
+            continue
+        prog, ins = alone_program(full, op, got, vals)
+        alone = _cuda.generic_rows(prog, ins)
+        plain = _cuda.generic_rows_plain(prog, ins)
+        torch.cuda.synchronize()
+        for sp in op.step.out_specs:
+            if not same_bits(alone[sp.key], plain[sp.key]):
+                raise AssertionError(f"K7 {label} {sp.key}: the {names[op.code]} op "
+                                     f"differs from the plain walk")
+            if not same_bits(got[sp.key], alone[sp.key]):
+                raise AssertionError(f"K7 {label} {sp.key}: the {names[op.code]} op "
+                                     f"in its group differs from the op alone")
+        name = names[op.code]
+        if name in timed or name in figs:
+            continue
+        ms = time_ms(lambda: _cuda.generic_rows(prog, ins), 20)
+        dev_ms = device_ms(lambda: _cuda.generic_rows(prog, ins))
+        plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, ins), 3, 1)
+        bound, by = generic_bound(prog, B)
+        launch = _cuda.generic_rows_launch(prog)
+        print(f"K7 {name} op alone [{op.step.kernel.__name__}, {len(prog.ops)} ops, "
+              f"{prog.smem_bytes} B of shared memory, {launch['blocks_per_sm']} "
+              f"blocks per SM] {B} rows: kernel {ms:.4f} ms ({dev_ms:.4f} ms on the "
+              f"device alone), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{bound / dev_ms:.1%} of the bound on the device alone; outputs bit "
+              f"for bit against the plain walk on all {B} rows", flush=True)
+        figs[name] = dict(member=op.step.kernel.__name__, ms=ms, device_ms=dev_ms,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    return figs
+
+
 def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
              cfg=None, fuse="generic", members=(34, 19), path="generic flagship",
-             db=None):
+             db=None, alone_ops=()):
     """K7 on the groups of ``cfg`` (default: the generic flagship's two) in
     fusion mode ``fuse``: the chain built on the CPU over every event (NaN
     rows included), its steps run on the card up to the last group, each
@@ -1756,9 +1934,10 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
     bit on every row, and, within REL_TOL of its scale, the kernel route's
     (``double_pole_zero`` called alone, on the recurrence kernel); the
     ``inject`` and ``dense`` ops' outputs must equal the plain walk's bit for
-    bit on every row. ``db`` is the database (default: the flagship's).
-    Returns the figures, with each group's launch and ``ptxas -v``'s report
-    for ``generic_rows_kernel``."""
+    bit on every row. ``db`` is the database (default: the flagship's). The
+    ops of ``alone_ops`` (opcode names) are held and timed alone
+    (:func:`k7_alone_ops`). Returns the figures, with each group's launch
+    and ``ptxas -v``'s report for ``generic_rows_kernel``."""
     import torch
 
     import dspeed_tpu_torch.processors as tp
@@ -1766,6 +1945,8 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
     from dspeed_tpu_torch.processors._tile_program import OPCODES, lower
 
     names = {v: k for k, v in OPCODES.items()}
+    alone_codes = {OPCODES[c] for c in alone_ops}
+    alone_figs: dict = {}
     wf = wf.copy()
     bl = bl.copy()
     wf[NAN_SAMPLE_ROW, 500] = np.nan
@@ -1836,6 +2017,8 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
                 print(f"K7 {label} [{path}]: the {len(bits)} outputs of its inject and "
                       f"dense ops equal the plain walk's bit for bit on all {B} rows",
                       flush=True)
+            alone_figs.update(k7_alone_ops(_cuda, full, got, vals, alone_codes,
+                                           f"{label} [{path}]", alone_figs, B))
             outs = _cuda.generic_rows(prog, vals)
             for k in step.escapes:
                 g, w = outs[k], got[k]
@@ -1887,6 +2070,11 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
         device_ms=total("dev_ms"), bound_share=total("bound") / total("ms"),
         device_bound_share=total("bound") / total("dev_ms"), ptxas=ptxas,
     )
+    if alone_ops:
+        missing = set(alone_ops) - set(alone_figs)
+        if missing:
+            raise AssertionError(f"{path}: no op {sorted(missing)} in its groups")
+        out["ops_alone"] = alone_figs
     for lab, f in zip("abcdefgh", figs):
         out.update({f"group_{lab}_ms": f["ms"], f"group_{lab}_device_ms": f["dev_ms"],
                     f"group_{lab}_plain_ms": f["plain_ms"],
@@ -2915,10 +3103,83 @@ def inject_ml_checks(cols, cpu, amp, good, n_cpu, label):
     return shares, spread
 
 
+def cover_checks(cols, cpu, wf, bl, n_cpu, good, label):
+    """The coverage path's own columns: each finite on at least 90% of the
+    events (each share printed); on the first ``n_cpu`` events against the
+    port's CPU run, NaN positions equal and each within REL_TOL of its
+    scale, counts exactly. Excused, and counted: ``pz_at_t0`` and
+    ``trapEpick`` (they read ``tp_0_est``) where ``tp_0_est`` moved by a
+    sample; ``t_over`` where the CPU's trapezoid holds a sample within
+    REL_TOL of its scale from the threshold; a rounded ``trapTmax`` where
+    the card's and the CPU's ``trapTmax`` differ (it must then be the
+    card's own ``trapTmax`` rounded). ``trapT_sel`` must be ``trapTmax``
+    where ``t_over`` > COVER_TOT_MIN, else 0, on every event."""
+    import torch
+
+    import dspeed_tpu_torch.processors as tp
+
+    shares = {k: float(np.isfinite(np.asarray(cols[k], np.float64)).mean())
+              for k in COVER_OUTPUTS}
+    print(f"[{label}] finite share of each new column: "
+          + json.dumps({k: round(v, 4) for k, v in shares.items()}), flush=True)
+    low = [k for k, v in shares.items() if v < 0.9]
+    if low:
+        raise AssertionError(f"{label}: columns finite on < 90% of the events: {low}")
+    sel = np.where(cols["t_over"] > COVER_TOT_MIN, cols["trapTmax"], np.float32(0.0))
+    if not np.array_equal(cols["trapT_sel"], sel, equal_nan=True):
+        raise AssertionError(f"{label}: trapT_sel is not where(t_over > "
+                             f"{COVER_TOT_MIN}, trapTmax, 0)")
+    moved = cols["tp_0_est"][:n_cpu] != cpu["tp_0_est"]
+    moved &= np.isfinite(cpu["tp_0_est"])
+    e_moved = cols["trapTmax"][:n_cpu] != cpu["trapTmax"]
+    excused, worst = {}, 0.0
+    for k in COVER_OUTPUTS:
+        g = np.asarray(cols[k][:n_cpu], np.float64)
+        w = np.asarray(cpu[k], np.float64)
+        same = (g == w) | (np.isnan(g) & np.isnan(w))
+        skip = np.zeros(n_cpu, bool)
+        if k in ("pz_at_t0", "trapEpick"):
+            skip = moved
+        elif k.startswith("E_"):
+            skip = e_moved
+            fn = {"E_round": np.rint, "E_floor": np.floor, "E_ceil": np.ceil,
+                  "E_trunc": np.trunc}[k]
+            r = np.float32(COVER_ROUND)
+            own = (r * fn(cols["trapTmax"][:n_cpu] / r)).astype(np.float32)
+            if not np.array_equal(cols[k][:n_cpu][skip], own[skip], equal_nan=True):
+                raise AssertionError(f"{label} {k}: not the card's trapTmax rounded")
+        elif k == "t_over":
+            for r in np.flatnonzero(~same):
+                x = torch.from_numpy(wf[r:r + 1] - bl[r:r + 1, None].astype(np.float32))
+                trap = tp.trap_norm(tp.pole_zero(x, TAU)[0], 625, 188)[0][0].numpy()
+                thr = np.float32(cpu["trapTmax"][r]) * np.float32(0.5)
+                tie = np.abs(trap - thr) <= REL_TOL * np.nanmax(np.abs(trap))
+                skip[r] = bool(tie.any())
+        excused[k] = int((~same & skip).sum())
+        keep = ~skip
+        if not np.array_equal(np.isnan(g[keep]), np.isnan(w[keep])):
+            raise AssertionError(f"{label} {k}: NaN events differ from the CPU run")
+        exact = k in ("t_over", "sat_lo", "sat_hi", "ps_fact") or k.startswith("E_")
+        ok = keep & ~np.isnan(w)
+        if not ok.any():
+            continue
+        err = np.abs(g[ok] - w[ok]).max()
+        scale = max(np.abs(w[ok]).max(), 1e-30)
+        if (exact and err > 0) or err > REL_TOL * scale:
+            raise AssertionError(f"{label} {k}: max |card - CPU| {err:.3e} on the first "
+                                 f"{n_cpu} events (scale {scale:.3e})")
+        worst = max(worst, err / scale)
+    print(f"[{label}] new columns, first {n_cpu} events vs the port's CPU run: worst "
+          f"|diff|/max|col| {worst:.3e}; excused (tp_0_est moved a sample, a trapezoid "
+          f"sample on the threshold, trapTmax rounded across a multiple): "
+          f"{json.dumps({k: v for k, v in excused.items() if v})}", flush=True)
+    return shares
+
+
 def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
               expect, rt=None, device="cuda", fuse=True, forbid=(),
               aoe_geometry=AOE_GEOMETRY, trap_tol=0.005, extras=False,
-              inject_ml=False, db=None, n_cpu=256):
+              inject_ml=False, cover=False, db=None, n_cpu=256):
     """A main path: ``build_dsp`` of ``cfg`` with fusion mode ``fuse`` over
     every event of ``wf`` on ``device``, file -> file where ``h5py`` is
     installed, else Table -> Table; launch counts and generic-group splits
@@ -2931,8 +3192,9 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     reference of ``AOE_RATIO``); ``trapEmax`` must lie within ``trap_tol``
     of the injected amplitudes. With ``extras`` the flagship extras' own
     columns are held by :func:`extras_checks`, with ``inject_ml`` the
-    injection + ML path's by :func:`inject_ml_checks` (the flagship's by
-    the rules above). ``db`` is the database (default: the flagship's
+    injection + ML path's by :func:`inject_ml_checks`, with ``cover`` the
+    coverage path's by :func:`cover_checks` (the flagship's by the rules
+    above). ``db`` is the database (default: the flagship's
     ``pz.tau``); the first ``n_cpu`` events are held against the CPU run.
     Returns the launch counts."""
     import importlib.util
@@ -3017,7 +3279,7 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     searches = ("tp_0_est", *READS_TP0)
     not_found = {}
     new_cols = (EXTRAS_OUTPUTS if extras else []) + (
-        INJECT_ML_OUTPUTS if inject_ml else [])
+        INJECT_ML_OUTPUTS if inject_ml else []) + (COVER_OUTPUTS if cover else [])
     for k, v in cols.items():
         if k in new_cols:
             continue
@@ -3070,6 +3332,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
         extras_checks(cols, cpu, wf, bl, n_cpu, good, t0)
     if inject_ml:
         inject_ml_checks(cols, cpu, amp, good, n_cpu, label)
+    if cover:
+        cover_checks(cols, cpu, wf, bl, n_cpu, good, label)
     for name in expect:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the {label} path")
@@ -3194,6 +3458,158 @@ def hpge_table(lh5, wf, bl, **cols):
     for k, v in cols.items():
         tb.add_field(k, v)
     return tb
+
+
+# the browser phase: the JAX package's vis test's DSP view of the flagship
+VIS_LINES = ["wf_blsub", "tp_50", "trapEmax"]
+VIS_LEGEND = ["trapEmax", "tp_0_est"]
+VIS_FETCH = 64  # entries fetched, spread over the table
+
+
+def vis_phase(build_dsp, lh5, _cuda, wf, bl, card):
+    """The waveform browser (``dspeed_tpu_torch.vis.WaveformBrowser``) on the
+    card at the flagship's full width: built over an in-memory table of all
+    the events (the card machine has no ``h5py``: the ``LH5Iterator`` path
+    is tested on the CPU only), the flagship's chain with ``lines``
+    ``VIS_LINES``, a legend, ``x_unit`` us, ``norm="trapEmax"`` and
+    ``align="tp_50"``. Its chain must launch K1, K3 and K2 once each. It
+    fetches ``VIS_FETCH`` entries spread over the table (``find_entry``,
+    then ``find_next``); every stored line's x and y data and legend value
+    is held against the same columns of ``build_dsp`` on the card and
+    against a browser on the CPU over those events, y within REL_TOL of its
+    scale, x within one sample (the alignment on a time point). Where
+    matplotlib is installed it draws under ``Agg`` and saves a PNG; else it
+    says that drawing did not run. Returns the figures."""
+    import importlib.util
+
+    import torch
+
+    from dspeed_tpu_torch.units import Quantity
+    from dspeed_tpu_torch.vis import WaveformBrowser
+
+    wf = wf.copy()
+    bl = bl.copy()
+    wf[NAN_SAMPLE_ROW, 500] = np.nan
+    bl[NAN_BASELINE_ROW] = np.nan
+    n_ev = len(wf)
+    kw = dict(dsp_config=CONFIG, database={"pz": {"tau": TAU}}, lines=VIS_LINES,
+              legend=VIS_LEGEND, x_unit="us", norm="trapEmax", align="tp_50")
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wb = WaveformBrowser(hpge_table(lh5, wf, bl), device="cuda", **kw)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    want = {"fused_energy": 1, "fused_t0": 1, "cascade_tp": 1}
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"vis: the browser's chain launched {launches}, not K1, K3 "
+                             f"and K2 once each")
+    entries = [int(e) for e in np.linspace(0, n_ev - 1, VIS_FETCH - 8)]
+    t0 = time.time()
+    wb.find_entry(entries)
+    wb.find_entry(n_ev // 2)
+    wb.find_next(7, append=True)
+    fetch_s = time.time() - t0
+    entries += list(range(n_ev // 2, n_ev // 2 + 8))
+    if wb.n_stored != len(entries):
+        raise AssertionError(f"vis: {wb.n_stored} entries stored, not {len(entries)}")
+    # the same columns from build_dsp on the card, and a browser on the CPU
+    # over the fetched events
+    cfg = config(sorted(set(VIS_LINES) | set(VIS_LEGEND)))
+    cols = build_dsp(hpge_table(lh5, wf, bl), dsp_config=cfg, database=kw["database"],
+                     device="cuda")
+    sub = np.asarray(entries)
+    cpu = WaveformBrowser(hpge_table(lh5, wf[sub], bl[sub]), device="cpu", **kw)
+    cpu.find_entry(range(len(sub)))
+    us = 1e-3  # us a ns
+    worst_y = worst_x = 0.0
+    # line by line: the card's browser against the CPU's and the columns
+    for name in VIS_LINES:
+        tl, cl = wb.lines[name], cpu.lines[name]
+        if len(tl) != len(cl):
+            raise AssertionError(f"vis {name}: {len(tl)} lines stored on the card, "
+                                 f"{len(cl)} on the CPU")
+        for t, c in zip(tl, cl):
+            tx, ty = np.asarray(t.get_xdata(), np.float64), np.asarray(t.get_ydata(),
+                                                                       np.float64)
+            cx, cy = np.asarray(c.get_xdata(), np.float64), np.asarray(c.get_ydata(),
+                                                                       np.float64)
+            if not (np.array_equal(np.isnan(tx), np.isnan(cx))
+                    and np.array_equal(np.isnan(ty), np.isnan(cy))):
+                raise AssertionError(f"vis {name}: NaN samples differ from the CPU")
+            fy = np.isfinite(cy)
+            if fy.any():
+                err = np.abs(ty[fy] - cy[fy]).max()
+                worst_y = max(worst_y, err / np.abs(cy[fy]).max())
+                if err > REL_TOL * np.abs(cy[fy]).max():
+                    raise AssertionError(f"vis {name}: y off the CPU's by {err:.3e}")
+            fx = np.isfinite(cx)
+            if fx.any():
+                err = np.abs(tx[fx] - cx[fx]).max()
+                worst_x = max(worst_x, err)
+                if err > DT * us:
+                    raise AssertionError(f"vis {name}: x off the CPU's by {err:.3e} us")
+    # against build_dsp's columns on the card: the wf_blsub line of each
+    # entry, and the legend values
+    for i, e in enumerate(entries):
+        norm = float(cols["trapEmax"].nda[e])
+        ref = float(cols["tp_50"].nda[e]) * us
+        line = wb.lines["wf_blsub"][i]
+        y = cols["wf_blsub"].values.nda[e] / norm
+        x = DT * us * np.arange(N_SAMPLES) - ref
+        gy, gx = np.asarray(line.get_ydata()), np.asarray(line.get_xdata())
+        if not (np.array_equal(np.isnan(gy), np.isnan(y))
+                and np.array_equal(np.isnan(gx), np.isnan(x))):
+            raise AssertionError(f"vis: entry {e}: NaN samples differ from build_dsp's")
+        ok = np.isfinite(y)
+        if ok.any() and np.abs(gy[ok] - y[ok]).max() > REL_TOL * np.abs(y[ok]).max():
+            raise AssertionError(f"vis: entry {e}: y off build_dsp's wf_blsub / trapEmax")
+        ok = np.isfinite(x)
+        if ok.any() and np.abs(gx[ok] - x[ok]).max() > DT * us:
+            raise AssertionError(f"vis: entry {e}: x off build_dsp's tp_50 alignment")
+        for name in VIS_LEGEND:
+            v = wb.legend_vals[name][i]
+            g = float(v.m if isinstance(v, Quantity) else v)
+            w = float(cols[name].nda[e])
+            c = cpu.legend_vals[name][i]
+            c = float(c.m if isinstance(c, Quantity) else c)
+            for other in (w, c):
+                if np.isnan(g) != np.isnan(other) or (
+                        not np.isnan(g) and abs(g - other) > (
+                            DT if name.startswith("tp_") else REL_TOL * abs(other))):
+                    raise AssertionError(f"vis: entry {e}: legend {name} {g!r} against "
+                                         f"{other!r}")
+    drawn = "did not run: matplotlib is not installed on this machine"
+    if importlib.util.find_spec("matplotlib") is not None:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        wb.draw_current()
+        n_lines = sum(len(v) for v in wb.lines.values())
+        texts = wb.ax.get_legend().get_texts()
+        if len(wb.ax.get_lines()) != n_lines or len(texts) != wb.n_stored * len(VIS_LEGEND):
+            raise AssertionError("vis: the figure's lines or legend miss stored data")
+        with tempfile.TemporaryDirectory() as tmp:
+            png = os.path.join(tmp, "vis.png")
+            wb.save_figure(png)
+            size = os.path.getsize(png)
+        drawn = (f"{n_lines} lines and {len(texts)} legend entries under Agg, a PNG of "
+                 f"{size} bytes")
+    print(f"vis: WaveformBrowser over {n_ev} events (Table; the LH5Iterator path is "
+          f"tested on the CPU only, this machine has no h5py: "
+          f"{importlib.util.find_spec('h5py') is None}), lines {VIS_LINES}: built in "
+          f"{build_s * 1e3:.1f} ms (its chain: {launches}), {len(entries)} entries "
+          f"fetched in {fetch_s * 1e3:.2f} ms ({fetch_s * 1e3 / len(entries):.4f} ms an "
+          f"entry); against the CPU browser: worst y {worst_y:.3e} of scale, worst x "
+          f"{worst_x:.3e} us; against build_dsp on the card: within REL_TOL and one "
+          f"sample; drawing {drawn}; on {card}", flush=True)
+    if "did not run" in drawn:
+        print("vis: drawing did not run here (no matplotlib); the chain and the data "
+              "path ran on the card", flush=True)
+    return dict(build_ms=build_s * 1e3, fetch_ms_per_entry=fetch_s * 1e3 / len(entries),
+                entries=len(entries), launches=launches, worst_y=worst_y,
+                worst_x_us=worst_x, drawn="did not run" not in drawn)
 
 
 def checked_phase(build_dsp, build_processing_chain, lh5, _cuda, wf, bl, card):
@@ -3747,6 +4163,15 @@ def main() -> int:
     k7.update(new_ops_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ml_db))
     torch.cuda.empty_cache()
 
+    # -- the coverage path: K7 on its four generic groups, each of slice ----
+    # -- 19's ops alone on the values its group gave it (bit for bit against --
+    # -- the plain walk, timed against its bound) --------------------------
+    k7["cover_groups"] = k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev,
+                                  logs["generic_rows"], cfg=coverage_config(),
+                                  members=(34, 19, 24, 26), path="coverage",
+                                  alone_ops=COVER_OPS)
+    torch.cuda.empty_cache()
+
     # -- the main paths: build_dsp -------------------------------------------
     launches = e2e_phase(
         build_dsp, lh5, _cuda, config(), wf, amp, inj_t0, bl, card, "flagship",
@@ -3821,6 +4246,23 @@ def main() -> int:
     if iml_launches["generic_rows"] != 2:
         raise AssertionError(f"flagship injection + ML launches {iml_launches}: "
                              f"generic_rows not twice a chunk")
+    # the coverage path in the generic mode: four K7 groups, the peak
+    # finder's sweep between the third and the fourth, CUSP and ZAC on K4;
+    # no group splits; the first 1024 events against the CPU
+    cover_launches = e2e_phase(
+        build_dsp, lh5, _cuda, coverage_config(), wf, amp, inj_t0, bl, card,
+        "coverage", expect=("generic_rows", "banded_conv_multi", "peakdet_scan"),
+        rt=rt, device=DEVICE, fuse="generic",
+        forbid=("fused_energy", "cascade_tp", "fused_t0", "fused_current_poly",
+                "fused_current"),
+        cover=True, n_cpu=1024,
+    )
+    if cover_launches["generic_rows"] != 4:
+        raise AssertionError(f"coverage launches {cover_launches}: generic_rows not "
+                             f"four times a chunk")
+    # the waveform browser: its chain (K1, K3, K2) and its data path
+    vis = vis_phase(build_dsp, lh5, _cuda, wf, bl, card)
+    torch.cuda.empty_cache()
     # the optimisers through build_dsp: optimize_2pz's pole on the recurrence
     # kernel
     opt = opt_phase(build_dsp, lh5, _cuda, wf, bl, card)
@@ -3902,7 +4344,8 @@ def main() -> int:
             source="dspeed_tpu_torch/csrc/generic_rows.cu",
             replaces="dspeed_tpu/processors/_pallas.py:1782",
             launches=gen_launches["generic_rows"], library_ms=None,
-            inject_ml_launches=iml_launches["generic_rows"], **k7,
+            inject_ml_launches=iml_launches["generic_rows"],
+            cover_launches=cover_launches["generic_rows"], **k7,
         ),
         dict(
             name="recurrence", route="cuda",
@@ -3929,6 +4372,7 @@ def main() -> int:
         ),
     ]
     print(json.dumps({"paths": {
+        "vis": vis,
         "checked": chk,
         "stacked": {k: v for k, v in stk.items() if k != "launches"},
         "mesh": mesh,

@@ -56,6 +56,18 @@
 //   fixed_time_pickoff 'l' / 'i'     a per-row gather
 //   add, multiply, divide, convert,  per-row scalar arithmetic with _rn
 //   convert_round                    intrinsics, rounded to the slot's type
+//   greater, less, ... equal         per-row comparisons into bool slots
+//   mean_below_threshold,            block sums in float64 (K7's order:
+//   linear_slope_diff                _numerics.k7_sum), behind one barrier
+//   time_over_threshold, saturation  one op ("count"): integer counts
+//   log_check                        __syncthreads_or of x <= 0, then the
+//                                    log in float64, rounded once
+//   trap_pickoff                     the float64 prefix (gen_prefix), two
+//                                    window sums at the row's index
+//   presum, min_max_norm,            one pass over the output
+//   multi_a_filter
+//   get, get_default, where,         per-row gathers and selects, and the
+//   *_to_nearest                     four roundings to a multiple
 // A row with a NaN poisons what each member poisons, op by op.
 //
 // What bounds it on this card: bytes for most groups. The flagship's first
@@ -129,13 +141,17 @@
 #define OP_INTS (1 + OP_IN + OP_OUT + OP_IP)
 #define SLOT_INTS 8
 #define IP_PLAN 4  // ip[4]: bit 0, a block barrier before the op
-enum { S_KIND, S_F64, S_OFF, S_LEN, S_SIDX, S_EXT, S_ESC, S_ROOT };
+enum { S_KIND, S_TYPE, S_OFF, S_LEN, S_SIDX, S_EXT, S_ESC, S_ROOT };
+// a slot's S_TYPE (_tile_program.SLOT_TYPES): planes are float32 or float64;
+// a per-row scalar, held as a double, may also be a bool or an int64
+enum { T_F32, T_F64, T_BOOL, T_I64 };
 enum {
     OP_LOAD = 1, OP_MIN_MAX, OP_BL_SUB, OP_SLOPE_FIT, OP_POLE_ZERO, OP_TRAP,
     OP_AMAX, OP_CONV, OP_TPT, OP_WINDOWER, OP_AVG_CURRENT, OP_MW_MULTI,
     OP_FTP, OP_UFUNC, OP_CONVERT, OP_REFL_CONV, OP_DPZ, OP_POLY_RESID,
     OP_SOFT_PILEUP, OP_WF_CORR, OP_WF_CENTROID, OP_SOFT_PILEUP_OUT, OP_INJECT,
-    OP_DENSE
+    OP_DENSE, OP_MEAN_BELOW, OP_COUNT, OP_PRESUM, OP_LOG_CHECK, OP_TRAP_PICKOFF,
+    OP_MIN_MAX_NORM, OP_SLOPE_DIFF, OP_GET, OP_MULTI_A, OP_WHERE, OP_ROUND
 };
 
 // Mirrored field for field by ctypes in processors/_cuda.py. The tape rides
@@ -222,7 +238,7 @@ __device__ __forceinline__ float* esc_plane(const GenParams& P, const Row& R,
     return (float*)P.esc[e] + R.row * (long long)sf(P, s, S_LEN);
 }
 
-// The same for a float64 plane (S_F64 set: reflected_convolve_wf with
+// The same for a float64 plane (S_TYPE T_F64: reflected_convolve_wf with
 // float64 taps, avg_current over its output), which spans two words a
 // sample of the arena and has no slices.
 __device__ __forceinline__ double* plane64(const GenParams& P, int s) {
@@ -246,14 +262,19 @@ __device__ __forceinline__ double operand(const GenParams& P, int o, int k,
     return v;
 }
 
-// Thread 0 stores v, rounded to the slot's type, and its escape.
+// Thread 0 stores v, rounded to the slot's type, and its escape. A bool's
+// (0 or 1) and an int64's value (integral: its op truncated it) are stored
+// as they are, their escapes as float64, which the wrapper converts
+// (_tile_program.esc_dtype): a branch on the type here, inlined at every
+// scalar store, made the generic flagship's groups 0.9% slower
+// (tools/k7_time.py).
 __device__ __forceinline__ void put(const GenParams& P, const Row& R, int s,
                                     double v) {
-    const int f64 = sf(P, s, S_F64), e = sf(P, s, S_ESC);
-    if (!f64) v = (double)(float)v;
+    const int ty = sf(P, s, S_TYPE), e = sf(P, s, S_ESC);
+    if (ty == T_F32) v = (double)(float)v;
     gen_smem[sf(P, s, S_SIDX)] = v;
     if (e >= 0) {
-        if (f64) ((double*)P.esc[e])[R.row] = v;
+        if (ty != T_F32) ((double*)P.esc[e])[R.row] = v;
         else ((float*)P.esc[e])[R.row] = (float)v;
     }
 }
@@ -621,6 +642,20 @@ __device__ __forceinline__ int conv_tile(const float* win, const float* ks,
 
 // ---------------------------------------------------------------------------
 
+// A comparison's result, 0 or 1 (ip[0] of the ufunc op, 3 to 8). Not
+// inlined, nor ext_other: inlined, the two made the generic flagship's
+// group A 0.2% slower (tools/k7_time.py).
+__device__ __noinline__ double compare(int kind, double a, double b) {
+    switch (kind) {
+    case 3: return a > b;
+    case 4: return a >= b;
+    case 5: return a < b;
+    case 6: return a <= b;
+    case 7: return a == b;
+    default: return a != b;
+    }
+}
+
 // The ops that warp 0 runs alone, lane 0 storing the result: the searches
 // and the per-row scalar arithmetic.
 __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
@@ -687,12 +722,46 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
         }
     } else if (code == OP_UFUNC) {
         // float32 operands round once in float64 and once more to float32:
-        // the float32 result (53 >= 2 * 24 + 2 bits)
+        // the float32 result (53 >= 2 * 24 + 2 bits); a comparison of the
+        // operands' values (exact in float64) into a bool slot
         const double a = operand(P, k, 0, cast);
         const double b = operand(P, k, 1, cast);
         v = ip[0] == 0 ? __dadd_rn(a, b)
-          : ip[0] == 1 ? __dmul_rn(a, b) : __ddiv_rn(a, b);
+          : ip[0] == 1 ? __dmul_rn(a, b)
+          : ip[0] == 2 ? __ddiv_rn(a, b) : compare(ip[0], a, b);
         if (ip[1]) v = (double)(float)v;
+    } else if (code == OP_GET) {
+        // get / get_default (ip[0]): the sample at an int64 index (operand
+        // 1), from the end where negative, cut to int32 as get._pick cuts
+        // it; out of range NaN, or the default (operand 2) there and where
+        // the sample is NaN
+        const float* x = plane(P, in[0]);
+        const int n = plen(P, in[0]);
+        const int i = (int)(long long)operand(P, k, 1, 0);
+        const bool ok = i >= -n && i < n;
+        const float val = x[min(max(i < 0 ? i + n : i, 0), n - 1)];
+        if (!ip[0]) v = ok ? (double)val : dnan;
+        else v = ok && !isnan(val) ? (double)val : operand(P, k, 2, cast);
+    } else if (code == OP_WHERE) {
+        // operand 0 a bool (0 or 1)
+        v = operand(P, k, 0, 0) != 0.0 ? operand(P, k, 1, cast) : operand(P, k, 2, cast);
+    } else if (code == OP_ROUND) {
+        // round (rint: half to even), floor, ceil or trunc (ip[0]) of
+        // val / t, times t, in the value's type (ip[1]: float32)
+        const double a = operand(P, k, 0, cast), t = operand(P, k, 1, cast);
+        const int kind = ip[0];
+        if (ip[1]) {
+            const float q = __fdiv_rn((float)a, (float)t);
+            const float r = kind == 0 ? rintf(q) : kind == 1 ? floorf(q)
+                          : kind == 2 ? ceilf(q) : truncf(q);
+            v = (double)__fmul_rn((float)t, r);
+        } else {
+            const double q = __ddiv_rn(a, t);
+            const double r = kind == 0 ? rint(q) : kind == 1 ? floor(q)
+                           : kind == 2 ? ceil(q) : trunc(q);
+            v = __dmul_rn(t, r);
+        }
+        if (isnan(a)) v = dnan;
     } else {  // OP_CONVERT
         // (x + offset_in) * ratio - offset_out in float64, rounded half to
         // even for convert_round, in the input's type
@@ -702,6 +771,9 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
         v = __dsub_rn(__dmul_rn(__dadd_rn(x, a), tape_dp(P)[k * OP_DP]), b);
         if (ip[0]) v = rint(v);
         if (ip[1]) v = (double)(float)v;
+        // into an int64 slot as PyTorch converts it on the card (truncated,
+        // saturated, a NaN to 0)
+        if (sf(P, in[OP_IN], S_TYPE) == T_I64) v = (double)(long long)v;
     }
     if (lane == 0) put(P, R, in[OP_IN], v);
 }
@@ -1181,7 +1253,7 @@ __device__ __forceinline__ void op_reflected_conv(const GenParams& P,
     const int n = plen(P, in[0]);
     const bool bad = plane_nan(P, in[0], false);
     // float64 taps sit in pairs of words from an even word (8 bytes)
-    const int h = sf(P, out[0], S_F64)
+    const int h = sf(P, out[0], S_TYPE) == T_F64
         ? reflected_conv_row(x, n, reinterpret_cast<const double*>(P.taps + ip[0]),
                              ip[1], bad, plane64(P, out[0]), esc_plane64(P, R, out[0]))
         : reflected_conv_row(x, n, P.taps + ip[0], ip[1], bad, plane(P, out[0]),
@@ -1253,7 +1325,7 @@ __device__ __forceinline__ void op_gather(const GenParams& P, const Row& R,
             if (g) g[i] = v;
             h |= nan_inf(v);
         }
-    } else if (sf(P, out[0], S_F64)) {  // OP_AVG_CURRENT over float64 planes
+    } else if (sf(P, out[0], S_TYPE) == T_F64) {  // OP_AVG_CURRENT, float64 planes
         const int L = ip[0];
         const double lf = tape_dp(P)[k * OP_DP];
         const bool bad = plane_nan(P, in[0], false);
@@ -1718,6 +1790,274 @@ __device__ __forceinline__ void op_dense(const GenParams& P, const Row& R, int k
     if (o) flag_plane(P, out[0], h);
 }
 
+// ---------------------------------------------------------------------------
+// slice 19's ops: reductions, a prefix pick-off, and passes over a plane
+
+// mean_below_threshold: the samples below a (operand 1, in the row's type)
+// summed in float64 by each thread from 0.0 (samples t, t + 256, ...), the
+// warps' sums by warp_sum and their counts, into one reduction buffer
+// behind one barrier; thread 0 replays the sums (replay_sum:
+// _numerics.k7_sum's order) and stores their mean, divided in float64 and
+// rounded once; NaN where no sample is below, or where the row or a is NaN.
+__device__ __forceinline__ void op_mean_below(const GenParams& P, Row& R, int k,
+                                              const int* in, const int* out,
+                                              const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const double thr = operand(P, k, 1, ip[7]);
+    const bool bad = plane_nan(P, in[0], false) || isnan(thr);
+    const float a = (float)thr;
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    double s = 0.0;
+    int c = 0;
+    for (int i = tid; i < n; i += GEN_THREADS) {
+        const float v = x[i];
+        if (v < a) {
+            s += (double)v;
+            ++c;
+        }
+    }
+    s = warp_sum(s);
+    c = __reduce_add_sync(FULL_MASK, c);
+    double* red = gen_red[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        red[wid] = s;
+        red[GEN_WARPS + wid] = (double)c;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    double cnt = 0.0;
+#pragma unroll
+    for (int w = 0; w < GEN_WARPS; ++w) cnt += red[GEN_WARPS + w];
+    const double tot = replay_sum(red);
+    put(P, R, out[0], bad || cnt == 0.0 ? __longlong_as_double(0x7ff8000000000000LL)
+                                        : __ddiv_rn(tot, cnt));
+}
+
+// time_over_threshold (ip[0] = 0: the samples above operand 1) and
+// saturation (ip[0] = 1: the samples at 0 and at the high rail, the tape's
+// double 0), each compared in the row's type: integer counts by warps into
+// one reduction buffer behind one barrier; thread 0 stores them, NaN where
+// the row (or the threshold) is NaN.
+__device__ __forceinline__ void op_count(const GenParams& P, Row& R, int k,
+                                         const int* in, const int* out,
+                                         const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const bool sat = ip[0] == 1;
+    const double thr = sat ? tape_dp(P)[k * OP_DP] : operand(P, k, 1, ip[7]);
+    const bool bad = plane_nan(P, in[0], false) || isnan(thr);
+    const float a = (float)thr;
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    int c0 = 0, c1 = 0;
+    for (int i = tid; i < n; i += GEN_THREADS) {
+        const float v = x[i];
+        c0 += sat ? v == 0.f : v > a;
+        c1 += v == a;
+    }
+    c0 = __reduce_add_sync(FULL_MASK, c0);
+    c1 = __reduce_add_sync(FULL_MASK, c1);
+    int* ri = gen_redi[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        ri[wid] = c0;
+        ri[GEN_WARPS + wid] = c1;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    int t0 = 0, t1 = 0;
+#pragma unroll
+    for (int w = 0; w < GEN_WARPS; ++w) {
+        t0 += ri[w];
+        t1 += ri[GEN_WARPS + w];
+    }
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    put(P, R, out[0], bad ? dnan : (double)t0);
+    if (sat) put(P, R, out[1], bad ? dnan : (double)t1);
+}
+
+// linear_slope_diff: the residual r = x - (slope i + intercept) in float64
+// (operands 1 and 2, each product and sum rounded once), the sums of
+// r / (i + 1) and r * r as op_mean_below sums, behind one barrier; thread 0
+// stores the first and sqrt(second / (n - 1)) (0 for one sample).
+__device__ __forceinline__ void op_slope_diff(const GenParams& P, Row& R, int k,
+                                              const int* in, const int* out,
+                                              const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const double sl = operand(P, k, 1, ip[7]), b = operand(P, k, 2, ip[7]);
+    const bool bad = plane_nan(P, in[0], false) || isnan(sl) || isnan(b);
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    double s1 = 0.0, s2 = 0.0;
+    for (int i = tid; i < n; i += GEN_THREADS) {
+        const double fi = (double)i;
+        const double r = __dsub_rn((double)x[i], __dadd_rn(__dmul_rn(sl, fi), b));
+        s1 += __dmul_rn(r, __ddiv_rn(1.0, __dadd_rn(fi, 1.0)));
+        s2 += __dmul_rn(r, r);
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    double* red = gen_red[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        red[wid] = s1;
+        red[GEN_WARPS + wid] = s2;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    s1 = replay_sum(red);
+    s2 = replay_sum(red + GEN_WARPS);
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    put(P, R, out[0], bad ? dnan : s1);
+    put(P, R, out[1], bad ? dnan : n > 1 ? sqrt(__ddiv_rn(s2, (double)(n - 1))) : 0.0);
+}
+
+// log_check: whether any sample is <= 0 (__syncthreads_or, a barrier), then
+// the log of each sample in float64, rounded once; a NaN row where one is,
+// or where the row holds a NaN.
+__device__ __forceinline__ void op_log_check(const GenParams& P, const Row& R,
+                                             const int* in, const int* out) {
+    const float* x = plane(P, in[0]);
+    float* o = plane(P, out[0]);
+    float* g = esc_plane(P, R, out[0]);
+    const int n = plen(P, in[0]);
+    const bool nan = plane_nan(P, in[0], false);
+    int nonpos = 0;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) nonpos |= x[i] <= 0.f;
+    const bool bad = __syncthreads_or(nonpos) != 0 || nan;
+    const float qnan = __int_as_float(0x7fc00000);
+    int h = 0;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
+        const float v = bad ? qnan : (float)log((double)x[i]);
+        o[i] = v;
+        if (g) g[i] = v;
+        h |= nan_inf(v);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// trap_pickoff: the row's float64 prefix (gen_prefix, _numerics.k7_prefix's
+// order) into the scratch; thread 0 takes the trapezoid (rise ip[0], flat
+// ip[1]) at t = operand 1 from it: (sum x[t+1-rise, t+1) - sum x[t+1-2 rise
+// -flat, t+1-rise-flat)) / rise, each window a prefix difference; NaN where
+// t is NaN or not an integer, the windows do not fit, or the row is NaN.
+__device__ __forceinline__ void op_trap_pickoff(const GenParams& P, Row& R, int k,
+                                                const int* in, const int* out,
+                                                const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const bool nan = plane_nan(P, in[0], false);
+    const int pad = prefix_pad(n);
+    double* ps = scratch_of(P);
+    gen_prefix(R, x, n, ps, pad);
+    if (threadIdx.x != 0) return;
+    const int rise = ip[0], flat = ip[1];
+    const double t = operand(P, k, 1, ip[7]);
+    const double start = trunc(t) + 1.0;
+    const bool bad = nan || isnan(t) || floor(t) != t
+                     || !(start >= (double)(2 * rise + flat) && start <= (double)n);
+    double v = __longlong_as_double(0x7ff8000000000000LL);
+    if (!bad) {
+        const int hi = (int)start, h2 = hi - rise - flat;
+        auto at = [&](int q) { return q < 0 ? 0.0 : ps[pidx(q, pad)]; };
+        const double i1 = __dsub_rn(at(hi - 1), at(hi - rise - 1));
+        const double i2 = __dsub_rn(at(h2 - 1), at(h2 - rise - 1));
+        v = __ddiv_rn(__dsub_rn(i1, i2), (double)rise);
+    }
+    put(P, R, out[0], v);
+}
+
+// presum: output j the sum of samples [j f, (j + 1) f) (f = ip[1]) added in
+// turn to 0.0 in float32, each divided by f first where ip[0]; thread 0
+// stores f in the first output. One pass over the output; NaN where the row
+// holds a NaN.
+__device__ __forceinline__ void op_presum(const GenParams& P, const Row& R,
+                                          const int* in, const int* out,
+                                          const int* ip) {
+    const float* x = plane(P, in[0]);
+    float* o = plane(P, out[1]);
+    float* g = esc_plane(P, R, out[1]);
+    const int m = plen(P, out[1]), f = ip[1];
+    const bool bad = plane_nan(P, in[0], false);
+    const float ff = (float)f, qnan = __int_as_float(0x7fc00000);
+    int h = 0;
+    for (int j = threadIdx.x; j < m; j += GEN_THREADS) {
+        float acc = 0.f;
+        for (int q = 0; q < f; ++q) {
+            const float v = x[j * f + q];
+            acc = __fadd_rn(acc, ip[0] ? __fdiv_rn(v, ff) : v);
+        }
+        const float y = bad ? qnan : acc;
+        o[j] = y;
+        if (g) g[j] = y;
+        h |= nan_inf(y);
+    }
+    flag_plane(P, out[1], h);
+    if (threadIdx.x == 0)
+        put(P, R, out[0], bad ? __longlong_as_double(0x7ff8000000000000LL) : (double)f);
+}
+
+// min_max_norm: the row over max(|a_min|, |a_max|) (operands 1 and 2, in
+// the row's type), the row itself where either is 0; one pass, NaN where
+// the row holds a NaN.
+__device__ __forceinline__ void op_min_max_norm(const GenParams& P, const Row& R,
+                                                int k, const int* in,
+                                                const int* out, const int* ip) {
+    const float* x = plane(P, in[0]);
+    float* o = plane(P, out[0]);
+    float* g = esc_plane(P, R, out[0]);
+    const int n = plen(P, in[0]);
+    const bool bad = plane_nan(P, in[0], false);
+    const float amin = fabsf((float)operand(P, k, 1, ip[7]));
+    const float amax = fabsf((float)operand(P, k, 2, ip[7]));
+    const bool zero = amax == 0.f || amin == 0.f;
+    float d = amax >= amin ? amax : amin;
+    if (d == 0.f) d = 1.f;
+    const float qnan = __int_as_float(0x7fc00000);
+    int h = 0;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
+        const float v = bad ? qnan : zero ? x[i] : __fdiv_rn(x[i], d);
+        o[i] = v;
+        if (g) g[i] = v;
+        h |= nan_inf(v);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// multi_a_filter: output j the row's sample at index vt[j] (the plane in[1],
+// NaN-padded), cut to int32 as the member cuts it (a NaN as 0, an infinity
+// saturated); NaN where vt[j] is NaN or out of the row, or the row holds a
+// NaN. One pass over the output.
+__device__ __forceinline__ void op_multi_a(const GenParams& P, const Row& R,
+                                           const int* in, const int* out) {
+    const float* x = plane(P, in[0]);
+    const float* vt = plane(P, in[1]);
+    float* o = plane(P, out[0]);
+    float* g = esc_plane(P, R, out[0]);
+    const int n = plen(P, in[0]), m = plen(P, out[0]);
+    const bool bad = plane_nan(P, in[0], false);
+    const float qnan = __int_as_float(0x7fc00000);
+    int h = 0;
+    for (int j = threadIdx.x; j < m; j += GEN_THREADS) {
+        const float t = vt[j];
+        const int i = isnan(t) ? 0 : (int)t;
+        const float v = (bad || isnan(t) || i < 0 || i >= n) ? qnan : x[i];
+        o[j] = v;
+        if (g) g[j] = v;
+        h |= nan_inf(v);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// An external bool or int64 per-row scalar as a double (not inlined, as
+// compare).
+__device__ __noinline__ double ext_other(const GenParams& P, int e, int ty,
+                                         const Row& R) {
+    return ty == T_BOOL ? (double)((const unsigned char*)P.ext[e])[R.row]
+                        : (double)((const long long*)P.ext[e])[R.row];
+}
+
 __global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS)
 generic_rows_kernel(const __grid_constant__ GenParams P) {
     Row R;
@@ -1737,10 +2077,12 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         nanf_of(P)[s] = 0;
         const int r = P.n_ops * OP_INTS + s * SLOT_INTS;
         const int e = P.code[r + S_EXT];
-        if (P.code[r + S_KIND] == 1 && e >= 0)
+        if (P.code[r + S_KIND] == 1 && e >= 0) {
+            const int ty = P.code[r + S_TYPE];
             gen_smem[P.code[r + S_SIDX]] =
-                P.code[r + S_F64] ? ((const double*)P.ext[e])[R.row]
-                                  : (double)((const float*)P.ext[e])[R.row];
+                ty == T_F32 ? (double)((const float*)P.ext[e])[R.row]
+                : ty == T_F64 ? ((const double*)P.ext[e])[R.row] : ext_other(P, e, ty, R);
+        }
     }
     __syncthreads();
 
@@ -1756,6 +2098,9 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         case OP_FTP:
         case OP_UFUNC:
         case OP_CONVERT:
+        case OP_GET:
+        case OP_WHERE:
+        case OP_ROUND:
             if ((tid >> 5) == 0) {
                 __syncwarp();
                 warp_op(P, R, k, code);
@@ -1781,6 +2126,14 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         case OP_WF_CENTROID: op_wf_centroid(P, R, k, in, out, ip); break;
         case OP_INJECT: op_inject(P, R, k, in, out, ip); break;
         case OP_DENSE: op_dense(P, R, k, in, out, ip); break;
+        case OP_MEAN_BELOW: op_mean_below(P, R, k, in, out, ip); break;
+        case OP_COUNT: op_count(P, R, k, in, out, ip); break;
+        case OP_SLOPE_DIFF: op_slope_diff(P, R, k, in, out, ip); break;
+        case OP_LOG_CHECK: op_log_check(P, R, in, out); break;
+        case OP_TRAP_PICKOFF: op_trap_pickoff(P, R, k, in, out, ip); break;
+        case OP_PRESUM: op_presum(P, R, in, out, ip); break;
+        case OP_MIN_MAX_NORM: op_min_max_norm(P, R, k, in, out, ip); break;
+        case OP_MULTI_A: op_multi_a(P, R, in, out); break;
         default: break;
         }
     }

@@ -1310,11 +1310,22 @@ def generic_rows_plain(program, vals: dict) -> dict:
     (:func:`.pole_zero.double_pole_zero_runs`); ``soft_pileup``'s first op
     gives the fit's two coefficients (:func:`.soft_pileup_corr.soft_pileup_fit`),
     its second the member's output; a dense or classification layer sums in
-    K7's order (:func:`.ml.layer_rows`). Returns the escapes."""
+    K7's order (:func:`.ml.layer_rows`), and so do ``mean_below_threshold``,
+    ``linear_slope_diff``, ``trap_pickoff`` and ``presum`` (their ``_k7``
+    variants: K7's block sums, prefix and sums in turn). Returns the
+    escapes."""
+    from .arithmetic import mean_below_threshold_k7
+    from .linear_slope_fit import linear_slope_diff_k7
+    from .misc import presum_k7
     from .ml import layer_rows
     from .pole_zero import double_pole_zero_runs
     from .soft_pileup_corr import soft_pileup_fit
+    from .trap_filters import trap_pickoff_k7
     from ._tile_program import OPCODES
+
+    k7_order = {"mean_below_threshold": mean_below_threshold_k7,
+                "linear_slope_diff": linear_slope_diff_k7,
+                "trap_pickoff": trap_pickoff_k7, "presum": presum_k7}
 
     roots = {program.by_key[k]: vals[k] for k in program.ext_keys}
 
@@ -1335,7 +1346,11 @@ def generic_rows_plain(program, vals: dict) -> dict:
             outs = (layer_rows(args[0], args[1], args[2] if len(args) == 4 else None,
                                op.ip[1], kern.__name__),)
         elif getattr(kern, "uses_dims", False):
-            outs = kern.fn(*args, dims=op.step.dims)
+            fn = k7_order.get(kern.__name__, kern.fn)
+            outs = fn(*args, dims=op.step.dims)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+        elif kern.__name__ in k7_order:
+            outs = k7_order[kern.__name__](*args)
             outs = outs if isinstance(outs, tuple) else (outs,)
         else:
             outs = kern(*args)
@@ -1411,16 +1426,22 @@ def generic_rows(program, vals: dict) -> dict:
             v = v.contiguous()
         keep.append(v)
         P.ext[e] = v.data_ptr()
+    from ._tile_program import esc_dtype
+
     roots = {program.by_key[k]: vals[k] for k in program.ext_keys}
     for q, sid in enumerate(program.esc_roots):
         s = program.slots[sid]
         shape = (B, s.length) if s.kind == "plane" else (B,)
-        roots[sid] = torch.empty(shape, dtype=s.dtype, device=dev)
+        roots[sid] = torch.empty(shape, dtype=esc_dtype(s), device=dev)
         P.esc[q] = roots[sid].data_ptr()
     P.taps, P.B = taps.data_ptr(), B
     rc = lib.dspeed_generic_rows(ctypes.byref(P), program.smem_bytes, _stream())
     _check_rc(lib, rc, "generic_rows")
     LAUNCHES["generic_rows"] += 1
+    for sid in program.esc_roots:
+        want = program.slots[sid].dtype
+        if roots[sid].dtype != want:  # a bool's or an int64's float64 copy
+            roots[sid] = roots[sid].to(want)
     return _escape_values(program, roots)
 
 

@@ -19,8 +19,8 @@ import torch.nn.functional as F
 
 from .. import config
 
-__all__ = ["hp_cumsum", "iir_first_order", "iir_first_order_runs", "shift_right",
-           "true_div"]
+__all__ = ["hp_cumsum", "iir_first_order", "iir_first_order_runs", "k7_prefix",
+           "k7_sum", "shift_right", "true_div"]
 
 
 def hp_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -138,3 +138,67 @@ def iir_first_order_runs(x: torch.Tensor, p: float) -> torch.Tensor:
         q = q * p
     y = vs + torch.tensor(pk, dtype=f64, device=dev) * carry
     return y.reshape(B, threads * per)[:, :n]
+
+
+def k7_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis of a ``(B, n)`` float64 tensor in the order
+    of K7's block reductions (``csrc/generic_rows.cu``), which equal it bit
+    for bit: thread ``t`` of ``K7_THREADS`` adds ``v[t], v[t + 256], ...`` in
+    turn to 0.0; each warp's 32 sums meet by ``warp_sum``'s shuffle tree
+    (offsets 16 .. 1, lane 0's value); the 8 warp sums by ``replay_sum``
+    (each plus 0.0 twice, then offsets 4, 2, 1). A sum that starts from +0.0
+    is never -0.0, so the zeros that pad the row add nothing."""
+    B, n = v.shape
+    threads = K7_THREADS
+    per = -(-n // threads)
+    acc = torch.zeros((B, threads), dtype=torch.float64, device=v.device)
+    pad = F.pad(v.to(torch.float64), (0, per * threads - n))
+    for q in range(per):
+        acc = acc + pad[:, q * threads:(q + 1) * threads]
+    a = acc.view(B, threads // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        a = a[..., :o] + a[..., o:2 * o]
+    w = (a[..., 0] + 0.0) + 0.0
+    for o in (4, 2, 1):
+        w = w[:, :o] + w[:, o:2 * o]
+    return w[:, 0]
+
+
+def k7_prefix(x: torch.Tensor) -> torch.Tensor:
+    """The inclusive float64 prefix over the last axis of a ``(B, n)``
+    tensor in the order of K7's prefixes (``gen_prefix``), which equal it
+    bit for bit: ``K7_THREADS`` contiguous runs of ``ceil(n / K7_THREADS)``
+    samples (``scan_run``), each run's sum from 0.0; the sums scanned
+    exclusively as ``gen_excl_scan`` scans them (Hillis-Steele over a warp's
+    lanes, a shift by one lane, the 8 warp totals scanned likewise, warp
+    ``w`` taking the inclusive total of warps ``0 .. w-1`` plus its lane's
+    exclusive value); then each run's samples added to its start in
+    turn. Differs from :func:`hp_cumsum` by rounding only."""
+    B, n = x.shape
+    dev, f64 = x.device, torch.float64
+    threads = K7_THREADS
+    per = -(-n // threads)
+    runs = F.pad(x.to(f64), (0, per * threads - n)).view(B, threads, per)
+    run = torch.zeros((B, threads), dtype=f64, device=dev)
+    for k in range(per):
+        run = run + runs[:, :, k]
+    warps = threads // 32
+    s = run.view(B, warps, 32)
+    lane = torch.arange(32, device=dev)
+
+    def up(t, o):
+        return torch.cat([torch.zeros_like(t[..., :o]), t[..., :-o]], dim=-1)
+
+    for o in (1, 2, 4, 8, 16):
+        s = torch.where(lane >= o, s + up(s, o), s)
+    excl = up(s, 1)
+    tot = s[..., 31]
+    for o in (1, 2, 4):
+        tot = torch.cat([tot[:, :o], tot[:, o:] + tot[:, :-o]], dim=1)
+    before = torch.cat([torch.zeros_like(tot[:, :1]), tot[:, :-1]], dim=1)
+    start = (before[..., None] + excl).reshape(B, threads)
+    ps = torch.empty((B, threads, per), dtype=f64, device=dev)
+    for k in range(per):
+        start = start + runs[:, :, k]
+        ps[:, :, k] = start
+    return ps.reshape(B, threads * per)[:, :n]

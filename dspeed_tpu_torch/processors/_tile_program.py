@@ -7,13 +7,13 @@ whether Mosaic takes it from a probe compile (``_gen_probe_compile`` :1720).
 Here the host lowers the member list into a tape before any launch:
 
 - a **slot** is a per-row plane (shared memory on the card) or a per-row
-  scalar, in the dtype the unfused chain gives the same env key (float64
-  where the plain path computes in float64); a slice or an alias is a view
-  of its root slot and copies nothing. Planes are float32, except the
-  float64 planes that ``reflected_convolve_wf`` writes from float64 taps
-  and ``avg_current`` reads and writes (the SiPM chain computes in float64
-  from its smoothed waveform on), which take two words each and have no
-  slices;
+  scalar (a bool or an int64 too), in the dtype the unfused chain gives the
+  same env key (float64 where the plain path computes in float64); a slice
+  or an alias is a view of its root slot and copies nothing. Planes are
+  float32, except the float64 planes that ``reflected_convolve_wf`` writes
+  from float64 taps and ``avg_current`` reads and writes (the SiPM chain
+  computes in float64 from its smoothed waveform on), which take two words
+  each and have no slices;
 - an **op** is an opcode, its operand slots (or constants) and output slots,
   and static parameters (window lengths, taps, mode, direction);
 - a **liveness plan** gives each plane a place in shared memory from its
@@ -28,9 +28,13 @@ tape does not take raises :class:`LoweringError`; the group then splits
 groups, the SiPM chain's group, the flagship DPZ's energy-front group
 (``double_pole_zero``) and the flagship-extras groups need
 (``poly_residual``, ``soft_pileup``, ``time_point_thresh``'s interpolation
-modes, ``wf_correction``, ``wf_centroid``) and the flagship's injection and
+modes, ``wf_correction``, ``wf_centroid``), the flagship's injection and
 ML path need (``inject`` for the four pulse injectors, ``dense`` for the
-five layers of ``ml.py``).
+five layers of ``ml.py``), and the coverage path runs (the twelve kernels
+of ``mean_below_threshold``, ``count``, ``presum``, ``log_check``,
+``trap_pickoff``, ``min_max_norm``, ``linear_slope_diff``, ``get``,
+``multi_a_filter``, ``where`` and ``round``, with per-row comparisons into
+bool slots and conversions into int64 slots).
 
 :func:`~dspeed_tpu_torch.processors._cuda.generic_rows` runs a program on
 the card; :func:`~dspeed_tpu_torch.processors._cuda.generic_rows_plain`
@@ -58,7 +62,8 @@ from .soft_pileup_corr import exp_fit_sums
 
 log = logging.getLogger("dspeed_tpu_torch.generic")
 
-__all__ = ["LoweringError", "TileProgram", "lower", "SPLITS", "reset_splits"]
+__all__ = ["LoweringError", "TileProgram", "esc_dtype", "lower", "SPLITS",
+           "reset_splits"]
 
 
 class LoweringError(Exception):
@@ -86,12 +91,25 @@ OPCODES = {
     "fixed_time_pickoff": 13, "ufunc": 14, "convert": 15, "reflected_conv": 16,
     "double_pole_zero": 17, "poly_residual": 18, "soft_pileup": 19,
     "wf_correction": 20, "wf_centroid": 21, "soft_pileup_out": 22,
-    "inject": 23, "dense": 24,
+    "inject": 23, "dense": 24, "mean_below_threshold": 25, "count": 26,
+    "presum": 27, "log_check": 28, "trap_pickoff": 29, "min_max_norm": 30,
+    "linear_slope_diff": 31, "get": 32, "multi_a_filter": 33, "where": 34,
+    "round": 35,
 }
 OP_IN, OP_OUT, OP_IP, OP_DP = 6, 4, 8, 4
 OP_INTS = 1 + OP_IN + OP_OUT + OP_IP  # code, in, out, ip
-SLOT_INTS = 8  # kind, f64, off, len, sidx, ext, esc, root
-UFUNCS = {"add": 0, "multiply": 1, "divide": 2, "true_divide": 2}
+SLOT_INTS = 8  # kind, type, off, len, sidx, ext, esc, root
+# a slot's type (its record's second field): planes are float32 or float64;
+# a per-row scalar may also be a bool (a comparison's, a where's condition)
+# or an int64 (an index), held as a double in shared memory
+SLOT_TYPES = {torch.float32: 0, torch.float64: 1, torch.bool: 2, torch.int64: 3}
+UFUNCS = {"add": 0, "multiply": 1, "divide": 2, "true_divide": 2,
+          "greater": 3, "greater_equal": 4, "less": 5, "less_equal": 6,
+          "equal": 7, "not_equal": 8}
+COMPARISONS = tuple(k for k, v in UFUNCS.items() if v >= 3)  # into bool slots
+# the round op's kinds (ip[0])
+ROUNDERS = {"round_to_nearest": 0, "floor_to_nearest": 1, "ceil_to_nearest": 2,
+            "trunc_to_nearest": 3}
 THREADS = K7_THREADS  # threads per block, one row per block
 STATIC_SMEM = 512  # bytes of static shared memory (the reduction scratch)
 ALIGN = 4  # planes start on 16-byte boundaries
@@ -99,12 +117,15 @@ IP_PLAN = 4  # ip[4]: the barrier plan (bit 0: a block barrier before the op)
 # ops whose output planes may be float64 (two words a sample)
 F64_PLANE_OPS = ("reflected_convolve_wf", "avg_current")
 # ops that run on warp 0 alone (the others on every thread of the block)
-WARP_OPS = ("time_point_thresh", "fixed_time_pickoff", "ufunc", "convert")
+WARP_OPS = ("time_point_thresh", "fixed_time_pickoff", "ufunc", "convert", "get",
+            "where", "round")
 # ops with a block barrier of their own after their first reads of their
 # operands and before any of their writes (csrc/generic_rows.cu)
 BARRIERED_OPS = ("min_max", "linear_slope_fit", "pole_zero", "trap", "amax",
                  "conv", "moving_window_multi", "double_pole_zero",
-                 "poly_residual", "soft_pileup", "wf_centroid")
+                 "poly_residual", "soft_pileup", "wf_centroid",
+                 "mean_below_threshold", "count", "log_check", "trap_pickoff",
+                 "linear_slope_diff")
 # the dense op's kinds (ip[0]); all but the normalisation have a barrier
 # of their own, and take the scratch for their warps' partial sums
 DENSE_KINDS = {"normalisation_layer": 0, "dense_layer_no_bias": 1,
@@ -114,7 +135,8 @@ DENSE_KINDS = {"normalisation_layer": 0, "dense_layer_no_bias": 1,
 INJECT_KINDS = {"inject_sig_pulse": (0, 4), "inject_exp_pulse": (1, 4),
                 "inject_gumbel": (2, 3), "inject_general_logistic": (3, 6)}
 # barriered ops that read their input planes again after their own barrier
-READ_AFTER_BARRIER = ("trap", "pole_zero", "double_pole_zero", "wf_centroid")
+READ_AFTER_BARRIER = ("trap", "pole_zero", "double_pole_zero", "wf_centroid",
+                      "log_check")
 # the block reductions' two alternating buffers: for each op that takes
 # them (its first one before its first barrier), how many of the buffers
 # it took last it still reads after its last barrier. One is safe, since
@@ -122,7 +144,20 @@ READ_AFTER_BARRIER = ("trap", "pole_zero", "double_pole_zero", "wf_centroid")
 LATE_REDUCTION_READS = {"min_max": 1, "linear_slope_fit": 1, "pole_zero": 1,
                         "amax": 1, "trap": 0, "moving_window_multi": 0,
                         "double_pole_zero": 1, "poly_residual": 1,
-                        "soft_pileup": 1, "wf_centroid": 1}
+                        "soft_pileup": 1, "wf_centroid": 1,
+                        "mean_below_threshold": 1, "count": 1,
+                        "linear_slope_diff": 1, "trap_pickoff": 0}
+# ops that take the scratch: the prefix ops write it after their scan's
+# barrier; the convolution and a product stage in it before their own
+SCRATCH_OPS = ("trap", "moving_window_multi", "conv", "double_pole_zero",
+               "trap_pickoff")
+
+
+def esc_dtype(slot) -> torch.dtype:
+    """The type of a root's stored copy on the card: a bool's or an int64's
+    value is stored as a float64, which the wrapper converts to the slot's
+    type (``csrc/generic_rows.cu``'s ``put``)."""
+    return torch.float64 if slot.dtype in (torch.bool, torch.int64) else slot.dtype
 
 
 class Slot:
@@ -236,7 +271,7 @@ class TileProgram:
             r = self.root(sid)
             ints[base + sid * SLOT_INTS : base + (sid + 1) * SLOT_INTS] = [
                 0 if s.kind == "plane" else 1,
-                int(s.dtype == torch.float64),
+                SLOT_TYPES[s.dtype],
                 r.off + s.start if r.off >= 0 else -1,
                 s.length,
                 r.sidx,
@@ -254,6 +289,7 @@ class TileProgram:
 # ---------------------------------------------------------------------------
 
 _FLOATS = (torch.float32, torch.float64)
+_SCALARS = tuple(SLOT_TYPES)  # the types a per-row scalar slot may hold
 
 
 def _add_ext(prog: TileProgram, key, v, lead) -> None:
@@ -261,7 +297,7 @@ def _add_ext(prog: TileProgram, key, v, lead) -> None:
         raise LoweringError(f"input {key} is not a per-row scalar or plane")
     if v.shape[0] != lead:
         raise LoweringError(f"input {key} has {v.shape[0]} rows, not {lead}")
-    if v.dtype not in _FLOATS:
+    if v.dtype not in (_FLOATS if v.ndim == 2 else _SCALARS):
         raise LoweringError(f"input {key} is {v.dtype}, not floating")
     if v.ndim == 2:
         if v.dtype != torch.float32:
@@ -293,17 +329,21 @@ def _kernel_args(prog: TileProgram, step) -> list:
         if not _fetch_keeps_shape(spec, shape):
             raise LoweringError(f"{step.kernel.__name__}: a broadcast operand")
         want = _device_dtype(spec.dtype) if spec.dtype is not None else s.dtype
-        if want not in _FLOATS:
+        if want not in _SCALARS:
             raise LoweringError(f"{step.kernel.__name__}: a {want} operand")
         args.append(("slot", sid, want))
     return args
 
 
-def _out_slots(prog: TileProgram, step, f64_planes=False) -> list[int]:
+def _out_slots(prog: TileProgram, step, f64_planes=False, bools=False) -> list[int]:
+    """The step's output slots: float planes and scalars (bool scalars
+    with ``bools``, a comparison's)."""
     outs = []
     for sp in step.out_specs:
         dt = _device_dtype(sp.dtype)
-        if dt not in _FLOATS or not isinstance(sp.shape, tuple) or len(sp.shape) > 1:
+        ok = _FLOATS + (torch.bool,) * bools
+        if (dt not in ok or not isinstance(sp.shape, tuple) or len(sp.shape) > 1
+                or (dt == torch.bool and len(sp.shape))):
             raise LoweringError(f"{step.kernel.__name__}: output {sp.key} "
                                 f"is not a float scalar or plane")
         if len(sp.shape) == 1:
@@ -329,11 +369,15 @@ def _plane_words(s: Slot) -> int:
     return s.length * (2 if s.dtype == torch.float64 else 1)
 
 
-def _scalar(prog, arg, what):
-    """A scalar operand: a slot id, or ("const", float)."""
+def _scalar(prog, arg, what, types=_FLOATS):
+    """A scalar operand: a slot id, read as one of ``types``, or ("const",
+    float)."""
     if arg[0] == "slot":
         if prog.slots[arg[1]].kind != "scalar":
             raise LoweringError(f"{what} must be a per-row scalar")
+        want = prog.slots[arg[1]].dtype if arg[2] is None else arg[2]
+        if want not in types:
+            raise LoweringError(f"{what}: a {want} operand")
         return arg[1]
     v = arg[1]
     if isinstance(v, (np.ndarray, torch.Tensor)) and np.ndim(v) > 0:
@@ -362,7 +406,8 @@ def _f32(arg) -> int:
 def _lower_kernel(prog: TileProgram, step) -> None:
     name = step.kernel.__name__
     args = _kernel_args(prog, step)
-    outs = _out_slots(prog, step, f64_planes=name in F64_PLANE_OPS)
+    outs = _out_slots(prog, step, f64_planes=name in F64_PLANE_OPS,
+                      bools=name in COMPARISONS)
     o = [prog.slots[s] for s in outs]
     kinds = tuple(s.kind for s in o)
 
@@ -646,6 +691,90 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x.ins = [_plane(prog, args[0], name), _scalar(prog, args[1], "t_in")]
         # the pick time in the row's type, as the kernel casts it
         x.ip = [ord(mode)] + [0] * 6 + [2]
+    elif name in ("mean_below_threshold", "time_over_threshold"):
+        need(len(args) == 2 and kinds == ("scalar",), "signature")
+        mean = name == "mean_below_threshold"
+        x = op(name if mean else "count")
+        x.ins = [_plane(prog, args[0], name), _scalar(prog, args[1], "a_threshold")]
+        # ip[0]: the count's kind (0: samples above); the threshold in the
+        # row's type, as the member casts it
+        x.ip = [0] * 7 + [2]
+    elif name == "saturation":
+        need(len(args) == 2 and kinds == ("scalar", "scalar"), "signature")
+        bd = _static(args[1], "bit_depth_in")
+        need(float(bd) == int(bd) and 0 < int(bd) <= 64, "a positive integral bit depth")
+        x = op("count")
+        x.ins = [_plane(prog, args[0], name)]
+        # kind 1: samples at 0 and at the high rail, in the row's type
+        x.ip = [1]
+        x.dp = [float(np.float32(2 ** int(bd) - int(bd)))]
+    elif name == "presum":
+        need(len(args) == 2 and kinds == ("scalar", "plane"), "signature")
+        w = _plane(prog, args[0], name)
+        n, m = prog.slots[w].length, o[1].length
+        dn = _static(args[1], "do_norm")
+        need(int(dn) in (0, 1) and 1 <= m <= n, "do_norm or the output's length")
+        x = op("presum")
+        x.ins = [w]
+        x.ip = [int(dn), n // m]
+    elif name == "log_check":
+        need(len(args) == 1 and kinds == ("plane",), "signature")
+        w = _plane(prog, args[0], name)
+        need(o[0].length == prog.slots[w].length, "a row as long as its input")
+        op("log_check").ins = [w]
+    elif name == "trap_pickoff":
+        need(len(args) == 4 and kinds == ("scalar",), "signature")
+        w = _plane(prog, args[0], name)
+        rise, flat = (int(_static(a, "a trapezoid section")) for a in args[1:3])
+        need(rise >= 1 and flat >= 0 and 2 * rise + flat <= prog.slots[w].length,
+             "sections out of range")
+        x = op("trap_pickoff")
+        x.ins = [w, _scalar(prog, args[3], "t_pickoff")]
+        x.ip = [rise, flat] + [0] * 5 + [_f32(args[3]) << 1]
+    elif name == "min_max_norm":
+        need(len(args) == 3 and kinds == ("plane",), "signature")
+        w = _plane(prog, args[0], name)
+        need(o[0].length == prog.slots[w].length, "a row as long as its input")
+        x = op("min_max_norm")
+        x.ins = [w, _scalar(prog, args[1], "a_min"), _scalar(prog, args[2], "a_max")]
+        # the extrema in the row's type
+        x.ip = [0] * 7 + [6]
+    elif name == "linear_slope_diff":
+        need(len(args) == 3 and kinds == ("scalar", "scalar"), "signature")
+        x = op("linear_slope_diff")
+        x.ins = [_plane(prog, args[0], name), _scalar(prog, args[1], "slope"),
+                 _scalar(prog, args[2], "intercept")]
+        x.ip = [0] * 7 + [_f32(args[1]) << 1 | _f32(args[2]) << 2]
+    elif name in ("get", "get_default"):
+        dflt = name == "get_default"
+        need(len(args) == 2 + dflt and kinds == ("scalar",), "signature")
+        x = op("get")
+        # the index: an int64 slot, or a constant (in the tape's doubles)
+        x.ins = [_plane(prog, args[0], name),
+                 _scalar(prog, args[1], "the index", (torch.int64,))]
+        if dflt:
+            x.ins.append(_scalar(prog, args[2], "the default"))
+        # ip[0]: get_default; its default in the row's type
+        x.ip = [int(dflt)] + [0] * 6 + [4 * dflt]
+    elif name == "multi_a_filter":
+        need(len(args) == 2 and kinds == ("plane",), "signature")
+        vt = _plane(prog, args[1], "vt_max_in")
+        need(o[0].length == prog.slots[vt].length, "an output as long as the indices")
+        op("multi_a_filter").ins = [_plane(prog, args[0], name), vt]
+    elif name == "where":
+        need(len(args) == 3 and kinds == ("scalar",), "per-row scalars")
+        x = op("where")
+        x.ins = [_scalar(prog, args[0], "condition", (torch.bool,)),
+                 _scalar(prog, args[1], name), _scalar(prog, args[2], name)]
+        x.ip = [0] * 7 + [_f32(args[1]) << 1 | _f32(args[2]) << 2]
+    elif name in ROUNDERS:
+        need(len(args) == 2 and kinds == ("scalar",), "signature")
+        x = op("round")
+        x.ins = [_scalar(prog, args[0], name), _scalar(prog, args[1], "to_nearest")]
+        # in the value's (and output's) type: ip[1] float32, both operands
+        # rounded to it
+        f32 = int(o[0].dtype == torch.float32)
+        x.ip = [ROUNDERS[name], f32] + [0] * 5 + [3 * f32]
     elif name in UFUNCS:
         need(len(args) == 2 and kinds == ("scalar",)
              and step.kernel.signature == "(),()->()", "a per-row scalar ufunc")
@@ -664,13 +793,13 @@ def _lower_convert(prog: TileProgram, step) -> None:
         raise LoweringError(f"{name} has no K7 op")
     sid = prog.slot_of(step.in_key)
     s = prog.slots[sid]
-    if s.kind != "scalar":
-        raise LoweringError(f"{name}: K7 converts per-row scalars only")
+    if s.kind != "scalar" or s.dtype not in _FLOATS:
+        raise LoweringError(f"{name}: K7 converts float per-row scalars only")
     dt = s.dtype
     out_var = step.out_var
     if out_var is not None and out_var.dtype is not auto:
         dt = _device_dtype(out_var.dtype)
-        if dt not in _FLOATS:
+        if dt not in _FLOATS + (torch.int64,):
             raise LoweringError(f"{name}: a {dt} output")
     args = [("slot", sid, s.dtype)]
     for off in (step.from_offset, step.to_offset):
@@ -814,7 +943,8 @@ def _plan(prog: TileProgram) -> None:
     prog.n_scal += prog.n_scal % 2
     scratch = 0
     for op in ops:
-        if op.code in (OPCODES["trap"], OPCODES["moving_window_multi"]):
+        if op.code in (OPCODES["trap"], OPCODES["moving_window_multi"],
+                       OPCODES["trap_pickoff"]):
             n = prog.slots[op.ins[0]].length
             even = -(-n // THREADS) % 2 == 0  # runs of an even length
             scratch = max(scratch, n + ((n >> 4) + 1 if even else 0))
@@ -884,8 +1014,7 @@ def _barriers(prog: TileProgram) -> None:
         in_planes = [e for e in ins if slots[e].kind == "plane"]
         out_planes = [o for o in op.outs if slots[o].kind == "plane"]
         products = name == "dense" and op.ip[0] != 0  # a dense or classification
-        uses_scratch = products or name in ("trap", "moving_window_multi", "conv",
-                                            "double_pole_zero")
+        uses_scratch = products or name in SCRATCH_OPS
         own_barrier = products or name in BARRIERED_OPS
         need = any(slots[e].root in planes for e in in_planes)
         need |= not warp and any(slots[e].root in scalars for e in ins

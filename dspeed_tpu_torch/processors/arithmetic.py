@@ -8,6 +8,7 @@ import torch
 
 from ._helpers import any_bad, as_tensor, cdim, isnan_any, nanmask
 from ._kernel import kernel
+from ._numerics import k7_sum
 
 __all__ = ["mean_below_threshold"]
 
@@ -22,6 +23,22 @@ def mean_below_threshold(w_in, a_threshold):
     tot = torch.where(sel, w_in, torch.zeros((), dtype=w_in.dtype,
                                              device=w_in.device)).sum(dim=-1)
     out = torch.where(cnt > 0, tot / cnt.clamp(min=1).to(w_in.dtype),
+                      torch.full((), float("nan"), dtype=w_in.dtype,
+                                 device=w_in.device))
+    return nanmask(any_bad(isnan_any(w_in, 1), isnan_any(a_threshold)), out)
+
+
+def mean_below_threshold_k7(w_in, a_threshold):
+    """:func:`mean_below_threshold` as K7's op computes it (the tape's plain
+    walk): the selected samples summed in float64 in K7's block order
+    (:func:`._numerics.k7_sum`), divided by their count in float64 and
+    rounded once to the row's type."""
+    thr = cdim(as_tensor(a_threshold, w_in, w_in.dtype))
+    sel = w_in < thr
+    cnt = sel.sum(dim=-1)
+    tot = k7_sum(torch.where(sel, w_in, torch.zeros((), dtype=w_in.dtype,
+                                                    device=w_in.device)))
+    out = torch.where(cnt > 0, (tot / cnt.to(torch.float64)).to(w_in.dtype),
                       torch.full((), float("nan"), dtype=w_in.dtype,
                                  device=w_in.device))
     return nanmask(any_bad(isnan_any(w_in, 1), isnan_any(a_threshold)), out)

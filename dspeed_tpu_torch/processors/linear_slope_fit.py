@@ -13,6 +13,7 @@ import torch
 from .. import config
 from ._helpers import any_bad, as_tensor, cdim, isnan_any, nanmask
 from ._kernel import kernel
+from ._numerics import k7_sum, true_div
 
 __all__ = ["linear_slope_fit", "linear_slope_diff"]
 
@@ -61,13 +62,26 @@ def linear_slope_diff(w_in, slope, intercept):
     ``linear_slope_fit.py:101``). The reference's "mean" accumulates
     ``resid[i] / (i + 1)``, a harmonic-weighted sum, and that weighting is
     kept, as in the JAX package."""
+    return _slope_diff(w_in, slope, intercept, lambda v: v.sum(dim=-1))
+
+
+def linear_slope_diff_k7(w_in, slope, intercept):
+    """:func:`linear_slope_diff` as K7's op computes it (the tape's plain
+    walk): its two sums in K7's block order (:func:`._numerics.k7_sum`)."""
+    return _slope_diff(w_in, slope, intercept, k7_sum)
+
+
+def _slope_diff(w_in, slope, intercept, total):
+    """``linear_slope_diff`` with ``total`` summing over the last axis: the
+    residual in the accumulation type, each product and sum rounded once."""
     n = w_in.shape[-1]
     acc = config.accum_dtype()
     i = torch.arange(n, dtype=acc, device=w_in.device)
     resid = w_in.to(acc) - (cdim(as_tensor(slope, w_in, acc)) * i
                             + cdim(as_tensor(intercept, w_in, acc)))
-    mean = (resid * (1.0 / (i + 1.0))).sum(dim=-1)
-    rms = (torch.sqrt((resid * resid).sum(dim=-1) / (n - 1)) if n > 1
+    mean = total(resid * (1.0 / (i + 1.0)))
+    # a true division on the card too (see _numerics.true_div)
+    rms = (torch.sqrt(true_div(total(resid * resid), float(n - 1))) if n > 1
            else torch.zeros_like(mean))
     dtype = w_in.dtype
     bad = any_bad(isnan_any(w_in, 1), isnan_any(slope), isnan_any(intercept))

@@ -53,18 +53,34 @@ def presum(w_in, do_norm, dims):
     The reference's argument order is ``(w_in, do_norm, ps_fact_out,
     w_out)``, ``ps_fact`` an output reporting ``len(w_in)//len(w_out)``.
     """
-    n = w_in.shape[-1]
-    m = dims["m"]
     dn = static_int(do_norm, "presum", "do_norm")
     if dn not in (0, 1):
         raise DSPFatal("do_norm type not found.")
+    return _presum(w_in, dn, dims["m"], lambda wt: wt.sum(dim=-1))
+
+
+def presum_k7(w_in, do_norm, dims):
+    """:func:`presum` as K7's op computes it (the tape's plain walk): each
+    output's samples added in turn to 0.0 in the row's type."""
+
+    def total(wt):
+        out = torch.zeros(wt.shape[:-1], dtype=wt.dtype, device=wt.device)
+        for j in range(wt.shape[-1]):
+            out = out + wt[..., j]
+        return out
+
+    return _presum(w_in, static_int(do_norm, "presum", "do_norm"), dims["m"], total)
+
+
+def _presum(w_in, dn, m, total):
+    """``presum``'s outputs, ``total`` summing each block of samples."""
+    n = w_in.shape[-1]
     fact = n // m
     wt = w_in[..., : m * fact].reshape(*w_in.shape[:-1], m, fact)
     if dn == 1:
         # the reference divides each addend by the factor before summing
-        out = (wt / torch.full((), fact, dtype=w_in.dtype, device=w_in.device)).sum(-1)
-    else:
-        out = wt.sum(dim=-1)
+        wt = wt / torch.full((), fact, dtype=w_in.dtype, device=w_in.device)
+    out = total(wt)
     bad = isnan_any(w_in, 1)
     ps_fact = torch.full(w_in.shape[:-1], float(fact), dtype=w_in.dtype,
                          device=w_in.device)
@@ -103,11 +119,15 @@ def pad(w_in, len_in, offset, start_val, end_val, dims):
 
 @kernel("(n)->(n)", ["f->f", "d->d"])
 def log_check(w_in):
-    """log(w) if strictly positive everywhere, else all-NaN."""
+    """log(w) if strictly positive everywhere, else all-NaN. The log is
+    taken in float64 and rounded once to the row's type, as the engine's
+    widened ufuncs take it (``processing_chain._WIDENED_UFUNCS``), so the
+    card, the CPU and K7's ``log_check`` op give the same bits."""
     any_nonpos = (w_in <= 0).any(dim=-1)
     safe = torch.where(w_in <= 0, torch.ones((), dtype=w_in.dtype,
                                               device=w_in.device), w_in)
-    return nanmask(isnan_any(w_in, 1) | any_nonpos, torch.log(safe))
+    out = torch.log(safe.to(torch.float64)).to(w_in.dtype)
+    return nanmask(isnan_any(w_in, 1) | any_nonpos, out)
 
 
 @kernel("(n)->(n)", ["f->f", "d->d"])

@@ -16,13 +16,12 @@ package (``dspeed_tpu/processors/trap_filters.py``).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..errors import DSPFatal
 from ._helpers import any_bad, isnan_any, nanmask, static_int
 from ._kernel import kernel
-from ._numerics import hp_cumsum, shift_right
+from ._numerics import hp_cumsum, k7_prefix, shift_right, true_div
 
 __all__ = ["trap_filter", "trap_norm", "asym_trap_filter", "trap_pickoff"]
 
@@ -111,6 +110,17 @@ def trap_pickoff(w_in, rise, flat, t_pickoff):
     rise`` with ``t = int(t_pickoff)``, from the float64 prefix; NaN where
     the window does not fit or ``t_pickoff`` is not an integer.
     """
+    return _pickoff(w_in, rise, flat, t_pickoff, hp_cumsum)
+
+
+def trap_pickoff_k7(w_in, rise, flat, t_pickoff):
+    """:func:`trap_pickoff` as K7's op computes it (the tape's plain walk):
+    from the float64 prefix in K7's order (:func:`._numerics.k7_prefix`)."""
+    return _pickoff(w_in, rise, flat, t_pickoff, k7_prefix)
+
+
+def _pickoff(w_in, rise, flat, t_pickoff, prefix):
+    """``trap_pickoff`` from the inclusive prefix ``prefix(w_in)``."""
     n = w_in.shape[-1]
     p = _check("trap_pickoff", rise=rise, flat=flat)
     if 2 * p["rise"] + p["flat"] > n:
@@ -118,7 +128,7 @@ def trap_pickoff(w_in, rise, flat, t_pickoff):
     t = torch.as_tensor(t_pickoff, device=w_in.device)
     t = t.expand(w_in.shape[:-1]) if t.ndim == 0 else t
     start = torch.trunc(t).to(torch.int64) + 1
-    ps = hp_cumsum(w_in)
+    ps = prefix(w_in)
 
     def s_at(k):
         # the inclusive prefix S[k], S[k < 0] = 0
@@ -131,7 +141,9 @@ def trap_pickoff(w_in, rise, flat, t_pickoff):
 
     i1 = win_sum(start, p["rise"])
     i2 = win_sum(start - p["rise"] - p["flat"], p["rise"])
-    val = ((i1 - i2) / np.float64(p["rise"])).to(w_in.dtype)
+    # a true division on the card too (a python scalar there divides as a
+    # product with its rounded reciprocal)
+    val = true_div(i1 - i2, float(p["rise"])).to(w_in.dtype)
     in_range = (start >= 2 * p["rise"] + p["flat"]) & (start <= n)
     non_integer = torch.floor(t) != t
     bad = any_bad(isnan_any(w_in, 1), isnan_any(t), ~in_range, non_integer)

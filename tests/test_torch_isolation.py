@@ -341,3 +341,19 @@ def test_parallel_and_checked_run_without_jax_or_the_jax_package(tmp_path):
     *_, modules, imported = res.stdout.strip().splitlines()
     assert json.loads(modules) == []
     assert imported == "True"
+
+
+def test_vis_imports_neither_jax_nor_the_jax_package_nor_matplotlib():
+    """``import dspeed_tpu_torch.vis`` loads no JAX, no module of the JAX
+    package and no matplotlib (only drawing imports it)."""
+    code = (
+        f"import sys, json\nsys.path.insert(0, {REPO!r})\n"
+        "import dspeed_tpu_torch.vis\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dspeed_tpu', 'matplotlib'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []

@@ -77,7 +77,8 @@ def check_against_pallas(step, vals, jax_fn, codes):
 
     def body(jv):
         jargs = [jv[prog.slots[a[1]].key].astype(
-                     {torch.float32: jnp.float32, torch.float64: jnp.float64}[a[2]])
+                     {torch.float32: jnp.float32, torch.float64: jnp.float64,
+                      torch.bool: jnp.bool_, torch.int64: jnp.int64}[a[2]])
                  if a[0] == "slot" else a[1] for a in op.args]
         return dict(zip(writes, jax_fn(*jargs)))
 

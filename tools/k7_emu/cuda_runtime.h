@@ -18,6 +18,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __grid_constant__
 #define __align__(n) alignas(n)
@@ -150,6 +151,15 @@ inline int __reduce_max_sync(unsigned, int v) {
     __syncwarp();
     int r = INT_MIN;
     for (int l = 0; l < 32; ++l) r = std::max(r, (int)(long long)emu_blk->xchg[w][l]);
+    __syncwarp();
+    return r;
+}
+inline int __reduce_add_sync(unsigned, int v) {
+    const int w = emu_wid();
+    emu_blk->xchg[w][emu_lane()] = (unsigned long long)(long long)v;
+    __syncwarp();
+    int r = 0;
+    for (int l = 0; l < 32; ++l) r += (int)(long long)emu_blk->xchg[w][l];
     __syncwarp();
     return r;
 }

@@ -47,6 +47,8 @@ int main(int argc, char** argv) {
         const long long n = rd<long long>(f), stride = rd<long long>(f);
         P.ext_stride[e] = stride;
         if (kind == 2) P.ext[e] = rdv<double>(f, n, off);
+        else if (kind == 3) P.ext[e] = rdv<unsigned char>(f, n, off);
+        else if (kind == 4) P.ext[e] = rdv<long long>(f, n, off);
         else P.ext[e] = rdv<float>(f, n, off);
     }
     std::vector<std::pair<void*, size_t>> outs;

@@ -46,9 +46,17 @@ NaN baseline and an infinite sample), ``injml`` (``INJML_CONFIG``: the four
 injectors, a normalisation, two dense layers and two classifications in one
 group at 600 samples, with a NaN sample, a NaN baseline and an infinite
 sample; the CPU's ``exp`` and ``sqrt`` are not the card's, so the plain
-walk holds it by ``check_generic``'s rule). ``--drop-barrier OP`` builds the
-kernel with the first ``__syncthreads()`` of that op's device function
-taken out (a mutation the ``tsan`` mode must report).
+walk holds it by ``check_generic``'s rule), ``cover`` (``COVER_CONFIG``:
+slice 19's ops, ``mean_below_threshold``, ``time_over_threshold`` and
+``saturation`` (the ``count`` op), ``linear_slope_diff``, ``log_check``,
+``trap_pickoff``, ``presum``, ``min_max_norm``, ``get``, ``get_default`` at
+an int64 index, ``multi_a_filter``, ``where`` on a bool comparison and
+``round_to_nearest``, in two groups at 600 samples with a NaN sample, a NaN
+baseline and an infinite sample). ``--drop-barrier OP`` builds the kernel
+with the first block barrier (``__syncthreads()``, or ``log_check``'s
+``__syncthreads_or``) of that op's device function taken out, for
+``trap_pickoff`` the one that ends its prefix (``gen_prefix``): a mutation
+the ``tsan`` mode must report.
 """
 
 import argparse
@@ -66,9 +74,11 @@ for p in (REPO, os.path.join(REPO, "tests")):
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from dspeed_tpu_torch.processors._tile_program import esc_dtype  # noqa: E402
+
 SRC = os.path.join(REPO, "dspeed_tpu_torch", "csrc", "generic_rows.cu")
 CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm", "dpz", "extras",
-         "injml")
+         "injml", "cover")
 # one group holding each op of the flagship extras, every op reading
 # samples that other threads wrote
 EXTRAS_CONFIG = {
@@ -156,9 +166,68 @@ def injml_db(seed=17) -> dict:
                    "v": rng.normal(0, 0.3, 16).astype("float32")}}
 
 
-# the device function of each op with a barrier of its own (--drop-barrier)
+# slice 19's ops in two groups (the peak finder's sweep between them), each
+# barriered op placed where its own barrier is all that orders it: the
+# reductions read their buffers after it, trap_pickoff its prefix, and
+# log_check's output takes the space of the plane presum read just before
+COVER_CONFIG = {
+    "outputs": ["mb", "n_tot", "s_lo", "s_hi", "d_mean", "d_rms", "pick", "ps_f",
+                "lg_mean", "ps_max", "w_last", "w_at", "m_sel", "m_r", "pk_0"],
+    "processors": {
+        "wf_blsub": {"function": "bl_subtract", "module": K,
+                     "args": ["waveform", "baseline", "wf_blsub(unit='ADC')"]},
+        "tp_min, tp_max, wf_min, wf_max": {
+            "function": "min_max", "module": K,
+            "args": ["wf_blsub", "tp_min", "tp_max", "wf_min", "wf_max"],
+            "unit": ["ns", "ns", "ADC", "ADC"]},
+        "b_mean, b_std, b_slope, b_icpt": {
+            "function": "linear_slope_fit", "module": K,
+            "args": ["wf_blsub[0:50]", "b_mean", "b_std", "b_slope", "b_icpt"]},
+        "mb": {"function": "mean_below_threshold", "module": K,
+               "args": ["wf_blsub", "b_std*3", "mb"]},
+        "n_tot": {"function": "time_over_threshold", "module": K,
+                  "args": ["wf_blsub", "wf_max*0.5", "n_tot"]},
+        "s_lo, s_hi": {"function": "saturation", "module": K,
+                       "args": ["waveform", "16", "s_lo", "s_hi"]},
+        "d_mean, d_rms": {"function": "linear_slope_diff", "module": K,
+                          "args": ["wf_blsub[0:50]", "b_slope", "b_icpt", "d_mean",
+                                   "d_rms"]},
+        "pick": {"function": "trap_pickoff", "module": K,
+                 "args": ["wf_blsub", "20", "5", "round(tp_max, wf_blsub.grid)",
+                          "pick"]},
+        "wf_n": {"function": "min_max_norm", "module": K,
+                 "args": ["wf_blsub", "wf_min", "wf_max", "wf_n"]},
+        "ps_f, wf_ps": {"function": "presum", "module": K,
+                        "args": ["wf_n", "1", "ps_f", "wf_ps(150, 'f')"]},
+        "ps_max": {"function": "amax", "module": "numpy", "unit": "ADC",
+                   "args": ["wf_ps", 1, "ps_max"],
+                   "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}},
+        "wf_lg": {"function": "log_check", "module": K, "args": ["waveform", "wf_lg"]},
+        "lg_mean": {"function": "mean_below_threshold", "module": K,
+                    "args": ["wf_lg", "6.0", "lg_mean"]},
+        "w_last": {"function": "get", "module": K, "args": ["wf_blsub", "-1", "w_last"]},
+        "w_at": "wf_blsub[round(tp_max, wf_blsub.grid, 'int64')]",
+        "m_sel": "where(mb > 0, mb, n_tot)",
+        "m_r": {"function": "round_to_nearest", "module": K, "args": ["mb", "0.5", "m_r"]},
+        "vt_max, vt_min, n_max, n_min": {
+            "function": "get_multi_local_extrema", "module": K,
+            "args": ["wf_blsub", "wf_max*0.5", "wf_max*0.5", "0", "wf_max*0.5", "0",
+                     "vt_max(4, vector_len=n_max)", "vt_min(4, vector_len=n_min)",
+                     "n_max", "n_min"]},
+        "pk_a": {"function": "multi_a_filter", "module": K,
+                 "args": ["wf_blsub", "vt_max", "pk_a"]},
+        "pk_0": {"function": "get", "module": K, "args": ["pk_a", "0", "pk_0"]},
+    },
+}
+
+
+# the device function of each op with a barrier of its own (--drop-barrier);
+# trap_pickoff's barrier is the one that ends its prefix
 OP_FUNCTIONS = {"poly_residual": "op_poly_resid", "soft_pileup": "op_soft_pileup",
-                "wf_centroid": "op_wf_centroid", "dense": "op_dense"}
+                "wf_centroid": "op_wf_centroid", "dense": "op_dense",
+                "mean_below_threshold": "op_mean_below", "count": "op_count",
+                "linear_slope_diff": "op_slope_diff", "log_check": "op_log_check",
+                "trap_pickoff": "gen_prefix"}
 # double_pole_zero in a group: it reads the samples bl_subtract's threads
 # wrote (the planned barrier before it), and the fit, trapezoid and maximum
 # read its output
@@ -181,6 +250,9 @@ DPZ_CONFIG = {
                      "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}},
     },
 }
+# a scalar input's kind in the input file (k7_main.cpp) and its numpy type
+SCALAR_KINDS = {torch.float32: (1, np.float32), torch.float64: (2, np.float64),
+                torch.bool: (3, np.bool_), torch.int64: (4, np.int64)}
 FLAGS = {
     "tsan": ["-fsanitize=thread", "-O1"],
     "asan": ["-fsanitize=address", "-O1"],
@@ -199,8 +271,12 @@ def host_source(src: str, out: str, cuts=K7_CUTS, drop=None) -> str:
     text = open(src).read()
     if drop is not None:
         fn = text.index(f"void {OP_FUNCTIONS[drop]}(")
-        at = text.index("__syncthreads();", fn)
-        text = text[:at] + "/* barrier dropped */" + text[at + len("__syncthreads();"):]
+        at = min(i for i in (text.find("__syncthreads();", fn),
+                             text.find("__syncthreads_or(", fn)) if i >= 0)
+        if text.startswith("__syncthreads();", at):
+            text = text[:at] + "/* barrier dropped */" + text[at + len("__syncthreads();"):]
+        else:  # the flag of this thread alone, with no barrier
+            text = text[:at] + "/* barrier dropped */ (" + text[at + len("__syncthreads_or("):]
     text = re.sub(
         r"extern __shared__\s+(?:__align__\(\d+\)\s+)?(\w+)\s+(\w+)\[\];",
         r"\n#define \2 ((\1*)emu_blk->smem)\n", text)
@@ -264,16 +340,15 @@ def write_input(path, prog, vals, misalign=0) -> None:
                 kind = 0
             else:
                 stride = 1
-                f64 = v.dtype == torch.float64
-                kind = 2 if f64 else 1
-                data = v.numpy().astype(np.float64 if f64 else np.float32)
+                kind, dt = SCALAR_KINDS[v.dtype]
+                data = v.numpy().astype(dt)
             f.write(np.asarray([kind, misalign], np.int32).tobytes())
             f.write(np.asarray([data.size, stride], np.int64).tobytes())
             f.write(data.tobytes())
         for sid in prog.esc_roots:
             s = prog.slots[sid]
             n = B * (s.length if s.kind == "plane" else 1)
-            f.write(np.asarray([s.dtype.itemsize], np.int32).tobytes())
+            f.write(np.asarray([esc_dtype(s).itemsize], np.int32).tobytes())
             f.write(np.asarray([n], np.int64).tobytes())
 
 
@@ -283,10 +358,11 @@ def read_output(path, prog, B) -> dict:
     for sid in prog.esc_roots:
         s = prog.slots[sid]
         n = B * (s.length if s.kind == "plane" else 1)
-        dt = np.float64 if s.dtype == torch.float64 else np.float32
+        dt = SCALAR_KINDS[esc_dtype(s)][1]
         a = np.frombuffer(raw, dt, n, pos).copy()
         pos += n * a.itemsize
-        roots[sid] = torch.from_numpy(a.reshape(B, -1) if s.kind == "plane" else a)
+        roots[sid] = torch.from_numpy(a.reshape(B, -1) if s.kind == "plane" else a).to(
+            s.dtype)
     return roots
 
 
@@ -400,6 +476,15 @@ def cases(names, rows=6):
         for prog, full, vals in chain_groups(INJML_CONFIG, wf[:rows], bl[:rows],
                                              injml_db(), fuse=True):
             yield "injml", prog, full, vals
+    if "cover" in names:
+        from test_torch_generic import _events as events
+
+        wf, bl = events(n=max(rows, 8), nsamp=600, seed=13)
+        wf[0, 350] = np.nan
+        bl[1 % rows] = np.nan
+        wf[min(2, rows - 1), 450] = np.inf
+        for prog, full, vals in chain_groups(COVER_CONFIG, wf[:rows], bl[:rows]):
+            yield "cover", prog, full, vals
     if "sipm" in names:
         wf, _ = cs.make_sipm_waveforms(max(rows, 3))
         # the SiPM chain's default mode forms its group
