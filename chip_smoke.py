@@ -1753,10 +1753,11 @@ def check_generic(program, vals, got, want, label) -> tuple[float, float, int, i
     return worst_abs, worst_rel, excused, conv_rows
 
 
-def generic_bound(program, B) -> tuple[float, str]:
+def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
     """The least time for one K7 launch of ``program`` on B rows: every
     external plane it loads and scalar it reads, once; every stored output
-    written once; the operations its ops need per row (a convolution's
+    written once (or ``nbytes`` in all, where the caller counts the bytes
+    the function needs); the operations its ops need per row (a convolution's
     multiply-adds in float32; float64 prefix sums, window sums, pole-zero
     products, slope-fit sums and moving-window stages; a comparison per
     sample for each reduction; the reflected convolution's products and
@@ -1766,14 +1767,15 @@ def generic_bound(program, B) -> tuple[float, str]:
     ``INJECT_OPS`` a sample, a layer's float64 products and sums; slice
     19's ops: a comparison and a float64 sum a sample for a masked mean,
     comparisons for a count, a residual's eight float64 operations, a
-    comparison and a float64 log, a prefix, a presum's additions, a
-    normalisation's division; a gather, select or rounding none)."""
+    comparison and a float64 log, a NaN test a sample and the pick-off's
+    two window sums, a presum's additions, a normalisation's division; a
+    gather, select or rounding none)."""
     import torch
 
     from dspeed_tpu_torch.processors._tile_program import OPCODES
 
     slots = program.slots
-    nbytes = 0
+    nb, nbytes = nbytes, 0
     for key in program.ext_keys:
         s = slots[program.by_key[key]]
         loaded = any(op.code == OPCODES["load"] and op.ins[0] == program.by_key[key]
@@ -1844,7 +1846,8 @@ def generic_bound(program, B) -> tuple[float, str]:
             f32 += n  # the comparison
             f64 += n  # the log, as one operation
         elif op.code == OPCODES["trap_pickoff"]:
-            f64 += 2 * n  # the prefix's run sums and stores
+            f32 += n  # the NaN test
+            f64 += 2 * op.ip[0]  # the two window sums
         elif op.code == OPCODES["presum"]:
             f32 += n * (1 + op.ip[0])
         elif op.code == OPCODES["min_max_norm"]:
@@ -1856,7 +1859,7 @@ def generic_bound(program, B) -> tuple[float, str]:
                 f64 += ops
             else:
                 f32 += ops
-    t_bytes = B * nbytes / PEAK_BYTES_S * 1e3
+    t_bytes = (B * nbytes if nb is None else nb) / PEAK_BYTES_S * 1e3
     t_ops = B * (f32 / PEAK_F32_S + f64 / PEAK_F64_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1873,14 +1876,56 @@ def alone_program(full, op, got, vals):
     return lower([step], ins, [sp.key for sp in step.out_specs]), ins
 
 
+def alone_bytes(op, ins, outs) -> int:
+    """The bytes the member of ``op`` must move on this run's rows: each
+    output written once, each input read once and whole, but for ``get``'s
+    row, of which it reads one sample, where its index is in range.
+    ``trap_pickoff`` and ``multi_a_filter`` read their rows whole: a NaN
+    anywhere in the row makes their outputs NaN, as in the reference."""
+    import torch
+
+    from dspeed_tpu_torch.processors._tile_program import OPCODES
+
+    nbytes = sum(t.numel() * t.element_size() for t in outs.values())
+    a = op.step.arg_specs
+    row = a[0].key if op.code == OPCODES["get"] else None
+    nbytes += sum(t.numel() * t.element_size() for k, t in ins.items()
+                  if k != row and isinstance(t, torch.Tensor))
+    if row is not None:
+        x = ins[row]
+        n = x.shape[-1]
+        i = ins[a[1].key] if a[1].kind == "env" else torch.as_tensor(a[1].value)
+        ok = ((i >= -n) & (i < n)).to(x.device).expand(x.shape[:-1])
+        nbytes += int(ok.sum()) * x.element_size()
+    return nbytes
+
+
+def member_outputs(step, ins) -> list:
+    """The member's own kernel body (``step.kernel.fn``, not the tape's
+    K7-order variant) on ``ins``, its arguments bound as the unfused step
+    binds them; its outputs in the step's types."""
+    from dspeed_tpu_torch.processing_chain import _device_dtype
+
+    args = [step._fetch(s, ins) for s in step.arg_specs]
+    kwargs = {k: step._fetch(s, ins) for k, s in step.kwarg_specs.items()}
+    if step.kernel.uses_dims:
+        kwargs["dims"] = step.dims
+    outs = step.kernel.fn(*args, **kwargs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return [o.to(_device_dtype(sp.dtype)) for sp, o in zip(step.out_specs, outs)]
+
+
 def k7_alone_ops(_cuda, full, got, vals, codes, label, timed, B):
     """Each op of ``full`` whose opcode is in ``codes``, alone on the
     values the group gave its arguments: one launch, every output bit for
-    bit against the plain walk of that one-op program on every row, and the
-    group's own output bit for bit against the launch alone (the op in its
-    group computes what it computes alone). The first op of each opcode not
-    in ``timed`` is timed through the wrapper and on the device alone
-    against its bound, the plain walk beside it; returns those figures by
+    bit against the plain walk of that one-op program on every row, within
+    REL_TOL of its scale of the member kernel's own body on the same inputs
+    (the plain walk runs a K7-order variant for some members, ``k7_plain``),
+    and the group's own output bit for bit against the launch alone (the
+    op in its group computes what it computes alone). The first op of each
+    opcode not in ``timed`` is timed through the wrapper and on the device
+    alone against its bound (the bytes its member needs,
+    :func:`alone_bytes`), the plain walk beside it; returns those figures by
     opcode name."""
     import torch
 
@@ -1891,33 +1936,53 @@ def k7_alone_ops(_cuda, full, got, vals, codes, label, timed, B):
     for op in full.ops:
         if op.code not in codes:
             continue
+        name = names[op.code]
         prog, ins = alone_program(full, op, got, vals)
         alone = _cuda.generic_rows(prog, ins)
         plain = _cuda.generic_rows_plain(prog, ins)
+        member = member_outputs(op.step, ins)
         torch.cuda.synchronize()
-        for sp in op.step.out_specs:
-            if not same_bits(alone[sp.key], plain[sp.key]):
-                raise AssertionError(f"K7 {label} {sp.key}: the {names[op.code]} op "
+        worst = 0.0
+        for sp, m in zip(op.step.out_specs, member):
+            g = alone[sp.key]
+            if not same_bits(g, plain[sp.key]):
+                raise AssertionError(f"K7 {label} {sp.key}: the {name} op "
                                      f"differs from the plain walk")
-            if not same_bits(got[sp.key], alone[sp.key]):
-                raise AssertionError(f"K7 {label} {sp.key}: the {names[op.code]} op "
+            if not same_bits(got[sp.key], g):
+                raise AssertionError(f"K7 {label} {sp.key}: the {name} op "
                                      f"in its group differs from the op alone")
-        name = names[op.code]
+            g, m = g.double(), m.double()
+            if g.shape != m.shape or not torch.equal(torch.isnan(g), torch.isnan(m)):
+                raise AssertionError(f"K7 {label} {sp.key}: the {name} op's NaN rows "
+                                     f"differ from its member's ({op.step.kernel.__name__})")
+            ok = ~torch.isnan(m)
+            if bool(ok.any()):
+                err = float((g[ok] - m[ok]).abs().max())
+                scale = float(m[ok].abs().max())
+                if err > REL_TOL * scale:
+                    raise AssertionError(
+                        f"K7 {label} {sp.key}: max |{name} op - member "
+                        f"{op.step.kernel.__name__}| {err:.3e} > {REL_TOL * scale:.3e}")
+                worst = max(worst, err / max(scale, 1e-30))
+        print(f"K7 {label} {name} op [{op.step.kernel.__name__}] against its member's "
+              f"own body on the card: {worst:.3e} of scale", flush=True)
         if name in timed or name in figs:
             continue
         ms = time_ms(lambda: _cuda.generic_rows(prog, ins), 20)
         dev_ms = device_ms(lambda: _cuda.generic_rows(prog, ins))
         plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, ins), 3, 1)
-        bound, by = generic_bound(prog, B)
+        bound, by = generic_bound(prog, B, alone_bytes(op, ins, alone))
         launch = _cuda.generic_rows_launch(prog)
         print(f"K7 {name} op alone [{op.step.kernel.__name__}, {len(prog.ops)} ops, "
               f"{prog.smem_bytes} B of shared memory, {launch['blocks_per_sm']} "
               f"blocks per SM] {B} rows: kernel {ms:.4f} ms ({dev_ms:.4f} ms on the "
-              f"device alone), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-              f"{bound / dev_ms:.1%} of the bound on the device alone; outputs bit "
-              f"for bit against the plain walk on all {B} rows", flush=True)
+              f"device alone), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+              f"what the member needs), {bound / dev_ms:.1%} of the bound on the "
+              f"device alone; outputs bit for bit against the plain walk on all {B} "
+              f"rows, {worst:.3e} of scale from the member's own body", flush=True)
         figs[name] = dict(member=op.step.kernel.__name__, ms=ms, device_ms=dev_ms,
-                          plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                          member_rel_err=worst)
     return figs
 
 

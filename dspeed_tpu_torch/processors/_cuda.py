@@ -1310,22 +1310,14 @@ def generic_rows_plain(program, vals: dict) -> dict:
     (:func:`.pole_zero.double_pole_zero_runs`); ``soft_pileup``'s first op
     gives the fit's two coefficients (:func:`.soft_pileup_corr.soft_pileup_fit`),
     its second the member's output; a dense or classification layer sums in
-    K7's order (:func:`.ml.layer_rows`), and so do ``mean_below_threshold``,
-    ``linear_slope_diff``, ``trap_pickoff`` and ``presum`` (their ``_k7``
-    variants: K7's block sums, prefix and sums in turn). Returns the
-    escapes."""
-    from .arithmetic import mean_below_threshold_k7
-    from .linear_slope_fit import linear_slope_diff_k7
-    from .misc import presum_k7
+    K7's order (:func:`.ml.layer_rows`), and so does a member whose kernel
+    names its variant in ``k7_plain`` (``mean_below_threshold``,
+    ``linear_slope_diff``, ``trap_pickoff`` and ``presum``: K7's block sums,
+    prefix and sums in turn). Returns the escapes."""
     from .ml import layer_rows
     from .pole_zero import double_pole_zero_runs
     from .soft_pileup_corr import soft_pileup_fit
-    from .trap_filters import trap_pickoff_k7
     from ._tile_program import OPCODES
-
-    k7_order = {"mean_below_threshold": mean_below_threshold_k7,
-                "linear_slope_diff": linear_slope_diff_k7,
-                "trap_pickoff": trap_pickoff_k7, "presum": presum_k7}
 
     roots = {program.by_key[k]: vals[k] for k in program.ext_keys}
 
@@ -1346,11 +1338,10 @@ def generic_rows_plain(program, vals: dict) -> dict:
             outs = (layer_rows(args[0], args[1], args[2] if len(args) == 4 else None,
                                op.ip[1], kern.__name__),)
         elif getattr(kern, "uses_dims", False):
-            fn = k7_order.get(kern.__name__, kern.fn)
-            outs = fn(*args, dims=op.step.dims)
+            outs = getattr(kern, "k7_plain", kern.fn)(*args, dims=op.step.dims)
             outs = outs if isinstance(outs, tuple) else (outs,)
-        elif kern.__name__ in k7_order:
-            outs = k7_order[kern.__name__](*args)
+        elif hasattr(kern, "k7_plain"):
+            outs = kern.k7_plain(*args)
             outs = outs if isinstance(outs, tuple) else (outs,)
         else:
             outs = kern(*args)

@@ -45,3 +45,5 @@ def mean_below_threshold_k7(w_in, a_threshold):
 
 
 mean_below_threshold.tile_safe = True  # generic row-tile fusion: masked mean
+# the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
+mean_below_threshold.k7_plain = mean_below_threshold_k7

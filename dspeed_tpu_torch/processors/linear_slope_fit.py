@@ -91,3 +91,5 @@ def _slope_diff(w_in, slope, intercept, total):
 # generic row-tile fusion (the JAX package's flags)
 linear_slope_fit.tile_safe = True
 linear_slope_diff.tile_safe = True
+# the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
+linear_slope_diff.k7_plain = linear_slope_diff_k7

@@ -141,4 +141,6 @@ def sort(w_in):
 time_over_threshold.tile_safe = True
 saturation.tile_safe = True
 presum.tile_safe = True
+# the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
+presum.k7_plain = presum_k7
 log_check.tile_safe = True

@@ -166,6 +166,8 @@ trap_pickoff.check_messages = {1: "The pick-off index must be an integer"}
 
 # generic row-tile fusion (the JAX package's flags)
 trap_pickoff.tile_safe = True
+# the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
+trap_pickoff.k7_plain = trap_pickoff_k7
 trap_filter.tile_safe = True
 trap_norm.tile_safe = True
 asym_trap_filter.tile_safe = True
