@@ -90,7 +90,10 @@ a generic group): K7 on its four groups, each new op alone on the values
 its group gave it, bit for bit against the plain walk on every row, timed
 against its bound; ``build_dsp`` twice in the generic mode (K7 four times a
 chunk, no split; each new column finite on at least 90% of the events, the
-first 1024 events against the CPU run). The **browser** (``vis_phase``:
+first 1024 events against the CPU run). The **plane path** (``plane_config``:
+the flagship's 34 columns and columns that run each of K7's plane ops
+inside a generic group, ``PLANE_OPS``): the same, K7 three times a chunk.
+The **browser** (``vis_phase``:
 ``dspeed_tpu_torch.vis.WaveformBrowser`` over the flagship's 16384 events,
 its chain's K1, K3 and K2 once each, fetched entries against ``build_dsp``
 on the card and a browser on the CPU, drawn where matplotlib is installed).
@@ -678,6 +681,158 @@ COVER_OUTPUTS = [
 COVER_OPS = ("mean_below_threshold", "count", "presum", "log_check", "trap_pickoff",
              "min_max_norm", "linear_slope_diff", "get", "multi_a_filter", "where",
              "round")
+
+
+def cover_op_label(prog, op):
+    """The opcode name of ``op`` (of ``prog``) where it is one of
+    ``COVER_OPS``, else None."""
+    from dspeed_tpu_torch.processors._tile_program import OPCODES
+
+    codes = {OPCODES[c]: c for c in COVER_OPS}
+    return codes.get(op.code)
+
+PLANE_BL = 750  # the baseline window, wf_blsub[0:750] (the flagship's)
+PLANE_CUT = 3  # baseline-subtracted samples over 3 standard deviations: the pulse
+# the pick-offs' fractions of a sample: 'n' reads either neighbour (a per-row
+# fraction from the baseline's mean), 'f', 'c' and 'h' a fixed offset
+PLANE_PICKS = {"n": "bl_mean*64", "f": "11*ns", "c": "3*ns", "h": "7*ns"}
+
+
+def plane_config() -> dict:
+    """The **plane path**: the flagship's 34 columns, plus columns that run
+    each of K7's plane ops inside a generic group: ``trap_filter`` (the
+    unnormalised trapezoid) and its maximum, both moving windows at 1 us and
+    their maxima, ``fixed_time_pickoff`` in modes ``n``, ``f``, ``c`` and
+    ``h`` at fractional times of ``wf_etrap`` (``PLANE_PICKS``), a 17-tap
+    ``t0_filter`` (16 ns rise, 256 ns fall) convolved in modes ``s``, ``f``
+    and ``v`` (the direct route) with their maxima, ufuncs over planes (a
+    comparison with a per-row scalar into a bool plane, ``where`` over it,
+    numpy's ``isnan``, ``logical_not``, ``absolute``, ``sqrt``, ``log1p``,
+    ``square``, ``maximum``, ``floor_divide`` by a per-row scalar,
+    ``remainder``, ``sign`` and ``power``) and the row reductions
+    (``amin``, ``min``, ``max``, ``sum`` of a bool plane too, ``mean``,
+    ``nansum``, ``nanmean``, ``nanmax``, ``nanmin``) over them and over the
+    baseline window, a per-row ``sqrt``, ``floor`` of ``tp_0_est`` to its
+    grid and ``ceil`` and ``trunc`` of it to a 48 ns grid (``convert_floor``
+    ...), and an int64 index converted into a sliced row's grid
+    (``convert_int``). With ``fuse="generic"`` the JAX package and the port
+    form the same three groups (``PLANE_MEMBERS``). Built in memory; the
+    YAML is not changed."""
+    cfg = flagship_config()
+    k = "dspeed_tpu.processors"
+
+    def proc(fn, args, unit="ADC", **extra):
+        return {"function": fn, "module": k, "args": args, "unit": unit, **extra}
+
+    def red(fn, src, out):
+        return {"function": fn, "module": "numpy", "unit": "ADC", "args": [src, 1, out],
+                "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}}
+
+    def ufunc(fn, args, types):
+        return {"function": fn, "module": "numpy", "args": args,
+                "kwargs": {"signature": ",".join(["()"] * (len(args) - 1)) + "->()",
+                           "types": types}}
+
+    pick = "tp_0_est+db.etrap.rise+db.etrap.flat*db.etrap.sample"
+    etrap = {"db.etrap.rise": "10*us", "db.etrap.flat": "3*us",
+             "db.etrap.sample": "0.8"}
+    bl = f"wf_blsub[0:{PLANE_BL}]"
+    conv_len = {"s": "len(wf_pz)", "f": "len(wf_pz)+16", "v": "len(wf_pz)-16"}
+    cfg["processors"].update({
+        "wf_tf": proc("trap_filter", ["wf_pz", "db.etrap.rise", "db.etrap.flat",
+                                      "wf_tf"],
+                      defaults={"db.etrap.rise": "10*us", "db.etrap.flat": "3.008*us"}),
+        "tf_max": red("amax", "wf_tf", "tf_max"),
+        "wf_mwl": proc("moving_window_left", ["wf_pz", "1*us", "wf_mwl"]),
+        "mwl_max": red("amax", "wf_mwl", "mwl_max"),
+        "wf_mwr": proc("moving_window_right", ["wf_pz", "1*us", "wf_mwr"]),
+        "mwr_max": red("amax", "wf_mwr", "mwr_max"),
+        **{f"trapEftp_{m}": proc("fixed_time_pickoff", [
+            "wf_etrap", f"round({pick}, wf_etrap.grid)+{PLANE_PICKS[m]}", f"'{m}'",
+            f"trapEftp_{m}"], defaults=etrap) for m in "nfch"},
+        "t0k17": proc("t0_filter", ["16*ns/wf_pz.period", "256*ns/wf_pz.period",
+                                    "t0k17(round(272*ns/wf_pz.period), 'f')"]),
+        **{f"wf_t0{m}": proc("convolve_wf", [
+            "wf_pz", "t0k17", f"'{m}'", f"wf_t0{m}({conv_len[m]}, 'f')"])
+           for m in "sfv"},
+        **{f"t0{m}_max": red("amax", f"wf_t0{m}", f"t0{m}_max") for m in "sfv"},
+        "wf_sel": f"where(wf_blsub > {PLANE_CUT}*bl_std, wf_blsub, 0.0)",
+        "sel_sum": red("sum", "wf_sel", "sel_sum"),
+        "sel_mean": red("mean", "wf_sel", "sel_mean"),
+        "wf_nan": ufunc("isnan", ["wf_t0f", "wf_nan"], ["f->?"]),
+        "wf_ok": ufunc("logical_not", ["wf_nan", "wf_ok"], ["?->?"]),
+        "wf_abs": ufunc("absolute", ["wf_t0s", "wf_abs(unit='ADC')"], ["f->f"]),
+        "wf_root": ufunc("sqrt", ["wf_abs", "wf_root"], ["f->f"]),
+        "wf_lg": ufunc("log1p", ["wf_abs", "wf_lg"], ["f->f"]),
+        "wf_sq": ufunc("square", ["wf_t0v", "wf_sq"], ["f->f"]),
+        "wf_hi": ufunc("maximum", ["wf_mwl", "wf_mwr", "wf_hi"], ["ff->f"]),
+        "wf_fd": "wf_blsub // (bl_std+1)",
+        "wf_rm": ufunc("remainder", ["wf_blsub", "7.5", "wf_rm"], ["ff->f"]),
+        "wf_sg": ufunc("sign", ["wf_blsub", "wf_sg"], ["f->f"]),
+        "wf_pw": ufunc("power", ["wf_root", "1.5", "wf_pw"], ["ff->f"]),
+        "ok_sum": {"function": "sum", "module": "numpy", "args": ["wf_ok", 1, "ok_sum"],
+                   "kwargs": {"signature": "(n),()->()", "types": ["?i->l"]}},
+        "root_max": red("nanmax", "wf_root", "root_max"),
+        "lg_max": red("max", "wf_lg", "lg_max"),
+        "mwl_min": red("min", "wf_mwl", "mwl_min"),
+        "sq_max": red("amax", "wf_sq", "sq_max"),
+        "hi_nsum": red("nansum", "wf_hi", "hi_nsum"),
+        "fd_nmean": red("nanmean", "wf_fd", "fd_nmean"),
+        "rm_nmin": red("nanmin", "wf_rm", "rm_nmin"),
+        "sg_sum": red("sum", "wf_sg", "sg_sum"),
+        "pw_mean": red("mean", "wf_pw", "pw_mean"),
+        "bl_amin": red("amin", bl, "bl_amin"),
+        "bl_avg": red("mean", bl, "bl_avg"),
+        "bl_nmax": red("nanmax", bl, "bl_nmax"),
+        "bl_sum": red("sum", bl, "bl_sum"),
+        "bl_rt": ufunc("sqrt", ["bl_std", "bl_rt"], ["f->f"]),
+        "t0_floor": "floor(tp_0_est, wf_pz.grid)",
+        **{f"t0_{m}": f"{m}(tp_0_est, 48*ns)" for m in ("ceil", "trunc")},
+        "t0_idx": "round(tp_0_est, wf_pz.grid, 'int64')",
+        "t0_late": "wf_pz[100:][t0_idx]",
+    })
+    cfg["outputs"] = cfg["outputs"] + PLANE_OUTPUTS
+    return cfg
+
+
+PLANE_OUTPUTS = [
+    "tf_max", "mwl_max", "mwr_max", "trapEftp_n", "trapEftp_f", "trapEftp_c",
+    "trapEftp_h", "t0s_max", "t0f_max", "t0v_max", "sel_sum", "sel_mean", "ok_sum",
+    "root_max", "lg_max", "mwl_min", "sq_max", "hi_nsum", "fd_nmean", "rm_nmin", "sg_sum",
+    "pw_mean", "bl_amin", "bl_avg", "bl_nmax", "bl_sum", "bl_rt", "t0_floor",
+    "t0_ceil", "t0_trunc", "t0_idx", "t0_late",
+]
+PLANE_MEMBERS = (34, 19, 107)  # the generic groups' members, as the JAX package's
+# the plane columns computed from tp_0_est (a column may move where it moved)
+PLANE_READS_T0 = ("trapEftp_n", "trapEftp_f", "trapEftp_c", "trapEftp_h", "t0_floor",
+                  "t0_ceil", "t0_trunc", "t0_idx", "t0_late")
+# K7's plane ops, as plane_op_label names them
+PLANE_OPS = ("trap_filter", "moving_window", "fixed_time_pickoff n",
+             "fixed_time_pickoff f", "fixed_time_pickoff c", "fixed_time_pickoff h",
+             "conv_direct", "convert_floor", "convert_ceil", "convert_trunc",
+             "convert_int", "ewise", "ufunc", "reduce")
+
+
+def plane_op_label(prog, op):
+    """The name of the plane op that ``op`` (of ``prog``) is, or None: the
+    ``trap`` op's ``trap_filter`` kind, the pick-off's new modes, the
+    ``convert`` op's new kinds and the ``ufunc`` op's new table entries by
+    their own names, the new opcodes by theirs."""
+    from dspeed_tpu_torch.processors._tile_program import CONVERTS, OPCODES
+
+    names = {v: k for k, v in OPCODES.items()}
+    name = names[op.code]
+    if name in ("moving_window", "conv_direct", "ewise", "reduce"):
+        return name
+    if name == "trap" and op.ip[0] == 2:
+        return "trap_filter"
+    if name == "fixed_time_pickoff" and chr(op.ip[0]) in "nfch":
+        return f"fixed_time_pickoff {chr(op.ip[0])}"
+    if name == "convert" and op.ip[0] >= 2:
+        return {v: k for k, v in CONVERTS.items()}[op.ip[0]]
+    if name == "ufunc" and op.ip[0] >= 9:
+        return "ufunc"
+    return None
 
 # the optimisers' phase (opt_configs): one-pole on the flagship generator's
 # rows, two-pole on the DPZ generator's, from a start away from the truth
@@ -1768,8 +1923,11 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
     19's ops: a comparison and a float64 sum a sample for a masked mean,
     comparisons for a count, a residual's eight float64 operations, a
     comparison and a float64 log, a NaN test a sample and the pick-off's
-    two window sums, a presum's additions, a normalisation's division; a
-    gather, select or rounding none)."""
+    two window sums, a presum's additions, a normalisation's division; slice
+    20's ops: four float64 operations a sample for ``trap_filter``, three for
+    a moving window, the direct convolution's multiply-adds in float32, one
+    operation a sample for an elementwise op and for a reduction; a gather,
+    select or rounding none)."""
     import torch
 
     from dspeed_tpu_torch.processors._tile_program import OPCODES
@@ -1852,6 +2010,18 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
             f32 += n * (1 + op.ip[0])
         elif op.code == OPCODES["min_max_norm"]:
             f32 += n
+        elif op.code == OPCODES["trap"] and op.ip[0] == 2:
+            # trap_filter: the prefix, two window differences and their
+            # difference, in float64
+            f64 += 4 * n
+        elif op.code == OPCODES["moving_window"]:
+            f64 += 3 * n  # the prefix, a difference and a division
+        elif op.code == OPCODES["conv_direct"]:
+            f32 += 2 * op.ip[1] * slots[op.outs[0]].length
+        elif op.code == OPCODES["ewise"]:
+            f32 += slots[op.outs[0]].length  # one operation a sample
+        elif op.code == OPCODES["reduce"]:
+            f64 += n  # a float64 sum or a comparison a sample
         elif op.code in (OPCODES["reflected_conv"], OPCODES["avg_current"]):
             p = slots[op.outs[0]].length
             ops = 2 * (op.ip[1] if op.code == OPCODES["reflected_conv"] else 1) * p
@@ -1868,12 +2038,31 @@ def alone_program(full, op, got, vals):
     """``(program, inputs)``: the member step of ``op`` (an op of ``full``)
     lowered alone over the values the group's launch gave its arguments
     (``got``; ``vals``, the group's inputs), storing what it writes."""
+    from dspeed_tpu_torch.processing_chain import ProcessingChain, _step_writes
     from dspeed_tpu_torch.processors._tile_program import lower
 
     step = op.step
-    ins = {sp.key: got[sp.key] if sp.key in got else vals[sp.key]
-           for sp in step.arg_specs if sp.kind == "env"}
-    return lower([step], ins, [sp.key for sp in step.out_specs]), ins
+    ins = {k: got[k] if k in got else vals[k]
+           for k in sorted(ProcessingChain._step_env_reads(step))}
+    return lower([step], ins, sorted(_step_writes(step))), ins
+
+
+def store_every(_cuda, members, vals, keys):
+    """``(program, got, want)``: every key of ``keys`` that ``members``
+    write, from K7 launches of the whole group (``got``) and the plain walk
+    of the same tapes (``want``). A tape stores at most
+    ``_cuda.GEN_MAX_ESC`` keys (``lower`` refuses more), so a longer list is
+    stored in parts, each a launch of the whole group; ``program`` is the
+    first part's tape (every part runs the same ops)."""
+    from dspeed_tpu_torch.processors._tile_program import lower
+
+    cap = _cuda.GEN_MAX_ESC
+    parts = [lower(members, vals, keys[q:q + cap]) for q in range(0, len(keys), cap)]
+    got, want = {}, {}
+    for prog in parts:
+        got.update(_cuda.generic_rows(prog, vals))
+        want.update(_cuda.generic_rows_plain(prog, vals))
+    return parts[0], got, want
 
 
 def alone_bytes(op, ins, outs) -> int:
@@ -1887,8 +2076,8 @@ def alone_bytes(op, ins, outs) -> int:
     from dspeed_tpu_torch.processors._tile_program import OPCODES
 
     nbytes = sum(t.numel() * t.element_size() for t in outs.values())
-    a = op.step.arg_specs
-    row = a[0].key if op.code == OPCODES["get"] else None
+    a = op.step.arg_specs if op.code == OPCODES["get"] else None
+    row = a[0].key if a else None
     nbytes += sum(t.numel() * t.element_size() for k, t in ins.items()
                   if k != row and isinstance(t, torch.Tensor))
     if row is not None:
@@ -1900,71 +2089,65 @@ def alone_bytes(op, ins, outs) -> int:
     return nbytes
 
 
-def member_outputs(step, ins) -> list:
-    """The member's own kernel body (``step.kernel.fn``, not the tape's
+def member_outputs(step, ins) -> dict:
+    """The member's own kernel body (the unfused step's run, not the tape's
     K7-order variant) on ``ins``, its arguments bound as the unfused step
-    binds them; its outputs in the step's types."""
-    from dspeed_tpu_torch.processing_chain import _device_dtype
+    binds them; its outputs (by key) in the step's types."""
+    from dspeed_tpu_torch.processing_chain import _step_writes
 
-    args = [step._fetch(s, ins) for s in step.arg_specs]
-    kwargs = {k: step._fetch(s, ins) for k, s in step.kwarg_specs.items()}
-    if step.kernel.uses_dims:
-        kwargs["dims"] = step.dims
-    outs = step.kernel.fn(*args, **kwargs)
-    outs = outs if isinstance(outs, tuple) else (outs,)
-    return [o.to(_device_dtype(sp.dtype)) for sp, o in zip(step.out_specs, outs)]
+    env = dict(ins)
+    step.run(env)
+    return {k: env[k] for k in _step_writes(step)}
 
 
-def k7_alone_ops(_cuda, full, got, vals, codes, label, timed, B):
-    """Each op of ``full`` whose opcode is in ``codes``, alone on the
-    values the group gave its arguments: one launch, every output bit for
+def k7_alone_ops(_cuda, full, got, vals, pick, label, timed, B):
+    """Each op of ``full`` that ``pick(full, op)`` names (else None), alone
+    on the values the group gave its arguments: one launch, every output bit for
     bit against the plain walk of that one-op program on every row, within
     REL_TOL of its scale of the member kernel's own body on the same inputs
     (the plain walk runs a K7-order variant for some members, ``k7_plain``),
     and the group's own output bit for bit against the launch alone (the
     op in its group computes what it computes alone). The first op of each
-    opcode not in ``timed`` is timed through the wrapper and on the device
+    name not in ``timed`` is timed through the wrapper and on the device
     alone against its bound (the bytes its member needs,
     :func:`alone_bytes`), the plain walk beside it; returns those figures by
-    opcode name."""
+    the names ``pick`` gives."""
     import torch
 
-    from dspeed_tpu_torch.processors._tile_program import OPCODES
-
-    names = {v: k for k, v in OPCODES.items()}
     figs = {}
     for op in full.ops:
-        if op.code not in codes:
+        name = pick(full, op)
+        if name is None:
             continue
-        name = names[op.code]
         prog, ins = alone_program(full, op, got, vals)
         alone = _cuda.generic_rows(prog, ins)
         plain = _cuda.generic_rows_plain(prog, ins)
         member = member_outputs(op.step, ins)
+        member_name = op.name.split("[")[0]
         torch.cuda.synchronize()
         worst = 0.0
-        for sp, m in zip(op.step.out_specs, member):
-            g = alone[sp.key]
-            if not same_bits(g, plain[sp.key]):
-                raise AssertionError(f"K7 {label} {sp.key}: the {name} op "
+        for key, m in member.items():
+            g = alone[key]
+            if not same_bits(g, plain[key]):
+                raise AssertionError(f"K7 {label} {key}: the {name} op "
                                      f"differs from the plain walk")
-            if not same_bits(got[sp.key], g):
-                raise AssertionError(f"K7 {label} {sp.key}: the {name} op "
+            if not same_bits(got[key], g):
+                raise AssertionError(f"K7 {label} {key}: the {name} op "
                                      f"in its group differs from the op alone")
             g, m = g.double(), m.double()
             if g.shape != m.shape or not torch.equal(torch.isnan(g), torch.isnan(m)):
-                raise AssertionError(f"K7 {label} {sp.key}: the {name} op's NaN rows "
-                                     f"differ from its member's ({op.step.kernel.__name__})")
+                raise AssertionError(f"K7 {label} {key}: the {name} op's NaN rows "
+                                     f"differ from its member's ({member_name})")
             ok = ~torch.isnan(m)
             if bool(ok.any()):
                 err = float((g[ok] - m[ok]).abs().max())
                 scale = float(m[ok].abs().max())
                 if err > REL_TOL * scale:
                     raise AssertionError(
-                        f"K7 {label} {sp.key}: max |{name} op - member "
-                        f"{op.step.kernel.__name__}| {err:.3e} > {REL_TOL * scale:.3e}")
+                        f"K7 {label} {key}: max |{name} op - member "
+                        f"{member_name}| {err:.3e} > {REL_TOL * scale:.3e}")
                 worst = max(worst, err / max(scale, 1e-30))
-        print(f"K7 {label} {name} op [{op.step.kernel.__name__}] against its member's "
+        print(f"K7 {label} {name} op [{member_name}] against its member's "
               f"own body on the card: {worst:.3e} of scale", flush=True)
         if name in timed or name in figs:
             continue
@@ -1973,22 +2156,30 @@ def k7_alone_ops(_cuda, full, got, vals, codes, label, timed, B):
         plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, ins), 3, 1)
         bound, by = generic_bound(prog, B, alone_bytes(op, ins, alone))
         launch = _cuda.generic_rows_launch(prog)
-        print(f"K7 {name} op alone [{op.step.kernel.__name__}, {len(prog.ops)} ops, "
+        print(f"K7 {name} op alone [{member_name}, {len(prog.ops)} ops, "
               f"{prog.smem_bytes} B of shared memory, {launch['blocks_per_sm']} "
               f"blocks per SM] {B} rows: kernel {ms:.4f} ms ({dev_ms:.4f} ms on the "
               f"device alone), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
               f"what the member needs), {bound / dev_ms:.1%} of the bound on the "
               f"device alone; outputs bit for bit against the plain walk on all {B} "
               f"rows, {worst:.3e} of scale from the member's own body", flush=True)
-        figs[name] = dict(member=op.step.kernel.__name__, ms=ms, device_ms=dev_ms,
+        figs[name] = dict(member=member_name, ms=ms, device_ms=dev_ms,
                           plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                           member_rel_err=worst)
     return figs
 
 
+def held_alone(figs, names, path) -> None:
+    """Fails unless :func:`k7_phase` held and timed an op of each of
+    ``names`` alone (``figs["ops_alone"]``)."""
+    missing = set(names) - set(figs["ops_alone"])
+    if missing:
+        raise AssertionError(f"{path}: no op {sorted(missing)} in its groups")
+
+
 def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
              cfg=None, fuse="generic", members=(34, 19), path="generic flagship",
-             db=None, alone_ops=()):
+             db=None, pick=None):
     """K7 on the groups of ``cfg`` (default: the generic flagship's two) in
     fusion mode ``fuse``: the chain built on the CPU over every event (NaN
     rows included), its steps run on the card up to the last group, each
@@ -2000,9 +2191,10 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
     (``double_pole_zero`` called alone, on the recurrence kernel); the
     ``inject`` and ``dense`` ops' outputs must equal the plain walk's bit for
     bit on every row. ``db`` is the database (default: the flagship's). The
-    ops of ``alone_ops`` (opcode names) are held and timed alone
-    (:func:`k7_alone_ops`). Returns the figures, with each group's launch
-    and ``ptxas -v``'s report for ``generic_rows_kernel``."""
+    ops that ``pick(program, op)`` names are held and timed alone
+    (:func:`k7_alone_ops`; their figures under ``ops_alone``). Returns the
+    figures, with each group's launch and ``ptxas -v``'s report for
+    ``generic_rows_kernel``."""
     import torch
 
     import dspeed_tpu_torch.processors as tp
@@ -2010,7 +2202,6 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
     from dspeed_tpu_torch.processors._tile_program import OPCODES, lower
 
     names = {v: k for k, v in OPCODES.items()}
-    alone_codes = {OPCODES[c] for c in alone_ops}
     alone_figs: dict = {}
     wf = wf.copy()
     bl = bl.copy()
@@ -2044,9 +2235,7 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
             vals = {k: env[k] for k in step.ext_in}
             prog = lower(step.members, vals, step.escapes)
             every = sorted(s.key for s in prog.slots if not s.ext)
-            full = lower(step.members, vals, every)
-            got = _cuda.generic_rows(full, vals)
-            want = _cuda.generic_rows_plain(full, vals)
+            full, got, want = store_every(_cuda, step.members, vals, every)
             torch.cuda.synchronize()
             err, rel, excused, conv_rows = check_generic(full, vals, got, want,
                                                          label)
@@ -2082,8 +2271,9 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
                 print(f"K7 {label} [{path}]: the {len(bits)} outputs of its inject and "
                       f"dense ops equal the plain walk's bit for bit on all {B} rows",
                       flush=True)
-            alone_figs.update(k7_alone_ops(_cuda, full, got, vals, alone_codes,
-                                           f"{label} [{path}]", alone_figs, B))
+            if pick is not None:
+                alone_figs.update(k7_alone_ops(_cuda, full, got, vals, pick,
+                                               f"{label} [{path}]", alone_figs, B))
             outs = _cuda.generic_rows(prog, vals)
             for k in step.escapes:
                 g, w = outs[k], got[k]
@@ -2135,10 +2325,7 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
         device_ms=total("dev_ms"), bound_share=total("bound") / total("ms"),
         device_bound_share=total("bound") / total("dev_ms"), ptxas=ptxas,
     )
-    if alone_ops:
-        missing = set(alone_ops) - set(alone_figs)
-        if missing:
-            raise AssertionError(f"{path}: no op {sorted(missing)} in its groups")
+    if pick is not None:
         out["ops_alone"] = alone_figs
     for lab, f in zip("abcdefgh", figs):
         out.update({f"group_{lab}_ms": f["ms"], f"group_{lab}_device_ms": f["dev_ms"],
@@ -3168,83 +3355,107 @@ def inject_ml_checks(cols, cpu, amp, good, n_cpu, label):
     return shares, spread
 
 
-def cover_checks(cols, cpu, wf, bl, n_cpu, good, label):
-    """The coverage path's own columns: each finite on at least 90% of the
+def column_checks(cols, cpu, n_cpu, label, outputs, exact, skip, why):
+    """A path's own columns ``outputs``: each finite on at least 90% of the
     events (each share printed); on the first ``n_cpu`` events against the
     port's CPU run, NaN positions equal and each within REL_TOL of its
-    scale, counts exactly. Excused, and counted: ``pz_at_t0`` and
-    ``trapEpick`` (they read ``tp_0_est``) where ``tp_0_est`` moved by a
-    sample; ``t_over`` where the CPU's trapezoid holds a sample within
-    REL_TOL of its scale from the threshold; a rounded ``trapTmax`` where
-    the card's and the CPU's ``trapTmax`` differ (it must then be the
-    card's own ``trapTmax`` rounded). ``trapT_sel`` must be ``trapTmax``
-    where ``t_over`` > COVER_TOT_MIN, else 0, on every event."""
-    import torch
-
-    import dspeed_tpu_torch.processors as tp
-
+    scale, those of ``exact`` exactly. ``skip`` (column -> bool mask of the
+    first ``n_cpu`` events) excuses events, counted and printed with
+    ``why``. Returns the finite shares."""
     shares = {k: float(np.isfinite(np.asarray(cols[k], np.float64)).mean())
-              for k in COVER_OUTPUTS}
+              for k in outputs}
     print(f"[{label}] finite share of each new column: "
           + json.dumps({k: round(v, 4) for k, v in shares.items()}), flush=True)
     low = [k for k, v in shares.items() if v < 0.9]
     if low:
         raise AssertionError(f"{label}: columns finite on < 90% of the events: {low}")
-    sel = np.where(cols["t_over"] > COVER_TOT_MIN, cols["trapTmax"], np.float32(0.0))
-    if not np.array_equal(cols["trapT_sel"], sel, equal_nan=True):
-        raise AssertionError(f"{label}: trapT_sel is not where(t_over > "
-                             f"{COVER_TOT_MIN}, trapTmax, 0)")
-    moved = cols["tp_0_est"][:n_cpu] != cpu["tp_0_est"]
-    moved &= np.isfinite(cpu["tp_0_est"])
-    e_moved = cols["trapTmax"][:n_cpu] != cpu["trapTmax"]
     excused, worst = {}, 0.0
-    for k in COVER_OUTPUTS:
+    for k in outputs:
         g = np.asarray(cols[k][:n_cpu], np.float64)
         w = np.asarray(cpu[k], np.float64)
         same = (g == w) | (np.isnan(g) & np.isnan(w))
-        skip = np.zeros(n_cpu, bool)
-        if k in ("pz_at_t0", "trapEpick"):
-            skip = moved
-        elif k.startswith("E_"):
-            skip = e_moved
-            fn = {"E_round": np.rint, "E_floor": np.floor, "E_ceil": np.ceil,
-                  "E_trunc": np.trunc}[k]
-            r = np.float32(COVER_ROUND)
-            own = (r * fn(cols["trapTmax"][:n_cpu] / r)).astype(np.float32)
-            if not np.array_equal(cols[k][:n_cpu][skip], own[skip], equal_nan=True):
-                raise AssertionError(f"{label} {k}: not the card's trapTmax rounded")
-        elif k == "t_over":
-            for r in np.flatnonzero(~same):
-                x = torch.from_numpy(wf[r:r + 1] - bl[r:r + 1, None].astype(np.float32))
-                trap = tp.trap_norm(tp.pole_zero(x, TAU)[0], 625, 188)[0][0].numpy()
-                thr = np.float32(cpu["trapTmax"][r]) * np.float32(0.5)
-                tie = np.abs(trap - thr) <= REL_TOL * np.nanmax(np.abs(trap))
-                skip[r] = bool(tie.any())
-        excused[k] = int((~same & skip).sum())
-        keep = ~skip
+        keep = ~skip.get(k, np.zeros(n_cpu, bool))
+        excused[k] = int((~same & ~keep).sum())
         if not np.array_equal(np.isnan(g[keep]), np.isnan(w[keep])):
             raise AssertionError(f"{label} {k}: NaN events differ from the CPU run")
-        exact = k in ("t_over", "sat_lo", "sat_hi", "ps_fact") or k.startswith("E_")
         ok = keep & ~np.isnan(w)
         if not ok.any():
             continue
         err = np.abs(g[ok] - w[ok]).max()
         scale = max(np.abs(w[ok]).max(), 1e-30)
-        if (exact and err > 0) or err > REL_TOL * scale:
+        if (k in exact and err > 0) or err > REL_TOL * scale:
             raise AssertionError(f"{label} {k}: max |card - CPU| {err:.3e} on the first "
                                  f"{n_cpu} events (scale {scale:.3e})")
         worst = max(worst, err / scale)
     print(f"[{label}] new columns, first {n_cpu} events vs the port's CPU run: worst "
-          f"|diff|/max|col| {worst:.3e}; excused (tp_0_est moved a sample, a trapezoid "
-          f"sample on the threshold, trapTmax rounded across a multiple): "
+          f"|diff|/max|col| {worst:.3e}; excused ({why}): "
           f"{json.dumps({k: v for k, v in excused.items() if v})}", flush=True)
     return shares
+
+
+def t0_moved(cols, cpu, n_cpu):
+    """The first ``n_cpu`` events where the card's ``tp_0_est`` is not the
+    CPU run's finite one (a sample apart on a near-tie)."""
+    return (cols["tp_0_est"][:n_cpu] != cpu["tp_0_est"]) & np.isfinite(cpu["tp_0_est"])
+
+
+def cover_checks(cols, cpu, wf, bl, n_cpu, good, label):
+    """The coverage path's own columns by :func:`column_checks` (counts
+    exactly). Excused, and counted: ``pz_at_t0`` and ``trapEpick`` (they
+    read ``tp_0_est``) where ``tp_0_est`` moved by a sample; ``t_over``
+    where the CPU's trapezoid holds a sample within REL_TOL of its scale
+    from the threshold; a rounded ``trapTmax`` where the card's and the
+    CPU's ``trapTmax`` differ (it must then be the card's own ``trapTmax``
+    rounded). ``trapT_sel`` must be ``trapTmax`` where ``t_over`` >
+    COVER_TOT_MIN, else 0, on every event."""
+    import torch
+
+    import dspeed_tpu_torch.processors as tp
+
+    sel = np.where(cols["t_over"] > COVER_TOT_MIN, cols["trapTmax"], np.float32(0.0))
+    if not np.array_equal(cols["trapT_sel"], sel, equal_nan=True):
+        raise AssertionError(f"{label}: trapT_sel is not where(t_over > "
+                             f"{COVER_TOT_MIN}, trapTmax, 0)")
+    moved = t0_moved(cols, cpu, n_cpu)
+    e_moved = cols["trapTmax"][:n_cpu] != cpu["trapTmax"]
+    skip = {"pz_at_t0": moved, "trapEpick": moved}
+    for k, fn in (("E_round", np.rint), ("E_floor", np.floor), ("E_ceil", np.ceil),
+                  ("E_trunc", np.trunc)):
+        skip[k] = e_moved
+        r = np.float32(COVER_ROUND)
+        own = (r * fn(cols["trapTmax"][:n_cpu] / r)).astype(np.float32)
+        if not np.array_equal(cols[k][:n_cpu][e_moved], own[e_moved], equal_nan=True):
+            raise AssertionError(f"{label} {k}: not the card's trapTmax rounded")
+    g, w = cols["t_over"][:n_cpu], cpu["t_over"]
+    skip["t_over"] = np.zeros(n_cpu, bool)
+    for r in np.flatnonzero(~((g == w) | (np.isnan(g) & np.isnan(w)))):
+        x = torch.from_numpy(wf[r:r + 1] - bl[r:r + 1, None].astype(np.float32))
+        trap = tp.trap_norm(tp.pole_zero(x, TAU)[0], 625, 188)[0][0].numpy()
+        thr = np.float32(cpu["trapTmax"][r]) * np.float32(0.5)
+        tie = np.abs(trap - thr) <= REL_TOL * np.nanmax(np.abs(trap))
+        skip["t_over"][r] = bool(tie.any())
+    exact = {"t_over", "sat_lo", "sat_hi", "ps_fact"} | {k for k in COVER_OUTPUTS
+                                                         if k.startswith("E_")}
+    return column_checks(cols, cpu, n_cpu, label, COVER_OUTPUTS, exact, skip,
+                         "tp_0_est moved a sample, a trapezoid sample on the "
+                         "threshold, trapTmax rounded across a multiple")
+
+
+def plane_checks(cols, cpu, n_cpu, label):
+    """The plane path's own columns by :func:`column_checks` (the counts
+    and int64 indices exactly). Excused, and counted, the columns of
+    ``PLANE_READS_T0`` where ``tp_0_est`` moved by a sample."""
+    moved = t0_moved(cols, cpu, n_cpu)
+    return column_checks(cols, cpu, n_cpu, label, PLANE_OUTPUTS,
+                         {"ok_sum", "t0_idx", "sg_sum"},
+                         {k: moved for k in PLANE_READS_T0},
+                         "tp_0_est moved a sample")
 
 
 def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
               expect, rt=None, device="cuda", fuse=True, forbid=(),
               aoe_geometry=AOE_GEOMETRY, trap_tol=0.005, extras=False,
-              inject_ml=False, cover=False, db=None, n_cpu=256):
+              inject_ml=False, cover=False, plane=False, db=None, n_cpu=256):
     """A main path: ``build_dsp`` of ``cfg`` with fusion mode ``fuse`` over
     every event of ``wf`` on ``device``, file -> file where ``h5py`` is
     installed, else Table -> Table; launch counts and generic-group splits
@@ -3258,8 +3469,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     of the injected amplitudes. With ``extras`` the flagship extras' own
     columns are held by :func:`extras_checks`, with ``inject_ml`` the
     injection + ML path's by :func:`inject_ml_checks`, with ``cover`` the
-    coverage path's by :func:`cover_checks` (the flagship's by the rules
-    above). ``db`` is the database (default: the flagship's
+    coverage path's by :func:`cover_checks`, with ``plane`` the plane path's
+    by :func:`plane_checks` (the flagship's by the rules above). ``db`` is the database (default: the flagship's
     ``pz.tau``); the first ``n_cpu`` events are held against the CPU run.
     Returns the launch counts."""
     import importlib.util
@@ -3344,7 +3555,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     searches = ("tp_0_est", *READS_TP0)
     not_found = {}
     new_cols = (EXTRAS_OUTPUTS if extras else []) + (
-        INJECT_ML_OUTPUTS if inject_ml else []) + (COVER_OUTPUTS if cover else [])
+        INJECT_ML_OUTPUTS if inject_ml else []) + (COVER_OUTPUTS if cover else []) + (
+        PLANE_OUTPUTS if plane else [])
     for k, v in cols.items():
         if k in new_cols:
             continue
@@ -3399,6 +3611,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
         inject_ml_checks(cols, cpu, amp, good, n_cpu, label)
     if cover:
         cover_checks(cols, cpu, wf, bl, n_cpu, good, label)
+    if plane:
+        plane_checks(cols, cpu, n_cpu, label)
     for name in expect:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the {label} path")
@@ -4234,7 +4448,18 @@ def main() -> int:
     k7["cover_groups"] = k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev,
                                   logs["generic_rows"], cfg=coverage_config(),
                                   members=(34, 19, 24, 26), path="coverage",
-                                  alone_ops=COVER_OPS)
+                                  pick=cover_op_label)
+    held_alone(k7["cover_groups"], COVER_OPS, "coverage")
+    torch.cuda.empty_cache()
+
+    # -- the plane path: K7 on its three generic groups, each of its plane --
+    # -- ops alone on the values its group gave it (bit for bit against the --
+    # -- plain walk, within REL_TOL of its member, timed against its bound) ---
+    k7["plane_groups"] = k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev,
+                                  logs["generic_rows"], cfg=plane_config(),
+                                  members=PLANE_MEMBERS, path="plane",
+                                  pick=plane_op_label)
+    held_alone(k7["plane_groups"], PLANE_OPS, "plane")
     torch.cuda.empty_cache()
 
     # -- the main paths: build_dsp -------------------------------------------
@@ -4325,6 +4550,19 @@ def main() -> int:
     if cover_launches["generic_rows"] != 4:
         raise AssertionError(f"coverage launches {cover_launches}: generic_rows not "
                              f"four times a chunk")
+    # the plane path in the generic mode: three K7 groups, CUSP and ZAC on
+    # K4; no group splits; the first 1024 events against the CPU
+    plane_launches = e2e_phase(
+        build_dsp, lh5, _cuda, plane_config(), wf, amp, inj_t0, bl, card,
+        "plane", expect=("generic_rows", "banded_conv_multi"),
+        rt=rt, device=DEVICE, fuse="generic",
+        forbid=("fused_energy", "cascade_tp", "fused_t0", "fused_current_poly",
+                "fused_current"),
+        plane=True, n_cpu=1024,
+    )
+    if plane_launches["generic_rows"] != len(PLANE_MEMBERS):
+        raise AssertionError(f"plane launches {plane_launches}: generic_rows not "
+                             f"{len(PLANE_MEMBERS)} times a chunk")
     # the waveform browser: its chain (K1, K3, K2) and its data path
     vis = vis_phase(build_dsp, lh5, _cuda, wf, bl, card)
     torch.cuda.empty_cache()
@@ -4410,7 +4648,8 @@ def main() -> int:
             replaces="dspeed_tpu/processors/_pallas.py:1782",
             launches=gen_launches["generic_rows"], library_ms=None,
             inject_ml_launches=iml_launches["generic_rows"],
-            cover_launches=cover_launches["generic_rows"], **k7,
+            cover_launches=cover_launches["generic_rows"],
+            plane_launches=plane_launches["generic_rows"], **k7,
         ),
         dict(
             name="recurrence", route="cuda",

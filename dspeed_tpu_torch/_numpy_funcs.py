@@ -24,7 +24,7 @@ import torch
 
 from .errors import ProcessingChainError
 
-__all__ = ["NUMPY_FUNCS", "REDUCTIONS"]
+__all__ = ["K7_SUMS", "NUMPY_FUNCS", "REDUCTIONS", "k7_reduce"]
 
 REDUCTIONS = frozenset(
     "amax amin max min sum mean std var prod median argmax argmin "
@@ -276,3 +276,34 @@ NUMPY_FUNCS = {
     "clip": clip,
     "where": where,
 }
+
+
+# the sums of K7's reduce op (processors/_tile_program.REDUCTIONS), which
+# the tape's plain walk takes in K7's order
+K7_SUMS = frozenset(("sum", "mean", "nansum", "nanmean"))
+
+
+def k7_reduce(name: str, a: torch.Tensor) -> torch.Tensor:
+    """``numpy.<name>(a, axis=-1)`` for ``name`` in :data:`K7_SUMS` as K7's
+    reduce op computes it (the tape's plain walk): the row's values in
+    float64 (a NaN as 0 for ``nansum`` and ``nanmean``) summed in K7's block
+    order (:func:`.processors._numerics.k7_sum`), a mean divided by its count
+    in float64; in the member's type (the row's for float rows; for bool
+    rows int64, a mean float64). Differs from the member's
+    float32 sum by rounding only."""
+    from .processors._numerics import k7_sum
+
+    x = a.to(torch.float64)
+    if name.startswith("nan"):
+        ok = ~torch.isnan(x)
+        x = torch.where(ok, x, 0.0)
+        cnt = ok.sum(-1).to(torch.float64)
+    else:
+        cnt = torch.full(x.shape[:-1], float(x.shape[-1]), dtype=torch.float64,
+                         device=x.device)
+    s = k7_sum(x.reshape(-1, x.shape[-1])).reshape(x.shape[:-1])
+    if name.endswith("mean"):
+        s = s / cnt
+    if a.is_floating_point():
+        return s.to(a.dtype)
+    return s if name.endswith("mean") else s.to(torch.int64)

@@ -68,6 +68,19 @@
 //   multi_a_filter
 //   get, get_default, where,         per-row gathers and selects, and the
 //   *_to_nearest                     four roundings to a multiple
+//   trap_filter                      the float64 prefix, prefix differences
+//   moving_window_left / _right      the float64 prefix, the member's ramp
+//   fixed_time_pickoff 'n' 'f' 'c'   per-row picks; 'h' Hermite's cubic in
+//   'h'                              float32, the member's order
+//   convolve_wf (m <= 32)            reflected_convolve_wf's direct loop
+//   convert_floor / _ceil / _trunc   round_kind on the conversion
+//   / _int
+//   ufuncs over planes, where        ewise: per sample, the elementwise table
+//                                    (ufunc_eval) on planes, per-row
+//                                    scalars and constants, into float32 or
+//                                    bool planes; per-row ones by the ufunc op
+//   amin, min, max, sum, mean,       reduce: extrema exact, sums in K7's
+//   nansum, nanmean, nanmax, nanmin  float64 block order
 // A row with a NaN poisons what each member poisons, op by op.
 //
 // What bounds it on this card: bytes for most groups. The flagship's first
@@ -151,8 +164,11 @@ enum {
     OP_FTP, OP_UFUNC, OP_CONVERT, OP_REFL_CONV, OP_DPZ, OP_POLY_RESID,
     OP_SOFT_PILEUP, OP_WF_CORR, OP_WF_CENTROID, OP_SOFT_PILEUP_OUT, OP_INJECT,
     OP_DENSE, OP_MEAN_BELOW, OP_COUNT, OP_PRESUM, OP_LOG_CHECK, OP_TRAP_PICKOFF,
-    OP_MIN_MAX_NORM, OP_SLOPE_DIFF, OP_GET, OP_MULTI_A, OP_WHERE, OP_ROUND
+    OP_MIN_MAX_NORM, OP_SLOPE_DIFF, OP_GET, OP_MULTI_A, OP_WHERE, OP_ROUND,
+    OP_MW, OP_CONV_DIRECT, OP_EWISE, OP_REDUCE
 };
+// the ewise op's conversions of a plane: EW_CONVERT + the convert op's kind
+#define EW_CONVERT 40
 
 // Mirrored field for field by ctypes in processors/_cuda.py. The tape rides
 // in the kernel's parameters; each block copies it into its shared memory
@@ -642,18 +658,180 @@ __device__ __forceinline__ int conv_tile(const float* win, const float* ks,
 
 // ---------------------------------------------------------------------------
 
-// A comparison's result, 0 or 1 (ip[0] of the ufunc op, 3 to 8). Not
-// inlined, nor ext_other: inlined, the two made the generic flagship's
-// group A 0.2% slower (tools/k7_time.py).
-__device__ __noinline__ double compare(int kind, double a, double b) {
+__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double rn_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float rn_div(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double rn_div(double a, double b) { return __ddiv_rn(a, b); }
+
+// fmod(a, b), exact, in T. For float32 from the quotient in float64 where
+// it is below 2^24: its truncation q is the true one or one more in
+// magnitude, a - q b is then exact by FMA (the remainder, or, with the sign
+// opposite to a's, a sign of one too many, and then q is stepped back and
+// the FMA taken again). Else (float64, an infinite or zero divisor, a NaN,
+// a large quotient) by binary long division in fmod_long: with t = |b| 2^k
+// from the top k down, t <= r < 2 t holds before each step, so r - t is
+// exact (Sterbenz). It is not inlined, so that its loop's registers stay out
+// of its callers' budget; the library's fmod in its place gave the kernel a
+// stack frame and made the generic flagship's groups 1-2% slower.
+__device__ __noinline__ double fmod_long(double a, double b) {
+    if (isnan(a) || isnan(b) || isinf(a) || b == 0.0)
+        return __longlong_as_double(0x7ff8000000000000LL);
+    double r = fabs(a);
+    const double B = fabs(b);
+    if (isinf(b) || r < B) return a;
+    double t = ldexp(B, ilogb(r) - ilogb(B));
+    for (;;) {
+        if (r >= t) r = __dsub_rn(r, t);
+        if (t == B) break;
+        t = __dmul_rn(t, 0.5);
+    }
+    return copysign(r, a);
+}
+
+template <typename T>
+__device__ __forceinline__ T exact_fmod(T a, T b) {
+    double q = trunc(__ddiv_rn((double)a, (double)b));
+    if (sizeof(T) == 8 || !(fabs(q) < 16777216.0) || isinf(b))
+        return (T)fmod_long((double)a, (double)b);
+    double r = __fma_rn(-q, (double)b, (double)a);
+    if (r != 0.0 && (r < 0.0) != (a < (T)0)) {
+        q = __dsub_rn(q, copysign(1.0, q));
+        r = __fma_rn(-q, (double)b, (double)a);
+    }
+    return r == 0.0 ? copysign((T)0, a) : (T)r;
+}
+
+// numpy's floor_divide as PyTorch computes it (c10's div_floor_floating),
+// each operation rounded in T.
+template <typename T>
+__device__ __forceinline__ T floor_div(T a, T b) {
+    if (b == (T)0) return rn_div(a, b);
+    const T mod = exact_fmod(a, b);
+    T div = rn_div(rn_sub(a, mod), b);
+    if (mod != (T)0 && (b < (T)0) != (mod < (T)0)) div = rn_sub(div, (T)1);
+    if (div == (T)0) return copysign((T)0, rn_div(a, b));
+    T fd = floor(div);
+    if (rn_sub(div, fd) > (T)0.5) fd = rn_add(fd, (T)1);
+    return fd;
+}
+
+// numpy's remainder (the divisor's sign) as PyTorch computes it.
+template <typename T>
+__device__ __forceinline__ T py_rem(T a, T b) {
+    T mod = exact_fmod(a, b);
+    if (mod != (T)0 && (b < (T)0) != (mod < (T)0)) mod = rn_add(mod, b);
+    return mod;
+}
+
+// One entry of the elementwise table (_tile_program.UFUNCS, ip[0] of the
+// per-row ufunc op and of the ewise op) on operands a, b, c as doubles.
+// With f32 the member computes in float32: every entry but floor_divide,
+// power and remainder rounds once in float64 and once more to float32 in
+// the caller, which is the float32 result (53 >= 2 * 24 + 2 bits); those
+// three take float32 operations. exp, expm1, log, log1p and log10 are taken
+// in float64 in the member too (processing_chain._WIDENED_UFUNCS).
+// Comparisons and logical ops give 0 or 1.
+__device__ __forceinline__ double ufunc_eval(int kind, double a, double b, double c,
+                                            int f32) {
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
     switch (kind) {
+    case 0: return __dadd_rn(a, b);
+    case 1: return __dmul_rn(a, b);
+    case 2: return __ddiv_rn(a, b);
     case 3: return a > b;
     case 4: return a >= b;
     case 5: return a < b;
     case 6: return a <= b;
     case 7: return a == b;
-    default: return a != b;
+    case 8: return a != b;
+    case 9: return __dsub_rn(a, b);
+    case 10: return f32 ? (double)floor_div((float)a, (float)b) : floor_div(a, b);
+    case 11: return f32 ? (double)powf((float)a, (float)b) : pow(a, b);
+    case 12: return f32 ? (double)py_rem((float)a, (float)b) : py_rem(a, b);
+    // maximum and minimum: a NaN operand's NaN, else ATen's ::max / ::min
+    case 13: return isnan(a) || isnan(b) ? dnan : fmax(a, b);
+    case 14: return isnan(a) || isnan(b) ? dnan : fmin(a, b);
+    case 15: return a != 0.0 && b != 0.0;
+    case 16: return a != 0.0 || b != 0.0;
+    case 17: return -a;
+    case 18: return fabs(a);
+    case 19: return sqrt(a);
+    case 20: return __dmul_rn(a, a);
+    case 21: return isnan(a) ? a : a > 0.0 ? 1.0 : a < 0.0 ? -1.0 : 0.0;
+    case 22: return rint(a);
+    case 23: return floor(a);
+    case 24: return ceil(a);
+    case 25: return trunc(a);
+    case 26: return exp(a);
+    case 27: return expm1(a);
+    case 28: return log(a);
+    case 29: return log1p(a);
+    case 30: return log10(a);
+    case 31: return a == 0.0;
+    case 32: return isnan(a);
+    case 33: return isfinite(a);
+    default: return a != 0.0 ? b : c;  // 34: where
     }
+}
+
+// ufunc_eval for the per-row ufunc op. Not inlined, nor ext_other: inlined,
+// the comparisons and ext_other made the generic flagship's group A 0.2%
+// slower. The ewise op inlines ufunc_eval: a call a sample kept its
+// loop's state in local memory.
+__device__ __noinline__ double ufunc_apply(int kind, double a, double b, double c,
+                                           int f32) {
+    return ufunc_eval(kind, a, b, c, f32);
+}
+
+// The convert op's kinds past the plain conversion (ip[0]): 1 round (half
+// to even), 2 floor, 3 ceil, 4 trunc, 5 convert_int's rint, or the int64
+// maximum where the value is 1e-5 or more from it.
+__device__ __forceinline__ double round_eval(int kind, double v) {
+    switch (kind) {
+    case 1: return rint(v);
+    case 2: return floor(v);
+    case 3: return ceil(v);
+    case 4: return trunc(v);
+    default: {
+        const double r = rint(v);
+        return fabs(__dsub_rn(v, r)) < 1.0e-5 ? r : 9.223372036854775807e18;
+    }
+    }
+}
+
+// round_eval for the per-row convert op, not inlined (as ufunc_apply).
+__device__ __noinline__ double round_kind(int kind, double v) {
+    return round_eval(kind, v);
+}
+
+// fixed_time_pickoff's modes 'n', 'f', 'c' and 'h' at x[i0] + f (f the
+// fraction, in float32), as the member computes them in float32; Hermite's
+// slopes from the neighbours, one-sided at the row's ends, its cubes as
+// PyTorch's pow takes them ((t t) t).
+__device__ __noinline__ double ftp_more(const float* x, int n, int i0, float f,
+                                        int mode) {
+    const float wi = x[min(max(i0, 0), n - 1)];
+    const float wi1 = x[min(max(i0 + 1, 0), n - 1)];
+    if (mode == 'n') return f < 0.5f ? wi : wi1;
+    if (mode == 'f' || f == 0.f) return wi;
+    if (mode == 'c') return wi1;
+    const float wim1 = x[min(max(i0 - 1, 0), n - 1)];
+    const float wi2 = x[min(max(i0 + 2, 0), n - 1)];
+    const float t0 = f, t1 = __fsub_rn(1.f, f);
+    const float m0 = i0 == 0 ? __fsub_rn(x[1], x[0]) : __fdiv_rn(__fsub_rn(wi1, wim1), 2.f);
+    const float m1 = i0 == n - 2 ? __fsub_rn(x[n - 1], x[n - 2])
+                                 : __fdiv_rn(__fsub_rn(wi2, wi), 2.f);
+    const float t12 = __fmul_rn(t1, t1), t13 = __fmul_rn(t12, t1);
+    const float t02 = __fmul_rn(t0, t0), t03 = __fmul_rn(t02, t0);
+    const float h00 = __fadd_rn(__fmul_rn(-2.f, t13), __fmul_rn(3.f, t12));
+    const float h01 = __fadd_rn(__fmul_rn(-2.f, t03), __fmul_rn(3.f, t02));
+    return __fadd_rn(__fsub_rn(__fadd_rn(__fmul_rn(h00, wi), __fmul_rn(h01, wi1)),
+                               __fmul_rn(__fsub_rn(t13, t12), m0)),
+                     __fmul_rn(__fsub_rn(t03, t02), m1));
 }
 
 // The ops that warp 0 runs alone, lane 0 storing the result: the searches
@@ -714,10 +892,12 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
             const float wi1 = x[min(max(i0 + 1, 0), n - 1)];
             if (ip[0] == 'i') {
                 v = f == 0.f ? (double)wi : dnan;
-            } else {  // 'l'
+            } else if (ip[0] == 'l') {
                 const float t1 = __fsub_rn(1.f, f);
                 v = f == 0.f ? wi
                     : __fadd_rn(__fmul_rn(t1, wi), __fmul_rn(f, wi1));
+            } else {
+                v = ftp_more(x, n, i0, f, ip[0]);
             }
         }
     } else if (code == OP_UFUNC) {
@@ -728,7 +908,7 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
         const double b = operand(P, k, 1, cast);
         v = ip[0] == 0 ? __dadd_rn(a, b)
           : ip[0] == 1 ? __dmul_rn(a, b)
-          : ip[0] == 2 ? __ddiv_rn(a, b) : compare(ip[0], a, b);
+          : ip[0] == 2 ? __ddiv_rn(a, b) : ufunc_apply(ip[0], a, b, 0.0, ip[1]);
         if (ip[1]) v = (double)(float)v;
     } else if (code == OP_GET) {
         // get / get_default (ip[0]): the sample at an int64 index (operand
@@ -763,13 +943,14 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
         }
         if (isnan(a)) v = dnan;
     } else {  // OP_CONVERT
-        // (x + offset_in) * ratio - offset_out in float64, rounded half to
-        // even for convert_round, in the input's type
+        // (x + offset_in) * ratio - offset_out in float64, rounded (ip[0],
+        // round_kind) for convert_round, _floor, _ceil, _trunc and _int, in
+        // the input's type
         const double x = operand(P, k, 0, 0);
         const double a = operand(P, k, 1, 0);
         const double b = operand(P, k, 2, 0);
         v = __dsub_rn(__dmul_rn(__dadd_rn(x, a), tape_dp(P)[k * OP_DP]), b);
-        if (ip[0]) v = rint(v);
+        if (ip[0]) v = ip[0] == 1 ? rint(v) : round_kind(ip[0], v);
         if (ip[1]) v = (double)(float)v;
         // into an int64 slot as PyTorch converts it on the card (truncated,
         // saturated, a NaN to 0)
@@ -796,12 +977,21 @@ __device__ __forceinline__ void gen_cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// An external bool plane (one byte a sample) into its place, as 1.0 and 0.0.
+__device__ __forceinline__ void op_load_bool(const GenParams& P, const Row& R, int s) {
+    float* x = plane(P, s);
+    const int n = plen(P, s), e = sf(P, s, S_EXT);
+    const unsigned char* g = (const unsigned char*)P.ext[e] + R.row * P.ext_stride[e];
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) x[i] = g[i] ? 1.f : 0.f;
+}
+
 // An external plane into its place in the arena by cp.async: 16 bytes a
 // lane where the row starts on 16 bytes (4 where it does not), every copy
 // in flight before the first wait and none holding registers; then each
 // thread tests the chunks it copied itself for a NaN.
 __device__ __forceinline__ void op_load(const GenParams& P, const Row& R,
                                         int s) {
+
     float* x = plane(P, s);
     const int n = plen(P, s), e = sf(P, s, S_EXT);
     const float* g = (const float*)P.ext[e] + R.row * P.ext_stride[e];
@@ -1121,9 +1311,11 @@ __device__ __forceinline__ void op_dpz(const GenParams& P, Row& R, int k,
 }
 
 // trap_norm / asym_trap_filter from the padded float64 prefix.
+
 __device__ __forceinline__ void op_trap(const GenParams& P, Row& R,
                                         const int* in, const int* out,
                                         const int* ip) {
+
     const float* x = plane(P, in[0]);
     float* o = plane(P, out[0]);
     float* g = esc_plane(P, R, out[0]);
@@ -1210,10 +1402,6 @@ __device__ __forceinline__ int reflect_at(int q, int n) {
     return q < 0 ? -q : q >= n ? 2 * (n - 1) - q : q;
 }
 
-__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double rn_mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(a, b); }
 
 // reflected_convolve_wf (direct route, m <= 32 taps): the plain version pads
 // the row by m / 2 + 1 reflected samples, convolves in full and keeps the
@@ -1225,18 +1413,27 @@ __device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(
 // taps are float64 (the float32 row widened exactly). No pad is built: the
 // index map reads the row in place, its neighbours and reflected edges
 // written by other threads (the plan puts a barrier before the op).
-template <typename T>
-__device__ __forceinline__ int reflected_conv_row(const float* x, int n,
-                                                  const T* ks, int m, bool bad,
-                                                  T* o, T* g) {
-    const int d = (m - 1) / 2;
+template <typename T, bool REFLECT>
+__device__ __forceinline__ T conv_sample(const float* x, int q, int n) {
+    if (REFLECT) return (T)x[reflect_at(q, n)];
+    return q >= 0 && q < n ? (T)x[q] : (T)0;
+}
+
+// out[j] = sum_k taps[k] * x[lo + j - k] for j < p, summed as
+// _conv_full_direct sums it; x read through the reflect index map
+// (REFLECT, reflected_convolve_wf: lo = (m - 1) / 2, p = n) or as zero
+// outside the row (convolve_wf's direct route: its mode's window).
+template <typename T, bool REFLECT>
+__device__ __forceinline__ int direct_conv_row(const float* x, int n, const T* ks,
+                                               int m, int lo, int p, bool bad,
+                                               T* o, T* g) {
     int h = 0;
-    for (int j = threadIdx.x; j < n; j += GEN_THREADS) {
+    for (int j = threadIdx.x; j < p; j += GEN_THREADS) {
         T acc = (T)__int_as_float(0x7fc00000);
         if (!bad) {
-            acc = rn_mul(__ldg(ks + m - 1), (T)x[reflect_at(j + d - (m - 1), n)]);
+            acc = rn_mul(__ldg(ks + m - 1), conv_sample<T, REFLECT>(x, lo + j - (m - 1), n));
             for (int k = m - 2; k >= 0; --k)
-                acc = rn_add(acc, rn_mul(__ldg(ks + k), (T)x[reflect_at(j + d - k, n)]));
+                acc = rn_add(acc, rn_mul(__ldg(ks + k), conv_sample<T, REFLECT>(x, lo + j - k, n)));
         }
         o[j] = acc;
         if (g) g[j] = acc;
@@ -1253,11 +1450,13 @@ __device__ __forceinline__ void op_reflected_conv(const GenParams& P,
     const int n = plen(P, in[0]);
     const bool bad = plane_nan(P, in[0], false);
     // float64 taps sit in pairs of words from an even word (8 bytes)
+    const int m = ip[1], d = (m - 1) / 2;
     const int h = sf(P, out[0], S_TYPE) == T_F64
-        ? reflected_conv_row(x, n, reinterpret_cast<const double*>(P.taps + ip[0]),
-                             ip[1], bad, plane64(P, out[0]), esc_plane64(P, R, out[0]))
-        : reflected_conv_row(x, n, P.taps + ip[0], ip[1], bad, plane(P, out[0]),
-                             esc_plane(P, R, out[0]));
+        ? direct_conv_row<double, true>(x, n, reinterpret_cast<const double*>(P.taps + ip[0]),
+                                        m, d, n, bad, plane64(P, out[0]),
+                                        esc_plane64(P, R, out[0]))
+        : direct_conv_row<float, true>(x, n, P.taps + ip[0], m, d, n, bad, plane(P, out[0]),
+                                       esc_plane(P, R, out[0]));
     flag_plane(P, out[0], h);
 }
 
@@ -2050,12 +2249,239 @@ __device__ __forceinline__ void op_multi_a(const GenParams& P, const Row& R,
     flag_plane(P, out[0], h);
 }
 
+
+// ---------------------------------------------------------------------------
+// the plane ops: the rest of what generic_rows takes on float32 rows
+
+// trap_filter (the trap op's kind 2): the unnormalised trapezoid
+// (S[i] - S[i - rise]) - (S[i - rise - flat] - S[i - 2 rise - flat]) from the
+// row's float64 prefix (gen_prefix, _numerics.k7_prefix's order), each
+// window a prefix difference, rounded once.
+__device__ __forceinline__ void op_trap_sum(const GenParams& P, Row& R, const int* in,
+                                            const int* out, const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const bool bad = plane_nan(P, in[0], false);
+    const int pad = prefix_pad(n);
+    double* ps = scratch_of(P);
+    gen_prefix(R, x, n, ps, pad);
+    // the output's places and the sections after the prefix's barrier, so
+    // that they are not held in registers across it beside the run
+    float* o = plane(P, out[0]);
+    float* g = esc_plane(P, R, out[0]);
+    const int rise = ip[1], flat = ip[2];
+    const float qnan = __int_as_float(0x7fc00000);
+    int h = 0;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
+        const double d1 = gen_win_sum(x, ps, pad, false, i, rise, 0);
+        const double d2 = gen_win_sum(x, ps, pad, false, i, rise, rise + flat);
+        const float v = bad ? qnan : (float)__dsub_rn(d1, d2);
+        o[i] = v;
+        if (g) g[i] = v;
+        h |= nan_inf(v);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// moving_window_left (ip[0] = 0) and moving_window_right (1) of a length L
+// (the tape's double 0; ip[1] = int(L)): from the row's float64 prefix S
+// (gen_prefix), the member's formulas, each operation rounded once in
+// float64: left (S[i] - S[i - L']) / L, over the first L' samples w0 + (S[i]
+// - (i + 1) w0) / L; right (S[i + L' - 1] - S[i - 1]) / L, over the last L'
+// wl + ((S[n - 1] - S[i - 1]) - (n - i) wl) / L. After the prefix's
+// barrier it reads w0 = x[0] and wl = x[n - 1] (the row is not written), and
+// its parameters and places, which are then not held across the barrier.
+__device__ __forceinline__ void op_mw(const GenParams& P, Row& R, int k, const int* in,
+                                      const int* out, const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]);
+    const bool bad = plane_nan(P, in[0], false);
+    const int pad = prefix_pad(n);
+    double* ps = scratch_of(P);
+    gen_prefix(R, x, n, ps, pad);
+    const double w0 = (double)x[0], wl = (double)x[n - 1];
+    const bool right = ip[0];
+    const int li = ip[1];
+    const double len = tape_dp(P)[k * OP_DP];
+    float* o = plane(P, out[0]);
+    float* g = esc_plane(P, R, out[0]);
+    const float qnan = __int_as_float(0x7fc00000);
+    int h = 0;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
+        double v;
+        if (!right) {
+            const double s = ps[pidx(i, pad)];
+            v = i < li ? __dadd_rn(w0, __ddiv_rn(__dsub_rn(s, __dmul_rn((double)(i + 1), w0)), len))
+                       : __ddiv_rn(__dsub_rn(s, ps[pidx(i - li, pad)]), len);
+        } else {
+            const double se = i > 0 ? ps[pidx(i - 1, pad)] : 0.0;
+            if (i > n - 1 - li) {
+                v = __dadd_rn(wl, __ddiv_rn(__dsub_rn(__dsub_rn(ps[pidx(n - 1, pad)], se),
+                                                      __dmul_rn((double)(n - i), wl)), len));
+            } else {
+                v = __ddiv_rn(__dsub_rn(ps[pidx(li > 0 ? i + li - 1 : i, pad)], se), len);
+            }
+        }
+        const float y = bad ? qnan : (float)v;
+        o[i] = y;
+        if (g) g[i] = y;
+        h |= nan_inf(y);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// convolve_wf and fft_convolve_wf with m <= 32 taps (ip[1]; ip[0] their
+// offset, float32): the mode's window [lo, lo + p) of the full convolution
+// (lo = ip[2], p the output's length: n + m - 1 for 'f'), the direct loop of
+// reflected_convolve_wf with zeros outside the row; a NaN row's outputs NaN.
+__device__ __forceinline__ void op_conv_direct(const GenParams& P, const Row& R,
+                                               const int* in, const int* out,
+                                               const int* ip) {
+    const float* x = plane(P, in[0]);
+    const bool bad = plane_nan(P, in[0], false);
+    const int h = direct_conv_row<float, false>(x, plen(P, in[0]), P.taps + ip[0], ip[1],
+                                                ip[2], plen(P, out[0]), bad,
+                                                plane(P, out[0]), esc_plane(P, R, out[0]));
+    flag_plane(P, out[0], h);
+}
+
+// A conversion of a plane's sample (the ewise op's kinds from EW_CONVERT):
+// (x + offset_in) * ratio - offset_out in float64, rounded by kind.
+__device__ __forceinline__ double convert_value(int kind, double x, double a,
+                                                double b, double ratio) {
+    const double v = __dsub_rn(__dmul_rn(__dadd_rn(x, a), ratio), b);
+    return kind ? round_eval(kind, v) : v;
+}
+
+// ewise: an entry of the elementwise table (ip[0], ufunc_eval) or a
+// conversion over the output plane's samples, each thread its samples i,
+// i + 256, ...: operand q (of ip[2]) a plane (bit q of ip[3]; float32 or
+// bool, read at i) or a per-row scalar or constant (operand, rounded to
+// float32 by bit q of ip[7]); ip[1] the member's float32. The result is
+// rounded to the output's type: a float32, or a bool (1 or 0: a bool plane
+// holds one float a sample, its stored copy one byte).
+__device__ __forceinline__ void op_ewise(const GenParams& P, const Row& R, int k,
+                                         const int* in, const int* out, const int* ip) {
+    const int kind = ip[0], f32 = ip[1], nin = ip[2];
+    const float* xp[3];
+    double sv[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+        const bool pl = q < nin && ((ip[3] >> q) & 1);
+        xp[q] = pl ? plane(P, in[q]) : nullptr;
+        sv[q] = q < nin && !pl ? operand(P, k, q, ip[7]) : 0.0;
+    }
+    const double ratio = tape_dp(P)[k * OP_DP];
+    const int m = plen(P, out[0]);
+    const bool bo = sf(P, out[0], S_TYPE) == T_BOOL;
+    float* o = plane(P, out[0]);
+    const int e = sf(P, out[0], S_ESC);
+    float* g = !bo && e >= 0 ? (float*)P.esc[e] + R.row * (long long)m : nullptr;
+    unsigned char* gb = bo && e >= 0 ? (unsigned char*)P.esc[e] + R.row * (long long)m
+                                     : nullptr;
+    int h = 0;
+    for (int i = threadIdx.x; i < m; i += GEN_THREADS) {
+        const double a = xp[0] ? (double)xp[0][i] : sv[0];
+        const double b = xp[1] ? (double)xp[1][i] : sv[1];
+        const double c = xp[2] ? (double)xp[2][i] : sv[2];
+        const double v = kind >= EW_CONVERT ? convert_value(kind - EW_CONVERT, a, b, c, ratio)
+                                            : ufunc_eval(kind, a, b, c, f32);
+        const float y = bo ? (v != 0.0 ? 1.f : 0.f) : (float)v;
+        o[i] = y;
+        if (g) g[i] = y;
+        if (gb) gb[i] = (unsigned char)(y != 0.f);
+        h |= nan_inf(y);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// The numpy reductions of a row (ip[0], _tile_program.REDUCTIONS): 0 amin /
+// min and 1 max (NaN where the row holds a NaN), 2 nanmin and 3 nanmax
+// (NaN-skipping; NaN for a row of NaNs), the extrema exact in any order; 4
+// sum, 5 mean, 6 nansum, 7 nanmean: float64 sums in K7's block order
+// (op_mean_below's, _numerics.k7_sum; a NaN skipped by the nan kinds), a
+// mean divided by its count in float64. The warps' values and counts meet
+// in one reduction buffer behind one barrier; thread 0 stores the result,
+// rounded to the output's type. A bool row reads as 0 and 1.
+__device__ __forceinline__ void op_reduce(const GenParams& P, Row& R, const int* in,
+                                          const int* out, const int* ip) {
+    const float* x = plane(P, in[0]);
+    const int n = plen(P, in[0]), kind = ip[0];
+    const bool ext = kind <= 3;
+    const bool nan = kind <= 1 && plane_nan(P, in[0], false);
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    double s = ext ? dnan : 0.0;
+    int c = 0;
+    for (int i = tid; i < n; i += GEN_THREADS) {
+        const double v = (double)x[i];
+        if (ext) {
+            s = (kind & 1) ? fmax(s, v) : fmin(s, v);
+        } else if (kind < 6 || !isnan(v)) {
+            s += v;
+            ++c;
+        }
+    }
+    if (ext) {
+        for (int o = 16; o > 0; o >>= 1) {
+            const double t = __shfl_down_sync(FULL_MASK, s, o);
+            s = (kind & 1) ? fmax(s, t) : fmin(s, t);
+        }
+    } else {
+        s = warp_sum(s);
+    }
+    c = __reduce_add_sync(FULL_MASK, c);
+    double* red = gen_red[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        red[wid] = s;
+        red[GEN_WARPS + wid] = (double)c;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    double v;
+    if (ext) {
+        v = red[0];
+#pragma unroll
+        for (int w = 1; w < GEN_WARPS; ++w)
+            v = (kind & 1) ? fmax(v, red[w]) : fmin(v, red[w]);
+        if (nan) v = dnan;
+    } else {
+        v = replay_sum(red);
+        double cnt = 0.0;
+#pragma unroll
+        for (int w = 0; w < GEN_WARPS; ++w) cnt += red[GEN_WARPS + w];
+        if (kind == 5 || kind == 7) v = __ddiv_rn(v, cnt);
+    }
+    put(P, R, out[0], v);
+}
+
 // An external bool or int64 per-row scalar as a double (not inlined, as
-// compare).
+// ufunc_apply).
 __device__ __noinline__ double ext_other(const GenParams& P, int e, int ty,
                                          const Row& R) {
     return ty == T_BOOL ? (double)((const unsigned char*)P.ext[e])[R.row]
                         : (double)((const long long*)P.ext[e])[R.row];
+}
+
+// The plane ops that run on the whole block (and the trap op's trap_filter
+// kind, a bool plane's load), from one call site: the call returns the op's
+// index and the reduction buffer, so that the kernel's loop holds nothing
+// across it.
+__device__ __noinline__ int2 outlined_op(const GenParams& P, Row R, int k) {
+    const int* op = tape(P) + k * OP_INTS;
+    const int* in = op + 1;
+    const int* out = in + OP_IN;
+    const int* ip = out + OP_OUT;
+    switch (op[0]) {
+    case OP_LOAD: op_load_bool(P, R, in[0]); break;
+    case OP_TRAP: op_trap_sum(P, R, in, out, ip); break;
+    case OP_MW: op_mw(P, R, k, in, out, ip); break;
+    case OP_CONV_DIRECT: op_conv_direct(P, R, in, out, ip); break;
+    case OP_EWISE: op_ewise(P, R, k, in, out, ip); break;
+    default: op_reduce(P, R, in, out, ip); break;
+    }
+    return make_int2(k, R.rb);
 }
 
 __global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS)
@@ -2106,11 +2532,17 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
                 warp_op(P, R, k, code);
             }
             break;
-        case OP_LOAD: op_load(P, R, in[0]); break;
+        case OP_LOAD:
+            if (sf(P, in[0], S_TYPE) == T_BOOL) goto outlined;
+            op_load(P, R, in[0]);
+            break;
         case OP_MIN_MAX: op_min_max(P, R, in, out); break;
         case OP_SLOPE_FIT: op_slope_fit(P, R, in, out); break;
         case OP_POLE_ZERO: op_pole_zero(P, R, k, in, out, ip); break;
-        case OP_TRAP: op_trap(P, R, in, out, ip); break;
+        case OP_TRAP:
+            if (ip[0] == 2) goto outlined;  // trap_filter
+            op_trap(P, R, in, out, ip);
+            break;
         case OP_AMAX: op_amax(P, R, in, out); break;
         case OP_CONV: op_conv(P, R, in, out, ip); break;
         case OP_BL_SUB:
@@ -2134,6 +2566,16 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         case OP_PRESUM: op_presum(P, R, in, out, ip); break;
         case OP_MIN_MAX_NORM: op_min_max_norm(P, R, k, in, out, ip); break;
         case OP_MULTI_A: op_multi_a(P, R, in, out); break;
+        case OP_MW:
+        case OP_CONV_DIRECT:
+        case OP_EWISE:
+        case OP_REDUCE:
+        outlined: {
+            const int2 r = outlined_op(P, R, k);
+            k = r.x;
+            R.rb = r.y;
+            break;
+        }
         default: break;
         }
     }

@@ -386,8 +386,14 @@ _UFUNC_RENAMES = {
     "true_divide": "div", "divide": "div", "power": "pow",
     "absolute": "abs", "negative": "neg", "less": "lt", "less_equal": "le",
     "greater": "gt", "greater_equal": "ge", "equal": "eq",
-    "not_equal": "ne", "arctan2": "atan2",
+    "not_equal": "ne", "arctan2": "atan2", "fabs": "abs", "rint": "round",
 }
+
+
+def _sign(x):
+    """numpy's sign: NaN where ``x`` is NaN (``torch.sign`` gives 0 there)."""
+    s = torch.sign(x)
+    return torch.where(torch.isnan(x), x, s) if x.is_floating_point() else s
 
 
 # float32 transcendental ufuncs taken in float64 and rounded once: the
@@ -401,7 +407,7 @@ def _np_to_torch_ufunc(func):
     tensors. Operands that are all host values (build-time const folding)
     go through the numpy ufunc itself."""
     name = func.__name__
-    tfn = getattr(torch, _UFUNC_RENAMES.get(name, name), None)
+    tfn = _sign if name == "sign" else getattr(torch, _UFUNC_RENAMES.get(name, name), None)
     if tfn is None:
         raise ProcessingChainError(f"no PyTorch equivalent for ufunc {name}")
 
@@ -3834,7 +3840,9 @@ class ProcessingChain:
             self, name, var.shape, np.dtype("bool"), var.grid, var.unit, var.is_coord
         )
         fn = getattr(torch, fn_name)
-        self._add_step(FuncStep(fn, [var.key], out.key, name))
+        # a closure, as the JAX package's (:3658): the step stays out of
+        # generic groups in both packages (numpy's isnan ufunc joins them)
+        self._add_step(FuncStep(lambda x: fn(x), [var.key], out.key, name))
         out.defined = True
         return out
 

@@ -1258,9 +1258,10 @@ def fused_current(c, ratio, half, n_up, L, num, mtype, need=(True,) * 4):
 # K7: a generic fusion group as one row-tape launch
 # ---------------------------------------------------------------------------
 
-_GEN_MAX_EXT, _GEN_MAX_ESC = 32, 64
-# the tape's ints and doubles that K7's parameters hold (GEN_MAX_CODE,
-# GEN_MAX_DP); a longer tape is refused at lowering
+# the inputs and stored outputs (GEN_MAX_EXT, GEN_MAX_ESC), the tape's ints
+# and doubles (GEN_MAX_CODE, GEN_MAX_DP) that K7's parameters hold; a group
+# over any of them is refused at lowering
+GEN_MAX_EXT, GEN_MAX_ESC = 32, 64
 GEN_MAX_CODE, GEN_MAX_DP = 3072, 512
 
 
@@ -1278,9 +1279,9 @@ class _GenParams(ctypes.Structure):
         ("tape_dbl", ctypes.c_int),
         ("n_dpar", ctypes.c_int),
         ("n_code", ctypes.c_int),
-        ("ext", ctypes.c_void_p * _GEN_MAX_EXT),
-        ("ext_stride", ctypes.c_longlong * _GEN_MAX_EXT),
-        ("esc", ctypes.c_void_p * _GEN_MAX_ESC),
+        ("ext", ctypes.c_void_p * GEN_MAX_EXT),
+        ("ext_stride", ctypes.c_longlong * GEN_MAX_EXT),
+        ("esc", ctypes.c_void_p * GEN_MAX_ESC),
         ("dpar", ctypes.c_double * GEN_MAX_DP),
         ("code", ctypes.c_int * GEN_MAX_CODE),
     ]
@@ -1312,8 +1313,12 @@ def generic_rows_plain(program, vals: dict) -> dict:
     its second the member's output; a dense or classification layer sums in
     K7's order (:func:`.ml.layer_rows`), and so does a member whose kernel
     names its variant in ``k7_plain`` (``mean_below_threshold``,
-    ``linear_slope_diff``, ``trap_pickoff`` and ``presum``: K7's block sums,
-    prefix and sums in turn). Returns the escapes."""
+    ``linear_slope_diff``, ``trap_pickoff``, ``presum``, ``trap_filter`` and
+    the moving windows: K7's block sums, prefix and sums in turn), and the
+    reduce op's sums (:func:`.._numpy_funcs.k7_reduce`). An ``ewise`` op
+    takes its per-row scalars along the row, as the unfused step's fetch
+    broadcasts them. Returns the escapes."""
+    from .._numpy_funcs import K7_SUMS, k7_reduce
     from .ml import layer_rows
     from .pole_zero import double_pole_zero_runs
     from .soft_pileup_corr import soft_pileup_fit
@@ -1329,8 +1334,13 @@ def generic_rows_plain(program, vals: dict) -> dict:
         if op.code == OPCODES["load"]:
             continue
         args = [value(a[1], a[2]) if a[0] == "slot" else a[1] for a in op.args]
+        if op.code == OPCODES["ewise"]:
+            args = [a[:, None] if isinstance(a, torch.Tensor) and a.ndim == 1 else a
+                    for a in args]
         kern = op.step.kernel
-        if op.code == OPCODES["double_pole_zero"]:
+        if op.code == OPCODES["reduce"] and kern.__name__ in K7_SUMS:
+            outs = (k7_reduce(kern.__name__, args[0]),)
+        elif op.code == OPCODES["double_pole_zero"]:
             outs = (double_pole_zero_runs(*args),)
         elif op.code == OPCODES["soft_pileup"]:
             outs = soft_pileup_fit(*args)
@@ -1394,12 +1404,6 @@ def generic_rows(program, vals: dict) -> dict:
     ref = vals[program.ext_keys[0]]
     if ref.device.type == "cpu":
         return generic_rows_plain(program, vals)
-    n_ext, n_esc = len(program.ext_keys), len(program.esc_roots)
-    if n_ext > _GEN_MAX_EXT or n_esc > _GEN_MAX_ESC:
-        raise ValueError(
-            f"generic_rows: the kernel takes at most {_GEN_MAX_EXT} inputs and "
-            f"{_GEN_MAX_ESC} stored outputs, got {n_ext} and {n_esc}"
-        )
     lib = _lib("generic_rows")
     dev = ref.device
     B = int(ref.shape[0])
@@ -1411,7 +1415,11 @@ def generic_rows(program, vals: dict) -> dict:
         if v.device != dev or v.shape[0] != B:
             raise ValueError(f"generic_rows: input {key} is not {B} rows on {dev}")
         if v.ndim == 2:
-            _require_cuda_f32(v, f"generic_rows input {key}", strided_rows=True)
+            if v.dtype == torch.bool:  # a bool plane, one byte a sample
+                if v.stride(1) != 1:
+                    v = v.contiguous()
+            else:
+                _require_cuda_f32(v, f"generic_rows input {key}", strided_rows=True)
             P.ext_stride[e] = v.stride(0)
         elif v.stride(0) != 1:
             v = v.contiguous()
@@ -1432,8 +1440,19 @@ def generic_rows(program, vals: dict) -> dict:
     for sid in program.esc_roots:
         want = program.slots[sid].dtype
         if roots[sid].dtype != want:  # a bool's or an int64's float64 copy
-            roots[sid] = roots[sid].to(want)
+            roots[sid] = esc_value(roots[sid], want)
     return _escape_values(program, roots)
+
+
+def esc_value(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A bool's or an int64's float64 copy (K7's ``put``) in its slot's
+    type; an int64 at or past 2**63 (``convert_int``'s mark for a result
+    that is not an integer, ``iinfo(int64).max``) saturates, as the card's
+    conversion does and the host's need not."""
+    if dtype != torch.int64:
+        return v.to(dtype)
+    big = torch.iinfo(torch.int64).max
+    return torch.where(v >= 2.0**63, big, v.to(dtype))
 
 
 # ---------------------------------------------------------------------------

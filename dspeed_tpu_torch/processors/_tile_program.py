@@ -10,8 +10,9 @@ Here the host lowers the member list into a tape before any launch:
   scalar (a bool or an int64 too), in the dtype the unfused chain gives the
   same env key (float64 where the plain path computes in float64); a slice
   or an alias is a view of its root slot and copies nothing. Planes are
-  float32, except the float64 planes that ``reflected_convolve_wf`` writes
-  from float64 taps and ``avg_current`` reads and writes (the SiPM chain
+  float32 or bool (one word a sample, 1.0 or 0.0; a stored copy one byte),
+  except the float64 planes that ``reflected_convolve_wf`` writes from
+  float64 taps and ``avg_current`` reads and writes (the SiPM chain
   computes in float64 from its smoothed waveform on), which take two words
   each and have no slices;
 - an **op** is an opcode, its operand slots (or constants) and output slots,
@@ -20,7 +21,9 @@ Here the host lowers the member list into a tape before any launch:
   defining op to its last reader, so planes that are dead share space;
   an external plane is loaded before its first reader; an escaping root is
   stored to device memory when its op has written it. A plan over one
-  block's shared memory (``_cuda._MAX_SMEM``) is refused.
+  block's shared memory (``_cuda._MAX_SMEM``) is refused, and so is a
+  group that reads more inputs or stores more outputs than K7's
+  parameters hold (``_cuda.GEN_MAX_EXT``, ``GEN_MAX_ESC``).
 
 A member with no op, a plane that is not float32 or an operand shape the
 tape does not take raises :class:`LoweringError`; the group then splits
@@ -34,7 +37,16 @@ five layers of ``ml.py``), and the coverage path runs (the twelve kernels
 of ``mean_below_threshold``, ``count``, ``presum``, ``log_check``,
 ``trap_pickoff``, ``min_max_norm``, ``linear_slope_diff``, ``get``,
 ``multi_a_filter``, ``where`` and ``round``, with per-row comparisons into
-bool slots and conversions into int64 slots).
+bool slots and conversions into int64 slots); and it takes every
+member the JAX package's ``generic_rows`` takes on float32 rows:
+``trap_filter`` (the ``trap`` op's third kind), the moving windows
+(``moving_window``), ``fixed_time_pickoff`` in every mode but ``s``, the
+direct convolution (``conv_direct``, 32 taps or fewer), every conversion
+(the ``convert`` op's kinds; a plane's by ``ewise``), the ufuncs of
+``_GENERIC_UFUNC_SAFE`` over planes, per-row scalars and constants
+(``ewise``, into float32 or bool planes; per-row ones by ``ufunc``, one
+table, :data:`UFUNCS`) and its row reductions (``reduce``; ``amax`` keeps
+its op).
 
 :func:`~dspeed_tpu_torch.processors._cuda.generic_rows` runs a program on
 the card; :func:`~dspeed_tpu_torch.processors._cuda.generic_rows_plain`
@@ -52,7 +64,7 @@ from ..processing_chain import (
     AliasStep, ConvertStep, KernelStep, SliceStep, _align_shape, _device_dtype,
     auto,
 )
-from ._cuda import _MAX_SMEM, GEN_MAX_CODE, GEN_MAX_DP
+from ._cuda import _MAX_SMEM, GEN_MAX_CODE, GEN_MAX_DP, GEN_MAX_ESC, GEN_MAX_EXT
 from ._numerics import K7_THREADS
 from .convolutions import _MATMUL_MAC_LIMIT, _mode_window
 from .ml import activation_flag
@@ -94,7 +106,7 @@ OPCODES = {
     "inject": 23, "dense": 24, "mean_below_threshold": 25, "count": 26,
     "presum": 27, "log_check": 28, "trap_pickoff": 29, "min_max_norm": 30,
     "linear_slope_diff": 31, "get": 32, "multi_a_filter": 33, "where": 34,
-    "round": 35,
+    "round": 35, "moving_window": 36, "conv_direct": 37, "ewise": 38, "reduce": 39,
 }
 OP_IN, OP_OUT, OP_IP, OP_DP = 6, 4, 8, 4
 OP_INTS = 1 + OP_IN + OP_OUT + OP_IP  # code, in, out, ip
@@ -103,10 +115,31 @@ SLOT_INTS = 8  # kind, type, off, len, sidx, ext, esc, root
 # a per-row scalar may also be a bool (a comparison's, a where's condition)
 # or an int64 (an index), held as a double in shared memory
 SLOT_TYPES = {torch.float32: 0, torch.float64: 1, torch.bool: 2, torch.int64: 3}
+# the elementwise functions (ip[0] of the per-row ``ufunc`` op and of the
+# plane ``ewise`` op, one table for both; csrc/generic_rows.cu ufunc_apply):
+# every ufunc of the JAX package's _GENERIC_UFUNC_SAFE but its reductions,
+# and ``where`` (three operands)
 UFUNCS = {"add": 0, "multiply": 1, "divide": 2, "true_divide": 2,
           "greater": 3, "greater_equal": 4, "less": 5, "less_equal": 6,
-          "equal": 7, "not_equal": 8}
-COMPARISONS = tuple(k for k, v in UFUNCS.items() if v >= 3)  # into bool slots
+          "equal": 7, "not_equal": 8, "subtract": 9, "floor_divide": 10,
+          "power": 11, "remainder": 12, "mod": 12, "maximum": 13, "minimum": 14,
+          "logical_and": 15, "logical_or": 16, "negative": 17, "absolute": 18,
+          "abs": 18, "fabs": 18, "sqrt": 19, "square": 20, "sign": 21, "rint": 22,
+          "floor": 23, "ceil": 24, "trunc": 25, "exp": 26, "expm1": 27, "log": 28,
+          "log1p": 29, "log10": 30, "logical_not": 31, "isnan": 32, "isfinite": 33,
+          "where": 34}
+UNARY = 17  # kinds from this one on take one operand (but where, three)
+EW_CONVERT = 40  # the ewise op's conversions of a plane: 40 + CONVERTS[name]
+# the kinds whose results are bools (into bool slots)
+BOOL_KINDS = frozenset((3, 4, 5, 6, 7, 8, 15, 16, 31, 32, 33))
+BOOL_UFUNCS = tuple(k for k, v in UFUNCS.items() if v in BOOL_KINDS)
+# the convert op's kinds (ip[0]), ConvertStep's kernels
+CONVERTS = {"convert": 0, "convert_round": 1, "convert_floor": 2, "convert_ceil": 3,
+            "convert_trunc": 4, "convert_int": 5}
+# the reduce op's kinds (ip[0]): the numpy reductions of a row; amax has
+# its own op. The sums run in K7's float64 block order (_numerics.k7_sum)
+REDUCTIONS = {"amin": 0, "min": 0, "max": 1, "nanmin": 2, "nanmax": 3, "sum": 4,
+              "mean": 5, "nansum": 6, "nanmean": 7}
 # the round op's kinds (ip[0])
 ROUNDERS = {"round_to_nearest": 0, "floor_to_nearest": 1, "ceil_to_nearest": 2,
             "trunc_to_nearest": 3}
@@ -116,6 +149,11 @@ ALIGN = 4  # planes start on 16-byte boundaries
 IP_PLAN = 4  # ip[4]: the barrier plan (bit 0: a block barrier before the op)
 # ops whose output planes may be float64 (two words a sample)
 F64_PLANE_OPS = ("reflected_convolve_wf", "avg_current")
+# the trap op's kinds (ip[0])
+TRAP_KINDS = {"trap_norm": 0, "asym_trap_filter": 1, "trap_filter": 2}
+# fixed_time_pickoff's modes that have an op (ip[0] = ord(mode)); 's' runs a
+# spline solver and stays out of groups
+FTP_MODES = "linfch"
 # ops that run on warp 0 alone (the others on every thread of the block)
 WARP_OPS = ("time_point_thresh", "fixed_time_pickoff", "ufunc", "convert", "get",
             "where", "round")
@@ -125,7 +163,7 @@ BARRIERED_OPS = ("min_max", "linear_slope_fit", "pole_zero", "trap", "amax",
                  "conv", "moving_window_multi", "double_pole_zero",
                  "poly_residual", "soft_pileup", "wf_centroid",
                  "mean_below_threshold", "count", "log_check", "trap_pickoff",
-                 "linear_slope_diff")
+                 "linear_slope_diff", "moving_window", "reduce")
 # the dense op's kinds (ip[0]); all but the normalisation have a barrier
 # of their own, and take the scratch for their warps' partial sums
 DENSE_KINDS = {"normalisation_layer": 0, "dense_layer_no_bias": 1,
@@ -136,7 +174,7 @@ INJECT_KINDS = {"inject_sig_pulse": (0, 4), "inject_exp_pulse": (1, 4),
                 "inject_gumbel": (2, 3), "inject_general_logistic": (3, 6)}
 # barriered ops that read their input planes again after their own barrier
 READ_AFTER_BARRIER = ("trap", "pole_zero", "double_pole_zero", "wf_centroid",
-                      "log_check")
+                      "log_check", "moving_window")
 # the block reductions' two alternating buffers: for each op that takes
 # them (its first one before its first barrier), how many of the buffers
 # it took last it still reads after its last barrier. One is safe, since
@@ -146,17 +184,20 @@ LATE_REDUCTION_READS = {"min_max": 1, "linear_slope_fit": 1, "pole_zero": 1,
                         "double_pole_zero": 1, "poly_residual": 1,
                         "soft_pileup": 1, "wf_centroid": 1,
                         "mean_below_threshold": 1, "count": 1,
-                        "linear_slope_diff": 1, "trap_pickoff": 0}
+                        "linear_slope_diff": 1, "trap_pickoff": 0,
+                        "moving_window": 0, "reduce": 1}
 # ops that take the scratch: the prefix ops write it after their scan's
 # barrier; the convolution and a product stage in it before their own
 SCRATCH_OPS = ("trap", "moving_window_multi", "conv", "double_pole_zero",
-               "trap_pickoff")
+               "trap_pickoff", "moving_window")
 
 
 def esc_dtype(slot) -> torch.dtype:
-    """The type of a root's stored copy on the card: a bool's or an int64's
-    value is stored as a float64, which the wrapper converts to the slot's
-    type (``csrc/generic_rows.cu``'s ``put``)."""
+    """The type of a root's stored copy on the card: a bool scalar's or an
+    int64's value is stored as a float64, which the wrapper converts to the
+    slot's type (``csrc/generic_rows.cu``'s ``put``); a bool plane as bytes."""
+    if slot.kind == "plane":
+        return slot.dtype
     return torch.float64 if slot.dtype in (torch.bool, torch.int64) else slot.dtype
 
 
@@ -297,10 +338,10 @@ def _add_ext(prog: TileProgram, key, v, lead) -> None:
         raise LoweringError(f"input {key} is not a per-row scalar or plane")
     if v.shape[0] != lead:
         raise LoweringError(f"input {key} has {v.shape[0]} rows, not {lead}")
-    if v.dtype not in (_FLOATS if v.ndim == 2 else _SCALARS):
+    if v.dtype not in (_FLOATS + (torch.bool,) if v.ndim == 2 else _SCALARS):
         raise LoweringError(f"input {key} is {v.dtype}, not floating")
     if v.ndim == 2:
-        if v.dtype != torch.float32:
+        if v.dtype not in (torch.float32, torch.bool):
             raise LoweringError(f"K7 takes float32 planes; {key} is {v.dtype}")
         prog.new_slot(key, "plane", v.dtype, int(v.shape[1]), ext=True)
     else:
@@ -315,9 +356,11 @@ def _fetch_keeps_shape(spec, shape) -> bool:
 
 
 def _kernel_args(prog: TileProgram, step) -> list:
-    """The step's arguments as tape operands."""
+    """The step's arguments as tape operands. An elementwise member (a
+    ufunc, ``where``) may take a per-row scalar along a plane."""
     if step.kwarg_specs or step.badrow_key is not None:
         raise LoweringError(f"{step.kernel.__name__}: keyword or badrow arguments")
+    elementwise = step.kernel.__name__ in UFUNCS
     args = []
     for spec in step.arg_specs:
         if spec.kind == "const":
@@ -326,7 +369,7 @@ def _kernel_args(prog: TileProgram, step) -> list:
         sid = prog.slot_of(spec.key)
         s = prog.slots[sid]
         shape = (1, s.length) if s.kind == "plane" else (1,)
-        if not _fetch_keeps_shape(spec, shape):
+        if not (elementwise and s.kind == "scalar" or _fetch_keeps_shape(spec, shape)):
             raise LoweringError(f"{step.kernel.__name__}: a broadcast operand")
         want = _device_dtype(spec.dtype) if spec.dtype is not None else s.dtype
         if want not in _SCALARS:
@@ -335,19 +378,20 @@ def _kernel_args(prog: TileProgram, step) -> list:
     return args
 
 
-def _out_slots(prog: TileProgram, step, f64_planes=False, bools=False) -> list[int]:
-    """The step's output slots: float planes and scalars (bool scalars
-    with ``bools``, a comparison's)."""
+def _out_slots(prog: TileProgram, step, f64_planes=False, bools=False,
+               ints=False) -> list[int]:
+    """The step's output slots: float planes and scalars (bool scalars and
+    planes with ``bools``, a comparison's; int64 scalars with ``ints``)."""
     outs = []
     for sp in step.out_specs:
         dt = _device_dtype(sp.dtype)
-        ok = _FLOATS + (torch.bool,) * bools
+        ok = _FLOATS + (torch.bool,) * bools + (torch.int64,) * ints
         if (dt not in ok or not isinstance(sp.shape, tuple) or len(sp.shape) > 1
-                or (dt == torch.bool and len(sp.shape))):
+                or (dt == torch.int64 and len(sp.shape))):
             raise LoweringError(f"{step.kernel.__name__}: output {sp.key} "
                                 f"is not a float scalar or plane")
         if len(sp.shape) == 1:
-            if dt != torch.float32 and not f64_planes:
+            if dt not in (torch.float32, torch.bool) and not f64_planes:
                 raise LoweringError(f"K7 takes float32 planes; {sp.key} is {dt}")
             outs.append(prog.new_slot(sp.key, "plane", dt, int(sp.shape[0])))
         else:
@@ -407,7 +451,8 @@ def _lower_kernel(prog: TileProgram, step) -> None:
     name = step.kernel.__name__
     args = _kernel_args(prog, step)
     outs = _out_slots(prog, step, f64_planes=name in F64_PLANE_OPS,
-                      bools=name in COMPARISONS)
+                      bools=name in BOOL_UFUNCS or name == "where",
+                      ints=name in UFUNCS or name in REDUCTIONS)
     o = [prog.slots[s] for s in outs]
     kinds = tuple(s.kind for s in o)
 
@@ -457,18 +502,30 @@ def _lower_kernel(prog: TileProgram, step) -> None:
                                     dpz_powers(k["p"], n)]).astype(np.float32)
         prog.taps.append(table)
         prog.n_taps += n + 2
-    elif name in ("trap_norm", "asym_trap_filter"):
+    elif name in TRAP_KINDS:
+        kind = TRAP_KINDS[name]
         sec = [int(_static(a, "a trapezoid section")) for a in args[1:]]
-        need(kinds == ("plane",) and len(sec) == (2 if name == "trap_norm" else 3),
-             "signature")
+        need(kinds == ("plane",) and len(sec) == (3 if kind == 1 else 2), "signature")
         rise, flat = sec[0], sec[1]
-        fall = rise if name == "trap_norm" else sec[2]
+        fall = sec[2] if kind == 1 else rise
         n = prog.slots[_plane(prog, args[0], name)].length
         need(rise >= 1 and flat >= 0 and fall >= 1
              and rise + flat + fall <= n, "sections out of range")
         x = op("trap")
         x.ins = [args[0][1]]
-        x.ip = [int(name != "trap_norm"), rise, flat, fall]
+        x.ip = [kind, rise, flat, fall]
+    elif name in ("moving_window_left", "moving_window_right"):
+        need(len(args) == 2 and kinds == ("plane",), "signature")
+        w = _plane(prog, args[0], name)
+        n = prog.slots[w].length
+        ln = float(_static(args[1], "length"))
+        need(0 <= ln < n and o[0].length == n, "length out of range")
+        x = op("moving_window")
+        x.ins = [w]
+        # ip[0]: the right window; ip[1] the ramp's samples, int(length);
+        # the division by the length itself, in float64
+        x.ip = [int(name == "moving_window_right"), int(ln)]
+        x.dp = [ln]
     elif name == "amax":
         need(len(args) == 2 and kinds == ("scalar",)
              and len(step.kernel.dims_list[0]) == 1
@@ -481,11 +538,12 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         need(isinstance(kern, np.ndarray) and kern.ndim == 1, "taps not constant")
         n, m = prog.slots[w].length, int(kern.shape[-1])
         ch = chr(int(_static(args[2], "mode")))
-        need(ch in "fvs" and 32 < m <= n, "only the banded route has an op")
+        need(ch in "fvs" and 1 <= m <= n, "a mode and taps no longer than the row")
         lo, p = _mode_window(ch, n, m)
-        need(p * m <= _MATMUL_MAC_LIMIT and not np.isnan(kern).any()
-             and o[0].length == p, "only the banded route has an op")
-        x = op("conv")
+        need(not np.isnan(kern).any() and o[0].length == p, "NaN taps")
+        # the direct route (m <= 32, _conv_full_direct's order) or the banded
+        need(m <= 32 or p * m <= _MATMUL_MAC_LIMIT, "only the FFT route fits")
+        x = op("conv_direct" if m <= 32 else "conv")
         x.ins = [w]
         x.ip = [prog.n_taps, m, lo]
         prog.taps.append(np.asarray(kern, np.float32))
@@ -686,7 +744,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
     elif name == "fixed_time_pickoff":
         need(len(args) == 3 and kinds == ("scalar",), "signature")
         mode = chr(int(_static(args[2], "mode")))
-        need(mode in "li", f"mode {mode!r} has no op")
+        need(mode in FTP_MODES, f"mode {mode!r} has no op")
         x = op("fixed_time_pickoff")
         x.ins = [_plane(prog, args[0], name), _scalar(prog, args[1], "t_in")]
         # the pick time in the row's type, as the kernel casts it
@@ -761,6 +819,15 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         vt = _plane(prog, args[1], "vt_max_in")
         need(o[0].length == prog.slots[vt].length, "an output as long as the indices")
         op("multi_a_filter").ins = [_plane(prog, args[0], name), vt]
+    elif name in UFUNCS and kinds == ("plane",):
+        _ewise(prog, step, name, UFUNCS[name], args, outs[0])
+    elif name in REDUCTIONS:
+        need(len(args) == 2 and kinds == ("scalar",)
+             and len(step.kernel.dims_list[0]) == 1
+             and int(_static(args[1], "axis")) == 1, "a reduction of the row")
+        x = op("reduce")
+        x.ins = [_plane(prog, args[0], name, (torch.float32, torch.bool))]
+        x.ip = [REDUCTIONS[name]]
     elif name == "where":
         need(len(args) == 3 and kinds == ("scalar",), "per-row scalars")
         x = op("where")
@@ -776,40 +843,94 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         f32 = int(o[0].dtype == torch.float32)
         x.ip = [ROUNDERS[name], f32] + [0] * 5 + [3 * f32]
     elif name in UFUNCS:
-        need(len(args) == 2 and kinds == ("scalar",)
-             and step.kernel.signature == "(),()->()", "a per-row scalar ufunc")
-        x = op("ufunc")
-        x.ins = [_scalar(prog, args[0], name), _scalar(prog, args[1], name)]
-        mask = _f32(args[0]) | _f32(args[1]) << 1
-        need(mask in (0, 3), "mixed operand types")
-        x.ip = [UFUNCS[name], int(mask == 3)] + [0] * 5 + [mask]
+        kind = UFUNCS[name]
+        nin = 1 if kind >= UNARY else 2
+        need(len(args) == nin and kinds == ("scalar",)
+             and step.kernel.signature == ",".join(["()"] * nin) + "->()",
+             "a per-row scalar ufunc")
+        _scalar_ufunc(prog, op("ufunc"), kind, args)
     else:
         raise LoweringError(f"{name} has no K7 op")
 
 
+def _scalar_ufunc(prog: TileProgram, x: Op, kind: int, args) -> None:
+    """The per-row ``ufunc`` op ``x`` of table entry ``kind`` on one or two
+    scalar operands; ip[1] computes in float32 where every operand is
+    float32 (a unary op's second operand is a constant 0)."""
+    x.ins = [_scalar(prog, a, x.name, _SCALARS) for a in args]
+    mask = sum(_f32(a) << q for q, a in enumerate(args))
+    if mask not in (0, (1 << len(args)) - 1):
+        raise LoweringError(f"{x.name}: mixed operand types")
+    if len(args) == 1:
+        x.ins.append(("const", 0.0))
+    x.ip = [kind, int(mask != 0)] + [0] * 5 + [mask]
+
+
+def _ewise(prog: TileProgram, step, name, kind, args, out, dp=()) -> None:
+    """The plane ``ewise`` op of ``kind`` (a ufunc, ``where`` or a
+    conversion) into the plane ``out``: each operand a float32 or bool
+    plane as long as the output, a per-row scalar (along the row) or a
+    constant. ip[1]: the member computes in float32 (no operand is read as
+    float64); ip[2] the operands; ip[3] which are planes; ip[7] the
+    scalars rounded to float32. Returns the op."""
+    o = prog.slots[out]
+    if o.dtype not in (torch.float32, torch.bool):
+        raise LoweringError(f"K7 takes float32 planes; {o.key} is {o.dtype}")
+    x = Op(f"{name}[{step.name}]", OPCODES["ewise"], args, [out], step)
+    planes = cast = f64 = 0
+    for q, a in enumerate(args):
+        s = prog.slots[a[1]] if a[0] == "slot" else None
+        if s is not None and s.kind == "plane":
+            if s.dtype not in (torch.float32, torch.bool) or s.length != o.length:
+                raise LoweringError(f"{name}: a plane operand of {s.length} "
+                                    f"{s.dtype} samples into {o.length}")
+            x.ins.append(a[1])
+            planes |= 1 << q
+        else:
+            x.ins.append(_scalar(prog, a, name, _SCALARS))
+            cast |= _f32(a) << q
+        f64 |= a[0] == "slot" and a[2] == torch.float64
+    x.ip = [kind, int(not f64), len(args), planes] + [0] * 3 + [cast]
+    x.dp = list(dp)
+    prog.ops.append(x)
+    return x
+
+
 def _lower_convert(prog: TileProgram, step) -> None:
+    """A ConvertStep: the ``convert`` op (a per-row scalar, float or int64)
+    or, for a float32 plane, the ``ewise`` op's conversion."""
     name = step.kernel.__name__
-    if name not in ("convert", "convert_round"):
+    if name not in CONVERTS:
         raise LoweringError(f"{name} has no K7 op")
     sid = prog.slot_of(step.in_key)
     s = prog.slots[sid]
-    if s.kind != "scalar" or s.dtype not in _FLOATS:
-        raise LoweringError(f"{name}: K7 converts float per-row scalars only")
+    plane = s.kind == "plane"
+    if s.dtype not in ((torch.float32,) if plane else _FLOATS + (torch.int64,)):
+        raise LoweringError(f"{name}: K7 converts float32 planes and float or "
+                            f"int64 per-row scalars, not {s.dtype}")
     dt = s.dtype
     out_var = step.out_var
     if out_var is not None and out_var.dtype is not auto:
         dt = _device_dtype(out_var.dtype)
-        if dt not in _FLOATS + (torch.int64,):
+        if dt not in ((torch.float32,) if plane else _FLOATS + (torch.int64,)):
             raise LoweringError(f"{name}: a {dt} output")
     args = [("slot", sid, s.dtype)]
     for off in (step.from_offset, step.to_offset):
         args.append(("slot", prog.slot_of(off), None) if isinstance(off, str)
                     else ("const", off))
     args.append(("const", step.ratio))
+    if plane:
+        out = prog.new_slot(step.out_key, "plane", dt, s.length)
+        # the ratio in the tape's doubles; the plain walk calls the member
+        # with all four arguments
+        _ewise(prog, step, name, EW_CONVERT + CONVERTS[name], args[:3], out,
+               [float(step.ratio)]).args = args
+        return
     out = prog.new_slot(step.out_key, "scalar", dt)
     x = Op(f"{name}[{step.out_key}]", OPCODES["convert"], args, [out], step)
     x.ins = [sid] + [_scalar(prog, a, "an offset") for a in args[1:3]]
-    x.ip = [int(name == "convert_round"), int(s.dtype == torch.float32)]
+    # ip[0]: the kind; ip[1] a float32 input, rounded back to it
+    x.ip = [CONVERTS[name], int(s.dtype == torch.float32)]
     x.dp = [float(step.ratio)]
     prog.ops.append(x)
 
@@ -825,7 +946,7 @@ def _lower_step(prog: TileProgram, step) -> None:
         sl = step.sl
         if s.kind != "plane" or not isinstance(sl, slice) or sl.step not in (None, 1):
             raise LoweringError(f"{step.name}: only unit-step slices of a plane")
-        if s.dtype != torch.float32:
+        if s.dtype not in (torch.float32, torch.bool):
             raise LoweringError(f"{step.name}: a slice of a float64 plane")
         a, b, _ = sl.indices(s.length)
         if b <= a:
@@ -944,7 +1065,7 @@ def _plan(prog: TileProgram) -> None:
     scratch = 0
     for op in ops:
         if op.code in (OPCODES["trap"], OPCODES["moving_window_multi"],
-                       OPCODES["trap_pickoff"]):
+                       OPCODES["trap_pickoff"], OPCODES["moving_window"]):
             n = prog.slots[op.ins[0]].length
             even = -(-n // THREADS) % 2 == 0  # runs of an even length
             scratch = max(scratch, n + ((n >> 4) + 1 if even else 0))
@@ -1061,5 +1182,10 @@ def lower(members, vals: dict, escapes) -> TileProgram:
         if not r.ext and r.esc < 0:
             r.esc = len(prog.esc_roots)
             prog.esc_roots.append(r.root)
+    if len(prog.ext_keys) > GEN_MAX_EXT or len(prog.esc_roots) > GEN_MAX_ESC:
+        raise LoweringError(
+            f"{len(prog.ext_keys)} inputs and {len(prog.esc_roots)} stored "
+            f"outputs; K7's parameters hold {GEN_MAX_EXT} and {GEN_MAX_ESC}"
+        )
     _plan(prog)
     return prog

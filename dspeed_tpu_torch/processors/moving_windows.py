@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from ..errors import DSPFatal
 from ._helpers import isnan_any, nanmask, static_float
 from ._kernel import kernel
-from ._numerics import hp_cumsum, shift_right, true_div
+from ._numerics import hp_cumsum, k7_prefix, shift_right, true_div
 
 __all__ = [
     "moving_window_left",
@@ -29,12 +29,12 @@ __all__ = [
 ]
 
 
-def _mwl(w_in, length: float):
+def _mwl(w_in, length: float, prefix=hp_cumsum):
     """Left-to-right moving average of ``length`` samples (JAX package
-    ``moving_windows.py:32``)."""
+    ``moving_windows.py:32``), from the inclusive prefix ``prefix(w_in)``."""
     n = w_in.shape[-1]
     li = int(length)
-    s = hp_cumsum(w_in)
+    s = prefix(w_in)
     w0 = w_in[..., :1].to(s.dtype)
     i = torch.arange(n, device=w_in.device)
     ramp = w0 + true_div(s - (i + 1) * w0, length)
@@ -49,15 +49,15 @@ def _shift_left(x, k: int):
     return F.pad(x[..., k:], (0, k))
 
 
-def _mwr(w_in, length: float):
+def _mwr(w_in, length: float, prefix=hp_cumsum):
     """Right-to-left moving average without the time reversal (JAX package
     ``moving_windows.py:53``): with ``S`` the inclusive prefix sum and
     ``T[i] = S[n-1] - S[i-1]`` the suffix sum, ``(S[i+L-1] - S[i-1]) / L``
     in the steady part and ``w[n-1] + (T[i] - (n-i) w[n-1]) / L`` over the
-    last ``L`` samples."""
+    last ``L`` samples; ``S`` is ``prefix(w_in)``."""
     n = w_in.shape[-1]
     li = int(length)
-    s = hp_cumsum(w_in)
+    s = prefix(w_in)
     s_e = shift_right(s, 1)  # S[i-1]
     s_l = _shift_left(s, li - 1) if li > 0 else s  # S[i+L-1]
     steady = s_l - s_e
@@ -91,6 +91,21 @@ def moving_window_right(w_in, length):
     the left window applied to the time-reversed waveform."""
     ln = _check_len(length, w_in.shape[-1], "moving_window_right")
     return nanmask(isnan_any(w_in, 1), _mwr(w_in, ln))
+
+
+def moving_window_left_k7(w_in, length):
+    """:func:`moving_window_left` as K7's ``moving_window`` op computes it
+    (the tape's plain walk): from the float64 prefix in K7's order
+    (:func:`._numerics.k7_prefix`)."""
+    ln = _check_len(length, w_in.shape[-1], "moving_window_left")
+    return nanmask(isnan_any(w_in, 1), _mwl(w_in, ln, k7_prefix))
+
+
+def moving_window_right_k7(w_in, length):
+    """:func:`moving_window_right` in K7's prefix order, as
+    :func:`moving_window_left_k7`."""
+    ln = _check_len(length, w_in.shape[-1], "moving_window_right")
+    return nanmask(isnan_any(w_in, 1), _mwr(w_in, ln, k7_prefix))
 
 
 def mw_cascade(w_in, length: float, num: int, mtype: int):
@@ -146,6 +161,9 @@ def avg_current(w_in, length, dims):
     return nanmask(isnan_any(w_in, 1), diff)
 
 
+# the tape's plain walk takes K7's prefix order
+moving_window_left.k7_plain = moving_window_left_k7
+moving_window_right.k7_plain = moving_window_right_k7
 # generic row-tile fusion (the JAX package's flags)
 moving_window_left.tile_safe = True
 moving_window_right.tile_safe = True

@@ -38,9 +38,10 @@ def _check(name: str, **sections) -> dict[str, int]:
     return out
 
 
-def _trap_sum(w_in, rise: int, flat: int, fall: int) -> torch.Tensor:
-    """``S[i]-S[i-rise] - (S[i-rise-flat]-S[i-rise-flat-fall])``."""
-    ps = hp_cumsum(w_in)
+def _trap_sum(w_in, rise: int, flat: int, fall: int, prefix=hp_cumsum) -> torch.Tensor:
+    """``S[i]-S[i-rise] - (S[i-rise-flat]-S[i-rise-flat-fall])``, ``S`` the
+    inclusive prefix ``prefix(w_in)``."""
+    ps = prefix(w_in)
     d1 = ps - shift_right(ps, rise) if rise else torch.zeros_like(ps)
     d2 = (
         shift_right(ps, rise + flat) - shift_right(ps, rise + flat + fall)
@@ -61,6 +62,14 @@ def trap_filter(w_in, rise, flat, badrow=None):
         raise DSPFatal("The trapezoid width is wider than the waveform")
     out = _trap_sum(w_in, p["rise"], p["flat"], p["rise"]).to(w_in.dtype)
     return nanmask(isnan_any(w_in, 1) if badrow is None else badrow, out)
+
+
+def trap_filter_k7(w_in, rise, flat):
+    """:func:`trap_filter` as K7's ``trap`` op computes it (the tape's plain
+    walk): from the float64 prefix in K7's order (:func:`._numerics.k7_prefix`)."""
+    p = _check("trap_filter", rise=rise, flat=flat)
+    out = _trap_sum(w_in, p["rise"], p["flat"], p["rise"], k7_prefix).to(w_in.dtype)
+    return nanmask(isnan_any(w_in, 1), out)
 
 
 @kernel(
@@ -168,6 +177,7 @@ trap_pickoff.check_messages = {1: "The pick-off index must be an integer"}
 trap_pickoff.tile_safe = True
 # the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
 trap_pickoff.k7_plain = trap_pickoff_k7
+trap_filter.k7_plain = trap_filter_k7
 trap_filter.tile_safe = True
 trap_norm.tile_safe = True
 asym_trap_filter.tile_safe = True

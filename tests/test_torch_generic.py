@@ -565,33 +565,35 @@ def test_ops_chain_runs_as_one_group_equal_to_unfused():
 
 
 def test_member_with_no_op_raises_and_the_group_splits():
-    """A tile-safe kernel with no K7 op (``moving_window_left``) in the
-    group: the lowering raises, the group splits, and the outputs equal the
-    unfused chain's."""
+    """A tile-safe member K7 has no op for in the group: every tile-safe
+    kernel has one on float32 rows now (this was ``moving_window_left``
+    before the plane ops), so the member is a ufunc into a float64 plane
+    (K7 takes float32 planes). The lowering raises, the group splits, and
+    the outputs equal the unfused chain's."""
     wf, bl = _events(n=8, nsamp=N_OPS, seed=5)
     cfg = {"outputs": OPS_CONFIG["outputs"] + ["mwl_max"],
            "processors": dict(OPS_CONFIG["processors"])}
     cfg["processors"]["wf_mwl"] = {
-        "function": "moving_window_left", "module": "dspeed_tpu.processors",
-        "args": ["wf_pz", "8", "wf_mwl"], "unit": "ADC",
+        "function": "multiply", "module": "numpy", "args": ["wf_pz", "0.5", "wf_mwl"],
+        "kwargs": {"signature": "(),()->()", "types": ["dd->d"]}, "unit": "ADC",
     }
     cfg["processors"]["mwl_max"] = {
         "function": "amax", "module": "numpy", "args": ["wf_mwl", 1, "mwl_max"],
-        "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}, "unit": "ADC",
+        "kwargs": {"signature": "(n),()->()", "types": ["di->d"]}, "unit": "ADC",
     }
     chain, _, _ = torch_build_chain(
         cfg, _table(dspeed_tpu_torch.lh5, wf, bl), device="cpu", fuse="generic"
     )
     (group,) = _groups(chain)
     step = next(m for m in group.members
-                if getattr(getattr(m, "kernel", None), "__name__", "")
-                == "moving_window_left")
-    with pytest.raises(_tile_program.LoweringError, match="moving_window_left"):
+                if getattr(getattr(m, "kernel", None), "__name__", "") == "multiply"
+                and m.out_specs[0].shape)
+    with pytest.raises(_tile_program.LoweringError, match="float32 planes"):
         _tile_program.lower([step], {step.arg_specs[0].key: torch.zeros(8, N_OPS)},
                             [step.out_specs[0].key])
     _tile_program.reset_splits()
     got = _run(wf, bl, "generic", cfg)
-    assert any("moving_window_left has no K7 op" in k for k in _tile_program.SPLITS)
+    assert any("K7 takes float32 planes" in k for k in _tile_program.SPLITS)
     want = _run(wf, bl, False, cfg)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -930,6 +932,38 @@ def test_lowering_refuses_a_tape_over_the_kernel_parameters(monkeypatch, plan_pr
     got = _run(wf, bl, "generic", OPS_CONFIG)
     assert any("parameters hold" in k for k in _tile_program.SPLITS)
     want = _run(wf, bl, False, OPS_CONFIG)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# the ops chain with 64 more per-row outputs: one group storing 81
+WIDE_CONFIG = {
+    "outputs": OPS_CONFIG["outputs"] + [f"trapT_{i}" for i in range(64)],
+    "processors": {**OPS_CONFIG["processors"],
+                   **{f"trapT_{i}": f"trapTmax + {i + 1}" for i in range(64)}},
+}
+
+
+@pytest.mark.parametrize("limit", ["stored outputs", "inputs"])
+def test_lowering_refuses_a_group_over_the_kernel_limits(monkeypatch, limit):
+    """A group that stores more outputs than K7's parameters hold (81 of
+    64), or reads more inputs (the limit patched to 1), is refused at
+    lowering: the group bisects, ``SPLITS`` counts the refusal, and the
+    outputs equal the unfused chain's."""
+    wf, bl = _events(n=8, nsamp=N_OPS, seed=5)
+    if limit == "inputs":
+        monkeypatch.setattr(_tile_program, "GEN_MAX_EXT", 1)
+    chain, _, _ = torch_build_chain(
+        WIDE_CONFIG, _table(dspeed_tpu_torch.lh5, wf, bl), device="cpu", fuse="generic"
+    )
+    (group,) = _groups(chain)
+    assert len(group.escapes) == 81
+    _tile_program.reset_splits()
+    got = _run(wf, bl, "generic", WIDE_CONFIG)
+    held = _tile_program.GEN_MAX_EXT, _tile_program.GEN_MAX_ESC
+    assert any(f"81 stored outputs; K7's parameters hold {held[0]} and {held[1]}"
+               in k for k in _tile_program.SPLITS), _tile_program.SPLITS
+    want = _run(wf, bl, False, WIDE_CONFIG)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 

@@ -52,11 +52,17 @@ slice 19's ops, ``mean_below_threshold``, ``time_over_threshold`` and
 ``trap_pickoff``, ``presum``, ``min_max_norm``, ``get``, ``get_default`` at
 an int64 index, ``multi_a_filter``, ``where`` on a bool comparison and
 ``round_to_nearest``, in two groups at 600 samples with a NaN sample, a NaN
-baseline and an infinite sample). ``--drop-barrier OP`` builds the kernel
-with the first block barrier (``__syncthreads()``, or ``log_check``'s
+baseline and an infinite sample), ``plane`` (``PLANE_CONFIG``: the plane
+ops, ``trap_filter``, the moving windows, the pick-off's modes ``n f c h``,
+the direct convolution in three modes, elementwise ops over planes into
+float32 and bool planes, the row reductions, a per-row ``sqrt``, the
+rounding conversions and ``convert_int``, in one group at 600 samples with
+a NaN sample, a NaN baseline and an infinite sample: every escape bit for
+bit against the plain walk). ``--drop-barrier OP`` builds the kernel with
+the first block barrier (``__syncthreads()``, or ``log_check``'s
 ``__syncthreads_or``) of that op's device function taken out, for
-``trap_pickoff`` the one that ends its prefix (``gen_prefix``): a mutation
-the ``tsan`` mode must report.
+``trap_pickoff`` and ``moving_window`` the one that ends their prefix
+(``gen_prefix``): a mutation the ``tsan`` mode must report.
 """
 
 import argparse
@@ -74,11 +80,12 @@ for p in (REPO, os.path.join(REPO, "tests")):
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from dspeed_tpu_torch.processors._cuda import esc_value  # noqa: E402
 from dspeed_tpu_torch.processors._tile_program import esc_dtype  # noqa: E402
 
 SRC = os.path.join(REPO, "dspeed_tpu_torch", "csrc", "generic_rows.cu")
 CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm", "dpz", "extras",
-         "injml", "cover")
+         "injml", "cover", "plane")
 # one group holding each op of the flagship extras, every op reading
 # samples that other threads wrote
 EXTRAS_CONFIG = {
@@ -166,6 +173,12 @@ def injml_db(seed=17) -> dict:
                    "v": rng.normal(0, 0.3, 16).astype("float32")}}
 
 
+def _red(fn, src, out):
+    """A numpy reduction of a row of ``src`` into ``out``."""
+    return {"function": fn, "module": "numpy", "args": [src, 1, out],
+            "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}}
+
+
 # slice 19's ops in two groups (the peak finder's sweep between them), each
 # barriered op placed where its own barrier is all that orders it: the
 # reductions read their buffers after it, trap_pickoff its prefix, and
@@ -220,6 +233,76 @@ COVER_CONFIG = {
     },
 }
 
+# the plane ops in generic groups: the unnormalised trapezoid and the two
+# moving windows (each on K7's float64 prefix), the pick-off's four new
+# modes, the direct convolution in three modes (the 'f' plane longer than
+# the row), elementwise ops over planes (a comparison into a bool plane read
+# by where and logical_not, a per-row scalar along the row, maximum of two
+# planes, floor_divide), the row reductions (a bool plane's sum among them,
+# each reading its buffer after its barrier), a per-row sqrt, the rounding
+# conversions and convert_int
+PLANE_CONFIG = {
+    "outputs": ["tf_max", "p_n", "p_f", "p_c", "p_h", "cs_max", "cf_sum", "cv_mean",
+                "sel_sum", "ok_sum", "hi_nmax", "fd_nmean", "bl_amin", "bl_min",
+                "bl_nsum", "bl_nmin", "b_rt", "t_fl", "t_ce", "t_tr", "t_idx", "w_at"],
+    "processors": {
+        "wf_blsub": {"function": "bl_subtract", "module": K,
+                     "args": ["waveform", "baseline", "wf_blsub(unit='ADC')"]},
+        "tp_min, tp_max, wf_min, wf_max": {
+            "function": "min_max", "module": K,
+            "args": ["wf_blsub", "tp_min", "tp_max", "wf_min", "wf_max"],
+            "unit": ["ns", "ns", "ADC", "ADC"]},
+        "b_mean, b_std, b_slope, b_icpt": {
+            "function": "linear_slope_fit", "module": K,
+            "args": ["wf_blsub[0:50]", "b_mean", "b_std", "b_slope", "b_icpt"]},
+        "wf_tf": {"function": "trap_filter", "module": K,
+                  "args": ["wf_blsub", "20", "5", "wf_tf"]},
+        "tf_max": _red("amax", "wf_tf", "tf_max"),
+        "wf_mwl": {"function": "moving_window_left", "module": K,
+                   "args": ["wf_blsub", "12.5", "wf_mwl"]},
+        "wf_mwr": {"function": "moving_window_right", "module": K,
+                   "args": ["wf_blsub", "12.5", "wf_mwr"]},
+        **{f"p_{m}": {"function": "fixed_time_pickoff", "module": K,
+                      "args": ["wf_tf", f"{t}+b_mean", f"'{m}'", f"p_{m}"]}
+           for m, t in (("n", "300.5"), ("f", "301.25"), ("c", "302.75"), ("h", "303.4"))},
+        **{f"wf_c{m}": {"function": "convolve_wf", "module": K,
+                        "args": ["wf_mwl", "db.k17", f"'{m}'", f"wf_c{m}({p}, 'f')"]}
+           for m, p in (("s", 600), ("f", 616), ("v", 584))},
+        "cs_max": _red("max", "wf_cs", "cs_max"),
+        "cf_sum": _red("sum", "wf_cf", "cf_sum"),
+        "cv_mean": _red("mean", "wf_cv", "cv_mean"),
+        "wf_sel": "where(wf_blsub > 3*b_std, wf_blsub, 0.0)",
+        "sel_sum": _red("nansum", "wf_sel", "sel_sum"),
+        "wf_ok": {"function": "logical_not", "module": "numpy",
+                  "args": ["wf_blsub > 3*b_std", "wf_ok"],
+                  "kwargs": {"signature": "()->()", "types": ["?->?"]}},
+        "ok_sum": {"function": "sum", "module": "numpy", "args": ["wf_ok", 1, "ok_sum"],
+                   "kwargs": {"signature": "(n),()->()", "types": ["?i->l"]}},
+        "wf_hi": {"function": "maximum", "module": "numpy",
+                  "args": ["wf_mwl", "wf_mwr", "wf_hi"],
+                  "kwargs": {"signature": "(),()->()", "types": ["ff->f"]}},
+        "hi_nmax": _red("nanmax", "wf_hi", "hi_nmax"),
+        "wf_fd": "wf_blsub // (b_std+1)",
+        "fd_nmean": _red("nanmean", "wf_fd", "fd_nmean"),
+        "bl_amin": _red("amin", "wf_blsub[0:50]", "bl_amin"),
+        "bl_min": _red("min", "wf_cs[0:100]", "bl_min"),
+        "bl_nsum": _red("nansum", "wf_blsub[0:50]", "bl_nsum"),
+        "bl_nmin": _red("nanmin", "wf_blsub[0:50]", "bl_nmin"),
+        "b_rt": {"function": "sqrt", "module": "numpy", "args": ["b_std", "b_rt"],
+                 "kwargs": {"signature": "()->()", "types": ["f->f"]}},
+        "t_fl": "floor(tp_max, wf_blsub.grid)",
+        "t_ce": "ceil(tp_max, 48*ns)",
+        "t_tr": "trunc(tp_max, 48*ns)",
+        "t_idx": "round(tp_max, wf_blsub.grid, 'int64')",
+        "w_at": "wf_blsub[10:][t_idx]",
+    },
+}
+
+
+def plane_db(seed=19) -> dict:
+    """Seeded 17 taps for ``PLANE_CONFIG``'s convolutions."""
+    return {"k17": np.random.default_rng(seed).normal(0, 0.3, 17).astype("float32")}
+
 
 # the device function of each op with a barrier of its own (--drop-barrier);
 # trap_pickoff's barrier is the one that ends its prefix
@@ -227,7 +310,8 @@ OP_FUNCTIONS = {"poly_residual": "op_poly_resid", "soft_pileup": "op_soft_pileup
                 "wf_centroid": "op_wf_centroid", "dense": "op_dense",
                 "mean_below_threshold": "op_mean_below", "count": "op_count",
                 "linear_slope_diff": "op_slope_diff", "log_check": "op_log_check",
-                "trap_pickoff": "gen_prefix"}
+                "trap_pickoff": "gen_prefix", "moving_window": "gen_prefix",
+                "reduce": "op_reduce"}
 # double_pole_zero in a group: it reads the samples bl_subtract's threads
 # wrote (the planned barrier before it), and the fit, trapezoid and maximum
 # read its output
@@ -270,7 +354,7 @@ def host_source(src: str, out: str, cuts=K7_CUTS, drop=None) -> str:
     out."""
     text = open(src).read()
     if drop is not None:
-        fn = text.index(f"void {OP_FUNCTIONS[drop]}(")
+        fn = re.search(rf"\b(?:void|int)\s+{OP_FUNCTIONS[drop]}\(", text).start()
         at = min(i for i in (text.find("__syncthreads();", fn),
                              text.find("__syncthreads_or(", fn)) if i >= 0)
         if text.startswith("__syncthreads();", at):
@@ -333,11 +417,11 @@ def write_input(path, prog, vals, misalign=0) -> None:
             v = vals[key]
             if v.ndim == 2:
                 stride = v.stride(0)
-                data = np.zeros(B * stride, np.float32)
+                kind, dt = (3, np.bool_) if v.dtype == torch.bool else (0, np.float32)
+                data = np.zeros(B * stride, dt)
                 a = v.numpy()
                 for r in range(B):
                     data[r * stride : r * stride + a.shape[1]] = a[r]
-                kind = 0
             else:
                 stride = 1
                 kind, dt = SCALAR_KINDS[v.dtype]
@@ -361,8 +445,8 @@ def read_output(path, prog, B) -> dict:
         dt = SCALAR_KINDS[esc_dtype(s)][1]
         a = np.frombuffer(raw, dt, n, pos).copy()
         pos += n * a.itemsize
-        roots[sid] = torch.from_numpy(a.reshape(B, -1) if s.kind == "plane" else a).to(
-            s.dtype)
+        roots[sid] = esc_value(torch.from_numpy(a.reshape(B, -1) if s.kind == "plane"
+                                                else a), s.dtype)
     return roots
 
 
@@ -485,6 +569,16 @@ def cases(names, rows=6):
         wf[min(2, rows - 1), 450] = np.inf
         for prog, full, vals in chain_groups(COVER_CONFIG, wf[:rows], bl[:rows]):
             yield "cover", prog, full, vals
+    if "plane" in names:
+        from test_torch_generic import _events as events
+
+        wf, bl = events(n=max(rows, 8), nsamp=600, seed=17)
+        wf[0, 350] = np.nan
+        bl[1 % rows] = np.nan
+        wf[min(2, rows - 1), 450] = np.inf
+        for prog, full, vals in chain_groups(PLANE_CONFIG, wf[:rows], bl[:rows],
+                                             plane_db()):
+            yield "plane", prog, full, vals
     if "sipm" in names:
         wf, _ = cs.make_sipm_waveforms(max(rows, 3))
         # the SiPM chain's default mode forms its group
@@ -515,7 +609,7 @@ def check(label, prog, vals, got, parent=None) -> str:
     err, rel, excused, _ = cs.check_generic(
         prog, sub, {k: v[fin] for k, v in got.items()}, plain, label)
     msg = f"vs plain: max err {err:.3e} ({rel:.2e} of scale), {excused} rows excused"
-    if label in ("sipm", "dpz"):
+    if label in ("sipm", "dpz", "plane"):
         # unfused products and sums in the plain walk's order: every row
         # bit for bit, the row with an infinite sample included
         plain = _cuda.generic_rows_plain(prog, vals)
