@@ -93,6 +93,13 @@ chunk, no split; each new column finite on at least 90% of the events, the
 first 1024 events against the CPU run). The **plane path** (``plane_config``:
 the flagship's 34 columns and columns that run each of K7's plane ops
 inside a generic group, ``PLANE_OPS``): the same, K7 three times a chunk.
+The **float64 path** (``F64_PATHS``: the flagship, its DPZ and its extras on
+float64 rows): K7's float64 kernel on their groups, every stored output
+bit for bit against the plain walk on every row, each float64 op alone
+(``F64_HELD``) bit for bit against the plain walk, within ``F64_REL`` of its
+member's own body and timed against its bound; ``build_dsp`` of the float64
+flagship twice in each mode (K7 twice a chunk, no hand kernel, no split; the
+first 1024 events against the CPU run at the golden replay's tolerance).
 The **browser** (``vis_phase``:
 ``dspeed_tpu_torch.vis.WaveformBrowser`` over the flagship's 16384 events,
 its chain's K1, K3 and K2 once each, fetched entries against ``build_dsp``
@@ -108,6 +115,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -163,6 +171,9 @@ DT = 16.0  # ns per sample
 N_EVENTS = 16384
 N_SAMPLES = 4096
 REL_TOL = 1e-5  # |kernel - plain| <= REL_TOL * max|plain| per output column
+# float64 paths: the golden replay's tolerance (tests/test_goldens.py:40-45),
+# |card - reference| <= F64_ATOL + F64_REL * max|reference| per column
+F64_REL, F64_ATOL = 1e-9, 1e-12
 NAN_SAMPLE_ROW = 3  # end-to-end input: this event holds a NaN sample
 NAN_BASELINE_ROW = 5  # and this one a NaN baseline
 ATRAP = ("asym", 8, 4, 125)  # the flagship's wf_atrap (128 ns, 4, 2 us)
@@ -172,6 +183,7 @@ INJECT_OPS = 12  # operations an injected sample (each exp or pow as one)
 PEAK_F32_S = 67e12
 PEAK_F64_S = 34e12
 DEVICE = "cuda"
+E2E_RATES: dict = {}  # e2e_phase's label -> (first, warm) wf/s
 SIPM_CONFIG = os.path.join(REPO, "configs", "sipm-pulse-finding.yaml")
 SIPM_SAMPLES = 1024  # the SiPM chain's record length (bench.py:73)
 FULL_SLOT_ROW, NAN_FWHM_ROW = 3, 4  # rows the SiPM sweep's checks set apart
@@ -834,6 +846,44 @@ def plane_op_label(prog, op):
         return "ufunc"
     return None
 
+
+# the float64 path: K7's float64 kernel on the groups of the float64
+# flagship, DPZ and extras (flagship_config, dpz_config, extras_config with
+# "float64"), with their members (in fuse="generic")
+F64_PATHS = (("float64 flagship", flagship_config, (34, 19)),
+             ("float64 DPZ", dpz_config, (34, 19)),
+             ("float64 extras", extras_config, (34, 19, 9, 2, 22)))
+# the float64 plane ops those groups run, each held alone (f64_op_label;
+# every program loads its rows)
+F64_HELD = ("bl_subtract", "windower", "avg_current", "min_max", "amax",
+            "linear_slope_fit", "pole_zero", "trap_norm", "asym_trap_filter", "conv",
+            "moving_window_multi", "time_point_thresh", "time_point_thresh l",
+            "fixed_time_pickoff l", "double_pole_zero", "poly_residual", "soft_pileup",
+            "wf_correction", "wf_centroid")
+
+
+def f64_op_label(prog, op):
+    """The name of the float64 plane op that ``op`` (of the float64 program
+    ``prog``) is, or None (the loads, the per-row ufunc and convert ops):
+    the ``trap`` op by its member's kind, ``time_point_thresh`` and
+    ``fixed_time_pickoff`` with their interpolation mode, soft_pileup's two
+    ops (one member) as ``soft_pileup``, the rest by their opcodes."""
+    from dspeed_tpu_torch.processors._tile_program import OPCODES, TRAP_KINDS
+
+    if not prog.f64:
+        return None
+    name = {v: k for k, v in OPCODES.items()}[op.code]
+    if name in ("load", "ufunc", "convert"):
+        return None
+    if name == "trap":
+        return {v: k for k, v in TRAP_KINDS.items()}[op.ip[0]]
+    if name == "time_point_thresh" and op.ip[1]:
+        return f"time_point_thresh {chr(op.ip[1])}"
+    if name == "fixed_time_pickoff":
+        return f"fixed_time_pickoff {chr(op.ip[0])}"
+    return "soft_pileup" if name == "soft_pileup_out" else name
+
+
 # the optimisers' phase (opt_configs): one-pole on the flagship generator's
 # rows, two-pole on the DPZ generator's, from a start away from the truth
 OPT_2PZ_EVENTS = 2048  # events of the two-pole optimisation (150 iterations)
@@ -1169,6 +1219,22 @@ def ptxas_report(log: str, kernel: str) -> dict:
         elif name is not None and ("spill" in line or "registers" in line):
             report.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     return {k: "; ".join(v) for k, v in report.items()}
+
+
+def k7_ptxas(log: str) -> tuple[list, list]:
+    """``ptxas -v``'s report for K7's float kernel and for its float64
+    kernel; fails unless the float kernel takes 80 registers or fewer and
+    neither spills."""
+    reports = ptxas_report(log, "generic_rows_kernel")
+    ptxas = [v for k, v in reports.items() if "_f64" not in k]
+    ptxas64 = [v for k, v in reports.items() if "_f64" in k]
+    for kernel, rep in (("generic_rows_kernel", ptxas), ("generic_rows_kernel_f64", ptxas64)):
+        if len(rep) != 1 or "0 bytes spill stores, 0 bytes spill loads" not in rep[0]:
+            raise AssertionError(f"K7: {kernel} spills, or its ptxas report is {rep}")
+    regs = int(re.search(r"Used (\d+) registers", ptxas[0]).group(1))
+    if regs > 80:
+        raise AssertionError(f"K7: generic_rows_kernel takes {regs} registers, over 80")
+    return ptxas, ptxas64
 
 
 def k4_phase(_cuda, w, kerns, lo, p, n_in, label, ptxas_log):
@@ -1927,7 +1993,9 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
     20's ops: four float64 operations a sample for ``trap_filter``, three for
     a moving window, the direct convolution's multiply-adds in float32, one
     operation a sample for an elementwise op and for a reduction; a gather,
-    select or rounding none)."""
+    select or rounding none). A float64 program's planes count 8 bytes a
+    sample, and all its operations are float64 ones (its trapezoids take
+    every window from the prefix)."""
     import torch
 
     from dspeed_tpu_torch.processors._tile_program import OPCODES
@@ -1939,7 +2007,7 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
         loaded = any(op.code == OPCODES["load"] and op.ins[0] == program.by_key[key]
                      for op in program.ops)
         if s.kind == "plane":
-            nbytes += 4 * s.length if loaded else 0
+            nbytes += s.dtype.itemsize * s.length if loaded else 0
         else:
             nbytes += s.dtype.itemsize
     for sid in program.esc_roots:
@@ -1952,7 +2020,8 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
             f32 += 2 * op.ip[1] * slots[op.outs[0]].length
         elif op.code == OPCODES["trap"]:
             rise, fall = op.ip[1], op.ip[3]
-            f64 += n * (1 + 2 + (rise if rise <= 32 else 2) + (fall if fall <= 32 else 2))
+            short = 0 if program.f64 else 32  # windows summed directly
+            f64 += n * (1 + 2 + (rise if rise <= short else 2) + (fall if fall <= short else 2))
         elif op.code == OPCODES["pole_zero"]:
             f64 += 2 * n
         elif op.code == OPCODES["double_pole_zero"]:
@@ -2029,6 +2098,8 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
                 f64 += ops
             else:
                 f32 += ops
+    if program.f64:
+        f32, f64 = 0, f32 + f64
     t_bytes = (B * nbytes if nb is None else nb) / PEAK_BYTES_S * 1e3
     t_ops = B * (f32 / PEAK_F32_S + f64 / PEAK_F64_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -2104,8 +2175,9 @@ def k7_alone_ops(_cuda, full, got, vals, pick, label, timed, B):
     """Each op of ``full`` that ``pick(full, op)`` names (else None), alone
     on the values the group gave its arguments: one launch, every output bit for
     bit against the plain walk of that one-op program on every row, within
-    REL_TOL of its scale of the member kernel's own body on the same inputs
-    (the plain walk runs a K7-order variant for some members, ``k7_plain``),
+    REL_TOL of its scale (F64_REL, F64_ATOL in a float64 program) of the
+    member kernel's own body on the same inputs (the plain walk runs a
+    K7-order variant for some members, ``k7_plain``, ``k7_f64``),
     and the group's own output bit for bit against the launch alone (the
     op in its group computes what it computes alone). The first op of each
     name not in ``timed`` is timed through the wrapper and on the device
@@ -2125,6 +2197,7 @@ def k7_alone_ops(_cuda, full, got, vals, pick, label, timed, B):
         member = member_outputs(op.step, ins)
         member_name = op.name.split("[")[0]
         torch.cuda.synchronize()
+        rel, atol = (F64_REL, F64_ATOL) if prog.f64 else (REL_TOL, 0.0)
         worst = 0.0
         for key, m in member.items():
             g = alone[key]
@@ -2142,10 +2215,10 @@ def k7_alone_ops(_cuda, full, got, vals, pick, label, timed, B):
             if bool(ok.any()):
                 err = float((g[ok] - m[ok]).abs().max())
                 scale = float(m[ok].abs().max())
-                if err > REL_TOL * scale:
+                if err > atol + rel * scale:
                     raise AssertionError(
                         f"K7 {label} {key}: max |{name} op - member "
-                        f"{member_name}| {err:.3e} > {REL_TOL * scale:.3e}")
+                        f"{member_name}| {err:.3e} > {atol + rel * scale:.3e}")
                 worst = max(worst, err / max(scale, 1e-30))
         print(f"K7 {label} {name} op [{member_name}] against its member's "
               f"own body on the card: {worst:.3e} of scale", flush=True)
@@ -2239,6 +2312,14 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
             torch.cuda.synchronize()
             err, rel, excused, conv_rows = check_generic(full, vals, got, want,
                                                          label)
+            if full.f64:
+                diff = [k for k in want if not same_bits(got[k], want[k])]
+                if diff:
+                    raise AssertionError(f"K7 {label} [{path}]: {diff} differ from the "
+                                         f"plain walk")
+                print(f"K7 {label} [{path}]: all {len(want)} outputs of the float64 "
+                      f"program equal the plain walk's bit for bit on all {B} rows",
+                      flush=True)
             dpz = [op for op in full.ops if op.code == OPCODES["double_pole_zero"]]
             for op in dpz:
                 src, dst = (full.slots[op.ins[0]].key, full.slots[op.outs[0]].key)
@@ -2285,8 +2366,11 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
             plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, vals), 3, 1)
             bound, by = generic_bound(prog, B)
             launch = _cuda.generic_rows_launch(prog)
+            if launch["local_bytes"] or (not prog.f64 and launch["registers"] > 80):
+                raise AssertionError(f"K7 {label} [{path}]: launch {launch}")
             print(
-                f"K7 generic_rows [{path} group {label}: {len(step.members)} members, "
+                f"K7 generic_rows{'_f64' if prog.f64 else ''} [{path} group {label}: "
+                f"{len(step.members)} members, "
                 f"{len(prog.ops)} ops, {sum(op.plan for op in prog.ops)} planned "
                 f"barriers, {len(prog.ext_keys)} inputs, "
                 f"{len(step.escapes)} escapes, {prog.smem_bytes} B of shared "
@@ -2305,15 +2389,15 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
             )
             figs.append(dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
                              bound=bound, by=by, err=err, launch=launch,
-                             ops=sorted({names[op.code] for op in prog.ops})))
+                             ops=sorted({names[op.code] for op in prog.ops}),
+                             f64=prog.f64))
             env.update({k: got[k] for k in step.escapes})
             if len(figs) == len(groups):
                 break
-    ptxas = list(ptxas_report(ptxas_log, "generic_rows_kernel").values())
-    if not ptxas:
-        raise AssertionError("K7: no ptxas report for generic_rows_kernel")
-    print(f"K7 ptxas for generic_rows_kernel: {' | '.join(ptxas)}; on "
-          f"{card_line()}", flush=True)
+    ptxas, ptxas64 = k7_ptxas(ptxas_log)
+    print(f"K7 ptxas for generic_rows_kernel: {' | '.join(ptxas)}; for "
+          f"generic_rows_kernel_f64: {' | '.join(ptxas64)}; on {card_line()}",
+          flush=True)
 
     def total(q):
         return sum(f[q] for f in figs)
@@ -2324,6 +2408,7 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
         plain_ms=total("plain_ms"), bound_ms=total("bound"), bound_by=worst["by"],
         device_ms=total("dev_ms"), bound_share=total("bound") / total("ms"),
         device_bound_share=total("bound") / total("dev_ms"), ptxas=ptxas,
+        ptxas_f64=ptxas64, f64=any(f["f64"] for f in figs),
     )
     if pick is not None:
         out["ops_alone"] = alone_figs
@@ -2907,6 +2992,28 @@ def sipm_pipeline_phase(build_dsp, build_processing_chain, lh5, _cuda, wf, card)
     return dict(wfps=total / run_s, sync_wfps=total / sync_s, launches=launches)
 
 
+def f64_columns(cols, cpu, n_cpu, label) -> float:
+    """A float64 chain's first ``n_cpu`` events against the port's CPU run:
+    NaN positions equal, every column within F64_ATOL + F64_REL of its
+    scale (the golden replay's tolerance); returns the worst error over
+    scale."""
+    worst = 0.0
+    for k, v in cols.items():
+        g, w = v[:n_cpu].astype(np.float64), np.asarray(cpu[k], np.float64)
+        if not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise AssertionError(f"[{label}] {k}: NaN positions differ from the CPU run")
+        ok = np.isfinite(w)
+        if not ok.any():
+            continue
+        err = float(np.abs(g[ok] - w[ok]).max())
+        scale = float(np.abs(w[ok]).max())
+        if err > F64_ATOL + F64_REL * scale:
+            raise AssertionError(f"[{label}] {k}: card vs CPU max diff {err:.3e} > "
+                                 f"{F64_ATOL + F64_REL * scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
 def compare_columns(cols, cpu, wf, bl, n_cpu,
                     aoe_geometry=AOE_GEOMETRY) -> tuple[int, float]:
     """Hold the card's first ``n_cpu`` events against the port's CPU run:
@@ -3455,7 +3562,8 @@ def plane_checks(cols, cpu, n_cpu, label):
 def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
               expect, rt=None, device="cuda", fuse=True, forbid=(),
               aoe_geometry=AOE_GEOMETRY, trap_tol=0.005, extras=False,
-              inject_ml=False, cover=False, plane=False, db=None, n_cpu=256):
+              inject_ml=False, cover=False, plane=False, db=None, n_cpu=256,
+              f64=False):
     """A main path: ``build_dsp`` of ``cfg`` with fusion mode ``fuse`` over
     every event of ``wf`` on ``device``, file -> file where ``h5py`` is
     installed, else Table -> Table; launch counts and generic-group splits
@@ -3471,8 +3579,10 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     injection + ML path's by :func:`inject_ml_checks`, with ``cover`` the
     coverage path's by :func:`cover_checks`, with ``plane`` the plane path's
     by :func:`plane_checks` (the flagship's by the rules above). ``db`` is the database (default: the flagship's
-    ``pz.tau``); the first ``n_cpu`` events are held against the CPU run.
-    Returns the launch counts."""
+    ``pz.tau``); the first ``n_cpu`` events are held against the CPU run
+    (with ``f64``, a float64 chain: every column at the golden replay's
+    tolerance, F64_REL and F64_ATOL of its scale). Records the calls' wf/s
+    in ``E2E_RATES[label]``. Returns the launch counts."""
     import importlib.util
 
     import torch
@@ -3548,6 +3658,7 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
             f"(ms) {json.dumps(call_stats[0])}, {json.dumps(call_stats[1])}",
             flush=True,
         )
+        E2E_RATES[label] = (n_ev / cold_s, n_ev / warm_s)
         if builds.n:
             raise AssertionError(f"[{label}] the second build_dsp call built "
                                  f"{builds.n} chain(s): no chain-cache hit")
@@ -3601,10 +3712,17 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
                 raise AssertionError(f"{CASCADE[k]} lies after its start")
     if "A_max" in cols:
         aoe_checks(cols, good, amp, t0, rt, label, AOE_RATIO[aoe_geometry[3]])
-    n_ex, worst = compare_columns({k: v for k, v in cols.items() if k not in new_cols},
-                                  cpu, wf, bl, n_cpu, aoe_geometry)
-    print(f"[{label}] first {n_cpu} events vs the port's CPU run: worst "
-          f"|diff|/max|col| {worst:.3e}, {n_ex} events excused", flush=True)
+    if f64:
+        worst = f64_columns(cols, cpu, n_cpu, label)
+        print(f"[{label}] first {n_cpu} events vs the port's CPU run, every column "
+              f"within {F64_REL:g} of its scale: worst |diff|/max|col| {worst:.3e}",
+              flush=True)
+    else:
+        n_ex, worst = compare_columns(
+            {k: v for k, v in cols.items() if k not in new_cols}, cpu, wf, bl, n_cpu,
+            aoe_geometry)
+        print(f"[{label}] first {n_cpu} events vs the port's CPU run: worst "
+              f"|diff|/max|col| {worst:.3e}, {n_ex} events excused", flush=True)
     if extras:
         extras_checks(cols, cpu, wf, bl, n_cpu, good, t0)
     if inject_ml:
@@ -4462,6 +4580,23 @@ def main() -> int:
     held_alone(k7["plane_groups"], PLANE_OPS, "plane")
     torch.cuda.empty_cache()
 
+    # -- the float64 path: K7's float64 kernel on the groups of the float64 --
+    # -- flagship, DPZ and extras (float64 rows), every stored output bit for --
+    # -- bit against the plain walk, each float64 op alone (bit for bit, within --
+    # -- F64_REL of its member's own body, timed against its bound) ----------
+    wf64 = wf.astype(np.float64)
+    held: dict = {"ops_alone": {}}
+    k7f64 = {}
+    for path, make, members in F64_PATHS:
+        rows, base = (dwf.astype(np.float64), dbl) if path == "float64 DPZ" else (wf64, bl)
+        k7f64[path] = figs = k7_phase(
+            build_processing_chain, lh5, _cuda, rows, base, dev, logs["generic_rows"],
+            cfg=make("float64"), members=members, path=path, pick=f64_op_label)
+        held["ops_alone"].update(figs["ops_alone"])
+        del rows
+        torch.cuda.empty_cache()
+    held_alone(held, F64_HELD, "float64")
+
     # -- the main paths: build_dsp -------------------------------------------
     launches = e2e_phase(
         build_dsp, lh5, _cuda, config(), wf, amp, inj_t0, bl, card, "flagship",
@@ -4563,6 +4698,28 @@ def main() -> int:
     if plane_launches["generic_rows"] != len(PLANE_MEMBERS):
         raise AssertionError(f"plane launches {plane_launches}: generic_rows not "
                              f"{len(PLANE_MEMBERS)} times a chunk")
+    # the float64 flagship: no hand kernel takes a float64 plane, so the
+    # default mode forms the generic groups too; each mode two K7 launches
+    # (its float64 kernel) a chunk and no split; the first 1024 events
+    # against the CPU run at the golden replay's tolerance
+    hand = ("fused_energy", "cascade_tp", "fused_t0", "banded_conv_multi",
+            "fused_current_poly", "fused_current")
+    f64_launches = {}
+    for mode in (True, "generic"):
+        label = "float64 flagship" + (" generic" if mode == "generic" else "")
+        f64_launches[label] = e2e_phase(
+            build_dsp, lh5, _cuda, flagship_config("float64"), wf64, amp, inj_t0, bl,
+            card, label, expect=("generic_rows",), rt=rt, device=DEVICE, fuse=mode,
+            forbid=hand, f64=True, n_cpu=1024)
+        if f64_launches[label]["generic_rows"] != 2:
+            raise AssertionError(f"{label} launches {f64_launches[label]}: "
+                                 f"generic_rows not twice a chunk")
+    print(f"float64 flagship warm: {E2E_RATES['float64 flagship'][1]:.0f} wf/s "
+          f"(default mode), {E2E_RATES['float64 flagship generic'][1]:.0f} wf/s "
+          f"(generic), against the float32 flagship's {E2E_RATES['flagship'][1]:.0f} "
+          f"(default) and {E2E_RATES['flagship generic'][1]:.0f} (generic) in this "
+          f"call, on {card}", flush=True)
+    del wf64
     # the waveform browser: its chain (K1, K3, K2) and its data path
     vis = vis_phase(build_dsp, lh5, _cuda, wf, bl, card)
     torch.cuda.empty_cache()
@@ -4650,6 +4807,15 @@ def main() -> int:
             inject_ml_launches=iml_launches["generic_rows"],
             cover_launches=cover_launches["generic_rows"],
             plane_launches=plane_launches["generic_rows"], **k7,
+        ),
+        dict(
+            name="generic_rows_f64", route="cuda",
+            source="dspeed_tpu_torch/csrc/generic_rows.cu",
+            replaces="dspeed_tpu/processors/_pallas.py:1782 (on float64 rows)",
+            launches=f64_launches["float64 flagship"]["generic_rows"],
+            generic_launches=f64_launches["float64 flagship generic"]["generic_rows"],
+            library_ms=None, **k7f64["float64 flagship"],
+            dpz_groups=k7f64["float64 DPZ"], extras_groups=k7f64["float64 extras"],
         ),
         dict(
             name="recurrence", route="cuda",

@@ -83,6 +83,19 @@
 //   nansum, nanmean, nanmax, nanmin  float64 block order
 // A row with a NaN poisons what each member poisons, op by op.
 //
+// Float64 rows (the float64 flagship's, DPZ's and extras' groups) run on a
+// kernel of their own, generic_rows_kernel_f64, over the same tape, plan and
+// barrier tables: every plane there is float64 (two words a sample of the
+// arena, a slice's place counted in words), and its ops are the templated
+// ones above (min_max, amax, the searches and pick-offs, soft_pileup,
+// wf_correction, wf_centroid) or float64 forms (op_*64): each the member's
+// arithmetic on a float64 row, every product, sum and quotient rounded once
+// (no contraction) in the order of the tape's plain walk, whose members take
+// their K7-order float64 variants (k7_f64). Nothing of the float kernel's
+// code is on that path, so its register cap stays; the float64 groups' shared
+// memory (~106 KB for the flagship's) allows two blocks an SM, and with them
+// 128 registers a thread.
+//
 // What bounds it on this card: bytes for most groups. The flagship's first
 // generic group reads one 4096-sample f32 row and writes three planes (16 KB
 // each) plus a 300-sample current and scalars: about 66 KB per row, 1.09 GB
@@ -137,6 +150,7 @@
 #define GEN_THREADS 256
 #define GEN_WARPS (GEN_THREADS / 32)
 #define GEN_MIN_BLOCKS 3  // blocks an SM that the registers must allow
+#define GEN_MIN_BLOCKS_F64 2  // and for the float64 kernel
 #define GEN_R 8           // convolution outputs a thread in a whole tile
 #define GEN_R_TAIL 4      // and in the tiles after the whole ones
 #define GEN_RUN 16        // prefix runs kept in registers up to this length
@@ -254,18 +268,19 @@ __device__ __forceinline__ float* esc_plane(const GenParams& P, const Row& R,
     return (float*)P.esc[e] + R.row * (long long)sf(P, s, S_LEN);
 }
 
-// The same for a float64 plane (S_TYPE T_F64: reflected_convolve_wf with
-// float64 taps, avg_current over its output), which spans two words a
-// sample of the arena and has no slices.
-__device__ __forceinline__ double* plane64(const GenParams& P, int s) {
-    return reinterpret_cast<double*>(plane(P, s));
+// The same for a plane of samples of type T: float, or double (S_TYPE
+// T_F64), which spans two words a sample of the arena (a slice's S_OFF
+// counts words too).
+template <typename T>
+__device__ __forceinline__ T* plane_of(const GenParams& P, int s) {
+    return reinterpret_cast<T*>(plane(P, s));
 }
 
-__device__ __forceinline__ double* esc_plane64(const GenParams& P, const Row& R,
-                                               int s) {
+template <typename T>
+__device__ __forceinline__ T* esc_of(const GenParams& P, const Row& R, int s) {
     const int e = sf(P, s, S_ESC);
     if (e < 0) return nullptr;
-    return (double*)P.esc[e] + R.row * (long long)sf(P, s, S_LEN);
+    return (T*)P.esc[e] + R.row * (long long)sf(P, s, S_LEN);
 }
 
 // Scalar operand k of op `o`: a slot, or a constant of the op's dp (in[k]
@@ -321,14 +336,16 @@ __device__ __forceinline__ void flag_plane(const GenParams& P, int s, int h) {
 // Whether plane slot s holds a sample of `bit` (GEN_NAN: the member's
 // isnan_any row mask; GEN_INF). A slot that covers its root reads its
 // root's flag word; a slice of a root that holds one is scanned, by the
-// block (called by every thread) or by warp 0 alone (`warp`).
+// block (called by every thread) or by warp 0 alone (`warp`), as samples
+// of type T.
+template <typename T = float>
 __device__ __forceinline__ bool plane_has(const GenParams& P, int s, int bit,
                                           bool warp) {
     const int r = sf(P, s, S_ROOT);
     if (!(nanf_of(P)[r] & bit)) return false;
     if (sf(P, s, S_OFF) == sf(P, r, S_OFF) && sf(P, s, S_LEN) == sf(P, r, S_LEN))
         return true;
-    const float* x = plane(P, s);
+    const T* x = plane_of<T>(P, s);
     const int n = plen(P, s);
     int h = 0;
     if (warp) {
@@ -339,9 +356,10 @@ __device__ __forceinline__ bool plane_has(const GenParams& P, int s, int bit,
     return __syncthreads_or(h) != 0;
 }
 
+template <typename T = float>
 __device__ __forceinline__ bool plane_nan(const GenParams& P, int s,
                                           bool warp) {
-    return plane_has(P, s, GEN_NAN, warp);
+    return plane_has<T>(P, s, GEN_NAN, warp);
 }
 
 // ---------------------------------------------------------------------------
@@ -371,6 +389,47 @@ __device__ __forceinline__ float replay_max(const float* v) {
 #pragma unroll
         for (int l = 0; l < o; ++l) w[l] = fmaxf(w[l], w[l + o]);
     return w[0];
+}
+
+__device__ __forceinline__ double replay_max(const double* v) {
+    double w[GEN_WARPS];
+#pragma unroll
+    for (int l = 0; l < GEN_WARPS; ++l) w[l] = v[l];
+#pragma unroll
+    for (int o = GEN_WARPS / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int l = 0; l < o; ++l) w[l] = fmax(w[l], w[l + o]);
+    return w[0];
+}
+
+// The reduction buffer rb for values of type T (float or double).
+template <typename T>
+__device__ __forceinline__ T* red_vals(int rb) {
+    if constexpr (sizeof(T) == 4) return gen_redf[rb];
+    else return gen_red[rb];
+}
+
+__device__ __forceinline__ float gen_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double gen_max(double a, double b) { return fmax(a, b); }
+
+// block_reduce.cuh's first-occurrence rule and crossing predicates on a
+// float64 row.
+__device__ __forceinline__ bool ext_better(double v, int i, double v2, int i2,
+                                           bool is_max, int n) {
+    if (i2 == n) return i != n;
+    if (i == n) return false;
+    if (is_max ? (v > v2) : (v < v2)) return true;
+    return v == v2 && i < i2;
+}
+
+__device__ __forceinline__ bool cross_fwd(const double* x, int i, double a) {
+    const double x0 = x[i], x1 = x[i + 1];
+    return (x0 <= a && a < x1) || (x0 >= a && a > x1);
+}
+
+__device__ __forceinline__ bool cross_bwd(const double* x, int i, double a) {
+    const double x0 = x[i - 1], x1 = x[i];
+    return (x0 < a && a <= x1) || (x0 > a && a >= x1);
 }
 
 // block_excl_scan: the exclusive scan of one double per thread, in thread
@@ -449,10 +508,11 @@ __device__ __forceinline__ void load_run(const float* x, int j0, int cnt,
     for (int k = 0; k < GEN_RUN; ++k) r[k] = k < cnt ? x[j0 + k] : 0.f;
 }
 
-// The inclusive float64 prefix of x[0, n) into ps (padded), every value
-// with block_inclusive_prefix's bits, each run read from shared memory
-// twice; ends with a barrier, after which ps may be read.
-__device__ __forceinline__ void gen_prefix_shared(Row& R, const float* x,
+// The inclusive float64 prefix of x[0, n) (float or double samples) into ps
+// (padded), every value with block_inclusive_prefix's bits, each run read
+// from shared memory twice; ends with a barrier, after which ps may be read.
+template <typename X>
+__device__ __forceinline__ void gen_prefix_shared(Row& R, const X* x,
                                                   int n, double* ps, int pad) {
     int j0, j1;
     scan_run(n, j0, j1);
@@ -571,10 +631,12 @@ __device__ __forceinline__ float mw_at(const double* ps, int pad, int n,
 }
 
 // ---------------------------------------------------------------------------
-// K2's warp searches (cascade_tp.cu), the same index in every lane
+// K2's warp searches (cascade_tp.cu), the same index in every lane, over
+// float or double samples
 
-__device__ __forceinline__ int gen_search_fwd(const float* x, int n, int s,
-                                              float a, int lane) {
+template <typename T>
+__device__ __forceinline__ int gen_search_fwd(const T* x, int n, int s,
+                                              T a, int lane) {
     for (int b = s; b <= n - 2; b += 32 * GEN_WIN) {
         unsigned hit[GEN_WIN];
 #pragma unroll
@@ -589,7 +651,8 @@ __device__ __forceinline__ int gen_search_fwd(const float* x, int n, int s,
     return -1;
 }
 
-__device__ __forceinline__ int gen_search_bwd(const float* x, int s, float a,
+template <typename T>
+__device__ __forceinline__ int gen_search_bwd(const T* x, int s, T a,
                                               int lane) {
     for (int top = s; top >= 1; top -= 32 * GEN_WIN) {
         unsigned hit[GEN_WIN];
@@ -834,8 +897,40 @@ __device__ __noinline__ double ftp_more(const float* x, int n, int i0, float f,
                      __fmul_rn(__fsub_rn(t03, t02), m1));
 }
 
+// fixed_time_pickoff on a float64 row at t (in the row, not NaN), each
+// operation rounded once in float64 as the member takes it: 'i' and 'l'
+// as in float32, 'n' 'f' 'c', and 'h' Hermite's cubic with its cubes as
+// PyTorch's pow takes them ((t t) t).
+__device__ __noinline__ double ftp_pick64(const double* x, int n, double t, int mode) {
+    const int i0 = (int)floor(t);
+    const double f = __dsub_rn(t, (double)i0);
+    const double wi = x[min(max(i0, 0), n - 1)];
+    const double wi1 = x[min(max(i0 + 1, 0), n - 1)];
+    if (mode == 'i') return f == 0.0 ? wi : __longlong_as_double(0x7ff8000000000000LL);
+    if (mode == 'n') return f < 0.5 ? wi : wi1;
+    if (mode == 'f' || f == 0.0) return wi;
+    if (mode == 'c') return wi1;
+    const double t0 = f, t1 = __dsub_rn(1.0, f);
+    if (mode == 'l') return __dadd_rn(__dmul_rn(t1, wi), __dmul_rn(t0, wi1));
+    const double wim1 = x[min(max(i0 - 1, 0), n - 1)];
+    const double wi2 = x[min(max(i0 + 2, 0), n - 1)];
+    const double m0 = i0 == 0 ? __dsub_rn(x[1], x[0]) : __ddiv_rn(__dsub_rn(wi1, wim1), 2.0);
+    const double m1 = i0 == n - 2 ? __dsub_rn(x[n - 1], x[n - 2])
+                                  : __ddiv_rn(__dsub_rn(wi2, wi), 2.0);
+    const double t12 = __dmul_rn(t1, t1), t13 = __dmul_rn(t12, t1);
+    const double t02 = __dmul_rn(t0, t0), t03 = __dmul_rn(t02, t0);
+    const double h00 = __dadd_rn(__dmul_rn(-2.0, t13), __dmul_rn(3.0, t12));
+    const double h01 = __dadd_rn(__dmul_rn(-2.0, t03), __dmul_rn(3.0, t02));
+    return __dadd_rn(__dsub_rn(__dadd_rn(__dmul_rn(h00, wi), __dmul_rn(h01, wi1)),
+                               __dmul_rn(__dsub_rn(t13, t12), m0)),
+                     __dmul_rn(__dsub_rn(t03, t02), m1));
+}
+
 // The ops that warp 0 runs alone, lane 0 storing the result: the searches
-// and the per-row scalar arithmetic.
+// and the per-row scalar arithmetic, over planes of type T (a float64
+// row's searches compare in float64, its interpolations and picks round in
+// float64; get runs on float rows only).
+template <typename T>
 __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
                                         int k, int code) {
     const int* op = tape(P) + k * OP_INTS;
@@ -848,11 +943,11 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
     if (code == OP_TPT) {
         // first forward (ip[0] = 1) or last backward crossing of a from the
         // integral start t inside the row
-        const float* x = plane(P, in[0]);
+        const T* x = plane_of<T>(P, in[0]);
         const int n = plen(P, in[0]);
         const double a = operand(P, k, 1, cast);
         const double t = operand(P, k, 2, cast);
-        const bool bad = plane_nan(P, in[0], true);
+        const bool bad = plane_nan<T>(P, in[0], true);
         const double tt = trunc(t);
         const int mode = ip[1];
         // interpolated_time_point_thresh takes any start inside the row
@@ -861,13 +956,24 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
         int idx = -1;
         if (!bad && ok && !isnan(a)) {
             const int s = (int)tt;
-            idx = ip[0] ? gen_search_fwd(x, n, s, (float)a, lane)
-                        : gen_search_bwd(x, s, (float)a, lane);
+            idx = ip[0] ? gen_search_fwd(x, n, s, (T)a, lane)
+                        : gen_search_bwd(x, s, (T)a, lane);
             // its backward walk stops at sample 2 and reports i - 1
             if (mode && !ip[0]) idx = idx >= 2 ? idx - 1 : -1;
         }
         if (idx >= 0 && !mode) {
             v = (double)idx;
+        } else if constexpr (sizeof(T) == 8) {
+            if (idx >= 0) {
+                const double wc = x[idx], wc1 = x[idx + 1], fi = (double)idx;
+                if (mode == 'a' || mode == 'f') v = fi + 1.0;
+                else if (mode == 'r') v = fabs(__dsub_rn(a, wc)) < fabs(__dsub_rn(a, wc1))
+                                          ? fi : fi + 1.0;
+                else if (mode == 'n') v = __dadd_rn(fi, 0.5);
+                else if (mode == 'l')
+                    v = __dadd_rn(fi, __ddiv_rn(__dsub_rn(a, wc), __dsub_rn(wc1, wc)));
+                else v = fi;  // 'i', 'b', 'c'
+            }
         } else if (idx >= 0) {
             const float af = (float)a, wc = x[idx], wc1 = x[idx + 1];
             const float fi = (float)idx;
@@ -880,12 +986,14 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
             else v = (double)idx;  // 'i', 'b', 'c'
         }
     } else if (code == OP_FTP) {
-        const float* x = plane(P, in[0]);
+        const T* x = plane_of<T>(P, in[0]);
         const int n = plen(P, in[0]);
         const double t = operand(P, k, 1, cast);
-        const bool bad = plane_nan(P, in[0], true) || isnan(t)
+        const bool bad = plane_nan<T>(P, in[0], true) || isnan(t)
                          || !(t >= 0.0 && t <= (double)(n - 1));
-        if (!bad) {
+        if constexpr (sizeof(T) == 8) {
+            if (!bad) v = ftp_pick64(x, n, t, ip[0]);
+        } else if (!bad) {
             const int i0 = (int)floor(t);
             const float f = __fsub_rn((float)t, (float)i0);
             const float wi = x[min(max(i0, 0), n - 1)];
@@ -966,6 +1074,13 @@ __device__ __forceinline__ void gen_cp_async16(float* dst, const float* src) {
                  : "memory");
 }
 
+__device__ __forceinline__ void gen_cp_async8(double* dst, const double* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+
 __device__ __forceinline__ void gen_cp_async4(float* dst, const float* src) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
@@ -1013,30 +1128,32 @@ __device__ __forceinline__ void op_load(const GenParams& P, const Row& R,
 
 // min_max: first-occurrence extrema, the warps' candidates behind one
 // barrier; warp 0 meets them with shuffles (the extremum is one (value,
-// index) in whatever order its candidates meet), lanes 0-3 store.
+// index) in whatever order its candidates meet), lanes 0-3 store. T: the
+// row's samples (float or double).
+template <typename T>
 __device__ __forceinline__ void op_min_max(const GenParams& P, Row& R,
                                            const int* in, const int* out) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int n = plen(P, in[0]);
-    const bool bad = plane_nan(P, in[0], false);
+    const bool bad = plane_nan<T>(P, in[0], false);
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-    float vmin = 0.f, vmax = 0.f;
+    T vmin = 0, vmax = 0;
     int imin = n, imax = n;
 #pragma unroll 4
     for (int i = tid; i < n; i += GEN_THREADS) {
-        const float v = x[i];
+        const T v = x[i];
         if (imin == n || v < vmin) { vmin = v; imin = i; }
         if (imax == n || v > vmax) { vmax = v; imax = i; }
     }
     for (int o = 16; o > 0; o >>= 1) {
-        const float v2 = __shfl_down_sync(FULL_MASK, vmin, o);
+        const T v2 = __shfl_down_sync(FULL_MASK, vmin, o);
         const int i2 = __shfl_down_sync(FULL_MASK, imin, o);
         if (ext_better(v2, i2, vmin, imin, false, n)) { vmin = v2; imin = i2; }
-        const float u2 = __shfl_down_sync(FULL_MASK, vmax, o);
+        const T u2 = __shfl_down_sync(FULL_MASK, vmax, o);
         const int j2 = __shfl_down_sync(FULL_MASK, imax, o);
         if (ext_better(u2, j2, vmax, imax, true, n)) { vmax = u2; imax = j2; }
     }
-    float* rf = gen_redf[R.rb];
+    T* rf = red_vals<T>(R.rb);
     int* ri = gen_redi[R.rb];
     R.rb ^= 1;
     if (lane == 0) {
@@ -1048,15 +1165,15 @@ __device__ __forceinline__ void op_min_max(const GenParams& P, Row& R,
     __syncthreads();
     if (wid != 0) return;
     const bool own = lane < GEN_WARPS;
-    vmin = own ? rf[lane] : 0.f;
+    vmin = own ? rf[lane] : (T)0;
     imin = own ? ri[lane] : n;
-    vmax = own ? rf[GEN_WARPS + lane] : 0.f;
+    vmax = own ? rf[GEN_WARPS + lane] : (T)0;
     imax = own ? ri[GEN_WARPS + lane] : n;
     for (int o = GEN_WARPS / 2; o > 0; o >>= 1) {
-        const float v2 = __shfl_down_sync(FULL_MASK, vmin, o);
+        const T v2 = __shfl_down_sync(FULL_MASK, vmin, o);
         const int i2 = __shfl_down_sync(FULL_MASK, imin, o);
         if (ext_better(v2, i2, vmin, imin, false, n)) { vmin = v2; imin = i2; }
-        const float u2 = __shfl_down_sync(FULL_MASK, vmax, o);
+        const T u2 = __shfl_down_sync(FULL_MASK, vmax, o);
         const int j2 = __shfl_down_sync(FULL_MASK, imax, o);
         if (ext_better(u2, j2, vmax, imax, true, n)) { vmax = u2; imax = j2; }
     }
@@ -1339,19 +1456,20 @@ __device__ __forceinline__ void op_trap(const GenParams& P, Row& R,
     flag_plane(P, out[0], h);
 }
 
-// amax: block_max's tree, behind one barrier.
+// amax: block_max's tree, behind one barrier, over float or double samples.
+template <typename T>
 __device__ __forceinline__ void op_amax(const GenParams& P, Row& R,
                                         const int* in, const int* out) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int n = plen(P, in[0]);
-    const bool bad = plane_nan(P, in[0], false);
+    const bool bad = plane_nan<T>(P, in[0], false);
     const int tid = threadIdx.x;
-    float mx = -INFINITY;
+    T mx = -INFINITY;
 #pragma unroll 4
-    for (int i = tid; i < n; i += GEN_THREADS) mx = fmaxf(mx, x[i]);
+    for (int i = tid; i < n; i += GEN_THREADS) mx = gen_max(mx, x[i]);
     for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_down_sync(FULL_MASK, mx, o));
-    float* rf = gen_redf[R.rb];
+        mx = gen_max(mx, __shfl_down_sync(FULL_MASK, mx, o));
+    T* rf = red_vals<T>(R.rb);
     R.rb ^= 1;
     if ((tid & 31) == 0) rf[tid >> 5] = mx;
     __syncthreads();
@@ -1453,8 +1571,8 @@ __device__ __forceinline__ void op_reflected_conv(const GenParams& P,
     const int m = ip[1], d = (m - 1) / 2;
     const int h = sf(P, out[0], S_TYPE) == T_F64
         ? direct_conv_row<double, true>(x, n, reinterpret_cast<const double*>(P.taps + ip[0]),
-                                        m, d, n, bad, plane64(P, out[0]),
-                                        esc_plane64(P, R, out[0]))
+                                        m, d, n, bad, plane_of<double>(P, out[0]),
+                                        esc_of<double>(P, R, out[0]))
         : direct_conv_row<float, true>(x, n, P.taps + ip[0], m, d, n, bad, plane(P, out[0]),
                                        esc_plane(P, R, out[0]));
     flag_plane(P, out[0], h);
@@ -1528,9 +1646,9 @@ __device__ __forceinline__ void op_gather(const GenParams& P, const Row& R,
         const int L = ip[0];
         const double lf = tape_dp(P)[k * OP_DP];
         const bool bad = plane_nan(P, in[0], false);
-        const double* xd = plane64(P, in[0]);
-        double* od = plane64(P, out[0]);
-        double* gd = esc_plane64(P, R, out[0]);
+        const double* xd = plane_of<double>(P, in[0]);
+        double* od = plane_of<double>(P, out[0]);
+        double* gd = esc_of<double>(P, R, out[0]);
         const double dnan = __longlong_as_double(0x7ff8000000000000LL);
 #pragma unroll 4
         for (int i = tid; i < m; i += GEN_THREADS) {
@@ -1667,11 +1785,12 @@ __device__ __forceinline__ void op_poly_resid(const GenParams& P, Row& R,
 // reduction buffer behind one barrier; thread 0 replays the two, solves for
 // B (or takes b_in, ip[1]: operand 1) and A in float64 and stores both in
 // the op's two float64 scalars. The second op (OP_SOFT_PILEUP_OUT, in
-// op_gather) writes x - (A e + B).
+// op_gather) writes x - (A e + B). T: the row's samples.
+template <typename T>
 __device__ __forceinline__ void op_soft_pileup(const GenParams& P, Row& R, int k,
                                                const int* in, const int* out,
                                                const int* ip) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int nf = ip[0];
     const double* e = reinterpret_cast<const double*>(P.taps + ip[2]);
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
@@ -1680,6 +1799,16 @@ __device__ __forceinline__ void op_soft_pileup(const GenParams& P, Row& R, int k
         const double v = (double)x[i];
         s4 += __dmul_rn(__ldg(e + i), v);
         s5 += v;
+    }
+    if constexpr (sizeof(T) == 8) {
+        // on a float64 row the member's masked sums take the samples past
+        // the window times 0: a NaN or an infinity there makes both NaN
+        // (a finite one adds a zero, which changes no sum)
+        for (int i = nf + tid; i < plen(P, in[0]); i += GEN_THREADS) {
+            const double z = __dmul_rn(0.0, x[i]);
+            s4 += z;
+            s5 += z;
+        }
     }
     s4 = warp_sum(s4);
     s5 = warp_sum(s5);
@@ -1704,22 +1833,24 @@ __device__ __forceinline__ void op_soft_pileup(const GenParams& P, Row& R, int k
 }
 
 // wf_correction: x[i] - c[i - start] over [ip[0], ip[1]), x elsewhere; c
-// the constant correction in the taps (ip[2] its offset), ip[3] marking a
-// NaN in it. One pass over the output.
+// the constant correction in the taps in the row's type T (ip[2] its
+// offset; float64 values as pairs of words from an even one), ip[3]
+// marking a NaN in it. One pass over the output.
+template <typename T>
 __device__ __forceinline__ void op_wf_correction(const GenParams& P, const Row& R,
                                                  const int* in, const int* out,
                                                  const int* ip) {
-    const float* x = plane(P, in[0]);
-    float* o = plane(P, out[0]);
-    float* g = esc_plane(P, R, out[0]);
+    const T* x = plane_of<T>(P, in[0]);
+    T* o = plane_of<T>(P, out[0]);
+    T* g = esc_of<T>(P, R, out[0]);
     const int n = plen(P, in[0]), start = ip[0], stop = ip[1];
-    const float* c = P.taps + ip[2];
-    const bool bad = plane_nan(P, in[0], false) || ip[3];
-    const float qnan = __int_as_float(0x7fc00000);
+    const T* c = reinterpret_cast<const T*>(P.taps + ip[2]);
+    const bool bad = plane_nan<T>(P, in[0], false) || ip[3];
+    const T qnan = __int_as_float(0x7fc00000);
     int h = 0;
     for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
-        const float v = bad ? qnan
-            : (i >= start && i < stop) ? __fsub_rn(x[i], __ldg(c + i - start)) : x[i];
+        const T v = bad ? qnan
+            : (i >= start && i < stop) ? rn_sub(x[i], __ldg(c + i - start)) : x[i];
         o[i] = v;
         if (g) g[i] = v;
         h |= nan_inf(v);
@@ -1732,32 +1863,34 @@ __device__ __forceinline__ void op_wf_correction(const GenParams& P, const Row& 
 // warps' candidates in order), then the first positive and the last
 // negative sample in [imin, imax) (int reductions behind a second barrier);
 // thread 0 stores rint of their midpoint plus the shift: in float32 where
-// the shift is float32 (bit 1 of ip[7]), else float64.
+// the shift is float32 (bit 1 of ip[7]), else float64. T: the row's
+// samples.
+template <typename T>
 __device__ __forceinline__ void op_wf_centroid(const GenParams& P, Row& R, int k,
                                                const int* in, const int* out,
                                                const int* ip) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int n = plen(P, in[0]);
     const double sh = operand(P, k, 1, ip[7]);
     const bool sh32 = (ip[7] >> 1) & 1;
-    const bool bad = plane_nan(P, in[0], false) || isnan(sh);
+    const bool bad = plane_nan<T>(P, in[0], false) || isnan(sh);
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-    float vmin = 0.f, vmax = 0.f;
+    T vmin = 0, vmax = 0;
     int imin = n, imax = n;
     for (int i = tid; i < n; i += GEN_THREADS) {
-        const float v = x[i];
+        const T v = x[i];
         if (imin == n || v < vmin) { vmin = v; imin = i; }
         if (imax == n || v > vmax) { vmax = v; imax = i; }
     }
     for (int o = 16; o > 0; o >>= 1) {
-        const float v2 = __shfl_down_sync(FULL_MASK, vmin, o);
+        const T v2 = __shfl_down_sync(FULL_MASK, vmin, o);
         const int i2 = __shfl_down_sync(FULL_MASK, imin, o);
         if (ext_better(v2, i2, vmin, imin, false, n)) { vmin = v2; imin = i2; }
-        const float u2 = __shfl_down_sync(FULL_MASK, vmax, o);
+        const T u2 = __shfl_down_sync(FULL_MASK, vmax, o);
         const int j2 = __shfl_down_sync(FULL_MASK, imax, o);
         if (ext_better(u2, j2, vmax, imax, true, n)) { vmax = u2; imax = j2; }
     }
-    float* rf = gen_redf[R.rb];
+    T* rf = red_vals<T>(R.rb);
     int* ri = gen_redi[R.rb];
     R.rb ^= 1;
     if (lane == 0) {
@@ -1781,9 +1914,9 @@ __device__ __forceinline__ void op_wf_centroid(const GenParams& P, Row& R, int k
     }
     int first_pos = n, last_neg = -1;
     for (int i = imin + tid; i < imax; i += GEN_THREADS) {
-        const float v = x[i];
-        if (v > 0.f && first_pos == n) first_pos = i;
-        if (v < 0.f) last_neg = i;
+        const T v = x[i];
+        if (v > (T)0 && first_pos == n) first_pos = i;
+        if (v < (T)0) last_neg = i;
     }
     first_pos = __reduce_min_sync(FULL_MASK, first_pos);
     last_neg = __reduce_max_sync(FULL_MASK, last_neg);
@@ -2456,6 +2589,404 @@ __device__ __forceinline__ void op_reduce(const GenParams& P, Row& R, const int*
     put(P, R, out[0], v);
 }
 
+// ---------------------------------------------------------------------------
+// the float64 forms: the ops of the float64 flagship, DPZ and extras groups
+// on float64 planes (generic_rows_kernel_f64). Each is its member's
+// arithmetic on a float64 row, every product, sum and quotient rounded once
+// (__dmul_rn, __dadd_rn, __ddiv_rn: no contraction), in the order of the
+// tape's plain walk (the member's K7-order variant, k7_f64, where the
+// member sums: K7's prefix _numerics.k7_prefix, its block sums k7_sum). The
+// barriers, buffers and scratch are the float forms' (the plan's tables
+// hold per opcode).
+
+// An external float64 plane into its place by cp.async: 16 bytes (two
+// samples) a lane where the row starts on 16 bytes, 8 where it does not;
+// then each thread tests the samples it copied itself.
+__device__ __forceinline__ void op_load64(const GenParams& P, const Row& R, int s) {
+    double* x = plane_of<double>(P, s);
+    const int n = plen(P, s), e = sf(P, s, S_EXT);
+    const double* g = (const double*)P.ext[e] + R.row * P.ext_stride[e];
+    const int tid = threadIdx.x;
+    const bool vec = (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+    const int i0 = vec ? (n >> 1) << 1 : 0;
+    for (int j = tid; 2 * j < i0; j += GEN_THREADS)
+        gen_cp_async16(reinterpret_cast<float*>(x + 2 * j),
+                       reinterpret_cast<const float*>(g + 2 * j));
+    for (int i = i0 + tid; i < n; i += GEN_THREADS) gen_cp_async8(x + i, g + i);
+    gen_cp_async_wait_all();
+    int h = 0;
+    for (int j = tid; 2 * j < i0; j += GEN_THREADS) h |= nan_inf(x[2 * j]) | nan_inf(x[2 * j + 1]);
+    for (int i = i0 + tid; i < n; i += GEN_THREADS) h |= nan_inf(x[i]);
+    flag_plane(P, s, h);
+}
+
+// bl_subtract, windower, avg_current and soft_pileup's second op on a
+// float64 row: one pass over the output, as op_gather.
+__device__ __forceinline__ void op_gather64(const GenParams& P, const Row& R, int k,
+                                            int code, const int* in, const int* out,
+                                            const int* ip) {
+    const double* x = plane_of<double>(P, in[0]);
+    double* o = plane_of<double>(P, out[0]);
+    double* g = esc_of<double>(P, R, out[0]);
+    const int nx = plen(P, in[0]), m = plen(P, out[0]);
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    bool bad = plane_nan<double>(P, in[0], false);
+    double a = 0.0, b = 0.0;  // the baseline; A and B; avg_current's length
+    int ti = 0;               // the window's start; avg_current's int(length)
+    const double* e = reinterpret_cast<const double*>(P.taps + ip[2]);
+    if (code == OP_BL_SUB) {
+        a = operand(P, k, 1, ip[7]);
+        bad |= isnan(a);
+    } else if (code == OP_WINDOWER) {
+        const double t0 = operand(P, k, 1, ip[7]);
+        bad |= isnan(t0);
+        const double t = trunc(t0);
+        ti = (int)(isnan(t) ? 0.0 : fmin(fmax(t, -(m + 1.0)), (double)nx));
+    } else if (code == OP_SOFT_PILEUP_OUT) {
+        a = operand(P, k, 1, 0);
+        b = operand(P, k, 2, 0);
+        bad |= isnan(a) || isnan(b);
+    } else {
+        a = tape_dp(P)[k * OP_DP];
+        ti = ip[0];
+    }
+    int h = 0;
+    for (int i = threadIdx.x; i < m; i += GEN_THREADS) {
+        double v;
+        if (code == OP_BL_SUB) {
+            v = __dsub_rn(x[i], a);
+        } else if (code == OP_WINDOWER) {
+            const int q = ti + i;
+            v = q < 0 || q >= nx ? dnan : x[q];
+        } else if (code == OP_SOFT_PILEUP_OUT) {
+            v = __dsub_rn(x[i], __dadd_rn(__dmul_rn(a, __ldg(e + i)), b));
+        } else {
+            v = i >= nx - ti ? dnan : __ddiv_rn(__dsub_rn(x[i + ti], x[i]), a);
+        }
+        if (bad) v = dnan;
+        o[i] = v;
+        if (g) g[i] = v;
+        h |= nan_inf(v);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// linear_slope_fit on a float64 row: op_slope_fit's two sums and their
+// barriers; the moments and the fit in float64 as the member takes them
+// (linear_slope_fit_k7), none rounded to float32.
+__device__ __forceinline__ void op_slope_fit64(const GenParams& P, Row& R,
+                                               const int* in, const int* out) {
+    const double* x = plane_of<double>(P, in[0]);
+    const bool bad = plane_nan<double>(P, in[0], false);
+    const int L = plen(P, in[0]);
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    double sy = 0.0, sxy = 0.0;
+    for (int j = tid; j < L; j += GEN_THREADS) {
+        sy = __dadd_rn(sy, x[j]);
+        sxy = __dadd_rn(sxy, __dmul_rn(x[j], (double)j));
+    }
+    sy = warp_sum(sy);
+    sxy = warp_sum(sxy);
+    double* r1 = gen_red[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        r1[wid] = sy;
+        r1[GEN_WARPS + wid] = sxy;
+    }
+    __syncthreads();
+    sy = replay_sum(r1);
+    sxy = replay_sum(r1 + GEN_WARPS);
+    const double Ld = (double)L;
+    const double mean = __ddiv_rn(sy, Ld);
+    double ss = 0.0;
+    for (int j = tid; j < L; j += GEN_THREADS) {
+        const double d = __dsub_rn(x[j], mean);
+        ss = __dadd_rn(ss, __dmul_rn(d, d));
+    }
+    ss = warp_sum(ss);
+    double* r2 = gen_red[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) r2[wid] = ss;
+    __syncthreads();
+    if (tid != 0) return;
+    ss = replay_sum(r2);
+    const double var = L > 1 ? __ddiv_rn(ss, (double)(L - 1)) : 0.0;
+    const double sum_x = __ddiv_rn(__dmul_rn(Ld, Ld - 1.0), 2.0);
+    const double sum_x2 = __ddiv_rn(__dmul_rn(__dmul_rn(Ld - 1.0, Ld), 2.0 * Ld - 1.0), 6.0);
+    const double slope = __ddiv_rn(__dsub_rn(__dmul_rn(Ld, sxy), __dmul_rn(sum_x, sy)),
+                                   __dsub_rn(__dmul_rn(Ld, sum_x2), __dmul_rn(sum_x, sum_x)));
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    put(P, R, out[0], bad ? dnan : mean);
+    put(P, R, out[1], bad ? dnan : sqrt(var));
+    put(P, R, out[2], bad ? dnan : slope);
+    put(P, R, out[3], bad ? dnan : __ddiv_rn(__dsub_rn(sy, __dmul_rn(sum_x, slope)), Ld));
+}
+
+// pole_zero on a float64 row: x + omc * (exclusive prefix of x), the
+// prefix in K7's order (gen_excl_scan over the runs, then each run's
+// samples in turn), each run read from shared memory twice.
+__device__ __forceinline__ void op_pole_zero64(const GenParams& P, Row& R, int k,
+                                               const int* in, const int* out,
+                                               const int* ip) {
+    const double* x = plane_of<double>(P, in[0]);
+    const int n = plen(P, in[0]);
+    const bool bad = plane_nan<double>(P, in[0], false) || ip[0];
+    int j0, j1;
+    scan_run(n, j0, j1);
+    double run = 0.0;
+    for (int j = j0; j < j1; ++j) run = __dadd_rn(run, x[j]);
+    double s = gen_excl_scan(R, run);
+    double* o = plane_of<double>(P, out[0]);
+    double* g = esc_of<double>(P, R, out[0]);
+    const double omc = tape_dp(P)[k * OP_DP];
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    int h = 0;
+    for (int j = j0; j < j1; ++j) {
+        const double v = x[j];
+        const double y = bad ? dnan : __dadd_rn(v, __dmul_rn(omc, s));
+        o[j] = y;
+        if (g) g[j] = y;
+        h |= nan_inf(y);
+        s = __dadd_rn(s, v);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// The window sum x[i - off - len + 1, i - off] from the padded inclusive
+// prefix: a prefix difference, 0 where the window ends before the row.
+__device__ __forceinline__ double prefix_win(const double* ps, int pad, int i, int len,
+                                             int off) {
+    const int hi = i - off;
+    const int lo = hi - len + 1;
+    if (hi < 0) return 0.0;
+    return __dsub_rn(ps[pidx(hi, pad)], lo >= 1 ? ps[pidx(lo - 1, pad)] : 0.0);
+}
+
+// trap_norm (ip[0] 0), asym_trap_filter (1) and trap_filter (2) on a float64
+// row, from its float64 prefix in K7's order: every window a prefix
+// difference (trap_norm_k7, asym_trap_filter_k7, trap_filter_k7), divided
+// by its length in float64.
+__device__ __forceinline__ void op_trap64(const GenParams& P, Row& R, const int* in,
+                                          const int* out, const int* ip) {
+    const double* x = plane_of<double>(P, in[0]);
+    const int n = plen(P, in[0]);
+    const bool bad = plane_nan<double>(P, in[0], false);
+    const int pad = prefix_pad(n);
+    double* ps = scratch_of(P);
+    gen_prefix_shared(R, x, n, ps, pad);
+    double* o = plane_of<double>(P, out[0]);
+    double* g = esc_of<double>(P, R, out[0]);
+    const int kind = ip[0], rise = ip[1], flat = ip[2], fall = ip[3];
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    int h = 0;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
+        const double d1 = prefix_win(ps, pad, i, rise, 0);
+        const double d2 = prefix_win(ps, pad, i, fall, rise + flat);
+        const double v = bad ? dnan
+            : kind == 0 ? __ddiv_rn(__dsub_rn(d1, d2), (double)rise)
+            : kind == 1 ? __dsub_rn(__ddiv_rn(d1, (double)rise), __ddiv_rn(d2, (double)fall))
+                        : __dsub_rn(d1, d2);
+        o[i] = v;
+        if (g) g[i] = v;
+        h |= nan_inf(v);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// convolve_wf (m > 32 taps, ip[1]) on a float64 row with float64 taps
+// (pairs of words from ip[0]): the window [lo, lo + p) of the full
+// convolution (lo = ip[2]) summed as _conv_full_direct sums it, taps[m-1]'s
+// product first, then m-2 down to 0 (convolve_k7). The row's window with
+// zeros outside it, win[s] = x[lo - (m - 1) + s], and the taps are staged
+// in the scratch before the op's barrier, as op_conv stages them.
+__device__ __forceinline__ void op_conv64(const GenParams& P, const Row& R,
+                                          const int* in, const int* out, const int* ip) {
+    const double* x = plane_of<double>(P, in[0]);
+    const int n = plen(P, in[0]), p = plen(P, out[0]);
+    const int m = ip[1], lo = ip[2];
+    const int span = p + m - 1, s0 = lo - (m - 1);
+    double* win = scratch_of(P);
+    double* ks = win + span;
+    const double* taps = reinterpret_cast<const double*>(P.taps + ip[0]);
+    const bool bad = plane_nan<double>(P, in[0], false);
+    const int tid = threadIdx.x;
+    for (int s = tid; s < span; s += GEN_THREADS) {
+        const int q = s0 + s;
+        win[s] = (q >= 0 && q < n) ? x[q] : 0.0;
+    }
+    for (int t = tid; t < m; t += GEN_THREADS) ks[t] = __ldg(taps + t);
+    __syncthreads();
+    double* o = plane_of<double>(P, out[0]);
+    double* g = esc_of<double>(P, R, out[0]);
+    int h = 0;
+    for (int j = tid; j < p; j += GEN_THREADS) {
+        double acc = __longlong_as_double(0x7ff8000000000000LL);
+        if (!bad) {
+            acc = __dmul_rn(ks[m - 1], win[j]);
+            for (int t = m - 2; t >= 0; --t)
+                acc = __dadd_rn(acc, __dmul_rn(ks[t], win[j + m - 1 - t]));
+        }
+        o[j] = acc;
+        if (g) g[j] = acc;
+        h |= nan_inf(acc);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// mw_at on a float64 row: the stage's value at i, divided by L in float64.
+__device__ __forceinline__ double mw_at64(const double* ps, int pad, int n, int L,
+                                          bool right, double w0, double wl, int i) {
+    const double lf = (double)L;
+    if (!right) {
+        if (i < L)
+            return __dadd_rn(w0, __ddiv_rn(__dsub_rn(ps[pidx(i, pad)],
+                                                     __dmul_rn((double)(i + 1), w0)), lf));
+        return __ddiv_rn(__dsub_rn(ps[pidx(i, pad)], ps[pidx(i - L, pad)]), lf);
+    }
+    const double se = i > 0 ? ps[pidx(i - 1, pad)] : 0.0;
+    if (i > n - 1 - L)
+        return __dadd_rn(wl, __ddiv_rn(__dsub_rn(__dsub_rn(ps[pidx(n - 1, pad)], se),
+                                                 __dmul_rn((double)(n - i), wl)), lf));
+    return __ddiv_rn(__dsub_rn(ps[pidx(i + L - 1, pad)], se), lf);
+}
+
+// moving_window_multi on a float64 row: op_mw_multi's stages, each from
+// the stage's float64 prefix in K7's order (moving_window_multi_k7).
+__device__ __forceinline__ void op_mw_multi64(const GenParams& P, Row& R,
+                                              const int* in, const int* out,
+                                              const int* ip) {
+    const double* x = plane_of<double>(P, in[0]);
+    double* o = plane_of<double>(P, out[0]);
+    double* g = esc_of<double>(P, R, out[0]);
+    const int n = plen(P, in[0]);
+    const int L = ip[0], num = ip[1], mtype = ip[2];
+    const bool bad = plane_nan<double>(P, in[0], false);
+    const int tid = threadIdx.x;
+    int h = 0;
+    if (bad || num == 0) {
+        // the plan counts on a barrier before the op's writes
+        __syncthreads();
+        for (int i = tid; i < n; i += GEN_THREADS) {
+            const double v = bad ? __longlong_as_double(0x7ff8000000000000LL) : x[i];
+            o[i] = v;
+            if (g) g[i] = v;
+            h |= nan_inf(v);
+        }
+    } else {
+        const int pad = prefix_pad(n);
+        double* ps = scratch_of(P);
+        const double* src = x;
+        for (int it = 0; it < num; ++it) {
+            const bool right = ((it % 2 == 1) && mtype == 0) || mtype == 2;
+            const double w0 = src[0], wl = src[n - 1];
+            gen_prefix_shared(R, src, n, ps, pad);
+            const bool last = it == num - 1;
+            for (int i = tid; i < n; i += GEN_THREADS) {
+                const double v = mw_at64(ps, pad, n, L, right, w0, wl, i);
+                o[i] = v;
+                if (last) {
+                    if (g) g[i] = v;
+                    h |= nan_inf(v);
+                }
+            }
+            if (!last) __syncthreads();
+            src = o;
+        }
+    }
+    flag_plane(P, out[0], h);
+}
+
+// double_pole_zero on a float64 row: op_dpz's runs and scans with nothing
+// rounded to float32; the table (ip[0], pairs of words) holds ke, kd and
+// p^i in float64 (double_pole_zero_runs).
+__device__ __forceinline__ void op_dpz64(const GenParams& P, Row& R, int k,
+                                         const int* in, const int* out, const int* ip) {
+    const double* x = plane_of<double>(P, in[0]);
+    double* o = plane_of<double>(P, out[0]);
+    double* g = esc_of<double>(P, R, out[0]);
+    const int n = plen(P, in[0]);
+    const double* dp = tape_dp(P) + k * OP_DP;
+    const double p = dp[0], k1 = dp[1], k2 = dp[2];
+    const double* tab = reinterpret_cast<const double*>(P.taps + ip[0]);
+    const bool bad = plane_nan<double>(P, in[0], false) || ip[1];
+    double* vs = scratch_of(P);
+    int j0, j1;
+    scan_run(n, j0, j1);
+    double run = 0.0;
+    for (int j = j0; j < j1; ++j) run = __dadd_rn(run, x[j]);
+    double s1 = gen_excl_scan(R, run);
+    double s2 = j0 >= 1 ? __dsub_rn(s1, x[j0 - 1]) : 0.0;
+    double v = 0.0, m = 1.0;
+    for (int j = j0; j < j1; ++j) {
+        const double s = __dadd_rn(s1, x[j]);
+        const double z = __dadd_rn(__dsub_rn(s, __dmul_rn(k1, s1)), __dmul_rn(k2, s2));
+        v = __dadd_rn(__dmul_rn(p, v), z);
+        m = __dmul_rn(m, p);
+        vs[j] = v;
+        s2 = s1;
+        s1 = s;
+    }
+    const double c = gen_affine_excl(R, m, v);
+    const double alpha = __ddiv_rn(__dmul_rn(x[0], tab[0]), tab[1]);
+    const double* pw = tab + 2;
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    double pk = p;
+    int h = 0;
+    for (int j = j0; j < j1; ++j) {
+        const double y = __dadd_rn(vs[j], __dmul_rn(pk, c));
+        pk = __dmul_rn(pk, p);
+        const double val = bad ? dnan : __dsub_rn(y, __dmul_rn(alpha, __dsub_rn(1.0, pw[j])));
+        o[j] = val;
+        if (g) g[j] = val;
+        h |= nan_inf(val);
+    }
+    flag_plane(P, out[0], h);
+}
+
+// poly_diff / poly_exp_rms (ip[0] = 1) on a float64 row: the polynomial of
+// the parameter plane in[1] as poly_eval takes it on float64 (p0, then
+// i^k p_k + out, the product and the sum each rounded), its exponential
+// with ip[0]; the residual's sums of r / (i + 1) and r * r in float64,
+// behind one barrier (poly_diff_k7).
+__device__ __forceinline__ void op_poly_resid64(const GenParams& P, Row& R,
+                                                const int* in, const int* out,
+                                                const int* ip) {
+    const double* x = plane_of<double>(P, in[0]);
+    const int n = plen(P, in[0]);
+    const int m = ip[1];
+    const double* pars = plane_of<double>(P, in[1]);
+    const bool bad = plane_nan<double>(P, in[0], false) || plane_nan<double>(P, in[1], false);
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    double s1 = 0.0, s2 = 0.0;
+    for (int i = tid; i < n; i += GEN_THREADS) {
+        const double fi = (double)i;
+        double p = pars[0], ik = 1.0;
+        for (int q = 1; q < m; ++q) {
+            ik = __dmul_rn(ik, fi);
+            p = __dadd_rn(__dmul_rn(ik, pars[q]), p);
+        }
+        if (ip[0]) p = exp(p);
+        const double r = __dsub_rn(x[i], p);
+        s1 = __dadd_rn(s1, __dmul_rn(r, __ddiv_rn(1.0, fi + 1.0)));
+        s2 = __dadd_rn(s2, __dmul_rn(r, r));
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    double* red = gen_red[R.rb];
+    R.rb ^= 1;
+    if (lane == 0) {
+        red[wid] = s1;
+        red[GEN_WARPS + wid] = s2;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    s1 = replay_sum(red);
+    s2 = replay_sum(red + GEN_WARPS);
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    put(P, R, out[0], bad ? dnan : s1);
+    put(P, R, out[1], bad ? dnan : sqrt(__ddiv_rn(s2, (double)(n - 1))));
+}
+
 // An external bool or int64 per-row scalar as a double (not inlined, as
 // ufunc_apply).
 __device__ __noinline__ double ext_other(const GenParams& P, int e, int ty,
@@ -2484,15 +3015,10 @@ __device__ __noinline__ int2 outlined_op(const GenParams& P, Row R, int k) {
     return make_int2(k, R.rb);
 }
 
-__global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS)
-generic_rows_kernel(const __grid_constant__ GenParams P) {
-    Row R;
-    R.row = blockIdx.x;
-    R.rb = 0;
+// A block's start: the tape into shared memory; then no plane holds a NaN
+// yet, and the external scalars go into their places.
+__device__ __forceinline__ void gen_start(const GenParams& P, const Row& R) {
     const int tid = threadIdx.x;
-
-    // the tape into shared memory; then no plane holds a NaN yet, and the
-    // external scalars go into their places
     {
         double* dp = gen_smem + P.tape_dbl;
         int* code = reinterpret_cast<int*>(dp + P.n_dpar);
@@ -2511,6 +3037,15 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         }
     }
     __syncthreads();
+}
+
+__global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS)
+generic_rows_kernel(const __grid_constant__ GenParams P) {
+    Row R;
+    R.row = blockIdx.x;
+    R.rb = 0;
+    const int tid = threadIdx.x;
+    gen_start(P, R);
 
     for (int k = 0; k < P.n_ops; ++k) {
         const int* op = tape(P) + k * OP_INTS;
@@ -2529,21 +3064,21 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         case OP_ROUND:
             if ((tid >> 5) == 0) {
                 __syncwarp();
-                warp_op(P, R, k, code);
+                warp_op<float>(P, R, k, code);
             }
             break;
         case OP_LOAD:
             if (sf(P, in[0], S_TYPE) == T_BOOL) goto outlined;
             op_load(P, R, in[0]);
             break;
-        case OP_MIN_MAX: op_min_max(P, R, in, out); break;
+        case OP_MIN_MAX: op_min_max<float>(P, R, in, out); break;
         case OP_SLOPE_FIT: op_slope_fit(P, R, in, out); break;
         case OP_POLE_ZERO: op_pole_zero(P, R, k, in, out, ip); break;
         case OP_TRAP:
             if (ip[0] == 2) goto outlined;  // trap_filter
             op_trap(P, R, in, out, ip);
             break;
-        case OP_AMAX: op_amax(P, R, in, out); break;
+        case OP_AMAX: op_amax<float>(P, R, in, out); break;
         case OP_CONV: op_conv(P, R, in, out, ip); break;
         case OP_BL_SUB:
         case OP_WINDOWER:
@@ -2553,9 +3088,9 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         case OP_REFL_CONV: op_reflected_conv(P, R, in, out, ip); break;
         case OP_DPZ: op_dpz(P, R, k, in, out, ip); break;
         case OP_POLY_RESID: op_poly_resid(P, R, in, out, ip); break;
-        case OP_SOFT_PILEUP: op_soft_pileup(P, R, k, in, out, ip); break;
-        case OP_WF_CORR: op_wf_correction(P, R, in, out, ip); break;
-        case OP_WF_CENTROID: op_wf_centroid(P, R, k, in, out, ip); break;
+        case OP_SOFT_PILEUP: op_soft_pileup<float>(P, R, k, in, out, ip); break;
+        case OP_WF_CORR: op_wf_correction<float>(P, R, in, out, ip); break;
+        case OP_WF_CENTROID: op_wf_centroid<float>(P, R, k, in, out, ip); break;
         case OP_INJECT: op_inject(P, R, k, in, out, ip); break;
         case OP_DENSE: op_dense(P, R, k, in, out, ip); break;
         case OP_MEAN_BELOW: op_mean_below(P, R, k, in, out, ip); break;
@@ -2581,32 +3116,96 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
     }
 }
 
-static cudaError_t gen_launch(int smem, int* per_sm) {
-    cudaError_t err = cudaFuncSetAttribute(
-        generic_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, generic_rows_kernel, GEN_THREADS, smem);
+// K7 on float64 planes: the same tape and plan, the ops of the float64
+// flagship, DPZ and extras groups (_tile_program.F64_OPS) in their float64
+// forms. A kernel of its own, so that the float kernel's code and its
+// register cap stay as they were; its groups' shared memory (about 106 KB
+// for the float64 flagship's) allows two blocks an SM, and with them 128
+// registers a thread.
+__global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS_F64)
+generic_rows_kernel_f64(const __grid_constant__ GenParams P) {
+    Row R;
+    R.row = blockIdx.x;
+    R.rb = 0;
+    const int tid = threadIdx.x;
+    gen_start(P, R);
+
+    for (int k = 0; k < P.n_ops; ++k) {
+        const int* op = tape(P) + k * OP_INTS;
+        const int* in = op + 1;
+        const int* out = in + OP_IN;
+        const int* ip = out + OP_OUT;
+        const int code = op[0];
+        if (ip[IP_PLAN] & 1) __syncthreads();
+        switch (code) {
+        case OP_TPT:
+        case OP_FTP:
+        case OP_UFUNC:
+        case OP_CONVERT:
+            if ((tid >> 5) == 0) {
+                __syncwarp();
+                warp_op<double>(P, R, k, code);
+            }
+            break;
+        case OP_LOAD: op_load64(P, R, in[0]); break;
+        case OP_MIN_MAX: op_min_max<double>(P, R, in, out); break;
+        case OP_SLOPE_FIT: op_slope_fit64(P, R, in, out); break;
+        case OP_POLE_ZERO: op_pole_zero64(P, R, k, in, out, ip); break;
+        case OP_TRAP: op_trap64(P, R, in, out, ip); break;
+        case OP_AMAX: op_amax<double>(P, R, in, out); break;
+        case OP_CONV: op_conv64(P, R, in, out, ip); break;
+        case OP_BL_SUB:
+        case OP_WINDOWER:
+        case OP_AVG_CURRENT:
+        case OP_SOFT_PILEUP_OUT: op_gather64(P, R, k, code, in, out, ip); break;
+        case OP_MW_MULTI: op_mw_multi64(P, R, in, out, ip); break;
+        case OP_DPZ: op_dpz64(P, R, k, in, out, ip); break;
+        case OP_POLY_RESID: op_poly_resid64(P, R, in, out, ip); break;
+        case OP_SOFT_PILEUP: op_soft_pileup<double>(P, R, k, in, out, ip); break;
+        case OP_WF_CORR: op_wf_correction<double>(P, R, in, out, ip); break;
+        case OP_WF_CENTROID: op_wf_centroid<double>(P, R, k, in, out, ip); break;
+        default: break;
+        }
+    }
 }
 
-extern "C" int dspeed_generic_rows(const GenParams* p, int smem, void* stream) {
+typedef void (*GenKernel)(const GenParams);
+
+static GenKernel gen_kernel(int f64) {
+    return f64 ? generic_rows_kernel_f64 : generic_rows_kernel;
+}
+
+static cudaError_t gen_launch(int smem, int f64, int* per_sm) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gen_kernel(f64), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, gen_kernel(f64), GEN_THREADS, smem);
+}
+
+// One launch of a lowered program: the float kernel, or (f64) the float64
+// one.
+extern "C" int dspeed_generic_rows(const GenParams* p, int smem, int f64, void* stream) {
     int per_sm;
-    cudaError_t err = gen_launch(smem, &per_sm);
+    cudaError_t err = gen_launch(smem, f64, &per_sm);
     if (err != cudaSuccess) return (int)err;
     if (p->B == 0) return 0;
-    generic_rows_kernel<<<p->B, GEN_THREADS, smem, (cudaStream_t)stream>>>(*p);
+    if (f64)
+        generic_rows_kernel_f64<<<p->B, GEN_THREADS, smem, (cudaStream_t)stream>>>(*p);
+    else
+        generic_rows_kernel<<<p->B, GEN_THREADS, smem, (cudaStream_t)stream>>>(*p);
     return (int)cudaGetLastError();
 }
 
-// How a program with `smem` bytes of dynamic shared memory launches: threads
-// a block, blocks per SM, registers and local (spill) bytes a thread, static
-// shared bytes.
-extern "C" int dspeed_generic_rows_config(int smem, int* out) {
+// How a program with `smem` bytes of dynamic shared memory launches on the
+// float (or, f64, the float64) kernel: threads a block, blocks per SM,
+// registers and local (spill) bytes a thread, static shared bytes.
+extern "C" int dspeed_generic_rows_config(int smem, int f64, int* out) {
     int per_sm;
-    cudaError_t err = gen_launch(smem, &per_sm);
+    cudaError_t err = gen_launch(smem, f64, &per_sm);
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes attr;
-    if ((err = cudaFuncGetAttributes(&attr, generic_rows_kernel)) != cudaSuccess)
+    if ((err = cudaFuncGetAttributes(&attr, gen_kernel(f64))) != cudaSuccess)
         return (int)err;
     const int vals[] = {GEN_THREADS, per_sm, attr.numRegs,
                         (int)attr.localSizeBytes, (int)attr.sharedSizeBytes};

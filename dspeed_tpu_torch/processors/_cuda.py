@@ -220,11 +220,11 @@ def _bind(name: str, so: str):
     elif name == "generic_rows":
         lib.dspeed_generic_rows.restype = ctypes.c_int
         lib.dspeed_generic_rows.argtypes = [
-            ctypes.POINTER(_GenParams), ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(_GenParams), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.dspeed_generic_rows_config.restype = ctypes.c_int
         lib.dspeed_generic_rows_config.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ]
     elif name == "peakdet_scan":
         lib.dspeed_peakdet_scan.restype = ctypes.c_int
@@ -1315,13 +1315,18 @@ def generic_rows_plain(program, vals: dict) -> dict:
     names its variant in ``k7_plain`` (``mean_below_threshold``,
     ``linear_slope_diff``, ``trap_pickoff``, ``presum``, ``trap_filter`` and
     the moving windows: K7's block sums, prefix and sums in turn), and the
-    reduce op's sums (:func:`.._numpy_funcs.k7_reduce`). An ``ewise`` op
-    takes its per-row scalars along the row, as the unfused step's fetch
+    reduce op's sums (:func:`.._numpy_funcs.k7_reduce`). A float64 program
+    (``program.f64``) takes a member's float64 variant in ``k7_f64`` where
+    it has one (the prefix ops, the fits, the banded convolution, the
+    polynomial residual: K7's orders on float64 rows), and soft_pileup's
+    two ops in K7's order (:func:`.soft_pileup_corr.soft_pileup_fit_k7`,
+    :func:`.soft_pileup_corr.soft_pileup_out_k7`). An ``ewise`` op takes
+    its per-row scalars along the row, as the unfused step's fetch
     broadcasts them. Returns the escapes."""
     from .._numpy_funcs import K7_SUMS, k7_reduce
     from .ml import layer_rows
     from .pole_zero import double_pole_zero_runs
-    from .soft_pileup_corr import soft_pileup_fit
+    from .soft_pileup_corr import soft_pileup_fit, soft_pileup_fit_k7, soft_pileup_out_k7
     from ._tile_program import OPCODES
 
     roots = {program.by_key[k]: vals[k] for k in program.ext_keys}
@@ -1338,20 +1343,25 @@ def generic_rows_plain(program, vals: dict) -> dict:
             args = [a[:, None] if isinstance(a, torch.Tensor) and a.ndim == 1 else a
                     for a in args]
         kern = op.step.kernel
+        variant = ((program.f64 and getattr(kern, "k7_f64", None))
+                   or getattr(kern, "k7_plain", None))
         if op.code == OPCODES["reduce"] and kern.__name__ in K7_SUMS:
             outs = (k7_reduce(kern.__name__, args[0]),)
         elif op.code == OPCODES["double_pole_zero"]:
             outs = (double_pole_zero_runs(*args),)
         elif op.code == OPCODES["soft_pileup"]:
-            outs = soft_pileup_fit(*args)
+            outs = (soft_pileup_fit_k7 if program.f64 else soft_pileup_fit)(*args)
+        elif op.code == OPCODES["soft_pileup_out"] and program.f64:
+            fit = [value(e, None) for e in op.ins[1:3]]
+            outs = (soft_pileup_out_k7(args[0], *fit, *args[1:3]),)
         elif op.code == OPCODES["dense"] and op.ip[0]:
             outs = (layer_rows(args[0], args[1], args[2] if len(args) == 4 else None,
                                op.ip[1], kern.__name__),)
         elif getattr(kern, "uses_dims", False):
-            outs = getattr(kern, "k7_plain", kern.fn)(*args, dims=op.step.dims)
+            outs = (variant or kern.fn)(*args, dims=op.step.dims)
             outs = outs if isinstance(outs, tuple) else (outs,)
-        elif hasattr(kern, "k7_plain"):
-            outs = kern.k7_plain(*args)
+        elif variant is not None:
+            outs = variant(*args)
             outs = outs if isinstance(outs, tuple) else (outs,)
         else:
             outs = kern(*args)
@@ -1382,10 +1392,10 @@ def generic_rows_launch(program) -> dict:
     """How K7 launches a lowered program on this card: threads a block,
     blocks per SM at the program's shared memory, the kernel's registers
     and local (spill) bytes per thread, and its shared bytes (static, and
-    the program's)."""
+    the program's); the float64 kernel for a float64 program."""
     lib = _lib("generic_rows")
     out = (ctypes.c_int * 5)()
-    rc = lib.dspeed_generic_rows_config(int(program.smem_bytes), out)
+    rc = lib.dspeed_generic_rows_config(int(program.smem_bytes), int(program.f64), out)
     _check_rc(lib, rc, "generic_rows")
     keys = ("threads", "blocks_per_sm", "registers", "local_bytes",
             "static_smem_bytes")
@@ -1397,10 +1407,11 @@ def generic_rows_launch(program) -> dict:
 def generic_rows(program, vals: dict) -> dict:
     """K7: run a lowered generic group (:func:`._tile_program.lower`) over
     the rows of its external inputs ``vals`` (env key -> ``(B,)`` scalar or
-    ``(B, n)`` float32 plane), one block per row, and return its escapes
-    (env key -> tensor) with the shapes and strides the unfused chain gives
-    them: an escaping slice is a view of its root's plane. CPU tensors run
-    :func:`generic_rows_plain`."""
+    ``(B, n)`` plane, float32, float64 or bool, its rows contiguous at any
+    row stride), one block per row, and return its escapes (env key ->
+    tensor) with the shapes and strides the unfused chain gives them: an
+    escaping slice is a view of its root's plane. A float64 program runs
+    K7's float64 kernel. CPU tensors run :func:`generic_rows_plain`."""
     ref = vals[program.ext_keys[0]]
     if ref.device.type == "cpu":
         return generic_rows_plain(program, vals)
@@ -1415,11 +1426,11 @@ def generic_rows(program, vals: dict) -> dict:
         if v.device != dev or v.shape[0] != B:
             raise ValueError(f"generic_rows: input {key} is not {B} rows on {dev}")
         if v.ndim == 2:
-            if v.dtype == torch.bool:  # a bool plane, one byte a sample
-                if v.stride(1) != 1:
-                    v = v.contiguous()
-            else:
-                _require_cuda_f32(v, f"generic_rows input {key}", strided_rows=True)
+            if v.dtype != program.slots[program.by_key[key]].dtype:
+                raise TypeError(f"generic_rows: input {key} is {v.dtype}, the "
+                                f"program's plane {program.slots[program.by_key[key]].dtype}")
+            if v.stride(1) != 1:
+                v = v.contiguous()
             P.ext_stride[e] = v.stride(0)
         elif v.stride(0) != 1:
             v = v.contiguous()
@@ -1434,7 +1445,8 @@ def generic_rows(program, vals: dict) -> dict:
         roots[sid] = torch.empty(shape, dtype=esc_dtype(s), device=dev)
         P.esc[q] = roots[sid].data_ptr()
     P.taps, P.B = taps.data_ptr(), B
-    rc = lib.dspeed_generic_rows(ctypes.byref(P), program.smem_bytes, _stream())
+    rc = lib.dspeed_generic_rows(ctypes.byref(P), program.smem_bytes, int(program.f64),
+                                 _stream())
     _check_rc(lib, rc, "generic_rows")
     LAUNCHES["generic_rows"] += 1
     for sid in program.esc_roots:

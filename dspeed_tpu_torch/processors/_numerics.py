@@ -164,7 +164,7 @@ def k7_sum(v: torch.Tensor) -> torch.Tensor:
     return w[:, 0]
 
 
-def k7_prefix(x: torch.Tensor) -> torch.Tensor:
+def k7_prefix(x: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
     """The inclusive float64 prefix over the last axis of a ``(B, n)``
     tensor in the order of K7's prefixes (``gen_prefix``), which equal it
     bit for bit: ``K7_THREADS`` contiguous runs of ``ceil(n / K7_THREADS)``
@@ -173,7 +173,9 @@ def k7_prefix(x: torch.Tensor) -> torch.Tensor:
     lanes, a shift by one lane, the 8 warp totals scanned likewise, warp
     ``w`` taking the inclusive total of warps ``0 .. w-1`` plus its lane's
     exclusive value); then each run's samples added to its start in
-    turn. Differs from :func:`hp_cumsum` by rounding only."""
+    turn. With ``exclusive`` the value before each sample is added (a run's
+    first: its start), as K7's float64 ``pole_zero`` takes it. Differs from
+    :func:`hp_cumsum` by rounding only."""
     B, n = x.shape
     dev, f64 = x.device, torch.float64
     threads = K7_THREADS
@@ -199,6 +201,9 @@ def k7_prefix(x: torch.Tensor) -> torch.Tensor:
     start = (before[..., None] + excl).reshape(B, threads)
     ps = torch.empty((B, threads, per), dtype=f64, device=dev)
     for k in range(per):
+        if exclusive:
+            ps[:, :, k] = start
         start = start + runs[:, :, k]
-        ps[:, :, k] = start
+        if not exclusive:
+            ps[:, :, k] = start
     return ps.reshape(B, threads * per)[:, :n]

@@ -9,12 +9,14 @@ Here the host lowers the member list into a tape before any launch:
 - a **slot** is a per-row plane (shared memory on the card) or a per-row
   scalar (a bool or an int64 too), in the dtype the unfused chain gives the
   same env key (float64 where the plain path computes in float64); a slice
-  or an alias is a view of its root slot and copies nothing. Planes are
-  float32 or bool (one word a sample, 1.0 or 0.0; a stored copy one byte),
-  except the float64 planes that ``reflected_convolve_wf`` writes from
-  float64 taps and ``avg_current`` reads and writes (the SiPM chain
-  computes in float64 from its smoothed waveform on), which take two words
-  each and have no slices;
+  or an alias is a view of its root slot and copies nothing. A program's
+  planes are float32 or bool (one word a sample, 1.0 or 0.0; a stored copy
+  one byte), but for the float64 planes that ``reflected_convolve_wf``
+  writes from float64 taps and ``avg_current`` reads and writes whole (the
+  SiPM chain computes in float64 from its smoothed waveform on); or, in a
+  **float64 program** (``TileProgram.f64``: a float64 row read or written by
+  any other op), all float64 (two words a sample), every op one of
+  :data:`F64_OPS`, run by K7's float64 kernel;
 - an **op** is an opcode, its operand slots (or constants) and output slots,
   and static parameters (window lengths, taps, mode, direction);
 - a **liveness plan** gives each plane a place in shared memory from its
@@ -25,8 +27,9 @@ Here the host lowers the member list into a tape before any launch:
   group that reads more inputs or stores more outputs than K7's
   parameters hold (``_cuda.GEN_MAX_EXT``, ``GEN_MAX_ESC``).
 
-A member with no op, a plane that is not float32 or an operand shape the
-tape does not take raises :class:`LoweringError`; the group then splits
+A member with no op (or no float64 form in a float64 program), a mix of
+plane types that no member makes, or an operand shape the tape does not
+take raises :class:`LoweringError`; the group then splits
 (``GroupStep._exec``). The op set is the one the flagship's two generic
 groups, the SiPM chain's group, the flagship DPZ's energy-front group
 (``double_pole_zero``) and the flagship-extras groups need
@@ -70,7 +73,7 @@ from .convolutions import _MATMUL_MAC_LIMIT, _mode_window
 from .ml import activation_flag
 from .pole_zero import dpz_constants, dpz_powers
 from .pulse_injector import _LOG99x4
-from .soft_pileup_corr import exp_fit_sums
+from .soft_pileup_corr import fit_constants
 
 log = logging.getLogger("dspeed_tpu_torch.generic")
 
@@ -147,8 +150,17 @@ THREADS = K7_THREADS  # threads per block, one row per block
 STATIC_SMEM = 512  # bytes of static shared memory (the reduction scratch)
 ALIGN = 4  # planes start on 16-byte boundaries
 IP_PLAN = 4  # ip[4]: the barrier plan (bit 0: a block barrier before the op)
-# ops whose output planes may be float64 (two words a sample)
-F64_PLANE_OPS = ("reflected_convolve_wf", "avg_current")
+# the ops of a float64 program (csrc/generic_rows.cu generic_rows_kernel_f64):
+# the ops of the float64 flagship, DPZ and extras groups
+F64_OPS = ("load", "bl_subtract", "windower", "avg_current", "soft_pileup_out",
+           "min_max", "amax", "linear_slope_fit", "pole_zero", "trap", "conv",
+           "moving_window_multi", "time_point_thresh", "fixed_time_pickoff",
+           "double_pole_zero", "poly_residual", "soft_pileup", "wf_correction",
+           "wf_centroid", "ufunc", "convert")
+# the ops of a float program that read or write float64 planes (the SiPM
+# group's): a float32 row into reflected_conv's float64 plane, avg_current
+# over it
+F32_PROGRAM_F64_OPS = ("reflected_conv", "avg_current")
 # the trap op's kinds (ip[0])
 TRAP_KINDS = {"trap_norm": 0, "asym_trap_filter": 1, "trap_filter": 2}
 # fixed_time_pickoff's modes that have an op (ip[0] = ord(mode)); 's' runs a
@@ -258,6 +270,7 @@ class TileProgram:
         self.n_dpar = 0
         self.n_code = 0
         self.smem_bytes = 0
+        self.f64 = False  # float64 planes: K7's float64 kernel runs it
         self._dev: dict = {}
 
     # -- slots -------------------------------------------------------------
@@ -313,7 +326,7 @@ class TileProgram:
             ints[base + sid * SLOT_INTS : base + (sid + 1) * SLOT_INTS] = [
                 0 if s.kind == "plane" else 1,
                 SLOT_TYPES[s.dtype],
-                r.off + s.start if r.off >= 0 else -1,
+                r.off + _plane_words(s, s.start) if r.off >= 0 else -1,
                 s.length,
                 r.sidx,
                 self.ext_keys.index(r.key) if r.ext and s.root == sid else -1,
@@ -341,8 +354,6 @@ def _add_ext(prog: TileProgram, key, v, lead) -> None:
     if v.dtype not in (_FLOATS + (torch.bool,) if v.ndim == 2 else _SCALARS):
         raise LoweringError(f"input {key} is {v.dtype}, not floating")
     if v.ndim == 2:
-        if v.dtype not in (torch.float32, torch.bool):
-            raise LoweringError(f"K7 takes float32 planes; {key} is {v.dtype}")
         prog.new_slot(key, "plane", v.dtype, int(v.shape[1]), ext=True)
     else:
         prog.new_slot(key, "scalar", v.dtype, ext=True)
@@ -378,10 +389,10 @@ def _kernel_args(prog: TileProgram, step) -> list:
     return args
 
 
-def _out_slots(prog: TileProgram, step, f64_planes=False, bools=False,
-               ints=False) -> list[int]:
-    """The step's output slots: float planes and scalars (bool scalars and
-    planes with ``bools``, a comparison's; int64 scalars with ``ints``)."""
+def _out_slots(prog: TileProgram, step, bools=False, ints=False) -> list[int]:
+    """The step's output slots in the member's types: float planes and
+    scalars (bool scalars and planes with ``bools``, a comparison's; int64
+    scalars with ``ints``)."""
     outs = []
     for sp in step.out_specs:
         dt = _device_dtype(sp.dtype)
@@ -391,26 +402,39 @@ def _out_slots(prog: TileProgram, step, f64_planes=False, bools=False,
             raise LoweringError(f"{step.kernel.__name__}: output {sp.key} "
                                 f"is not a float scalar or plane")
         if len(sp.shape) == 1:
-            if dt not in (torch.float32, torch.bool) and not f64_planes:
-                raise LoweringError(f"K7 takes float32 planes; {sp.key} is {dt}")
             outs.append(prog.new_slot(sp.key, "plane", dt, int(sp.shape[0])))
         else:
             outs.append(prog.new_slot(sp.key, "scalar", dt))
     return outs
 
 
-def _plane(prog, arg, what, dtypes=(torch.float32,)) -> int:
+def _plane(prog, arg, what, dtypes=_FLOATS) -> int:
     """A plane operand, read in its slot's own type, one of ``dtypes``."""
     if arg[0] != "slot" or prog.slots[arg[1]].kind != "plane":
         raise LoweringError(f"{what} must be a plane")
     if arg[2] not in dtypes or prog.slots[arg[1]].dtype != arg[2]:
-        raise LoweringError(f"{what}: K7 takes float32 planes")
+        names = "/".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise LoweringError(f"{what}: K7 reads {names} planes in their own type, "
+                            f"not {prog.slots[arg[1]].dtype} as {arg[2]}")
     return arg[1]
 
 
-def _plane_words(s: Slot) -> int:
-    """The 32-bit words of the arena a plane slot spans."""
-    return s.length * (2 if s.dtype == torch.float64 else 1)
+def _plane_words(s: Slot, samples=None) -> int:
+    """The 32-bit words of the arena a plane slot spans (or ``samples`` of
+    it)."""
+    return (s.length if samples is None else samples) * (2 if s.dtype == torch.float64 else 1)
+
+
+def _taps64(prog: TileProgram, values) -> int:
+    """``values`` in float64 into the taps, as pairs of words from an even
+    word (8 bytes); returns their offset in words."""
+    if prog.n_taps % 2:
+        prog.taps.append(np.zeros(1, np.float32))
+        prog.n_taps += 1
+    off = prog.n_taps
+    prog.taps.append(np.asarray(values, np.float64).view(np.float32))
+    prog.n_taps += 2 * len(values)
+    return off
 
 
 def _scalar(prog, arg, what, types=_FLOATS):
@@ -450,8 +474,7 @@ def _f32(arg) -> int:
 def _lower_kernel(prog: TileProgram, step) -> None:
     name = step.kernel.__name__
     args = _kernel_args(prog, step)
-    outs = _out_slots(prog, step, f64_planes=name in F64_PLANE_OPS,
-                      bools=name in BOOL_UFUNCS or name == "where",
+    outs = _out_slots(prog, step, bools=name in BOOL_UFUNCS or name == "where",
                       ints=name in UFUNCS or name in REDUCTIONS)
     o = [prog.slots[s] for s in outs]
     kinds = tuple(s.kind for s in o)
@@ -498,10 +521,12 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         # the correction's factors in the row's type, then p**i from float64
         # (the JAX package's np.power), rounded likewise
         with np.errstate(invalid="ignore", over="ignore"):
-            table = np.concatenate([[k["ke"], k["kd"]],
-                                    dpz_powers(k["p"], n)]).astype(np.float32)
-        prog.taps.append(table)
-        prog.n_taps += n + 2
+            table = np.concatenate([[k["ke"], k["kd"]], dpz_powers(k["p"], n)])
+        if prog.slots[w].dtype == torch.float64:
+            x.ip[0] = _taps64(prog, table)
+        else:
+            prog.taps.append(table.astype(np.float32))
+            prog.n_taps += n + 2
     elif name in TRAP_KINDS:
         kind = TRAP_KINDS[name]
         sec = [int(_static(a, "a trapezoid section")) for a in args[1:]]
@@ -545,9 +570,13 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         need(m <= 32 or p * m <= _MATMUL_MAC_LIMIT, "only the FFT route fits")
         x = op("conv_direct" if m <= 32 else "conv")
         x.ins = [w]
-        x.ip = [prog.n_taps, m, lo]
-        prog.taps.append(np.asarray(kern, np.float32))
-        prog.n_taps += m
+        # the taps in the row's type, as the member casts them
+        if prog.slots[w].dtype == torch.float64:
+            x.ip = [_taps64(prog, kern), m, lo]
+        else:
+            x.ip = [prog.n_taps, m, lo]
+            prog.taps.append(np.asarray(kern, np.float32))
+            prog.n_taps += m
     elif name == "reflected_convolve_wf":
         need(len(args) == 2 and kinds == ("plane",), "signature")
         # a float32 plane, read in the step's type: float64 taps make the
@@ -567,13 +596,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x = op("reflected_conv")
         x.ins = [w]
         if o[0].dtype == torch.float64:
-            # float64 taps as pairs of words, on 8 bytes
-            if prog.n_taps % 2:
-                prog.taps.append(np.zeros(1, np.float32))
-                prog.n_taps += 1
-            x.ip = [prog.n_taps, m]
-            prog.taps.append(np.asarray(kern, np.float64).view(np.float32))
-            prog.n_taps += 2 * m
+            x.ip = [_taps64(prog, kern), m]
         else:
             x.ip = [prog.n_taps, m]
             prog.taps.append(np.asarray(kern, np.float32))
@@ -590,7 +613,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         # ip[1]: the interpolation mode (0: time_point_thresh's integral
         # start and walk); the threshold in the row's type, as both cast it
         fwd = walk > 0 if interp else int(walk) == 1
-        x.ip = [int(fwd), mode] + [0] * 5 + [2 | _f32(args[2]) << 2]
+        x.ip = [int(fwd), mode] + [0] * 5 + [_f32(args[0]) << 1 | _f32(args[2]) << 2]
     elif name in ("poly_diff", "poly_exp_rms"):
         need(len(args) == 2 and kinds == ("scalar", "scalar"), "signature")
         x = op("poly_residual")
@@ -606,15 +629,9 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         need(2 <= nf <= n and o[0].length == n, "n_in out of range")
         # a constant tau: exp(-i/tau) over the row (float64 pairs of words
         # in the taps, on 8 bytes) and the fit's two sums that depend on it
-        # alone, from the host, as soft_pileup_corr.exp_fit_sums makes them
-        e, _, s2, s3, _, _ = exp_fit_sums(torch.zeros(1, n, dtype=torch.float64), nf,
-                                          float(_static(args[2], "a constant tau")))
-        if prog.n_taps % 2:
-            prog.taps.append(np.zeros(1, np.float32))
-            prog.n_taps += 1
-        tap = prog.n_taps
-        prog.taps.append(e.numpy().view(np.float32))
-        prog.n_taps += 2 * n
+        # alone, from the host (soft_pileup_corr.fit_constants)
+        e, s2, s3 = fit_constants(n, nf, float(_static(args[2], "a constant tau")))
+        tap = _taps64(prog, e.numpy())
         # two ops: the fit (its sums, one barrier) into two float64 per-row
         # scalars, A and B, then the row less the fit, one pass
         key = o[0].key
@@ -623,7 +640,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x = Op(f"{name}[{step.name}]:fit", OPCODES["soft_pileup"], args, fit, step)
         x.ins = [w] + ([_scalar(prog, args[3], "b_in")] if bl else [])
         x.ip = [nf, int(bl), tap] + [0] * 4 + [_f32(args[3]) << 1 if bl else 0]
-        x.dp = [float(s2), float(s3)]
+        x.dp = [s2, s3]
         prog.ops.append(x)
         y = op("soft_pileup_out")
         y.ins = [w] + fit
@@ -634,17 +651,20 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         n = prog.slots[w].length
         start, stop = (int(_static(a, "start_idx or stop_idx")) for a in args[2:])
         corr = args[1][1] if args[1][0] == "const" else None
-        need(isinstance(corr, np.ndarray) and corr.ndim == 1 and o[0].dtype == torch.float32,
-             "a constant correction array")
+        need(isinstance(corr, np.ndarray) and corr.ndim == 1, "a constant correction array")
         need(0 <= start < stop <= n and stop - start <= corr.shape[0] and o[0].length == n,
              "a window out of range")
         x = op("wf_correction")
         x.ins = [w]
         # the correction in the row's type, in the taps; a NaN in it
         # poisons every row
-        x.ip = [start, stop, prog.n_taps, int(np.isnan(corr.astype(np.float64)).any())]
-        prog.taps.append(corr.astype(np.float32))
-        prog.n_taps += corr.shape[0]
+        nan = int(np.isnan(corr.astype(np.float64)).any())
+        if o[0].dtype == torch.float64:
+            x.ip = [start, stop, _taps64(prog, corr), nan]
+        else:
+            x.ip = [start, stop, prog.n_taps, nan]
+            prog.taps.append(corr.astype(np.float32))
+            prog.n_taps += corr.shape[0]
     elif name == "get_wf_centroid":
         need(len(args) == 2 and kinds == ("scalar",), "signature")
         x = op("wf_centroid")
@@ -748,7 +768,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x = op("fixed_time_pickoff")
         x.ins = [_plane(prog, args[0], name), _scalar(prog, args[1], "t_in")]
         # the pick time in the row's type, as the kernel casts it
-        x.ip = [ord(mode)] + [0] * 6 + [2]
+        x.ip = [ord(mode)] + [0] * 6 + [_f32(args[0]) << 1]
     elif name in ("mean_below_threshold", "time_over_threshold"):
         need(len(args) == 2 and kinds == ("scalar",), "signature")
         mean = name == "mean_below_threshold"
@@ -882,7 +902,8 @@ def _ewise(prog: TileProgram, step, name, kind, args, out, dp=()) -> None:
         s = prog.slots[a[1]] if a[0] == "slot" else None
         if s is not None and s.kind == "plane":
             if s.dtype not in (torch.float32, torch.bool) or s.length != o.length:
-                raise LoweringError(f"{name}: a plane operand of {s.length} "
+                raise LoweringError(f"{name}: K7 takes float32 or bool plane operands "
+                                    f"as long as the output, not {s.length} "
                                     f"{s.dtype} samples into {o.length}")
             x.ins.append(a[1])
             planes |= 1 << q
@@ -946,8 +967,6 @@ def _lower_step(prog: TileProgram, step) -> None:
         sl = step.sl
         if s.kind != "plane" or not isinstance(sl, slice) or sl.step not in (None, 1):
             raise LoweringError(f"{step.name}: only unit-step slices of a plane")
-        if s.dtype not in (torch.float32, torch.bool):
-            raise LoweringError(f"{step.name}: a slice of a float64 plane")
         a, b, _ = sl.indices(s.length)
         if b <= a:
             raise LoweringError(f"{step.name}: an empty slice")
@@ -958,6 +977,38 @@ def _lower_step(prog: TileProgram, step) -> None:
         _lower_kernel(prog, step)
     else:
         raise LoweringError(f"{type(step).__name__} {step} has no K7 op")
+
+
+def _plane_types(prog: TileProgram) -> None:
+    """Whether ``prog`` is a float64 program (``prog.f64``: a float64 plane
+    loaded, or read or written by an op other than the SiPM pair of
+    :data:`F32_PROGRAM_F64_OPS`), and that its planes are all of its
+    kernel's types: a float64 program's all float64 and its ops all of
+    :data:`F64_OPS`; a float program's float64 planes whole."""
+    names = {v: k for k, v in OPCODES.items()}
+
+    def f64(sid):
+        sl = prog.slots[sid]
+        return sl.kind == "plane" and sl.dtype == torch.float64
+
+    prog.f64 = any(s.ext and f64(sid) for sid, s in enumerate(prog.slots)) or any(
+        names[op.code] not in F32_PROGRAM_F64_OPS
+        and any(f64(e) for e in op.outs + [e for e in op.ins if not isinstance(e, tuple)])
+        for op in prog.ops)
+    for sid, s in enumerate(prog.slots):
+        if s.kind != "plane":
+            continue
+        if prog.f64 and s.dtype != torch.float64:
+            raise LoweringError(f"K7's float64 programs take float64 planes; {s.key} "
+                                f"is {s.dtype}")
+        if not prog.f64 and f64(sid) and (s.start, s.length) != (
+                0, prog.slots[s.root].length):
+            raise LoweringError(f"{s.key}: a slice of a float64 plane in a float program")
+    if prog.f64:
+        for op in prog.ops:
+            if names[op.code] not in F64_OPS:
+                raise LoweringError(f"{op.name}: K7 runs {names[op.code]} on float32 "
+                                    f"planes only (it has no float64 form)")
 
 
 def _plan(prog: TileProgram) -> None:
@@ -1075,6 +1126,10 @@ def _plan(prog: TileProgram) -> None:
         elif op.code == OPCODES["dense"] and op.ip[0]:
             # each warp's partial sums of the m outputs
             scratch = max(scratch, (THREADS // 32) * op.ip[5])
+        elif op.code == OPCODES["conv"] and prog.f64:
+            # the row's window and the taps, in float64
+            p, m = prog.slots[op.outs[0]].length, op.ip[1]
+            scratch = max(scratch, p + 2 * m - 1)
         elif op.code == OPCODES["conv"]:
             p, m = prog.slots[op.outs[0]].length, op.ip[1]
             mc = -(-m // 32) * 32
@@ -1122,7 +1177,7 @@ def _barriers(prog: TileProgram) -> None:
 
     def span(sid):
         s = slots[sid]
-        lo = slots[s.root].off + s.start
+        lo = slots[s.root].off + _plane_words(s, s.start)
         return lo, lo + _plane_words(s)
 
     def overlaps(a):
@@ -1187,5 +1242,6 @@ def lower(members, vals: dict, escapes) -> TileProgram:
             f"{len(prog.ext_keys)} inputs and {len(prog.esc_roots)} stored "
             f"outputs; K7's parameters hold {GEN_MAX_EXT} and {GEN_MAX_ESC}"
         )
+    _plane_types(prog)
     _plan(prog)
     return prog

@@ -56,6 +56,28 @@ def linear_slope_fit(w_in, badrow=None):
     )
 
 
+def linear_slope_fit_k7(w_in):
+    """:func:`linear_slope_fit` on a float64 row as K7's float64 op
+    computes it (the plain walk of a float64 program): its sums in K7's
+    block order (:func:`._numerics.k7_sum`), every quotient a true
+    division in float64."""
+    n = w_in.shape[-1]
+    x = w_in.to(torch.float64)
+    i = torch.arange(n, dtype=torch.float64, device=w_in.device)
+    sum_y = k7_sum(x)
+    sum_xy = k7_sum(x * i)
+    mean = true_div(sum_y, float(n))
+    d = x - mean[..., None]
+    var = true_div(k7_sum(d * d), float(n - 1)) if n > 1 else torch.zeros_like(mean)
+    sum_x = n * (n - 1) / 2.0
+    sum_x2 = (n - 1) * n * (2 * n - 1) / 6.0
+    slope = true_div(n * sum_xy - sum_x * sum_y, n * sum_x2 - sum_x * sum_x)
+    intercept = true_div(sum_y - sum_x * slope, float(n))
+    bad = isnan_any(w_in, 1)
+    return tuple(nanmask(bad, v.to(w_in.dtype))
+                 for v in (mean, torch.sqrt(var), slope, intercept))
+
+
 @kernel("(n),(),()->(),()", ["fff->ff", "ddd->dd"])
 def linear_slope_diff(w_in, slope, intercept):
     """Mean and rms residual after removing a given line (reference
@@ -93,3 +115,4 @@ linear_slope_fit.tile_safe = True
 linear_slope_diff.tile_safe = True
 # the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
 linear_slope_diff.k7_plain = linear_slope_diff_k7
+linear_slope_fit.k7_f64 = linear_slope_fit_k7

@@ -108,14 +108,15 @@ def moving_window_right_k7(w_in, length):
     return nanmask(isnan_any(w_in, 1), _mwr(w_in, ln, k7_prefix))
 
 
-def mw_cascade(w_in, length: float, num: int, mtype: int):
+def mw_cascade(w_in, length: float, num: int, mtype: int, prefix=hp_cumsum):
     """``num`` alternating moving averages of ``length`` samples: ``mtype``
-    0 alternates starting left, 1 is only left, 2 only right. No NaN
-    masking; the body of :func:`moving_window_multi`."""
+    0 alternates starting left, 1 is only left, 2 only right, each stage
+    from the inclusive prefix ``prefix`` of its input. No NaN masking; the
+    body of :func:`moving_window_multi`."""
     out = w_in
     for it in range(num):
         go_right = ((it % 2 == 1) and (mtype == 0)) or (mtype == 2)
-        out = _mwr(out, length) if go_right else _mwl(out, length)
+        out = _mwr(out, length, prefix) if go_right else _mwl(out, length, prefix)
     return out
 
 
@@ -124,6 +125,17 @@ def moving_window_multi(w_in, length, num_mw, mw_type):
     """Alternating left/right moving averages (reference
     ``moving_windows.py:125``). ``mw_type``: 0 alternate starting left, 1
     only left, 2 only right."""
+    return _mw_multi(w_in, length, num_mw, mw_type, hp_cumsum)
+
+
+def moving_window_multi_k7(w_in, length, num_mw, mw_type):
+    """:func:`moving_window_multi` on a float64 row as K7's float64 op
+    computes it (the plain walk of a float64 program): each stage from the
+    float64 prefix in K7's order (:func:`._numerics.k7_prefix`)."""
+    return _mw_multi(w_in, length, num_mw, mw_type, k7_prefix)
+
+
+def _mw_multi(w_in, length, num_mw, mw_type, prefix):
     n = w_in.shape[-1]
     ln = static_float(length, "moving_window_multi", "length")
     if np.floor(ln) != ln:
@@ -136,7 +148,7 @@ def moving_window_multi(w_in, length, num_mw, mw_type):
     if int(num) < 0:
         raise DSPFatal("The number of moving windows much be positive")
     mtype = int(static_float(mw_type, "moving_window_multi", "mw_type"))
-    out = mw_cascade(w_in, ln, int(num), mtype)
+    out = mw_cascade(w_in, ln, int(num), mtype, prefix)
     return nanmask(isnan_any(w_in, 1), out)
 
 
@@ -164,6 +176,7 @@ def avg_current(w_in, length, dims):
 # the tape's plain walk takes K7's prefix order
 moving_window_left.k7_plain = moving_window_left_k7
 moving_window_right.k7_plain = moving_window_right_k7
+moving_window_multi.k7_f64 = moving_window_multi_k7
 # generic row-tile fusion (the JAX package's flags)
 moving_window_left.tile_safe = True
 moving_window_right.tile_safe = True

@@ -29,7 +29,8 @@ from ..errors import DSPFatal
 from ._helpers import any_bad, as_tensor, cdim, isnan_any, nanmask, static_float
 from ._kernel import kernel
 from ._numerics import (
-    hp_cumsum, iir_first_order, iir_first_order_runs, shift_right, true_div,
+    K7_THREADS, hp_cumsum, iir_first_order, iir_first_order_runs, k7_prefix,
+    shift_right, true_div,
 )
 
 __all__ = ["pole_zero", "double_pole_zero", "rc_exp", "convolve_exp",
@@ -54,6 +55,18 @@ def rc_exp(tau):
 @kernel("(n),()->(n)", ["ff->f", "dd->d"])
 def pole_zero(w_in, t_tau):
     """Apply a single pole-zero cancellation with time constant ``t_tau``."""
+    return _pole_zero(w_in, t_tau, lambda w: shift_right(hp_cumsum(w), 1))
+
+
+def pole_zero_k7(w_in, t_tau):
+    """:func:`pole_zero` on a float64 row as K7's float64 op computes it
+    (the plain walk of a float64 program): the exclusive prefix in K7's
+    order (:func:`._numerics.k7_prefix`)."""
+    return _pole_zero(w_in, t_tau, lambda w: k7_prefix(w, exclusive=True))
+
+
+def _pole_zero(w_in, t_tau, excl_prefix):
+    """``pole_zero``'s body with the exclusive prefix ``excl_prefix``."""
     dtype = w_in.dtype
     if isinstance(t_tau, torch.Tensor) and t_tau.ndim > 0:
         one_minus_c = -torch.expm1(-1.0 / t_tau)
@@ -62,7 +75,7 @@ def pole_zero(w_in, t_tau):
         tau = float(t_tau)
         one_minus_c = -np.expm1(-1.0 / tau) if tau != 0 else 1.0
         bad_tau = np.isnan(tau)
-    prefix = shift_right(hp_cumsum(w_in), 1)
+    prefix = excl_prefix(w_in)
     out = (w_in + (cdim(one_minus_c) * prefix).to(dtype)).to(dtype)
     return nanmask(any_bad(isnan_any(w_in, 1), bad_tau), out)
 
@@ -85,8 +98,29 @@ def dpz_powers(p: float, n: int) -> np.ndarray:
     return np.power(p, np.arange(n))
 
 
-def _double_pole_zero(w_in, t_tau1, t_tau2, frac, pole):
-    """``double_pole_zero``'s body with its pole recursion ``pole(z, p)``."""
+def _prefixes(w_in):
+    """The row's inclusive float64 prefix ``S`` at ``j``, ``j - 1`` and
+    ``j - 2`` (0 before the row)."""
+    ps = hp_cumsum(w_in)
+    return ps, shift_right(ps, 1), shift_right(ps, 2)
+
+
+def _runs_prefixes(w_in):
+    """``S`` at ``j``, ``j - 1`` and ``j - 2`` as K7's ``double_pole_zero``
+    op takes them: in K7's prefix order (:func:`._numerics.k7_prefix`, its
+    exclusive form at ``j - 1``), and at the first sample ``j0`` of a
+    thread's run ``S[j0 - 2]`` as ``S[j0 - 1] - x[j0 - 1]``."""
+    x = w_in.to(torch.float64)
+    excl = k7_prefix(x, exclusive=True)
+    per = -(-x.shape[-1] // K7_THREADS)
+    first = torch.arange(x.shape[-1], device=x.device) % per == 0
+    return excl + x, excl, torch.where(first, excl - shift_right(x, 1),
+                                       shift_right(excl, 1))
+
+
+def _double_pole_zero(w_in, t_tau1, t_tau2, frac, pole, prefixes=_prefixes):
+    """``double_pole_zero``'s body with its pole recursion ``pole(z, p)``
+    and the prefixes ``prefixes(w_in)`` of its numerator."""
     n = w_in.shape[-1]
     if n <= 3:
         raise DSPFatal(
@@ -106,8 +140,8 @@ def _double_pole_zero(w_in, t_tau1, t_tau2, frac, pole):
     # linearity: sum_{j<=i} (x[j] - k1 x[j-1] + k2 x[j-2]) = S[i] - k1 S[i-1]
     # + k2 S[i-2]; the numerator in the row's type cancels to a few ulps of
     # the pulse, and its prefix integrates them
-    ps = hp_cumsum(w_in)
-    z = (ps - k["k1"] * shift_right(ps, 1) + k["k2"] * shift_right(ps, 2)).to(dtype)
+    s0, s1, s2 = prefixes(w_in)
+    z = (s0 - k["k1"] * s1 + k["k2"] * s2).to(dtype)
     y = pole(z, k["p"]).to(dtype)
     alpha = true_div(w_in[..., :1] * const(k["ke"]), k["kd"])
     pi = torch.from_numpy(dpz_powers(k["p"], n)).to(dev, dtype)
@@ -137,14 +171,16 @@ def double_pole_zero(w_in, t_tau1, t_tau2, frac):
 
 
 def double_pole_zero_runs(w_in, t_tau1, t_tau2, frac):
-    """:func:`double_pole_zero` with its pole in the order of K7's op
+    """:func:`double_pole_zero` in the order of K7's op, which equals it bit
+    for bit: its numerator's prefixes as the op takes them
+    (:func:`_runs_prefixes`), its pole by runs
     (:func:`._numerics.iir_first_order_runs`: runs of ``ceil(n/256)``
-    samples and an affine scan of their maps), which K7 equals bit for bit:
-    the plain walk of a K7 group takes it. Rows are ``(B, n)``."""
+    samples and an affine scan of their maps). The plain walk of a K7 group
+    takes it. Rows are ``(B, n)``."""
     def pole(z, p):
         return iir_first_order_runs(z.reshape(-1, z.shape[-1]), p).reshape(z.shape)
 
-    return _double_pole_zero(w_in, t_tau1, t_tau2, frac, pole)
+    return _double_pole_zero(w_in, t_tau1, t_tau2, frac, pole, _runs_prefixes)
 
 
 @kernel("(n),()->(n)", ["fd->f", "dd->d"])
@@ -221,4 +257,5 @@ pole_zero.check_messages = {1: "Pole-zero filter produced nans in output."}
 
 # generic row-tile fusion (the JAX package's flags)
 pole_zero.tile_safe = True
+pole_zero.k7_f64 = pole_zero_k7
 double_pole_zero.tile_safe = True

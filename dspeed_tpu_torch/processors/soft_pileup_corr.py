@@ -16,6 +16,7 @@ from ..config import accum_dtype
 from ..errors import DSPFatal
 from ._helpers import any_bad, cdim, isnan_any, nanmask, static_int
 from ._kernel import kernel
+from ._numerics import k7_sum, true_div
 
 __all__ = ["soft_pileup_corr", "soft_pileup_corr_bl"]
 
@@ -40,6 +41,49 @@ def exp_fit_sums(w_in, n_fit: int, tau):
     s4 = (e1 * w * mask).sum(-1)
     s5 = (w * mask).sum(-1)
     return e1, s1, s2, s3, s4, s5
+
+
+def fit_constants(n: int, n_fit: int, tau: float):
+    """``(e1, s2, s3)`` of a constant ``tau``, made on the host as K7's
+    ``soft_pileup`` op takes them: ``exp(-i/tau)`` over a row of ``n``
+    samples (``(1, n)`` float64 on the CPU) and the fit's two sums over its
+    first ``n_fit`` samples that depend on it alone, as floats."""
+    e1, _, s2, s3, _, _ = exp_fit_sums(torch.zeros(1, n, dtype=torch.float64), n_fit, tau)
+    return e1, float(s2), float(s3)
+
+
+def soft_pileup_fit_k7(w_in, n_in, tau_in, b_in=None):
+    """:func:`soft_pileup_fit` on a float64 row as K7's float64 op computes
+    it (the plain walk of a float64 program): ``exp(-i/tau)``, ``s2`` and
+    ``s3`` from :func:`fit_constants`, ``s4`` and ``s5`` in K7's block
+    order (:func:`._numerics.k7_sum`) over the first ``n_in`` samples (NaN
+    where a sample past them is not finite, as the member's masked sums
+    give), every quotient a true division."""
+    nf = check_n(n_in, w_in.shape[-1], "soft_pileup_corr")
+    e1, s2, s3 = fit_constants(w_in.shape[-1], nf, float(tau_in))
+    w = w_in[..., :nf].to(torch.float64)
+    tail = (w_in[..., nf:] * 0.0).sum(-1).to(torch.float64)  # 0, or NaN
+    s4 = k7_sum(e1[..., :nf].to(w.device) * w) + tail
+    s5 = k7_sum(w) + tail
+    s1 = float(nf)
+    if b_in is None:
+        b = true_div(s5 - true_div(s2 * (s4 * s1 - s2 * s5), s3 * s1 - s2 * s2), s1)
+    elif isinstance(b_in, torch.Tensor):
+        b = b_in.to(w.device, torch.float64).expand(s4.shape)
+    else:
+        b = torch.full_like(s4, float(b_in))
+    return true_div(s4 - b * s2, s3), b
+
+
+def soft_pileup_out_k7(w_in, a, b, n_in, tau_in):
+    """The row less the fit ``A exp(-i/tau) + B`` (``a``, ``b`` per row) in
+    float64, ``exp(-i/tau)`` from :func:`fit_constants`: K7's float64
+    ``soft_pileup_out`` op; NaN where the row, ``A`` or ``B`` is."""
+    nf = check_n(n_in, w_in.shape[-1], "soft_pileup_corr")
+    e1 = fit_constants(w_in.shape[-1], nf, float(tau_in))[0].to(w_in.device)
+    out = w_in.to(torch.float64) - (a[..., None] * e1 + b[..., None])
+    bad = any_bad(isnan_any(w_in, 1), torch.isnan(a), torch.isnan(b))
+    return nanmask(bad, out.to(w_in.dtype))
 
 
 def check_n(n_in, n, name) -> int:

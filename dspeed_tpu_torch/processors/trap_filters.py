@@ -86,6 +86,16 @@ def trap_norm(w_in, rise, flat, badrow=None):
     return nanmask(isnan_any(w_in, 1) if badrow is None else badrow, out)
 
 
+def trap_norm_k7(w_in, rise, flat):
+    """:func:`trap_norm` on a float64 row as K7's float64 ``trap`` op
+    computes it (the plain walk of a float64 program): every window a
+    difference of the float64 prefix in K7's order, divided by ``rise`` in
+    float64."""
+    p = _check("trap_norm", rise=rise, flat=flat)
+    acc = _trap_sum(w_in, p["rise"], p["flat"], p["rise"], k7_prefix)
+    return nanmask(isnan_any(w_in, 1), true_div(acc, float(p["rise"])).to(w_in.dtype))
+
+
 @kernel(
     "(n),(),(),()->(n)", ["fiii->f", "diii->d"], badrow_arg=0,
     mask_preserving=True,
@@ -109,6 +119,19 @@ def asym_trap_filter(w_in, rise, flat, fall, badrow=None):
     return nanmask(
         isnan_any(w_in, 1) if badrow is None else badrow, out.to(w_in.dtype)
     )
+
+
+def asym_trap_filter_k7(w_in, rise, flat, fall):
+    """:func:`asym_trap_filter` on a float64 row as K7's float64 ``trap``
+    op computes it: each window a difference of the float64 prefix in K7's
+    order, divided by its length in float64."""
+    p = _check("asym_trap_filter", rise=rise, flat=flat, fall=fall)
+    ps = k7_prefix(w_in)
+    d1 = ps - shift_right(ps, p["rise"])
+    d2 = shift_right(ps, p["rise"] + p["flat"]) - shift_right(
+        ps, p["rise"] + p["flat"] + p["fall"])
+    out = true_div(d1, float(p["rise"])) - true_div(d2, float(p["fall"]))
+    return nanmask(isnan_any(w_in, 1), out.to(w_in.dtype))
 
 
 @kernel("(n),(),(),()->()", ["fiif->f", "diid->d"])
@@ -178,6 +201,9 @@ trap_pickoff.tile_safe = True
 # the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
 trap_pickoff.k7_plain = trap_pickoff_k7
 trap_filter.k7_plain = trap_filter_k7
+# and on float64 rows (its plain walk of a float64 program)
+trap_norm.k7_f64 = trap_norm_k7
+asym_trap_filter.k7_f64 = asym_trap_filter_k7
 trap_filter.tile_safe = True
 trap_norm.tile_safe = True
 asym_trap_filter.tile_safe = True

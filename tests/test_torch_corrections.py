@@ -223,7 +223,7 @@ def test_wf_correction_op_matches_pallas_generic_rows(dtype):
     wf, bl = events(dtype)
     step, vals, _, _ = one_op(_corr_cfg(dtype), "wf_correction", wf, bl, ["wf_corr"])
     if dtype == "float64":
-        check_float64_body(step, vals, _jp().wf_correction)
+        check_float64_body(step, vals, _jp().wf_correction, "wf_correction")
         return
     prog = check_against_pallas(step, vals, _jp().wf_correction, "wf_correction")
     # the constant correction rides in the taps; no NaN among them
@@ -238,7 +238,7 @@ def test_wf_centroid_op_matches_pallas_generic_rows(out, dtype):
     wf, bl = events(dtype)
     step, vals, _, _ = one_op(_corr_cfg(dtype), "get_wf_centroid", wf, bl, [out])
     if dtype == "float64":
-        check_float64_body(step, vals, _jp().get_wf_centroid)
+        check_float64_body(step, vals, _jp().get_wf_centroid, "wf_centroid")
         return
     prog = check_against_pallas(step, vals, _jp().get_wf_centroid, "wf_centroid")
     assert prog.ops[-1].ip[7] == 2

@@ -600,16 +600,18 @@ def test_member_with_no_op_raises_and_the_group_splits():
 
 
 def test_lowering_refuses_float64_planes_and_oversized_plans():
-    """A float64 plane, and a plan over one block's shared memory (a
-    trapezoid of a 40000-sample row: two planes and a float64 prefix,
-    640 KB), raise at lowering."""
+    """A float64 trapezoid too long for one block (12000 samples: two
+    float64 planes and the prefix, 288 KB; in float32 it would fit in
+    192 KB), and a plan over one block's shared memory (a trapezoid of a
+    40000-sample row: two planes and a float64 prefix, 640 KB), raise at
+    lowering."""
     cfg = {"outputs": ["trapTmax"], "processors": {
         k: OPS_CONFIG["processors"][k] for k in ("wf_trap", "trapTmax")}}
     cfg["processors"]["wf_trap"] = dict(cfg["processors"]["wf_trap"],
                                         args=["waveform", "320*ns", "160*ns", "wf_trap"])
     cfg["processors"]["trapTmax"] = dict(cfg["processors"]["trapTmax"], kwargs={
         "signature": "(n),()->()", "types": ["fi->f", "di->d"]})
-    for n, dtype, match in ((N_OPS, "float64", "float32"),
+    for n, dtype, match in ((12000, "float64", "shared memory"),
                             (40000, "float32", "shared memory")):
         wf = np.zeros((2, n), dtype)
         chain, _, _ = torch_build_chain(

@@ -44,7 +44,8 @@ REPO = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
 sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
-from torch_k7_ops import TILE_TOL, events, table  # noqa: E402
+from torch_k7_ops import check_group, events, table  # noqa: E402
+from torch_k7_ops import member_name as _name  # noqa: E402
 
 K = "dspeed_tpu.processors"
 INF_ROW, INF_AT = 4, 180  # the row with an infinite sample, and where
@@ -190,12 +191,6 @@ def _db():
             "k32": rng.normal(0, 0.2, 32).astype("float32")}
 
 
-def _name(step):
-    kern = getattr(step, "kernel", None)
-    return kern.__name__ if kern is not None else getattr(getattr(step, "fn", None),
-                                                          "__name__", None)
-
-
 def _rows(dtype="float32"):
     wf, bl = events(dtype)
     wf[INF_ROW, INF_AT] = np.inf
@@ -223,86 +218,6 @@ def _group(case, dtype="float32", wf=None, bl=None):
     return steps, {k: env[k] for k in sorted(ext)}, env
 
 
-def _jax_member(op):
-    """The JAX package's function for ``op``'s member, on the op's
-    arguments."""
-    import jax.numpy as jnp
-
-    import dspeed_tpu.processors as jp
-    from dspeed_tpu.processors import unit_conversion
-
-    step = op.step
-    name = _name(step)
-    if not hasattr(step, "kernel"):  # a FuncStep
-        return getattr(jnp, name)
-    if name in _tile_program.REDUCTIONS:
-        return lambda x, axis: getattr(jnp, name)(x, axis=-1)
-    if name.startswith("convert"):
-        return getattr(unit_conversion, name)
-    if name in _tile_program.UFUNCS and name != "where":
-        return getattr(jnp, name)
-    fn = getattr(jp, name)
-    if step.kernel.uses_dims:
-        return lambda *a: fn(*a, dims=step.dims)
-    return fn
-
-
-def check_group(steps, vals, codes):
-    """Lower ``steps`` as one group (the ops ``codes``, besides its loads),
-    walk the tape, and hold every output against the JAX package's members
-    traced into ``_pallas.generic_rows`` in interpret mode on the same
-    inputs. Returns the program."""
-    import jax.numpy as jnp
-
-    from dspeed_tpu.processors import _pallas
-
-    writes = sorted(set().union(*(_step_writes(s) for s in steps)))
-    prog = _tile_program.lower(steps, vals, writes)
-    ops = [op for op in prog.ops if op.code != _tile_program.OPCODES["load"]]
-    assert [op.code for op in ops] == [_tile_program.OPCODES[c] for c in codes]
-    got = _cuda.generic_rows_plain(prog, vals)
-    jdt = {torch.float32: jnp.float32, torch.float64: jnp.float64, torch.bool: jnp.bool_,
-           torch.int64: jnp.int64}
-
-    def body(jv):
-        env = dict(jv)
-
-        def get(sid):
-            s = prog.slots[sid]
-            if s.key not in env:  # a view: its root's, sliced
-                v = get(s.root)
-                whole = (s.start, s.length) == (0, prog.slots[s.root].length)
-                env[s.key] = v if s.kind != "plane" or whole else \
-                    v[..., s.start:s.start + s.length]
-            return env[s.key]
-
-        for op in ops:
-            jargs = [get(a[1]) if a[0] == "slot" else a[1] for a in op.args]
-            jargs = [v.astype(jdt[a[2]]) if a[0] == "slot" and a[2] is not None else v
-                     for v, a in zip(jargs, op.args)]
-            if op.code == _tile_program.OPCODES["ewise"]:
-                jargs = [v[:, None] if getattr(v, "ndim", 0) == 1 else v for v in jargs]
-            outs = _jax_member(op)(*jargs)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            for sid, o in zip(op.outs, outs):
-                env[prog.slots[sid].key] = o
-        return {k: get(prog.by_key[k]) for k in writes}
-
-    jvals = {k: np.asarray(v) for k, v in vals.items()}
-    want = _pallas.generic_rows(body, jvals, {k: v.ndim - 1 for k, v in jvals.items()},
-                                interpret=True)
-    assert want is not None, f"{codes}: generic_rows declined"
-    for k in writes:
-        a, b = got[k].numpy(), np.asarray(want[k])
-        assert a.shape == b.shape, (k, a.shape, b.shape)
-        np.testing.assert_array_equal(np.isnan(a.astype(np.float64)),
-                                      np.isnan(b.astype(np.float64)), err_msg=f"{k}: NaN")
-        np.testing.assert_allclose(np.nan_to_num(a.astype(np.float64), nan=-12345.0),
-                                   np.nan_to_num(b.astype(np.float64), nan=-12345.0),
-                                   err_msg=k, **TILE_TOL)
-    return prog
-
-
 @pytest.mark.parametrize("case", sorted(OP_CASES))
 def test_op_matches_pallas_generic_rows(case):
     steps, vals, _ = _group(case)
@@ -326,12 +241,14 @@ def test_convert_int_marks_a_result_that_is_not_an_integer():
     assert _cuda.esc_value(copy, torch.int64).tolist() == [big, 12, -3]
 
 
-@pytest.mark.parametrize("case", ["trap_filter", "moving_window_left", "convolve_wf_f",
+@pytest.mark.parametrize("case", ["moving_window_left", "convolve_wf_f",
                                   "ufunc_greater", "where_planes", "reduce_sum",
                                   "ufunc_isnan"])
 def test_op_float64_rows_split(case):
-    """A float64 row: K7 takes float32 planes (entry 4 of ROADMAP §2, the
-    next slice), so the lowering refuses the op and its group splits."""
+    """A float64 row: K7 runs these ops on float32 planes only (entry 4 of
+    ROADMAP §2; ``trap_filter``'s float64 form is held by
+    ``tests/test_torch_k7_f64.py``), so the lowering refuses the op and its
+    group splits."""
     steps, vals, _ = _group(case, "float64")
     with pytest.raises(_tile_program.LoweringError, match="float32"):
         _tile_program.lower(steps, vals, sorted(set().union(
@@ -341,13 +258,11 @@ def test_op_float64_rows_split(case):
 @pytest.mark.parametrize("case", ["fixed_time_pickoff_h", "scalar_floor_divide",
                                   "scalar_sqrt", "isnan_scalar", "convert_floor"])
 def test_scalar_op_takes_float64(case):
-    """The per-row ops take float64 rows' scalars."""
+    """The per-row ops take float64 rows' scalars; ``fixed_time_pickoff``
+    reads its float64 plane in K7's float64 program."""
     steps, vals, _ = _group(case, "float64")
-    if case == "fixed_time_pickoff_h":  # a float64 plane: it splits
-        with pytest.raises(_tile_program.LoweringError, match="float32"):
-            _tile_program.lower(steps, vals, ["y"])
-        return
-    check_group(steps, vals, OP_CASES[case][3])
+    prog = check_group(steps, vals, OP_CASES[case][3])
+    assert prog.f64 == (case == "fixed_time_pickoff_h")
 
 
 def test_k7_order_variants_hold_their_members():

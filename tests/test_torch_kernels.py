@@ -976,9 +976,11 @@ def test_fused_energy_kernel_walks_more_rows_than_its_grid(cuda_device):
 
 @pytest.mark.gpu
 def test_f64_flagship_on_the_card_meets_the_golden_tolerance(cuda_device):
-    """A float64 flagship runs its unfused processors in float64 on the card
-    (no hand kernel takes it) and meets the golden replay's tolerance
-    (``tests/test_goldens.py:40-45``) against the CPU run of the events."""
+    """A float64 flagship runs on the card as K7's two float64 groups (no
+    hand kernel takes a float64 plane; the default mode forms the generic
+    groups), two launches of the one chunk and no split, and meets the
+    golden replay's tolerance (``tests/test_goldens.py:40-45``) against the
+    CPU run of the events."""
     import os
     import sys
 
@@ -997,9 +999,14 @@ def test_f64_flagship_on_the_card_meets_the_golden_tolerance(cuda_device):
     kw = dict(dsp_config=flagship_config("float64"), database={"pz": {"tau": TAU}})
     hand = ("fused_energy", "cascade_tp", "fused_t0", "banded_conv_multi",
             "fused_current_poly", "fused_current")
+    from dspeed_tpu_torch.processors import _tile_program
+
     before = dict(_cuda.LAUNCHES)
+    _tile_program.reset_splits()
     card = dspeed_tpu_torch.build_dsp(table, device="cuda", **kw)
     assert all(_cuda.LAUNCHES[k] == before[k] for k in hand)
+    assert _cuda.LAUNCHES["generic_rows"] == before["generic_rows"] + 2
+    assert _tile_program.SPLITS == {}
     cpu = dspeed_tpu_torch.build_dsp(table, device="cpu", **kw)
     for k in kw["dsp_config"]["outputs"]:
         g, w = np.asarray(card[k].nda), np.asarray(cpu[k].nda)

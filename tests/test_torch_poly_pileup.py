@@ -221,11 +221,17 @@ PILEUP = {
     ("poly_exp_rms", ["e_mean", "e_rms"]),
 ])
 def test_poly_residual_op_matches_pallas_generic_rows(name, outputs, dtype):
+    """On float64 rows the parameters are float64 too (a float32 parameter
+    plane read as float64 splits its group: K7 reads a plane in its own
+    type)."""
     jp = _jp()
     wf, bl = events(dtype)
-    step, vals, _, _ = one_op(POLY, name, wf, bl, outputs)
+    cfg = POLY if dtype == "float32" else {
+        k: {**v, "args": [a.replace("'f'", "'d'") for a in v["args"]]}
+        for k, v in POLY.items()}
+    step, vals, _, _ = one_op(cfg, name, wf, bl, outputs)
     if dtype == "float64":
-        check_float64_body(step, vals, getattr(jp, name))
+        check_float64_body(step, vals, getattr(jp, name), "poly_residual")
         return
     prog = check_against_pallas(step, vals, getattr(jp, name), "poly_residual")
     op = prog.ops[-1]
@@ -242,7 +248,7 @@ def test_soft_pileup_op_matches_pallas_generic_rows(name, outputs, dtype):
     wf, bl = events(dtype)
     step, vals, _, _ = one_op(PILEUP, name, wf, bl, outputs)
     if dtype == "float64":
-        check_float64_body(step, vals, getattr(jp, name))
+        check_float64_body(step, vals, getattr(jp, name), ("soft_pileup", "soft_pileup_out"))
         return
     prog = check_against_pallas(step, vals, getattr(jp, name),
                                 ("soft_pileup", "soft_pileup_out"))

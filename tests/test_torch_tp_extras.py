@@ -337,7 +337,8 @@ def test_interpolated_op_matches_pallas_generic_rows(mode, walk, dtype):
            "t_ev": "baseline * 0.0 + " + ("90" if walk else "200")}
     step, vals, _, _ = one_op(cfg, "interpolated_time_point_thresh", wf, bl, ["tp_i"])
     if dtype == "float64":
-        check_float64_body(step, vals, jp.interpolated_time_point_thresh)
+        check_float64_body(step, vals, jp.interpolated_time_point_thresh,
+                           "time_point_thresh")
         return
     prog = check_against_pallas(step, vals, jp.interpolated_time_point_thresh,
                                 "time_point_thresh")

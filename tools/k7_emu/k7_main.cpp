@@ -29,6 +29,7 @@ int main(int argc, char** argv) {
     const int dyn_smem = rd<int>(f), n_ext = rd<int>(f), n_esc = rd<int>(f);
     const unsigned char fill = (unsigned char)rd<int>(f);
     const int tape_dbl = rd<int>(f);
+    const int f64 = rd<int>(f);
 #ifdef GEN_MAX_CODE
     if (n_code > GEN_MAX_CODE || n_dbl > GEN_MAX_DP) abort();
     memcpy(P.code, rdv<int>(f, n_code), 4 * n_code);
@@ -62,7 +63,13 @@ int main(int argc, char** argv) {
     fclose(f);
     gridDim.x = P.B;
     for (int b = 0; b < P.B; ++b)
-        emu_run_block(b, 256, dyn_smem, [&] { generic_rows_kernel(P); }, fill);
+        emu_run_block(b, 256, dyn_smem, [&] {
+#ifdef EMU_F64  // a source with K7's float64 kernel
+            if (f64) return generic_rows_kernel_f64(P);
+#endif
+            if (f64) abort();
+            generic_rows_kernel(P);
+        }, fill);
     FILE* o = fopen(argv[2], "wb");
     for (auto& pr : outs) fwrite(pr.first, 1, pr.second, o);
     fclose(o);

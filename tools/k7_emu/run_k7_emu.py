@@ -58,14 +58,25 @@ the direct convolution in three modes, elementwise ops over planes into
 float32 and bool planes, the row reductions, a per-row ``sqrt``, the
 rounding conversions and ``convert_int``, in one group at 600 samples with
 a NaN sample, a NaN baseline and an infinite sample: every escape bit for
-bit against the plain walk). ``--drop-barrier OP`` builds the kernel with
+bit against the plain walk), ``f64`` (K7's float64 kernel on the float64
+flagship's two groups, the float64 DPZ's energy front and the float64
+extras' three groups, at 4096 samples with a NaN sample, a NaN baseline, an
+infinite sample and a flat row from 4 rows on: every escape bit for bit
+against the plain walk on every row, rows 8 bytes off alignment too; the
+programs are lowered and walked with the host's libm for float64 ``sqrt``
+and ``exp``, ``host_libm``, as the emulated kernel calls it).
+``--drop-barrier OP`` builds the kernel with
 the first block barrier (``__syncthreads()``, or ``log_check``'s
 ``__syncthreads_or``) of that op's device function taken out, for
 ``trap_pickoff`` and ``moving_window`` the one that ends their prefix
-(``gen_prefix``): a mutation the ``tsan`` mode must report.
+(``gen_prefix``), and ``conv_f64`` the float64 convolution's (``op_conv64``,
+which stages the row's window before it): a mutation the ``tsan`` mode must
+report.
 """
 
 import argparse
+import contextlib
+import math
 import os
 import re
 import subprocess
@@ -85,7 +96,7 @@ from dspeed_tpu_torch.processors._tile_program import esc_dtype  # noqa: E402
 
 SRC = os.path.join(REPO, "dspeed_tpu_torch", "csrc", "generic_rows.cu")
 CASES = ("reductions", "ops256", "ops1001", "flagship", "sipm", "dpz", "extras",
-         "injml", "cover", "plane")
+         "injml", "cover", "plane", "f64")
 # one group holding each op of the flagship extras, every op reading
 # samples that other threads wrote
 EXTRAS_CONFIG = {
@@ -311,7 +322,7 @@ OP_FUNCTIONS = {"poly_residual": "op_poly_resid", "soft_pileup": "op_soft_pileup
                 "mean_below_threshold": "op_mean_below", "count": "op_count",
                 "linear_slope_diff": "op_slope_diff", "log_check": "op_log_check",
                 "trap_pickoff": "gen_prefix", "moving_window": "gen_prefix",
-                "reduce": "op_reduce"}
+                "reduce": "op_reduce", "conv_f64": "op_conv64"}
 # double_pole_zero in a group: it reads the samples bl_subtract's threads
 # wrote (the planned barrier before it), and the fit, trapezoid and maximum
 # read its output
@@ -344,7 +355,8 @@ FLAGS = {
 }
 
 
-K7_CUTS = ("static cudaError_t gen_launch", 'extern "C" int dspeed_generic_rows')
+K7_CUTS = ("typedef void (*GenKernel)", "static cudaError_t gen_launch",
+           'extern "C" int dspeed_generic_rows')
 
 
 def host_source(src: str, out: str, cuts=K7_CUTS, drop=None) -> str:
@@ -387,8 +399,9 @@ def build(src: str, mode: str, build_dir: str, tag: str = "k7",
     os.makedirs(build_dir, exist_ok=True)
     exe = os.path.join(build_dir, f"{tag}_{mode}")
     inc = host_source(src, os.path.join(build_dir, f"{tag}.inc"), cuts, drop)
+    f64 = ["-DEMU_F64"] if "generic_rows_kernel_f64" in open(inc).read() else []
     cmd = ["g++", "-std=c++17", "-g", "-ffp-contract=off", "-pthread",
-           *FLAGS[mode], f"-I{HERE}", f"-I{os.path.dirname(src)}",
+           *FLAGS[mode], *f64, f"-I{HERE}", f"-I{os.path.dirname(src)}",
            f'-DKSRC="{inc}"', "-o", exe, main]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode:
@@ -408,7 +421,7 @@ def write_input(path, prog, vals, misalign=0) -> None:
         hdr = [len(ints), len(dbls), len(taps), B, len(prog.ops),
                len(prog.slots), prog.n_scal, prog.scratch_dbl,
                prog.arena_floats, prog.smem_bytes, len(prog.ext_keys),
-               len(prog.esc_roots), fill, prog.tape_dbl]
+               len(prog.esc_roots), fill, prog.tape_dbl, int(prog.f64)]
         f.write(np.asarray(hdr, np.int32).tobytes())
         f.write(ints.astype(np.int32).tobytes())
         f.write(dbls.astype(np.float64).tobytes())
@@ -417,7 +430,8 @@ def write_input(path, prog, vals, misalign=0) -> None:
             v = vals[key]
             if v.ndim == 2:
                 stride = v.stride(0)
-                kind, dt = (3, np.bool_) if v.dtype == torch.bool else (0, np.float32)
+                kind, dt = {torch.bool: (3, np.bool_), torch.float64: (2, np.float64)}.get(
+                    v.dtype, (0, np.float32))
                 data = np.zeros(B * stride, dt)
                 a = v.numpy()
                 for r in range(B):
@@ -528,6 +542,33 @@ def cases(names, rows=6):
         groups = chain_groups(cs.config(), wf, bl, {"pz": {"tau": cs.TAU}})
         for lab, (prog, full, vals) in zip("AB", groups):
             yield f"flagship {lab}", prog, full, vals
+    if "f64" in names:
+        # the float64 flagship's groups on float64 rows (K7's float64
+        # kernel): a NaN sample, a NaN baseline, an infinite sample, a flat
+        # row (from 4 rows on)
+        def poison(wf, bl):
+            wf = wf.astype(np.float64)
+            wf[0, 500] = np.nan
+            bl[1 % rows] = np.nan
+            if rows >= 4:
+                wf[2, 2000] = np.inf
+                wf[3, :] = wf[3, 0]
+            return wf, bl
+
+        wf, bl = poison(*cs.make_hpge_waveforms(rows)[::3])
+        # and the DPZ's energy front and the extras' three groups; lowered
+        # with the host's libm, as the plain walk takes it
+        dwf, dbl = poison(*cs.make_hpge_dpz_waveforms(rows)[::3])
+        db = {"pz": {"tau": cs.TAU}}
+        with host_libm():
+            groups = [(f"f64 flagship {lab}", g) for lab, g in zip(
+                "AB", chain_groups(cs.flagship_config("float64"), wf, bl, db))]
+            groups.append(("f64 dpz A", chain_groups(cs.dpz_config("float64"), dwf, dbl,
+                                                     db)[0]))
+            groups += [(f"f64 extras {lab}", g) for lab, g in zip(
+                "CDE", chain_groups(cs.extras_config("float64"), wf, bl, db, fuse=True))]
+        for lab, g in groups:
+            yield (lab, *g)
     if "dpz" in names:
         from torch_flagship import make_hpge_dpz_waveforms
 
@@ -592,6 +633,41 @@ def _same(a, b):
     return (a == b) | (torch.isnan(a) & torch.isnan(b))
 
 
+def _libm(fn):
+    def one(v):
+        try:
+            return fn(v) if not (fn is math.sqrt and v < 0) else math.nan
+        except OverflowError:
+            return math.inf
+    return np.vectorize(one, otypes=[np.float64])
+
+
+@contextlib.contextmanager
+def host_libm():
+    """``torch.sqrt`` and ``torch.exp`` of float64 tensors as the host's
+    libm takes them, which the emulated kernel calls: PyTorch's CPU sqrt and
+    exp of a float64 row are not always correctly rounded (the card's
+    kernel and PyTorch's CUDA ones are the device's libm)."""
+    real = {name: getattr(torch, name) for name in ("sqrt", "exp")}
+
+    def wrap(name):
+        host = _libm(getattr(math, name))
+
+        def call(t):
+            if t.dtype != torch.float64:
+                return real[name](t)
+            return torch.from_numpy(host(t.numpy())).reshape(t.shape)
+        return call
+
+    try:
+        for name in real:
+            setattr(torch, name, wrap(name))
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(torch, name, fn)
+
+
 def check(label, prog, vals, got, parent=None) -> str:
     """``got`` (the ``full`` program's escapes) against the plain walk on
     the rows without an infinite sample, and bit for bit against
@@ -609,10 +685,12 @@ def check(label, prog, vals, got, parent=None) -> str:
     err, rel, excused, _ = cs.check_generic(
         prog, sub, {k: v[fin] for k, v in got.items()}, plain, label)
     msg = f"vs plain: max err {err:.3e} ({rel:.2e} of scale), {excused} rows excused"
-    if label in ("sipm", "dpz", "plane"):
+    if label in ("sipm", "dpz", "plane") or label.startswith("f64"):
         # unfused products and sums in the plain walk's order: every row
-        # bit for bit, the row with an infinite sample included
-        plain = _cuda.generic_rows_plain(prog, vals)
+        # bit for bit, the row with an infinite sample included (a float64
+        # program's sqrt and exp the host's libm's)
+        with host_libm() if prog.f64 else contextlib.nullcontext():
+            plain = _cuda.generic_rows_plain(prog, vals)
         diff = [k for k in plain if not bool(_same(got[k], plain[k]).all())]
         assert not diff, f"{label}: differs from the plain walk in {diff}"
         msg += "; every row bit for bit"
@@ -647,7 +725,7 @@ def main(argv=None) -> int:
             except (AssertionError, RuntimeError) as e:
                 bad += 1
                 msg = f"FAILED: {e}"
-            print(f"{label} [{args.mode}, rows {mis} floats off alignment] "
+            print(f"{label} [{args.mode}, rows {mis} samples off alignment] "
                   f"{len(full.ops)} ops, {sum(o.plan for o in full.ops)} planned "
                   f"barriers: {msg}", flush=True)
     print("FAILED" if bad else "OK")
