@@ -177,11 +177,15 @@ F64_REL, F64_ATOL = 1e-9, 1e-12
 NAN_SAMPLE_ROW = 3  # end-to-end input: this event holds a NaN sample
 NAN_BASELINE_ROW = 5  # and this one a NaN baseline
 ATRAP = ("asym", 8, 4, 125)  # the flagship's wf_atrap (128 ns, 4, 2 us)
-# H100 SXM peaks (NVIDIA data sheet): HBM3, f32 and f64 outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3, f32 and f64 outside the tensor
+# cores, f64 on the tensor cores (full float64 precision), which bound the
+# float64 work shaped as a matrix product (a convolution's or a dense
+# layer's products and sums over the rows)
 PEAK_BYTES_S = 3.35e12
 INJECT_OPS = 12  # operations an injected sample (each exp or pow as one)
 PEAK_F32_S = 67e12
 PEAK_F64_S = 34e12
+PEAK_F64_MM_S = 67e12
 DEVICE = "cuda"
 E2E_RATES: dict = {}  # e2e_phase's label -> (first, warm) wf/s
 SIPM_CONFIG = os.path.join(REPO, "configs", "sipm-pulse-finding.yaml")
@@ -1995,7 +1999,10 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
     operation a sample for an elementwise op and for a reduction; a gather,
     select or rounding none). A float64 program's planes count 8 bytes a
     sample, and all its operations are float64 ones (its trapezoids take
-    every window from the prefix)."""
+    every window from the prefix). Float64 products and sums shaped as a
+    matrix product (a float64 convolution's, the reflected convolution's
+    in float64, a dense layer's) count at the float64 tensor-core peak
+    ``PEAK_F64_MM_S``, the rest of the float64 work at ``PEAK_F64_S``."""
     import torch
 
     from dspeed_tpu_torch.processors._tile_program import OPCODES
@@ -2013,11 +2020,14 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
     for sid in program.esc_roots:
         s = slots[sid]
         nbytes += s.dtype.itemsize * (s.length if s.kind == "plane" else 1)
-    f32 = f64 = 0
+    f32 = f64 = mm = 0
     for op in program.ops:
         n = slots[op.ins[0]].length if op.ins and not isinstance(op.ins[0], tuple) else 0
         if op.code == OPCODES["conv"]:
-            f32 += 2 * op.ip[1] * slots[op.outs[0]].length
+            if program.f64:
+                mm += 2 * op.ip[1] * slots[op.outs[0]].length
+            else:
+                f32 += 2 * op.ip[1] * slots[op.outs[0]].length
         elif op.code == OPCODES["trap"]:
             rise, fall = op.ip[1], op.ip[3]
             short = 0 if program.f64 else 32  # windows summed directly
@@ -2058,7 +2068,7 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
             if op.ip[0] == 0:  # normalisation: a subtraction, root and division
                 f32 += 3 * n
             else:  # the products and sums in float64, bias and activation
-                f64 += 2 * n * op.ip[5]
+                mm += 2 * n * op.ip[5]
                 f32 += 2 * op.ip[5]
         elif op.code == OPCODES["mean_below_threshold"]:
             f32 += n  # the comparisons
@@ -2094,14 +2104,16 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
         elif op.code in (OPCODES["reflected_conv"], OPCODES["avg_current"]):
             p = slots[op.outs[0]].length
             ops = 2 * (op.ip[1] if op.code == OPCODES["reflected_conv"] else 1) * p
-            if slots[op.outs[0]].dtype == torch.float64:
-                f64 += ops
-            else:
+            if slots[op.outs[0]].dtype != torch.float64:
                 f32 += ops
+            elif op.code == OPCODES["reflected_conv"]:
+                mm += ops
+            else:
+                f64 += ops
     if program.f64:
         f32, f64 = 0, f32 + f64
     t_bytes = (B * nbytes if nb is None else nb) / PEAK_BYTES_S * 1e3
-    t_ops = B * (f32 / PEAK_F32_S + f64 / PEAK_F64_S) * 1e3
+    t_ops = B * (f32 / PEAK_F32_S + f64 / PEAK_F64_S + mm / PEAK_F64_MM_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2177,7 +2189,7 @@ def k7_alone_ops(_cuda, full, got, vals, pick, label, timed, B):
     bit against the plain walk of that one-op program on every row, within
     REL_TOL of its scale (F64_REL, F64_ATOL in a float64 program) of the
     member kernel's own body on the same inputs (the plain walk runs a
-    K7-order variant for some members, ``k7_plain``, ``k7_f64``),
+    K7-order variant for some members, ``k7_plain``),
     and the group's own output bit for bit against the launch alone (the
     op in its group computes what it computes alone). The first op of each
     name not in ``timed`` is timed through the wrapper and on the device

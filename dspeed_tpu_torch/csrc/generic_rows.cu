@@ -84,17 +84,19 @@
 // A row with a NaN poisons what each member poisons, op by op.
 //
 // Float64 rows (the float64 flagship's, DPZ's and extras' groups) run on a
-// kernel of their own, generic_rows_kernel_f64, over the same tape, plan and
-// barrier tables: every plane there is float64 (two words a sample of the
-// arena, a slice's place counted in words), and its ops are the templated
-// ones above (min_max, amax, the searches and pick-offs, soft_pileup,
-// wf_correction, wf_centroid) or float64 forms (op_*64): each the member's
-// arithmetic on a float64 row, every product, sum and quotient rounded once
-// (no contraction) in the order of the tape's plain walk, whose members take
-// their K7-order float64 variants (k7_f64). Nothing of the float kernel's
-// code is on that path, so its register cap stays; the float64 groups' shared
-// memory (~106 KB for the flagship's) allows two blocks an SM, and with them
-// 128 registers a thread.
+// kernel of their own, generic_rows_kernel_f64: the same interpreter loop
+// over the same tape, plan and barrier tables, with a table of ops of its
+// own (gen_op<double>, beside the float kernel's gen_op<float>). Every
+// plane there is float64 (two words a sample of the arena, a slice's place
+// counted in words), and its ops are the templated ones above (min_max,
+// amax, the searches and pick-offs, soft_pileup, wf_correction,
+// wf_centroid) or float64 forms (op_*64): each the member's arithmetic on a
+// float64 row, every product, sum and quotient rounded once (no
+// contraction) in the order of the tape's plain walk, whose members take
+// their K7-order variants (k7_plain, given f64). Nothing of the float
+// kernel's table is on that path, so its register cap stays; the float64
+// groups' shared memory (~106 KB for the flagship's) allows two blocks an
+// SM, and with them 128 registers a thread.
 //
 // What bounds it on this card: bytes for most groups. The flagship's first
 // generic group reads one 4096-sample f32 row and writes three planes (16 KB
@@ -2594,8 +2596,9 @@ __device__ __forceinline__ void op_reduce(const GenParams& P, Row& R, const int*
 // on float64 planes (generic_rows_kernel_f64). Each is its member's
 // arithmetic on a float64 row, every product, sum and quotient rounded once
 // (__dmul_rn, __dadd_rn, __ddiv_rn: no contraction), in the order of the
-// tape's plain walk (the member's K7-order variant, k7_f64, where the
-// member sums: K7's prefix _numerics.k7_prefix, its block sums k7_sum). The
+// tape's plain walk (the member's K7-order variant, k7_plain given f64,
+// where the member sums: K7's prefix _numerics.k7_prefix, its block sums
+// k7_sum). The
 // barriers, buffers and scratch are the float forms' (the plan's tables
 // hold per opcode).
 
@@ -3039,14 +3042,126 @@ __device__ __forceinline__ void gen_start(const GenParams& P, const Row& R) {
     __syncthreads();
 }
 
+// The interpreter's table of ops for each plane type: op k of the tape (its
+// code and its fields), on the float kernel or on the float64 one. An op
+// that runs outlined moves k and the reduction buffer on.
+template <typename T>
+__device__ __forceinline__ void gen_op(const GenParams& P, Row& R, int& k, int code,
+                                       const int* in, const int* out, const int* ip);
+
+template <>
+__device__ __forceinline__ void gen_op<float>(const GenParams& P, Row& R, int& k,
+                                              int code, const int* in, const int* out,
+                                              const int* ip) {
+    switch (code) {
+    case OP_TPT:
+    case OP_FTP:
+    case OP_UFUNC:
+    case OP_CONVERT:
+    case OP_GET:
+    case OP_WHERE:
+    case OP_ROUND:
+        if ((threadIdx.x >> 5) == 0) {
+            __syncwarp();
+            warp_op<float>(P, R, k, code);
+        }
+        break;
+    case OP_LOAD:
+        if (sf(P, in[0], S_TYPE) == T_BOOL) goto outlined;
+        op_load(P, R, in[0]);
+        break;
+    case OP_MIN_MAX: op_min_max<float>(P, R, in, out); break;
+    case OP_SLOPE_FIT: op_slope_fit(P, R, in, out); break;
+    case OP_POLE_ZERO: op_pole_zero(P, R, k, in, out, ip); break;
+    case OP_TRAP:
+        if (ip[0] == 2) goto outlined;  // trap_filter
+        op_trap(P, R, in, out, ip);
+        break;
+    case OP_AMAX: op_amax<float>(P, R, in, out); break;
+    case OP_CONV: op_conv(P, R, in, out, ip); break;
+    case OP_BL_SUB:
+    case OP_WINDOWER:
+    case OP_AVG_CURRENT:
+    case OP_SOFT_PILEUP_OUT: op_gather(P, R, k, code, in, out, ip); break;
+    case OP_MW_MULTI: op_mw_multi(P, R, in, out, ip); break;
+    case OP_REFL_CONV: op_reflected_conv(P, R, in, out, ip); break;
+    case OP_DPZ: op_dpz(P, R, k, in, out, ip); break;
+    case OP_POLY_RESID: op_poly_resid(P, R, in, out, ip); break;
+    case OP_SOFT_PILEUP: op_soft_pileup<float>(P, R, k, in, out, ip); break;
+    case OP_WF_CORR: op_wf_correction<float>(P, R, in, out, ip); break;
+    case OP_WF_CENTROID: op_wf_centroid<float>(P, R, k, in, out, ip); break;
+    case OP_INJECT: op_inject(P, R, k, in, out, ip); break;
+    case OP_DENSE: op_dense(P, R, k, in, out, ip); break;
+    case OP_MEAN_BELOW: op_mean_below(P, R, k, in, out, ip); break;
+    case OP_COUNT: op_count(P, R, k, in, out, ip); break;
+    case OP_SLOPE_DIFF: op_slope_diff(P, R, k, in, out, ip); break;
+    case OP_LOG_CHECK: op_log_check(P, R, in, out); break;
+    case OP_TRAP_PICKOFF: op_trap_pickoff(P, R, k, in, out, ip); break;
+    case OP_PRESUM: op_presum(P, R, in, out, ip); break;
+    case OP_MIN_MAX_NORM: op_min_max_norm(P, R, k, in, out, ip); break;
+    case OP_MULTI_A: op_multi_a(P, R, in, out); break;
+    case OP_MW:
+    case OP_CONV_DIRECT:
+    case OP_EWISE:
+    case OP_REDUCE:
+    outlined: {
+        const int2 r = outlined_op(P, R, k);
+        k = r.x;
+        R.rb = r.y;
+        break;
+    }
+    default: break;
+    }
+}
+
+// The float64 kernel's table: the ops of the float64 flagship, DPZ and
+// extras groups (_tile_program.F64_OPS) in their float64 forms.
+template <>
+__device__ __forceinline__ void gen_op<double>(const GenParams& P, Row& R, int& k,
+                                               int code, const int* in, const int* out,
+                                               const int* ip) {
+    switch (code) {
+    case OP_TPT:
+    case OP_FTP:
+    case OP_UFUNC:
+    case OP_CONVERT:
+        if ((threadIdx.x >> 5) == 0) {
+            __syncwarp();
+            warp_op<double>(P, R, k, code);
+        }
+        break;
+    case OP_LOAD: op_load64(P, R, in[0]); break;
+    case OP_MIN_MAX: op_min_max<double>(P, R, in, out); break;
+    case OP_SLOPE_FIT: op_slope_fit64(P, R, in, out); break;
+    case OP_POLE_ZERO: op_pole_zero64(P, R, k, in, out, ip); break;
+    case OP_TRAP: op_trap64(P, R, in, out, ip); break;
+    case OP_AMAX: op_amax<double>(P, R, in, out); break;
+    case OP_CONV: op_conv64(P, R, in, out, ip); break;
+    case OP_BL_SUB:
+    case OP_WINDOWER:
+    case OP_AVG_CURRENT:
+    case OP_SOFT_PILEUP_OUT: op_gather64(P, R, k, code, in, out, ip); break;
+    case OP_MW_MULTI: op_mw_multi64(P, R, in, out, ip); break;
+    case OP_DPZ: op_dpz64(P, R, k, in, out, ip); break;
+    case OP_POLY_RESID: op_poly_resid64(P, R, in, out, ip); break;
+    case OP_SOFT_PILEUP: op_soft_pileup<double>(P, R, k, in, out, ip); break;
+    case OP_WF_CORR: op_wf_correction<double>(P, R, in, out, ip); break;
+    case OP_WF_CENTROID: op_wf_centroid<double>(P, R, k, in, out, ip); break;
+    default: break;
+    }
+}
+
+// The interpreter: one block a row walks the tape, each op from its plane
+// type's table, behind the planned barrier where the plan puts one. The loop
+// is written out in each kernel: run through a shared device function, the
+// float kernel took 2.2-2.4% longer on the generic flagship's groups (H100,
+// same tape, bit-identical outputs).
 __global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS)
 generic_rows_kernel(const __grid_constant__ GenParams P) {
     Row R;
     R.row = blockIdx.x;
     R.rb = 0;
-    const int tid = threadIdx.x;
     gen_start(P, R);
-
     for (int k = 0; k < P.n_ops; ++k) {
         const int* op = tape(P) + k * OP_INTS;
         const int* in = op + 1;
@@ -3054,82 +3169,20 @@ generic_rows_kernel(const __grid_constant__ GenParams P) {
         const int* ip = out + OP_OUT;
         const int code = op[0];
         if (ip[IP_PLAN] & 1) __syncthreads();
-        switch (code) {
-        case OP_TPT:
-        case OP_FTP:
-        case OP_UFUNC:
-        case OP_CONVERT:
-        case OP_GET:
-        case OP_WHERE:
-        case OP_ROUND:
-            if ((tid >> 5) == 0) {
-                __syncwarp();
-                warp_op<float>(P, R, k, code);
-            }
-            break;
-        case OP_LOAD:
-            if (sf(P, in[0], S_TYPE) == T_BOOL) goto outlined;
-            op_load(P, R, in[0]);
-            break;
-        case OP_MIN_MAX: op_min_max<float>(P, R, in, out); break;
-        case OP_SLOPE_FIT: op_slope_fit(P, R, in, out); break;
-        case OP_POLE_ZERO: op_pole_zero(P, R, k, in, out, ip); break;
-        case OP_TRAP:
-            if (ip[0] == 2) goto outlined;  // trap_filter
-            op_trap(P, R, in, out, ip);
-            break;
-        case OP_AMAX: op_amax<float>(P, R, in, out); break;
-        case OP_CONV: op_conv(P, R, in, out, ip); break;
-        case OP_BL_SUB:
-        case OP_WINDOWER:
-        case OP_AVG_CURRENT:
-        case OP_SOFT_PILEUP_OUT: op_gather(P, R, k, code, in, out, ip); break;
-        case OP_MW_MULTI: op_mw_multi(P, R, in, out, ip); break;
-        case OP_REFL_CONV: op_reflected_conv(P, R, in, out, ip); break;
-        case OP_DPZ: op_dpz(P, R, k, in, out, ip); break;
-        case OP_POLY_RESID: op_poly_resid(P, R, in, out, ip); break;
-        case OP_SOFT_PILEUP: op_soft_pileup<float>(P, R, k, in, out, ip); break;
-        case OP_WF_CORR: op_wf_correction<float>(P, R, in, out, ip); break;
-        case OP_WF_CENTROID: op_wf_centroid<float>(P, R, k, in, out, ip); break;
-        case OP_INJECT: op_inject(P, R, k, in, out, ip); break;
-        case OP_DENSE: op_dense(P, R, k, in, out, ip); break;
-        case OP_MEAN_BELOW: op_mean_below(P, R, k, in, out, ip); break;
-        case OP_COUNT: op_count(P, R, k, in, out, ip); break;
-        case OP_SLOPE_DIFF: op_slope_diff(P, R, k, in, out, ip); break;
-        case OP_LOG_CHECK: op_log_check(P, R, in, out); break;
-        case OP_TRAP_PICKOFF: op_trap_pickoff(P, R, k, in, out, ip); break;
-        case OP_PRESUM: op_presum(P, R, in, out, ip); break;
-        case OP_MIN_MAX_NORM: op_min_max_norm(P, R, k, in, out, ip); break;
-        case OP_MULTI_A: op_multi_a(P, R, in, out); break;
-        case OP_MW:
-        case OP_CONV_DIRECT:
-        case OP_EWISE:
-        case OP_REDUCE:
-        outlined: {
-            const int2 r = outlined_op(P, R, k);
-            k = r.x;
-            R.rb = r.y;
-            break;
-        }
-        default: break;
-        }
+        gen_op<float>(P, R, k, code, in, out, ip);
     }
 }
 
-// K7 on float64 planes: the same tape and plan, the ops of the float64
-// flagship, DPZ and extras groups (_tile_program.F64_OPS) in their float64
-// forms. A kernel of its own, so that the float kernel's code and its
-// register cap stay as they were; its groups' shared memory (about 106 KB
-// for the float64 flagship's) allows two blocks an SM, and with them 128
-// registers a thread.
+// K7 on float64 planes: the same tape, plan and loop over the float64 table.
+// A kernel of its own, so that the float kernel's code and its register cap
+// stay as they were; its groups' shared memory (about 106 KB for the float64
+// flagship's) allows two blocks an SM, and with them 128 registers a thread.
 __global__ void __launch_bounds__(GEN_THREADS, GEN_MIN_BLOCKS_F64)
 generic_rows_kernel_f64(const __grid_constant__ GenParams P) {
     Row R;
     R.row = blockIdx.x;
     R.rb = 0;
-    const int tid = threadIdx.x;
     gen_start(P, R);
-
     for (int k = 0; k < P.n_ops; ++k) {
         const int* op = tape(P) + k * OP_INTS;
         const int* in = op + 1;
@@ -3137,35 +3190,7 @@ generic_rows_kernel_f64(const __grid_constant__ GenParams P) {
         const int* ip = out + OP_OUT;
         const int code = op[0];
         if (ip[IP_PLAN] & 1) __syncthreads();
-        switch (code) {
-        case OP_TPT:
-        case OP_FTP:
-        case OP_UFUNC:
-        case OP_CONVERT:
-            if ((tid >> 5) == 0) {
-                __syncwarp();
-                warp_op<double>(P, R, k, code);
-            }
-            break;
-        case OP_LOAD: op_load64(P, R, in[0]); break;
-        case OP_MIN_MAX: op_min_max<double>(P, R, in, out); break;
-        case OP_SLOPE_FIT: op_slope_fit64(P, R, in, out); break;
-        case OP_POLE_ZERO: op_pole_zero64(P, R, k, in, out, ip); break;
-        case OP_TRAP: op_trap64(P, R, in, out, ip); break;
-        case OP_AMAX: op_amax<double>(P, R, in, out); break;
-        case OP_CONV: op_conv64(P, R, in, out, ip); break;
-        case OP_BL_SUB:
-        case OP_WINDOWER:
-        case OP_AVG_CURRENT:
-        case OP_SOFT_PILEUP_OUT: op_gather64(P, R, k, code, in, out, ip); break;
-        case OP_MW_MULTI: op_mw_multi64(P, R, in, out, ip); break;
-        case OP_DPZ: op_dpz64(P, R, k, in, out, ip); break;
-        case OP_POLY_RESID: op_poly_resid64(P, R, in, out, ip); break;
-        case OP_SOFT_PILEUP: op_soft_pileup<double>(P, R, k, in, out, ip); break;
-        case OP_WF_CORR: op_wf_correction<double>(P, R, in, out, ip); break;
-        case OP_WF_CENTROID: op_wf_centroid<double>(P, R, k, in, out, ip); break;
-        default: break;
-        }
+        gen_op<double>(P, R, k, code, in, out, ip);
     }
 }
 

@@ -1126,13 +1126,16 @@ class GroupStep(Step):
     The members are lowered into a tape (:mod:`.processors._tile_program`):
     on the card, one block per row reads the group's external planes once,
     keeps every internal plane in shared memory and writes only the
-    escaping outputs. On the CPU the same tape runs as
-    :func:`generic_rows_plain`, each op calling its member kernel's own
-    body, so a generic chain equals the unfused chain bit for bit.
+    escaping outputs; a group over float64 planes runs K7's float64 kernel.
+    On the CPU the same tape runs as :func:`generic_rows_plain`, each op
+    calling its member kernel's own body, or where K7 sums in an order of
+    its own the variant the kernel names in ``k7_plain``, so a generic
+    chain equals the unfused chain bit for bit but for those sums' rounding.
 
-    A member list the tape cannot take (a member with no K7 op, a plane
-    that is not float32 on the card, a plan over the shared memory of one
-    block) raises :class:`LoweringError` at lowering, before any launch.
+    A member list the tape cannot take (a member with no K7 op, a plane of
+    a type the kernel does not take, a float64 plane in an op with no
+    float64 form, a plan over the shared memory of one block) raises
+    :class:`LoweringError` at lowering, before any launch.
     The run then bisects as the JAX package's ``_exec`` does (:1050-1112):
     halves of 4 or more members retry, shorter runs run their members
     unfused. Every split is logged and counted in

@@ -1306,30 +1306,29 @@ def generic_rows_plain(program, vals: dict) -> dict:
     walked in PyTorch. Each op calls its member kernel's own body on the
     slots' values, cast as the unfused step casts them, and binds its
     outputs in the slots' types; views are slices of their root. On the CPU
-    this is the unfused chain's arithmetic exactly, but for
-    ``double_pole_zero``, whose pole runs in K7's order
-    (:func:`.pole_zero.double_pole_zero_runs`); ``soft_pileup``'s first op
-    gives the fit's two coefficients (:func:`.soft_pileup_corr.soft_pileup_fit`),
-    its second the member's output; a dense or classification layer sums in
-    K7's order (:func:`.ml.layer_rows`), and so does a member whose kernel
-    names its variant in ``k7_plain`` (``mean_below_threshold``,
-    ``linear_slope_diff``, ``trap_pickoff``, ``presum``, ``trap_filter`` and
-    the moving windows: K7's block sums, prefix and sums in turn), and the
-    reduce op's sums (:func:`.._numpy_funcs.k7_reduce`). A float64 program
-    (``program.f64``) takes a member's float64 variant in ``k7_f64`` where
-    it has one (the prefix ops, the fits, the banded convolution, the
-    polynomial residual: K7's orders on float64 rows), and soft_pileup's
-    two ops in K7's order (:func:`.soft_pileup_corr.soft_pileup_fit_k7`,
-    :func:`.soft_pileup_corr.soft_pileup_out_k7`). An ``ewise`` op takes
-    its per-row scalars along the row, as the unfused step's fetch
-    broadcasts them. Returns the escapes."""
+    this is the unfused chain's arithmetic exactly, but where K7 sums in an
+    order of its own: a member whose kernel names its variant in
+    ``k7_plain`` runs that variant (``double_pole_zero``'s pole by runs,
+    ``mean_below_threshold``, ``linear_slope_diff``, ``trap_pickoff``,
+    ``presum``, ``trap_filter`` and the moving windows: K7's block sums,
+    prefix and sums in turn), a dense or classification layer sums in K7's
+    order (:func:`.ml.layer_rows`), and so does the reduce op
+    (:func:`.._numpy_funcs.k7_reduce`). A float64 program (``program.f64``)
+    passes ``f64=True`` to the variant, which then takes K7's float64 order
+    (the prefix ops, the fits, the banded convolution, the polynomial
+    residual, soft pile-up); a variant with no float64 order takes no
+    ``f64`` (lowering refuses its op in a float64 program). A member lowered
+    into several ops (soft pile-up: its fit, then the row less the fit)
+    gives every op's outputs in turn, and each op binds its own. An
+    ``ewise`` op takes its per-row scalars along the row, as the unfused
+    step's fetch broadcasts them. Returns the escapes."""
     from .._numpy_funcs import K7_SUMS, k7_reduce
     from .ml import layer_rows
-    from .pole_zero import double_pole_zero_runs
-    from .soft_pileup_corr import soft_pileup_fit, soft_pileup_fit_k7, soft_pileup_out_k7
     from ._tile_program import OPCODES
 
     roots = {program.by_key[k]: vals[k] for k in program.ext_keys}
+    kw = {"f64": True} if program.f64 else {}
+    taken: dict = {}  # a member's outputs bound so far, by its step
 
     def value(sid, dtype):
         v = _slot_value(program, roots, sid)
@@ -1343,29 +1342,23 @@ def generic_rows_plain(program, vals: dict) -> dict:
             args = [a[:, None] if isinstance(a, torch.Tensor) and a.ndim == 1 else a
                     for a in args]
         kern = op.step.kernel
-        variant = ((program.f64 and getattr(kern, "k7_f64", None))
-                   or getattr(kern, "k7_plain", None))
+        variant = getattr(kern, "k7_plain", None)
         if op.code == OPCODES["reduce"] and kern.__name__ in K7_SUMS:
             outs = (k7_reduce(kern.__name__, args[0]),)
-        elif op.code == OPCODES["double_pole_zero"]:
-            outs = (double_pole_zero_runs(*args),)
-        elif op.code == OPCODES["soft_pileup"]:
-            outs = (soft_pileup_fit_k7 if program.f64 else soft_pileup_fit)(*args)
-        elif op.code == OPCODES["soft_pileup_out"] and program.f64:
-            fit = [value(e, None) for e in op.ins[1:3]]
-            outs = (soft_pileup_out_k7(args[0], *fit, *args[1:3]),)
         elif op.code == OPCODES["dense"] and op.ip[0]:
             outs = (layer_rows(args[0], args[1], args[2] if len(args) == 4 else None,
                                op.ip[1], kern.__name__),)
         elif getattr(kern, "uses_dims", False):
-            outs = (variant or kern.fn)(*args, dims=op.step.dims)
-            outs = outs if isinstance(outs, tuple) else (outs,)
+            outs = (variant or kern.fn)(*args, dims=op.step.dims,
+                                        **(kw if variant else {}))
         elif variant is not None:
-            outs = variant(*args)
-            outs = outs if isinstance(outs, tuple) else (outs,)
+            outs = variant(*args, **kw)
         else:
             outs = kern(*args)
-        for sid, o in zip(op.outs, outs):
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        k = taken.get(id(op.step), 0)
+        taken[id(op.step)] = k + len(op.outs)
+        for sid, o in zip(op.outs, outs[k:]):
             want = program.slots[sid].dtype
             roots[sid] = o if o.dtype == want else o.to(want)
     return _escape_values(program, roots)

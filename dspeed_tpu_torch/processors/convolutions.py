@@ -23,6 +23,8 @@ package. In a generic fusion group it is K7's ``reflected_conv`` op.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -321,18 +323,22 @@ def reflected_convolve_wf(w_in, kernel_in, dims, badrow=None):
     return nanmask(isnan_any(w_in, 1) if badrow is None else badrow, out)
 
 
-def _convolve_k7(w_in, kernel_in, mode_in, dims):
-    """:func:`convolve_wf` or :func:`fft_convolve_wf` on a float64 row as
-    K7's float64 ``conv`` op computes it (the plain walk of a float64
-    program): the mode's window of the full convolution, each output summed
-    as :func:`_conv_full_direct` sums it, taps in the row's type."""
+def _convolve_k7(member, w_in, kernel_in, mode_in, dims, f64=False):
+    """:func:`convolve_wf` or :func:`fft_convolve_wf` (``member``) as K7's
+    ``conv`` op computes it (the tape's plain walk): the member's own body;
+    with ``f64`` (a float64 program's row) the mode's window of the full
+    convolution, each output summed as :func:`_conv_full_direct` sums it,
+    taps in the row's type, as K7's float64 op takes it."""
+    if not f64:
+        return member(w_in, kernel_in, mode_in, dims=dims)
     kern = _kernel_array(kernel_in)
     n, m = w_in.shape[-1], kern.shape[-1]
     lo, p = _mode_window(_mode_char(mode_in, "convolve_wf"), n, m)
     return nanmask(isnan_any(w_in, 1), _conv_full_direct(w_in, kern)[..., lo:lo + p])
 
 
-convolve_wf.k7_f64 = fft_convolve_wf.k7_f64 = _convolve_k7
+convolve_wf.k7_plain = functools.partial(_convolve_k7, convolve_wf)
+fft_convolve_wf.k7_plain = functools.partial(_convolve_k7, fft_convolve_wf)
 
 # band-matrix budget of the JAX package's in-tile route
 # (``dspeed_tpu/processors/convolutions.py:158``): it decides which

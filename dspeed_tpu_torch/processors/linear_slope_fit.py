@@ -56,11 +56,14 @@ def linear_slope_fit(w_in, badrow=None):
     )
 
 
-def linear_slope_fit_k7(w_in):
-    """:func:`linear_slope_fit` on a float64 row as K7's float64 op
-    computes it (the plain walk of a float64 program): its sums in K7's
-    block order (:func:`._numerics.k7_sum`), every quotient a true
-    division in float64."""
+def linear_slope_fit_k7(w_in, f64=False):
+    """:func:`linear_slope_fit` as K7's op computes it (the tape's plain
+    walk): the member's own body, which K7's float op equals; with ``f64``
+    (a float64 program's row) its sums in K7's block order
+    (:func:`._numerics.k7_sum`) and every quotient a true division in
+    float64, as K7's float64 op takes them."""
+    if not f64:
+        return linear_slope_fit(w_in)
     n = w_in.shape[-1]
     x = w_in.to(torch.float64)
     i = torch.arange(n, dtype=torch.float64, device=w_in.device)
@@ -115,4 +118,4 @@ linear_slope_fit.tile_safe = True
 linear_slope_diff.tile_safe = True
 # the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
 linear_slope_diff.k7_plain = linear_slope_diff_k7
-linear_slope_fit.k7_f64 = linear_slope_fit_k7
+linear_slope_fit.k7_plain = linear_slope_fit_k7

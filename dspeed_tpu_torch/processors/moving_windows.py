@@ -128,11 +128,12 @@ def moving_window_multi(w_in, length, num_mw, mw_type):
     return _mw_multi(w_in, length, num_mw, mw_type, hp_cumsum)
 
 
-def moving_window_multi_k7(w_in, length, num_mw, mw_type):
-    """:func:`moving_window_multi` on a float64 row as K7's float64 op
-    computes it (the plain walk of a float64 program): each stage from the
-    float64 prefix in K7's order (:func:`._numerics.k7_prefix`)."""
-    return _mw_multi(w_in, length, num_mw, mw_type, k7_prefix)
+def moving_window_multi_k7(w_in, length, num_mw, mw_type, f64=False):
+    """:func:`moving_window_multi` as K7's op computes it (the tape's plain
+    walk): the member's own body, which K7's float op equals; with ``f64``
+    (a float64 program's row) each stage from the float64 prefix in K7's
+    order (:func:`._numerics.k7_prefix`), as K7's float64 op takes it."""
+    return _mw_multi(w_in, length, num_mw, mw_type, k7_prefix if f64 else hp_cumsum)
 
 
 def _mw_multi(w_in, length, num_mw, mw_type, prefix):
@@ -176,7 +177,7 @@ def avg_current(w_in, length, dims):
 # the tape's plain walk takes K7's prefix order
 moving_window_left.k7_plain = moving_window_left_k7
 moving_window_right.k7_plain = moving_window_right_k7
-moving_window_multi.k7_f64 = moving_window_multi_k7
+moving_window_multi.k7_plain = moving_window_multi_k7
 # generic row-tile fusion (the JAX package's flags)
 moving_window_left.tile_safe = True
 moving_window_right.tile_safe = True

@@ -58,10 +58,13 @@ def pole_zero(w_in, t_tau):
     return _pole_zero(w_in, t_tau, lambda w: shift_right(hp_cumsum(w), 1))
 
 
-def pole_zero_k7(w_in, t_tau):
-    """:func:`pole_zero` on a float64 row as K7's float64 op computes it
-    (the plain walk of a float64 program): the exclusive prefix in K7's
-    order (:func:`._numerics.k7_prefix`)."""
+def pole_zero_k7(w_in, t_tau, f64=False):
+    """:func:`pole_zero` as K7's op computes it (the tape's plain walk): the
+    member's own body, which K7's float op equals; with ``f64`` (a float64
+    program's row) the exclusive prefix in K7's order
+    (:func:`._numerics.k7_prefix`), as K7's float64 op takes it."""
+    if not f64:
+        return pole_zero(w_in, t_tau)
     return _pole_zero(w_in, t_tau, lambda w: k7_prefix(w, exclusive=True))
 
 
@@ -170,13 +173,14 @@ def double_pole_zero(w_in, t_tau1, t_tau2, frac):
     return _double_pole_zero(w_in, t_tau1, t_tau2, frac, iir_first_order)
 
 
-def double_pole_zero_runs(w_in, t_tau1, t_tau2, frac):
+def double_pole_zero_runs(w_in, t_tau1, t_tau2, frac, f64=False):
     """:func:`double_pole_zero` in the order of K7's op, which equals it bit
     for bit: its numerator's prefixes as the op takes them
     (:func:`_runs_prefixes`), its pole by runs
     (:func:`._numerics.iir_first_order_runs`: runs of ``ceil(n/256)``
     samples and an affine scan of their maps). The plain walk of a K7 group
-    takes it. Rows are ``(B, n)``."""
+    takes it; K7's float and float64 ops take the same order, so ``f64`` (a
+    float64 program's row) changes nothing. Rows are ``(B, n)``."""
     def pole(z, p):
         return iir_first_order_runs(z.reshape(-1, z.shape[-1]), p).reshape(z.shape)
 
@@ -257,5 +261,7 @@ pole_zero.check_messages = {1: "Pole-zero filter produced nans in output."}
 
 # generic row-tile fusion (the JAX package's flags)
 pole_zero.tile_safe = True
-pole_zero.k7_f64 = pole_zero_k7
 double_pole_zero.tile_safe = True
+# the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
+pole_zero.k7_plain = pole_zero_k7
+double_pole_zero.k7_plain = double_pole_zero_runs

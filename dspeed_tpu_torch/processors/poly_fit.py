@@ -74,14 +74,15 @@ def poly_eval(pars, n):
     return out
 
 
-def residual_stats(w_in, poly_pars, exp: bool, k7: bool = False):
+def residual_stats(w_in, poly_pars, exp: bool, f64: bool = False):
     """``(mean, rms)`` of ``w - p`` (``p`` the polynomial of ``poly_pars``,
     or its exponential): ``mean = sum(resid[i] / (i + 1))`` and ``rms =
     sqrt(sum(resid**2) / (n - 1))``, summed in ``accum_dtype`` and rounded
-    to the row's type; NaN where the row or the parameters hold a NaN. With
-    ``k7`` the sums in K7's block order (:func:`._numerics.k7_sum`) and the
-    quotient a true division, as K7's float64 op takes them on a float64
-    row."""
+    to the row's type; NaN where the row or the parameters hold a NaN. The
+    tape's plain walk takes it as K7's op (K7's float op equals it); with
+    ``f64`` (a float64 program's row) the sums in K7's block order
+    (:func:`._numerics.k7_sum`) and the quotient a true division, as K7's
+    float64 op takes them."""
     n = w_in.shape[-1]
     pars = poly_pars.to(w_in.dtype) if isinstance(poly_pars, torch.Tensor) else (
         torch.as_tensor(np.asarray(poly_pars), dtype=w_in.dtype, device=w_in.device))
@@ -93,7 +94,7 @@ def residual_stats(w_in, poly_pars, exp: bool, k7: bool = False):
     acc = accum_dtype()
     resid = w_in - p
     harm = 1.0 / torch.arange(1, n + 1, dtype=w_in.dtype, device=w_in.device)
-    if k7:
+    if f64:
         mean = k7_sum(resid * harm).to(w_in.dtype)
         rms = torch.sqrt(true_div(k7_sum(resid * resid), float(n - 1))).to(w_in.dtype)
     else:
@@ -120,6 +121,6 @@ def poly_exp_rms(w_in, poly_pars):
 # generic row-tile fusion (the JAX package's flags)
 poly_diff.tile_safe = True
 poly_exp_rms.tile_safe = True
-# the plain walk of a float64 program: K7's order
-poly_diff.k7_f64 = functools.partial(residual_stats, exp=False, k7=True)
-poly_exp_rms.k7_f64 = functools.partial(residual_stats, exp=True, k7=True)
+# the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
+poly_diff.k7_plain = functools.partial(residual_stats, exp=False)
+poly_exp_rms.k7_plain = functools.partial(residual_stats, exp=True)

@@ -52,18 +52,28 @@ def fit_constants(n: int, n_fit: int, tau: float):
     return e1, float(s2), float(s3)
 
 
-def soft_pileup_fit_k7(w_in, n_in, tau_in, b_in=None):
-    """:func:`soft_pileup_fit` on a float64 row as K7's float64 op computes
-    it (the plain walk of a float64 program): ``exp(-i/tau)``, ``s2`` and
-    ``s3`` from :func:`fit_constants`, ``s4`` and ``s5`` in K7's block
-    order (:func:`._numerics.k7_sum`) over the first ``n_in`` samples (NaN
-    where a sample past them is not finite, as the member's masked sums
-    give), every quotient a true division."""
+def soft_pileup_k7(w_in, n_in, tau_in, b_in=None, f64=False):
+    """:func:`soft_pileup_corr` (or, with ``b_in``, :func:`soft_pileup_corr_bl`)
+    as K7's two ops compute it (the tape's plain walk): ``(A, B, out)``, the
+    fit's coefficients per row (the ``soft_pileup`` op's) and the row less
+    the fit (``soft_pileup_out``'s). On a float row the member's own fit
+    (:func:`soft_pileup_fit`) and body. With ``f64`` (a float64 program's
+    row) as K7's float64 ops take them: ``exp(-i/tau)``, ``s2`` and ``s3``
+    from :func:`fit_constants`, ``s4`` and ``s5`` in K7's block order
+    (:func:`._numerics.k7_sum`) over the first ``n_in`` samples (NaN where a
+    sample past them is not finite, as the member's masked sums give),
+    every quotient a true division, the correction in float64."""
+    if not f64:
+        a, b = soft_pileup_fit(w_in, n_in, tau_in, b_in)
+        if b_in is None:
+            return a, b, soft_pileup_corr(w_in, n_in, tau_in)[0]
+        return a, b, soft_pileup_corr_bl(w_in, n_in, tau_in, b_in)[0]
     nf = check_n(n_in, w_in.shape[-1], "soft_pileup_corr")
     e1, s2, s3 = fit_constants(w_in.shape[-1], nf, float(tau_in))
+    e1 = e1.to(w_in.device)
     w = w_in[..., :nf].to(torch.float64)
     tail = (w_in[..., nf:] * 0.0).sum(-1).to(torch.float64)  # 0, or NaN
-    s4 = k7_sum(e1[..., :nf].to(w.device) * w) + tail
+    s4 = k7_sum(e1[..., :nf] * w) + tail
     s5 = k7_sum(w) + tail
     s1 = float(nf)
     if b_in is None:
@@ -72,18 +82,10 @@ def soft_pileup_fit_k7(w_in, n_in, tau_in, b_in=None):
         b = b_in.to(w.device, torch.float64).expand(s4.shape)
     else:
         b = torch.full_like(s4, float(b_in))
-    return true_div(s4 - b * s2, s3), b
-
-
-def soft_pileup_out_k7(w_in, a, b, n_in, tau_in):
-    """The row less the fit ``A exp(-i/tau) + B`` (``a``, ``b`` per row) in
-    float64, ``exp(-i/tau)`` from :func:`fit_constants`: K7's float64
-    ``soft_pileup_out`` op; NaN where the row, ``A`` or ``B`` is."""
-    nf = check_n(n_in, w_in.shape[-1], "soft_pileup_corr")
-    e1 = fit_constants(w_in.shape[-1], nf, float(tau_in))[0].to(w_in.device)
+    a = true_div(s4 - b * s2, s3)
     out = w_in.to(torch.float64) - (a[..., None] * e1 + b[..., None])
     bad = any_bad(isnan_any(w_in, 1), torch.isnan(a), torch.isnan(b))
-    return nanmask(bad, out.to(w_in.dtype))
+    return a, b, nanmask(bad, out.to(w_in.dtype))
 
 
 def check_n(n_in, n, name) -> int:
@@ -149,3 +151,5 @@ def soft_pileup_corr_bl(w_in, n_in, tau_in, b_in):
 # generic row-tile fusion (the JAX package's flags)
 soft_pileup_corr.tile_safe = True
 soft_pileup_corr_bl.tile_safe = True
+# the tape's plain walk runs K7's two ops (_cuda.generic_rows_plain)
+soft_pileup_corr.k7_plain = soft_pileup_corr_bl.k7_plain = soft_pileup_k7

@@ -64,9 +64,10 @@ def trap_filter(w_in, rise, flat, badrow=None):
     return nanmask(isnan_any(w_in, 1) if badrow is None else badrow, out)
 
 
-def trap_filter_k7(w_in, rise, flat):
+def trap_filter_k7(w_in, rise, flat, f64=False):
     """:func:`trap_filter` as K7's ``trap`` op computes it (the tape's plain
-    walk): from the float64 prefix in K7's order (:func:`._numerics.k7_prefix`)."""
+    walk): from the float64 prefix in K7's order (:func:`._numerics.k7_prefix`),
+    on a float or (``f64``) a float64 program's row alike."""
     p = _check("trap_filter", rise=rise, flat=flat)
     out = _trap_sum(w_in, p["rise"], p["flat"], p["rise"], k7_prefix).to(w_in.dtype)
     return nanmask(isnan_any(w_in, 1), out)
@@ -86,11 +87,14 @@ def trap_norm(w_in, rise, flat, badrow=None):
     return nanmask(isnan_any(w_in, 1) if badrow is None else badrow, out)
 
 
-def trap_norm_k7(w_in, rise, flat):
-    """:func:`trap_norm` on a float64 row as K7's float64 ``trap`` op
-    computes it (the plain walk of a float64 program): every window a
-    difference of the float64 prefix in K7's order, divided by ``rise`` in
-    float64."""
+def trap_norm_k7(w_in, rise, flat, f64=False):
+    """:func:`trap_norm` as K7's ``trap`` op computes it (the tape's plain
+    walk): the member's own body, which K7's float op equals; with ``f64``
+    (a float64 program's row) every window a difference of the float64
+    prefix in K7's order, divided by ``rise`` in float64, as K7's float64
+    op takes it."""
+    if not f64:
+        return trap_norm(w_in, rise, flat)
     p = _check("trap_norm", rise=rise, flat=flat)
     acc = _trap_sum(w_in, p["rise"], p["flat"], p["rise"], k7_prefix)
     return nanmask(isnan_any(w_in, 1), true_div(acc, float(p["rise"])).to(w_in.dtype))
@@ -121,10 +125,12 @@ def asym_trap_filter(w_in, rise, flat, fall, badrow=None):
     )
 
 
-def asym_trap_filter_k7(w_in, rise, flat, fall):
-    """:func:`asym_trap_filter` on a float64 row as K7's float64 ``trap``
-    op computes it: each window a difference of the float64 prefix in K7's
-    order, divided by its length in float64."""
+def asym_trap_filter_k7(w_in, rise, flat, fall, f64=False):
+    """:func:`asym_trap_filter` as K7's ``trap`` op computes it, as
+    :func:`trap_norm_k7`: with ``f64`` each window a difference of the
+    float64 prefix in K7's order, divided by its length in float64."""
+    if not f64:
+        return asym_trap_filter(w_in, rise, flat, fall)
     p = _check("asym_trap_filter", rise=rise, flat=flat, fall=fall)
     ps = k7_prefix(w_in)
     d1 = ps - shift_right(ps, p["rise"])
@@ -201,9 +207,8 @@ trap_pickoff.tile_safe = True
 # the tape's plain walk runs K7's order (_cuda.generic_rows_plain)
 trap_pickoff.k7_plain = trap_pickoff_k7
 trap_filter.k7_plain = trap_filter_k7
-# and on float64 rows (its plain walk of a float64 program)
-trap_norm.k7_f64 = trap_norm_k7
-asym_trap_filter.k7_f64 = asym_trap_filter_k7
+trap_norm.k7_plain = trap_norm_k7
+asym_trap_filter.k7_plain = asym_trap_filter_k7
 trap_filter.tile_safe = True
 trap_norm.tile_safe = True
 asym_trap_filter.tile_safe = True

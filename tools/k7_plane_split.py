@@ -1,24 +1,29 @@
-"""Time the plane path's generic groups and its warm ``build_dsp`` for one
-tree of the port, so that a tree whose K7 runs each group as one launch and
-one whose groups split around members K7 has no op for can be held side by
+"""Time a path's generic groups and its warm ``build_dsp`` for one tree of
+the port, so that a tree whose K7 runs each group as one launch and one
+whose groups split around members K7 has no op for can be held side by
 side in one call.
 
+``--path`` names the path: ``plane`` (``chip_smoke.plane_config``,
+``build_dsp`` with ``fuse="generic"``) or ``f64`` (the float64 flagship,
+``chip_smoke.flagship_config("float64")`` on the events in float64, its
+groups from ``fuse="generic"`` and ``build_dsp`` in the default mode, which
+forms the same groups on the card: no hand kernel takes a float64 plane).
 ``--root DIR`` is the tree whose ``dspeed_tpu_torch`` is imported (default:
 the tree this script sits in); the configuration and the events are always
-this tree's (``chip_smoke.plane_config``, ``make_hpge_waveforms``), so an
-older tree runs the same columns. ``--max-members N`` refuses the lowering
-of any run of more than N members (the group then bisects as a refused
-lowering does), to time a group run in smaller launches on one tree.
+this tree's (``chip_smoke``, ``make_hpge_waveforms``), so an older tree
+runs the same columns. ``--max-members N`` refuses the lowering of any run
+of more than N members (the group then bisects as a refused lowering does),
+to time a group run in smaller launches on one tree.
 
 For each generic group it prints the time of the group's own step on the
 device (every launch and plain step it makes, with CUDA events around
 ``iters`` runs back to back) and its K7 launches a run; then ``build_dsp``
-(Table -> Table, ``fuse="generic"``) three times warm, each call's events a
+(Table -> Table) four times, the last three warm, each call's events a
 second, K7 launches a call and the generic-group splits. The last line is
 one JSON object of these figures. On the card, from the root of a tree:
 
-    python3 tools/k7_plane_split.py --label change
-    python3 tools/k7_plane_split.py --root _dev/parent --label parent
+    python3 tools/k7_plane_split.py --label change [--path f64]
+    python3 tools/k7_plane_split.py --root _dev/parent --label parent [--path f64]
 """
 
 import argparse
@@ -45,6 +50,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="")
+    ap.add_argument("--path", choices=("plane", "f64"), default="plane")
     ap.add_argument("--events", type=int, default=16384)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--max-members", type=int, default=0)
@@ -77,10 +83,13 @@ def main(argv=None) -> int:
     card = cs.card_line() if dev.type == "cuda" else "cpu"
     clock = "CUDA events" if dev.type == "cuda" else "host clock"
     print(card, flush=True)
-    cfg = cs.plane_config()
+    f64 = args.path == "f64"
+    cfg = cs.flagship_config("float64") if f64 else cs.plane_config()
+    fuse = {} if f64 else {"fuse": "generic"}  # build_dsp's mode
+    column = "trapEmax" if f64 else "tf_max"
     db = {"pz": {"tau": cs.TAU}}
     wf, _amp, _t0, bl, _rt = cs.make_hpge_waveforms(args.events)
-    tb = cs.hpge_table(lh5, wf, bl)
+    tb = cs.hpge_table(lh5, wf.astype(np.float64) if f64 else wf, bl)
 
     def sync():
         if dev.type == "cuda":
@@ -120,7 +129,7 @@ def main(argv=None) -> int:
                 splits = sum(_tile_program.SPLITS.values())
                 ms = ms_of(lambda: step.run(dict(env)), args.iters)
                 label = "ABCDEFGH"[len(groups)]
-                print(f"[{args.label}] plane group {label}: {len(step.members)} members, "
+                print(f"[{args.label}] {args.path} group {label}: {len(step.members)} members, "
                       f"{k7} K7 launches and {splits} splits a run, {ms:.4f} ms a run "
                       f"({args.events} events, {clock}) on {card}",
                       flush=True)
@@ -134,21 +143,21 @@ def main(argv=None) -> int:
         before = _cuda.LAUNCHES["generic_rows"]
         sync()
         t = time.perf_counter()
-        out = dsp.build_dsp(tb, dsp_config=cfg, database=db, device=args.device,
-                            fuse="generic")
+        out = dsp.build_dsp(tb, dsp_config=cfg, database=db, device=args.device, **fuse)
         sync()
         s = time.perf_counter() - t
         k7 = _cuda.LAUNCHES["generic_rows"] - before
-        col = np.asarray(out["tf_max"].nda)
+        col = np.asarray(out[column].nda)
         if col.shape != (args.events,) or not np.isfinite(col).mean() > 0.9:
-            raise AssertionError(f"build_dsp: tf_max of shape {col.shape}")
-        print(f"[{args.label}] build_dsp [plane] call {q + 1}: {s:.4f} s "
+            raise AssertionError(f"build_dsp: {column} of shape {col.shape}")
+        print(f"[{args.label}] build_dsp [{args.path}] call {q + 1}: {s:.4f} s "
               f"({args.events / s:.0f} wf/s), {k7} K7 launches, splits "
               f"{sum(_tile_program.SPLITS.values())} on {card}", flush=True)
         if q:
             rates.append(args.events / s)
-    print(json.dumps({"label": args.label, "card": card, "groups": groups,
-                      "warm_wf_s": rates, "max_members": args.max_members}))
+    print(json.dumps({"label": args.label, "path": args.path, "card": card,
+                      "groups": groups, "warm_wf_s": rates,
+                      "max_members": args.max_members}))
     return 0
 
 
