@@ -93,13 +93,18 @@ chunk, no split; each new column finite on at least 90% of the events, the
 first 1024 events against the CPU run). The **plane path** (``plane_config``:
 the flagship's 34 columns and columns that run each of K7's plane ops
 inside a generic group, ``PLANE_OPS``): the same, K7 three times a chunk.
-The **float64 path** (``F64_PATHS``: the flagship, its DPZ and its extras on
-float64 rows): K7's float64 kernel on their groups, every stored output
-bit for bit against the plain walk on every row, each float64 op alone
-(``F64_HELD``) bit for bit against the plain walk, within ``F64_REL`` of its
-member's own body and timed against its bound; ``build_dsp`` of the float64
-flagship twice in each mode (K7 twice a chunk, no hand kernel, no split; the
-first 1024 events against the CPU run at the golden replay's tolerance).
+The **float64 paths** (``F64_PATHS``: the flagship, its DPZ, its extras and
+the injection + ML, coverage and plane paths on float64 rows): K7's float64
+kernel on their groups (the plane path's group C, whose float64 arena is
+over one block's shared memory, in the three parts it bisects into), every
+stored output bit for bit against the plain walk on every row, each float64
+op alone (``F64_HELD``) bit for bit against the plain walk, within
+``F64_REL`` of its member's own body and timed against its bound;
+``build_dsp`` of the float64 flagship twice in each mode (K7 twice a chunk,
+no hand kernel, no split) and of the float64 plane path twice in the
+generic mode (K7 ``F64_PLANE_LAUNCHES`` times a chunk, no split but group
+C's on shared memory); the first 1024 events against the CPU run at the
+golden replay's tolerance.
 The **browser** (``vis_phase``:
 ``dspeed_tpu_torch.vis.WaveformBrowser`` over the flagship's 16384 events,
 its chain's K1, K3 and K2 once each, fetched entries against ``build_dsp``
@@ -620,7 +625,7 @@ COVER_ROUND = 10.0  # ADC: trapTmax rounded to a multiple of it
 COVER_TOT_MIN = 10  # samples over half the trapezoid's maximum: a pulse
 
 
-def coverage_config() -> dict:
+def coverage_config(dtype="float32") -> dict:
     """The **coverage path**: the flagship's 34 columns, plus columns that
     run each of the twelve K7 ops of slice 19 at least once inside a generic
     group: ``mean_below_threshold`` (the baseline's mean below twice its
@@ -634,10 +639,12 @@ def coverage_config() -> dict:
     ``multi_a_filter`` after ``get_multi_local_extrema`` on the trapezoid,
     ``presum`` by 4, ``where`` on a comparison and the four rounders on
     ``trapTmax``. With ``fuse="generic"`` it forms the JAX package's four
-    groups (34, 19, 24 and 26 members). Built in memory; the YAML is not
-    changed."""
-    cfg = flagship_config()
+    groups (34, 19, 24 and 26 members). With ``dtype="float64"`` every
+    float32 declaration is widened, as :func:`flagship_config` widens the
+    flagship's. Built in memory; the YAML is not changed."""
+    cfg = flagship_config(dtype)
     k = "dspeed_tpu.processors"
+    c = "d" if dtype == "float64" else "f"
 
     def proc(fn, args, unit=None):
         node = {"function": fn, "module": k, "args": args}
@@ -648,7 +655,7 @@ def coverage_config() -> dict:
     def amax(src, out):
         return {"function": "amax", "module": "numpy", "unit": "ADC",
                 "args": [src, 1, out],
-                "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}}
+                "kwargs": {"signature": "(n),()->()", "types": [f"{c}i->{c}"]}}
 
     half = "trapTmax*0.5"
     cfg["processors"].update({
@@ -677,7 +684,7 @@ def coverage_config() -> dict:
         "pk_amp": proc("multi_a_filter", ["wf_trap", "vt_max", "pk_amp"], "ADC"),
         "pk_a0": proc("get", ["pk_amp", "0", "pk_a0"], "ADC"),
         "ps_fact, wf_ps": proc("presum", [
-            "wf_blsub", "0", "ps_fact", f"wf_ps({N_SAMPLES // COVER_PRESUM}, 'f')"]),
+            "wf_blsub", "0", "ps_fact", f"wf_ps({N_SAMPLES // COVER_PRESUM}, '{c}')"]),
         "ps_max": amax("wf_ps", "ps_max"),
         "trapT_sel": f"where(t_over > {COVER_TOT_MIN}, trapTmax, 0.0)",
         **{f"E_{m}": proc(f"{m}_to_nearest", ["trapTmax", repr(COVER_ROUND), f"E_{m}"],
@@ -714,7 +721,7 @@ PLANE_CUT = 3  # baseline-subtracted samples over 3 standard deviations: the pul
 PLANE_PICKS = {"n": "bl_mean*64", "f": "11*ns", "c": "3*ns", "h": "7*ns"}
 
 
-def plane_config() -> dict:
+def plane_config(dtype="float32") -> dict:
     """The **plane path**: the flagship's 34 columns, plus columns that run
     each of K7's plane ops inside a generic group: ``trap_filter`` (the
     unnormalised trapezoid) and its maximum, both moving windows at 1 us and
@@ -732,22 +739,24 @@ def plane_config() -> dict:
     grid and ``ceil`` and ``trunc`` of it to a 48 ns grid (``convert_floor``
     ...), and an int64 index converted into a sliced row's grid
     (``convert_int``). With ``fuse="generic"`` the JAX package and the port
-    form the same three groups (``PLANE_MEMBERS``). Built in memory; the
-    YAML is not changed."""
-    cfg = flagship_config()
+    form the same three groups (``PLANE_MEMBERS``). With ``dtype="float64"``
+    every float32 declaration is widened, as :func:`flagship_config` widens
+    the flagship's. Built in memory; the YAML is not changed."""
+    cfg = flagship_config(dtype)
     k = "dspeed_tpu.processors"
+    c = "d" if dtype == "float64" else "f"
 
     def proc(fn, args, unit="ADC", **extra):
         return {"function": fn, "module": k, "args": args, "unit": unit, **extra}
 
     def red(fn, src, out):
         return {"function": fn, "module": "numpy", "unit": "ADC", "args": [src, 1, out],
-                "kwargs": {"signature": "(n),()->()", "types": ["fi->f"]}}
+                "kwargs": {"signature": "(n),()->()", "types": [f"{c}i->{c}"]}}
 
     def ufunc(fn, args, types):
         return {"function": fn, "module": "numpy", "args": args,
                 "kwargs": {"signature": ",".join(["()"] * (len(args) - 1)) + "->()",
-                           "types": types}}
+                           "types": [t.replace("f", c) for t in types]}}
 
     pick = "tp_0_est+db.etrap.rise+db.etrap.flat*db.etrap.sample"
     etrap = {"db.etrap.rise": "10*us", "db.etrap.flat": "3*us",
@@ -767,9 +776,9 @@ def plane_config() -> dict:
             "wf_etrap", f"round({pick}, wf_etrap.grid)+{PLANE_PICKS[m]}", f"'{m}'",
             f"trapEftp_{m}"], defaults=etrap) for m in "nfch"},
         "t0k17": proc("t0_filter", ["16*ns/wf_pz.period", "256*ns/wf_pz.period",
-                                    "t0k17(round(272*ns/wf_pz.period), 'f')"]),
+                                    f"t0k17(round(272*ns/wf_pz.period), '{c}')"]),
         **{f"wf_t0{m}": proc("convolve_wf", [
-            "wf_pz", "t0k17", f"'{m}'", f"wf_t0{m}({conv_len[m]}, 'f')"])
+            "wf_pz", "t0k17", f"'{m}'", f"wf_t0{m}({conv_len[m]}, '{c}')"])
            for m in "sfv"},
         **{f"t0{m}_max": red("amax", f"wf_t0{m}", f"t0{m}_max") for m in "sfv"},
         "wf_sel": f"where(wf_blsub > {PLANE_CUT}*bl_std, wf_blsub, 0.0)",
@@ -851,19 +860,32 @@ def plane_op_label(prog, op):
     return None
 
 
-# the float64 path: K7's float64 kernel on the groups of the float64
-# flagship, DPZ and extras (flagship_config, dpz_config, extras_config with
-# "float64"), with their members (in fuse="generic")
-F64_PATHS = (("float64 flagship", flagship_config, (34, 19)),
-             ("float64 DPZ", dpz_config, (34, 19)),
-             ("float64 extras", extras_config, (34, 19, 9, 2, 22)))
-# the float64 plane ops those groups run, each held alone (f64_op_label;
-# every program loads its rows)
+# the float64 paths: K7's float64 kernel on the groups of the float64
+# flagship, DPZ, extras, injection + ML, coverage and plane paths
+# (flagship_config ... plane_config with "float64"), with their members (in
+# fuse="generic") and the groups that may bisect, on shared memory alone
+# (the plane path's group C: its float64 arena is over one block's)
+F64_PATHS = (("float64 flagship", flagship_config, (34, 19), ""),
+             ("float64 DPZ", dpz_config, (34, 19), ""),
+             ("float64 extras", extras_config, (34, 19, 9, 2, 22), ""),
+             ("float64 injection + ML", inject_ml_config, (34, 19, 25, 22), ""),
+             ("float64 coverage", coverage_config, (34, 19, 24, 26), ""),
+             ("float64 plane", plane_config, PLANE_MEMBERS, "C"))
+# K7 launches a chunk of the float64 plane path's build_dsp: groups A and B,
+# and group C's three parts
+F64_PLANE_LAUNCHES = 5
+# the float64 ops those groups run, each held alone (f64_op_label; every
+# program loads its rows)
 F64_HELD = ("bl_subtract", "windower", "avg_current", "min_max", "amax",
             "linear_slope_fit", "pole_zero", "trap_norm", "asym_trap_filter", "conv",
             "moving_window_multi", "time_point_thresh", "time_point_thresh l",
             "fixed_time_pickoff l", "double_pole_zero", "poly_residual", "soft_pileup",
-            "wf_correction", "wf_centroid")
+            "wf_correction", "wf_centroid",
+            # the injection + ML, coverage and plane paths'
+            "inject", "dense normalisation", "dense", "mean_below_threshold", "count",
+            "presum", "log_check", "trap_pickoff", "min_max_norm", "linear_slope_diff",
+            "get", "multi_a_filter", "where", "round", "trap_filter", "moving_window",
+            "conv_direct", "ewise", "reduce")
 
 
 def f64_op_label(prog, op):
@@ -871,7 +893,9 @@ def f64_op_label(prog, op):
     ``prog``) is, or None (the loads, the per-row ufunc and convert ops):
     the ``trap`` op by its member's kind, ``time_point_thresh`` and
     ``fixed_time_pickoff`` with their interpolation mode, soft_pileup's two
-    ops (one member) as ``soft_pileup``, the rest by their opcodes."""
+    ops (one member) as ``soft_pileup``, the ``dense`` op's normalisation as
+    ``dense normalisation`` (its layers as ``dense``), the rest by their
+    opcodes."""
     from dspeed_tpu_torch.processors._tile_program import OPCODES, TRAP_KINDS
 
     if not prog.f64:
@@ -885,6 +909,8 @@ def f64_op_label(prog, op):
         return f"time_point_thresh {chr(op.ip[1])}"
     if name == "fixed_time_pickoff":
         return f"fixed_time_pickoff {chr(op.ip[0])}"
+    if name == "dense" and op.ip[0] == 0:
+        return "dense normalisation"
     return "soft_pileup" if name == "soft_pileup_out" else name
 
 
@@ -1227,17 +1253,19 @@ def ptxas_report(log: str, kernel: str) -> dict:
 
 def k7_ptxas(log: str) -> tuple[list, list]:
     """``ptxas -v``'s report for K7's float kernel and for its float64
-    kernel; fails unless the float kernel takes 80 registers or fewer and
-    neither spills."""
+    kernel; fails unless the float kernel takes 80 registers or fewer, the
+    float64 kernel 128 or fewer (two blocks an SM), and neither spills."""
     reports = ptxas_report(log, "generic_rows_kernel")
     ptxas = [v for k, v in reports.items() if "_f64" not in k]
     ptxas64 = [v for k, v in reports.items() if "_f64" in k]
     for kernel, rep in (("generic_rows_kernel", ptxas), ("generic_rows_kernel_f64", ptxas64)):
         if len(rep) != 1 or "0 bytes spill stores, 0 bytes spill loads" not in rep[0]:
             raise AssertionError(f"K7: {kernel} spills, or its ptxas report is {rep}")
-    regs = int(re.search(r"Used (\d+) registers", ptxas[0]).group(1))
-    if regs > 80:
-        raise AssertionError(f"K7: generic_rows_kernel takes {regs} registers, over 80")
+    for kernel, rep, cap in (("generic_rows_kernel", ptxas, 80),
+                             ("generic_rows_kernel_f64", ptxas64, 128)):
+        regs = int(re.search(r"Used (\d+) registers", rep[0]).group(1))
+        if regs > cap:
+            raise AssertionError(f"K7: {kernel} takes {regs} registers, over {cap}")
     return ptxas, ptxas64
 
 
@@ -2000,8 +2028,9 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
     select or rounding none). A float64 program's planes count 8 bytes a
     sample, and all its operations are float64 ones (its trapezoids take
     every window from the prefix). Float64 products and sums shaped as a
-    matrix product (a float64 convolution's, the reflected convolution's
-    in float64, a dense layer's) count at the float64 tensor-core peak
+    matrix product (a float64 convolution's, direct or banded, the
+    reflected convolution's in float64, a dense layer's) count at the
+    float64 tensor-core peak
     ``PEAK_F64_MM_S``, the rest of the float64 work at ``PEAK_F64_S``."""
     import torch
 
@@ -2096,7 +2125,10 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
         elif op.code == OPCODES["moving_window"]:
             f64 += 3 * n  # the prefix, a difference and a division
         elif op.code == OPCODES["conv_direct"]:
-            f32 += 2 * op.ip[1] * slots[op.outs[0]].length
+            if program.f64:
+                mm += 2 * op.ip[1] * slots[op.outs[0]].length
+            else:
+                f32 += 2 * op.ip[1] * slots[op.outs[0]].length
         elif op.code == OPCODES["ewise"]:
             f32 += slots[op.outs[0]].length  # one operation a sample
         elif op.code == OPCODES["reduce"]:
@@ -2115,6 +2147,41 @@ def generic_bound(program, B, nbytes=None) -> tuple[float, str]:
     t_bytes = (B * nbytes if nb is None else nb) / PEAK_BYTES_S * 1e3
     t_ops = B * (f32 / PEAK_F32_S + f64 / PEAK_F64_S + mm / PEAK_F64_MM_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k7_parts(step, env, refusals, members=None, needed=None):
+    """The launches ``GroupStep._exec`` makes for the group ``step``: the
+    whole group as one program where it lowers, else (the refusal's reason
+    appended to ``refusals``) its halves in turn, each lowered once the
+    parts before it have put their outputs into ``env`` (the caller runs a
+    part before it takes the next). Yields ``(members, vals, program)``."""
+    from dspeed_tpu_torch.processing_chain import _step_writes
+    from dspeed_tpu_torch.processors._tile_program import LoweringError, lower
+
+    members = list(step.members if members is None else members)
+    needed = set(step.escapes if needed is None else needed)
+    reads = step.proc_chain._step_env_reads
+    ext, written = set(), set()
+    for m in members:
+        ext |= reads(m) - written
+        written |= _step_writes(m)
+    vals = {k: env[k] for k in sorted(ext)}
+    try:
+        prog = lower(members, vals, sorted(needed & written))
+    except LoweringError as e:
+        if len(members) < 4:
+            raise
+        refusals.append(str(e))
+        prog = None
+    if prog is not None:
+        yield members, vals, prog
+        return
+    mid = len(members) // 2
+    needed1 = set(needed)
+    for m in members[mid:]:
+        needed1 |= reads(m)
+    yield from k7_parts(step, env, refusals, members[:mid], needed1)
+    yield from k7_parts(step, env, refusals, members[mid:], needed)
 
 
 def alone_program(full, op, got, vals):
@@ -2264,13 +2331,17 @@ def held_alone(figs, names, path) -> None:
 
 def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
              cfg=None, fuse="generic", members=(34, 19), path="generic flagship",
-             db=None, pick=None):
+             db=None, pick=None, may_split=""):
     """K7 on the groups of ``cfg`` (default: the generic flagship's two) in
     fusion mode ``fuse``: the chain built on the CPU over every event (NaN
     rows included), its steps run on the card up to the last group, each
     group lowered twice: with every key it writes (held against the plain
     walk by ``check_generic``) and with the chain's own escapes (timed
     against the plain walk, through the wrapper and on the device alone).
+    A group whose lowering is refused runs as the parts ``GroupStep._exec``
+    bisects it into (:func:`k7_parts`, labelled C1, C2, ...), each held and
+    timed as a group; only the groups named in ``may_split`` may, and only
+    on shared memory.
     A ``double_pole_zero`` op's plane must equal the plain walk's bit for
     bit on every row, and, within REL_TOL of its scale, the kernel route's
     (``double_pole_zero`` called alone, on the recurrence kernel); the
@@ -2282,9 +2353,8 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
     ``generic_rows_kernel``."""
     import torch
 
-    import dspeed_tpu_torch.processors as tp
     from dspeed_tpu_torch.processing_chain import GroupStep
-    from dspeed_tpu_torch.processors._tile_program import OPCODES, lower
+    from dspeed_tpu_torch.processors._tile_program import OPCODES
 
     names = {v: k for k, v in OPCODES.items()}
     alone_figs: dict = {}
@@ -2311,100 +2381,30 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
         raise AssertionError(f"{path}: groups of {[len(g.members) for g in groups]} "
                              f"members, not {list(members)}")
     figs = []
+    done = 0  # groups run
     with torch.no_grad():
         for step in chain._steps:
             if not isinstance(step, GroupStep):
                 step.run(env)
                 continue
-            label = "ABCDEFGH"[len(figs)]
-            vals = {k: env[k] for k in step.ext_in}
-            prog = lower(step.members, vals, step.escapes)
-            every = sorted(s.key for s in prog.slots if not s.ext)
-            full, got, want = store_every(_cuda, step.members, vals, every)
-            torch.cuda.synchronize()
-            err, rel, excused, conv_rows = check_generic(full, vals, got, want,
-                                                         label)
-            if full.f64:
-                diff = [k for k in want if not same_bits(got[k], want[k])]
-                if diff:
-                    raise AssertionError(f"K7 {label} [{path}]: {diff} differ from the "
-                                         f"plain walk")
-                print(f"K7 {label} [{path}]: all {len(want)} outputs of the float64 "
-                      f"program equal the plain walk's bit for bit on all {B} rows",
-                      flush=True)
-            dpz = [op for op in full.ops if op.code == OPCODES["double_pole_zero"]]
-            for op in dpz:
-                src, dst = (full.slots[op.ins[0]].key, full.slots[op.outs[0]].key)
-                if not same_bits(got[dst], want[dst]):
-                    raise AssertionError(f"K7 {label} {dst}: double_pole_zero differs "
-                                         f"from the plain walk")
-                x = got[src] if src in got else vals[src]
-                alone = tp.double_pole_zero(x, *(a[1] for a in op.args[1:]))[0]
-                g, w = got[dst].double(), alone.double()
-                if not torch.equal(torch.isnan(g), torch.isnan(w)):
-                    raise AssertionError(f"K7 {label} {dst}: NaN rows differ from "
-                                         f"the kernel route's")
-                ok = ~torch.isnan(w)
-                d = float((g[ok] - w[ok]).abs().max())
-                scale = float(w[ok].abs().max())
-                n_diff = int((g[ok] != w[ok]).sum())
-                print(f"K7 {label} {dst} against double_pole_zero alone (the "
-                      f"recurrence kernel): max |diff| {d:.3e} ({d / scale:.3e} of "
-                      f"scale), {n_diff} of {int(ok.sum())} samples not equal",
-                      flush=True)
-                if d > REL_TOL * scale:
-                    raise AssertionError(f"K7 {label} {dst}: off the kernel route")
-            bits = [full.slots[sid].key for op in full.ops
-                    if op.code in (OPCODES["inject"], OPCODES["dense"]) for sid in op.outs]
-            for key in bits:
-                if not same_bits(got[key], want[key]):
-                    raise AssertionError(f"K7 {label} {key}: the {path} op differs "
-                                         f"from the plain walk")
-            if bits:
-                print(f"K7 {label} [{path}]: the {len(bits)} outputs of its inject and "
-                      f"dense ops equal the plain walk's bit for bit on all {B} rows",
-                      flush=True)
-            if pick is not None:
-                alone_figs.update(k7_alone_ops(_cuda, full, got, vals, pick,
-                                               f"{label} [{path}]", alone_figs, B))
-            outs = _cuda.generic_rows(prog, vals)
-            for k in step.escapes:
-                g, w = outs[k], got[k]
-                if g.shape != w.shape or g.stride() != w.stride() or not bool(
-                        ((g == w) | (torch.isnan(g) & torch.isnan(w))).all()):
-                    raise AssertionError(f"K7 {label} {k}: the chain's launch differs")
-            ms = time_ms(lambda: _cuda.generic_rows(prog, vals), 20)
-            dev_ms = device_ms(lambda: _cuda.generic_rows(prog, vals))
-            plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, vals), 3, 1)
-            bound, by = generic_bound(prog, B)
-            launch = _cuda.generic_rows_launch(prog)
-            if launch["local_bytes"] or (not prog.f64 and launch["registers"] > 80):
-                raise AssertionError(f"K7 {label} [{path}]: launch {launch}")
-            print(
-                f"K7 generic_rows{'_f64' if prog.f64 else ''} [{path} group {label}: "
-                f"{len(step.members)} members, "
-                f"{len(prog.ops)} ops, {sum(op.plan for op in prog.ops)} planned "
-                f"barriers, {len(prog.ext_keys)} inputs, "
-                f"{len(step.escapes)} escapes, {prog.smem_bytes} B of shared "
-                f"memory] {B} rows: max |kernel - plain| {err:.3e} ({rel:.3e} of "
-                f"scale), {excused} rows excused as near-ties, convolution bit "
-                f"for bit on {conv_rows} rows; kernel {ms:.4f} ms ({dev_ms:.4f} "
-                f"ms on the device alone), plain {plain_ms:.4f} ms, bound "
-                f"{bound:.4f} ms ({by}), {bound / ms:.1%} of the bound "
-                f"({bound / dev_ms:.1%} on the device alone); launch: "
-                f"{launch['threads']} threads and {launch['smem_bytes']} + "
-                f"{launch['static_smem_bytes']} B of shared memory a block, "
-                f"{launch['blocks_per_sm']} blocks per SM, "
-                f"{launch['registers']} registers and {launch['local_bytes']} "
-                f"local bytes a thread",
-                flush=True,
-            )
-            figs.append(dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
-                             bound=bound, by=by, err=err, launch=launch,
-                             ops=sorted({names[op.code] for op in prog.ops}),
-                             f64=prog.f64))
-            env.update({k: got[k] for k in step.escapes})
-            if len(figs) == len(groups):
+            group = "ABCDEFGH"[done]
+            done += 1
+            refusals: list = []
+            for part, (part_members, vals, prog) in enumerate(k7_parts(step, env,
+                                                                       refusals)):
+                label = group + (str(part + 1) if refusals else "")
+                figs.append(k7_group(_cuda, part_members, vals, prog, label, path, B,
+                                     pick, alone_figs, names))
+                got = figs[-1].pop("got")
+                env.update({k: got[k] for k in prog.escapes})
+            if refusals:
+                if group not in may_split or not all("shared memory" in r
+                                                     for r in refusals):
+                    raise AssertionError(f"{path}: group {group} split: {refusals}")
+                print(f"K7 [{path}] group {group} ({len(step.members)} members) ran in "
+                      f"{sum(f['label'].startswith(group) for f in figs)} parts: its "
+                      f"lowering refused on shared memory ({refusals})", flush=True)
+            if done == len(groups):
                 break
     ptxas, ptxas64 = k7_ptxas(ptxas_log)
     print(f"K7 ptxas for generic_rows_kernel: {' | '.join(ptxas)}; for "
@@ -2424,7 +2424,8 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
     )
     if pick is not None:
         out["ops_alone"] = alone_figs
-    for lab, f in zip("abcdefgh", figs):
+    for f in figs:
+        lab = f["label"].lower()
         out.update({f"group_{lab}_ms": f["ms"], f"group_{lab}_device_ms": f["dev_ms"],
                     f"group_{lab}_plain_ms": f["plain_ms"],
                     f"group_{lab}_bound_ms": f["bound"],
@@ -2432,6 +2433,105 @@ def k7_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, ptxas_log,
         if len(figs) > 2:
             out[f"group_{lab}_ops"] = f["ops"]
     return out
+
+
+def k7_group(_cuda, members, vals, prog, label, path, B, pick, alone_figs, names):
+    """One K7 launch of :func:`k7_phase`: ``members`` (a group, or a part of
+    one) on ``vals``, lowered as ``prog`` (the chain's escapes); every key it
+    writes held against the plain walk (``check_generic``; a float64
+    program's bit for bit, a ``double_pole_zero``'s against the kernel
+    route, the ``inject`` and ``dense`` ops' bit for bit), the ops ``pick``
+    names held and timed alone, then ``prog`` timed. Returns its figures,
+    with every output of the launch under ``got``."""
+    import torch
+
+    import dspeed_tpu_torch.processors as tp
+    from dspeed_tpu_torch.processors._tile_program import OPCODES
+
+    every = sorted(s.key for s in prog.slots if not s.ext)
+    full, got, want = store_every(_cuda, members, vals, every)
+    torch.cuda.synchronize()
+    err, rel, excused, conv_rows = check_generic(full, vals, got, want,
+                                                 label)
+    if full.f64:
+        diff = [k for k in want if not same_bits(got[k], want[k])]
+        if diff:
+            raise AssertionError(f"K7 {label} [{path}]: {diff} differ from the "
+                                 f"plain walk")
+        print(f"K7 {label} [{path}]: all {len(want)} outputs of the float64 "
+              f"program equal the plain walk's bit for bit on all {B} rows",
+              flush=True)
+    dpz = [op for op in full.ops if op.code == OPCODES["double_pole_zero"]]
+    for op in dpz:
+        src, dst = (full.slots[op.ins[0]].key, full.slots[op.outs[0]].key)
+        if not same_bits(got[dst], want[dst]):
+            raise AssertionError(f"K7 {label} {dst}: double_pole_zero differs "
+                                 f"from the plain walk")
+        x = got[src] if src in got else vals[src]
+        alone = tp.double_pole_zero(x, *(a[1] for a in op.args[1:]))[0]
+        g, w = got[dst].double(), alone.double()
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"K7 {label} {dst}: NaN rows differ from "
+                                 f"the kernel route's")
+        ok = ~torch.isnan(w)
+        d = float((g[ok] - w[ok]).abs().max())
+        scale = float(w[ok].abs().max())
+        n_diff = int((g[ok] != w[ok]).sum())
+        print(f"K7 {label} {dst} against double_pole_zero alone (the "
+              f"recurrence kernel): max |diff| {d:.3e} ({d / scale:.3e} of "
+              f"scale), {n_diff} of {int(ok.sum())} samples not equal",
+              flush=True)
+        if d > REL_TOL * scale:
+            raise AssertionError(f"K7 {label} {dst}: off the kernel route")
+    bits = [full.slots[sid].key for op in full.ops
+            if op.code in (OPCODES["inject"], OPCODES["dense"]) for sid in op.outs]
+    for key in bits:
+        if not same_bits(got[key], want[key]):
+            raise AssertionError(f"K7 {label} {key}: the {path} op differs "
+                                 f"from the plain walk")
+    if bits:
+        print(f"K7 {label} [{path}]: the {len(bits)} outputs of its inject and "
+              f"dense ops equal the plain walk's bit for bit on all {B} rows",
+              flush=True)
+    if pick is not None:
+        alone_figs.update(k7_alone_ops(_cuda, full, got, vals, pick,
+                                       f"{label} [{path}]", alone_figs, B))
+    outs = _cuda.generic_rows(prog, vals)
+    for k in prog.escapes:
+        g, w = outs[k], got[k]
+        if g.shape != w.shape or g.stride() != w.stride() or not bool(
+                ((g == w) | (torch.isnan(g) & torch.isnan(w))).all()):
+            raise AssertionError(f"K7 {label} {k}: the chain's launch differs")
+    ms = time_ms(lambda: _cuda.generic_rows(prog, vals), 20)
+    dev_ms = device_ms(lambda: _cuda.generic_rows(prog, vals))
+    plain_ms = time_ms(lambda: _cuda.generic_rows_plain(prog, vals), 3, 1)
+    bound, by = generic_bound(prog, B)
+    launch = _cuda.generic_rows_launch(prog)
+    if launch["local_bytes"] or launch["registers"] > (128 if prog.f64 else 80):
+        raise AssertionError(f"K7 {label} [{path}]: launch {launch}")
+    print(
+        f"K7 generic_rows{'_f64' if prog.f64 else ''} [{path} group {label}: "
+        f"{len(members)} members, "
+        f"{len(prog.ops)} ops, {sum(op.plan for op in prog.ops)} planned "
+        f"barriers, {len(prog.ext_keys)} inputs, "
+        f"{len(prog.escapes)} escapes, {prog.smem_bytes} B of shared "
+        f"memory] {B} rows: max |kernel - plain| {err:.3e} ({rel:.3e} of "
+        f"scale), {excused} rows excused as near-ties, convolution bit "
+        f"for bit on {conv_rows} rows; kernel {ms:.4f} ms ({dev_ms:.4f} "
+        f"ms on the device alone), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}), {bound / ms:.1%} of the bound "
+        f"({bound / dev_ms:.1%} on the device alone); launch: "
+        f"{launch['threads']} threads and {launch['smem_bytes']} + "
+        f"{launch['static_smem_bytes']} B of shared memory a block, "
+        f"{launch['blocks_per_sm']} blocks per SM, "
+        f"{launch['registers']} registers and {launch['local_bytes']} "
+        f"local bytes a thread",
+        flush=True,
+    )
+    return dict(label=label, ms=ms, dev_ms=dev_ms, plain_ms=plain_ms,
+                bound=bound, by=by, err=err, launch=launch,
+                ops=sorted({names[op.code] for op in prog.ops}),
+                f64=prog.f64, got=got)
 
 
 def new_ops_phase(build_processing_chain, lh5, _cuda, wf, bl, dev, db):
@@ -3575,7 +3675,7 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
               expect, rt=None, device="cuda", fuse=True, forbid=(),
               aoe_geometry=AOE_GEOMETRY, trap_tol=0.005, extras=False,
               inject_ml=False, cover=False, plane=False, db=None, n_cpu=256,
-              f64=False):
+              f64=False, smem_splits=False):
     """A main path: ``build_dsp`` of ``cfg`` with fusion mode ``fuse`` over
     every event of ``wf`` on ``device``, file -> file where ``h5py`` is
     installed, else Table -> Table; launch counts and generic-group splits
@@ -3593,8 +3693,10 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     by :func:`plane_checks` (the flagship's by the rules above). ``db`` is the database (default: the flagship's
     ``pz.tau``); the first ``n_cpu`` events are held against the CPU run
     (with ``f64``, a float64 chain: every column at the golden replay's
-    tolerance, F64_REL and F64_ATOL of its scale). Records the calls' wf/s
-    in ``E2E_RATES[label]``. Returns the launch counts."""
+    tolerance, F64_REL and F64_ATOL of its scale). With ``smem_splits`` a
+    group may split, where its plan is over one block's shared memory, and
+    for no other reason. Records the calls' wf/s in ``E2E_RATES[label]``.
+    Returns the launch counts."""
     import importlib.util
 
     import torch
@@ -3749,7 +3851,8 @@ def e2e_phase(build_dsp, lh5, _cuda, cfg, wf, amp, t0, bl, card, label,
     for name in forbid:
         if launches.get(name, 0) != 0:
             raise AssertionError(f"{name} was launched on the {label} path")
-    if group_splits:
+    if any("float32 planes only" in k or not (smem_splits and "shared memory" in k)
+           for k in group_splits):
         raise AssertionError(
             f"generic groups split on the {label} path: {group_splits}")
     return launches
@@ -4391,6 +4494,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
+    t_all = time.time()
     card = card_line()
     print(card, flush=True)
     print(
@@ -4592,18 +4696,20 @@ def main() -> int:
     held_alone(k7["plane_groups"], PLANE_OPS, "plane")
     torch.cuda.empty_cache()
 
-    # -- the float64 path: K7's float64 kernel on the groups of the float64 --
-    # -- flagship, DPZ and extras (float64 rows), every stored output bit for --
-    # -- bit against the plain walk, each float64 op alone (bit for bit, within --
-    # -- F64_REL of its member's own body, timed against its bound) ----------
+    # -- the float64 paths: K7's float64 kernel on the groups of the float64 --
+    # -- flagship, DPZ, extras, injection + ML, coverage and plane paths -------
+    # -- (float64 rows), every stored output bit for bit against the plain ----
+    # -- walk, each float64 op alone (bit for bit, within F64_REL of its ------
+    # -- member's own body, timed against its bound) --------------------------
     wf64 = wf.astype(np.float64)
     held: dict = {"ops_alone": {}}
     k7f64 = {}
-    for path, make, members in F64_PATHS:
+    for path, make, members, may_split in F64_PATHS:
         rows, base = (dwf.astype(np.float64), dbl) if path == "float64 DPZ" else (wf64, bl)
         k7f64[path] = figs = k7_phase(
             build_processing_chain, lh5, _cuda, rows, base, dev, logs["generic_rows"],
-            cfg=make("float64"), members=members, path=path, pick=f64_op_label)
+            cfg=make("float64"), members=members, path=path, pick=f64_op_label,
+            db=ml_db if "injection" in path else None, may_split=may_split)
         held["ops_alone"].update(figs["ops_alone"])
         del rows
         torch.cuda.empty_cache()
@@ -4731,6 +4837,17 @@ def main() -> int:
           f"(generic), against the float32 flagship's {E2E_RATES['flagship'][1]:.0f} "
           f"(default) and {E2E_RATES['flagship generic'][1]:.0f} (generic) in this "
           f"call, on {card}", flush=True)
+    # the float64 plane path in the generic mode (16384 events of 4096
+    # float64 samples, 512 MiB of rows a chunk): K7 on groups A and B and on
+    # group C's three parts, which it bisects into on shared memory alone
+    f64_launches["float64 plane"] = e2e_phase(
+        build_dsp, lh5, _cuda, plane_config("float64"), wf64, amp, inj_t0, bl, card,
+        "float64 plane", expect=("generic_rows",), rt=rt,
+        device=DEVICE, fuse="generic", forbid=hand, plane=True, f64=True,
+        n_cpu=1024, smem_splits=True)
+    if f64_launches["float64 plane"]["generic_rows"] != F64_PLANE_LAUNCHES:
+        raise AssertionError(f"float64 plane launches {f64_launches['float64 plane']}: "
+                             f"generic_rows not {F64_PLANE_LAUNCHES} times a chunk")
     del wf64
     # the waveform browser: its chain (K1, K3, K2) and its data path
     vis = vis_phase(build_dsp, lh5, _cuda, wf, bl, card)
@@ -4826,8 +4943,12 @@ def main() -> int:
             replaces="dspeed_tpu/processors/_pallas.py:1782 (on float64 rows)",
             launches=f64_launches["float64 flagship"]["generic_rows"],
             generic_launches=f64_launches["float64 flagship generic"]["generic_rows"],
-            library_ms=None, **k7f64["float64 flagship"],
+            plane_launches=f64_launches["float64 plane"]["generic_rows"],
+            library_ms=None, **{**k7f64["float64 flagship"],
+                                "ops_alone": held["ops_alone"]},
             dpz_groups=k7f64["float64 DPZ"], extras_groups=k7f64["float64 extras"],
+            inject_ml_groups=k7f64["float64 injection + ML"],
+            cover_groups=k7f64["float64 coverage"], plane_groups=k7f64["float64 plane"],
         ),
         dict(
             name="recurrence", route="cuda",
@@ -4853,6 +4974,7 @@ def main() -> int:
             launches=extras_launches["bilevel_scan"], library_ms=None, **bls,
         ),
     ]
+    print(f"chip_smoke: every phase passed in {time.time() - t_all:.1f} s", flush=True)
     print(json.dumps({"paths": {
         "vis": vis,
         "checked": chk,

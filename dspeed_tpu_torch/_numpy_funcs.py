@@ -283,14 +283,15 @@ NUMPY_FUNCS = {
 K7_SUMS = frozenset(("sum", "mean", "nansum", "nanmean"))
 
 
-def k7_reduce(name: str, a: torch.Tensor) -> torch.Tensor:
+def k7_reduce(name: str, a: torch.Tensor, f64: bool = False) -> torch.Tensor:
     """``numpy.<name>(a, axis=-1)`` for ``name`` in :data:`K7_SUMS` as K7's
     reduce op computes it (the tape's plain walk): the row's values in
     float64 (a NaN as 0 for ``nansum`` and ``nanmean``) summed in K7's block
     order (:func:`.processors._numerics.k7_sum`), a mean divided by its count
     in float64; in the member's type (the row's for float rows; for bool
     rows int64, a mean float64). Differs from the member's
-    float32 sum by rounding only."""
+    float32 sum by rounding only. K7's float64 op (``f64``: a float64
+    program's row, or a bool row in one) takes the same sums."""
     from .processors._numerics import k7_sum
 
     x = a.to(torch.float64)

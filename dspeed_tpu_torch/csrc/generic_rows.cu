@@ -83,20 +83,27 @@
 //   nansum, nanmean, nanmax, nanmin  float64 block order
 // A row with a NaN poisons what each member poisons, op by op.
 //
-// Float64 rows (the float64 flagship's, DPZ's and extras' groups) run on a
-// kernel of their own, generic_rows_kernel_f64: the same interpreter loop
-// over the same tape, plan and barrier tables, with a table of ops of its
-// own (gen_op<double>, beside the float kernel's gen_op<float>). Every
-// plane there is float64 (two words a sample of the arena, a slice's place
-// counted in words), and its ops are the templated ones above (min_max,
-// amax, the searches and pick-offs, soft_pileup, wf_correction,
-// wf_centroid) or float64 forms (op_*64): each the member's arithmetic on a
-// float64 row, every product, sum and quotient rounded once (no
-// contraction) in the order of the tape's plain walk, whose members take
-// their K7-order variants (k7_plain, given f64). Nothing of the float
-// kernel's table is on that path, so its register cap stays; the float64
-// groups' shared memory (~106 KB for the flagship's) allows two blocks an
-// SM, and with them 128 registers a thread.
+// Float64 rows run on a kernel of their own, generic_rows_kernel_f64: the
+// same interpreter loop over the same tape, plan and barrier tables, with a
+// table of ops of its own (gen_op<double>, beside the float kernel's
+// gen_op<float>) that takes every op of the float table but the reflected
+// convolution (a float32 row's). Every plane there is float64 or bool, two
+// words a sample of the arena (a bool plane holds doubles 1.0 and 0.0, its
+// stored copy one byte; a slice's place counted in words), and its ops are
+// the templated ones above (min_max, amax, the searches, pick-offs and
+// gathers, soft_pileup, wf_correction, wf_centroid, the coverage ops, the
+// moving windows, the direct convolution, ewise, reduce, the bool load) or
+// float64 forms (op_*64, inject and dense among them): each the member's
+// arithmetic on a float64 row, every product, sum and quotient rounded once
+// (no contraction) in the order of the tape's plain walk, whose members take
+// their K7-order variants (k7_plain, given f64); exp, log, pow, tanh and
+// log1p are the device's, as PyTorch's float64 ones on the card. The ops
+// the float64 flagship, DPZ and extras groups do not run sit behind one
+// __noinline__ call site, outlined_op64, as the float kernel's plane ops do
+// behind outlined_op. Nothing of the float kernel's table is on that path,
+// so its register cap stays; the float64 groups' shared memory (~106 KB for
+// the flagship's) allows two blocks an SM, and with them 128 registers a
+// thread (108 taken).
 //
 // What bounds it on this card: bytes for most groups. The flagship's first
 // generic group reads one 4096-sample f32 row and writes three planes (16 KB
@@ -931,7 +938,7 @@ __device__ __noinline__ double ftp_pick64(const double* x, int n, double t, int 
 // The ops that warp 0 runs alone, lane 0 storing the result: the searches
 // and the per-row scalar arithmetic, over planes of type T (a float64
 // row's searches compare in float64, its interpolations and picks round in
-// float64; get runs on float rows only).
+// float64; get reads its sample in the row's type).
 template <typename T>
 __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
                                         int k, int code) {
@@ -1025,11 +1032,11 @@ __device__ __forceinline__ void warp_op(const GenParams& P, const Row& R,
         // 1), from the end where negative, cut to int32 as get._pick cuts
         // it; out of range NaN, or the default (operand 2) there and where
         // the sample is NaN
-        const float* x = plane(P, in[0]);
+        const T* x = plane_of<T>(P, in[0]);
         const int n = plen(P, in[0]);
         const int i = (int)(long long)operand(P, k, 1, 0);
         const bool ok = i >= -n && i < n;
-        const float val = x[min(max(i < 0 ? i + n : i, 0), n - 1)];
+        const T val = x[min(max(i < 0 ? i + n : i, 0), n - 1)];
         if (!ip[0]) v = ok ? (double)val : dnan;
         else v = ok && !isnan(val) ? (double)val : operand(P, k, 2, cast);
     } else if (code == OP_WHERE) {
@@ -1094,12 +1101,15 @@ __device__ __forceinline__ void gen_cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// An external bool plane (one byte a sample) into its place, as 1.0 and 0.0.
+// An external bool plane (one byte a sample) into its place, as 1.0 and 0.0
+// of the program's plane type T (a float64 program's bool planes hold
+// doubles).
+template <typename T>
 __device__ __forceinline__ void op_load_bool(const GenParams& P, const Row& R, int s) {
-    float* x = plane(P, s);
+    T* x = plane_of<T>(P, s);
     const int n = plen(P, s), e = sf(P, s, S_EXT);
     const unsigned char* g = (const unsigned char*)P.ext[e] + R.row * P.ext_stride[e];
-    for (int i = threadIdx.x; i < n; i += GEN_THREADS) x[i] = g[i] ? 1.f : 0.f;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) x[i] = g[i] ? (T)1 : (T)0;
 }
 
 // An external plane into its place in the arena by cp.async: 16 bytes a
@@ -1533,8 +1543,8 @@ __device__ __forceinline__ int reflect_at(int q, int n) {
 // taps are float64 (the float32 row widened exactly). No pad is built: the
 // index map reads the row in place, its neighbours and reflected edges
 // written by other threads (the plan puts a barrier before the op).
-template <typename T, bool REFLECT>
-__device__ __forceinline__ T conv_sample(const float* x, int q, int n) {
+template <typename T, bool REFLECT, typename X>
+__device__ __forceinline__ T conv_sample(const X* x, int q, int n) {
     if (REFLECT) return (T)x[reflect_at(q, n)];
     return q >= 0 && q < n ? (T)x[q] : (T)0;
 }
@@ -1542,9 +1552,10 @@ __device__ __forceinline__ T conv_sample(const float* x, int q, int n) {
 // out[j] = sum_k taps[k] * x[lo + j - k] for j < p, summed as
 // _conv_full_direct sums it; x read through the reflect index map
 // (REFLECT, reflected_convolve_wf: lo = (m - 1) / 2, p = n) or as zero
-// outside the row (convolve_wf's direct route: its mode's window).
-template <typename T, bool REFLECT>
-__device__ __forceinline__ int direct_conv_row(const float* x, int n, const T* ks,
+// outside the row (convolve_wf's direct route: its mode's window); x of
+// type X, float or (a float64 row, with float64 taps) double.
+template <typename T, bool REFLECT, typename X = float>
+__device__ __forceinline__ int direct_conv_row(const X* x, int n, const T* ks,
                                                int m, int lo, int p, bool bad,
                                                T* o, T* g) {
     int h = 0;
@@ -2133,19 +2144,21 @@ __device__ __forceinline__ void op_dense(const GenParams& P, const Row& R, int k
 // behind one barrier; thread 0 replays the sums (replay_sum:
 // _numerics.k7_sum's order) and stores their mean, divided in float64 and
 // rounded once; NaN where no sample is below, or where the row or a is NaN.
+// T: the row's samples.
+template <typename T>
 __device__ __forceinline__ void op_mean_below(const GenParams& P, Row& R, int k,
                                               const int* in, const int* out,
                                               const int* ip) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int n = plen(P, in[0]);
     const double thr = operand(P, k, 1, ip[7]);
-    const bool bad = plane_nan(P, in[0], false) || isnan(thr);
-    const float a = (float)thr;
+    const bool bad = plane_nan<T>(P, in[0], false) || isnan(thr);
+    const T a = (T)thr;
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
     double s = 0.0;
     int c = 0;
     for (int i = tid; i < n; i += GEN_THREADS) {
-        const float v = x[i];
+        const T v = x[i];
         if (v < a) {
             s += (double)v;
             ++c;
@@ -2173,21 +2186,22 @@ __device__ __forceinline__ void op_mean_below(const GenParams& P, Row& R, int k,
 // saturation (ip[0] = 1: the samples at 0 and at the high rail, the tape's
 // double 0), each compared in the row's type: integer counts by warps into
 // one reduction buffer behind one barrier; thread 0 stores them, NaN where
-// the row (or the threshold) is NaN.
+// the row (or the threshold) is NaN. T: the row's samples.
+template <typename T>
 __device__ __forceinline__ void op_count(const GenParams& P, Row& R, int k,
                                          const int* in, const int* out,
                                          const int* ip) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int n = plen(P, in[0]);
     const bool sat = ip[0] == 1;
     const double thr = sat ? tape_dp(P)[k * OP_DP] : operand(P, k, 1, ip[7]);
-    const bool bad = plane_nan(P, in[0], false) || isnan(thr);
-    const float a = (float)thr;
+    const bool bad = plane_nan<T>(P, in[0], false) || isnan(thr);
+    const T a = (T)thr;
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
     int c0 = 0, c1 = 0;
     for (int i = tid; i < n; i += GEN_THREADS) {
-        const float v = x[i];
-        c0 += sat ? v == 0.f : v > a;
+        const T v = x[i];
+        c0 += sat ? v == (T)0 : v > a;
         c1 += v == a;
     }
     c0 = __reduce_add_sync(FULL_MASK, c0);
@@ -2214,14 +2228,16 @@ __device__ __forceinline__ void op_count(const GenParams& P, Row& R, int k,
 // linear_slope_diff: the residual r = x - (slope i + intercept) in float64
 // (operands 1 and 2, each product and sum rounded once), the sums of
 // r / (i + 1) and r * r as op_mean_below sums, behind one barrier; thread 0
-// stores the first and sqrt(second / (n - 1)) (0 for one sample).
+// stores the first and sqrt(second / (n - 1)) (0 for one sample). T: the
+// row's samples.
+template <typename T>
 __device__ __forceinline__ void op_slope_diff(const GenParams& P, Row& R, int k,
                                               const int* in, const int* out,
                                               const int* ip) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int n = plen(P, in[0]);
     const double sl = operand(P, k, 1, ip[7]), b = operand(P, k, 2, ip[7]);
-    const bool bad = plane_nan(P, in[0], false) || isnan(sl) || isnan(b);
+    const bool bad = plane_nan<T>(P, in[0], false) || isnan(sl) || isnan(b);
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
     double s1 = 0.0, s2 = 0.0;
     for (int i = tid; i < n; i += GEN_THREADS) {
@@ -2248,22 +2264,23 @@ __device__ __forceinline__ void op_slope_diff(const GenParams& P, Row& R, int k,
 }
 
 // log_check: whether any sample is <= 0 (__syncthreads_or, a barrier), then
-// the log of each sample in float64, rounded once; a NaN row where one is,
-// or where the row holds a NaN.
+// the log of each sample in float64, rounded once to the row's type T; a
+// NaN row where one is, or where the row holds a NaN.
+template <typename T>
 __device__ __forceinline__ void op_log_check(const GenParams& P, const Row& R,
                                              const int* in, const int* out) {
-    const float* x = plane(P, in[0]);
-    float* o = plane(P, out[0]);
-    float* g = esc_plane(P, R, out[0]);
+    const T* x = plane_of<T>(P, in[0]);
+    T* o = plane_of<T>(P, out[0]);
+    T* g = esc_of<T>(P, R, out[0]);
     const int n = plen(P, in[0]);
-    const bool nan = plane_nan(P, in[0], false);
+    const bool nan = plane_nan<T>(P, in[0], false);
     int nonpos = 0;
-    for (int i = threadIdx.x; i < n; i += GEN_THREADS) nonpos |= x[i] <= 0.f;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) nonpos |= x[i] <= (T)0;
     const bool bad = __syncthreads_or(nonpos) != 0 || nan;
-    const float qnan = __int_as_float(0x7fc00000);
+    const T qnan = __int_as_float(0x7fc00000);
     int h = 0;
     for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
-        const float v = bad ? qnan : (float)log((double)x[i]);
+        const T v = bad ? qnan : (T)log((double)x[i]);
         o[i] = v;
         if (g) g[i] = v;
         h |= nan_inf(v);
@@ -2276,15 +2293,19 @@ __device__ __forceinline__ void op_log_check(const GenParams& P, const Row& R,
 // ip[1]) at t = operand 1 from it: (sum x[t+1-rise, t+1) - sum x[t+1-2 rise
 // -flat, t+1-rise-flat)) / rise, each window a prefix difference; NaN where
 // t is NaN or not an integer, the windows do not fit, or the row is NaN.
+// T: the row's samples (a float64 row's prefix from shared memory,
+// gen_prefix_shared, in the same order).
+template <typename T>
 __device__ __forceinline__ void op_trap_pickoff(const GenParams& P, Row& R, int k,
                                                 const int* in, const int* out,
                                                 const int* ip) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int n = plen(P, in[0]);
-    const bool nan = plane_nan(P, in[0], false);
+    const bool nan = plane_nan<T>(P, in[0], false);
     const int pad = prefix_pad(n);
     double* ps = scratch_of(P);
-    gen_prefix(R, x, n, ps, pad);
+    if constexpr (sizeof(T) == 4) gen_prefix(R, x, n, ps, pad);
+    else gen_prefix_shared(R, x, n, ps, pad);
     if (threadIdx.x != 0) return;
     const int rise = ip[0], flat = ip[1];
     const double t = operand(P, k, 1, ip[7]);
@@ -2303,26 +2324,27 @@ __device__ __forceinline__ void op_trap_pickoff(const GenParams& P, Row& R, int 
 }
 
 // presum: output j the sum of samples [j f, (j + 1) f) (f = ip[1]) added in
-// turn to 0.0 in float32, each divided by f first where ip[0]; thread 0
-// stores f in the first output. One pass over the output; NaN where the row
-// holds a NaN.
+// turn to 0.0 in the row's type T, each divided by f first where ip[0];
+// thread 0 stores f in the first output. One pass over the output; NaN
+// where the row holds a NaN.
+template <typename T>
 __device__ __forceinline__ void op_presum(const GenParams& P, const Row& R,
                                           const int* in, const int* out,
                                           const int* ip) {
-    const float* x = plane(P, in[0]);
-    float* o = plane(P, out[1]);
-    float* g = esc_plane(P, R, out[1]);
+    const T* x = plane_of<T>(P, in[0]);
+    T* o = plane_of<T>(P, out[1]);
+    T* g = esc_of<T>(P, R, out[1]);
     const int m = plen(P, out[1]), f = ip[1];
-    const bool bad = plane_nan(P, in[0], false);
-    const float ff = (float)f, qnan = __int_as_float(0x7fc00000);
+    const bool bad = plane_nan<T>(P, in[0], false);
+    const T ff = (T)f, qnan = __int_as_float(0x7fc00000);
     int h = 0;
     for (int j = threadIdx.x; j < m; j += GEN_THREADS) {
-        float acc = 0.f;
+        T acc = 0;
         for (int q = 0; q < f; ++q) {
-            const float v = x[j * f + q];
-            acc = __fadd_rn(acc, ip[0] ? __fdiv_rn(v, ff) : v);
+            const T v = x[j * f + q];
+            acc = rn_add(acc, ip[0] ? rn_div(v, ff) : v);
         }
-        const float y = bad ? qnan : acc;
+        const T y = bad ? qnan : acc;
         o[j] = y;
         if (g) g[j] = y;
         h |= nan_inf(y);
@@ -2333,25 +2355,26 @@ __device__ __forceinline__ void op_presum(const GenParams& P, const Row& R,
 }
 
 // min_max_norm: the row over max(|a_min|, |a_max|) (operands 1 and 2, in
-// the row's type), the row itself where either is 0; one pass, NaN where
+// the row's type T), the row itself where either is 0; one pass, NaN where
 // the row holds a NaN.
+template <typename T>
 __device__ __forceinline__ void op_min_max_norm(const GenParams& P, const Row& R,
                                                 int k, const int* in,
                                                 const int* out, const int* ip) {
-    const float* x = plane(P, in[0]);
-    float* o = plane(P, out[0]);
-    float* g = esc_plane(P, R, out[0]);
+    const T* x = plane_of<T>(P, in[0]);
+    T* o = plane_of<T>(P, out[0]);
+    T* g = esc_of<T>(P, R, out[0]);
     const int n = plen(P, in[0]);
-    const bool bad = plane_nan(P, in[0], false);
-    const float amin = fabsf((float)operand(P, k, 1, ip[7]));
-    const float amax = fabsf((float)operand(P, k, 2, ip[7]));
-    const bool zero = amax == 0.f || amin == 0.f;
-    float d = amax >= amin ? amax : amin;
-    if (d == 0.f) d = 1.f;
-    const float qnan = __int_as_float(0x7fc00000);
+    const bool bad = plane_nan<T>(P, in[0], false);
+    const T amin = fabs((T)operand(P, k, 1, ip[7]));
+    const T amax = fabs((T)operand(P, k, 2, ip[7]));
+    const bool zero = amax == (T)0 || amin == (T)0;
+    T d = amax >= amin ? amax : amin;
+    if (d == (T)0) d = 1;
+    const T qnan = __int_as_float(0x7fc00000);
     int h = 0;
     for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
-        const float v = bad ? qnan : zero ? x[i] : __fdiv_rn(x[i], d);
+        const T v = bad ? qnan : zero ? x[i] : rn_div(x[i], d);
         o[i] = v;
         if (g) g[i] = v;
         h |= nan_inf(v);
@@ -2362,21 +2385,22 @@ __device__ __forceinline__ void op_min_max_norm(const GenParams& P, const Row& R
 // multi_a_filter: output j the row's sample at index vt[j] (the plane in[1],
 // NaN-padded), cut to int32 as the member cuts it (a NaN as 0, an infinity
 // saturated); NaN where vt[j] is NaN or out of the row, or the row holds a
-// NaN. One pass over the output.
+// NaN. One pass over the output; T the planes' type.
+template <typename T>
 __device__ __forceinline__ void op_multi_a(const GenParams& P, const Row& R,
                                            const int* in, const int* out) {
-    const float* x = plane(P, in[0]);
-    const float* vt = plane(P, in[1]);
-    float* o = plane(P, out[0]);
-    float* g = esc_plane(P, R, out[0]);
+    const T* x = plane_of<T>(P, in[0]);
+    const T* vt = plane_of<T>(P, in[1]);
+    T* o = plane_of<T>(P, out[0]);
+    T* g = esc_of<T>(P, R, out[0]);
     const int n = plen(P, in[0]), m = plen(P, out[0]);
-    const bool bad = plane_nan(P, in[0], false);
-    const float qnan = __int_as_float(0x7fc00000);
+    const bool bad = plane_nan<T>(P, in[0], false);
+    const T qnan = __int_as_float(0x7fc00000);
     int h = 0;
     for (int j = threadIdx.x; j < m; j += GEN_THREADS) {
-        const float t = vt[j];
+        const T t = vt[j];
         const int i = isnan(t) ? 0 : (int)t;
-        const float v = (bad || isnan(t) || i < 0 || i >= n) ? qnan : x[i];
+        const T v = (bad || isnan(t) || i < 0 || i >= n) ? qnan : x[i];
         o[j] = v;
         if (g) g[j] = v;
         h |= nan_inf(v);
@@ -2426,21 +2450,25 @@ __device__ __forceinline__ void op_trap_sum(const GenParams& P, Row& R, const in
 // wl + ((S[n - 1] - S[i - 1]) - (n - i) wl) / L. After the prefix's
 // barrier it reads w0 = x[0] and wl = x[n - 1] (the row is not written), and
 // its parameters and places, which are then not held across the barrier.
+// T: the row's samples (a float64 row's prefix from shared memory,
+// gen_prefix_shared, in the same order), and the output's, rounded once.
+template <typename T>
 __device__ __forceinline__ void op_mw(const GenParams& P, Row& R, int k, const int* in,
                                       const int* out, const int* ip) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int n = plen(P, in[0]);
-    const bool bad = plane_nan(P, in[0], false);
+    const bool bad = plane_nan<T>(P, in[0], false);
     const int pad = prefix_pad(n);
     double* ps = scratch_of(P);
-    gen_prefix(R, x, n, ps, pad);
+    if constexpr (sizeof(T) == 4) gen_prefix(R, x, n, ps, pad);
+    else gen_prefix_shared(R, x, n, ps, pad);
     const double w0 = (double)x[0], wl = (double)x[n - 1];
     const bool right = ip[0];
     const int li = ip[1];
     const double len = tape_dp(P)[k * OP_DP];
-    float* o = plane(P, out[0]);
-    float* g = esc_plane(P, R, out[0]);
-    const float qnan = __int_as_float(0x7fc00000);
+    T* o = plane_of<T>(P, out[0]);
+    T* g = esc_of<T>(P, R, out[0]);
+    const T qnan = __int_as_float(0x7fc00000);
     int h = 0;
     for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
         double v;
@@ -2457,7 +2485,7 @@ __device__ __forceinline__ void op_mw(const GenParams& P, Row& R, int k, const i
                 v = __ddiv_rn(__dsub_rn(ps[pidx(li > 0 ? i + li - 1 : i, pad)], se), len);
             }
         }
-        const float y = bad ? qnan : (float)v;
+        const T y = bad ? qnan : (T)v;
         o[i] = y;
         if (g) g[i] = y;
         h |= nan_inf(y);
@@ -2466,17 +2494,19 @@ __device__ __forceinline__ void op_mw(const GenParams& P, Row& R, int k, const i
 }
 
 // convolve_wf and fft_convolve_wf with m <= 32 taps (ip[1]; ip[0] their
-// offset, float32): the mode's window [lo, lo + p) of the full convolution
-// (lo = ip[2], p the output's length: n + m - 1 for 'f'), the direct loop of
+// offset, in the row's type T: float64 taps in pairs of words from an even
+// one): the mode's window [lo, lo + p) of the full convolution (lo = ip[2],
+// p the output's length: n + m - 1 for 'f'), the direct loop of
 // reflected_convolve_wf with zeros outside the row; a NaN row's outputs NaN.
+template <typename T>
 __device__ __forceinline__ void op_conv_direct(const GenParams& P, const Row& R,
                                                const int* in, const int* out,
                                                const int* ip) {
-    const float* x = plane(P, in[0]);
-    const bool bad = plane_nan(P, in[0], false);
-    const int h = direct_conv_row<float, false>(x, plen(P, in[0]), P.taps + ip[0], ip[1],
-                                                ip[2], plen(P, out[0]), bad,
-                                                plane(P, out[0]), esc_plane(P, R, out[0]));
+    const T* x = plane_of<T>(P, in[0]);
+    const bool bad = plane_nan<T>(P, in[0], false);
+    const int h = direct_conv_row<T, false, T>(
+        x, plen(P, in[0]), reinterpret_cast<const T*>(P.taps + ip[0]), ip[1], ip[2],
+        plen(P, out[0]), bad, plane_of<T>(P, out[0]), esc_of<T>(P, R, out[0]));
     flag_plane(P, out[0], h);
 }
 
@@ -2493,25 +2523,27 @@ __device__ __forceinline__ double convert_value(int kind, double x, double a,
 // i + 256, ...: operand q (of ip[2]) a plane (bit q of ip[3]; float32 or
 // bool, read at i) or a per-row scalar or constant (operand, rounded to
 // float32 by bit q of ip[7]); ip[1] the member's float32. The result is
-// rounded to the output's type: a float32, or a bool (1 or 0: a bool plane
-// holds one float a sample, its stored copy one byte).
+// rounded to the output's type: the plane type T (float32, or a float64
+// program's float64), or a bool (1 or 0: a bool plane holds one sample of
+// type T, its stored copy one byte).
+template <typename T>
 __device__ __forceinline__ void op_ewise(const GenParams& P, const Row& R, int k,
                                          const int* in, const int* out, const int* ip) {
     const int kind = ip[0], f32 = ip[1], nin = ip[2];
-    const float* xp[3];
+    const T* xp[3];
     double sv[3];
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
         const bool pl = q < nin && ((ip[3] >> q) & 1);
-        xp[q] = pl ? plane(P, in[q]) : nullptr;
+        xp[q] = pl ? plane_of<T>(P, in[q]) : nullptr;
         sv[q] = q < nin && !pl ? operand(P, k, q, ip[7]) : 0.0;
     }
     const double ratio = tape_dp(P)[k * OP_DP];
     const int m = plen(P, out[0]);
     const bool bo = sf(P, out[0], S_TYPE) == T_BOOL;
-    float* o = plane(P, out[0]);
+    T* o = plane_of<T>(P, out[0]);
     const int e = sf(P, out[0], S_ESC);
-    float* g = !bo && e >= 0 ? (float*)P.esc[e] + R.row * (long long)m : nullptr;
+    T* g = !bo && e >= 0 ? (T*)P.esc[e] + R.row * (long long)m : nullptr;
     unsigned char* gb = bo && e >= 0 ? (unsigned char*)P.esc[e] + R.row * (long long)m
                                      : nullptr;
     int h = 0;
@@ -2521,10 +2553,10 @@ __device__ __forceinline__ void op_ewise(const GenParams& P, const Row& R, int k
         const double c = xp[2] ? (double)xp[2][i] : sv[2];
         const double v = kind >= EW_CONVERT ? convert_value(kind - EW_CONVERT, a, b, c, ratio)
                                             : ufunc_eval(kind, a, b, c, f32);
-        const float y = bo ? (v != 0.0 ? 1.f : 0.f) : (float)v;
+        const T y = bo ? (v != 0.0 ? (T)1 : (T)0) : (T)v;
         o[i] = y;
         if (g) g[i] = y;
-        if (gb) gb[i] = (unsigned char)(y != 0.f);
+        if (gb) gb[i] = (unsigned char)(y != (T)0);
         h |= nan_inf(y);
     }
     flag_plane(P, out[0], h);
@@ -2537,13 +2569,15 @@ __device__ __forceinline__ void op_ewise(const GenParams& P, const Row& R, int k
 // (op_mean_below's, _numerics.k7_sum; a NaN skipped by the nan kinds), a
 // mean divided by its count in float64. The warps' values and counts meet
 // in one reduction buffer behind one barrier; thread 0 stores the result,
-// rounded to the output's type. A bool row reads as 0 and 1.
+// rounded to the output's type. A bool row reads as 0 and 1. T: the row's
+// samples.
+template <typename T>
 __device__ __forceinline__ void op_reduce(const GenParams& P, Row& R, const int* in,
                                           const int* out, const int* ip) {
-    const float* x = plane(P, in[0]);
+    const T* x = plane_of<T>(P, in[0]);
     const int n = plen(P, in[0]), kind = ip[0];
     const bool ext = kind <= 3;
-    const bool nan = kind <= 1 && plane_nan(P, in[0], false);
+    const bool nan = kind <= 1 && plane_nan<T>(P, in[0], false);
     const double dnan = __longlong_as_double(0x7ff8000000000000LL);
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
     double s = ext ? dnan : 0.0;
@@ -2990,6 +3024,158 @@ __device__ __forceinline__ void op_poly_resid64(const GenParams& P, Row& R,
     put(P, R, out[1], bad ? dnan : sqrt(__ddiv_rn(s2, (double)(n - 1))));
 }
 
+// The pulse of inject kind KIND at sample t on a float64 row: pulse_at's
+// operations in float64, each rounded once in the member kernel's order
+// (exp and pow the device's, as PyTorch's float64 ones on the card).
+template <int KIND>
+__device__ __forceinline__ double pulse_at64(double t, double dt, double t0, double rise,
+                                             const double* p) {
+    if (KIND == 0) {
+        const double arg = __dmul_rn(-rise, __dsub_rn(t, __dadd_rn(t0, __dmul_rn(p[1], 0.5))));
+        return __dmul_rn(__ddiv_rn(p[2], __dadd_rn(1.0, exp(arg))),
+                         exp(__ddiv_rn(-dt, p[3])));
+    }
+    if (KIND == 1) {
+        const double tail = exp(__ddiv_rn(-dt, p[3]));
+        const double end = __dadd_rn(t0, p[1]);
+        if (t <= t0 && t <= end)
+            return __dmul_rn(__dmul_rn(p[2], exp(__ddiv_rn(__dsub_rn(dt, p[1]), p[1]))), tail);
+        return t > end ? __dmul_rn(p[2], tail) : 0.0;
+    }
+    if (KIND == 2) {
+        const double b = p[2];
+        const double mu = __dadd_rn(t0, __dmul_rn(2.0, b));
+        if (!(t >= t0 && t < __dadd_rn(mu, __dmul_rn(8.0, b)))) return 0.0;
+        const double z = __ddiv_rn(__dsub_rn(t, mu), b);
+        return __dmul_rn(__ddiv_rn(p[0], b), exp(-__dadd_rn(z, exp(-z))));
+    }
+    const double arg = __dmul_rn(-rise, __dsub_rn(dt, __dmul_rn(p[2], 0.5)));
+    const double base = __dadd_rn(1.0, __dmul_rn(p[3], exp(arg)));
+    return __dmul_rn(__ddiv_rn(p[0], pow(base, __ddiv_rn(1.0, p[4]))),
+                     exp(__ddiv_rn(-dt, p[5])));
+}
+
+template <int KIND>
+__device__ __forceinline__ int inject_row64(const double* x, double* o, double* g, int n,
+                                            bool bad, const double* p, double lg) {
+    const double t0 = KIND >= 2 ? p[1] : p[0];
+    const double rise = KIND == 0 ? __ddiv_rn(lg, p[1]) : KIND == 3 ? __ddiv_rn(lg, p[2]) : 0.0;
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    int h = 0;
+    for (int i = threadIdx.x; i < n; i += GEN_THREADS) {
+        const double t = (double)i;
+        const double y = bad ? dnan
+            : __dadd_rn(x[i], pulse_at64<KIND>(t, __dsub_rn(t, t0), t0, rise, p));
+        o[i] = y;
+        if (g) g[i] = y;
+        h |= nan_inf(y);
+    }
+    return h;
+}
+
+// The inject op on a float64 row: op_inject's parameters in float64 (the
+// constant ones from the taps, pairs of words from ip[1]; one a row as
+// operands, not rounded), 4 ln 99 in float64, the pulse by pulse_at64.
+__device__ __forceinline__ void op_inject64(const GenParams& P, const Row& R, int k,
+                                            const int* in, const int* out, const int* ip) {
+    const double* x = plane_of<double>(P, in[0]);
+    const double* taps = reinterpret_cast<const double*>(P.taps + ip[1]);
+    const int n = plen(P, in[0]);
+    double p[6];
+    bool bad = plane_nan<double>(P, in[0], false);
+#pragma unroll
+    for (int q = 0, j = 1; q < 6; ++q) {
+        p[q] = ((ip[2] >> q) & 1) ? operand(P, k, j++, ip[7]) : __ldg(taps + q);
+        bad |= isnan(p[q]);
+    }
+    const double lg = tape_dp(P)[k * OP_DP];
+    double* o = plane_of<double>(P, out[0]);
+    double* g = esc_of<double>(P, R, out[0]);
+    int h;
+    switch (ip[0]) {
+    case 0: h = inject_row64<0>(x, o, g, n, bad, p, lg); break;
+    case 1: h = inject_row64<1>(x, o, g, n, bad, p, lg); break;
+    case 2: h = inject_row64<2>(x, o, g, n, bad, p, lg); break;
+    default: h = inject_row64<3>(x, o, g, n, bad, p, lg); break;
+    }
+    flag_plane(P, out[0], h);
+}
+
+// ml.py's activations in float64 (activate's, each operation rounded once;
+// exp, log1p and tanh the device's).
+__device__ __forceinline__ double activate64(double t, int flag) {
+    const double pos = t > 0.0 ? t : 0.0;
+    switch (flag) {
+    case 's': return __ddiv_rn(1.0, __dadd_rn(1.0, exp(-t)));
+    case 'r': return pos;
+    case 'l': return __dadd_rn(pos, t < 0.0 ? __dmul_rn(0.01, t) : 0.0);
+    case 'm': return log1p(exp(t));
+    default: return tanh(t);
+    }
+}
+
+// The dense op on a float64 row: op_dense's kinds and sums with float64
+// constants (pairs of words in the taps) and products, each product and sum
+// rounded once (ml.layer_rows' order), the bias and the activation in
+// float64; nothing rounded to float32.
+__device__ __forceinline__ void op_dense64(const GenParams& P, const Row& R, int k,
+                                           const int* in, const int* out, const int* ip) {
+    const double* x = plane_of<double>(P, in[0]);
+    const int n = plen(P, in[0]);
+    const bool bad = plane_nan<double>(P, in[0], false);
+    const double dnan = __longlong_as_double(0x7ff8000000000000LL);
+    const int tid = threadIdx.x;
+    if (ip[0] == 0) {
+        double* o = plane_of<double>(P, out[0]);
+        double* g = esc_of<double>(P, R, out[0]);
+        const double* mu = reinterpret_cast<const double*>(P.taps + ip[2]);
+        const double* var = reinterpret_cast<const double*>(P.taps + ip[3]);
+        int h = 0;
+        for (int i = tid; i < n; i += GEN_THREADS) {
+            const double v = bad ? dnan
+                : __ddiv_rn(__dsub_rn(x[i], __ldg(mu + i)), sqrt(__ldg(var + i)));
+            o[i] = v;
+            if (g) g[i] = v;
+            h |= nan_inf(v);
+        }
+        flag_plane(P, out[0], h);
+        return;
+    }
+    const int m = ip[5];
+    const double* wt = reinterpret_cast<const double*>(P.taps + ip[2]);
+    double* part = scratch_of(P);
+    const int lane = tid & 31, wid = tid >> 5;
+    const int c = (n + GEN_WARPS - 1) / GEN_WARPS;
+    const int i0 = wid * c, i1 = min(n, i0 + c);
+    for (int j = lane; j < m; j += 32) {
+        double acc = 0.0;
+        for (int i = i0; i < i1; ++i)
+            acc = __dadd_rn(acc, __dmul_rn(x[i], __ldg(wt + i * m + j)));
+        part[wid * m + j] = acc;
+    }
+    __syncthreads();
+    double* o = ip[0] == 1 ? plane_of<double>(P, out[0]) : nullptr;
+    double* g = ip[0] == 1 ? esc_of<double>(P, R, out[0]) : nullptr;
+    int h = 0;
+    for (int j = tid; j < m; j += GEN_THREADS) {
+        double t = 0.0;
+#pragma unroll
+        for (int q = 0; q < GEN_WARPS; ++q) t = __dadd_rn(t, part[q * m + j]);
+        if (ip[3] >= 0)
+            t = __dadd_rn(t, __ldg(reinterpret_cast<const double*>(P.taps + ip[3]) + j));
+        if (ip[6]) t = __dadd_rn(t, operand(P, k, 1, ip[7]));
+        const double v = bad ? dnan : activate64(t, ip[1]);
+        if (o) {
+            o[j] = v;
+            if (g) g[j] = v;
+            h |= nan_inf(v);
+        } else {
+            put(P, R, out[0], v);
+        }
+    }
+    if (o) flag_plane(P, out[0], h);
+}
+
 // An external bool or int64 per-row scalar as a double (not inlined, as
 // ufunc_apply).
 __device__ __noinline__ double ext_other(const GenParams& P, int e, int ty,
@@ -3008,12 +3194,51 @@ __device__ __noinline__ int2 outlined_op(const GenParams& P, Row R, int k) {
     const int* out = in + OP_IN;
     const int* ip = out + OP_OUT;
     switch (op[0]) {
-    case OP_LOAD: op_load_bool(P, R, in[0]); break;
+    case OP_LOAD: op_load_bool<float>(P, R, in[0]); break;
     case OP_TRAP: op_trap_sum(P, R, in, out, ip); break;
-    case OP_MW: op_mw(P, R, k, in, out, ip); break;
-    case OP_CONV_DIRECT: op_conv_direct(P, R, in, out, ip); break;
-    case OP_EWISE: op_ewise(P, R, k, in, out, ip); break;
-    default: op_reduce(P, R, in, out, ip); break;
+    case OP_MW: op_mw<float>(P, R, k, in, out, ip); break;
+    case OP_CONV_DIRECT: op_conv_direct<float>(P, R, in, out, ip); break;
+    case OP_EWISE: op_ewise<float>(P, R, k, in, out, ip); break;
+    default: op_reduce<float>(P, R, in, out, ip); break;
+    }
+    return make_int2(k, R.rb);
+}
+
+// The float64 kernel's one call site of the same kind: the ops its float64
+// flagship, DPZ and extras groups do not run (get, where and the rounders on
+// warp 0, a bool plane's load, inject, dense, the coverage block ops and the
+// plane ops). Inline, they would add their registers and branches to the
+// kernel's loop.
+__device__ __noinline__ int2 outlined_op64(const GenParams& P, Row R, int k) {
+    const int* op = tape(P) + k * OP_INTS;
+    const int* in = op + 1;
+    const int* out = in + OP_IN;
+    const int* ip = out + OP_OUT;
+    switch (op[0]) {
+    case OP_GET:
+    case OP_WHERE:
+    case OP_ROUND:
+        if ((threadIdx.x >> 5) == 0) {
+            __syncwarp();
+            warp_op<double>(P, R, k, op[0]);
+        }
+        break;
+    case OP_LOAD: op_load_bool<double>(P, R, in[0]); break;
+    case OP_INJECT: op_inject64(P, R, k, in, out, ip); break;
+    case OP_DENSE: op_dense64(P, R, k, in, out, ip); break;
+    case OP_MEAN_BELOW: op_mean_below<double>(P, R, k, in, out, ip); break;
+    case OP_COUNT: op_count<double>(P, R, k, in, out, ip); break;
+    case OP_SLOPE_DIFF: op_slope_diff<double>(P, R, k, in, out, ip); break;
+    case OP_LOG_CHECK: op_log_check<double>(P, R, in, out); break;
+    case OP_TRAP_PICKOFF: op_trap_pickoff<double>(P, R, k, in, out, ip); break;
+    case OP_PRESUM: op_presum<double>(P, R, in, out, ip); break;
+    case OP_MIN_MAX_NORM: op_min_max_norm<double>(P, R, k, in, out, ip); break;
+    case OP_MULTI_A: op_multi_a<double>(P, R, in, out); break;
+    case OP_MW: op_mw<double>(P, R, k, in, out, ip); break;
+    case OP_CONV_DIRECT: op_conv_direct<double>(P, R, in, out, ip); break;
+    case OP_EWISE: op_ewise<double>(P, R, k, in, out, ip); break;
+    case OP_REDUCE: op_reduce<double>(P, R, in, out, ip); break;
+    default: break;
     }
     return make_int2(k, R.rb);
 }
@@ -3092,14 +3317,14 @@ __device__ __forceinline__ void gen_op<float>(const GenParams& P, Row& R, int& k
     case OP_WF_CENTROID: op_wf_centroid<float>(P, R, k, in, out, ip); break;
     case OP_INJECT: op_inject(P, R, k, in, out, ip); break;
     case OP_DENSE: op_dense(P, R, k, in, out, ip); break;
-    case OP_MEAN_BELOW: op_mean_below(P, R, k, in, out, ip); break;
-    case OP_COUNT: op_count(P, R, k, in, out, ip); break;
-    case OP_SLOPE_DIFF: op_slope_diff(P, R, k, in, out, ip); break;
-    case OP_LOG_CHECK: op_log_check(P, R, in, out); break;
-    case OP_TRAP_PICKOFF: op_trap_pickoff(P, R, k, in, out, ip); break;
-    case OP_PRESUM: op_presum(P, R, in, out, ip); break;
-    case OP_MIN_MAX_NORM: op_min_max_norm(P, R, k, in, out, ip); break;
-    case OP_MULTI_A: op_multi_a(P, R, in, out); break;
+    case OP_MEAN_BELOW: op_mean_below<float>(P, R, k, in, out, ip); break;
+    case OP_COUNT: op_count<float>(P, R, k, in, out, ip); break;
+    case OP_SLOPE_DIFF: op_slope_diff<float>(P, R, k, in, out, ip); break;
+    case OP_LOG_CHECK: op_log_check<float>(P, R, in, out); break;
+    case OP_TRAP_PICKOFF: op_trap_pickoff<float>(P, R, k, in, out, ip); break;
+    case OP_PRESUM: op_presum<float>(P, R, in, out, ip); break;
+    case OP_MIN_MAX_NORM: op_min_max_norm<float>(P, R, k, in, out, ip); break;
+    case OP_MULTI_A: op_multi_a<float>(P, R, in, out); break;
     case OP_MW:
     case OP_CONV_DIRECT:
     case OP_EWISE:
@@ -3114,8 +3339,9 @@ __device__ __forceinline__ void gen_op<float>(const GenParams& P, Row& R, int& k
     }
 }
 
-// The float64 kernel's table: the ops of the float64 flagship, DPZ and
-// extras groups (_tile_program.F64_OPS) in their float64 forms.
+// The float64 kernel's table: every op of a float64 program
+// (_tile_program.F64_OPS) in its float64 form; those its flagship, DPZ and
+// extras groups do not run behind outlined_op64.
 template <>
 __device__ __forceinline__ void gen_op<double>(const GenParams& P, Row& R, int& k,
                                                int code, const int* in, const int* out,
@@ -3130,7 +3356,10 @@ __device__ __forceinline__ void gen_op<double>(const GenParams& P, Row& R, int& 
             warp_op<double>(P, R, k, code);
         }
         break;
-    case OP_LOAD: op_load64(P, R, in[0]); break;
+    case OP_LOAD:
+        if (sf(P, in[0], S_TYPE) == T_BOOL) goto outlined;
+        op_load64(P, R, in[0]);
+        break;
     case OP_MIN_MAX: op_min_max<double>(P, R, in, out); break;
     case OP_SLOPE_FIT: op_slope_fit64(P, R, in, out); break;
     case OP_POLE_ZERO: op_pole_zero64(P, R, k, in, out, ip); break;
@@ -3147,7 +3376,13 @@ __device__ __forceinline__ void gen_op<double>(const GenParams& P, Row& R, int& 
     case OP_SOFT_PILEUP: op_soft_pileup<double>(P, R, k, in, out, ip); break;
     case OP_WF_CORR: op_wf_correction<double>(P, R, in, out, ip); break;
     case OP_WF_CENTROID: op_wf_centroid<double>(P, R, k, in, out, ip); break;
-    default: break;
+    default:  // every other op (_tile_program.F64_OPS), outlined
+    outlined: {
+        const int2 r = outlined_op64(P, R, k);
+        k = r.x;
+        R.rb = r.y;
+        break;
+    }
     }
 }
 

@@ -1314,10 +1314,10 @@ def generic_rows_plain(program, vals: dict) -> dict:
     prefix and sums in turn), a dense or classification layer sums in K7's
     order (:func:`.ml.layer_rows`), and so does the reduce op
     (:func:`.._numpy_funcs.k7_reduce`). A float64 program (``program.f64``)
-    passes ``f64=True`` to the variant, which then takes K7's float64 order
-    (the prefix ops, the fits, the banded convolution, the polynomial
-    residual, soft pile-up); a variant with no float64 order takes no
-    ``f64`` (lowering refuses its op in a float64 program). A member lowered
+    passes ``f64=True`` to the variant (and to the layers' and the
+    reductions' sums), which then takes K7's float64 order (the prefix ops,
+    the fits, the banded and direct convolutions, the polynomial residual,
+    soft pile-up) and rounds nothing to float32. A member lowered
     into several ops (soft pile-up: its fit, then the row less the fit)
     gives every op's outputs in turn, and each op binds its own. An
     ``ewise`` op takes its per-row scalars along the row, as the unfused
@@ -1344,10 +1344,10 @@ def generic_rows_plain(program, vals: dict) -> dict:
         kern = op.step.kernel
         variant = getattr(kern, "k7_plain", None)
         if op.code == OPCODES["reduce"] and kern.__name__ in K7_SUMS:
-            outs = (k7_reduce(kern.__name__, args[0]),)
+            outs = (k7_reduce(kern.__name__, args[0], **kw),)
         elif op.code == OPCODES["dense"] and op.ip[0]:
             outs = (layer_rows(args[0], args[1], args[2] if len(args) == 4 else None,
-                               op.ip[1], kern.__name__),)
+                               op.ip[1], kern.__name__, **kw),)
         elif getattr(kern, "uses_dims", False):
             outs = (variant or kern.fn)(*args, dims=op.step.dims,
                                         **(kw if variant else {}))

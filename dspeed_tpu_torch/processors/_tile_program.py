@@ -15,8 +15,9 @@ Here the host lowers the member list into a tape before any launch:
   writes from float64 taps and ``avg_current`` reads and writes whole (the
   SiPM chain computes in float64 from its smoothed waveform on); or, in a
   **float64 program** (``TileProgram.f64``: a float64 row read or written by
-  any other op), all float64 (two words a sample), every op one of
-  :data:`F64_OPS`, run by K7's float64 kernel;
+  any other op), float64 or bool (two words a sample, a bool plane's 1.0 or
+  0.0 a double; its stored copy one byte), every op of a float program but
+  ``reflected_conv`` (:data:`F64_OPS`), run by K7's float64 kernel;
 - an **op** is an opcode, its operand slots (or constants) and output slots,
   and static parameters (window lengths, taps, mode, direction);
 - a **liveness plan** gives each plane a place in shared memory from its
@@ -27,9 +28,10 @@ Here the host lowers the member list into a tape before any launch:
   group that reads more inputs or stores more outputs than K7's
   parameters hold (``_cuda.GEN_MAX_EXT``, ``GEN_MAX_ESC``).
 
-A member with no op (or no float64 form in a float64 program), a mix of
-plane types that no member makes, or an operand shape the tape does not
-take raises :class:`LoweringError`; the group then splits
+A member with no op, a mix of plane types that no member makes (a float32
+plane in a float64 program), an operand shape the tape does not take, or a
+plan over one block's shared memory (the float64 plane path's group C)
+raises :class:`LoweringError`; the group then splits
 (``GroupStep._exec``). The op set is the one the flagship's two generic
 groups, the SiPM chain's group, the flagship DPZ's energy-front group
 (``double_pole_zero``) and the flagship-extras groups need
@@ -47,9 +49,11 @@ member the JAX package's ``generic_rows`` takes on float32 rows:
 direct convolution (``conv_direct``, 32 taps or fewer), every conversion
 (the ``convert`` op's kinds; a plane's by ``ewise``), the ufuncs of
 ``_GENERIC_UFUNC_SAFE`` over planes, per-row scalars and constants
-(``ewise``, into float32 or bool planes; per-row ones by ``ufunc``, one
+(``ewise``, into float or bool planes; per-row ones by ``ufunc``, one
 table, :data:`UFUNCS`) and its row reductions (``reduce``; ``amax`` keeps
-its op).
+its op); and every one of these on float64 rows too, each in the order of
+its member's K7-order variant given ``f64`` (``k7_plain``), its constants
+(taps, weights, pulse parameters) in float64.
 
 :func:`~dspeed_tpu_torch.processors._cuda.generic_rows` runs a program on
 the card; :func:`~dspeed_tpu_torch.processors._cuda.generic_rows_plain`
@@ -151,12 +155,8 @@ STATIC_SMEM = 512  # bytes of static shared memory (the reduction scratch)
 ALIGN = 4  # planes start on 16-byte boundaries
 IP_PLAN = 4  # ip[4]: the barrier plan (bit 0: a block barrier before the op)
 # the ops of a float64 program (csrc/generic_rows.cu generic_rows_kernel_f64):
-# the ops of the float64 flagship, DPZ and extras groups
-F64_OPS = ("load", "bl_subtract", "windower", "avg_current", "soft_pileup_out",
-           "min_max", "amax", "linear_slope_fit", "pole_zero", "trap", "conv",
-           "moving_window_multi", "time_point_thresh", "fixed_time_pickoff",
-           "double_pole_zero", "poly_residual", "soft_pileup", "wf_correction",
-           "wf_centroid", "ufunc", "convert")
+# every op of a float program but reflected_conv, which reads a float32 row
+F64_OPS = tuple(k for k in OPCODES if k != "reflected_conv")
 # the ops of a float program that read or write float64 planes (the SiPM
 # group's): a float32 row into reflected_conv's float64 plane, avg_current
 # over it
@@ -326,7 +326,7 @@ class TileProgram:
             ints[base + sid * SLOT_INTS : base + (sid + 1) * SLOT_INTS] = [
                 0 if s.kind == "plane" else 1,
                 SLOT_TYPES[s.dtype],
-                r.off + _plane_words(s, s.start) if r.off >= 0 else -1,
+                r.off + _plane_words(s, s.start, self.f64) if r.off >= 0 else -1,
                 s.length,
                 r.sidx,
                 self.ext_keys.index(r.key) if r.ext and s.root == sid else -1,
@@ -419,10 +419,12 @@ def _plane(prog, arg, what, dtypes=_FLOATS) -> int:
     return arg[1]
 
 
-def _plane_words(s: Slot, samples=None) -> int:
+def _plane_words(s: Slot, samples=None, wide=False) -> int:
     """The 32-bit words of the arena a plane slot spans (or ``samples`` of
-    it)."""
-    return (s.length if samples is None else samples) * (2 if s.dtype == torch.float64 else 1)
+    it): two a sample for a float64 plane, and for every plane of a float64
+    program (``wide``: its bool planes hold doubles)."""
+    n = s.length if samples is None else samples
+    return n * (2 if wide or s.dtype == torch.float64 else 1)
 
 
 def _taps64(prog: TileProgram, values) -> int:
@@ -469,6 +471,12 @@ def _f32(arg) -> int:
     if arg[0] == "slot":
         return int(arg[2] == torch.float32)
     return int(np.asarray(arg[1]).dtype == np.float32)
+
+
+def _row32(prog: TileProgram, x: Op) -> int:
+    """1 where op ``x``'s row (its first operand, a plane) is float32: the
+    member then casts its scalars to float32, else to float64."""
+    return int(prog.slots[x.ins[0]].dtype == torch.float32)
 
 
 def _lower_kernel(prog: TileProgram, step) -> None:
@@ -676,28 +684,35 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         need(len(args) == 1 + npar and kinds == ("plane",), "signature")
         w = _plane(prog, args[0], name)
         need(o[0].length == prog.slots[w].length, "a row as long as its input")
+        wide = prog.slots[w].dtype == torch.float64
         # the constant parameters in the row's type (as _bparam rounds them)
-        # in the taps, in the function's own order; one a row as operands
-        vec = np.zeros(6, np.float32)
+        # in the taps, in the function's own order; one a row as operands,
+        # rounded to a float32 row's type
+        vec = np.zeros(6, np.float64 if wide else np.float32)
         ins, mask = [w], 0
         for q, a in enumerate(args[1:]):
             v = _scalar(prog, a, "a pulse parameter")
             if isinstance(v, tuple):
-                vec[q] = np.float32(v[1])
+                vec[q] = v[1]
             else:
                 ins.append(v)
                 mask |= 1 << q
         need(len(ins) <= OP_IN, "too many parameters given one a row")
         x = op("inject")
         x.ins = ins
-        x.ip = [kind, prog.n_taps, mask] + [0] * 4 + [(1 << len(ins)) - 2]
+        if wide:
+            tap = _taps64(prog, vec)
+        else:
+            tap = prog.n_taps
+            prog.taps.append(vec)
+            prog.n_taps += 6
+        x.ip = [kind, tap, mask] + [0] * 4 + [0 if wide else (1 << len(ins)) - 2]
         x.dp = [float(_LOG99x4)]
-        prog.taps.append(vec)
-        prog.n_taps += 6
     elif name in DENSE_KINDS:
         kind = DENSE_KINDS[name]
         w = _plane(prog, args[0], name)
         n = prog.slots[w].length
+        wide = prog.slots[w].dtype == torch.float64
 
         def const_array(arg, shape, what):
             v = arg[1] if arg[0] == "const" else None
@@ -705,9 +720,12 @@ def _lower_kernel(prog: TileProgram, step) -> None:
                 v = v.cpu().numpy()
             need(isinstance(v, np.ndarray) and v.shape == shape,
                  f"{what}: a constant array of shape {shape}")
-            return v.astype(np.float32)
+            return v.astype(np.float64 if wide else np.float32)
 
         def tap(arr):
+            # the constants in the row's type (float64: pairs of words)
+            if wide:
+                return _taps64(prog, arr.reshape(-1))
             off = prog.n_taps
             prog.taps.append(arr.reshape(-1))
             prog.n_taps += arr.size
@@ -733,7 +751,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
             if scal:
                 x.ins.append(_scalar(prog, args[2], "bias"))
             x.ip = [kind, flag, wts, b_tap, 0, m, scal,
-                    _f32(args[2]) << 1 if scal else 0]
+                    _f32(args[2]) << 1 if scal and not wide else 0]
     elif name == "windower":
         need(len(args) == 2 and kinds == ("plane",), "signature")
         w = _plane(prog, args[0], name)
@@ -776,7 +794,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x.ins = [_plane(prog, args[0], name), _scalar(prog, args[1], "a_threshold")]
         # ip[0]: the count's kind (0: samples above); the threshold in the
         # row's type, as the member casts it
-        x.ip = [0] * 7 + [2]
+        x.ip = [0] * 7 + [2 * _row32(prog, x)]
     elif name == "saturation":
         need(len(args) == 2 and kinds == ("scalar", "scalar"), "signature")
         bd = _static(args[1], "bit_depth_in")
@@ -785,7 +803,8 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x.ins = [_plane(prog, args[0], name)]
         # kind 1: samples at 0 and at the high rail, in the row's type
         x.ip = [1]
-        x.dp = [float(np.float32(2 ** int(bd) - int(bd)))]
+        rail = 2 ** int(bd) - int(bd)
+        x.dp = [float(np.float32(rail)) if _row32(prog, x) else float(rail)]
     elif name == "presum":
         need(len(args) == 2 and kinds == ("scalar", "plane"), "signature")
         w = _plane(prog, args[0], name)
@@ -816,7 +835,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         x = op("min_max_norm")
         x.ins = [w, _scalar(prog, args[1], "a_min"), _scalar(prog, args[2], "a_max")]
         # the extrema in the row's type
-        x.ip = [0] * 7 + [6]
+        x.ip = [0] * 7 + [6 * _row32(prog, x)]
     elif name == "linear_slope_diff":
         need(len(args) == 3 and kinds == ("scalar", "scalar"), "signature")
         x = op("linear_slope_diff")
@@ -833,7 +852,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
         if dflt:
             x.ins.append(_scalar(prog, args[2], "the default"))
         # ip[0]: get_default; its default in the row's type
-        x.ip = [int(dflt)] + [0] * 6 + [4 * dflt]
+        x.ip = [int(dflt)] + [0] * 6 + [4 * dflt * _row32(prog, x)]
     elif name == "multi_a_filter":
         need(len(args) == 2 and kinds == ("plane",), "signature")
         vt = _plane(prog, args[1], "vt_max_in")
@@ -846,7 +865,7 @@ def _lower_kernel(prog: TileProgram, step) -> None:
              and len(step.kernel.dims_list[0]) == 1
              and int(_static(args[1], "axis")) == 1, "a reduction of the row")
         x = op("reduce")
-        x.ins = [_plane(prog, args[0], name, (torch.float32, torch.bool))]
+        x.ins = [_plane(prog, args[0], name, _FLOATS + (torch.bool,))]
         x.ip = [REDUCTIONS[name]]
     elif name == "where":
         need(len(args) == 3 and kinds == ("scalar",), "per-row scalars")
@@ -888,21 +907,23 @@ def _scalar_ufunc(prog: TileProgram, x: Op, kind: int, args) -> None:
 
 def _ewise(prog: TileProgram, step, name, kind, args, out, dp=()) -> None:
     """The plane ``ewise`` op of ``kind`` (a ufunc, ``where`` or a
-    conversion) into the plane ``out``: each operand a float32 or bool
-    plane as long as the output, a per-row scalar (along the row) or a
-    constant. ip[1]: the member computes in float32 (no operand is read as
-    float64); ip[2] the operands; ip[3] which are planes; ip[7] the
-    scalars rounded to float32. Returns the op."""
+    conversion) into the plane ``out``: each operand a float or bool plane
+    as long as the output, a per-row scalar (along the row) or a constant.
+    ip[1]: the member computes in float32 (no operand is read as float64);
+    ip[2] the operands; ip[3] which are planes; ip[7] the scalars rounded
+    to float32. A float64 plane among its operands or its output makes the
+    program a float64 one (:func:`_plane_types` refuses a float32 plane
+    there). Returns the op."""
     o = prog.slots[out]
-    if o.dtype not in (torch.float32, torch.bool):
-        raise LoweringError(f"K7 takes float32 planes; {o.key} is {o.dtype}")
+    if o.dtype not in _FLOATS + (torch.bool,):
+        raise LoweringError(f"K7 takes float and bool planes; {o.key} is {o.dtype}")
     x = Op(f"{name}[{step.name}]", OPCODES["ewise"], args, [out], step)
     planes = cast = f64 = 0
     for q, a in enumerate(args):
         s = prog.slots[a[1]] if a[0] == "slot" else None
         if s is not None and s.kind == "plane":
-            if s.dtype not in (torch.float32, torch.bool) or s.length != o.length:
-                raise LoweringError(f"{name}: K7 takes float32 or bool plane operands "
+            if s.dtype not in _FLOATS + (torch.bool,) or s.length != o.length:
+                raise LoweringError(f"{name}: K7 takes float or bool plane operands "
                                     f"as long as the output, not {s.length} "
                                     f"{s.dtype} samples into {o.length}")
             x.ins.append(a[1])
@@ -919,21 +940,21 @@ def _ewise(prog: TileProgram, step, name, kind, args, out, dp=()) -> None:
 
 def _lower_convert(prog: TileProgram, step) -> None:
     """A ConvertStep: the ``convert`` op (a per-row scalar, float or int64)
-    or, for a float32 plane, the ``ewise`` op's conversion."""
+    or, for a float plane, the ``ewise`` op's conversion."""
     name = step.kernel.__name__
     if name not in CONVERTS:
         raise LoweringError(f"{name} has no K7 op")
     sid = prog.slot_of(step.in_key)
     s = prog.slots[sid]
     plane = s.kind == "plane"
-    if s.dtype not in ((torch.float32,) if plane else _FLOATS + (torch.int64,)):
-        raise LoweringError(f"{name}: K7 converts float32 planes and float or "
+    if s.dtype not in (_FLOATS if plane else _FLOATS + (torch.int64,)):
+        raise LoweringError(f"{name}: K7 converts float planes and float or "
                             f"int64 per-row scalars, not {s.dtype}")
     dt = s.dtype
     out_var = step.out_var
     if out_var is not None and out_var.dtype is not auto:
         dt = _device_dtype(out_var.dtype)
-        if dt not in ((torch.float32,) if plane else _FLOATS + (torch.int64,)):
+        if dt not in (_FLOATS if plane else _FLOATS + (torch.int64,)):
             raise LoweringError(f"{name}: a {dt} output")
     args = [("slot", sid, s.dtype)]
     for off in (step.from_offset, step.to_offset):
@@ -983,8 +1004,9 @@ def _plane_types(prog: TileProgram) -> None:
     """Whether ``prog`` is a float64 program (``prog.f64``: a float64 plane
     loaded, or read or written by an op other than the SiPM pair of
     :data:`F32_PROGRAM_F64_OPS`), and that its planes are all of its
-    kernel's types: a float64 program's all float64 and its ops all of
-    :data:`F64_OPS`; a float program's float64 planes whole."""
+    kernel's types: a float64 program's float64, or bool (a comparison's,
+    held as doubles 1.0 and 0.0), and its ops all of :data:`F64_OPS`; a
+    float program's float64 planes whole."""
     names = {v: k for k, v in OPCODES.items()}
 
     def f64(sid):
@@ -998,9 +1020,9 @@ def _plane_types(prog: TileProgram) -> None:
     for sid, s in enumerate(prog.slots):
         if s.kind != "plane":
             continue
-        if prog.f64 and s.dtype != torch.float64:
-            raise LoweringError(f"K7's float64 programs take float64 planes; {s.key} "
-                                f"is {s.dtype}")
+        if prog.f64 and s.dtype not in (torch.float64, torch.bool):
+            raise LoweringError(f"K7's float64 programs take float64 and bool planes; "
+                                f"{s.key} is {s.dtype}")
         if not prog.f64 and f64(sid) and (s.start, s.length) != (
                 0, prog.slots[s.root].length):
             raise LoweringError(f"{s.key}: a slice of a float64 plane in a float program")
@@ -1096,8 +1118,9 @@ def _plan(prog: TileProgram) -> None:
                 live[o] = live.pop(r)
         for r, d in first.items():
             if d == k and r not in live:
-                prog.slots[r].off = alloc(_plane_words(prog.slots[r]))
-                live[r] = (prog.slots[r].off, _plane_words(prog.slots[r]))
+                words = _plane_words(prog.slots[r], wide=prog.f64)
+                prog.slots[r].off = alloc(words)
+                live[r] = (prog.slots[r].off, words)
         for r in [r for r in live if last[r] == k]:
             release(*live.pop(r))
     prog.arena_floats = top
@@ -1177,8 +1200,8 @@ def _barriers(prog: TileProgram) -> None:
 
     def span(sid):
         s = slots[sid]
-        lo = slots[s.root].off + _plane_words(s, s.start)
-        return lo, lo + _plane_words(s)
+        lo = slots[s.root].off + _plane_words(s, s.start, prog.f64)
+        return lo, lo + _plane_words(s, wide=prog.f64)
 
     def overlaps(a):
         return any(a[0] < b[1] and b[0] < a[1] for b in spans)

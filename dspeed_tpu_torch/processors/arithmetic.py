@@ -28,11 +28,12 @@ def mean_below_threshold(w_in, a_threshold):
     return nanmask(any_bad(isnan_any(w_in, 1), isnan_any(a_threshold)), out)
 
 
-def mean_below_threshold_k7(w_in, a_threshold):
+def mean_below_threshold_k7(w_in, a_threshold, f64=False):
     """:func:`mean_below_threshold` as K7's op computes it (the tape's plain
     walk): the selected samples summed in float64 in K7's block order
     (:func:`._numerics.k7_sum`), divided by their count in float64 and
-    rounded once to the row's type."""
+    rounded once to the row's type. K7's float64 op (``f64``: a float64
+    program's row) takes the same float64 sums and rounds nothing more."""
     thr = cdim(as_tensor(a_threshold, w_in, w_in.dtype))
     sel = w_in < thr
     cnt = sel.sum(dim=-1)

@@ -90,9 +90,10 @@ def linear_slope_diff(w_in, slope, intercept):
     return _slope_diff(w_in, slope, intercept, lambda v: v.sum(dim=-1))
 
 
-def linear_slope_diff_k7(w_in, slope, intercept):
+def linear_slope_diff_k7(w_in, slope, intercept, f64=False):
     """:func:`linear_slope_diff` as K7's op computes it (the tape's plain
-    walk): its two sums in K7's block order (:func:`._numerics.k7_sum`)."""
+    walk): its two sums in K7's block order (:func:`._numerics.k7_sum`), in
+    float64 on a float or (``f64``) a float64 program's row alike."""
     return _slope_diff(w_in, slope, intercept, k7_sum)
 
 

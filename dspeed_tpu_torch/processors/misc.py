@@ -59,9 +59,10 @@ def presum(w_in, do_norm, dims):
     return _presum(w_in, dn, dims["m"], lambda wt: wt.sum(dim=-1))
 
 
-def presum_k7(w_in, do_norm, dims):
+def presum_k7(w_in, do_norm, dims, f64=False):
     """:func:`presum` as K7's op computes it (the tape's plain walk): each
-    output's samples added in turn to 0.0 in the row's type."""
+    output's samples added in turn to 0.0 in the row's type, float32 or
+    (``f64``, a float64 program's row) float64."""
 
     def total(wt):
         out = torch.zeros(wt.shape[:-1], dtype=wt.dtype, device=wt.device)

@@ -117,7 +117,7 @@ def normalisation_layer(x_in, means, variances):
 K7_WARPS = K7_THREADS // 32
 
 
-def layer_rows(x, kern, bias, flag: int, name: str):
+def layer_rows(x, kern, bias, flag: int, name: str, f64: bool = False):
     """A dense (``kern`` ``(n, m)``) or classification (``kern`` ``(n,)``)
     layer over the rows of ``x`` (``(B, n)``) with K7's ``dense`` op's sums:
     warp ``w`` of ``K7_WARPS`` sums the products of the inputs ``[w c, (w +
@@ -125,7 +125,9 @@ def layer_rows(x, kern, bias, flag: int, name: str):
     two ``x``-typed values is exact there), the warps' sums are added in
     order, and the total is rounded to ``x``'s type; then the bias (``(m,)``,
     or a number or one value per row for a classification) and the
-    activation, in ``x``'s type. NaN rows give NaN."""
+    activation, in ``x``'s type (``f64``, a float64 program's row: every
+    product, sum and activation in float64, as K7's float64 op takes them,
+    nothing rounded to float32). NaN rows give NaN."""
     B, n = x.shape
     w = as_tensor(kern, x, x.dtype)
     vec = w.ndim == 1

@@ -93,15 +93,16 @@ def moving_window_right(w_in, length):
     return nanmask(isnan_any(w_in, 1), _mwr(w_in, ln))
 
 
-def moving_window_left_k7(w_in, length):
+def moving_window_left_k7(w_in, length, f64=False):
     """:func:`moving_window_left` as K7's ``moving_window`` op computes it
     (the tape's plain walk): from the float64 prefix in K7's order
-    (:func:`._numerics.k7_prefix`)."""
+    (:func:`._numerics.k7_prefix`), each window in float64, rounded once to
+    the row's type (``f64``, a float64 program's row: not rounded)."""
     ln = _check_len(length, w_in.shape[-1], "moving_window_left")
     return nanmask(isnan_any(w_in, 1), _mwl(w_in, ln, k7_prefix))
 
 
-def moving_window_right_k7(w_in, length):
+def moving_window_right_k7(w_in, length, f64=False):
     """:func:`moving_window_right` in K7's prefix order, as
     :func:`moving_window_left_k7`."""
     ln = _check_len(length, w_in.shape[-1], "moving_window_right")

@@ -151,9 +151,10 @@ def trap_pickoff(w_in, rise, flat, t_pickoff):
     return _pickoff(w_in, rise, flat, t_pickoff, hp_cumsum)
 
 
-def trap_pickoff_k7(w_in, rise, flat, t_pickoff):
+def trap_pickoff_k7(w_in, rise, flat, t_pickoff, f64=False):
     """:func:`trap_pickoff` as K7's op computes it (the tape's plain walk):
-    from the float64 prefix in K7's order (:func:`._numerics.k7_prefix`)."""
+    from the float64 prefix in K7's order (:func:`._numerics.k7_prefix`), on
+    a float or (``f64``) a float64 program's row alike."""
     return _pickoff(w_in, rise, flat, t_pickoff, k7_prefix)
 
 

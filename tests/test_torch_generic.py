@@ -565,11 +565,12 @@ def test_ops_chain_runs_as_one_group_equal_to_unfused():
 
 
 def test_member_with_no_op_raises_and_the_group_splits():
-    """A tile-safe member K7 has no op for in the group: every tile-safe
-    kernel has one on float32 rows now (this was ``moving_window_left``
-    before the plane ops), so the member is a ufunc into a float64 plane
-    (K7 takes float32 planes). The lowering raises, the group splits, and
-    the outputs equal the unfused chain's."""
+    """A member K7 has no tape for in the group: every tile-safe kernel has
+    an op on float32 and float64 rows now (this was ``moving_window_left``
+    before the plane ops), so the member is a ufunc from a float32 row into
+    a float64 plane, a mix of plane types no program takes (a float64
+    program takes float64 and bool planes). The lowering raises, the group
+    splits, and the outputs equal the unfused chain's."""
     wf, bl = _events(n=8, nsamp=N_OPS, seed=5)
     cfg = {"outputs": OPS_CONFIG["outputs"] + ["mwl_max"],
            "processors": dict(OPS_CONFIG["processors"])}
@@ -588,12 +589,14 @@ def test_member_with_no_op_raises_and_the_group_splits():
     step = next(m for m in group.members
                 if getattr(getattr(m, "kernel", None), "__name__", "") == "multiply"
                 and m.out_specs[0].shape)
-    with pytest.raises(_tile_program.LoweringError, match="float32 planes"):
+    with pytest.raises(_tile_program.LoweringError,
+                       match="float64 programs take float64 and bool planes"):
         _tile_program.lower([step], {step.arg_specs[0].key: torch.zeros(8, N_OPS)},
                             [step.out_specs[0].key])
     _tile_program.reset_splits()
     got = _run(wf, bl, "generic", cfg)
-    assert any("K7 takes float32 planes" in k for k in _tile_program.SPLITS)
+    assert any("float64 programs take float64 and bool planes" in k
+               for k in _tile_program.SPLITS)
     want = _run(wf, bl, False, cfg)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -228,10 +228,12 @@ OP_CASES = {
 }
 
 
-def _op(name, dtype="float32"):
+def _op(name, dtype="float32", inf=False):
     out, code = OP_CASES[name]
     cfg = _inject_cfg() if code == "inject" else _ml_cfg("d" if dtype == "float64" else "f")
     wf, bl = events(dtype)
+    if inf:  # an infinite sample in row 4
+        wf[4, 180] = np.inf
     step, vals, _, _ = one_op(cfg, name, wf, bl, [out], db=_db())
     return step, vals, code
 
@@ -253,10 +255,14 @@ def test_op_matches_pallas_generic_rows(name):
         assert prog.scratch_dbl >= (8 * op.ip[5] if kind else 0)
 
 
-@pytest.mark.parametrize("name", ["inject_gumbel", "dense_layer_with_bias"])
+@pytest.mark.parametrize("name", sorted(OP_CASES))
 def test_op_float64_rows_split(name):
-    step, vals, _ = _op(name, "float64")
-    check_float64_body(step, vals, getattr(_jp(), name))
+    """A float64 row (it split these ops' groups until K7's float64 kernel
+    took them), an infinite sample among its rows: the op lowers into a
+    float64 program, its constants in float64; its plain walk meets the JAX
+    package in float64, and the member's own body the plain walk."""
+    step, vals, code = _op(name, "float64", inf=True)
+    check_float64_body(step, vals, getattr(_jp(), name), codes=code)
 
 
 def test_ops_in_one_group_plan_their_barriers():

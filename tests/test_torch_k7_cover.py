@@ -39,10 +39,11 @@ sys.path.insert(0, HERE)
 sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 from torch_k7_ops import (  # noqa: E402
-    check_against_pallas, check_float64_body, events, one_op,
+    check_against_pallas, check_float64_body, events, one_op, widen,
 )
 
 K = "dspeed_tpu.processors"
+INF_ROW, INF_AT = 4, 180  # the row with an infinite sample, and where
 
 
 @pytest.fixture(autouse=True)
@@ -138,8 +139,10 @@ def _jax_fn(step):
     return fn
 
 
-def _rows(case, dtype="float32"):
+def _rows(case, dtype="float32", inf=False):
     wf, bl = events(dtype)
+    if inf:
+        wf[INF_ROW, INF_AT] = np.inf
     if case == "saturation":
         # samples at both rails of 8 bits (0 and 248), a few per row
         wf[:, 10:13] = 0.0
@@ -149,9 +152,14 @@ def _rows(case, dtype="float32"):
     return wf, bl
 
 
-def _op(case, dtype="float32"):
+def _op(case, dtype="float32", inf=False):
+    """``(step, vals, op)``: the case's member on ``dtype`` rows (with
+    ``inf``, an infinite sample in row ``INF_ROW``; on float64 rows its
+    float32 outputs declared float64) and the values it reads."""
     procs, name, outs, code = OP_CASES[case]
-    wf, bl = _rows(case, dtype)
+    wf, bl = _rows(case, dtype, inf)
+    if dtype == "float64":
+        procs = widen(procs)
     step, vals, _, _ = one_op(procs, name, wf, bl, outs)
     return step, vals, code
 
@@ -168,12 +176,12 @@ def test_op_matches_pallas_generic_rows(case):
                                   "log_check", "trap_pickoff", "min_max_norm",
                                   "linear_slope_diff", "get", "multi_a_filter"])
 def test_op_float64_rows_split(case):
-    step, vals, _ = _op(case, "float64")
-    if case == "presum":  # the member takes its output's length as dims
-        with pytest.raises(_tile_program.LoweringError, match="float32"):
-            _tile_program.lower([step], vals, [sp.key for sp in step.out_specs])
-        return
-    check_float64_body(step, vals, _jax_fn(step))
+    """A float64 row (these ops split it until K7's float64 kernel took
+    them), an infinite sample among its rows: the op lowers into a float64
+    program; its plain walk meets the JAX package in float64, and the
+    member's own body the plain walk (``check_float64_body``)."""
+    step, vals, code = _op(case, "float64", inf=True)
+    check_float64_body(step, vals, _jax_fn(step), codes=code)
 
 
 @pytest.mark.parametrize("case", SCALAR_OPS)

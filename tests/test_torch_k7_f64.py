@@ -1,5 +1,5 @@
 """K7 on float64 planes: the ops of the float64 flagship's, DPZ's and extras'
-generic groups (``_tile_program.F64_OPS``), run by K7's float64 kernel
+generic groups (of ``_tile_program.F64_OPS``), run by K7's float64 kernel
 (``generic_rows_kernel_f64``) on the card and by the tape's plain walk here,
 each member in its K7-order float64 variant (``k7_plain`` given ``f64``:
 K7's prefix and block sums, true divisions, sums in a fixed order).

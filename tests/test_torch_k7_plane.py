@@ -44,7 +44,9 @@ REPO = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
 sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
-from torch_k7_ops import check_group, events, table  # noqa: E402
+from torch_k7_ops import (  # noqa: E402
+    assert_f64_close, check_group, events, member_outputs, table, widen,
+)
 from torch_k7_ops import member_name as _name  # noqa: E402
 
 K = "dspeed_tpu.processors"
@@ -199,8 +201,11 @@ def _rows(dtype="float32"):
 
 def _group(case, dtype="float32", wf=None, bl=None):
     """``(steps, vals)``: the case's members (its chain built unfused on the
-    CPU, with the database of ``_db``) and the env values they read."""
+    CPU, with the database of ``_db``; on float64 rows its float32 outputs
+    declared float64) and the env values they read."""
     procs, names, outs, _ = OP_CASES[case]
+    if dtype == "float64":
+        procs = widen(procs)
     if wf is None:
         wf, bl = _rows(dtype)
     cfg = {"outputs": list(outs), "processors": {
@@ -245,14 +250,29 @@ def test_convert_int_marks_a_result_that_is_not_an_integer():
                                   "ufunc_greater", "where_planes", "reduce_sum",
                                   "ufunc_isnan"])
 def test_op_float64_rows_split(case):
-    """A float64 row: K7 runs these ops on float32 planes only (entry 4 of
-    ROADMAP §2; ``trap_filter``'s float64 form is held by
-    ``tests/test_torch_k7_f64.py``), so the lowering refuses the op and its
-    group splits."""
+    """A float64 row (these ops split it until K7's float64 kernel took
+    them): the op lowers into a float64 program, bool planes and all; its
+    plain walk meets the JAX package's ``_pallas.generic_rows`` in float64,
+    and each member's own body the plain walk, at the golden replay's
+    tolerance of the column's scale, on every row, the one with an infinite
+    sample included."""
     steps, vals, _ = _group(case, "float64")
-    with pytest.raises(_tile_program.LoweringError, match="float32"):
-        _tile_program.lower(steps, vals, sorted(set().union(
-            *(_step_writes(s) for s in steps))))
+    check_float64_group(steps, vals, OP_CASES[case][3])
+
+
+def check_float64_group(steps, vals, codes):
+    """``steps`` on float64 rows as one float64 program (its ops ``codes``):
+    the plain walk against the JAX package (``check_group`` with ``f64``),
+    and each member's own body against the plain walk."""
+    prog = check_group(steps, vals, codes, f64=True)
+    assert prog.f64
+    plain = _cuda.generic_rows_plain(prog, vals)
+    env = {**vals, **plain}
+    for step in steps:
+        ins = {k: env[k] for k in ProcessingChain._step_env_reads(step)}
+        for k, v in member_outputs(step, ins).items():
+            assert_f64_close(v.numpy(), plain[k].numpy(), f"{k}: member")
+    return prog
 
 
 @pytest.mark.parametrize("case", ["fixed_time_pickoff_h", "scalar_floor_divide",

@@ -34,6 +34,19 @@ def assert_f64_close(got, want, what):
         assert err <= lim, f"{what}: max |diff| {err:.3e} > {lim:.3e}"
 
 
+def widen(cfg):
+    """``cfg`` (a config, or its processors) with its float32 declarations
+    widened to float64: its outputs' ``'f'`` and its ufuncs' and reductions'
+    types, as ``chip_smoke.flagship_config`` widens the flagship's."""
+    import json
+
+    txt = json.dumps(cfg)
+    for f32, f64 in (("'f')", "'d')"), ('"fi->f"', '"di->d"'), ('"f->f"', '"d->d"'),
+                     ('"ff->f"', '"dd->d"'), ('"f->?"', '"d->?"')):
+        txt = txt.replace(f32, f64)
+    return json.loads(txt)
+
+
 def table(lh5, wf, bl):
     return lh5.Table({
         "waveform": lh5.WaveformTable(values=wf, t0=0.0, t0_units="ns", dt=16.0,
@@ -127,29 +140,21 @@ def member_outputs(step, vals) -> dict:
     return {sp.key: env[sp.key] for sp in step.out_specs}
 
 
-def check_float64_body(step, vals, jax_fn, codes=None):
-    """A float64 row. An op that K7 runs on float64 planes (its ops
-    ``codes``, as :func:`check_against_pallas` takes them): the tape's plain
-    walk against ``jax_fn`` traced into ``_pallas.generic_rows`` in
-    interpret mode, in float64, and the member kernel's own body against the
-    plain walk, each at :data:`F64_TOL` of the column's scale. Without
-    ``codes`` K7 runs the op on float32 planes only: the lowering refuses it
-    (its group splits and runs unfused). Either way the member kernel itself
-    is held against ``jax_fn`` in float64."""
-    import pytest
-
+def check_float64_body(step, vals, jax_fn, codes):
+    """A float64 row, on which K7 runs the op (its ops ``codes``, as
+    :func:`check_against_pallas` takes them) in a float64 program: the tape's
+    plain walk against ``jax_fn`` traced into ``_pallas.generic_rows`` in
+    interpret mode, in float64, and the member's own body against the plain
+    walk, each at :data:`F64_TOL` of the column's scale; and the member
+    kernel itself against ``jax_fn`` in float64."""
     from dspeed_tpu.processors import _pallas
 
     writes = [sp.key for sp in step.out_specs]
-    if codes is not None:
-        prog = check_against_pallas(step, vals, jax_fn, codes, f64=True)
-        assert prog.f64
-        plain = _cuda.generic_rows_plain(prog, vals)
-        for k, v in member_outputs(step, vals).items():
-            assert_f64_close(v.numpy(), plain[k].numpy(), f"{k}: member against plain walk")
-    else:
-        with pytest.raises(_tile_program.LoweringError, match="float32"):
-            _tile_program.lower([step], vals, writes)
+    prog = check_against_pallas(step, vals, jax_fn, codes, f64=True)
+    assert prog.f64
+    plain = _cuda.generic_rows_plain(prog, vals)
+    for k, v in member_outputs(step, vals).items():
+        assert_f64_close(v.numpy(), plain[k].numpy(), f"{k}: member against plain walk")
     member = member_outputs(step, vals)
     keys = [s.key for s in step.arg_specs if s.kind == "env"]
 

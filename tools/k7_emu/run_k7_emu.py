@@ -61,17 +61,21 @@ a NaN sample, a NaN baseline and an infinite sample: every escape bit for
 bit against the plain walk), ``f64`` (K7's float64 kernel on the float64
 flagship's two groups, the float64 DPZ's energy front and the float64
 extras' three groups, at 4096 samples with a NaN sample, a NaN baseline, an
-infinite sample and a flat row from 4 rows on: every escape bit for bit
-against the plain walk on every row, rows 8 bytes off alignment too; the
-programs are lowered and walked with the host's libm for float64 ``sqrt``
-and ``exp``, ``host_libm``, as the emulated kernel calls it).
+infinite sample and a flat row from 4 rows on; and this file's ``injml``,
+``cover`` and ``plane`` groups widened to float64 at 600 samples
+(``tests/torch_k7_ops.widen``),
+every op of a float64 program among them: every escape bit for bit against
+the plain walk on every row, rows 8 bytes off alignment too; the programs are
+lowered and walked with the host's libm for the float64 functions of
+``LIBM``, ``host_libm``, as the emulated kernel calls it).
 ``--drop-barrier OP`` builds the kernel with
 the first block barrier (``__syncthreads()``, or ``log_check``'s
 ``__syncthreads_or``) of that op's device function taken out, for
 ``trap_pickoff`` and ``moving_window`` the one that ends their prefix
-(``gen_prefix``), and ``conv_f64`` the float64 convolution's (``op_conv64``,
-which stages the row's window before it): a mutation the ``tsan`` mode must
-report.
+(``gen_prefix``), ``conv_f64`` the float64 convolution's (``op_conv64``,
+which stages the row's window before it) and ``dense_f64`` the float64 dense
+layer's (``op_dense64``, after its warps' partial sums): a mutation the
+``tsan`` mode must report; the run stops at the first case that fails.
 """
 
 import argparse
@@ -322,7 +326,7 @@ OP_FUNCTIONS = {"poly_residual": "op_poly_resid", "soft_pileup": "op_soft_pileup
                 "mean_below_threshold": "op_mean_below", "count": "op_count",
                 "linear_slope_diff": "op_slope_diff", "log_check": "op_log_check",
                 "trap_pickoff": "gen_prefix", "moving_window": "gen_prefix",
-                "reduce": "op_reduce", "conv_f64": "op_conv64"}
+                "reduce": "op_reduce", "conv_f64": "op_conv64", "dense_f64": "op_dense64"}
 # double_pole_zero in a group: it reads the samples bl_subtract's threads
 # wrote (the planned barrier before it), and the fit, trapezoid and maximum
 # read its output
@@ -546,12 +550,12 @@ def cases(names, rows=6):
         # the float64 flagship's groups on float64 rows (K7's float64
         # kernel): a NaN sample, a NaN baseline, an infinite sample, a flat
         # row (from 4 rows on)
-        def poison(wf, bl):
+        def poison(wf, bl, at=(500, 2000)):
             wf = wf.astype(np.float64)
-            wf[0, 500] = np.nan
+            wf[0, at[0]] = np.nan
             bl[1 % rows] = np.nan
             if rows >= 4:
-                wf[2, 2000] = np.inf
+                wf[2, at[1]] = np.inf
                 wf[3, :] = wf[3, 0]
             return wf, bl
 
@@ -561,14 +565,27 @@ def cases(names, rows=6):
         dwf, dbl = poison(*cs.make_hpge_dpz_waveforms(rows)[::3])
         db = {"pz": {"tau": cs.TAU}}
         with host_libm():
-            groups = [(f"f64 flagship {lab}", g) for lab, g in zip(
-                "AB", chain_groups(cs.flagship_config("float64"), wf, bl, db))]
-            groups.append(("f64 dpz A", chain_groups(cs.dpz_config("float64"), dwf, dbl,
-                                                     db)[0]))
-            groups += [(f"f64 extras {lab}", g) for lab, g in zip(
-                "CDE", chain_groups(cs.extras_config("float64"), wf, bl, db, fuse=True))]
-        for lab, g in groups:
-            yield (lab, *g)
+            # first the injection + ML, coverage and plane groups of this
+            # file in float64 at 600 samples: the float64 forms of their ops
+            # with a block barrier (dense, the reductions, the prefix ops,
+            # min_max_norm and the direct convolution among the rest); each
+            # group yielded as soon as it is lowered
+            from test_torch_generic import _events as events
+            from torch_k7_ops import widen
+
+            for name, cfg, db6, seed in (("injml", INJML_CONFIG, injml_db(), 9),
+                                         ("cover", COVER_CONFIG, None, 13),
+                                         ("plane", PLANE_CONFIG, plane_db(), 17)):
+                w6, b6 = events(n=max(rows, 8), nsamp=600, seed=seed)
+                w6, b6 = poison(w6[:rows], b6[:rows], (350, 450))
+                for lab, g in zip("AB", chain_groups(widen(cfg), w6, b6, db6, fuse=True)):
+                    yield (f"f64 {name} {lab}", *g)
+            for lab, g in zip("AB", chain_groups(cs.flagship_config("float64"), wf, bl, db)):
+                yield (f"f64 flagship {lab}", *g)
+            yield ("f64 dpz A", *chain_groups(cs.dpz_config("float64"), dwf, dbl, db)[0])
+            for lab, g in zip("CDE", chain_groups(cs.extras_config("float64"), wf, bl, db,
+                                                  fuse=True)):
+                yield (f"f64 extras {lab}", *g)
     if "dpz" in names:
         from torch_flagship import make_hpge_dpz_waveforms
 
@@ -634,29 +651,45 @@ def _same(a, b):
 
 
 def _libm(fn):
-    def one(v):
+    def one(*v):
         try:
-            return fn(v) if not (fn is math.sqrt and v < 0) else math.nan
+            return fn(*v)
         except OverflowError:
             return math.inf
+        except ValueError:  # a domain error: the C function's NaN or -inf
+            if fn in (math.log, math.log10) and v[0] == 0:
+                return -math.inf
+            if fn is math.log1p and v[0] == -1:
+                return -math.inf
+            return math.nan
     return np.vectorize(one, otypes=[np.float64])
+
+
+# the float64 functions the float64 kernel takes from the math library
+LIBM = ("sqrt", "exp", "expm1", "log", "log1p", "log10", "tanh", "pow")
 
 
 @contextlib.contextmanager
 def host_libm():
-    """``torch.sqrt`` and ``torch.exp`` of float64 tensors as the host's
-    libm takes them, which the emulated kernel calls: PyTorch's CPU sqrt and
-    exp of a float64 row are not always correctly rounded (the card's
-    kernel and PyTorch's CUDA ones are the device's libm)."""
-    real = {name: getattr(torch, name) for name in ("sqrt", "exp")}
+    """``torch``'s float64 functions of :data:`LIBM` as the host's libm
+    takes them, which the emulated kernel calls: PyTorch's CPU functions of
+    a float64 row are not always correctly rounded (the card's kernel and
+    PyTorch's CUDA ones are the device's libm). A chain built inside binds
+    its ufuncs to these."""
+    real = {name: getattr(torch, name) for name in LIBM}
 
     def wrap(name):
         host = _libm(getattr(math, name))
 
-        def call(t):
-            if t.dtype != torch.float64:
-                return real[name](t)
-            return torch.from_numpy(host(t.numpy())).reshape(t.shape)
+        def call(*args):
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            if any(t.dtype != torch.float64 for t in ts) or len(args) > 2:
+                return real[name](*args)
+            vals = [a.numpy() if isinstance(a, torch.Tensor) else np.float64(a)
+                    for a in args]
+            with np.errstate(all="ignore"):
+                out = host(*np.broadcast_arrays(*vals))
+            return torch.from_numpy(np.ascontiguousarray(out))
         return call
 
     try:
@@ -728,6 +761,10 @@ def main(argv=None) -> int:
             print(f"{label} [{args.mode}, rows {mis} samples off alignment] "
                   f"{len(full.ops)} ops, {sum(o.plan for o in full.ops)} planned "
                   f"barriers: {msg}", flush=True)
+            if bad and args.drop_barrier:
+                break  # the mutation is seen: the rest need not run
+        if bad and args.drop_barrier:
+            break
     print("FAILED" if bad else "OK")
     return 1 if bad else 0
 

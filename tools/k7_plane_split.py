@@ -4,10 +4,12 @@ whose groups split around members K7 has no op for can be held side by
 side in one call.
 
 ``--path`` names the path: ``plane`` (``chip_smoke.plane_config``,
-``build_dsp`` with ``fuse="generic"``) or ``f64`` (the float64 flagship,
+``build_dsp`` with ``fuse="generic"``), ``f64`` (the float64 flagship,
 ``chip_smoke.flagship_config("float64")`` on the events in float64, its
 groups from ``fuse="generic"`` and ``build_dsp`` in the default mode, which
-forms the same groups on the card: no hand kernel takes a float64 plane).
+forms the same groups on the card: no hand kernel takes a float64 plane) or
+``f64plane`` (the float64 plane path, ``chip_smoke.plane_config("float64")``
+on the events in float64, ``build_dsp`` with ``fuse="generic"``).
 ``--root DIR`` is the tree whose ``dspeed_tpu_torch`` is imported (default:
 the tree this script sits in); the configuration and the events are always
 this tree's (``chip_smoke``, ``make_hpge_waveforms``), so an older tree
@@ -50,7 +52,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="")
-    ap.add_argument("--path", choices=("plane", "f64"), default="plane")
+    ap.add_argument("--path", choices=("plane", "f64", "f64plane"), default="plane")
     ap.add_argument("--events", type=int, default=16384)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--max-members", type=int, default=0)
@@ -83,10 +85,11 @@ def main(argv=None) -> int:
     card = cs.card_line() if dev.type == "cuda" else "cpu"
     clock = "CUDA events" if dev.type == "cuda" else "host clock"
     print(card, flush=True)
-    f64 = args.path == "f64"
-    cfg = cs.flagship_config("float64") if f64 else cs.plane_config()
-    fuse = {} if f64 else {"fuse": "generic"}  # build_dsp's mode
-    column = "trapEmax" if f64 else "tf_max"
+    f64 = args.path != "plane"
+    cfg = {"plane": cs.plane_config, "f64": lambda: cs.flagship_config("float64"),
+           "f64plane": lambda: cs.plane_config("float64")}[args.path]()
+    fuse = {} if args.path == "f64" else {"fuse": "generic"}  # build_dsp's mode
+    column = "trapEmax" if args.path == "f64" else "tf_max"
     db = {"pz": {"tau": cs.TAU}}
     wf, _amp, _t0, bl, _rt = cs.make_hpge_waveforms(args.events)
     tb = cs.hpge_table(lh5, wf.astype(np.float64) if f64 else wf, bl)
