@@ -105,6 +105,12 @@ no hand kernel, no split) and of the float64 plane path twice in the
 generic mode (K7 ``F64_PLANE_LAUNCHES`` times a chunk, no split but group
 C's on shared memory); the first 1024 events against the CPU run at the
 golden replay's tolerance.
+The **float64 SiPM path** (``F64_PATHS``' first entry and
+``sipm_f64_phase``): the SiPM chain on its rows widened to float64 as one
+float64 K7 launch, bit for bit against the plain walk and, through
+``build_dsp``, against the float32 SiPM path's VoV columns. The **examples**
+(``examples_phase``): the port's examples' steps that need neither ``h5py``
+nor ``matplotlib``, at full width, through the examples' own functions.
 The **browser** (``vis_phase``:
 ``dspeed_tpu_torch.vis.WaveformBrowser`` over the flagship's 16384 events,
 its chain's K1, K3 and K2 once each, fetched entries against ``build_dsp``
@@ -261,17 +267,21 @@ def make_sipm_waveforms(n, nsamp=SIPM_SAMPLES, seed=3):
 
 def sipm_edge_rows(wf):
     """``wf`` with its first rows made into the SiPM group's edge cases: a
-    NaN sample (row 0), an infinite sample (row 1), the row's maximum and
-    minimum in the samples the reflected pad copies (row 2: samples 1 and
-    n - 2), and a sine of period 40 samples (row ``FULL_SLOT_ROW``: more
-    maxima than the peak finder's 20 slots)."""
+    NaN sample (row 0, at sample 300 of 1024), an infinite sample (row 1, at
+    700 of 1024; both placed in proportion on shorter rows), the row's
+    maximum and minimum in the samples the reflected pad copies (row 2:
+    samples 1 and n - 2), and a sine of period 40 samples (row
+    ``FULL_SLOT_ROW``, where the rows reach it: more maxima than the peak
+    finder's 20 slots)."""
     wf = wf.copy()
-    wf[0, 300] = np.nan
-    wf[1, 700] = np.inf
+    n = wf.shape[1]
+    wf[0, 300 * n // SIPM_SAMPLES] = np.nan
+    wf[1, 700 * n // SIPM_SAMPLES] = np.inf
     hi, lo = np.abs(wf[2]).max() + 50, -np.abs(wf[2]).max() - 50
     wf[2, 1], wf[2, -2] = hi, lo
     i = np.arange(wf.shape[1])
-    wf[FULL_SLOT_ROW] += (100 * np.sin(2 * np.pi * i / 40)).astype(np.float32)
+    if len(wf) > FULL_SLOT_ROW:
+        wf[FULL_SLOT_ROW] += (100 * np.sin(2 * np.pi * i / 40)).astype(np.float32)
     return wf
 
 
@@ -860,12 +870,16 @@ def plane_op_label(prog, op):
     return None
 
 
-# the float64 paths: K7's float64 kernel on the groups of the float64
-# flagship, DPZ, extras, injection + ML, coverage and plane paths
-# (flagship_config ... plane_config with "float64"), with their members (in
-# fuse="generic") and the groups that may bisect, on shared memory alone
-# (the plane path's group C: its float64 arena is over one block's)
-F64_PATHS = (("float64 flagship", flagship_config, (34, 19), ""),
+# the float64 paths: K7's float64 kernel on the groups of the SiPM chain on
+# float64 rows (sipm_edge_rows widened; its config declares float64 taps,
+# so its rows alone are of the path's type), and of the float64 flagship,
+# DPZ, extras, injection + ML, coverage and plane paths (flagship_config ...
+# plane_config with "float64"), with their members (in fuse="generic") and
+# the groups that may bisect, on shared memory alone (the plane path's
+# group C: its float64 arena is over one block's); the SiPM path first, so
+# that the flagship's avg_current keeps its figure under ops_alone
+F64_PATHS = (("float64 SiPM", lambda dtype: sipm_config(), (2,), ""),
+             ("float64 flagship", flagship_config, (34, 19), ""),
              ("float64 DPZ", dpz_config, (34, 19), ""),
              ("float64 extras", extras_config, (34, 19, 9, 2, 22), ""),
              ("float64 injection + ML", inject_ml_config, (34, 19, 25, 22), ""),
@@ -885,7 +899,9 @@ F64_HELD = ("bl_subtract", "windower", "avg_current", "min_max", "amax",
             "inject", "dense normalisation", "dense", "mean_below_threshold", "count",
             "presum", "log_check", "trap_pickoff", "min_max_norm", "linear_slope_diff",
             "get", "multi_a_filter", "where", "round", "trap_filter", "moving_window",
-            "conv_direct", "ewise", "reduce")
+            "conv_direct", "ewise", "reduce",
+            # the SiPM chain's
+            "reflected_conv")
 
 
 def f64_op_label(prog, op):
@@ -3055,7 +3071,8 @@ def sipm_e2e_phase(build_dsp, lh5, _cuda, wf, n_pulses, card):
                              f"{SIPM_PULSE_MARGIN} of the JAX package's "
                              f"{SIPM_PULSE_ERR}")
     return dict(launches=launches, first_wfps=n_ev / cold_s,
-                warm_wfps=n_ev / warm_s, pulse_err=err)
+                warm_wfps=n_ev / warm_s, pulse_err=err,
+                cols={k: column_arrays(out[k], n_ev) for k in cfg["outputs"]})
 
 
 def sipm_pipeline_phase(build_dsp, build_processing_chain, lh5, _cuda, wf, card):
@@ -3102,6 +3119,265 @@ def sipm_pipeline_phase(build_dsp, build_processing_chain, lh5, _cuda, wf, card)
           f"wf/s), the synchronous calls {sync_s:.3f} s ({total / sync_s:.0f} "
           f"wf/s); split (s): {json.dumps(split)}; on {card}", flush=True)
     return dict(wfps=total / run_s, sync_wfps=total / sync_s, launches=launches)
+
+
+def sipm_f64_phase(build_dsp, lh5, _cuda, wf, want, card):
+    """The SiPM chain on ``wf`` widened to float64 (the rows of the float32
+    SiPM path): ``build_dsp`` on the card, Table -> Table, twice (a
+    chain-cache hit); one chunk: its one generic group lowered as a float64
+    program (K7's float64 kernel) and launched once, ``peakdet_scan`` once
+    on its float64 current, no split. Widening is exact and both chains
+    take the same float64 products and sums, so every VoV column equals the
+    float32 path's (``want``) bit for bit on every event. Returns the
+    launch counts and rates."""
+    import torch
+
+    from dspeed_tpu_torch.processing_chain import GroupStep
+    from dspeed_tpu_torch.processors import _tile_program
+
+    cfg = sipm_config()
+    tb = sipm_table(lh5, wf.astype(np.float64))
+    n_ev = len(wf)
+    bdsp = sys.modules[build_dsp.__module__]
+    bdsp._CHAIN_CACHE.clear()
+
+    def timed():
+        torch.cuda.synchronize()
+        t_0 = time.time()
+        out = build_dsp(tb, dsp_config=cfg, n_entries=n_ev, buffer_len=n_ev,
+                        device=DEVICE)
+        torch.cuda.synchronize()
+        return out, time.time() - t_0
+
+    _cuda.reset_launches()
+    _tile_program.reset_splits()
+    out, cold_s = timed()
+    launches = dict(_cuda.LAUNCHES)
+    splits = dict(_tile_program.SPLITS)
+    with counted_builds(build_dsp) as builds:
+        _, warm_s = timed()
+    if builds.n:
+        raise AssertionError("[float64 SiPM] the second build_dsp call built a chain")
+    ((chain, *_),) = bdsp._CHAIN_CACHE.values()
+    progs = [p for st in chain._steps if isinstance(st, GroupStep)
+             for p in st._programs.values()]
+    if splits or len(progs) != 1 or not progs[0].f64:
+        raise AssertionError(f"[float64 SiPM] splits {splits}; programs "
+                             f"{[p.f64 for p in progs]}, not one float64 program")
+    for name in ("generic_rows", "peakdet_scan"):
+        if launches.get(name, 0) != 1:
+            raise AssertionError(f"[float64 SiPM] {name} launched "
+                                 f"{launches.get(name, 0)} times on one chunk")
+    for k, arrs in want.items():
+        got = column_arrays(out[k], n_ev)
+        for q, w in arrs.items():
+            if got[q].dtype != w.dtype or got[q].tobytes() != w.tobytes():
+                raise AssertionError(f"[float64 SiPM] {k} {q} differs from the "
+                                     f"float32 SiPM path's")
+    print(f"build_dsp [float64 SiPM] Table -> Table, {n_ev} events x {wf.shape[1]} "
+          f"float64 samples: launches {launches} (one float64 K7 program, no "
+          f"split); every VoV column of every event equal to the float32 SiPM "
+          f"path's bit for bit; first call {cold_s:.3f} s ({n_ev / cold_s:.0f} "
+          f"wf/s), second call {warm_s:.3f} s ({n_ev / warm_s:.0f} wf/s, a "
+          f"chain-cache hit) on {card}", flush=True)
+    return dict(launches=launches, first_wfps=n_ev / cold_s, warm_wfps=n_ev / warm_s)
+
+
+# the examples' steps that read or write LH5 files or draw: the modules
+# each needs (the card's machine may lack them)
+EXAMPLE_FILE_STEPS = (
+    ("quickstart steps 1, 3, 4 (raw and DSP LH5 files)", ("h5py",)),
+    ("quickstart step 5 on files", ("h5py",)),
+    ("quickstart step 6 (the browser drawn to PNG)", ("h5py", "matplotlib")),
+    ("SiPM tutorial steps 2 to 4 on files", ("h5py",)),
+    ("browse_waveforms_torch.main (raw file, PNGs)", ("h5py", "matplotlib")),
+)
+EXAMPLE_CPU_EVENTS = 1024  # events of each example held against the CPU run
+EXAMPLE_BAD = 12345  # the quickstart's checked table: its bad pick-off (of 16384)
+
+
+def example_columns(name, got, want, n, exact=()) -> float:
+    """The first ``n`` events of an example's columns (arrays, or a VoV's
+    dict of arrays) against the CPU run's: NaN positions and counts (a
+    VoV's cumulative lengths, the ``exact`` columns) equal, every float
+    value within REL_TOL of its column's scale. Returns the worst error
+    over scale."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            if g["cumulative_length"].tobytes() != w["cumulative_length"].tobytes():
+                raise AssertionError(f"examples [{name}] {k}: counts differ from "
+                                     f"the CPU run's")
+            g, w = g["flattened_data"], w["flattened_data"]
+        g, w = np.asarray(g[:n], np.float64), np.asarray(w[:n], np.float64)
+        if g.shape != w.shape or not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise AssertionError(f"examples [{name}] {k}: NaN positions differ")
+        ok = ~np.isnan(w)
+        if not ok.any():
+            continue
+        err = float(np.abs(g[ok] - w[ok]).max())
+        if k in exact and err:
+            raise AssertionError(f"examples [{name}] {k}: not the CPU run's")
+        scale = max(float(np.abs(w[ok]).max()), 1e-30)
+        if err > REL_TOL * scale:
+            raise AssertionError(f"examples [{name}] {k}: {err:.3e} > REL_TOL of "
+                                 f"its scale {scale:.3e}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def examples_phase(_cuda, card, n_ev=N_EVENTS):
+    """The port's examples (``examples/*_torch.py``) on the card, each step
+    that needs neither ``h5py`` nor ``matplotlib``, at full width, through
+    the examples' own functions: the quickstart's in-memory chain
+    (``step7_in_memory``) on ``n_ev`` x 4096 events with its ``trapEmax``
+    check and its checked mode on an in-memory table (``checked_in_memory``,
+    the bad event at ``EXAMPLE_BAD``: its exact ``wf_range``), the hand
+    kernels K1 to K5 once on its one chunk; the browser
+    example's two browsers on that table, entries found, not drawn; the SiPM
+    tutorial's production Table -> Table on ``n_ev`` x 1024 events with its
+    efficiency and energy checks (``check_pulses``), then checked mode; the
+    multi-channel example on 4 channels x ``n_ev / 4`` events under NCCL at
+    world size 1 (one dispatch: K1 once), ``trapEmax`` equal to the
+    unsharded chain bit for bit.
+    The first ``EXAMPLE_CPU_EVENTS`` events of each against the CPU run
+    within REL_TOL of each column's scale, counts exactly. Each path's
+    launches counted around it. The steps that read or write files or
+    draw run where their modules are installed; one line names those that
+    did not, and the module that stopped each. Returns the figures."""
+    import importlib.util
+
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    import browse_waveforms_torch as bw
+    import multichannel_torch as mc
+    import quickstart_torch as qs
+    import sipm_pulse_finding_torch as sp
+
+    from dspeed_tpu_torch.processing_chain import build_processing_chain
+
+    n_cpu = EXAMPLE_CPU_EVENTS
+    figs = {}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t_0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        figs[label] = dict(seconds=time.time() - t_0, launches=dict(_cuda.LAUNCHES))
+        return out
+
+    # the quickstart: the in-memory chain, at full width
+    wf, amp, bl = events = qs.make_waveforms(n_ev)
+    tb_out = run("quickstart step 7", lambda: qs.step7_in_memory(DEVICE, events=events))
+    if any(figs["quickstart step 7"]["launches"].get(k, 0) != 1
+           for k in FLAGSHIP_KERNELS):
+        raise AssertionError(f"examples [quickstart]: launches "
+                             f"{figs['quickstart step 7']['launches']}")
+    chain, _, cpu_out = build_processing_chain(
+        qs.CONFIG, qs.raw_table(wf[:n_cpu], bl[:n_cpu]), db_dict=qs.DB, device="cpu")
+    chain(qs.raw_table(wf[:n_cpu], bl[:n_cpu]), cpu_out)
+    cols = {k: np.asarray(tb_out[k].nda) for k in tb_out.keys()}
+    n_ex, worst = compare_columns(cols, {k: np.asarray(v.nda) for k, v in cpu_out.items()},
+                                  wf, bl, n_cpu)
+    figs["quickstart step 7"].update(worst_rel=worst, excused=n_ex)
+    bad = EXAMPLE_BAD * n_ev // N_EVENTS  # a Table is one chunk
+    err = run("quickstart checked", lambda: qs.checked_in_memory(
+        qs.checked_table(n_ev, bad, wf=wf), DEVICE, bad=bad))
+    figs["quickstart checked"]["wf_range"] = list(err.wf_range)
+    # the browser example's two browsers on the same events, not drawn
+    tb = bw.raw_table(wf, bl)
+
+    def browse():
+        wb = bw.curves_browser(tb, DEVICE)
+        wb.find_entry(17)
+        wb2 = bw.aligned_browser(tb, DEVICE)
+        wb2.find_next()
+        return wb, wb2
+
+    wb, wb2 = run("browser", browse)
+    cpu_wb = bw.curves_browser(bw.raw_table(wf[:n_cpu], bl[:n_cpu]), "cpu")
+    cpu_wb.find_entry(17)
+    for k, lines in wb.lines.items():
+        g = np.asarray(lines[0].get_ydata(), np.float64)
+        w = np.asarray(cpu_wb.lines[k][0].get_ydata(), np.float64)
+        ok = np.isfinite(w)
+        if not np.array_equal(np.isfinite(g), ok) or np.abs(g[ok] - w[ok]).max() > (
+                REL_TOL * max(np.abs(w[ok]).max(), 1e-30)):
+            raise AssertionError(f"examples [browser] {k}: entry 17 differs from "
+                                 f"the CPU browser's")
+    peaks = [float(np.nanmax(line.get_ydata())) for line in wb2.lines["wf_pz"]]
+    if not all(abs(p - 1) < 0.01 for p in peaks):
+        raise AssertionError(f"examples [browser] the aligned browser's peaks {peaks}")
+    del events, wf, amp, bl, tb, tb_out, wb, wb2
+    # the SiPM tutorial: production Table -> Table, then checked mode
+    swf, truth = sp.make_sipm_waveforms(n_ev)
+    stb = sp.raw_table(swf)
+    out = run("SiPM production", lambda: sp.produce(stb, DEVICE))
+    n_found = sp.check_pulses(out, truth)
+    la = figs["SiPM production"]["launches"]
+    if la.get("generic_rows") != 1 or la.get("peakdet_scan") != 1:
+        raise AssertionError(f"examples [SiPM] launches {la}: not one K7 and one "
+                             f"sweep on the table's one chunk")
+    cpu = sp.produce(sp.raw_table(swf[:n_cpu]), "cpu")
+    keys = ("trigger_pos", "energies")
+    figs["SiPM production"].update(
+        pulses=int(n_found.sum()),
+        worst_rel=example_columns("SiPM", {k: column_arrays(out[k], n_cpu) for k in keys},
+                                  {k: column_arrays(cpu[k], n_cpu) for k in keys},
+                                  n_cpu, exact=("trigger_pos",)))
+    run("SiPM checked", lambda: sp.checked_in_memory(stb, DEVICE))
+    del swf, stb, out
+    # the multi-channel example: 4 channels stacked, NCCL at world size 1
+    n_chan, per = 4, n_ev // 4
+    te, mamp, shape = run("multi-channel", lambda: mc.run(DEVICE, n_chan, per))
+    flat = mc.unsharded(DEVICE, n_chan, per)
+    if te.tobytes() != flat.tobytes():
+        raise AssertionError("examples [multi-channel] the stacked mesh run differs "
+                             "from the unsharded chain")
+    m = min(n_cpu, per)  # channel 0's first events
+    mwf, _, mbl = mc.make_channels(n_chan, per)
+    mtb = mc.table(mwf[:m], mbl[:m])
+    mch, _, _ = build_processing_chain(mc.CONFIG, mtb, device="cpu")
+    figs["multi-channel"].update(
+        mesh=shape, mean_rel_err=float(np.nanmean(np.abs(te - mamp) / mamp)),
+        worst_rel=example_columns("multi-channel", {"trapEmax": te[0]},
+                                  {"trapEmax": np.asarray(mch(mtb)["trapEmax"].nda)}, m))
+    if figs["multi-channel"]["launches"].get("fused_energy", 0) != 1:
+        raise AssertionError(f"examples [multi-channel] launches "
+                             f"{figs['multi-channel']['launches']}")
+    # the file and drawing steps, where their modules are installed
+    missing = {m for _, mods in EXAMPLE_FILE_STEPS for m in mods
+               if importlib.util.find_spec(m) is None}
+    skipped = [f"{step} (no {', no '.join(m for m in mods if m in missing)})"
+               for step, mods in EXAMPLE_FILE_STEPS if missing & set(mods)]
+    if not missing:
+        with tempfile.TemporaryDirectory() as tmp:
+            raw, qamp = qs.step1_write_raw(tmp, n=n_cpu)
+            qs.step4_read_back(qs.step3_production(raw, tmp, DEVICE), qamp)
+            qs.step5_checked_mode(tmp, DEVICE)
+            qs.step6_browser(raw, tmp, DEVICE)
+            sp.step3_read_vov(*sp.step2_production(tmp, DEVICE, n=n_cpu))
+            sp.step4_checked_mode(tmp, DEVICE)
+            bw.main(["--device", DEVICE])
+    for label, f in figs.items():
+        print(f"examples [{label}] on {DEVICE}: {f['seconds']:.3f} s, launches "
+              f"{f['launches']}" + "".join(f", {k} {v}" for k, v in f.items()
+                                           if k not in ("seconds", "launches")),
+              flush=True)
+    print(f"examples: {n_ev} x 4096 quickstart events (trapEmax within 2%, checked "
+          f"wf_range {tuple(err.wf_range)}), {n_ev} x 1024 SiPM events "
+          f"({int(n_found.sum())} pulses, efficiency above 85%, energies "
+          f"positive), {n_chan} x {per} stacked channels over the mesh {shape}; "
+          f"the first {n_cpu} events of each within REL_TOL of the CPU run's; "
+          f"on {card}", flush=True)
+    print("examples: steps that did not run on the card: "
+          + ("; ".join(skipped) if skipped else "none"), flush=True)
+    figs["not_run"] = skipped
+    return figs
 
 
 def f64_columns(cols, cpu, n_cpu, label) -> float:
@@ -4704,8 +4980,11 @@ def main() -> int:
     wf64 = wf.astype(np.float64)
     held: dict = {"ops_alone": {}}
     k7f64 = {}
+    f64_rows = {"float64 DPZ": lambda: (dwf.astype(np.float64), dbl),
+                "float64 SiPM": lambda: (sipm_edge_rows(swf).astype(np.float64),
+                                         np.zeros(len(swf)))}
     for path, make, members, may_split in F64_PATHS:
-        rows, base = (dwf.astype(np.float64), dbl) if path == "float64 DPZ" else (wf64, bl)
+        rows, base = f64_rows.get(path, lambda: (wf64, bl))()
         k7f64[path] = figs = k7_phase(
             build_processing_chain, lh5, _cuda, rows, base, dev, logs["generic_rows"],
             cfg=make("float64"), members=members, path=path, pick=f64_op_label,
@@ -4884,6 +5163,13 @@ def main() -> int:
     scan["sipm_wfps"] = {"first": sipm["first_wfps"], "warm": sipm["warm_wfps"]}
     scan["pipeline"] = sipm_pipeline_phase(build_dsp, build_processing_chain, lh5,
                                            _cuda, swf, card)
+    # the SiPM chain on its rows widened to float64: one float64 K7 launch
+    sipm64 = sipm_f64_phase(build_dsp, lh5, _cuda, swf, sipm.pop("cols"), card)
+    del swf
+    torch.cuda.empty_cache()
+    # the port's examples, each step that needs neither h5py nor matplotlib
+    examples = examples_phase(_cuda, card)
+    torch.cuda.empty_cache()
 
     kernels = [
         dict(
@@ -4933,6 +5219,8 @@ def main() -> int:
             source="dspeed_tpu_torch/csrc/generic_rows.cu",
             replaces="dspeed_tpu/processors/_pallas.py:1782",
             launches=gen_launches["generic_rows"], library_ms=None,
+            sipm_example_launches=examples["SiPM production"]["launches"][
+                "generic_rows"],
             inject_ml_launches=iml_launches["generic_rows"],
             cover_launches=cover_launches["generic_rows"],
             plane_launches=plane_launches["generic_rows"], **k7,
@@ -4944,8 +5232,10 @@ def main() -> int:
             launches=f64_launches["float64 flagship"]["generic_rows"],
             generic_launches=f64_launches["float64 flagship generic"]["generic_rows"],
             plane_launches=f64_launches["float64 plane"]["generic_rows"],
+            sipm_launches=sipm64["launches"]["generic_rows"],
             library_ms=None, **{**k7f64["float64 flagship"],
                                 "ops_alone": held["ops_alone"]},
+            sipm_group=k7f64["float64 SiPM"],
             dpz_groups=k7f64["float64 DPZ"], extras_groups=k7f64["float64 extras"],
             inject_ml_groups=k7f64["float64 injection + ML"],
             cover_groups=k7f64["float64 coverage"], plane_groups=k7f64["float64 plane"],
@@ -4980,6 +5270,8 @@ def main() -> int:
         "checked": chk,
         "stacked": {k: v for k, v in stk.items() if k != "launches"},
         "mesh": mesh,
+        "float64 SiPM": sipm64,
+        "examples": examples,
     }}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

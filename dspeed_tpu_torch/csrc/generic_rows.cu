@@ -28,7 +28,8 @@
 //   reflected_convolve_wf (m <= 32)  each output from the row's own samples
 //                                    through the reflect index map, summed in
 //                                    the plain version's order, unfused, in
-//                                    float32 or (float64 taps) float64
+//                                    float32 or (float64 taps) float64, on a
+//                                    float32 or (float64 kernel) float64 row
 //   time_point_thresh,               K2's warp search: 32 positions a
 //   interpolated_time_point_thresh   ballot, GEN_WIN ballots a step; the
 //                                    interpolation modes in float32
@@ -86,9 +87,9 @@
 // Float64 rows run on a kernel of their own, generic_rows_kernel_f64: the
 // same interpreter loop over the same tape, plan and barrier tables, with a
 // table of ops of its own (gen_op<double>, beside the float kernel's
-// gen_op<float>) that takes every op of the float table but the reflected
-// convolution (a float32 row's). Every plane there is float64 or bool, two
-// words a sample of the arena (a bool plane holds doubles 1.0 and 0.0, its
+// gen_op<float>) that takes every op of the float table (the reflected
+// convolution there on a float64 row). Every plane there is float64 or bool,
+// two words a sample of the arena (a bool plane holds doubles 1.0 and 0.0, its
 // stored copy one byte; a slice's place counted in words), and its ops are
 // the templated ones above (min_max, amax, the searches, pick-offs and
 // gathers, soft_pileup, wf_correction, wf_centroid, the coverage ops, the
@@ -1588,6 +1589,22 @@ __device__ __forceinline__ void op_reflected_conv(const GenParams& P,
                                         esc_of<double>(P, R, out[0]))
         : direct_conv_row<float, true>(x, n, P.taps + ip[0], m, d, n, bad, plane(P, out[0]),
                                        esc_plane(P, R, out[0]));
+    flag_plane(P, out[0], h);
+}
+
+// The same on a float64 program's row (the float64 kernel, behind
+// outlined_op64): a float64 plane read in place through the reflect map,
+// float64 taps, each product and sum rounded once in _conv_full_direct's
+// order, as the float form does with the float32 row widened.
+__device__ __forceinline__ void op_reflected_conv64(const GenParams& P,
+                                                    const Row& R, const int* in,
+                                                    const int* out,
+                                                    const int* ip) {
+    const int m = ip[1], n = plen(P, in[0]);
+    const int h = direct_conv_row<double, true, double>(
+        plane_of<double>(P, in[0]), n, reinterpret_cast<const double*>(P.taps + ip[0]), m,
+        (m - 1) / 2, n, plane_nan<double>(P, in[0], false), plane_of<double>(P, out[0]),
+        esc_of<double>(P, R, out[0]));
     flag_plane(P, out[0], h);
 }
 
@@ -3206,9 +3223,9 @@ __device__ __noinline__ int2 outlined_op(const GenParams& P, Row R, int k) {
 
 // The float64 kernel's one call site of the same kind: the ops its float64
 // flagship, DPZ and extras groups do not run (get, where and the rounders on
-// warp 0, a bool plane's load, inject, dense, the coverage block ops and the
-// plane ops). Inline, they would add their registers and branches to the
-// kernel's loop.
+// warp 0, a bool plane's load, inject, dense, the coverage block ops, the
+// plane ops and the SiPM chain's reflected convolution). Inline, they would
+// add their registers and branches to the kernel's loop.
 __device__ __noinline__ int2 outlined_op64(const GenParams& P, Row R, int k) {
     const int* op = tape(P) + k * OP_INTS;
     const int* in = op + 1;
@@ -3238,6 +3255,7 @@ __device__ __noinline__ int2 outlined_op64(const GenParams& P, Row R, int k) {
     case OP_CONV_DIRECT: op_conv_direct<double>(P, R, in, out, ip); break;
     case OP_EWISE: op_ewise<double>(P, R, k, in, out, ip); break;
     case OP_REDUCE: op_reduce<double>(P, R, in, out, ip); break;
+    case OP_REFL_CONV: op_reflected_conv64(P, R, in, out, ip); break;
     default: break;
     }
     return make_int2(k, R.rb);

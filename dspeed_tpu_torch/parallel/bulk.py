@@ -28,7 +28,13 @@ from .. import lh5
 
 log = logging.getLogger("dspeed_tpu_torch.parallel")
 
-__all__ = ["build_dsp_stacked"]
+__all__ = [
+    "build_dsp_stacked",
+    "stacked_chain",
+    "stacked_dispatch",
+    "stacked_results",
+    "write_channels",
+]
 
 
 def _bdsp():

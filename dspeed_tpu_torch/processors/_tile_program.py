@@ -12,12 +12,14 @@ Here the host lowers the member list into a tape before any launch:
   or an alias is a view of its root slot and copies nothing. A program's
   planes are float32 or bool (one word a sample, 1.0 or 0.0; a stored copy
   one byte), but for the float64 planes that ``reflected_convolve_wf``
-  writes from float64 taps and ``avg_current`` reads and writes whole (the
-  SiPM chain computes in float64 from its smoothed waveform on); or, in a
-  **float64 program** (``TileProgram.f64``: a float64 row read or written by
-  any other op), float64 or bool (two words a sample, a bool plane's 1.0 or
-  0.0 a double; its stored copy one byte), every op of a float program but
-  ``reflected_conv`` (:data:`F64_OPS`), run by K7's float64 kernel;
+  writes from a float32 row and float64 taps and ``avg_current`` reads and
+  writes whole (the SiPM chain computes in float64 from its smoothed
+  waveform on); or, in a **float64 program** (``TileProgram.f64``: a float64
+  row loaded, read by ``reflected_convolve_wf``, or read or written by any
+  other op), float64 or bool (two words a sample, a bool plane's 1.0 or 0.0
+  a double; its stored copy one byte), every op of a float program
+  (:data:`F64_OPS`; ``reflected_conv`` there reads a float64 row), run by
+  K7's float64 kernel;
 - an **op** is an opcode, its operand slots (or constants) and output slots,
   and static parameters (window lengths, taps, mode, direction);
 - a **liveness plan** gives each plane a place in shared memory from its
@@ -155,8 +157,8 @@ STATIC_SMEM = 512  # bytes of static shared memory (the reduction scratch)
 ALIGN = 4  # planes start on 16-byte boundaries
 IP_PLAN = 4  # ip[4]: the barrier plan (bit 0: a block barrier before the op)
 # the ops of a float64 program (csrc/generic_rows.cu generic_rows_kernel_f64):
-# every op of a float program but reflected_conv, which reads a float32 row
-F64_OPS = tuple(k for k in OPCODES if k != "reflected_conv")
+# every op of a float program (reflected_conv there reads a float64 row)
+F64_OPS = tuple(OPCODES)
 # the ops of a float program that read or write float64 planes (the SiPM
 # group's): a float32 row into reflected_conv's float64 plane, avg_current
 # over it
@@ -587,11 +589,13 @@ def _lower_kernel(prog: TileProgram, step) -> None:
             prog.n_taps += m
     elif name == "reflected_convolve_wf":
         need(len(args) == 2 and kinds == ("plane",), "signature")
-        # a float32 plane, read in the step's type: float64 taps make the
-        # step (and its output) float64
+        # a plane read in the step's type: float64 taps make the step (and
+        # its output) float64; a float32 plane so read is widened exactly, a
+        # float64 one (a float64 program's) read as it is
         need(args[0][0] == "slot" and prog.slots[args[0][1]].kind == "plane"
-             and prog.slots[args[0][1]].dtype == torch.float32
-             and o[0].dtype == args[0][2], "a float32 plane read in the output's type")
+             and prog.slots[args[0][1]].dtype in (torch.float32, o[0].dtype)
+             and o[0].dtype == args[0][2],
+             "a float32 plane, or one of its output's type, read in that type")
         w = args[0][1]
         kern = args[1][1] if args[1][0] == "const" else None
         need(isinstance(kern, np.ndarray) and kern.ndim == 1, "taps not constant")
@@ -1002,9 +1006,9 @@ def _lower_step(prog: TileProgram, step) -> None:
 
 def _plane_types(prog: TileProgram) -> None:
     """Whether ``prog`` is a float64 program (``prog.f64``: a float64 plane
-    loaded, or read or written by an op other than the SiPM pair of
-    :data:`F32_PROGRAM_F64_OPS`), and that its planes are all of its
-    kernel's types: a float64 program's float64, or bool (a comparison's,
+    loaded, read by ``reflected_conv``, or read or written by an op other
+    than the SiPM pair of :data:`F32_PROGRAM_F64_OPS`), and that its planes
+    are all of its kernel's types: a float64 program's float64, or bool (a comparison's,
     held as doubles 1.0 and 0.0), and its ops all of :data:`F64_OPS`; a
     float program's float64 planes whole."""
     names = {v: k for k, v in OPCODES.items()}
@@ -1013,10 +1017,14 @@ def _plane_types(prog: TileProgram) -> None:
         sl = prog.slots[sid]
         return sl.kind == "plane" and sl.dtype == torch.float64
 
+    def wide(op):
+        if names[op.code] == "reflected_conv":  # a float64 row, not a float32 one
+            return f64(op.ins[0])
+        return names[op.code] not in F32_PROGRAM_F64_OPS and any(
+            f64(e) for e in op.outs + [e for e in op.ins if not isinstance(e, tuple)])
+
     prog.f64 = any(s.ext and f64(sid) for sid, s in enumerate(prog.slots)) or any(
-        names[op.code] not in F32_PROGRAM_F64_OPS
-        and any(f64(e) for e in op.outs + [e for e in op.ins if not isinstance(e, tuple)])
-        for op in prog.ops)
+        wide(op) for op in prog.ops)
     for sid, s in enumerate(prog.slots):
         if s.kind != "plane":
             continue

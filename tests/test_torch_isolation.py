@@ -28,10 +28,16 @@ def fresh_chain_cache():
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "dspeed_tpu_torch")
+# the port's package and its examples (``examples/*_torch.py``), which keep
+# their own copies of the JAX examples' generators
 SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True)
-)
+) + sorted(os.path.relpath(p, REPO)
+           for p in glob.glob(os.path.join(REPO, "examples", "*_torch.py")))
+# the JAX package's examples, which import it
+JAX_EXAMPLES = ("quickstart", "sipm_pulse_finding", "browse_waveforms",
+                "multichannel_spmd")
 
 
 def _forbidden(name: str) -> bool:
@@ -198,9 +204,16 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
-    assert not [n for n in names if _forbidden(n)]
+    assert not [n for n in names if _forbidden(n) or n in JAX_EXAMPLES]
     dynamic = re.findall(r"import_module\(\s*[\"']([\w.]+)", text)
     assert not [n for n in dynamic if _forbidden(n)]
+
+
+def test_every_example_has_its_port():
+    """Each of the JAX package's examples has a counterpart on the port."""
+    for name in JAX_EXAMPLES:
+        port = "multichannel" if name == "multichannel_spmd" else name
+        assert os.path.join("examples", f"{port}_torch.py") in SOURCES, name
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

@@ -526,6 +526,88 @@ def test_reflected_op_refuses_what_it_cannot_run(why, cfg_edit):
         _tile_program.lower([step], vals, [step.out_specs[0].key])
 
 
+def _edge_rows(n, nsamp, seed=3):
+    """``chip_smoke.sipm_edge_rows`` on the generator's rows: a NaN sample,
+    an infinite sample, extremes in the reflected edges."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    return chip_smoke.sipm_edge_rows(sipm_waveforms(n=n, nsamp=nsamp, seed=seed)[0])
+
+
+def test_reflected_op_float64_rows():
+    """The op alone on 8 x 256 float64 rows (the edge rows among them): a
+    float64 program (K7's float64 kernel), its plain walk against the JAX
+    package's ``_pallas.generic_rows`` in interpret mode at the golden
+    replay's tolerance of the column's scale, and the member's own body
+    equal to the plain walk bit for bit."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_k7_ops import check_group, member_outputs
+
+    wf = _edge_rows(8, 256).astype(np.float64)
+    chain, _, _ = torch_build(_one_op_config("d"), _table(dspeed_tpu_torch.lh5, wf),
+                              device="cpu", fuse=False)
+    inputs, _ = chain._gather_inputs(0, len(wf))
+    env = chain._to_device(inputs)
+    env.update(chain._const_env())
+    (step,) = [s for s in chain._steps if getattr(getattr(s, "kernel", None),
+                                                  "__name__", "") == "reflected_convolve_wf"]
+    vals = {k: env[k] for k in chain._step_env_reads(step)}
+    prog = check_group([step], vals, ["reflected_conv"], f64=True)
+    assert prog.f64 and all(s.dtype == torch.float64 for s in prog.slots
+                            if s.kind == "plane")
+    plain = _cuda.generic_rows_plain(prog, vals)
+    for k, v in member_outputs(step, vals).items():
+        assert _same(v, plain[k]), k
+    assert torch.isinf(plain[step.out_specs[0].key][1]).any()
+
+
+def test_sipm_float64_rows_fuse_and_equal_the_float32_chain():
+    """The SiPM chain on float64 rows forms the float32 chain's group, which
+    lowers as one float64 program and splits nothing; widening is exact and
+    both programs take the same float64 products and sums, so every column
+    equals the float32 chain's bit for bit."""
+    wf = _edge_rows(32, 1024)
+    _, step, vals = _sipm_group(wf.astype(np.float64))
+    assert [m.kernel.__name__ for m in step.members] == ["reflected_convolve_wf",
+                                                          "avg_current"]
+    prog = _tile_program.lower(step.members, vals, step.escapes)
+    assert prog.f64 and [op.code for op in prog.ops] == [
+        _tile_program.OPCODES[c] for c in ("load", "reflected_conv", "avg_current")]
+    got = {}
+    for dt in ("float32", "float64"):
+        _tile_program.reset_splits()
+        got[dt] = _run_port(wf.astype(dt))
+        assert _tile_program.SPLITS == {}, dt
+    for k in got["float32"]:
+        for a, b in zip(got["float64"][k], got["float32"][k]):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+
+
+@pytest.fixture(scope="module")
+def sipm_f64_jax_run():
+    import dspeed_tpu
+    from dspeed_tpu import lh5 as jlh5
+
+    wf = _edge_rows(64, 1024).astype(np.float64)
+    return wf, _vov_columns(dspeed_tpu.build_dsp(_table(jlh5, wf), dsp_config=SIPM))
+
+
+def test_sipm_float64_chain_matches_jax(sipm_f64_jax_run):
+    """On float64 rows: lengths and ``trigger_pos`` exact, ``energies``
+    within rtol 1e-9 of the JAX package's chain on the same rows."""
+    wf, want = sipm_f64_jax_run
+    got = _run_port(wf)
+    for k in ("trigger_pos", "energies"):
+        (gl, gf), (wl, wv) = got[k], want[k]
+        np.testing.assert_array_equal(gl, wl, err_msg=f"{k} lengths")
+        gf, wv = gf[: wl[-1]], wv[: wl[-1]]
+        if k == "trigger_pos":
+            np.testing.assert_array_equal(gf, wv)
+        else:
+            np.testing.assert_allclose(gf, wv, rtol=1e-9, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # the whole chain
 
@@ -650,12 +732,37 @@ def test_k7_sipm_group_on_the_card(cuda_device, rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("taps", ["d", "f"])
+@pytest.mark.parametrize("rows", [37, 1, 600])
+def test_k7_sipm_group_float64_on_the_card(cuda_device, rows):
+    """K7's float64 kernel on the SiPM group over float64 rows (the edge
+    rows among them) equals the plain walk bit for bit, every key it
+    writes, and the float32 rows' launch on the same rows widened."""
+    wf = _edge_rows(max(rows, 5), 1024)[:rows]
+    out = {}
+    for dt in (np.float64, np.float32):
+        _, step, vals = _sipm_group(wf.astype(dt))
+        vals = {k: v.to(cuda_device) for k, v in vals.items()}
+        prog = _tile_program.lower(step.members, vals, step.escapes)
+        every = sorted(s.key for s in prog.slots if not s.ext)
+        full = _tile_program.lower(step.members, vals, every)
+        assert full.f64 == (dt == np.float64)
+        got = _cuda.generic_rows(full, vals)
+        want = _cuda.generic_rows_plain(full, vals)
+        for k in every:
+            assert _same(got[k], want[k]), k
+        out[dt] = got[step.escapes[0]]
+    assert _same(out[np.float64], out[np.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps", ["d", "f", "d on float64 rows"])
 def test_k7_reflected_op_alone_on_the_card(cuda_device, taps):
     wf, _ = sipm_waveforms(n=40, nsamp=301)
+    if taps.endswith("rows"):
+        wf = wf.astype(np.float64)
     wf[1, 0] = np.nan
     wf[2, 150] = np.inf
-    chain, _, _ = torch_build(_one_op_config(taps), _table(dspeed_tpu_torch.lh5, wf),
+    chain, _, _ = torch_build(_one_op_config(taps[0]), _table(dspeed_tpu_torch.lh5, wf),
                               device="cpu", fuse=False)
     inputs, _ = chain._gather_inputs(0, len(wf))
     env = chain._to_device(inputs)
@@ -665,6 +772,7 @@ def test_k7_reflected_op_alone_on_the_card(cuda_device, taps):
     out = step.out_specs[0].key
     vals = {k: env[k].to(cuda_device) for k in chain._step_env_reads(step)}
     prog = _tile_program.lower([step], vals, [out])
+    assert prog.f64 == taps.endswith("rows")
     assert _same(_cuda.generic_rows(prog, vals)[out],
                  _cuda.generic_rows_plain(prog, vals)[out])
 

@@ -67,7 +67,11 @@ infinite sample and a flat row from 4 rows on; and this file's ``injml``,
 every op of a float64 program among them: every escape bit for bit against
 the plain walk on every row, rows 8 bytes off alignment too; the programs are
 lowered and walked with the host's libm for the float64 functions of
-``LIBM``, ``host_libm``, as the emulated kernel calls it).
+``LIBM``, ``host_libm``, as the emulated kernel calls it; and the SiPM
+chain's group on ``chip_smoke.sipm_edge_rows`` widened to float64, the
+float64 ``reflected_conv`` op, which under ``tsan`` is also run with the
+planned barrier before it cleared and must then be reported as a race,
+``PLANNED_DROPS``).
 ``--drop-barrier OP`` builds the kernel with
 the first block barrier (``__syncthreads()``, or ``log_check``'s
 ``__syncthreads_or``) of that op's device function taken out, for
@@ -586,6 +590,14 @@ def cases(names, rows=6):
             for lab, g in zip("CDE", chain_groups(cs.extras_config("float64"), wf, bl, db,
                                                   fuse=True)):
                 yield (f"f64 extras {lab}", *g)
+        # the SiPM chain's group on its rows widened to float64: the float64
+        # reflected_conv, which reads the row's neighbours and reflected
+        # edges that other threads loaded (behind the planned barrier)
+        swf, _ = cs.make_sipm_waveforms(max(rows, 3))
+        for g in chain_groups(cs.sipm_config(),
+                              cs.sipm_edge_rows(swf)[:rows].astype(np.float64), None,
+                              fuse=True):
+            yield ("f64 sipm", *g)
     if "dpz" in names:
         from torch_flagship import make_hpge_dpz_waveforms
 
@@ -701,6 +713,35 @@ def host_libm():
             setattr(torch, name, fn)
 
 
+# ops whose barrier is the plan's (ip[IP_PLAN]) and not their function's:
+# run once more with it cleared on the case's ``full`` program, under tsan,
+# which must then report a race (no second build: the plan is the tape's)
+PLANNED_DROPS = {"f64 sipm": "reflected_conv"}
+
+
+def without_plan(exe, prog, vals, build_dir, tag, op_name) -> str:
+    """``prog`` run with the planned barrier before each ``op_name`` op
+    cleared: ThreadSanitizer must report a race; returns a summary, or
+    raises AssertionError."""
+    import copy
+
+    from dspeed_tpu_torch.processors._tile_program import OPCODES
+
+    bare = copy.deepcopy(prog)
+    cleared = 0
+    for op in bare.ops:
+        if op.code == OPCODES[op_name] and op.plan:
+            op.plan, cleared = 0, cleared + 1
+    assert cleared, f"no planned barrier before {op_name}"
+    try:
+        run(exe, bare, vals, build_dir, tag)
+    except RuntimeError as e:
+        if "ThreadSanitizer: data race" in str(e):
+            return f"; without the planned barrier before {op_name}: a race reported"
+        raise
+    raise AssertionError(f"no race reported without the planned barrier before {op_name}")
+
+
 def check(label, prog, vals, got, parent=None) -> str:
     """``got`` (the ``full`` program's escapes) against the plain walk on
     the rows without an infinite sample, and bit for bit against
@@ -755,6 +796,10 @@ def main(argv=None) -> int:
                 got = run(exe, full, vals, args.build, tag + "_full", mis)
                 want = run(par, full, vals, args.build, tag + "_parent", mis) if par else None
                 msg = check(label, full, vals, got, want)
+                if (args.mode == "tsan" and label in PLANNED_DROPS
+                        and not args.drop_barrier):
+                    msg += without_plan(exe, full, vals, args.build, tag + "_bare",
+                                        PLANNED_DROPS[label])
             except (AssertionError, RuntimeError) as e:
                 bad += 1
                 msg = f"FAILED: {e}"

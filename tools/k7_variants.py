@@ -11,10 +11,12 @@ else this tree's ``csrc``)
 into this tree's build directory and bound by ``_cuda._bind``; this tree's
 lowering makes every tape, so the sources must share its tape layout. A
 path's groups are those of its ``chip_smoke`` config on ``chip_smoke``'s
-events, formed with ``fuse="generic"`` (a group whose lowering is refused
-runs as its parts, ``chip_smoke.k7_parts``). Each round times every group on
-every build on the device alone (``chip_smoke.device_ms``), the builds in
-the order given and then reversed (parent, change, change, parent), and
+events (``sipm`` and ``f64sipm``: the SiPM chain on ``sipm_edge_rows``, in
+float32 and widened to float64), formed with ``fuse="generic"`` (a group
+whose lowering is refused runs as its parts, ``chip_smoke.k7_parts``). Each
+round times every group on every build on the device alone
+(``chip_smoke.device_ms``), the builds in the order given and then reversed
+(parent, change, change, parent), and
 holds every build's outputs bit for bit against the first build's. The last
 line is one JSON object: the card, each build's ``ptxas`` report, and each
 group's milliseconds by build, one value a turn.
@@ -30,12 +32,15 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 # path -> (chip_smoke's config maker and its argument, rows in float64, the
-# DPZ generator's rows)
-PATHS = {"flagship": ("config", None, False, False),
-         "f64": ("flagship_config", "float64", True, False),
-         "f64dpz": ("dpz_config", "float64", True, True),
-         "f64extras": ("extras_config", "float64", True, False),
-         "f64plane": ("plane_config", "float64", True, False)}
+# generator of its rows: the flagship's, the DPZ's or the SiPM chain's, with
+# chip_smoke.sipm_edge_rows)
+PATHS = {"flagship": ("config", None, False, "hpge"),
+         "f64": ("flagship_config", "float64", True, "hpge"),
+         "f64dpz": ("dpz_config", "float64", True, "dpz"),
+         "f64extras": ("extras_config", "float64", True, "hpge"),
+         "f64plane": ("plane_config", "float64", True, "hpge"),
+         "sipm": ("sipm_config", None, False, "sipm"),
+         "f64sipm": ("sipm_config", None, True, "sipm")}
 
 
 def build(_cuda, label, src):
@@ -63,11 +68,15 @@ def groups(cs, path, n, dev):
     from dspeed_tpu_torch.processing_chain import GroupStep, build_processing_chain
     from dspeed_tpu_torch.processors import _cuda
 
-    make, arg, f64, dpz = PATHS[path]
+    make, arg, f64, rows = PATHS[path]
     cfg = getattr(cs, make)(*([arg] if arg else []))
-    gen = cs.make_hpge_dpz_waveforms if dpz else cs.make_hpge_waveforms
-    wf, _amp, _t0, bl, _rt = gen(n)
-    tb = cs.hpge_table(lh5, wf.astype(np.float64) if f64 else wf, bl)
+    if rows == "sipm":
+        wf = cs.sipm_edge_rows(cs.make_sipm_waveforms(n)[0])
+        tb = cs.sipm_table(lh5, wf.astype(np.float64) if f64 else wf)
+    else:
+        gen = cs.make_hpge_dpz_waveforms if rows == "dpz" else cs.make_hpge_waveforms
+        wf, _amp, _t0, bl, _rt = gen(n)
+        tb = cs.hpge_table(lh5, wf.astype(np.float64) if f64 else wf, bl)
     chain, _, _ = build_processing_chain(cfg, tb, db_dict={"pz": {"tau": cs.TAU}},
                                          device="cpu", fuse="generic")
     inputs, _ = chain._gather_inputs(0, n)
