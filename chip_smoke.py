@@ -285,6 +285,113 @@ def sipm_edge_rows(wf):
     return wf
 
 
+def peakdet_edge_rows(n, seed=29):
+    """Rows of ``n`` samples (``n`` >= 400) made to hit the corners of the
+    peak finder's sweep, with their parameters: ``(w (R, n), (dmax, dmin,
+    amax, amin) each (R,))``, float64. Ordinary rows of pulses on noise; a
+    NaN ``amax`` (nothing declared); a sine with ``amax`` 0 (every slot
+    filled); plateaus (exact ties); infinite and NaN samples; a constant
+    row; signed zeros; and zigzags that declare at every sample, across
+    sweep positions 31/32 and 127/128 and in the ragged last step, one
+    region for each direction."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n)
+    rows, pars = [], []
+
+    def add(w, dmax=5.0, dmin=0.1, amax=10.0, amin=0.0):
+        rows.append(np.asarray(w, np.float64))
+        pars.append((dmax, dmin, amax, amin))
+
+    def pulses(k=6):
+        w = rng.normal(0.0, 1.0, n)
+        for t0 in rng.integers(0, n - 50, k):
+            w[t0:] += rng.uniform(20, 60) * np.exp(-(i[t0:] - t0) / 8.0)
+        return w
+
+    def zigzag(*regions):  # 10 at every other sample of each region, else 0
+        w = np.zeros(n)
+        for a, b in regions:
+            w[a:b:2] = 10.0
+        return w
+
+    add(pulses())
+    add(pulses(12), amin=-np.inf)
+    add(pulses(), amax=np.nan)
+    add(15 * np.sin(2 * np.pi * i / 40), amax=0.0)
+    add(np.repeat(np.round(np.cumsum(rng.normal(0, 2, n // 3 + 1))), 3)[:n],
+        dmax=2.0, dmin=2.0, amax=-1e9, amin=1e9)
+    w = pulses()
+    w[[100, 700]] = np.inf
+    w[[300, n - 100]] = -np.inf
+    w[[500, 501, n - 1]] = np.nan
+    add(w, amin=1e9)
+    add(np.full(n, 7.0), amax=0.0, amin=100.0)
+    w = np.where(i % 2 == 1, 0.0, -0.0)
+    w[n // 2] = 20.0
+    add(w, dmax=0.0, dmin=0.0, amax=-1.0, amin=1.0)
+    for regions in (((100, 160), (n - 160, n - 100)), ((20, 46), (n - 46, n - 20)),
+                    ((n - 20, n), (0, 20))):
+        add(zigzag(*regions), amax=0.0, amin=5.0)
+    return np.stack(rows), tuple(np.array(p) for p in zip(*pars))
+
+
+def bilevel_edge_rows(n, seed=31):
+    """Rows of ``n`` samples (``n`` >= 3000) made to hit the corners of the
+    bi-level trigger's sweep, with their parameters: ``(w (R, n) float64,
+    (pos, neg) float64 (R,), (gate, start) int32 (R,))``. Bipolar pulses on
+    noise (the ``rc_cr2`` shape); a sine that crosses more often than 8
+    slots hold; a start in a pulse (1000) and an odd one (333); a gate of 5;
+    NaN and infinite samples; pairs that cross zero and a threshold at once,
+    both ways; threshold pairs that straddle sweep positions 31/32,
+    127/128, 255/256 and 1023/1024; a sine of period 8 (several crossings a
+    lane); a NaN row; thresholds at 0."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n, dtype=np.float64)
+    rows, pars = [], []
+
+    def add(w, pos=500.0, neg=-500.0, gate=200, start=0):
+        rows.append(np.asarray(w, np.float64))
+        pars.append((pos, neg, gate, start))
+
+    def bipolar(c, a, s=30.0):
+        return a * (i - c) / s * np.exp(-((i - c) ** 2) / (2 * s**2))
+
+    def noisy(*pulses):
+        w = rng.normal(0.0, 5.0, n)
+        for c, a in pulses:
+            w += bipolar(c, a)
+        return w
+
+    def steps(levels):  # piecewise constant: (from sample, level), in order
+        w = np.zeros(n)
+        for a, v in levels:
+            w[a:] = v
+        return w
+
+    add(noisy((1000, 2000)))
+    add(3000 * np.sin(2 * np.pi * i / 64))
+    add(noisy((1000, 2000), (2500, 1500)), start=1000)
+    add(noisy((330, 2000), (1800, -2000)), start=333)
+    add(noisy((1000, 2000), (1300, 2000)), gate=5)
+    w = noisy((1000, 2000), (2600, 2000))
+    w[700], w[2000], w[3000] = np.nan, np.inf, -np.inf
+    add(w)
+    add(steps([(0, 0), (500, -600), (600, 600), (1500, -600), (2000, 600),
+               (2100, -600), (2500, 0)]))
+    add(steps([(0, 100), (32, 600), (128, 100), (256, -600), (512, -100),
+               (768, 600), (1024, -600), (1280, 600), (1536, 100), (2048, -600),
+               (2304, 600), (2560, 0)]), gate=300)
+    add(3000 * np.sin(2 * np.pi * i / 8 + 0.3))
+    add(np.full(n, np.nan))
+    add(rng.normal(0.0, 5.0, n), pos=0.0, neg=0.0, gate=3)
+    add(noisy((2000, -2000)), gate=50, start=7)
+    for _ in range(4):
+        add(noisy(*((c, rng.uniform(800, 3000) * rng.choice([-1, 1]))
+                    for c in rng.integers(200, n - 200, rng.integers(1, 4)))))
+    p = tuple(np.array(q) for q in zip(*pars))
+    return np.stack(rows), (p[0], p[1]), (p[2].astype(np.int32), p[3].astype(np.int32))
+
+
 def sipm_config() -> dict:
     import yaml
 
@@ -2732,7 +2839,9 @@ def recurrence_phase(_cuda, w, ptxas_log):
     held bit for bit against the same call with the plain recurrence;
     ``rc_cr2``'s row with ``w[0] = -inf`` NaN from sample 3 on (F9).
     Times the first-order call through the wrapper and on the device alone
-    against its byte bound (each row read and written once)."""
+    against its byte bound (each row read and written once), and on the
+    device alone the float64 instance that ``rc_cr2``'s stages run (a seed
+    a row)."""
     import torch
 
     import dspeed_tpu_torch.processors as tp
@@ -2780,7 +2889,13 @@ def recurrence_phase(_cuda, w, ptxas_log):
         ms = time_ms(lambda: _numerics.iir_first_order(w, p), 20)
         dev_ms = device_ms(lambda: _numerics.iir_first_order(w, p))
         plain_ms = time_ms(lambda: _cuda.recurrence_plain(w, p), 2, 1)
+        # a stage of rc_cr2 (the flagship extras'): float64 rows of n - 3
+        # samples at its pole, a seed a row
+        a_rc = float(np.exp(-1.0 / EXTRAS_RC_TAU))
+        u64, y64 = w[:, 3:].double(), w[:, 2].double()
+        dev64_ms = device_ms(lambda: _numerics.iir_first_order(u64, a_rc, y_init=y64))
     bound = 2 * w.numel() * w.element_size() / PEAK_BYTES_S * 1e3
+    bound64 = (2 * u64.numel() + B) * 8 / PEAK_BYTES_S * 1e3
     launch = _cuda.recurrence_launch()
     ptxas = ptxas_report(ptxas_log, "recurrence_kernel")
     local = sorted(k for k, v in ptxas.items()
@@ -2790,7 +2905,9 @@ def recurrence_phase(_cuda, w, ptxas_log):
     print(f"recurrence [first order, {B}x{n} f32]: kernel {ms:.4f} ms through the "
           f"wrapper ({dev_ms:.4f} ms on the device alone), plain {plain_ms:.4f} ms, "
           f"byte bound {bound:.4f} ms, {bound / ms:.1%} of it ({bound / dev_ms:.1%} "
-          f"on the device alone); launch: {launch['rows']} rows and "
+          f"on the device alone); float64, rc_cr2's stage ({B}x{n - 3}, a seed a "
+          f"row) {dev64_ms:.4f} ms on the device alone, {bound64 / dev64_ms:.1%} of "
+          f"its {bound64:.4f} ms byte bound; launch: {launch['rows']} rows and "
           f"{launch['threads']} threads a block, "
           f"{launch['smem_bytes']} B of shared memory, {launch['blocks_per_sm']} "
           f"blocks per SM, {launch['registers']} registers and "
@@ -2798,7 +2915,8 @@ def recurrence_phase(_cuda, w, ptxas_log):
           f"on {card_line()}", flush=True)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", device_ms=dev_ms, bound_share=bound / ms,
-                device_bound_share=bound / dev_ms, launch=launch, ptxas=ptxas,
+                device_bound_share=bound / dev_ms, f64_device_ms=dev64_ms,
+                f64_bound_ms=bound64, launch=launch, ptxas=ptxas,
                 client_launches=launches)
 
 
@@ -2815,17 +2933,11 @@ def same_bits(a, b) -> bool:
             and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()))
 
 
-def sipm_k7_phase(build_processing_chain, lh5, _cuda, wf, dev):
-    """K7 on the SiPM chain's group (``reflected_convolve_wf`` and
-    ``avg_current``, float64 from the smoothed waveform on), lowered from
-    the chain the port builds on the CPU over ``wf`` (``sipm_edge_rows``:
-    a NaN row, a row with an infinite sample, a row whose reflected edges
-    hold its extremes). Every key the group writes, on every row, must
-    equal the tape's plain walk bit for bit; the chain's own launch (its
-    escape ``curr``) is timed against the plain walk, through the wrapper
-    and on the device alone. Returns the figures and ``curr``."""
+def sipm_group(build_processing_chain, lh5, wf, dev):
+    """The SiPM chain's K7 group (``reflected_convolve_wf`` and
+    ``avg_current``) built on the CPU over ``wf``: ``(step, its inputs on
+    dev, rows)``."""
     from dspeed_tpu_torch.processing_chain import GroupStep
-    from dspeed_tpu_torch.processors._tile_program import lower
 
     chain, _, _ = build_processing_chain(sipm_config(), sipm_table(lh5, wf),
                                          device="cpu")
@@ -2836,7 +2948,21 @@ def sipm_k7_phase(build_processing_chain, lh5, _cuda, wf, dev):
     (step,) = groups
     inputs, B = chain._gather_inputs(0, len(wf))
     env = {k: v.to(dev) for k, v in chain._to_device(inputs).items()}
-    vals = {k: env[k] for k in step.ext_in}
+    return step, {k: env[k] for k in step.ext_in}, B
+
+
+def sipm_k7_phase(build_processing_chain, lh5, _cuda, wf, dev):
+    """K7 on the SiPM chain's group (``reflected_convolve_wf`` and
+    ``avg_current``, float64 from the smoothed waveform on), lowered from
+    the chain the port builds on the CPU over ``wf`` (``sipm_edge_rows``:
+    a NaN row, a row with an infinite sample, a row whose reflected edges
+    hold its extremes). Every key the group writes, on every row, must
+    equal the tape's plain walk bit for bit; the chain's own launch (its
+    escape ``curr``) is timed against the plain walk, through the wrapper
+    and on the device alone. Returns the figures and ``curr``."""
+    from dspeed_tpu_torch.processors._tile_program import lower
+
+    step, vals, B = sipm_group(build_processing_chain, lh5, wf, dev)
     prog = lower(step.members, vals, step.escapes)
     every = sorted(s.key for s in prog.slots if not s.ext)
     full = lower(step.members, vals, every)
@@ -2901,16 +3027,57 @@ def scan_bound(curr, m_max, m_min) -> float:
     return nbytes / PEAK_BYTES_S * 1e3
 
 
-def sipm_scan_phase(_cuda, curr):
+def scan_ptxas(log: str, kernel: str) -> list:
+    """``ptxas -v``'s line for each instance of a sweep ``kernel`` (float32
+    and float64): registers, stack frame, spills."""
+    rep = ptxas_report(log, kernel)
+    if len(rep) != 2:
+        raise AssertionError(f"{kernel}: ptxas reports {sorted(rep)}")
+    return [f"{'float64' if 'IdE' in k else 'float32'}: {v}"
+            for k, v in sorted(rep.items())]
+
+
+def peakdet_edge_check(_cuda, dev) -> str:
+    """The sweep on ``peakdet_edge_rows`` (1019 samples, 20 + 20 slots) in
+    float32 and float64, both directions, rows contiguous and at a stride
+    of 1024 from an offset of 1: every output equal to the plain version's
+    bit for bit. Returns a summary."""
+    import torch
+
+    w, pars = peakdet_edge_rows(1019)
+    m = SIPM_SLOTS
+    declared = []
+    for dt in (torch.float32, torch.float64):
+        rows = torch.from_numpy(w).to(dev, dt)
+        wide = torch.full((len(w), 1024), float("nan"), dtype=dt, device=dev)
+        wide[:, 1:1020] = rows
+        args = [torch.from_numpy(p).to(dev, dt) for p in pars]
+        for reverse in (False, True):
+            want = _cuda.peakdet_scan_plain(rows, *args, m, m, reverse)
+            for layout, x in (("contiguous", rows), ("strided", wide[:, 1:1020])):
+                got = _cuda.peakdet_scan(x, *args, m, m, reverse)
+                for name, g, r in zip(("vt_max", "vt_min", "n_max", "n_min"), got, want):
+                    if not same_bits(g, r):
+                        raise AssertionError(f"peakdet_scan edge rows ({dt}, {layout}, "
+                                             f"reverse={reverse}) {name}: not the plain "
+                                             f"version's bits")
+                declared.append(int(got[2].sum() + got[3].sum()))
+    return (f"{len(w)} edge rows (float32 and float64, both directions, contiguous and "
+            f"strided: {declared} extrema declared) bit for bit")
+
+
+def sipm_scan_phase(_cuda, curr, ptxas_log):
     """The peak finder's sweep (``csrc/peakdet_scan.cu``) on the SiPM
     group's ``curr`` with the chain's parameters (``dmax`` 5, ``dmin`` 0.1,
     ``amax`` = 3 fwhm from the port's ``histogram_stats``, ``amin`` 0, 20
     slots each), one launch a direction: both directions' slots and counts
     equal to the plain version on every row, rows of NaN fwhm included (one
     set NaN, ``NAN_FWHM_ROW``, beside those the histogram gives) and a row
-    that fills all 20 slots (``FULL_SLOT_ROW``, its ``amax`` set to 0).
-    Directions 2 and 3 through the processor against the processor on the
-    CPU. Returns the figures."""
+    that fills all 20 slots (``FULL_SLOT_ROW``, its ``amax`` set to 0); the
+    same on ``peakdet_edge_rows`` (``peakdet_edge_check``). Directions 2
+    and 3 through the processor against the processor on the CPU. Times the
+    float64 rows right to left (the chain's launch) and the same rows in
+    float32. Returns the figures."""
     import torch
 
     from dspeed_tpu_torch.processors import get_multi_local_extrema
@@ -2935,6 +3102,7 @@ def sipm_scan_phase(_cuda, curr):
         if int(got[2][nan_rows].max()) != 0 or int(got[3][nan_rows].max()) != 0:
             raise AssertionError("peakdet_scan: a row of NaN amax declared extrema")
     full_rows = int((got[2] == m).sum())
+    edges = peakdet_edge_check(_cuda, curr.device)
     curr_cpu = curr.cpu()
     for direction in (2, 3):
         dims = {"m": m, "p": m}
@@ -2947,28 +3115,36 @@ def sipm_scan_phase(_cuda, curr):
                                      f"{direction}, output {q}: card and CPU differ")
     ms = time_ms(lambda: _cuda.peakdet_scan(curr, *args, reverse=True), 20)
     dev_ms = device_ms(lambda: _cuda.peakdet_scan(curr, *args, reverse=True))
+    c32, a32 = curr.float(), amax.float()
+    args32 = (SIPM_DMAX, SIPM_DMIN, a32, 0.0, m, m)
+    dev32_ms = device_ms(lambda: _cuda.peakdet_scan(c32, *args32, reverse=True))
     plain_ms = time_ms(
         lambda: _cuda.peakdet_scan_plain(curr, *args, reverse=True), 1, 1)
     bound = scan_bound(curr, m, m)
+    bound32 = scan_bound(c32, m, m)
     launch = _cuda.peakdet_scan_launch()
+    ptxas = scan_ptxas(ptxas_log, "peakdet_scan_kernel")
     B, n = curr.shape
     print(
         f"peakdet_scan {B} rows x {n} {str(curr.dtype).split('.')[-1]} samples, "
         f"{m} + {m} slots: both directions equal to the plain version bit for "
         f"bit on every row ({natural_nan} rows of NaN fwhm from the histogram, "
         f"row {NAN_FWHM_ROW} set NaN, {full_rows} rows filling all {m} slots), "
-        f"directions 2 and 3 through the processor equal to the CPU's; kernel "
-        f"{ms:.4f} ms ({dev_ms:.4f} ms on the device alone), plain {plain_ms:.1f} "
-        f"ms, bound {bound:.4f} ms (bytes), {bound / ms:.1%} of the bound "
-        f"({bound / dev_ms:.1%} on the device alone); launch: "
-        f"{launch['threads']} threads a block, {launch['blocks_per_sm']} blocks "
-        f"per SM, {launch['registers']} registers and {launch['local_bytes']} "
-        f"local bytes a thread; on {card_line()}",
+        f"{edges}, directions 2 and 3 through the processor equal to the CPU's; "
+        f"kernel {ms:.4f} ms ({dev_ms:.4f} ms on the device alone), plain "
+        f"{plain_ms:.1f} ms, bound {bound:.4f} ms (bytes), {bound / ms:.1%} of the "
+        f"bound ({bound / dev_ms:.1%} on the device alone); the same rows in "
+        f"float32 {dev32_ms:.4f} ms on the device alone ({bound32 / dev32_ms:.1%} of "
+        f"its {bound32:.4f} ms bound); launch: {launch['threads']} threads a "
+        f"block (a warp a row), {launch['blocks_per_sm']} blocks per SM, "
+        f"{launch['registers']} registers and {launch['local_bytes']} local bytes "
+        f"a thread; ptxas {' | '.join(ptxas)}; on {card_line()}",
         flush=True,
     )
     return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by="bytes", bound_share=bound / ms,
-                device_bound_share=bound / dev_ms, launch=launch,
+                device_bound_share=bound / dev_ms, f32_device_ms=dev32_ms,
+                f32_bound_ms=bound32, launch=launch, ptxas=ptxas,
                 natural_nan_fwhm_rows=natural_nan)
 
 
@@ -3566,17 +3742,13 @@ def bilevel_bound(B, n, m, itemsize=4) -> float:
     return nbytes / PEAK_BYTES_S * 1e3
 
 
-def bilevel_phase(_cuda, wf, bl, dev, ptxas_log):
-    """The bi-level trigger's sweep (``csrc/bilevel_scan.cu``) on the
-    flagship extras' ``rc_cr2`` rows (``EXTRAS_RC_TAU``) of every event, with
-    the chain's thresholds (+-500), gate (200) and ``EXTRAS_SLOTS`` slots,
-    and rows made to hit the state machine's corners: a NaN sample (row 3),
-    an infinite one (row 4), a sine that crosses more often than the slots
-    hold (row 5), a start in the middle of the pulse (row 6), a gate of 5
-    samples (row 7). Every count, polarity and sample equal to the plain
-    version's bit for bit on the whole chunk; times through the wrapper, on
-    the device alone and of the plain version (a PyTorch loop over the
-    samples, on the card), against the byte bound."""
+def bilevel_rows(wf, bl, dev):
+    """The flagship extras' ``rc_cr2`` rows (``EXTRAS_RC_TAU``) of ``wf``
+    on ``dev`` with the chain's thresholds (+-500) and gate (200), and rows
+    made to hit the state machine's corners: a NaN sample (row 3), an
+    infinite one (row 4), a sine that crosses more often than the slots hold
+    (row 5), a start in the middle of the pulse (row 6), a gate of 5 samples
+    (row 7). Returns ``(rows, pos, neg, gate, start)``."""
     import torch
 
     import dspeed_tpu_torch.processors as tp
@@ -3590,11 +3762,59 @@ def bilevel_phase(_cuda, wf, bl, dev, ptxas_log):
     i = torch.arange(n, device=dev, dtype=torch.float32)
     rc[5] = 3000 * torch.sin(2 * np.pi * i / 64)
     pos = torch.full((B,), 500.0, device=dev)
-    neg = -pos
     gate = torch.full((B,), 200, dtype=torch.int32, device=dev)
     gate[7] = 5
     start = torch.zeros(B, dtype=torch.int32, device=dev)
     start[6] = 1000
+    return rc, pos, -pos, gate, start
+
+
+def bilevel_edge_check(_cuda, dev) -> str:
+    """The sweep on ``bilevel_edge_rows`` (4096 samples) in float32 and
+    float64, rows aligned (16-byte loads) and from an offset of 3 at a
+    stride of 2n, with 8 and 40 slots: every output equal to the plain
+    version's bit for bit. Returns a summary."""
+    import torch
+
+    w, (pos, neg), (gate, start) = bilevel_edge_rows(N_SAMPLES)
+    B, n = w.shape
+    gate_t, start_t = (torch.from_numpy(a).to(dev) for a in (gate, start))
+    counts = []
+    for dt in (torch.float32, torch.float64):
+        rows = torch.from_numpy(w).to(dev, dt)
+        wide = torch.cat([rows, rows], 1)
+        wide[:, 3:3 + n] = rows
+        p, q = (torch.from_numpy(a).to(dev, dt) for a in (pos, neg))
+        # the plain version once, on the CPU, at the most slots: the first m
+        # of them are m's
+        ref = _cuda.bilevel_scan_plain(rows.cpu(), p.cpu(), q.cpu(), gate_t.cpu(),
+                                       start_t.cpu(), 40)
+        for layout, x, m in (("aligned", rows, EXTRAS_SLOTS),
+                             ("strided", wide[:, 3:3 + n], 40)):
+            got = _cuda.bilevel_scan(x, p, q, gate_t, start_t, m)
+            want = (ref[0], ref[1][:, :m], ref[2][:, :m])
+            for name, g, r in zip(("n_crossings", "polarity", "trigger"), got, want):
+                if not same_bits(g.cpu(), r.contiguous()):
+                    raise AssertionError(f"bilevel_scan edge rows ({dt}, {layout}) "
+                                         f"{name}: not the plain version's bits")
+            counts.append(int(got[0].sum()))
+    return (f"{B} edge rows (float32 and float64, aligned and strided: {counts} "
+            f"triggers) bit for bit")
+
+
+def bilevel_phase(_cuda, wf, bl, dev, ptxas_log):
+    """The bi-level trigger's sweep (``csrc/bilevel_scan.cu``) on
+    ``bilevel_rows`` of every event with ``EXTRAS_SLOTS`` slots. Every
+    count, polarity and sample equal to the plain version's bit for bit on
+    the whole chunk, in float32 and on the same rows widened to float64, and
+    on ``bilevel_edge_rows`` (``bilevel_edge_check``); times through the wrapper, on the device
+    alone and of the plain version (a PyTorch loop over the samples, on the
+    card), against the byte bound, and the float64 instance on the device
+    alone."""
+    import torch
+
+    rc, pos, neg, gate, start = bilevel_rows(wf, bl, dev)
+    B, n = rc.shape
     m = EXTRAS_SLOTS
     before = _cuda.LAUNCHES["bilevel_scan"]
     got = _cuda.bilevel_scan(rc, pos, neg, gate, start, m)
@@ -3611,27 +3831,38 @@ def bilevel_phase(_cuda, wf, bl, dev, ptxas_log):
     nc = got[0].cpu().numpy()
     if nc[5] <= m or not (nc > 0).mean() > 0.9:
         raise AssertionError(f"bilevel_scan: counts {np.bincount(nc)[:12]} (row 5 {nc[5]})")
+    rc64, pos64, neg64 = rc.double(), pos.double(), neg.double()
+    got64 = _cuda.bilevel_scan(rc64, pos64, neg64, gate, start, m)
+    for name, g, w in zip(("n_crossings", "polarity", "trigger"), got64, got):
+        if not same_bits(g, w.double() if w.is_floating_point() else w):
+            raise AssertionError(f"bilevel_scan float64 {name}: not the float32 rows' "
+                                 f"result on the same rows widened")
+    edges = bilevel_edge_check(_cuda, dev)
     ms = time_ms(lambda: _cuda.bilevel_scan(rc, pos, neg, gate, start, m), 20)
     dev_ms = device_ms(lambda: _cuda.bilevel_scan(rc, pos, neg, gate, start, m))
+    dev64_ms = device_ms(lambda: _cuda.bilevel_scan(rc64, pos64, neg64, gate, start, m))
     bound = bilevel_bound(B, n, m)
+    bound64 = bilevel_bound(B, n, m, itemsize=8)
     launch = _cuda.bilevel_scan_launch()
-    ptxas = list(ptxas_report(ptxas_log, "bilevel_scan_kernel").values())
-    if not ptxas:
-        raise AssertionError("bilevel_scan: no ptxas report")
+    ptxas = scan_ptxas(ptxas_log, "bilevel_scan_kernel")
     print(
         f"bilevel_scan {B} rows x {n} f32 samples, {m} slots: counts, polarities "
         f"and samples equal to the plain version bit for bit on every row (counts "
         f"{np.bincount(nc)[:6].tolist()}..., row 5 {int(nc[5])} past its {m} "
-        f"slots); kernel {ms:.4f} ms ({dev_ms:.4f} ms on the device alone), plain "
+        f"slots), and the float64 instance's on the rows widened; {edges}; kernel "
+        f"{ms:.4f} ms ({dev_ms:.4f} ms on the device alone), plain "
         f"{plain_ms:.1f} ms, byte bound {bound:.4f} ms, {bound / ms:.1%} of it "
-        f"({bound / dev_ms:.1%} on the device alone); launch: {launch['rows']} rows "
-        f"and {launch['threads']} threads a block, {launch['smem_bytes']} B of "
-        f"shared memory, {launch['blocks_per_sm']} blocks per SM, "
-        f"{launch['registers']} registers and {launch['local_bytes']} local bytes "
-        f"a thread; ptxas {' | '.join(ptxas)}; on {card_line()}", flush=True)
+        f"({bound / dev_ms:.1%} on the device alone); float64 {dev64_ms:.4f} ms on "
+        f"the device alone, {bound64 / dev64_ms:.1%} of its {bound64:.4f} ms bound; "
+        f"launch: {launch['rows']} rows and {launch['threads']} threads a block, "
+        f"{launch['smem_bytes']} B of shared memory, {launch['blocks_per_sm']} "
+        f"blocks per SM, {launch['registers']} registers and {launch['local_bytes']} "
+        f"local bytes a thread; ptxas {' | '.join(ptxas)}; on {card_line()}",
+        flush=True)
     return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by="bytes", bound_share=bound / ms,
-                device_bound_share=bound / dev_ms, launch=launch, ptxas=ptxas)
+                device_bound_share=bound / dev_ms, f64_device_ms=dev64_ms,
+                f64_bound_ms=bound64, launch=launch, ptxas=ptxas)
 
 
 def extras_card_phase(wf, bl, dev, n_cmp=1024):
@@ -4924,7 +5155,7 @@ def main() -> int:
           f"{time.time() - t0:.2f} s", flush=True)
     k7["sipm_group"], curr = sipm_k7_phase(
         build_processing_chain, lh5, _cuda, sipm_edge_rows(swf), dev)
-    scan = sipm_scan_phase(_cuda, curr)
+    scan = sipm_scan_phase(_cuda, curr, logs["peakdet_scan"])
     del curr
     torch.cuda.empty_cache()
 

@@ -1536,7 +1536,8 @@ def peakdet_scan_plain(w, dmax, dmin, amax, amin, m_max, m_min, reverse=False):
 
 def peakdet_scan_launch() -> dict:
     """How the sweep launches on this card (its float32 instance): threads
-    a block, blocks per SM, registers and local (spill) bytes a thread."""
+    a block (a warp a row), blocks per SM, registers and local (spill)
+    bytes a thread."""
     lib = _lib("peakdet_scan")
     out = (ctypes.c_int * 4)()
     _check_rc(lib, lib.dspeed_peakdet_scan_config(out), "peakdet_scan")
@@ -1546,7 +1547,7 @@ def peakdet_scan_launch() -> dict:
 def peakdet_scan(w, dmax, dmin, amax, amin, m_max, m_min, reverse=False):
     """One direction of the Billauer sweep over the rows of ``w`` (``(B,
     n)``; ``dmax``, ``dmin``, ``amax``, ``amin`` scalars or ``(B,)``), one
-    thread per row, ``reverse`` visiting ``n-1 ... 0``; see
+    warp per row, ``reverse`` visiting ``n-1 ... 0``; see
     :func:`peakdet_scan_plain` for the outputs, which it equals bit for bit.
     CPU tensors run :func:`peakdet_scan_plain`."""
     if w.device.type == "cpu":
@@ -1809,8 +1810,9 @@ def bilevel_scan_plain(w, pos, neg, gate, start, m):
 
 def bilevel_scan_launch() -> dict:
     """How the sweep's float32 instance launches on this card: rows and
-    threads a block, blocks per SM, registers and local (spill) bytes a
-    thread, and its shared bytes at ``m`` = 8."""
+    threads a block (a warp a row), blocks per SM, registers and local
+    (spill) bytes a thread, and its shared bytes (static; none) at ``m`` =
+    8."""
     lib = _lib("bilevel_scan")
     out = (ctypes.c_int * 6)()
     _check_rc(lib, lib.dspeed_bilevel_scan_config(8, out), "bilevel_scan")
@@ -1823,7 +1825,8 @@ def bilevel_scan(w, pos, neg, gate, start, m):
     float32 or float64, rows of contiguous samples): ``pos``, ``neg`` the
     thresholds (``(B,)`` in ``w``'s type), ``gate`` and ``start`` the gate
     length and first sample (``(B,)`` int32), ``m`` the slots a row. One
-    thread walks one row, 32 rows a block staged through shared memory; see
+    warp walks one row, 4 rows a block, the slots written straight to
+    device memory; see
     :func:`bilevel_scan_plain` for the outputs, which it equals bit for
     bit. CPU tensors run :func:`bilevel_scan_plain`."""
     if w.device.type == "cpu":
@@ -1840,8 +1843,8 @@ def bilevel_scan(w, pos, neg, gate, start, m):
         raise ValueError("bilevel_scan: the parameters take one value a row")
     lib = _lib("bilevel_scan")
     if m > lib.dspeed_bilevel_scan_max_slots(int(w.dtype == torch.float64)):
-        raise ValueError(f"bilevel_scan: {m} slots a row do not fit a block's "
-                         f"shared memory")
+        raise ValueError(f"bilevel_scan: {m} slots a row are more than the kernel "
+                         f"takes")
     nc = torch.empty(B, dtype=torch.int32, device=dev)
     pol = torch.empty((B, m), dtype=w.dtype, device=dev)
     trig = torch.empty((B, m), dtype=w.dtype, device=dev)

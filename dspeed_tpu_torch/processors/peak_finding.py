@@ -6,7 +6,7 @@
 
 The hysteresis state machine is sequential along the row. The JAX package
 scans it (``lax.scan``); here one direction is one launch of the hand
-kernel ``csrc/peakdet_scan.cu``, a thread per event
+kernel ``csrc/peakdet_scan.cu``, a warp per event
 (:func:`~dspeed_tpu_torch.processors._cuda.peakdet_scan`; its plain
 version on the CPU). Everything around it (the merge of two directions,
 duplicate removal, the SNR windows, the amplitudes) is batched PyTorch

@@ -274,16 +274,36 @@ def _extrema_inputs(currents):
     return c, amax
 
 
-@pytest.mark.parametrize("reverse", [False, True])
-def test_peakdet_scan_plain_matches_jax_scan(currents, reverse):
+@pytest.mark.parametrize("reverse, rows", [
+    (False, "currents"), (True, "currents"), (False, "edge float64"),
+    (True, "edge float64"), (True, "edge float32")],
+    ids=["False", "True", "edge-float64-False", "edge-float64-True",
+         "edge-float32-True"])
+def test_peakdet_scan_plain_matches_jax_scan(currents, reverse, rows):
+    """The SiPM currents (a NaN sample, a row that fills every slot, a NaN
+    ``amax``), and ``chip_smoke.peakdet_edge_rows`` (the rows that
+    ``tools/scan_emu`` holds the kernel to: ties, infinite and NaN samples,
+    signed zeros, declarations at every sample across the kernel's steps)."""
     from dspeed_tpu.processors.peak_finding import _peakdet_scan
 
-    c, amax = _extrema_inputs(currents)
-    got = _cuda.peakdet_scan_plain(_t(c), 5.0, 0.1, _t(amax), 0.0, 20, 20, reverse)
-    want = _peakdet_scan(c, np.full(len(c), 5.0), np.full(len(c), 0.1), amax,
-                         np.zeros(len(c)), 20, 20, reverse=reverse)
+    if rows == "currents":
+        c, amax = _extrema_inputs(currents)
+        pars = (np.full(len(c), 5.0), np.full(len(c), 0.1), amax, np.zeros(len(c)))
+    else:
+        sys.path.insert(0, REPO)
+        import chip_smoke
+
+        c, pars = chip_smoke.peakdet_edge_rows(1019)
+        dt = rows.split()[1]
+        c, pars = c.astype(dt), tuple(p.astype(dt) for p in pars)
+    got = _cuda.peakdet_scan_plain(_t(c), *map(_t, pars), 20, 20, reverse)
+    want = _peakdet_scan(c, *pars, 20, 20, reverse=reverse)
     _exact(got, [np.asarray(x) for x in want], f"sweep reverse={reverse}")
-    assert int(got[2][11]) == 20 and int(got[2][12]) == 0 and int(got[3][12]) == 0
+    if rows == "currents":
+        assert int(got[2][11]) == 20 and int(got[2][12]) == 0 and int(got[3][12]) == 0
+    else:  # the sine fills every slot; a NaN amax declares nothing
+        assert int(got[2][3]) == 20 and int(got[2][2]) == 0 and int(got[3][2]) == 0
+        assert (got[2] + got[3]).sum() > 200
 
 
 @pytest.mark.parametrize("direction", [0, 1, 2, 3])

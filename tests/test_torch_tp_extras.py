@@ -253,18 +253,41 @@ def test_bi_level_matches_jax(gate, t_start, dtype):
         assert int(got[0][8]) > 8  # the sine's triggers outnumber the slots
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_bi_level_per_event_thresholds_match_jax(dtype):
+@pytest.mark.parametrize("dtype, rows", [
+    ("float32", "bipolar"), ("float64", "bipolar"), ("float32", "edge"),
+    ("float64", "edge")], ids=["float32", "float64", "edge-float32", "edge-float64"])
+def test_bi_level_per_event_thresholds_match_jax(dtype, rows):
+    """Per-event thresholds, gates and starts: on ``_bipolar``'s rows, and
+    on ``chip_smoke.bilevel_edge_rows`` (the rows that ``tools/scan_emu``
+    holds the kernel to, 4096 samples), where the plain sweep is also held
+    against the JAX package's scan on each row it does not set to NaN."""
     jp = _jp()
-    w = _bipolar(dtype)
-    pos = np.linspace(20, 200, len(w)).astype(dtype)
-    neg = -pos[::-1].copy()
-    pos[4] = np.nan
-    gate = np.linspace(10, 80, len(w)).astype(dtype)
-    args = (w, pos, neg, gate, 0.0)
-    _check(tp.bi_level_zero_crossing_time_points(*(_t(a) for a in args), dims={"m": 3}),
-           _jax(jp.bi_level_zero_crossing_time_points, *args, dims={"m": 3}),
-           dtype, exact=True)
+    if rows == "bipolar":
+        w = _bipolar(dtype)
+        pos = np.linspace(20, 200, len(w)).astype(dtype)
+        neg = -pos[::-1].copy()
+        pos[4] = np.nan
+        gate = np.linspace(10, 80, len(w)).astype(dtype)
+        args, m = (w, pos, neg, gate, 0.0), 3
+    else:
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        import chip_smoke as cs
+
+        w, (pos, neg), (gate, start) = cs.bilevel_edge_rows(4096)
+        args = (w.astype(dtype), pos.astype(dtype), neg.astype(dtype),
+                gate.astype(dtype), start.astype(dtype))
+        m = 8
+    want = _jax(jp.bi_level_zero_crossing_time_points, *args, dims={"m": m})
+    _check(tp.bi_level_zero_crossing_time_points(*(_t(a) for a in args), dims={"m": m}),
+           want, dtype, exact=True)
+    if rows == "edge":
+        nc, pol, trig = _cuda.bilevel_scan_plain(_t(args[0]), _t(args[1]), _t(args[2]),
+                                                 _t(gate), _t(start), m)
+        good = ~np.isnan(args[0]).any(1)
+        np.testing.assert_array_equal(nc.numpy()[good], np.asarray(want[0])[good])
+        for got, ref in ((pol, want[1]), (trig, want[2])):
+            np.testing.assert_array_equal(got.numpy()[good], np.asarray(ref)[good])
+        assert (nc.numpy()[good] > m).sum() >= 2 and nc.numpy()[good].sum() > 1000
 
 
 def test_bi_level_on_rc_cr2_matches_jax():
@@ -394,4 +417,4 @@ def test_bi_level_on_the_card_equals_the_cpu(cuda_device):
     for a, b in zip(got, want):
         assert _same(a.cpu(), b)
     launch = _cuda.bilevel_scan_launch()
-    assert launch["local_bytes"] == 0 and launch["rows"] == 32
+    assert launch["local_bytes"] == 0 and launch["rows"] == 4

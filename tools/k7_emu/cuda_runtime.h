@@ -31,6 +31,7 @@ extern emu_dim3 blockDim, gridDim;
 
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct alignas(16) double2 { double x, y; };
 struct alignas(8) int2 { int x, y; };
 inline int2 make_int2(int a, int b) { return {a, b}; }
 
